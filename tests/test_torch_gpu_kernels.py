@@ -1,0 +1,181 @@
+"""The port's CUDA kernels on the card, at small sizes: the corners that the
+full-size run of ``chip_smoke.py`` does not reach (every capacity tier of the
+per-thread triangle, d = 1 and 3, no nugget, row shards, the input checks on
+CUDA tensors). Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere. Run on
+the GPU machine with
+
+    python -m pytest tests/test_torch_gpu_kernels.py --noconftest -q
+
+Tolerances: A, D atol 2e-5 vs the float32 plain version; NLL 1e-5 relative
+and gradient rtol 1e-3 (+ 1e-3 absolute) vs float64 autograd.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gpboost_tpu_torch.ops import vecchia as tv
+from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda", 0)
+
+
+def _problem(dev, n, m, d, seed=0):
+    rng = np.random.default_rng(seed)
+    coords = torch.tensor(rng.uniform(size=(n, d)), dtype=torch.float32,
+                          device=dev)
+    r = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    nb = tv.find_neighbors(coords, m)
+    nb[n // 2, m // 2] = -1          # padding inside a row as well
+    return coords, r, nb
+
+
+def _pars(dev, ard, d, dtype=torch.float32):
+    ranges = [0.3, 0.2, 0.45, 0.25][:d] if ard else [0.3]
+    return torch.tensor([0.25, 1.1] + ranges, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("m", [1, 5, 24, 25, 40, 41, 64])
+@pytest.mark.parametrize("d,ard,shape", [(1, False, 0.5), (2, True, 1.5),
+                                          (3, True, 2.5), (3, False, -1.0)])
+def test_factors_kernel_matches_plain(dev, m, d, ard, shape):
+    coords, _, nb = _problem(dev, 700, m, d)
+    cp = _pars(dev, ard, d)
+    before = vk.vecchia_factors.launches
+    a_k, d_k = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, shape,
+                                  ard=ard)
+    torch.cuda.synchronize()
+    assert vk.vecchia_factors.launches == before + 1
+    a_p, d_p = vk.vecchia_factors_plain(cp[1:], coords, nb, cp[0], True,
+                                        shape, ard=ard)
+    np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(d_k.cpu(), d_p.cpu(), rtol=0, atol=2e-5)
+
+
+def test_factors_kernel_without_nugget_and_with_row_coords(dev):
+    coords, _, _ = _problem(dev, 500, 8, 2)
+    rows = torch.rand((300, 2), device=dev)
+    nb = tv.find_neighbors_cross(rows, coords, 8)
+    # a short range keeps C_NN well conditioned without a nugget, so that
+    # two float32 computations can be compared at all
+    cp = torch.tensor([0.25, 1.1, 0.05], dtype=torch.float32, device=dev)
+    for nugget, include in ((cp[0], False), (None, False), (cp[0], True)):
+        a_k, d_k = vk.vecchia_factors(cp[1:], coords, nb, nugget, include,
+                                      0.5, row_coords=rows)
+        a_p, d_p = vk.vecchia_factors_plain(cp[1:], coords, nb, nugget,
+                                            include, 0.5, row_coords=rows)
+        atol = 2e-5 if include else 2e-4
+        np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), rtol=0, atol=atol)
+        np.testing.assert_allclose(d_k.cpu(), d_p.cpu(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("m", [6, 24, 40, 64])
+@pytest.mark.parametrize("d,ard,shape", [(1, False, 1.5), (2, False, 0.5),
+                                          (3, True, 0.5), (3, True, -1.0),
+                                          (2, True, 2.5)])
+def test_nll_grad_kernel_matches_float64_autograd(dev, m, d, ard, shape):
+    coords, r, nb = _problem(dev, 900, m, d, seed=1)
+    lp = torch.log(_pars(dev, ard, d))
+    before = vk.vecchia_nll_grad.launches
+    v_k, g_k = vk.vecchia_nll_grad(lp, coords, nb, r, shape, ard=ard)
+    torch.cuda.synchronize()
+    assert vk.vecchia_nll_grad.launches == before + 1
+    v64, g64 = vk.vecchia_nll_grad_plain(lp.double(), coords.double(), nb,
+                                         r.double(), shape, ard=ard)
+    assert abs(float(v_k) - float(v64)) < 1e-5 * abs(float(v64))
+    np.testing.assert_allclose(g_k.cpu().double(), g64.cpu(), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_nll_grad_kernel_row_shards_add_up(dev):
+    n, m = 1000, 10
+    coords, r, nb = _problem(dev, n, m, 2, seed=2)
+    lp = torch.log(_pars(dev, False, 2))
+    v_all, g_all = vk.vecchia_nll_grad(lp, coords, nb, r, 1.5,
+                                       include_const=False)
+    valid = (torch.rand(n, device=dev) < 0.8).float()
+    v_w, g_w = vk.vecchia_nll_grad(lp, coords, nb, r, 1.5, row_valid=valid,
+                                   include_const=False)
+    v_w64, g_w64 = vk.vecchia_nll_grad_plain(
+        lp.double(), coords.double(), nb, r.double(), 1.5,
+        row_valid=valid.double(), include_const=False)
+    assert abs(float(v_w) - float(v_w64)) < 1e-5 * abs(float(v_w64))
+    np.testing.assert_allclose(g_w.cpu().double(), g_w64.cpu(), rtol=1e-3,
+                               atol=1e-3)
+    tot_v, tot_g = 0.0, 0.0
+    for rows in (slice(0, 333), slice(333, n)):
+        v, g = vk.vecchia_nll_grad(
+            lp, coords, nb[rows].contiguous(), r, 1.5,
+            row_r=r[rows].contiguous(), row_coords=coords[rows].contiguous(),
+            include_const=False)
+        tot_v, tot_g = tot_v + float(v), tot_g + g.cpu().double()
+    assert abs(tot_v - float(v_all)) < 1e-5 * abs(float(v_all))
+    np.testing.assert_allclose(tot_g, g_all.cpu().double(), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_cuda_tensors_that_the_kernels_do_not_take_raise(dev):
+    coords, r, nb = _problem(dev, 200, 6, 2)
+    cp = _pars(dev, False, 2)
+    lp = torch.log(cp)
+    bad = [
+        ("coords", dict(coords=coords.double())),
+        ("neighbors", dict(neighbors=nb.long())),
+        ("neighbors", dict(neighbors=nb.cpu())),
+        ("neighbors", dict(neighbors=nb.T.contiguous().T)),
+        ("row_coords", dict(row_coords=coords[:-1])),
+    ]
+    for name, kw in bad:
+        args = dict(coords=coords, neighbors=nb, row_coords=None)
+        args.update(kw)
+        with pytest.raises(ValueError, match=f"^{name}:"):
+            vk.vecchia_factors(cp[1:], args["coords"], args["neighbors"],
+                               cp[0], True, 0.5, row_coords=args["row_coords"])
+        with pytest.raises(ValueError, match=f"^{name}:"):
+            vk.vecchia_nll_grad(lp, args["coords"], args["neighbors"], r, 0.5,
+                                row_coords=args["row_coords"])
+    with pytest.raises(ValueError, match="^cov_pars:"):
+        vk.vecchia_factors(cp, coords, nb, cp[0], True, 0.5)
+    with pytest.raises(ValueError, match="^log_cov_pars:"):
+        vk.vecchia_nll_grad(lp.double(), coords, nb, r, 0.5)
+    with pytest.raises(ValueError, match="^r:"):
+        vk.vecchia_nll_grad(lp, coords, nb, r[:-1], 0.5)
+    with pytest.raises(ValueError, match="^row_r:"):
+        vk.vecchia_nll_grad(lp, coords, nb[:50].contiguous(), r, 0.5,
+                            row_coords=coords[:50].contiguous())
+    wide = torch.full((200, vk.MAX_M + 1), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="^neighbors:"):
+        vk.vecchia_factors(cp[1:], coords, wide, cp[0], True, 0.5)
+
+
+def test_float32_model_on_the_card_goes_through_the_kernels(dev):
+    import gpboost_tpu_torch as gpt
+    rng = np.random.default_rng(3)
+    coords = rng.uniform(size=(2000, 2))
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2000)
+    vk.reset_launch_counts()
+    m32 = gpt.GPModel(gp_coords=coords, cov_function="matern",
+                      cov_fct_shape=1.5, gp_approx="vecchia",
+                      num_neighbors=12, dtype=torch.float32)   # device="cuda"
+    m64 = gpt.GPModel(gp_coords=coords, cov_function="matern",
+                      cov_fct_shape=1.5, gp_approx="vecchia",
+                      num_neighbors=12)
+    m32.fit(y, params={"optimizer_cov": "lbfgs"})
+    counts = vk.launch_counts()
+    assert counts["vecchia_nll_grad"] == m32._fit_result.num_evals
+    assert counts["vecchia_factors"] == 1
+    m64.fit(y, params={"optimizer_cov": "lbfgs"})
+    assert vk.launch_counts() == counts      # float64: plain version on the card
+    np.testing.assert_allclose(m32.get_cov_pars(), m64.get_cov_pars(),
+                               rtol=2e-2)
+    p32 = m32.predict(gp_coords_pred=coords[:100] + 0.001, predict_var=True,
+                      cov_pars=m64.get_cov_pars())
+    p64 = m64.predict(gp_coords_pred=coords[:100] + 0.001, predict_var=True)
+    np.testing.assert_allclose(p32["mu"], p64["mu"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(p32["var"], p64["var"], rtol=0, atol=1e-4)
