@@ -2,20 +2,31 @@
 """GPU smoke run of the PyTorch/CUDA port (``gpboost_tpu_torch``).
 
     python3 chip_smoke.py [--seed 0] [--n 100000] [--m 20] [--n-pred 10000]
+                          [--rounds 30]
 
 Needs one NVIDIA GPU with ``nvcc`` on the machine; exits non-zero without
 one. It
 
 1. builds the CUDA kernels of ``gpboost_tpu_torch/csrc`` from source;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path uses (all four covariance shapes, isotropic and ARD,
-   neighbour sets with -1 padding), and times both;
-3. drives the port's main path once through the public API at full size:
+   shapes the main paths use, and times both: the Vecchia kernels for all
+   four covariance shapes, isotropic and ARD, neighbour sets with -1
+   padding; the histogram kernel at the boosting path's shape with a full,
+   a 3 %, an empty and a one-bin mask, and at F = 50, B = 64 and
+   n = 1 000 003;
+3. drives the GP path once through the public API at full size:
    ``GPModel`` construct (ordering + neighbour search), NLL, L-BFGS fit,
    prediction with variances — a Gaussian Vecchia GP with n = 100 000 points,
-   m = 20 neighbours (40 for prediction), exponential covariance, float32 —
-   and checks by the kernels' launch counters that it went through them;
-4. checks the results against float64 plain versions.
+   m = 20 neighbours (40 for prediction), exponential covariance, float32;
+4. drives the boosting path once through the public API at full size: the
+   GPBoost algorithm, ``Dataset`` -> ``train(params, ds, gp_model=gp,
+   num_boost_round=30)`` -> ``Booster.predict(..., predict_var=True)`` at
+   n = 100 000 rows, 5 features, 31 leaves, and the same training without a
+   GP; then holds five rounds of it against the float64 plain path on the
+   card, with the package's named timers on for a breakdown of a round;
+5. checks by the kernels' launch counters (set to 0 before each path, read
+   after it) that each path went through its kernels, and the results
+   against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -38,8 +49,22 @@ REPLACES = {
         "gpboost_tpu/ops/kernels/vecchia_factors.py:309",
     "vecchia_nll_grad":
         "gpboost_tpu/ops/kernels/vecchia_factors.py:235",
+    "histogram":
+        "gpboost_tpu/ops/kernels/histogram.py:81",
 }
-SOURCE = "gpboost_tpu_torch/csrc/vecchia_factors.cu"
+SOURCE = {
+    "vecchia_factors": "gpboost_tpu_torch/csrc/vecchia_factors.cu",
+    "vecchia_nll_grad": "gpboost_tpu_torch/csrc/vecchia_factors.cu",
+    "histogram": "gpboost_tpu_torch/csrc/histogram.cu",
+}
+BOOST_PARAMS = {"objective": "regression", "num_leaves": 31,
+                "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+# what the kernel path and the float64 plain path may differ by after
+# CMP_ROUNDS rounds (float32 vs float64 sums, splits that flip on near ties)
+CMP_ROUNDS = 5
+CMP_SCORE_TOL = 5e-2      # RMS score difference / std of the score
+CMP_COV_PARS_RTOL = 5e-2
+HIST_SUM_TOL = 1e-5       # x (sum of |v| over the bin)
 SHAPES = (0.5, 1.5, 2.5, -1.0)
 
 
@@ -50,6 +75,11 @@ def emit(obj):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def clock():
+    torch.cuda.synchronize()
+    return time.perf_counter()
 
 
 def time_ms(fn, reps):
@@ -68,6 +98,26 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Device time of ``fn`` per call with the host out of the way: ``reps``
+    calls captured into one CUDA graph, one replay timed (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def make_data(seed, n, n_pred):
     """The data recipe of the reference package's benchmark: uniform
     coordinates on the unit square, a smooth signal plus noise."""
@@ -77,6 +127,31 @@ def make_data(seed, n, n_pred):
          + 0.5 * rng.standard_normal(n))
     pred = rng.uniform(size=(n_pred, 2)).astype(np.float64)
     return coords, y, pred
+
+
+def make_boost_data(seed, y, n_pred):
+    """The boosting recipe of the reference package's benchmark: 5 uniform
+    features, a non-linear fixed effect added to the GP data's response."""
+    rng = np.random.default_rng(seed + 1)
+    n = len(y)
+    X = rng.uniform(size=(n, 5))
+    f = 2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + X[:, 2]
+    return X, f + y, rng.uniform(size=(n_pred, 5))
+
+
+def reset_counts():
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
+    from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+    vk.reset_launch_counts()
+    hk.histogram.launches = 0
+    grow_tree.host_reads = 0
+
+
+def read_counts():
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
+    from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+    return dict(vk.launch_counts(), histogram=hk.histogram.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +292,147 @@ def check_kernels(coords, y, pred, m, seed, dev):
     return cases, timed
 
 
+def hist_bound(n, n_masked, F, B):
+    """(bound_ms, bound_by): what this run's data needs — the mask read
+    once, grad, hess and the F bin bytes of the rows inside it, the three
+    histograms written once — vs. the additions of those rows."""
+    nbytes = n + n_masked * (4 + 4 + F) + F * B * 12
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 3.0 * n_masked * F / H100_F32_FLOPS * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def check_histogram(ds, seed, dev):
+    """The histogram kernel against its float64 plain version on the card:
+    counts exact, gradient / hessian sums within HIST_SUM_TOL x the sum of
+    |v| over the bin."""
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def values(n):
+        g = torch.randn(n, generator=gen, device=dev)
+        h = torch.rand(n, generator=gen, device=dev) + 0.5
+        return g, h
+
+    def random_bins(n, F, B):
+        panel = torch.randint(0, B, (F, n), generator=gen,
+                              device=dev).to(torch.uint8)
+        return panel.t().contiguous().int(), panel
+
+    def compare(tag, binned, panel, g, h, mask, B):
+        got = hk.histogram(binned, g, h, mask, B, binned_t=panel)
+        torch.cuda.synchronize()
+        want = hk.histogram_plain(binned, g.double(), h.double(), mask, B)
+        scale = hk.histogram_plain(binned, g.double().abs(),
+                                   h.double().abs(), mask, B)
+        check(torch.equal(got[2].double(), want[2]),
+              f"histogram[{tag}]: counts differ from the plain version "
+              "(they must be exact)")
+        errs = []
+        for k, what in ((0, "gradient"), (1, "hessian")):
+            err = (got[k].double() - want[k]).abs()
+            check(bool((err <= HIST_SUM_TOL * scale[k] + 1e-30).all()),
+                  f"histogram[{tag}]: {what} sums off by up to "
+                  f"{float(err.max())}, more than {HIST_SUM_TOL} x the sum "
+                  "of |v| over the bin, vs the float64 plain version")
+            errs.append(float(err.max()))
+        n, F = binned.shape
+        return dict(case=tag, n=n, F=F, B=B, rows_in_mask=int(mask.sum()),
+                    max_abs_err=max(errs))
+
+    n, F, B = ds.num_data, ds.num_features, ds.max_num_bins
+    binned, panel = ds.binned, ds.binned_t
+    g, h = values(n)
+    full = torch.ones(n, dtype=torch.bool, device=dev)
+    small = torch.rand(n, generator=gen, device=dev) < 0.03
+    cases = [compare("full_mask", binned, panel, g, h, full, B),
+             compare("3pct_mask", binned, panel, g, h, small, B),
+             compare("empty_mask", binned, panel, g, h, ~full, B)]
+    check(cases[2]["rows_in_mask"] == 0, "the empty mask is not empty")
+    # worst contention: every row of the mask in one bin of one feature
+    one_bin = binned[:, 2] == binned[0, 2]
+    case = compare("one_bin_mask", binned, panel, g, h, one_bin, B)
+    check(case["rows_in_mask"] >= n // (2 * B), "one-bin mask too small")
+    cases.append(case)
+    squeezed = panel.clone()
+    squeezed[2] = 7
+    cases.append(compare("one_bin_all_rows", squeezed.t().contiguous().int(),
+                         squeezed, g, h, full, B))
+    b50, p50 = random_bins(n, 50, B)
+    cases.append(compare("F50", b50, p50, g, h, full, B))
+    b64, p64 = random_bins(n, F, 64)
+    cases.append(compare("B64", b64, p64, g, h, full, 64))
+    del b50, p50, b64, p64, squeezed
+    n_big = 1_000_003
+    bb, pb = random_bins(n_big, F, 256)
+    gb, hb = values(n_big)
+    mb = torch.rand(n_big, generator=gen, device=dev) < 0.9
+    cases.append(compare("n1000003", bb, pb, gb, hb, mb, 256))
+    del bb, pb, gb, hb, mb
+    torch.cuda.empty_cache()
+
+    # two launches on the same inputs: how far float atomics move the sums
+    a = hk.histogram(binned, g, h, full, B, binned_t=panel)
+    b = hk.histogram(binned, g, h, full, B, binned_t=panel)
+    run_to_run = max(float((a[k] - b[k]).abs().max()) for k in (0, 1))
+    check(torch.equal(a[2], b[2]), "histogram: counts differ between runs")
+
+    # times at the boosting path's shape
+    def host_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e3
+
+    def kernel(mask):
+        return lambda: hk.histogram(binned, g, h, mask, B, binned_t=panel)
+
+    g64, h64 = g.double(), h.double()
+    # the library yardstick: ONE index_add_ on a prepared flat index
+    flat = (binned.long() + torch.arange(F, device=dev) * B).reshape(-1)
+    src = torch.stack([g, h, torch.ones_like(g)])[:, :, None].expand(
+        3, n, F).reshape(3, -1).contiguous()
+    out = torch.zeros((3, F * B), device=dev)
+
+    def library():
+        out.zero_()
+        out.index_add_(1, flat, src)
+
+    library()
+    lib_err = max(float((out.view(3, F, B)[k] - a[k]).abs().max())
+                  for k in range(3))
+    check(lib_err <= 1e-2, f"the index_add_ yardstick computes something "
+          f"else (max abs difference {lib_err})")
+    b_ms, b_by = hist_bound(n, n, F, B)
+    timed = dict(
+        n=n, F=F, B=B, ms=time_ms(kernel(full), 50),
+        enqueue_ms=host_ms(kernel(full), 50),
+        device_ms=graph_ms(kernel(full), 50),
+        plain_ms=time_ms(lambda: hk.histogram_plain(binned, g, h, full, B),
+                         5),
+        plain_f64_ms=time_ms(lambda: hk.histogram_plain(binned, g64, h64,
+                                                        full, B), 5),
+        library_ms=time_ms(library, 20),
+        empty_launch_ms=time_ms(hk.empty_launch, 200),
+        empty_launch_device_ms=graph_ms(hk.empty_launch, 200),
+        bound_ms=b_ms, bound_by=b_by, run_to_run_max_abs_diff=run_to_run)
+    sb_ms, sb_by = hist_bound(n, cases[1]["rows_in_mask"], F, B)
+    timed["other_shapes"] = [dict(
+        case="3pct_mask", n=n, F=F, B=B, rows_in_mask=cases[1]["rows_in_mask"],
+        ms=time_ms(kernel(small), 50), device_ms=graph_ms(kernel(small), 50),
+        plain_ms=time_ms(lambda: hk.histogram_plain(binned, g, h, small, B),
+                         5),
+        bound_ms=sb_ms, bound_by=sb_by)]
+    emit({"phase": "histogram_vs_plain", "tolerance":
+          f"counts exact; sums within {HIST_SUM_TOL} x sum|v| of the bin",
+          "cases": cases, "run_to_run_max_abs_diff": run_to_run})
+    return cases, timed
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path through the public API
 # ---------------------------------------------------------------------------
@@ -224,13 +440,8 @@ def check_kernels(coords, y, pred, m, seed, dev):
 def main_path(coords, y, pred, m, seed, dev):
     import gpboost_tpu_torch as gpt
     from gpboost_tpu_torch.ops import vecchia as vops
-    from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
 
-    def clock():
-        torch.cuda.synchronize()
-        return time.perf_counter()
-
-    vk.reset_launch_counts()
+    reset_counts()
     t0 = clock()
     model = gpt.GPModel(gp_coords=coords, cov_function="exponential",
                         gp_approx="vecchia", num_neighbors=m,
@@ -247,7 +458,7 @@ def main_path(coords, y, pred, m, seed, dev):
     t0 = clock()
     out = model.predict(gp_coords_pred=pred, predict_var=True)
     t_predict = clock() - t0
-    launches = vk.launch_counts()
+    launches = read_counts()
 
     res = model._fit_result
     cov_pars = model.get_cov_pars()
@@ -309,12 +520,194 @@ def main_path(coords, y, pred, m, seed, dev):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the boosting path through the public API
+# ---------------------------------------------------------------------------
+
+def _gp_model(coords, m, seed, dtype, dev):
+    import gpboost_tpu_torch as gpt
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=m,
+                     vecchia_ordering="random", seed=seed, dtype=dtype,
+                     device=dev)
+    gp.set_optim_params({"optimizer_cov": "lbfgs",
+                         "init_cov_pars": [0.25, 1.0, 0.1]})
+    return gp
+
+
+def _check_trees(bst, tag):
+    p = BOOST_PARAMS
+    for k, tree in enumerate(bst.trees):
+        check(1 < tree.num_leaves <= p["num_leaves"],
+              f"{tag}: tree {k} has {tree.num_leaves} leaves")
+        used = np.flatnonzero(tree.is_leaf)
+        check(bool(np.all(tree.node_count[used] >= p["min_data_in_leaf"])),
+              f"{tag}: tree {k} has a leaf with fewer than "
+              f"{p['min_data_in_leaf']} rows: {tree.node_count[used].min()}")
+        check(bool(np.all(np.isfinite(tree.leaf_value))),
+              f"{tag}: tree {k} has a leaf value that is not finite")
+
+
+def boosting_path(ds_args, coords, pred, m, seed, rounds, dev):
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    from gpboost_tpu_torch.utils import timer
+
+    X, yb, X_pred = ds_args
+    n = len(yb)
+
+    # ---- the GPBoost algorithm: trees and a GP in one training loop ----
+    reset_counts()
+    t0 = clock()
+    ds = gpt.Dataset(X, label=yb, device=dev)
+    t_dataset = clock() - t0
+    gp = _gp_model(coords, m, seed, torch.float32, dev)
+    t0 = clock()
+    bst = gpt.train(BOOST_PARAMS, ds, gp_model=gp, num_boost_round=rounds)
+    t_train = clock() - t0
+    t0 = clock()
+    out = bst.predict(X_pred, gp_coords_pred=pred, predict_var=True)
+    t_predict = clock() - t0
+    launches = read_counts()
+    reads = grow_tree.host_reads
+
+    fits = bst.objective.fits
+    evals = sum(f["num_evals"] for f in fits)
+    leaves = sum(t.num_leaves for t in bst.trees)
+    check(bst.num_trees() == rounds, f"{bst.num_trees()} trees, {rounds} "
+          "rounds")
+    _check_trees(bst, "gpboost")
+    check(launches["histogram"] == leaves,
+          f"histogram launched {launches['histogram']} times for {leaves} "
+          "leaves (one launch per leaf: the root and the smaller child of "
+          "each split)")
+    check(reads == 2 * leaves - rounds,
+          f"{reads} host reads for {leaves} leaves in {rounds} trees")
+    check(len(fits) == rounds + 1,
+          f"{len(fits)} covariance refits in {rounds} rounds (expected one "
+          "before the first tree and one after each round: the gradient "
+          "cache must serve the next round)")
+    check(launches["vecchia_nll_grad"] >= evals >= len(fits),
+          f"vecchia_nll_grad launched {launches['vecchia_nll_grad']} times, "
+          f"the fits made {evals} evaluations")
+    check(launches["vecchia_factors"] >= len(fits) + 1,
+          f"vecchia_factors launched {launches['vecchia_factors']} times "
+          f"for {len(fits)} Psi^-1 r solves and the prediction")
+    nlls = [f["nll"] for f in fits]
+    check(all(math.isfinite(v) for v in nlls), f"NLL not finite: {nlls}")
+    check(nlls[-1] < nlls[1], f"the Vecchia NLL did not fall from round 1 "
+          f"({nlls[1]}) to round {rounds} ({nlls[-1]})")
+    cov_pars = gp.get_cov_pars()
+    check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+          f"cov_pars not positive: {cov_pars}")
+    mu, var = out["response_mean"], out["response_var"]
+    check(mu.shape == (len(pred),) and var.shape == (len(pred),),
+          f"prediction shapes {mu.shape}, {var.shape}")
+    check(bool(np.all(np.isfinite(mu)) and np.all(np.isfinite(var))),
+          "boosting predictions not finite")
+    top = float(cov_pars[0] + cov_pars[1])
+    check(bool(np.all(var > 0) and np.all(var <= top * (1 + 1e-5))),
+          f"variances outside (0, nugget + variance]: {var.min()}, "
+          f"{var.max()}, {top}")
+    mse_gp = float(np.mean((yb - bst._score) ** 2))
+
+    # ---- the same trees without a GP (L2 boosting) ----
+    reset_counts()
+    t0 = clock()
+    bst0 = gpt.train(BOOST_PARAMS, ds, num_boost_round=rounds)
+    t_train0 = clock() - t0
+    launches0 = read_counts()
+    leaves0 = sum(t.num_leaves for t in bst0.trees)
+    _check_trees(bst0, "l2")
+    check(launches0["histogram"] == leaves0,
+          f"l2: histogram launched {launches0['histogram']} times for "
+          f"{leaves0} leaves")
+    check(launches0["vecchia_nll_grad"] == 0, "l2 boosting fitted a GP")
+    score = np.zeros(n)
+    mses = [float(np.mean((yb - yb.mean()) ** 2))]
+    for k in range(rounds):
+        score += bst0.predict(X, start_iteration=k, num_iteration=k + 1,
+                              raw_score=True)
+        mses.append(float(np.mean((yb - score) ** 2)))
+    check(all(b < a for a, b in zip(mses, mses[1:])),
+          f"l2: the training MSE does not fall every round: {mses}")
+    check(float(np.abs(score - bst0._score).max()) < 1e-9,
+          "l2: the trees' raw predictions do not add up to the training "
+          "score")
+
+    # ---- CMP_ROUNDS rounds against the float64 plain path on the card ----
+    # (the kernel path's run doubles as the breakdown of a round: named
+    # scopes that synchronise around each step, off everywhere else)
+    k = min(CMP_ROUNDS, rounds)
+    gp_k = _gp_model(coords, m, seed, torch.float32, dev)
+    timer.clear()
+    timer.enable(True)
+    t0 = clock()
+    b_k = gpt.train(BOOST_PARAMS, ds, num_boost_round=k, gp_model=gp_k)
+    t_traced = clock() - t0
+    timer.enable(False)
+    breakdown = {name: {"seconds": sec, "calls": calls}
+                 for name, (sec, calls) in sorted(timer.totals().items())}
+    emit({"phase": "boosting_breakdown", "rounds": k,
+          "train_s_with_scopes": t_traced, "scopes": breakdown})
+    reset_counts()
+    b_p = gpt.train(dict(BOOST_PARAMS, gpu_use_dp=True), ds,
+                    num_boost_round=k,
+                    gp_model=_gp_model(coords, m, seed, torch.float64, dev))
+    check(read_counts() == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                            "histogram": 0},
+          f"the float64 path launched kernels: {read_counts()}")
+    root_k = (int(b_k.trees[0].split_feature[0]),
+              int(b_k.trees[0].threshold_bin[0]))
+    root_p = (int(b_p.trees[0].split_feature[0]),
+              int(b_p.trees[0].threshold_bin[0]))
+    check(root_k == root_p, f"root split of the first tree: kernel path "
+          f"{root_k}, float64 plain path {root_p}")
+    rms = float(np.sqrt(np.mean((b_k._score - b_p._score) ** 2))
+                / np.std(b_p._score))
+    check(rms <= CMP_SCORE_TOL, f"training scores after {k} rounds: RMS "
+          f"difference {rms} of the score's standard deviation, more than "
+          f"{CMP_SCORE_TOL}")
+    cp_k, cp_p = b_k.gp_model.get_cov_pars(), b_p.gp_model.get_cov_pars()
+    cp_rel = float(np.max(np.abs(cp_k / cp_p - 1.0)))
+    check(cp_rel <= CMP_COV_PARS_RTOL, f"covariance parameters after {k} "
+          f"rounds: {cp_k} vs {cp_p}, relative difference {cp_rel} > "
+          f"{CMP_COV_PARS_RTOL}")
+    same_splits = sum(
+        int(np.array_equal(a.split_feature, b.split_feature)
+            and np.array_equal(a.threshold_bin, b.threshold_bin))
+        for a, b in zip(b_k.trees, b_p.trees))
+
+    emit({"phase": "boosting", "n": n, "features": X.shape[1],
+          "max_num_bins": ds.max_num_bins, "rounds": rounds,
+          "trees": bst.num_trees(), "leaves": leaves, "fits": len(fits),
+          "evaluations": evals, "launches": launches,
+          "host_reads_per_tree": reads / rounds,
+          "nll_round_1": nlls[1], "nll_last_round": nlls[-1],
+          "cov_pars": cov_pars.tolist(), "train_mse": mse_gp,
+          "l2": {"leaves": leaves0, "launches": launches0,
+                 "mse_first": mses[0], "mse_last": mses[-1]},
+          "vs_float64_plain": {
+              "rounds": k, "root_split": list(root_k),
+              "score_rms_diff_over_std": rms, "score_tolerance": CMP_SCORE_TOL,
+              "cov_pars_kernel": cp_k.tolist(), "cov_pars_plain": cp_p.tolist(),
+              "cov_pars_max_rel_diff": cp_rel,
+              "cov_pars_tolerance": CMP_COV_PARS_RTOL,
+              "trees_with_identical_splits": same_splits}})
+    timings = {"dataset_construct_s": t_dataset,
+               f"train_{rounds}r_s": t_train,
+               f"train_{rounds}r_no_gp_s": t_train0,
+               "boost_predict_s": t_predict}
+    return launches, timings
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--m", type=int, default=20)
     ap.add_argument("--n-pred", type=int, default=10_000)
+    ap.add_argument("--rounds", type=int, default=30)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -322,7 +715,9 @@ def main():
               file=sys.stderr)
         return 1
     # before anything is printed: without the package there is no result
+    import gpboost_tpu_torch as gpt
     from gpboost_tpu_torch.ops.kernels import _build
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
     from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -336,33 +731,68 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build_all()
     vk._lib()
+    hk._lib()
     ptxas = [ln for name in libs for ln in _build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(libs), "ptxas": ptxas})
 
     coords, y, pred = make_data(args.seed, args.n, args.n_pred)
+    boost_data = make_boost_data(args.seed, y, args.n_pred)
     t0 = time.perf_counter()
     cases, timed = check_kernels(coords, y, pred, args.m, args.seed, dev)
+    hist_ds = gpt.Dataset(boost_data[0], label=boost_data[1], device=dev)
+    cases["histogram"], timed["histogram"] = check_histogram(
+        hist_ds, args.seed, dev)
+    del hist_ds
     t_check = time.perf_counter() - t0
     launches, timings = main_path(coords, y, pred, args.m, args.seed, dev)
+    boost_launches, boost_timings = boosting_path(
+        boost_data, coords, pred, args.m, args.seed, args.rounds, dev)
+    timings.update(boost_timings)
     timings["vecchia_nll_grad_ms"] = timed["nll_grad"]["ms"]
+    timings["histogram_ms"] = timed["histogram"]["ms"]
     timings["kernel_checks_s"] = t_check
     emit({"timings": timings, "card": smi})
 
+    # a kernel that a path runs must have been launched in that path's run
+    for path, counts, names in (
+            ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
+            ("boosting", boost_launches, tuple(REPLACES))):
+        for name in names:
+            check(counts[name] > 0, f"the {path} path launched {name} "
+                  f"{counts[name]} times")
+
     kernels = []
     for name, key in (("vecchia_factors", "train"),
-                      ("vecchia_nll_grad", "nll_grad")):
+                      ("vecchia_nll_grad", "nll_grad"),
+                      ("histogram", "histogram")):
         t = timed[key]
-        entry = {"name": name, "route": "cuda", "source": SOURCE,
-                 "replaces": REPLACES[name], "launches": launches[name],
+        # launches: in the run of the path that the kernel was ported for
+        own = boost_launches if name == "histogram" else launches
+        entry = {"name": name, "route": "cuda", "source": SOURCE[name],
+                 "replaces": REPLACES[name], "launches": own[name],
+                 "launches_by_path": {"gp": launches[name],
+                                      "boosting": boost_launches[name]},
                  "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                 "library_ms": None, "n": t["n"], "m": t["m"]}
+                 "library_ms": t.get("library_ms"), "n": t["n"]}
+        if name == "histogram":
+            entry.update(
+                F=t["F"], B=t["B"], enqueue_ms=t["enqueue_ms"],
+                device_ms=t["device_ms"],
+                plain_f64_ms=t["plain_f64_ms"],
+                empty_launch_ms=t["empty_launch_ms"],
+                empty_launch_device_ms=t["empty_launch_device_ms"],
+                run_to_run_max_abs_diff=t["run_to_run_max_abs_diff"],
+                library_is="one index_add_ on a prepared flat index",
+                other_shapes=t["other_shapes"])
+        else:
+            entry["m"] = t["m"]
         if name == "vecchia_factors":
             entry["other_shapes"] = [timed["predict"]]
-        else:
+        elif name == "vecchia_nll_grad":
             entry["max_abs_err_is"] = ("largest gradient component error vs "
                                        "float64 autograd")
         kernels.append(entry)

@@ -1,17 +1,27 @@
 """gpboost_tpu_torch — PyTorch/CUDA port of gpboost_tpu for NVIDIA Hopper.
 
 The port grows module by module beside the JAX package, which stays the
-reference. Ported so far: the Gaussian Vecchia GP (``GPModel`` with
-``gp_approx="vecchia"``: construct, NLL, L-BFGS fit, prediction) with its two
-fused kernels written by hand in CUDA C++ (``csrc/vecchia_factors.cu``).
+reference. Ported so far:
+
+- the Gaussian Vecchia GP (``GPModel`` with ``gp_approx="vecchia"``:
+  construct, NLL, L-BFGS fit, prediction) with its two fused kernels written
+  by hand in CUDA C++ (``csrc/vecchia_factors.cu``);
+- tree boosting and the GPBoost algorithm (``Dataset``, ``Booster``,
+  ``train(params, dataset, gp_model=gp)``, ``Booster.predict``): the
+  host-driven leaf-wise learner for numeric features with the L2 objective,
+  every histogram through a hand-written CUDA kernel (``csrc/histogram.cu``).
 
 There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,
 ``device="cpu"`` runs the plain PyTorch versions).
 """
 from gpboost_tpu_torch.models.gp_model import GPModel
+from gpboost_tpu_torch.boosting.dataset import Dataset
+from gpboost_tpu_torch.boosting.booster import Booster
+from gpboost_tpu_torch.boosting.engine import train
 from gpboost_tpu_torch.utils.log import register_logger
 
 __version__ = "0.1.0"
 
-__all__ = ["GPModel", "register_logger", "__version__"]
+__all__ = ["GPModel", "Dataset", "Booster", "train", "register_logger",
+           "__version__"]

@@ -1,0 +1,176 @@
+"""Boosting parameters of the PyTorch port: aliases and what is not ported.
+
+A minimal, own copy of the part of the reference's parameter registry
+(``Config::KeyAliasTransform``; the JAX package's ``gpboost_tpu/config.py``)
+that the ported boosting path reads. ``resolve_params`` maps aliases to
+canonical names (the canonical name wins when both are given) and refuses
+what the port cannot honour:
+
+- a key whose feature is not ported and whose value differs from the default
+  raises ``NotImplementedError`` naming the ROADMAP.md queue item;
+- a key this module does not know raises ``NotImplementedError`` too (the
+  full registry with type and range checks is ROADMAP.md Queue A, item 19).
+
+Nothing that changes results is ever dropped silently.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+# canonical name -> aliases (entries copied from the reference registry)
+_ALIASES_OF = {
+    "objective": ("application", "loss"),
+    "boosting": ("boosting_type",),
+    "num_iterations": ("num_iteration", "n_iter", "num_tree", "num_trees",
+                       "num_round", "num_rounds", "n_estimators"),
+    "learning_rate": ("shrinkage_rate", "eta"),
+    "num_leaves": ("num_leaf", "max_leaves"),
+    "min_data_in_leaf": ("min_data_per_leaf", "min_data",
+                         "min_child_samples"),
+    "min_sum_hessian_in_leaf": ("min_sum_hessian_per_leaf",
+                                "min_child_weight"),
+    "lambda_l1": ("reg_alpha",),
+    "lambda_l2": ("reg_lambda",),
+    "verbose": ("verbosity",),
+    "tree_learner": ("tree", "tree_type", "tree_learner_type"),
+    "bagging_fraction": ("sub_row", "subsample"),
+    "bagging_freq": ("subsample_freq",),
+    "feature_fraction": ("sub_feature", "colsample_bytree"),
+    "feature_fraction_bynode": ("sub_feature_bynode", "colsample_bynode"),
+    "categorical_feature": ("cat_feature", "categorical_column",
+                            "cat_column"),
+    "max_delta_step": ("max_tree_output", "max_leaf_output"),
+    "metric": ("metrics", "metric_types"),
+    "enable_bundle": ("is_enable_bundle", "bundle"),
+    "early_stopping_round": ("early_stopping_rounds", "early_stopping",
+                             "n_iter_no_change"),
+    "feature_contri": ("feature_contrib", "fc", "fp", "feature_penalty"),
+    "is_provide_training_metric": ("training_metric", "is_training_metric",
+                                   "train_metric"),
+}
+ALIAS_TABLE = {alias: name for name, aliases in _ALIASES_OF.items()
+               for alias in aliases}
+
+# what the ported path reads (``gpu_use_dp``, the reference's key of that
+# name: float64 gradients and histograms on the GPU, float32 otherwise)
+PORTED = (
+    "objective", "boosting", "num_iterations", "learning_rate", "num_leaves",
+    "max_depth", "min_data_in_leaf", "min_sum_hessian_in_leaf", "lambda_l1",
+    "lambda_l2", "min_gain_to_split", "max_bin", "min_data_in_bin",
+    "boost_from_average", "tree_learner", "num_class",
+    "train_gp_model_cov_pars", "reuse_learning_rates_gp_model", "gpu_use_dp",
+)
+
+# accepted without effect on the ported path: logging, host threading,
+# metric choice (no validation sets yet), EFB (lossless, so trees are the
+# same without it), seeds of sampling features that are not ported
+_NO_EFFECT = ("verbose", "seed", "metric", "enable_bundle", "num_threads",
+              "device_type", "deterministic", "force_col_wise",
+              "force_row_wise", "use_gp_model_for_validation",
+              "bagging_seed", "feature_fraction_seed", "extra_seed")
+
+_TAIL = "Queue A, item 18 (boosting tail)"
+# canonical name -> (default, queue item): a value other than the default
+# raises NotImplementedError
+NOT_PORTED = {
+    "categorical_feature": (None, _TAIL),
+    "monotone_constraints": (None, _TAIL),
+    "monotone_constraints_method": ("basic", _TAIL),
+    "monotone_penalty": (0.0, _TAIL),
+    "bagging_fraction": (1.0, _TAIL),
+    "bagging_freq": (0, _TAIL),
+    "pos_bagging_fraction": (1.0, _TAIL),
+    "neg_bagging_fraction": (1.0, _TAIL),
+    "feature_fraction": (1.0, _TAIL),
+    "feature_fraction_bynode": (1.0, _TAIL),
+    "linear_tree": (False, _TAIL),
+    "linear_lambda": (0.0, _TAIL),
+    "forced_splits": (None, _TAIL),
+    "forcedsplits_filename": ("", _TAIL),
+    "forcedbins_filename": ("", _TAIL),
+    "max_bin_by_feature": (None, _TAIL),
+    "cegb_tradeoff": (1.0, _TAIL),
+    "cegb_penalty_split": (0.0, _TAIL),
+    "cegb_penalty_feature_lazy": (None, _TAIL),
+    "cegb_penalty_feature_coupled": (None, _TAIL),
+    "extra_trees": (False, _TAIL),
+    "path_smooth": (0.0, _TAIL),
+    "max_delta_step": (0.0, _TAIL),
+    "interaction_constraints": (None, _TAIL),
+    "feature_contri": (None, _TAIL),
+    "use_nesterov_acc": (False, _TAIL),
+    "leaves_newton_update": (False, _TAIL),
+    "line_search_step_length": (False, _TAIL),
+    "use_missing": (True, _TAIL),
+    "zero_as_missing": (False, _TAIL),
+    "reg_sqrt": (False, _TAIL),
+    "early_stopping_round": (0, _TAIL),
+    "is_provide_training_metric": (False, _TAIL),
+    "snapshot_freq": (-1, _TAIL),
+    "pred_early_stop": (False, _TAIL),
+}
+
+
+def _not_ported(key: str, value, queue: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"parameter '{key}' = {value!r} needs a feature that is not ported "
+        f"to gpboost_tpu_torch yet (ROADMAP.md {queue})")
+
+
+def _is_default(value, default) -> bool:
+    if value is None:
+        return True
+    if default is None or default == "":
+        try:
+            return len(value) == 0
+        except TypeError:
+            return False
+    if isinstance(default, bool):
+        return bool(value) == default
+    if isinstance(default, (int, float)):
+        try:
+            return float(value) == float(default)
+        except (TypeError, ValueError):
+            return False
+    return value == default
+
+
+def _refuse_unported(key: str, value) -> None:
+    if key in NOT_PORTED:
+        default, queue = NOT_PORTED[key]
+        if not _is_default(value, default):
+            raise _not_ported(key, value, queue)
+    elif key == "boosting":
+        if value != "gbdt":
+            raise _not_ported(key, value, _TAIL + ": dart, goss, rf")
+    elif key == "num_class":
+        if int(value) != 1:
+            raise _not_ported(key, value, _TAIL + ": multiclass")
+    elif key == "tree_learner":
+        if value not in ("serial", "data"):
+            raise _not_ported(key, value, "Queue A, item 20 (multi-GPU)")
+    elif key == "device_resident_boosting":
+        if value not in ("auto", "false", "False", False, None):
+            raise _not_ported(key, value, "Queue A, item 10 (the "
+                              "device-resident training loop)")
+    elif key not in PORTED and key not in _NO_EFFECT:
+        raise NotImplementedError(
+            f"parameter '{key}' is not known to gpboost_tpu_torch (the full "
+            "parameter registry is ROADMAP.md Queue A, item 19); known: "
+            f"{sorted(PORTED)}")
+
+
+def resolve_params(params: Optional[dict]) -> dict:
+    """Canonical parameter dict of a user's ``params``: aliases resolved
+    (the canonical key wins when both are present), every key checked
+    against what the port supports. Raises ``NotImplementedError`` for a
+    key that is unknown or whose feature is not ported."""
+    params = dict(params or {})
+    out = {}
+    for key, value in params.items():
+        canon = ALIAS_TABLE.get(key, key)
+        if canon != key and (canon in params or canon in out):
+            continue
+        _refuse_unported(canon, value)
+        out[canon] = value
+    return out

@@ -8,7 +8,7 @@ names, ``fit`` / ``neg_log_likelihood`` / ``predict`` / ``set_optim_params``
 
 Ported so far: a single GP with ``gp_approx="vecchia"`` and the gaussian
 likelihood (construct, NLL, L-BFGS fit with optional linear predictor,
-local-kriging prediction). Every other structure — exact GPs, grouped
+local-kriging prediction, the ``Psi^-1 r`` solve of the GPBoost algorithm). Every other structure — exact GPs, grouped
 random effects, non-gaussian likelihoods, other approximations, GP random
 coefficients, ``cluster_ids`` — raises ``NotImplementedError`` and is queued
 in ROADMAP.md.
@@ -159,6 +159,23 @@ class GPModel:
             else:
                 setattr(cfg, k, v)
         return self
+
+    @property
+    def is_gaussian(self) -> bool:
+        """Whether the likelihood is gaussian (what the boosting objective
+        asks before it takes the ``Psi^-1 r`` route)."""
+        return self.likelihood == "gaussian"
+
+    def _psi_solve(self, cov_pars, r) -> torch.Tensor:
+        """Psi^-1 r for a vector ``r`` [n] in the original row order, at
+        ``cov_pars`` = [nugget, variance, range...] — matrix-free through the
+        Vecchia precision. Used by the GPBoost objective. Returns a tensor on
+        the model's device."""
+        cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
+        self._approx.ensure_neighbors(cov_pars_np)
+        with torch.no_grad():
+            return self._approx.psi_inv_resid(self._tensor(cov_pars_np),
+                                              self._tensor(r, ravel=True))
 
     # ------------------------------------------------------------------
     def neg_log_likelihood(self, cov_pars, y, fixed_effects=None) -> float:

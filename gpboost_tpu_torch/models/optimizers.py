@@ -29,6 +29,12 @@ class OptimConfig:
     delta_rel_conv: float = 1e-6
     init_cov_pars: Optional[np.ndarray] = None
     init_coef: Optional[np.ndarray] = None
+    # Set by the boosting objective from its second refit on, as in the
+    # reference. It has no effect on ``lbfgs_device``, the only ported route:
+    # like the reference's accelerator route it warm-starts from
+    # ``init_cov_pars`` and carries no curvature memory between fits (the
+    # host L-BFGS with persistent memory is ROADMAP.md Queue A, item 9b).
+    lbfgs_reuse_mem: bool = False
 
 
 @dataclass

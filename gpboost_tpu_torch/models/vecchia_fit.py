@@ -18,6 +18,10 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     """Estimate the covariance parameters (and, with ``X``, the regression
     coefficients) of a Gaussian Vecchia model with device-resident L-BFGS.
 
+    Every call starts from ``cfg.init_cov_pars`` (the boosting objective
+    warm-starts its per-iteration refits that way) on the neighbour
+    structure built at construction; nothing is rebuilt between calls.
+
     With ``X`` the fit alternates: GLS coefficients at the current
     covariance parameters, then L-BFGS on the residual, three rounds."""
     cfg = model.optim_cfg
@@ -25,7 +29,7 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     if cfg.optimizer_cov in _QUEUED_OPTIMIZERS:
         raise NotImplementedError(
             f"optimizer_cov='{cfg.optimizer_cov}' is not ported yet "
-            "(ROADMAP.md Queue A, item 5); fit with "
+            "(ROADMAP.md Queue A, item 9b); fit with "
             "params={'optimizer_cov': 'lbfgs'}")
     if cfg.optimizer_cov not in _LBFGS_NAMES:
         raise ValueError(f"unknown optimizer_cov '{cfg.optimizer_cov}'")

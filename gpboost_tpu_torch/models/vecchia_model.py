@@ -140,18 +140,10 @@ class VecchiaGP:
         return nll.detach(), grad
 
     def _fit_psi_inv(self, th, r):
-        """Psi^-1 r at the log-scale parameters ``th`` through the fused
-        factor kernel (original row order) — the GPBoost pseudo-gradient
-        solve, evaluated once at the end of a fit
+        """Psi^-1 r at the log-scale parameters ``th`` — the GPBoost
+        pseudo-gradient solve, evaluated once at the end of a fit
         (``regression_objective.hpp:153-171`` role)."""
-        shape_code, is_ard = self._kernel_shape
-        cp = torch.exp(th.to(torch.float32))
-        a, d_c = vkern.vecchia_factors(cp[1:], self.coords_perm,
-                                       self.neighbors, cp[0], True,
-                                       shape_code, ard=is_ard)
-        out = vops.precision_matvec(a, self.neighbors, d_c,
-                                    r.to(torch.float32)[self._perm_t])
-        return out[self._inv_perm_t]
+        return self.psi_inv_resid(torch.exp(th), r)
 
     def nll_gaussian_value(self, cov_pars, y, fixed_part=None):
         """NLL value without gradients: the fused factor kernel when the
@@ -216,7 +208,16 @@ class VecchiaGP:
         """Psi^-1 r via the response-scale Vecchia precision (matrix-free,
         original row order; r [n]) — the GPBoost pseudo-gradient and
         Newton-leaf solves (``regression_objective.hpp:153-171``)."""
-        a, d = self._response_factors(cov_pars, self.neighbors)
+        if self._kernel_shape is not None:
+            # inside the kernel gate: the fused factor kernel, float32
+            shape_code, is_ard = self._kernel_shape
+            cp = cov_pars.to(torch.float32)
+            a, d = vkern.vecchia_factors(cp[1:], self.coords_perm,
+                                         self.neighbors, cp[0], True,
+                                         shape_code, ard=is_ard)
+            r = r.to(torch.float32)
+        else:
+            a, d = self._response_factors(cov_pars, self.neighbors)
         out = vops.precision_matvec(a, self.neighbors, d, r[self._perm_t])
         return out[self._inv_perm_t]
 

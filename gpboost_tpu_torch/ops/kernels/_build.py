@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch helpers of the port's CUDA kernels.
 
 Every ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at first use, then loaded
@@ -7,7 +7,9 @@ The build directory is not under version control; a library is rebuilt
 whenever its source changes (the hash of the source is part of its name).
 
 ``build_all()`` starts one ``nvcc`` per source, all together, and waits for
-them; ``load(name)`` builds a single source on demand.
+them; ``load(name)`` builds a single source on demand. ``check_tensor``,
+``raise_on_error`` and ``current_stream`` are what every wrapper does around
+a launch.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -100,3 +104,31 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise a ``ValueError`` naming the argument a kernel does not take."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name}: lies on {t.device}, the kernel runs on "
+                         f"{device} (all arguments must share one device)")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def raise_on_error(err: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def current_stream() -> int:
+    """PyTorch's current CUDA stream as the integer a launcher takes."""
+    return torch.cuda.current_stream().cuda_stream

@@ -39,6 +39,9 @@ import torch
 from gpboost_tpu_torch.ops import vecchia as vops
 from gpboost_tpu_torch.ops.cov_fns import CovFunction, _matern_mult_const
 from gpboost_tpu_torch.ops.kernels import _build
+from gpboost_tpu_torch.ops.kernels._build import check_tensor as _check
+from gpboost_tpu_torch.ops.kernels._build import current_stream as _stream
+from gpboost_tpu_torch.ops.kernels._build import raise_on_error as _raise_on
 
 _SUPPORTED_SHAPES = (0.5, 1.5, 2.5, -1.0)  # -1.0 = gaussian (sq-exp)
 MAX_M = 64   # VF_MAX_M of the .cu file (the packed triangle's capacity)
@@ -141,22 +144,6 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    """Raise a ``ValueError`` naming the argument the kernel does not take."""
-    if not isinstance(t, torch.Tensor):
-        raise ValueError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name}: lies on {t.device}, the kernel runs on "
-                         f"{device} (all arguments must share one device)")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_problem(coords, neighbors, row_coords):
     """Checks shared by both kernels; returns (n, m, n_obs, d, device)."""
     if not isinstance(neighbors, torch.Tensor) or neighbors.dim() != 2:
@@ -176,16 +163,6 @@ def _check_problem(coords, neighbors, row_coords):
     _check("neighbors", neighbors, torch.int32, (n, m), device)
     _check("row_coords", row_coords, torch.float32, (n, d), device)
     return n, m, n_obs, d, device
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
-                           f"{err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def vecchia_factors(cov_pars, coords, neighbors, nugget,

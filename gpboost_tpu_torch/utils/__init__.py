@@ -17,3 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
             f"device={device!r} was requested but no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are the same one (``cuda`` means ``cuda:0``)."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index or 0) == (b.index or 0)

@@ -55,14 +55,24 @@ def timed(name: str, sync: bool = False):
         _COUNT[name] += 1
 
 
+def totals() -> dict:
+    """{name: (seconds, calls)} accumulated so far."""
+    return {name: (_ACC[name], _COUNT[name]) for name in _ACC}
+
+
+def clear() -> None:
+    """Forget what was accumulated."""
+    _ACC.clear()
+    _COUNT.clear()
+
+
 def report(reset: bool = False) -> str:
     lines = ["gpboost_tpu_torch timers:"]
     for name in sorted(_ACC, key=lambda k: -_ACC[k]):
         lines.append(f"  {name}: {_ACC[name]:.3f}s ({_COUNT[name]} calls)")
     out = "\n".join(lines)
     if reset:
-        _ACC.clear()
-        _COUNT.clear()
+        clear()
     return out
 
 

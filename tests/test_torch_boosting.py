@@ -1,0 +1,274 @@
+"""The boosting slice as a whole vs the JAX package's host loop (CPU,
+float64; n = 1500, m = 8, at most 5 rounds; inputs from a numpy seed handed
+to both sides).
+
+Tolerances: L2 boosting, per-round training scores 1e-10 (identical trees,
+leaf values from the same sums). GPBoost with fixed covariance parameters,
+per-round scores 1e-6 (the ``Psi^-1 r`` solves differ in the order of their
+sums). GPBoost with covariance training: the JAX package fits with scipy's
+L-BFGS-B on the CPU, the port with its device-resident loop — different
+optimisers with different stop rules, both run with ``delta_rel_conv`` =
+1e-10 — so covariance parameters are held to rtol 1e-3 and scores to 1e-5
+absolute (seen: 3.3e-5 and 3.4e-8; the score's standard deviation after
+three rounds is 0.17).
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import gpboost_tpu as gpb
+import gpboost_tpu_torch as gpt
+from gpboost_tpu_torch import config as tcfg
+from gpboost_tpu_torch.utils import same_device
+
+N, M = 1500, 8
+PARAMS = {"objective": "regression", "num_leaves": 15, "learning_rate": 0.1,
+          "min_data_in_leaf": 20, "verbose": -1}
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(N, 2))
+    X = rng.uniform(size=(N, 5))
+    D = np.sqrt(((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1))
+    chol = np.linalg.cholesky(np.exp(-D / 0.15) + 1e-10 * np.eye(N))
+    f = 2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + X[:, 2]
+    y = f + chol @ rng.standard_normal(N) + 0.4 * rng.standard_normal(N)
+    return dict(X=X, y=y, coords=coords, Xp=rng.uniform(size=(200, 5)),
+                cp=rng.uniform(size=(200, 2)))
+
+
+def _gp_models(data, **optim):
+    jm = gpb.GPModel(gp_coords=data["coords"], cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=M)
+    tm = gpt.GPModel(gp_coords=data["coords"], cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=M, device="cpu")
+    # identical conditioning sets whatever the top-k tie-breaking
+    tm._approx.load_structure(np.asarray(jm._approx.perm),
+                              np.asarray(jm._approx.neighbors))
+    if optim:
+        jm.set_optim_params(dict(optim))
+        tm.set_optim_params(dict(optim))
+    return jm, tm
+
+
+def _boosters(data, params, jm=None, tm=None):
+    jb = gpb.Booster(params=dict(params),
+                     train_set=gpb.Dataset(data["X"], label=data["y"]),
+                     gp_model=jm)
+    tb = gpt.Booster(params=dict(params),
+                     train_set=gpt.Dataset(data["X"], label=data["y"],
+                                           device="cpu"), gp_model=tm)
+    return jb, tb
+
+
+def _same_structure(tb, jb):
+    assert len(tb.trees) == len(jb.trees)
+    for t, j in zip(tb.trees, jb.trees):
+        for name in ("split_feature", "threshold_bin", "left", "right",
+                     "is_leaf"):
+            np.testing.assert_array_equal(getattr(t, name), getattr(j, name))
+        np.testing.assert_array_equal(t.threshold, j.threshold)
+
+
+def test_l2_boosting_scores_match_jax_every_round(data):
+    jb, tb = _boosters(data, PARAMS)
+    assert tb.init_score[0] == jb.init_score[0] == data["y"].mean()
+    for _ in range(5):
+        jb.update()
+        tb.update()
+        np.testing.assert_allclose(tb._score, jb._score, rtol=0, atol=1e-10)
+    _same_structure(tb, jb)
+    assert tb.num_trees() == tb.current_iteration() == 5
+    for kind in ("split", "gain"):
+        np.testing.assert_allclose(tb.feature_importance(kind),
+                                   jb.feature_importance(kind), rtol=1e-10)
+    np.testing.assert_allclose(tb.predict(data["Xp"]), jb.predict(data["Xp"]),
+                               rtol=0, atol=1e-10)
+    np.testing.assert_allclose(
+        tb.predict(data["Xp"], num_iteration=2, raw_score=True),
+        jb.predict(data["Xp"], num_iteration=2, raw_score=True), atol=1e-10)
+    np.testing.assert_allclose(
+        tb.predict(data["Xp"], start_iteration=3),
+        jb.predict(data["Xp"], start_iteration=3), atol=1e-10)
+
+
+def test_train_resolves_aliases_like_jax(data):
+    params = {"objective": "l2", "num_leaf": 7, "eta": 0.3, "min_data": 40,
+              "reg_lambda": 1.5, "reg_alpha": 0.1, "n_estimators": 3,
+              "verbosity": -1, "boost_from_average": False}
+    jb = gpb.train(dict(params), gpb.Dataset(data["X"], label=data["y"]))
+    tb = gpt.train(dict(params), gpt.Dataset(data["X"], label=data["y"],
+                                             device="cpu"))
+    assert tb.num_trees() == 3 and tb.grower.num_leaves == 7
+    assert tb.init_score[0] == 0.0
+    np.testing.assert_allclose(tb._score, jb._score, rtol=0, atol=1e-10)
+    _same_structure(tb, jb)
+
+
+def test_gpboost_fixed_cov_pars_scores_match_jax_every_round(data):
+    jm, tm = _gp_models(data)
+    jm.cov_pars_ = tm.cov_pars_ = np.array([0.2, 1.1, 0.12])
+    params = dict(PARAMS, train_gp_model_cov_pars=False)
+    jb, tb = _boosters(data, params, jm, tm)
+    for _ in range(4):
+        jb.update()
+        tb.update()
+        np.testing.assert_allclose(tb._score, jb._score, rtol=0, atol=1e-6)
+    _same_structure(tb, jb)
+    assert tb.objective.num_fits == 0
+    np.testing.assert_array_equal(tm.get_cov_pars(), [0.2, 1.1, 0.12])
+    want = jb.predict(data["Xp"], gp_coords_pred=data["cp"], predict_var=True)
+    got = tb.predict(data["Xp"], gp_coords_pred=data["cp"], predict_var=True)
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], np.asarray(want[key]), rtol=0,
+                                   atol=1e-6, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def trained_with_cov_pars(data):
+    optim = {"optimizer_cov": "lbfgs", "init_cov_pars": [0.25, 1.0, 0.1],
+             "delta_rel_conv": 1e-10}
+    jm, tm = _gp_models(data, **optim)
+    jb = gpb.train(dict(PARAMS), gpb.Dataset(data["X"], label=data["y"]),
+                   gp_model=jm, num_boost_round=3)
+    tb = gpt.train(dict(PARAMS), gpt.Dataset(data["X"], label=data["y"],
+                                             device="cpu"),
+                   gp_model=tm, num_boost_round=3)
+    return jb, tb
+
+
+def test_gpboost_with_cov_par_training_reaches_the_jax_result(
+        trained_with_cov_pars, data):
+    jb, tb = trained_with_cov_pars
+    np.testing.assert_allclose(tb.gp_model.get_cov_pars(),
+                               jb.gp_model.get_cov_pars(), rtol=1e-3)
+    np.testing.assert_allclose(tb._score, jb._score, rtol=0, atol=1e-5)
+    # one refit before the first tree, one after every round; the refit at
+    # the end of a round is reused by the next round (the gradient cache)
+    assert tb.objective.num_fits == 3 + 1
+    assert tb.gp_model.optim_cfg.lbfgs_reuse_mem is True
+    assert np.all(tb.gp_model.get_cov_pars() > 0)
+    got = tb.predict(data["Xp"], gp_coords_pred=data["cp"], predict_var=True)
+    want = jb.predict(data["Xp"], gp_coords_pred=data["cp"],
+                      predict_var=True)
+    np.testing.assert_allclose(got["response_mean"], want["response_mean"],
+                               rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got["response_var"], want["response_var"],
+                               rtol=1e-3)
+    assert np.all(got["response_var"] > 0)
+
+
+@pytest.mark.parametrize("with_gp", [False, True])
+def test_jax_model_dict_loaded_by_the_port_predicts_the_same(
+        trained_with_cov_pars, data, with_gp):
+    if with_gp:
+        jb = trained_with_cov_pars[0]
+    else:
+        jb = gpb.train(dict(PARAMS), gpb.Dataset(data["X"], label=data["y"]),
+                       num_boost_round=3)
+    content = json.dumps(jb._to_dict())
+    tb = gpt.Booster(model_str=content, device="cpu")
+    assert tb.num_trees() == 3 and tb.train_set is None
+    np.testing.assert_allclose(tb.predict(data["Xp"]), jb.predict(data["Xp"]),
+                               rtol=0, atol=1e-12)
+    if with_gp:
+        want = jb.predict(data["Xp"], gp_coords_pred=data["cp"],
+                          predict_var=True)
+        got = tb.predict(data["Xp"], gp_coords_pred=data["cp"],
+                         predict_var=True)
+        for key in ("response_mean", "response_var", "fixed_effect",
+                    "random_effect_mean", "random_effect_cov"):
+            np.testing.assert_allclose(got[key], np.asarray(want[key]),
+                                       rtol=0, atol=1e-8, err_msg=key)
+    # and back: the JAX package reads what the port writes
+    jb2 = gpb.Booster(model_str=tb.model_to_string())
+    np.testing.assert_allclose(jb2.predict(data["Xp"]),
+                               jb.predict(data["Xp"]), rtol=0, atol=1e-12)
+
+
+def test_save_and_load_model_file(trained_with_cov_pars, data, tmp_path):
+    tb = trained_with_cov_pars[1]
+    path = tmp_path / "model.json"
+    tb.save_model(str(path))
+    back = gpt.Booster(model_file=str(path), device="cpu")
+    want = tb.predict(data["Xp"], gp_coords_pred=data["cp"], predict_var=True)
+    got = back.predict(data["Xp"], gp_coords_pred=data["cp"],
+                       predict_var=True)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-10)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tb.save_model(str(tmp_path / "model.txt"))
+
+
+def test_default_optimizer_raises_at_the_first_refit(data):
+    _, tm = _gp_models(data)          # optimizer_cov = gradient_descent
+    ds = gpt.Dataset(data["X"], label=data["y"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        gpt.train(dict(PARAMS), ds, gp_model=tm, num_boost_round=2)
+
+
+def test_devices(data):
+    assert same_device("cuda", "cuda:0") and not same_device("cpu", "cuda")
+    assert same_device(torch.device("cpu"), "cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gpt.Booster(model_str="{}")      # the default device is the GPU
+
+
+UNPORTED = [
+    {"categorical_feature": [0]}, {"cat_feature": "0,1"},
+    {"monotone_constraints": [1, 0, 0, 0, 0]}, {"boosting": "dart"},
+    {"boosting_type": "goss"}, {"boosting": "rf"},
+    {"bagging_fraction": 0.5}, {"subsample": 0.5}, {"bagging_freq": 1},
+    {"pos_bagging_fraction": 0.5}, {"neg_bagging_fraction": 0.5},
+    {"feature_fraction": 0.8}, {"colsample_bytree": 0.8},
+    {"feature_fraction_bynode": 0.5}, {"linear_tree": True},
+    {"forced_splits": {"feature": 0, "threshold": 0.5}},
+    {"forcedsplits_filename": "splits.json"},
+    {"cegb_tradeoff": 0.5}, {"cegb_penalty_split": 0.1},
+    {"cegb_penalty_feature_lazy": [1.0] * 5},
+    {"cegb_penalty_feature_coupled": [1.0] * 5},
+    {"extra_trees": True}, {"path_smooth": 1.0}, {"max_delta_step": 0.5},
+    {"max_leaf_output": 0.5}, {"interaction_constraints": [[0, 1], [2]]},
+    {"use_nesterov_acc": True}, {"leaves_newton_update": True},
+    {"line_search_step_length": True},
+    {"device_resident_boosting": "true"}, {"tree_learner": "voting"},
+    {"tree_learner": "feature"}, {"num_class": 3},
+    {"objective": "binary"}, {"objective": "regression_l1"},
+    {"early_stopping_round": 5}, {"some_unknown_key": 1},
+]
+
+
+@pytest.mark.parametrize("extra", UNPORTED,
+                         ids=[next(iter(d)) + "=" + str(next(iter(d.values())))
+                              for d in UNPORTED])
+def test_unported_parameters_raise(data, extra):
+    ds = gpt.Dataset(data["X"][:200], label=data["y"][:200], device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue A"):
+        gpt.train(dict(PARAMS, **extra), ds, num_boost_round=1)
+
+
+def test_defaults_of_unported_parameters_pass(data):
+    out = tcfg.resolve_params({
+        "bagging_fraction": 1.0, "feature_fraction": 1, "boosting": "gbdt",
+        "extra_trees": False, "categorical_feature": "", "num_class": 1,
+        "monotone_constraints": None, "device_resident_boosting": "auto",
+        "tree_learner": "serial", "n_estimators": 7, "num_iterations": 9,
+        "max_delta_step": 0.0, "seed": 3})
+    assert out["num_iterations"] == 9          # the canonical key wins
+    assert "n_estimators" not in out
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(valid_sets=["x"]), dict(callbacks=[print]), dict(fobj=print),
+    dict(feval=print), dict(early_stopping_rounds=3),
+    dict(init_model="model.json")])
+def test_unported_train_arguments_raise(data, kwargs):
+    ds = gpt.Dataset(data["X"][:200], label=data["y"][:200], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        gpt.train(dict(PARAMS), ds, num_boost_round=1, **kwargs)

@@ -7,13 +7,17 @@ the GPU machine with
     python -m pytest tests/test_torch_gpu_kernels.py --noconftest -q
 
 Tolerances: A, D atol 2e-5 vs the float32 plain version; NLL 1e-5 relative
-and gradient rtol 1e-3 (+ 1e-3 absolute) vs float64 autograd.
+and gradient rtol 1e-3 (+ 1e-3 absolute) vs float64 autograd; histogram
+counts exact, its gradient / hessian sums within 1e-5 x (sum of |v| over the
+bin) of the float64 plain version (float32 atomics add in any order).
 """
 import numpy as np
 import pytest
 import torch
 
+from gpboost_tpu_torch.boosting.tree import build_histogram
 from gpboost_tpu_torch.ops import vecchia as tv
+from gpboost_tpu_torch.ops.kernels import histogram as hk
 from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
 
 pytestmark = pytest.mark.gpu
@@ -179,3 +183,142 @@ def test_float32_model_on_the_card_goes_through_the_kernels(dev):
     p64 = m64.predict(gp_coords_pred=coords[:100] + 0.001, predict_var=True)
     np.testing.assert_allclose(p32["mu"], p64["mu"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(p32["var"], p64["var"], rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# histogram
+# ---------------------------------------------------------------------------
+
+def _hist_inputs(dev, n, F, B, keep, seed=0):
+    rng = np.random.default_rng(seed)
+    binned_np = rng.integers(0, B, size=(n, F))
+    binned = torch.tensor(binned_np, dtype=torch.int32, device=dev)
+    panel = torch.tensor(np.ascontiguousarray(binned_np.T.astype(np.uint8)),
+                         device=dev)
+    g = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    h = torch.tensor(np.abs(rng.standard_normal(n)), dtype=torch.float32,
+                     device=dev)
+    mask = torch.tensor(rng.random(n) < keep, device=dev)
+    return binned, panel, g, h, mask
+
+
+def _assert_hist_close(got, binned, g, h, mask, B):
+    want = hk.histogram_plain(binned, g.double(), h.double(), mask, B)
+    scale = hk.histogram_plain(binned, g.double().abs(), h.double().abs(),
+                               mask, B)
+    assert torch.equal(got[2].double(), want[2])            # counts: exact
+    for k in (0, 1):
+        err = (got[k].double() - want[k]).abs()
+        assert bool((err <= 1e-5 * scale[k] + 1e-30).all()), float(err.max())
+
+
+@pytest.mark.parametrize("n,F,B,keep", [
+    (1, 1, 1, 1.0), (1000, 5, 255, 1.0), (1023, 8, 256, 0.5),
+    (1025, 9, 64, 0.03), (5000, 17, 2, 0.9), (3000, 10, 64, 0.0),
+    (300_001, 3, 256, 0.7)])
+def test_histogram_kernel_matches_plain(dev, n, F, B, keep):
+    binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, keep)
+    before = hk.histogram.launches
+    got = hk.histogram(binned, g, h, mask, B, binned_t=panel)
+    torch.cuda.synchronize()
+    assert hk.histogram.launches == before + 1
+    assert all(a.shape == (F, B) and a.dtype == torch.float32 for a in got)
+    _assert_hist_close(got, binned, g, h, mask, B)
+    # without the panel the wrapper transposes ``binned`` itself
+    again = hk.histogram(binned, g, h, mask, B)
+    _assert_hist_close(again, binned, g, h, mask, B)
+
+
+def test_histogram_kernel_one_bin_takes_every_row(dev):
+    n, F, B = 50_000, 4, 256
+    binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, 1.0)
+    binned[:, 2] = 255
+    panel[2] = 255
+    got = hk.histogram(binned, g, h, mask, B, binned_t=panel)
+    _assert_hist_close(got, binned, g, h, mask, B)
+    assert float(got[2][2, 255]) == n
+    # bins at or above num_bins are dropped, not written out of bounds
+    low = hk.histogram(binned, g, h, mask, 200, binned_t=panel)
+    assert float(low[2][2].sum()) == 0.0
+    assert float(low[2][0].sum()) == float((binned[:, 0] < 200).sum())
+
+
+def test_histogram_cuda_tensors_that_the_kernel_does_not_take_raise(dev):
+    binned, panel, g, h, mask = _hist_inputs(dev, 500, 3, 16, 0.5)
+    bad = [
+        ("grad", dict(grad=g.double())),
+        ("hess", dict(hess=h.cpu())),
+        ("hess", dict(hess=h[:-1])),
+        ("row_mask", dict(row_mask=mask.to(torch.uint8))),
+        ("binned_t", dict(binned_t=panel.int())),
+        ("binned_t", dict(binned_t=panel[:, :-1])),
+        ("binned_t", dict(binned_t=panel.t().contiguous().t())),
+        ("num_bins", dict(num_bins=257)),
+        ("num_bins", dict(num_bins=0)),
+    ]
+    before = hk.histogram.launches
+    for name, kw in bad:
+        args = dict(grad=g, hess=h, row_mask=mask, num_bins=16,
+                    binned_t=panel)
+        args.update(kw)
+        with pytest.raises(ValueError, match=f"^{name}:"):
+            hk.histogram(binned, args["grad"], args["hess"],
+                         args["row_mask"], args["num_bins"],
+                         binned_t=args["binned_t"])
+    with pytest.raises(ValueError, match="^binned:"):
+        hk.histogram(binned.cpu(), g, h, mask, 16)
+    assert hk.histogram.launches == before
+
+
+def test_build_histogram_gate_on_the_card(dev):
+    binned, panel, g, h, mask = _hist_inputs(dev, 2000, 4, 32, 0.6)
+    before = hk.histogram.launches
+    build_histogram(binned, g, h, mask, 32, binned_t=panel)
+    assert hk.histogram.launches == before + 1
+    # outside the gate: float64 gradients, or more than 256 bins — the plain
+    # version on the card
+    out = build_histogram(binned, g.double(), h.double(), mask, 32)
+    assert out[0].dtype == torch.float64 and out[0].is_cuda
+    wide = build_histogram(binned, g, h, mask, 300)
+    assert wide[0].shape == (4, 300)
+    assert hk.histogram.launches == before + 1
+
+
+def test_boosting_on_the_card_goes_through_the_histogram_kernel(dev):
+    import gpboost_tpu_torch as gpt
+    rng = np.random.default_rng(4)
+    n = 5000
+    X = rng.uniform(size=(n, 5))
+    coords = rng.uniform(size=(n, 2))
+    y = (2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + np.sin(6 * coords[:, 0])
+         + 0.3 * rng.standard_normal(n))
+    params = {"objective": "regression", "num_leaves": 15, "verbose": -1}
+    ds = gpt.Dataset(X, label=y)                             # device="cuda"
+    hk.histogram.launches = 0
+    vk.reset_launch_counts()
+    b32 = gpt.train(params, ds, num_boost_round=3)
+    assert hk.histogram.launches == sum(t.num_leaves for t in b32.trees)
+    b64 = gpt.train(dict(params, gpu_use_dp=True), ds, num_boost_round=3)
+    assert hk.histogram.launches == sum(t.num_leaves for t in b32.trees)
+    assert b32.trees[0].split_feature[0] == b64.trees[0].split_feature[0]
+    assert b32.trees[0].threshold_bin[0] == b64.trees[0].threshold_bin[0]
+    np.testing.assert_allclose(b32._score, b64._score, rtol=0, atol=1e-3)
+
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=10,
+                     dtype=torch.float32)
+    gp.set_optim_params({"optimizer_cov": "lbfgs",
+                         "init_cov_pars": [0.25, 1.0, 0.1]})
+    hk.histogram.launches = 0
+    bgp = gpt.train(params, ds, gp_model=gp, num_boost_round=3)
+    assert hk.histogram.launches == sum(t.num_leaves for t in bgp.trees)
+    assert bgp.objective.num_fits == 4
+    assert vk.launch_counts()["vecchia_nll_grad"] > 0
+    out = bgp.predict(X[:200], gp_coords_pred=coords[:200] + 1e-3,
+                      predict_var=True)
+    assert np.all(np.isfinite(out["response_mean"]))
+    assert np.all(out["response_var"] > 0)
+    cpu_gp = gpt.GPModel(gp_coords=coords[:100], gp_approx="vecchia",
+                         num_neighbors=5, device="cpu")
+    with pytest.raises(ValueError, match="same device"):
+        gpt.Booster(params=params, train_set=ds, gp_model=cpu_gp)
