@@ -11,9 +11,10 @@ one. It
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths use, and times both: the Vecchia kernels for all
    four covariance shapes, isotropic and ARD, neighbour sets with -1
-   padding; the histogram kernel at the boosting path's shape with a full,
-   a 3 %, an empty and a one-bin mask, and at F = 50, B = 64 and
-   n = 1 000 003;
+   padding, and the NLL kernel also at m = 40 and m = 64 on the same
+   points (its other rows-per-block choices); the histogram kernel at the
+   boosting path's shape with a full, a 3 %, an empty and a one-bin mask,
+   and at F = 50, B = 64 and n = 1 000 003;
 3. drives the GP path once through the public API at full size:
    ``GPModel`` construct (ordering + neighbour search), NLL, L-BFGS fit,
    prediction with variances — a Gaussian Vecchia GP with n = 100 000 points,
@@ -35,6 +36,7 @@ is ``{"ok": true, "device": {...}}``.
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +68,7 @@ CMP_SCORE_TOL = 5e-2      # RMS score difference / std of the score
 CMP_COV_PARS_RTOL = 5e-2
 HIST_SUM_TOL = 1e-5       # x (sum of |v| over the bin)
 SHAPES = (0.5, 1.5, 2.5, -1.0)
+NLL_OTHER_M = (40, 64)    # the NLL kernel's other shapes: 16 and 8 rows a block
 
 
 def emit(obj):
@@ -184,7 +187,8 @@ def bound(name, neighbors, d, n_obs, shared_rows, n_ranges):
         nbytes = 4 * ((2 + d) + n_obs * d + n * m + rows + n * m + n)
         flops = _row_flops(valid, d, n_ranges, False)
     else:
-        grid = -(-n // 128)   # rows per block of the kernel
+        from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+        grid = vk.nll_blocks(n, vk._lib().vf_nll_rows_per_block(m, d))
         nbytes = 4 * ((2 + n_ranges) + n_obs * d + n * m + rows + n_obs
                       + grid * (3 + n_ranges))
         flops = _row_flops(valid, d, n_ranges, True)
@@ -210,7 +214,6 @@ def check_kernels(coords, y, pred, m, seed, dev):
     pred32 = torch.as_tensor(pred, dtype=torch.float32, device=dev)
     nb_pred = vops.find_neighbors_cross(pred32, obs32, 2 * m)
     check(bool((nb[:m] < 0).any()), "the first rows must carry -1 padding")
-    c64, r64 = c32.double(), r32.double()
 
     def pars(ard, dtype):
         ranges = [0.1, 0.15] if ard else [0.1]
@@ -237,34 +240,8 @@ def check_kernels(coords, y, pred, m, seed, dev):
                 cases["vecchia_factors"].append(
                     dict(case=tag, shape=shape, ard=ard, max_abs_err=err))
             # NLL + gradient
-            lp = torch.log(cp)
-            v_k, g_k = vk.vecchia_nll_grad(lp, c32, nb, r32, shape, ard=ard)
-            torch.cuda.synchronize()
-            v_k2, g_k2 = vk.vecchia_nll_grad(lp, c32, nb, r32, shape, ard=ard)
-            check(torch.equal(v_k, v_k2) and torch.equal(g_k, g_k2),
-                  "vecchia_nll_grad: two runs differ bit-wise")
-            v32, g32 = vk.vecchia_nll_grad_plain(lp, c32, nb, r32, shape,
-                                                 ard=ard)
-            v64, g64 = vk.vecchia_nll_grad_plain(lp.double(), c64, nb, r64,
-                                                 shape, ard=ard)
-            rel = abs(float(v_k) - float(v64)) / abs(float(v64))
-            check(rel < 1e-4, f"vecchia_nll_grad shape={shape} ard={ard}: "
-                  f"relative NLL error {rel} vs float64 >= 1e-4")
-            atol = 2e-2 * (n / 1500)
-            e32 = (g_k - g32).abs()
-            e64 = (g_k.double() - g64).abs()
-            check(bool((e32 <= atol + 2e-3 * g32.abs()).all()),
-                  f"vecchia_nll_grad shape={shape} ard={ard}: gradient "
-                  f"{g_k.tolist()} vs float32 autograd {g32.tolist()}")
-            check(bool((e64 <= atol + 1e-3 * g64.abs()).all()),
-                  f"vecchia_nll_grad shape={shape} ard={ard}: gradient "
-                  f"{g_k.tolist()} vs float64 autograd {g64.tolist()}")
-            cases["vecchia_nll_grad"].append(dict(
-                shape=shape, ard=ard, nll_rel_err_vs_f64=rel,
-                grad_max_abs_err_vs_f64=float(e64.max()),
-                grad_max_rel_err_vs_f64=float((e64 / g64.abs()).max()),
-                max_abs_err=float(e64.max())))
-            del v32, g32, v64, g64
+            cases["vecchia_nll_grad"].append(check_nll_grad(
+                torch.log(cp), c32, nb, r32, shape, ard))
     torch.cuda.empty_cache()
 
     # timings at the main path's shapes: exponential, isotropic
@@ -287,9 +264,96 @@ def check_kernels(coords, y, pred, m, seed, dev):
                     5)
     b_ms, b_by = bound("vecchia_nll_grad", nb, d, n, True, 1)
     timed["nll_grad"] = dict(n=n, m=m, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                             bound_by=b_by)
+                             bound_by=b_by, other_shapes=[])
+    # the NLL kernel's other rows-per-block choices, on the same points:
+    # checked against float64 (in row shards, to bound the plain version's
+    # memory) and timed
+    for m_o in NLL_OTHER_M:
+        nb_o = vops.find_neighbors(c32, m_o)
+        case = check_nll_grad(lp, c32, nb_o, r32, 0.5, False, shards=4)
+        cases["vecchia_nll_grad"].append(dict(case, m=m_o))
+        rows, smem = vk.nll_launch_geometry(m_o, d)
+        b_ms, b_by = bound("vecchia_nll_grad", nb_o, d, n, True, 1)
+        timed["nll_grad"]["other_shapes"].append(dict(
+            n=n, m=m_o, rows_per_block=rows, smem_bytes_per_block=smem,
+            ms=time_ms(lambda: vk.vecchia_nll_grad(lp, c32, nb_o, r32, 0.5),
+                       20),
+            bound_ms=b_ms, bound_by=b_by))
+        del nb_o
+        torch.cuda.empty_cache()
     emit({"phase": "kernels_vs_plain", "cases": cases})
     return cases, timed
+
+
+def check_nll_grad(lp, coords, nb, r, shape, ard, shards=1):
+    """The NLL kernel against autograd of the plain version in float32 and
+    float64 (the plain versions summed over ``shards`` row shards): NLL
+    within 1e-4 relative of float64, gradient within 2e-2 x n / 1500
+    absolute plus 2e-3 (float32) / 1e-3 (float64) relative; two launches
+    bit-identical."""
+    from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+
+    n, m = nb.shape
+    v_k, g_k = vk.vecchia_nll_grad(lp, coords, nb, r, shape, ard=ard)
+    torch.cuda.synchronize()
+    v_k2, g_k2 = vk.vecchia_nll_grad(lp, coords, nb, r, shape, ard=ard)
+    check(torch.equal(v_k, v_k2) and torch.equal(g_k, g_k2),
+          f"vecchia_nll_grad m={m}: two runs differ bit-wise")
+
+    def plain(dtype):
+        lp_t, c_t, r_t = lp.to(dtype), coords.to(dtype), r.to(dtype)
+        v, g = 0.5 * n * math.log(2.0 * math.pi), 0.0
+        for rows in torch.arange(n, device=nb.device).chunk(shards):
+            vs, gs = vk.vecchia_nll_grad_plain(
+                lp_t, c_t, nb[rows], r_t, shape, ard=ard, row_r=r_t[rows],
+                row_coords=c_t[rows], include_const=False)
+            v, g = v + vs, g + gs
+        return v, g
+
+    _, g32 = plain(torch.float32)
+    v64, g64 = plain(torch.float64)
+    tag = f"vecchia_nll_grad m={m} shape={shape} ard={ard}"
+    rel = abs(float(v_k) - float(v64)) / abs(float(v64))
+    check(rel < 1e-4, f"{tag}: relative NLL error {rel} vs float64 >= 1e-4")
+    atol = 2e-2 * (n / 1500)
+    e32 = (g_k - g32).abs()
+    e64 = (g_k.double() - g64).abs()
+    check(bool((e32 <= atol + 2e-3 * g32.abs()).all()),
+          f"{tag}: gradient {g_k.tolist()} vs float32 autograd "
+          f"{g32.tolist()}")
+    check(bool((e64 <= atol + 1e-3 * g64.abs()).all()),
+          f"{tag}: gradient {g_k.tolist()} vs float64 autograd "
+          f"{g64.tolist()}")
+    return dict(shape=shape, ard=ard, nll_rel_err_vs_f64=rel,
+                grad_max_abs_err_vs_f64=float(e64.max()),
+                grad_max_rel_err_vs_f64=float((e64 / g64.abs()).max()),
+                max_abs_err=float(e64.max()))
+
+
+def ptxas_report(log, kernel):
+    """Registers, stack frame and spills of every instance of ``kernel``, as
+    ``nvcc -Xptxas -v`` printed them into the build log."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+            continue
+        if name is None or kernel not in name:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if frame:
+            cap = re.search(r"ILi(\d+)E", name)
+            out.append(dict(instance=f"{kernel}<{cap.group(1)}>" if cap
+                            else kernel,
+                            stack_frame_bytes=int(frame.group(1)),
+                            spill_store_bytes=int(frame.group(2)),
+                            spill_load_bytes=int(frame.group(3))))
+        elif regs and out:
+            out[-1]["registers"] = int(regs.group(1))
+            name = None
+    return out
 
 
 def hist_bound(n, n_masked, F, B):
@@ -733,9 +797,16 @@ def main():
     vk._lib()
     hk._lib()
     ptxas = [ln for name in libs for ln in _build.build_log(name).splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "Function properties" in ln]
+    nll_ptxas = ptxas_report(_build.build_log("vecchia_factors"),
+                             "nll_grad_kernel")
+    check(len(nll_ptxas) == 3 and all("registers" in x for x in nll_ptxas),
+          f"ptxas lines of the NLL kernel's three instances (d <= 2, 4, 8) "
+          f"not found: {nll_ptxas}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(libs), "ptxas": ptxas})
+          "sources": sorted(libs), "ptxas": ptxas,
+          "nll_grad_kernel": nll_ptxas})
 
     coords, y, pred = make_data(args.seed, args.n, args.n_pred)
     boost_data = make_boost_data(args.seed, y, args.n_pred)
@@ -795,6 +866,13 @@ def main():
         elif name == "vecchia_nll_grad":
             entry["max_abs_err_is"] = ("largest gradient component error vs "
                                        "float64 autograd")
+            rows, smem = vk.nll_launch_geometry(t["m"], coords.shape[1])
+            entry.update(
+                rows_per_block=rows, threads_per_block=vk.NLL_THREADS,
+                smem_bytes_per_block=smem,
+                stack_frame_bytes=max(x["stack_frame_bytes"]
+                                      for x in nll_ptxas),
+                ptxas=nll_ptxas, other_shapes=t["other_shapes"])
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,19 +12,51 @@
 // and, for the NLL kernel, 0.5 [log D + (r_i - a.r_N)^2 / D] together with
 // its gradient w.r.t. log(nugget, var, range or rho_1..rho_d).
 //
-// Layout: ONE THREAD PER ROW. The TPU kernels keep every pair entry as an
-// (8, 128) tile over a 1024-row block and have the host pre-gather the
-// neighbour coordinates because Mosaic has no gather; here a thread loads
-// its own m indices and gathers its m neighbour coordinates from the
-// coordinate table (L2-resident at the sizes in use). The packed lower
-// triangle of C (m(m+1)/2 floats), overwritten in place by its Cholesky
-// factor, lives in a per-thread local array sized by the template
-// capacity MCAP; it does not fit in registers and is served by L1/L2.
+// The TPU kernels keep every pair entry as an (8, 128) tile over a
+// 1024-row block and have the host pre-gather the neighbour coordinates
+// because Mosaic has no gather; here the threads of a row load its m
+// indices and gather its neighbour coordinates from the coordinate table
+// (L2-resident at the sizes in use). Both kernels share the covariance
+// functions and the strided triangular solve chol_solve; element e of a
+// row's array lies at [e * st].
 //
-// Bound: operations, not bytes. A row moves (m + d + 1) * 4 bytes in and
-// (m + 1) * 4 bytes out but costs ~m^3/3 FLOPs of Cholesky plus
-// m(m+1)/2 exp/sqrt covariance evaluations (twice in the NLL kernel, whose
-// gradient pass recomputes the entries instead of storing dC).
+// - factors_kernel: ONE THREAD A ROW, the packed lower triangle of C
+//   (m(m+1)/2 floats, overwritten in place by its Cholesky factor) and the
+//   m-vectors in per-thread local arrays sized by the template capacity
+//   MCAP (24 / 40 / 64), filled and factorised row by row by row_factors
+//   (stride 1). With every row of the grid resident at once these stack
+//   frames outgrow L1 and L2 and the Cholesky's loads go to HBM.
+//
+// - nll_grad_kernel: every per-row array in DYNAMIC SHARED MEMORY,
+//   element-major: a block holds R rows, and element e of row t's arrays
+//   sits at smem[e * R + t], so the threads of a warp touching the same
+//   element of their rows hit consecutive banks. Per row: the packed
+//   triangle (pitch by the actual m, so one instance serves every m; its
+//   room also takes the lanes' partial sums at the end), the neighbour
+//   coordinates (m d), a and u (m each; a holds c until the solve). R in
+//   {32, 16, 8} is the largest whose block fits VF_NLL_SMEM_BUDGET (8
+//   always fits), chosen from (m, d) at launch and exported as
+//   vf_nll_rows_per_block for the caller's scratch. A block has 128
+//   threads, R rows of 128 / R LANES: only as many rows as fit the SM's
+//   228 KB are in flight (192 at m = 20, d = 2), and one thread a row left
+//   six warps an SM, each stalled on its row's chain of dependent loads and
+//   exps, slower than the local-memory kernel. The lanes split the
+//   gather, the fill, the rows of each Cholesky column (one barrier a
+//   column), the two solves (a on lane 0, u on lane 1) and the gradient
+//   walk, whose partial sums lane 0 adds in lane order. The per-dimension
+//   arrays are registers, unrolled to the tier DMAX in {2, 4, 8} >= d (one
+//   instance each): nothing of a row goes to local memory.
+//
+// Bound of nll_grad_kernel: FP32 operations by the roofline (~m^3/3 FLOPs
+// of Cholesky, two solves, m(m+1)/2 exp/sqrt covariance evaluations twice:
+// the gradient walk recomputes the entries instead of storing dC), ~0.02 ms
+// at n = 1e5, m = 20. With the triangle on chip its practical floors are
+// shared-memory bandwidth (~2.2-2.7 GB of loads per call, ~0.08-0.09 ms at
+// 132 SMs x 128 B/clk) and the latency of a row's dependent chain, which
+// the lanes shorten. Tensor cores do not serve here: the work is m
+// dependent steps of a 20 x 20 float32 factorisation per row, not a
+// product, and TF32 would lose the NLL's 1e-4 and the gradient's 1e-3
+// tolerances. The irregular neighbour gather leaves TMA nothing to do.
 //
 // The gradient is derived by hand (the TPU kernel traced reverse-mode AD
 // through its body). With a = C^-1 c, u = C^-1 r_N, D = v - c.a,
@@ -37,9 +69,11 @@
 // g(x) = -corr'(x) / x:
 //   d corr / d log rho_k = g(x) q_k   (ARD),   g(x) sum_k q_k   (isotropic).
 //
-// The sum over rows is deterministic: every block reduces its rows (warp
-// shuffles, then shared memory) into one row of a [grid, 1 + p] scratch
-// tensor, which the caller sums. No float atomics.
+// The sum over rows is deterministic: lane 0 of a row adds the lanes'
+// partial sums in lane order, the block's R rows are reduced by shuffles
+// into one row of a [ceil(n / R), 1 + p] scratch tensor, which the caller
+// sums. No float atomics; R depends on (m, d) alone, so two launches give
+// the same bits.
 //
 // Plain C interface (loaded with ctypes); kernels launch on the stream they
 // are given, allocate nothing and do not synchronise. Each launcher returns
@@ -48,10 +82,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define VF_THREADS 128
+#define VF_THREADS 128  // rows per block of factors_kernel
 #define VF_MAX_M 64
 #define VF_MAX_D 8
 #define VF_MAX_P (2 + VF_MAX_D)
+// nll_grad_kernel: the most dynamic shared memory a block of 32 or 16 rows
+// may take (a third of the SM's 228 KB, so that at least three blocks share
+// an SM); a block of 8 rows is taken whatever it needs (at most 87 040
+// bytes at m = 64, d = 8)
+#define VF_NLL_SMEM_BUDGET (76 * 1024)
+#define VF_SMEM_DEFAULT_MAX (48 * 1024)  // above: opt in per kernel
+#define VF_NLL_THREADS 128  // threads a block of nll_grad_kernel: R rows x lanes
+#define VF_NLL_PARTS (7 + 4 * VF_MAX_D)  // partial sums a lane hands on
 
 namespace {
 
@@ -97,12 +139,37 @@ __device__ __forceinline__ void corr_and_g(float x, int shape, float& corr,
   }
 }
 
-// squared scaled distance; dist = d2 > 0 ? sqrt(d2) : 0 at the call site
-__device__ __forceinline__ float scaled_d2(const float* p, const float* q,
-                                           const float* s, int d) {
+// Squared scaled distance between p and q, coordinate k at p[k * ps] and
+// q[k * qs]; its per-dimension parts go to parts[k] when asked for. The loop
+// is unrolled to the compile-time bound DMAX >= d, so that s and parts,
+// indexed by k, stay registers and d = 2 issues no work for 8 dimensions.
+// dist = d2 > 0 ? sqrt(d2) : 0 at the call site.
+template <int DMAX>
+__device__ __forceinline__ float scaled_d2(const float* p, int ps,
+                                           const float* q, int qs,
+                                           const float* s, int d,
+                                           float* parts = nullptr) {
+  float d2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < d) {
+      const float dk = (p[k * ps] - q[k * qs]) * s[k];
+      const float qk = dk * dk;
+      if (parts) parts[k] = qk;
+      d2 += qk;
+    }
+  }
+  return d2;
+}
+
+// The same with a loop over the runtime d, for row_factors (whose scale and
+// row_x are local arrays)
+__device__ __forceinline__ float scaled_d2_loop(const float* p, int ps,
+                                                const float* q, int qs,
+                                                const float* s, int d) {
   float d2 = 0.0f;
   for (int k = 0; k < d; ++k) {
-    const float dk = (p[k] - q[k]) * s[k];
+    const float dk = (p[k * ps] - q[k * qs]) * s[k];
     d2 += dk * dk;
   }
   return d2;
@@ -112,31 +179,37 @@ __device__ __forceinline__ float dist_of(float d2) {
   return d2 > 0.0f ? sqrtf(d2) : 0.0f;
 }
 
-__device__ __forceinline__ int tri(int i) { return (i * (i + 1)) >> 1; }
+__host__ __device__ __forceinline__ int tri(int i) {
+  return (i * (i + 1)) >> 1;
+}
+
+// The per-row arrays below are strided: element e of Lp, xn, c, a, x lies at
+// [e * st] (st = 1 for a thread's local arrays, R for a row in shared memory).
 
 // x <- C^-1 x with the packed factor Lp (reciprocal pivots on the diagonal)
-__device__ __forceinline__ void chol_solve(const float* Lp, float* x, int m) {
+__device__ __forceinline__ void chol_solve(const float* Lp, float* x, int m,
+                                           int st) {
   for (int j = 0; j < m; ++j) {
-    const float* Lj = Lp + tri(j);
-    float s = x[j];
-    for (int k = 0; k < j; ++k) s -= Lj[k] * x[k];
-    x[j] = s * Lj[j];
+    const float* Lj = Lp + tri(j) * st;
+    float s = x[j * st];
+    for (int k = 0; k < j; ++k) s -= Lj[k * st] * x[k * st];
+    x[j * st] = s * Lj[j * st];
   }
   for (int j = m - 1; j >= 0; --j) {
-    float s = x[j];
-    for (int i = j + 1; i < m; ++i) s -= Lp[tri(i) + j] * x[i];
-    x[j] = s * Lp[tri(j) + j];
+    float s = x[j * st];
+    for (int i = j + 1; i < m; ++i) s -= Lp[(tri(i) + j) * st] * x[i * st];
+    x[j * st] = s * Lp[(tri(j) + j) * st];
   }
 }
 
-// Factors of one row. On return: xn = gathered neighbour coordinates
-// [m, d], vmask = validity bits, c = masked c_iN (unsolved), a = masked
-// C^-1 c, Lp = packed Cholesky factor of C; returns D.
-template <int MCAP>
+// Factors of one row by one thread. On return: xn = gathered neighbour
+// coordinates [m, d], vmask = validity bits, c = masked c_iN (unsolved),
+// a = masked C^-1 c, Lp = packed Cholesky factor of C; returns D. row_x and
+// scale hold d entries each.
 __device__ __forceinline__ float row_factors(
     const float* __restrict__ coords, const int* __restrict__ nbr_row,
     const float* row_x, const float* scale, float var, float var_ii, int m,
-    int d, int shape, float* Lp, float* xn, float* c, float* a,
+    int d, int shape, float* Lp, float* xn, float* c, float* a, int st,
     unsigned long long& vmask) {
   vmask = 0ull;
   for (int j = 0; j < m; ++j) {
@@ -144,44 +217,47 @@ __device__ __forceinline__ float row_factors(
     const bool valid = idx >= 0;
     if (valid) vmask |= 1ull << j;
     const float* src = coords + (size_t)(valid ? idx : 0) * d;
-    for (int k = 0; k < d; ++k) xn[j * d + k] = src[k];
+    for (int k = 0; k < d; ++k) xn[(j * d + k) * st] = src[k];
   }
   // covariance entries; invalid pair -> off-diagonal 0, diagonal 1
   for (int j = 0; j < m; ++j) {
     const bool vj = (vmask >> j) & 1ull;
-    const float* xj = xn + j * d;
-    c[j] = vj ? var * corr_x(dist_of(scaled_d2(row_x, xj, scale, d)), shape)
-              : 0.0f;
-    float* Bj = Lp + tri(j);
+    const float* xj = xn + j * d * st;
+    c[j * st] = vj ? var * corr_x(dist_of(scaled_d2_loop(row_x, 1, xj, st,
+                                                         scale, d)),
+                                  shape)
+                   : 0.0f;
+    float* Bj = Lp + tri(j) * st;
     for (int k = 0; k < j; ++k) {
       const bool vk = (vmask >> k) & 1ull;
-      Bj[k] = (vj && vk)
-                  ? var * corr_x(
-                              dist_of(scaled_d2(xj, xn + k * d, scale, d)),
-                              shape)
-                  : 0.0f;
+      Bj[k * st] = (vj && vk)
+                       ? var * corr_x(dist_of(scaled_d2_loop(
+                                          xj, st, xn + k * d * st, st, scale,
+                                          d)),
+                                      shape)
+                       : 0.0f;
     }
-    Bj[j] = vj ? var_ii : 1.0f;
+    Bj[j * st] = vj ? var_ii : 1.0f;
   }
   // in-place Cholesky, row by row; the diagonal slot keeps 1 / L_jj
   for (int i = 0; i < m; ++i) {
-    float* Li = Lp + tri(i);
+    float* Li = Lp + tri(i) * st;
     for (int j = 0; j < i; ++j) {
-      const float* Lj = Lp + tri(j);
-      float s = Li[j];
-      for (int k = 0; k < j; ++k) s -= Li[k] * Lj[k];
-      Li[j] = s * Lj[j];
+      const float* Lj = Lp + tri(j) * st;
+      float s = Li[j * st];
+      for (int k = 0; k < j; ++k) s -= Li[k * st] * Lj[k * st];
+      Li[j * st] = s * Lj[j * st];
     }
-    float s = Li[i];
-    for (int k = 0; k < i; ++k) s -= Li[k] * Li[k];
-    Li[i] = 1.0f / sqrtf(fmaxf(s, 1e-30f));
+    float s = Li[i * st];
+    for (int k = 0; k < i; ++k) s -= Li[k * st] * Li[k * st];
+    Li[i * st] = 1.0f / sqrtf(fmaxf(s, 1e-30f));
   }
-  for (int j = 0; j < m; ++j) a[j] = c[j];
-  chol_solve(Lp, a, m);
+  for (int j = 0; j < m; ++j) a[j * st] = c[j * st];
+  chol_solve(Lp, a, m, st);
   float d_cond = var_ii;
   for (int j = 0; j < m; ++j) {
-    if (!((vmask >> j) & 1ull)) a[j] = 0.0f;
-    d_cond -= c[j] * a[j];  // D from the unsolved c
+    if (!((vmask >> j) & 1ull)) a[j * st] = 0.0f;
+    d_cond -= c[j * st] * a[j * st];  // D from the unsolved c
   }
   return d_cond;
 }
@@ -210,19 +286,169 @@ factors_kernel(const float* __restrict__ pars,
     row_x[k] = row_coords[(size_t)i * d + k];
   }
   unsigned long long vmask;
-  const float d_cond = row_factors<MCAP>(
+  const float d_cond = row_factors(
       coords, neighbors + (size_t)i * m, row_x, scale, var, var_ii, m, d,
-      shape, Lp, xn, c, a, vmask);
+      shape, Lp, xn, c, a, 1, vmask);
   float* a_out = A + (size_t)i * m;
   for (int j = 0; j < m; ++j) a_out[j] = a[j];
   D[i] = d_cond;
 }
 
-// logp = log(nugget, var, range) or log(nugget, var, rho_1..rho_d) (ard).
-// scratch [grid, 1 + p], p = 2 + n_ranges: per-block sums of
+// nll_grad_kernel's device functions split a row's work over `lanes`
+// threads (lane = 0 .. lanes - 1): lane l takes the slots, triangle rows and
+// neighbours j with j % lanes == l. Inside a lane the loops work on VF_ILP
+// independent entries at once (loads first, then the arithmetic, then the
+// stores) for the latency of a load or an exp to overlap. Every entry gets
+// the same operations in the same order as in row_factors.
+#define VF_ILP 4
+
+// validity bits of the m slots: slot j is valid iff nbr_row[j] >= 0
+__device__ __forceinline__ unsigned long long valid_mask(
+    const int* __restrict__ nbr_row, int m) {
+  unsigned long long vmask = 0ull;
+  for (int j = 0; j < m; ++j)
+    if (nbr_row[j] >= 0) vmask |= 1ull << j;
+  return vmask;
+}
+
+// gathers this lane's neighbour coordinates into xn [m, d] (a padded slot
+// gets row 0's coordinates, which no valid entry uses)
+template <int DMAX>
+__device__ __forceinline__ void gather_coords(
+    const float* __restrict__ coords, const int* __restrict__ nbr_row,
+    float* xn, int m, int d, int st, int lane, int lanes) {
+  for (int j0 = lane; j0 < m; j0 += VF_ILP * lanes) {
+    float v[VF_ILP][DMAX];
+#pragma unroll
+    for (int q = 0; q < VF_ILP; ++q) {
+      const int j = j0 + q * lanes;
+      const int idx = j < m ? nbr_row[j] : -1;
+      const float* src = coords + (size_t)(idx >= 0 ? idx : 0) * d;
+#pragma unroll
+      for (int k = 0; k < DMAX; ++k) v[q][k] = k < d ? src[k] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < VF_ILP; ++q) {
+      const int j = j0 + q * lanes;
+      if (j < m) {
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k)
+          if (k < d) xn[(j * d + k) * st] = v[q][k];
+      }
+    }
+  }
+}
+
+// neighbour j's coordinates into xj[DMAX] (registers)
+template <int DMAX>
+__device__ __forceinline__ void load_coords(const float* xn, int j, int d,
+                                            int st, float* xj) {
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k)
+    xj[k] = k < d ? xn[(j * d + k) * st] : 0.0f;
+}
+
+// this lane's rows j of C_NN into the packed triangle Lp and c_iN into c;
+// invalid pair -> off-diagonal 0, diagonal 1, c 0
+template <int DMAX>
+__device__ __forceinline__ void fill_cov(const float* row_x,
+                                         const float* scale, float var,
+                                         float var_ii, const float* xn,
+                                         unsigned long long vmask, int m,
+                                         int d, int shape, float* Lp,
+                                         float* c, int st, int lane,
+                                         int lanes) {
+  for (int j = lane; j < m; j += lanes) {
+    const bool vj = (vmask >> j) & 1ull;
+    float xj[DMAX];
+    load_coords<DMAX>(xn, j, d, st, xj);
+    c[j * st] = vj ? var * corr_x(dist_of(scaled_d2<DMAX>(row_x, 1, xj, 1,
+                                                          scale, d)),
+                                  shape)
+                   : 0.0f;
+    float* Bj = Lp + tri(j) * st;
+    for (int k0 = 0; k0 < j; k0 += VF_ILP) {
+      float v[VF_ILP];
+#pragma unroll
+      for (int q = 0; q < VF_ILP; ++q) {
+        const int k = min(k0 + q, j - 1);
+        const bool vk = (vmask >> k) & 1ull;
+        v[q] = (vj && vk) ? var * corr_x(dist_of(scaled_d2<DMAX>(
+                                             xj, 1, xn + k * d * st, st,
+                                             scale, d)),
+                                         shape)
+                          : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < VF_ILP; ++q)
+        if (k0 + q < j) Bj[(k0 + q) * st] = v[q];
+    }
+    Bj[j * st] = vj ? var_ii : 1.0f;
+  }
+}
+
+// In-place Cholesky of the packed triangle, column by column; the diagonal
+// slot keeps 1 / L_jj. Entry (i, j) is (C_ij - sum_{k<j} L_ik L_jk) * (1 /
+// L_jj) with k ascending, as in row_factors' row-by-row form. The rows of a
+// column are independent: lane l takes rows i > j with i % lanes == l,
+// VF_ILP of them sharing each load of L_jk (a slot past the end repeats the
+// chunk's first row, which this lane owns, and is not stored). Every lane
+// computes the column's pivot itself; lane 0 stores it once no lane reads
+// C_jj any more (at the next column). The block synchronises after each
+// column: every thread of the block must call.
+__device__ __forceinline__ void cholesky(float* Lp, int m, int st, int lane,
+                                         int lanes) {
+  float pivot = 0.0f;
+  for (int j = 0; j < m; ++j) {
+    if (lane == 0 && j > 0) Lp[(tri(j - 1) + j - 1) * st] = pivot;
+    const float* Lj = Lp + tri(j) * st;
+    float sjj = Lj[j * st];
+    for (int k = 0; k < j; ++k) sjj -= Lj[k * st] * Lj[k * st];
+    pivot = 1.0f / sqrtf(fmaxf(sjj, 1e-30f));
+    const int first = j + 1 + ((lane - (j + 1)) % lanes + lanes) % lanes;
+    for (int i0 = first; i0 < m; i0 += VF_ILP * lanes) {
+      float* Li[VF_ILP];
+      float s[VF_ILP];
+#pragma unroll
+      for (int q = 0; q < VF_ILP; ++q) {
+        const int i = i0 + q * lanes;
+        Li[q] = Lp + tri(i < m ? i : i0) * st;
+        s[q] = Li[q][j * st];
+      }
+      for (int k = 0; k < j; ++k) {
+        const float ljk = Lj[k * st];
+#pragma unroll
+        for (int q = 0; q < VF_ILP; ++q) s[q] -= Li[q][k * st] * ljk;
+      }
+#pragma unroll
+      for (int q = 0; q < VF_ILP; ++q)
+        if (i0 + q * lanes < m) Li[q][j * st] = s[q] * pivot;
+    }
+    __syncthreads();
+  }
+  if (lane == 0) Lp[(tri(m - 1) + m - 1) * st] = pivot;
+  __syncthreads();
+}
+
+// floats of one row's shared-memory arrays in nll_grad_kernel: the packed
+// triangle (its room also takes the lanes' partial sums at the end), the
+// neighbour coordinates, a and u
+__host__ __device__ __forceinline__ int nll_row_floats(int m, int d,
+                                                       int lanes) {
+  const int tri_room = tri(m) > lanes * VF_NLL_PARTS ? tri(m)
+                                                      : lanes * VF_NLL_PARTS;
+  return tri_room + m * d + 2 * m;
+}
+
+// logp = log(nugget, var, range) or log(nugget, var, rho_1..rho_d) (ard),
+// d <= DMAX. A block of VF_NLL_THREADS threads holds R = rows rows of
+// lanes = VF_NLL_THREADS / R threads each: thread (lane l, row t) is thread
+// l * R + t, so a warp holds one lane of 32 rows (or of two or four lanes
+// when R = 16, 8). Dynamic shared memory R * nll_row_floats(m, d, lanes)
+// floats. scratch [ceil(n / R), 1 + p], p = 2 + n_ranges: per-block sums of
 // (l, dl/dlog nugget, dl/dlog var, dl/dlog range_k...).
-template <int MCAP>
-__global__ void __launch_bounds__(VF_THREADS)
+template <int DMAX>
+__global__ void __launch_bounds__(VF_NLL_THREADS)
 nll_grad_kernel(const float* __restrict__ logp,
                 const float* __restrict__ coords,
                 const int* __restrict__ neighbors,
@@ -230,114 +456,193 @@ nll_grad_kernel(const float* __restrict__ logp,
                 const float* __restrict__ r, const float* __restrict__ row_r,
                 const float* __restrict__ row_valid,
                 float* __restrict__ scratch, int n, int m, int d, int shape,
-                int ard) {
-  const int i = blockIdx.x * VF_THREADS + threadIdx.x;
+                int ard, int rows) {
+  extern __shared__ float vf_rows[];
+  const int R = rows;
+  const int lanes = VF_NLL_THREADS / R;
+  const int t = threadIdx.x % R;
+  const int lane = threadIdx.x / R;
+  const int i = blockIdx.x * R + t;
+  // a thread past the last row works on the last row (every thread meets
+  // every barrier) and adds nothing
+  const int row = i < n ? i : n - 1;
   const int n_ranges = ard ? d : 1;
   const int p = 2 + n_ranges;
-  float out[1 + VF_MAX_P];
-  for (int t = 0; t <= p; ++t) out[t] = 0.0f;
 
-  if (i < n) {
-    float Lp[MCAP * (MCAP + 1) / 2];
-    float xn[MCAP * VF_MAX_D];
-    float c[MCAP];
-    float a[MCAP];
-    float u[MCAP];
-    float scale[VF_MAX_D];
-    float row_x[VF_MAX_D];
-    float q[VF_MAX_D];
-    // per range parameter: a.dC.a, u.dC.a, a.dc, u.dc
-    float s_aa[VF_MAX_D], s_ua[VF_MAX_D], s_ac[VF_MAX_D], s_uc[VF_MAX_D];
+  // this row's arrays in shared memory, element e at [e * R]
+  float* Lp = vf_rows + t;
+  float* xn = Lp + (nll_row_floats(m, d, lanes) - m * d - 2 * m) * R;
+  float* a = xn + m * d * R;
+  float* u = a + m * R;
+  float scale[DMAX], row_x[DMAX];
+  const float nugget = expf(logp[0]);
+  const float var = expf(logp[1]);
+  const float var_ii = var + nugget;
+  const float mc = shape == 1 ? 1.7320508075688772f
+                              : (shape == 2 ? 2.23606797749979f : 1.0f);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    scale[k] = k < d ? mc * expf(-logp[2 + (ard ? k : 0)]) : 0.0f;
+    row_x[k] = k < d ? row_coords[(size_t)row * d + k] : 0.0f;
+  }
+  const int* nbr_row = neighbors + (size_t)row * m;
+  const unsigned long long vmask = valid_mask(nbr_row, m);
 
-    const float nugget = expf(logp[0]);
-    const float var = expf(logp[1]);
-    const float var_ii = var + nugget;
-    const float mc = shape == 1 ? 1.7320508075688772f
-                                : (shape == 2 ? 2.23606797749979f : 1.0f);
-    for (int k = 0; k < d; ++k) {
-      scale[k] = mc * expf(-logp[2 + (ard ? k : 0)]);
-      row_x[k] = row_coords[(size_t)i * d + k];
-    }
-    const int* nbr_row = neighbors + (size_t)i * m;
-    unsigned long long vmask;
-    const float d_cond = row_factors<MCAP>(coords, nbr_row, row_x, scale,
-                                           var, var_ii, m, d, shape, Lp, xn,
-                                           c, a, vmask);
-    // u = C^-1 r_N (masked residuals), e = r_i - a.r_N
-    float e = row_r[i];
+  // this lane's neighbours: coordinates and residuals r_N (masked)
+  gather_coords<DMAX>(coords, nbr_row, xn, m, d, R, lane, lanes);
+  for (int j = lane; j < m; j += lanes) {
+    const int idx = nbr_row[j];
+    u[j * R] = idx >= 0 ? r[idx] : 0.0f;
+  }
+  __syncthreads();
+  // C_NN and c (into a), this lane's triangle rows
+  fill_cov<DMAX>(row_x, scale, var, var_ii, xn, vmask, m, d, shape, Lp, a, R,
+                 lane, lanes);
+  __syncthreads();
+  cholesky(Lp, m, R, lane, lanes);
+  // a = C^-1 c on lane 0, u = C^-1 r_N on lane 1: one call site, so that at
+  // R = 16, 8 (both lanes in warp 0) the two solves run side by side, on a
+  // pointer computed from the lane (u follows a; a pointer chosen by a select
+  // spilled registers at DMAX = 2). Lane 0 then masks a and takes
+  // e = r_i - a.r_N (the unsolved residuals, gathered again).
+  if (lane < 2) chol_solve(Lp, a + lane * m * R, m, R);
+  float e = 0.0f;
+  if (lane == 0) {
+    e = row_r[row];
     for (int j = 0; j < m; ++j) {
       const int idx = nbr_row[j];
-      u[j] = idx >= 0 ? r[idx] : 0.0f;
-      e -= a[j] * u[j];
+      if (idx < 0) a[j * R] = 0.0f;
+      e -= a[j * R] * (idx >= 0 ? r[idx] : 0.0f);
     }
-    chol_solve(Lp, u, m);
+  }
+  __syncthreads();
 
-    // bilinear forms; invalid slots have a = u = 0 and are skipped
-    float sum_aa = 0.0f, sum_ua = 0.0f;          // sum a_j^2, sum u_j a_j
-    float v_aa = 0.0f, v_ua = 0.0f;              // a.C0.a, u.C0.a (C0 = var corr)
-    float v_ac = 0.0f, v_uc = 0.0f;              // a.c, u.c
-    for (int k = 0; k < n_ranges; ++k) {
-      s_aa[k] = 0.0f; s_ua[k] = 0.0f; s_ac[k] = 0.0f; s_uc[k] = 0.0f;
-    }
-    for (int j = 0; j < m; ++j) {
-      if (!((vmask >> j) & 1ull)) continue;
-      const float* xj = xn + j * d;
-      const float aj = a[j], uj = u[j];
-      sum_aa += aj * aj;
-      sum_ua += uj * aj;
-      {
-        float d2 = 0.0f;
-        for (int k = 0; k < d; ++k) {
-          const float dk = (row_x[k] - xj[k]) * scale[k];
-          q[k] = dk * dk;
-          d2 += q[k];
-        }
-        float corr, g;
-        corr_and_g(dist_of(d2), shape, corr, g);
-        v_ac += aj * (var * corr);
-        v_uc += uj * (var * corr);
-        const float vg = var * g;
-        if (ard) {
-          for (int k = 0; k < d; ++k) {
+  // bilinear forms over this lane's valid neighbours j and their pairs
+  // (j, k < j); a = u = 0 on invalid slots. Also c.a for D, c_j = var
+  // corr(row, j).
+  float c_a = 0.0f;                              // sum c_j a_j
+  float sum_aa = 0.0f, sum_ua = 0.0f;            // sum a_j^2, sum u_j a_j
+  float v_aa = 0.0f, v_ua = 0.0f;                // a.C0.a, u.C0.a (C0 = var corr)
+  float v_ac = 0.0f, v_uc = 0.0f;                // a.c, u.c
+  // per range parameter: a.dC.a, u.dC.a, a.dc, u.dc
+  float s_aa[DMAX], s_ua[DMAX], s_ac[DMAX], s_uc[DMAX];
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    s_aa[k] = 0.0f; s_ua[k] = 0.0f; s_ac[k] = 0.0f; s_uc[k] = 0.0f;
+  }
+  for (int j = lane; j < m; j += lanes) {
+    if (!((vmask >> j) & 1ull)) continue;
+    float xj[DMAX], q[DMAX];
+    load_coords<DMAX>(xn, j, d, R, xj);
+    const float aj = a[j * R], uj = u[j * R];
+    sum_aa += aj * aj;
+    sum_ua += uj * aj;
+    {
+      const float d2 = scaled_d2<DMAX>(row_x, 1, xj, 1, scale, d, q);
+      float corr, g;
+      corr_and_g(dist_of(d2), shape, corr, g);
+      c_a += (var * corr) * aj;
+      v_ac += aj * (var * corr);
+      v_uc += uj * (var * corr);
+      const float vg = var * g;
+      if (ard) {
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k) {
+          if (k < d) {
             s_ac[k] += aj * (vg * q[k]);
             s_uc[k] += uj * (vg * q[k]);
           }
-        } else {
-          s_ac[0] += aj * (vg * d2);
-          s_uc[0] += uj * (vg * d2);
         }
+      } else {
+        s_ac[0] += aj * (vg * d2);
+        s_uc[0] += uj * (vg * d2);
       }
-      for (int k2 = 0; k2 < j; ++k2) {
-        if (!((vmask >> k2) & 1ull)) continue;
-        const float* xk = xn + k2 * d;
-        float d2 = 0.0f;
-        for (int k = 0; k < d; ++k) {
-          const float dk = (xj[k] - xk[k]) * scale[k];
-          q[k] = dk * dk;
-          d2 += q[k];
-        }
-        float corr, g;
-        corr_and_g(dist_of(d2), shape, corr, g);
-        const float w_aa = 2.0f * aj * a[k2];
-        const float w_ua = uj * a[k2] + u[k2] * aj;
-        v_aa += w_aa * (var * corr);
-        v_ua += w_ua * (var * corr);
-        const float vg = var * g;
+    }
+    for (int k0 = 0; k0 < j; k0 += VF_ILP) {
+      float d2[VF_ILP], qs[VF_ILP][DMAX], corr[VF_ILP], g[VF_ILP];
+      float ak[VF_ILP], uk[VF_ILP];
+#pragma unroll
+      for (int c = 0; c < VF_ILP; ++c) {
+        const int k2 = min(k0 + c, j - 1);
+        d2[c] = scaled_d2<DMAX>(xj, 1, xn + k2 * d * R, R, scale, d, qs[c]);
+        ak[c] = a[k2 * R];
+        uk[c] = u[k2 * R];
+      }
+#pragma unroll
+      for (int c = 0; c < VF_ILP; ++c)
+        corr_and_g(dist_of(d2[c]), shape, corr[c], g[c]);
+#pragma unroll
+      for (int c = 0; c < VF_ILP; ++c) {
+        const int k2 = k0 + c;
+        if (k2 >= j || !((vmask >> k2) & 1ull)) continue;
+        const float w_aa = 2.0f * aj * ak[c];
+        const float w_ua = uj * ak[c] + uk[c] * aj;
+        v_aa += w_aa * (var * corr[c]);
+        v_ua += w_ua * (var * corr[c]);
+        const float vg = var * g[c];
         if (ard) {
-          for (int k = 0; k < d; ++k) {
-            s_aa[k] += w_aa * (vg * q[k]);
-            s_ua[k] += w_ua * (vg * q[k]);
+#pragma unroll
+          for (int k = 0; k < DMAX; ++k) {
+            if (k < d) {
+              s_aa[k] += w_aa * (vg * qs[c][k]);
+              s_ua[k] += w_ua * (vg * qs[c][k]);
+            }
           }
         } else {
-          s_aa[0] += w_aa * (vg * d2);
-          s_ua[0] += w_ua * (vg * d2);
+          s_aa[0] += w_aa * (vg * d2[c]);
+          s_ua[0] += w_ua * (vg * d2[c]);
         }
       }
     }
-    // diagonal of C0 is var on valid slots
-    v_aa += var * sum_aa;
-    v_ua += var * sum_ua;
+  }
+  // the lanes' partial sums into the triangle's room (free after the
+  // solves), VF_NLL_PARTS floats a lane: 7 forms, then 4 per range
+  float* part = Lp + lane * VF_NLL_PARTS * R;
+  part[0] = c_a; part[R] = sum_aa; part[2 * R] = sum_ua; part[3 * R] = v_aa;
+  part[4 * R] = v_ua; part[5 * R] = v_ac; part[6 * R] = v_uc;
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    if (k < n_ranges) {
+      part[(7 + 4 * k) * R] = s_aa[k];
+      part[(8 + 4 * k) * R] = s_ua[k];
+      part[(9 + 4 * k) * R] = s_ac[k];
+      part[(10 + 4 * k) * R] = s_uc[k];
+    }
+  }
+  __syncthreads();
+  if (lane != 0) return;
 
+  // lane 0: the row's sums over the lanes, in lane order, and its terms
+  float f[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    s_aa[k] = 0.0f; s_ua[k] = 0.0f; s_ac[k] = 0.0f; s_uc[k] = 0.0f;
+  }
+  for (int l = 0; l < lanes; ++l) {
+    const float* pl = Lp + l * VF_NLL_PARTS * R;
+#pragma unroll
+    for (int o = 0; o < 7; ++o) f[o] += pl[o * R];
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < n_ranges) {
+        s_aa[k] += pl[(7 + 4 * k) * R];
+        s_ua[k] += pl[(8 + 4 * k) * R];
+        s_ac[k] += pl[(9 + 4 * k) * R];
+        s_uc[k] += pl[(10 + 4 * k) * R];
+      }
+    }
+  }
+  const float d_cond = var_ii - f[0];
+  sum_aa = f[1]; sum_ua = f[2];
+  // diagonal of C0 is var on valid slots
+  v_aa = f[3] + var * sum_aa;
+  v_ua = f[4] + var * sum_ua;
+  v_ac = f[5]; v_uc = f[6];
+
+  float out[1 + VF_MAX_P];
+#pragma unroll
+  for (int o = 0; o <= VF_MAX_P; ++o) out[o] = 0.0f;
+  if (i < n) {
     const float w = row_valid ? row_valid[i] : 1.0f;
     const float inv_d = 1.0f / d_cond;
     const float e_d = e * inv_d;
@@ -350,37 +655,82 @@ nll_grad_kernel(const float* __restrict__ logp,
     // log var: dC = C0, dc = c, dv = var
     out[2] = g_D * (var - 2.0f * v_ac + v_aa) + g_e * (v_ua - v_uc);
     // log range(s): dv = 0
-    for (int k = 0; k < n_ranges; ++k)
-      out[3 + k] = g_D * (s_aa[k] - 2.0f * s_ac[k]) + g_e * (s_ua[k] - s_uc[k]);
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      if (k < n_ranges)
+        out[3 + k] = g_D * (s_aa[k] - 2.0f * s_ac[k]) +
+                     g_e * (s_ua[k] - s_uc[k]);
+    }
   }
 
-  // block reduction: warp shuffles, then one slot per warp in shared memory
-  __shared__ float warp_sums[VF_THREADS / 32][1 + VF_MAX_P];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int t = 0; t <= p; ++t) {
-    float v = out[t];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][t] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x <= p) {
-    float v = 0.0f;
-    for (int wi = 0; wi < VF_THREADS / 32; ++wi) v += warp_sums[wi][threadIdx.x];
-    scratch[(size_t)blockIdx.x * (1 + p) + threadIdx.x] = v;
+  // block reduction over the rows: lane 0 of the R rows is threads 0..R-1
+  // of the first warp; shuffles within width R (a lane past the end adds
+  // its own value and is never read by thread 0), thread 0 writes the
+  // block's row of scratch
+  const unsigned lanes0 = R == 32 ? 0xffffffffu : (1u << R) - 1u;
+#pragma unroll
+  for (int o = 0; o <= VF_MAX_P; ++o) {
+    if (o <= p) {
+      float v = out[o];
+      for (int off = R >> 1; off > 0; off >>= 1)
+        v += __shfl_down_sync(lanes0, v, off, R);
+      if (t == 0) scratch[(size_t)blockIdx.x * (1 + p) + o] = v;
+    }
   }
 }
 
-inline int grid_for(int n) { return (n + VF_THREADS - 1) / VF_THREADS; }
+// rows per block of nll_grad_kernel: the largest R in {32, 16} whose block
+// fits VF_NLL_SMEM_BUDGET, else 8; 0 outside the kernel's limits
+int rows_per_block(int m, int d) {
+  if (m < 1 || m > VF_MAX_M || d < 1 || d > VF_MAX_D) return 0;
+  int rows = 32;
+  while (rows > 8 && rows * nll_row_floats(m, d, VF_NLL_THREADS / rows) *
+                             (int)sizeof(float) >
+                         VF_NLL_SMEM_BUDGET)
+    rows >>= 1;
+  return rows;
+}
+
+int smem_bytes(int m, int d) {
+  const int rows = rows_per_block(m, d);
+  return rows * nll_row_floats(m, d, VF_NLL_THREADS / rows) *
+         (int)sizeof(float);
+}
+
+template <int DMAX>
+int launch_nll_grad(const float* logp, const float* coords,
+                    const int* neighbors, const float* row_coords,
+                    const float* r, const float* row_r, const float* row_valid,
+                    float* scratch, int n, int m, int d, int shape, int ard,
+                    cudaStream_t st) {
+  const int rows = rows_per_block(m, d);
+  const int bytes = smem_bytes(m, d);
+  // above 48 KB a block must opt in (set per launch: attributes belong to
+  // the current device)
+  if (bytes > VF_SMEM_DEFAULT_MAX) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nll_grad_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  nll_grad_kernel<DMAX><<<(n + rows - 1) / rows, VF_NLL_THREADS, bytes, st>>>(
+      logp, coords, neighbors, row_coords, r, row_r, row_valid, scratch, n, m,
+      d, shape, ard, rows);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-int vf_block_threads() { return VF_THREADS; }
 int vf_max_m() { return VF_MAX_M; }
 int vf_max_d() { return VF_MAX_D; }
+
+// rows per block of the NLL kernel, and its dynamic shared memory per block
+// in bytes, for m neighbours in d dimensions (0 outside the limits); the
+// caller sizes scratch as [ceil(n / rows), 1 + p]
+int vf_nll_rows_per_block(int m, int d) { return rows_per_block(m, d); }
+int vf_nll_smem_bytes(int m, int d) { return smem_bytes(m, d); }
 
 // A [n, m], D [n] from pars = (var, nugget, scale_1..scale_d), coords
 // [n_obs, d], neighbors int32 [n, m], row_coords [n, d]. All device
@@ -394,7 +744,7 @@ int vecchia_factors_launch(const float* pars, const float* coords,
       shape > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(grid_for(n)), block(VF_THREADS);
+  const dim3 grid((n + VF_THREADS - 1) / VF_THREADS), block(VF_THREADS);
   if (m <= 24)
     factors_kernel<24><<<grid, block, 0, st>>>(
         pars, coords, neighbors, row_coords, A, D, n, m, d, shape,
@@ -410,8 +760,8 @@ int vecchia_factors_launch(const float* pars, const float* coords,
   return (int)cudaGetLastError();
 }
 
-// scratch [grid, 3 + n_ranges] per-block sums of (nll without the 2 pi
-// constant, gradient w.r.t. logp); grid = ceil(n / vf_block_threads()).
+// scratch [ceil(n / vf_nll_rows_per_block(m, d)), 3 + n_ranges] per-block
+// sums of (nll without the 2 pi constant, gradient w.r.t. logp).
 // row_valid may be null (all rows count).
 int vecchia_nll_grad_launch(const float* logp, const float* coords,
                             const int* neighbors, const float* row_coords,
@@ -423,20 +773,15 @@ int vecchia_nll_grad_launch(const float* logp, const float* coords,
       shape > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(grid_for(n)), block(VF_THREADS);
-  if (m <= 24)
-    nll_grad_kernel<24><<<grid, block, 0, st>>>(
-        logp, coords, neighbors, row_coords, r, row_r, row_valid, scratch, n,
-        m, d, shape, ard);
-  else if (m <= 40)
-    nll_grad_kernel<40><<<grid, block, 0, st>>>(
-        logp, coords, neighbors, row_coords, r, row_r, row_valid, scratch, n,
-        m, d, shape, ard);
-  else
-    nll_grad_kernel<VF_MAX_M><<<grid, block, 0, st>>>(
-        logp, coords, neighbors, row_coords, r, row_r, row_valid, scratch, n,
-        m, d, shape, ard);
-  return (int)cudaGetLastError();
+  if (d <= 2)
+    return launch_nll_grad<2>(logp, coords, neighbors, row_coords, r, row_r,
+                              row_valid, scratch, n, m, d, shape, ard, st);
+  if (d <= 4)
+    return launch_nll_grad<4>(logp, coords, neighbors, row_coords, r, row_r,
+                              row_valid, scratch, n, m, d, shape, ard, st);
+  return launch_nll_grad<VF_MAX_D>(logp, coords, neighbors, row_coords, r,
+                                   row_r, row_valid, scratch, n, m, d, shape,
+                                   ard, st);
 }
 
 }  // extern "C"

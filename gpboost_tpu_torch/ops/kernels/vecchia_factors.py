@@ -1,7 +1,7 @@
 """Fused Vecchia factor kernels: hand-written CUDA for Hopper + plain versions.
 
-Two kernels, both in ``csrc/vecchia_factors.cu`` (CUDA C++, ``sm_90a``, one
-thread per row, built by ``ops/kernels/_build.py`` at first use):
+Two kernels, both in ``csrc/vecchia_factors.cu`` (CUDA C++, ``sm_90a``, built
+by ``ops/kernels/_build.py`` at first use):
 
 - :func:`vecchia_factors` replaces the TPU kernel
   ``gpboost_tpu/ops/kernels/vecchia_factors.py::vecchia_factors_pallas``:
@@ -13,11 +13,15 @@ thread per row, built by ``ops/kernels/_build.py`` at first use):
   body; the CUDA kernel carries the gradient derived by hand (formulas in the
   header of the ``.cu`` file).
 
-Both are bound by operations, not bytes: a row reads (m + d + 1) and writes
-(m + 1) floats but costs ~m^3/3 FLOPs of Cholesky and m(m+1)/2 exp/sqrt.
-The design therefore keeps the whole per-row problem private to one thread
-(no traffic between threads, no intermediate in device memory) and lets the
-132 SMs hide the local-memory latency of the packed triangle with occupancy.
+A row reads (m + d + 1) and writes (m + 1) floats but costs ~m^3/3 FLOPs of
+Cholesky and m(m+1)/2 exp/sqrt, so the per-row problem stays on the SM (no
+intermediate in device memory). Where its arrays live sets the time:
+``vecchia_factors`` gives a row one thread and keeps its packed triangle in
+a per-thread local array (a stack frame that spills to device memory);
+``vecchia_nll_grad`` keeps every per-row array in dynamic shared memory,
+element-major, and gives a row 128 / R threads (lanes), R rows a block,
+with R chosen from (m, d) at launch (:func:`nll_launch_geometry` mirrors
+the choice in Python; the scratch tensor has one row per block).
 
 Beside each kernel stands its plain PyTorch version
 (:func:`vecchia_factors_plain`, :func:`vecchia_nll_grad_plain`); a wrapper
@@ -46,7 +50,11 @@ from gpboost_tpu_torch.ops.kernels._build import raise_on_error as _raise_on
 _SUPPORTED_SHAPES = (0.5, 1.5, 2.5, -1.0)  # -1.0 = gaussian (sq-exp)
 MAX_M = 64   # VF_MAX_M of the .cu file (the packed triangle's capacity)
 MAX_D = 8    # VF_MAX_D
-BLOCK_THREADS = 128  # VF_THREADS: rows per block
+NLL_SMEM_BUDGET = 76 * 1024   # VF_NLL_SMEM_BUDGET: bytes a block of 32 or 16
+                              # rows of the NLL kernel may take
+SMEM_PER_BLOCK_MAX = 232_448  # the most shared memory a block of sm_90 has
+NLL_THREADS = 128             # VF_NLL_THREADS: threads a block, R rows x lanes
+NLL_PARTS = 7 + 4 * MAX_D     # VF_NLL_PARTS: partial sums a lane hands on
 
 
 def _shape_code(shape: float) -> int:
@@ -55,6 +63,32 @@ def _shape_code(shape: float) -> int:
             return code
     raise ValueError(f"shape: unsupported shape {shape} (supported: "
                      f"{_SUPPORTED_SHAPES}, -1.0 = gaussian)")
+
+
+def nll_launch_geometry(m: int, d: int) -> tuple:
+    """(rows per block, dynamic shared memory bytes per block) of the NLL
+    kernel for ``m`` neighbours in ``d`` dimensions: the Python mirror of
+    ``vf_nll_rows_per_block`` / ``vf_nll_smem_bytes`` of the ``.cu`` file.
+
+    A block has ``NLL_THREADS`` threads: R rows of ``NLL_THREADS // R``
+    lanes. A row keeps its packed triangle (whose room must also take the
+    lanes' ``NLL_PARTS`` partial sums each), neighbour coordinates, a and u
+    in shared memory; the block takes the largest R in {32, 16} whose rows
+    fit ``NLL_SMEM_BUDGET``, else 8."""
+    def block_bytes(rows):
+        lanes = NLL_THREADS // rows
+        tri_room = max(m * (m + 1) // 2, lanes * NLL_PARTS)
+        return 4 * rows * (tri_room + m * d + 2 * m)
+
+    rows = 32
+    while rows > 8 and block_bytes(rows) > NLL_SMEM_BUDGET:
+        rows //= 2
+    return rows, block_bytes(rows)
+
+
+def nll_blocks(n: int, rows_per_block: int) -> int:
+    """Blocks of the NLL kernel for n rows = rows of its scratch tensor."""
+    return -(-n // rows_per_block)
 
 
 def _cov_fn(shape: float, ard: bool, dim: int) -> CovFunction:
@@ -131,15 +165,27 @@ def _lib() -> ctypes.CDLL:
         lib.vecchia_nll_grad_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.vecchia_nll_grad_launch.restype = ci
-        for fn in (lib.vf_block_threads, lib.vf_max_m, lib.vf_max_d):
+        for fn in (lib.vf_max_m, lib.vf_max_d):
             fn.argtypes = []
             fn.restype = ci
-        built = (lib.vf_block_threads(), lib.vf_max_m(), lib.vf_max_d())
-        if built != (BLOCK_THREADS, MAX_M, MAX_D):
+        for fn in (lib.vf_nll_rows_per_block, lib.vf_nll_smem_bytes):
+            fn.argtypes = [ci, ci]
+            fn.restype = ci
+        built = (lib.vf_max_m(), lib.vf_max_d())
+        if built != (MAX_M, MAX_D):
             raise RuntimeError(
-                f"csrc/vecchia_factors.cu was built with (threads, max m, "
-                f"max d) = {built}; this module expects "
-                f"{(BLOCK_THREADS, MAX_M, MAX_D)}")
+                f"csrc/vecchia_factors.cu was built with (max m, max d) = "
+                f"{built}; this module expects {(MAX_M, MAX_D)}")
+        for m in range(1, MAX_M + 1):
+            for d in range(1, MAX_D + 1):
+                got = (lib.vf_nll_rows_per_block(m, d),
+                       lib.vf_nll_smem_bytes(m, d))
+                if got != nll_launch_geometry(m, d):
+                    raise RuntimeError(
+                        f"csrc/vecchia_factors.cu launches the NLL kernel at "
+                        f"m = {m}, d = {d} with (rows, shared bytes) = {got}; "
+                        f"nll_launch_geometry says "
+                        f"{nll_launch_geometry(m, d)}")
         _LIB = lib
     return _LIB
 
@@ -263,10 +309,12 @@ def vecchia_nll_grad(log_cov_pars, coords, neighbors, r, shape: float,
     _check("row_r", row_r, torch.float32, (n,), device)
     if row_valid is not None:
         _check("row_valid", row_valid, torch.float32, (n,), device)
-    grid = (n + BLOCK_THREADS - 1) // BLOCK_THREADS
-    scratch = torch.empty((grid, 1 + p), dtype=torch.float32, device=device)
+    lib = _lib()
+    # one row of per-block sums for each block the kernel launches with
+    blocks = nll_blocks(n, lib.vf_nll_rows_per_block(m, d))
+    scratch = torch.empty((blocks, 1 + p), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = _lib().vecchia_nll_grad_launch(
+        err = lib.vecchia_nll_grad_launch(
             log_cov_pars.data_ptr(), coords.data_ptr(), neighbors.data_ptr(),
             row_coords.data_ptr(), r.data_ptr(), row_r.data_ptr(),
             None if row_valid is None else row_valid.data_ptr(),

@@ -1,13 +1,16 @@
 """The port's CUDA kernels on the card, at small sizes: the corners that the
 full-size run of ``chip_smoke.py`` does not reach (every capacity tier of the
-per-thread triangle, d = 1 and 3, no nugget, row shards, the input checks on
-CUDA tensors). Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere. Run on
-the GPU machine with
+factor kernel's per-thread triangle; every rows-per-block choice of the NLL
+kernel, a last block that is not full, its largest shared-memory block at
+m = 64, d = 8; d = 1 and 3, no nugget, row shards, the input checks on CUDA
+tensors). Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere. Run on the GPU
+machine with
 
     python -m pytest tests/test_torch_gpu_kernels.py --noconftest -q
 
 Tolerances: A, D atol 2e-5 vs the float32 plain version; NLL 1e-5 relative
-and gradient rtol 1e-3 (+ 1e-3 absolute) vs float64 autograd; histogram
+and gradient rtol 1e-3 (+ 1e-3 absolute per 900 rows: float32 row terms
+add up) vs float64 autograd, two launches bit-identical; histogram
 counts exact, its gradient / hessian sums within 1e-5 x (sum of |v| over the
 bin) of the float64 plain version (float32 atomics add in any order).
 """
@@ -41,7 +44,7 @@ def _problem(dev, n, m, d, seed=0):
 
 
 def _pars(dev, ard, d, dtype=torch.float32):
-    ranges = [0.3, 0.2, 0.45, 0.25][:d] if ard else [0.3]
+    ranges = [0.3, 0.2, 0.45, 0.25, 0.35, 0.5, 0.4, 0.3][:d] if ard else [0.3]
     return torch.tensor([0.25, 1.1] + ranges, dtype=dtype, device=dev)
 
 
@@ -79,7 +82,7 @@ def test_factors_kernel_without_nugget_and_with_row_coords(dev):
         np.testing.assert_allclose(d_k.cpu(), d_p.cpu(), rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("m", [6, 24, 40, 64])
+@pytest.mark.parametrize("m", [1, 2, 6, 20, 24, 25, 32, 40, 41, 64])
 @pytest.mark.parametrize("d,ard,shape", [(1, False, 1.5), (2, False, 0.5),
                                           (3, True, 0.5), (3, True, -1.0),
                                           (2, True, 2.5)])
@@ -95,6 +98,51 @@ def test_nll_grad_kernel_matches_float64_autograd(dev, m, d, ard, shape):
     assert abs(float(v_k) - float(v64)) < 1e-5 * abs(float(v64))
     np.testing.assert_allclose(g_k.cpu().double(), g64.cpu(), rtol=1e-3,
                                atol=1e-3)
+
+
+def _assert_nll_grad_close(lp, coords, nb, r, shape, ard, v_k, g_k):
+    v64, g64 = vk.vecchia_nll_grad_plain(lp.double(), coords.double(), nb,
+                                         r.double(), shape, ard=ard)
+    assert abs(float(v_k) - float(v64)) < 1e-5 * abs(float(v64))
+    atol = 1e-3 * max(1.0, nb.shape[0] / 900)
+    np.testing.assert_allclose(g_k.cpu().double(), g64.cpu(), rtol=1e-3,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("which", ["one", "rows-1", "rows+1", "10007"])
+@pytest.mark.parametrize("m,d", [(20, 2), (40, 2), (64, 2)])
+def test_nll_grad_kernel_last_block_not_full(dev, m, d, which):
+    rows = vk._lib().vf_nll_rows_per_block(m, d)
+    assert rows == {20: 32, 40: 16, 64: 8}[m]
+    n = {"one": 1, "rows-1": rows - 1, "rows+1": rows + 1,
+         "10007": 10_007}[which]
+    coords, r, nb = _problem(dev, n, m, d, seed=5)
+    lp = torch.log(_pars(dev, False, d))
+    v_k, g_k = vk.vecchia_nll_grad(lp, coords, nb, r, 0.5)
+    torch.cuda.synchronize()
+    _assert_nll_grad_close(lp, coords, nb, r, 0.5, False, v_k, g_k)
+
+
+def test_nll_grad_kernel_largest_shared_memory_block(dev):
+    """m = 64, d = 8 ARD: 8 rows of 10 880 bytes, the largest block (above
+    48 KB, so the launch opts in to more dynamic shared memory)."""
+    m, d = 64, 8
+    assert vk.nll_launch_geometry(m, d) == (8, 87_040)
+    coords, r, nb = _problem(dev, 700, m, d, seed=6)
+    lp = torch.log(_pars(dev, True, d))
+    v_k, g_k = vk.vecchia_nll_grad(lp, coords, nb, r, 1.5, ard=True)
+    torch.cuda.synchronize()
+    _assert_nll_grad_close(lp, coords, nb, r, 1.5, True, v_k, g_k)
+
+
+@pytest.mark.parametrize("m,d,ard", [(20, 2, False), (40, 3, True),
+                                     (64, 8, True)])
+def test_nll_grad_kernel_second_launch_bit_identical(dev, m, d, ard):
+    coords, r, nb = _problem(dev, 3001, m, d, seed=7)
+    lp = torch.log(_pars(dev, ard, d))
+    v1, g1 = vk.vecchia_nll_grad(lp, coords, nb, r, 2.5, ard=ard)
+    v2, g2 = vk.vecchia_nll_grad(lp, coords, nb, r, 2.5, ard=ard)
+    assert torch.equal(v1, v2) and torch.equal(g1, g2)
 
 
 def test_nll_grad_kernel_row_shards_add_up(dev):

@@ -11,7 +11,10 @@ their plain versions there). Here:
   there is no AD in CUDA) are transcribed to a few lines of float64 PyTorch
   and held against ``torch.autograd`` of the plain version at 1e-9, for all
   four shapes, isotropic and ARD, with -1 padding present;
-- the wrappers' input checks, which are plain Python.
+- the wrappers' input checks, which are plain Python;
+- the NLL kernel's launch geometry (rows per block, shared memory per block,
+  rows of the scratch tensor), through its Python mirror, which the library
+  is checked against when it is loaded.
 """
 import math
 
@@ -259,3 +262,29 @@ def test_launch_counters_untouched_on_cpu():
                        0.5)
     assert vk.launch_counts() == {"vecchia_factors": 0,
                                   "vecchia_nll_grad": 0}
+
+
+@pytest.mark.parametrize("d", range(1, vk.MAX_D + 1))
+def test_nll_launch_geometry_fits_the_card(d):
+    """Every (m, d) the kernel takes: R in {8, 16, 32} rows, a block within
+    the budget unless R = 8 and always within the 227 KB of shared memory a
+    Hopper block can have, room in each row for its triangle, neighbour
+    coordinates, a and u, fewer rows a block as m grows, and one scratch row
+    per block."""
+    prev_rows = 32
+    for m in range(1, vk.MAX_M + 1):
+        rows, nbytes = vk.nll_launch_geometry(m, d)
+        assert rows in (8, 16, 32)
+        assert rows <= prev_rows
+        prev_rows = rows
+        assert nbytes <= vk.SMEM_PER_BLOCK_MAX == 232_448
+        assert rows == 8 or nbytes <= vk.NLL_SMEM_BUDGET
+        assert nbytes % (4 * rows) == 0
+        assert nbytes // (4 * rows) >= m * (m + 1) // 2 + m * d + 2 * m
+        for n in (1, rows - 1, rows, rows + 1, 10_007, 100_000):
+            blocks = vk.nll_blocks(n, rows)
+            assert blocks == math.ceil(n / rows)
+            assert (blocks - 1) * rows < n <= blocks * rows
+    # the main path's shape keeps full warps: 32 rows of 4 lanes, 290 floats
+    # a row (210 of triangle, 40 of coordinates, 20 + 20 of a and u)
+    assert vk.nll_launch_geometry(20, 2) == (32, 32 * 4 * 290)
