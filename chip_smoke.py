@@ -7,14 +7,18 @@
 Needs one NVIDIA GPU with ``nvcc`` on the machine; exits non-zero without
 one. It
 
-1. builds the CUDA kernels of ``gpboost_tpu_torch/csrc`` from source;
+1. builds the CUDA kernels of ``gpboost_tpu_torch/csrc`` from source and
+   checks by ptxas's report that no instance of the Vecchia kernels or the
+   histogram kernel has a stack frame or spills;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths use, and times both: the Vecchia kernels for all
    four covariance shapes, isotropic and ARD, neighbour sets with -1
-   padding, and the NLL kernel also at m = 40 and m = 64 on the same
-   points (its other rows-per-block choices); the histogram kernel at the
-   boosting path's shape with a full, a 3 %, an empty and a one-bin mask,
-   and at F = 50, B = 64 and n = 1 000 003;
+   padding, two launches bit-identical, and the NLL kernel also at m = 40
+   and m = 64 on the same points (its other rows-per-block choices); the
+   histogram kernel at the boosting path's shape with a full, a 3 %, an
+   empty and a one-bin mask, and at F = 50, B = 64 and n = 1 000 003, and
+   the operations one call puts on the stream (``torch.profiler`` trace:
+   one, the kernel);
 3. drives the GP path once through the public API at full size:
    ``GPModel`` construct (ordering + neighbour search), NLL, L-BFGS fit,
    prediction with variances — a Gaussian Vecchia GP with n = 100 000 points,
@@ -229,6 +233,12 @@ def check_kernels(coords, y, pred, m, seed, dev):
                 a_k, d_k = vk.vecchia_factors(cp[1:], tab, nbrs, cp[0], True,
                                               shape, ard=ard, row_coords=rows)
                 torch.cuda.synchronize()
+                a_k2, d_k2 = vk.vecchia_factors(cp[1:], tab, nbrs, cp[0], True,
+                                                shape, ard=ard,
+                                                row_coords=rows)
+                check(torch.equal(a_k, a_k2) and torch.equal(d_k, d_k2),
+                      f"vecchia_factors[{tag}] shape={shape} ard={ard}: two "
+                      "launches differ bit-wise")
                 a_p, d_p = vk.vecchia_factors_plain(
                     cp[1:], tab, nbrs, cp[0], True, shape, ard=ard,
                     row_coords=rows)
@@ -256,9 +266,11 @@ def check_kernels(coords, y, pred, m, seed, dev):
             cp[1:], tab, nbrs, cp[0], True, 0.5, row_coords=rows), 5)
         b_ms, b_by = bound("vecchia_factors", nbrs, d, tab.shape[0],
                            rows is None, 1)
+        r_blk, smem = vk.factors_launch_geometry(int(nbrs.shape[1]), d)
         timed[tag] = dict(case=tag, n=int(nbrs.shape[0]),
                           m=int(nbrs.shape[1]), ms=ms, plain_ms=plain,
-                          bound_ms=b_ms, bound_by=b_by)
+                          bound_ms=b_ms, bound_by=b_by, rows_per_block=r_blk,
+                          smem_bytes_per_block=smem)
     ms = time_ms(lambda: vk.vecchia_nll_grad(lp, c32, nb, r32, 0.5), 20)
     plain = time_ms(lambda: vk.vecchia_nll_grad_plain(lp, c32, nb, r32, 0.5),
                     5)
@@ -364,6 +376,22 @@ def hist_bound(n, n_masked, F, B):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = 3.0 * n_masked * F / H100_F32_FLOPS * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def stream_ops(fn):
+    """Names of the device operations (kernels, memsets, copies) one call of
+    ``fn`` puts on the stream, from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return names
 
 
 def check_histogram(ds, seed, dev):
@@ -483,7 +511,8 @@ def check_histogram(ds, seed, dev):
         library_ms=time_ms(library, 20),
         empty_launch_ms=time_ms(hk.empty_launch, 200),
         empty_launch_device_ms=graph_ms(hk.empty_launch, 200),
-        bound_ms=b_ms, bound_by=b_by, run_to_run_max_abs_diff=run_to_run)
+        bound_ms=b_ms, bound_by=b_by, run_to_run_max_abs_diff=run_to_run,
+        cluster_blocks=hk._lib().hist_cluster_blocks())
     sb_ms, sb_by = hist_bound(n, cases[1]["rows_in_mask"], F, B)
     timed["other_shapes"] = [dict(
         case="3pct_mask", n=n, F=F, B=B, rows_in_mask=cases[1]["rows_in_mask"],
@@ -494,7 +523,7 @@ def check_histogram(ds, seed, dev):
     emit({"phase": "histogram_vs_plain", "tolerance":
           f"counts exact; sums within {HIST_SUM_TOL} x sum|v| of the bin",
           "cases": cases, "run_to_run_max_abs_diff": run_to_run})
-    return cases, timed
+    return cases, timed, kernel(full)
 
 
 # ---------------------------------------------------------------------------
@@ -799,21 +828,28 @@ def main():
     ptxas = [ln for name in libs for ln in _build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln
              or "Function properties" in ln]
-    nll_ptxas = ptxas_report(_build.build_log("vecchia_factors"),
-                             "nll_grad_kernel")
-    check(len(nll_ptxas) == 3 and all("registers" in x for x in nll_ptxas),
-          f"ptxas lines of the NLL kernel's three instances (d <= 2, 4, 8) "
-          f"not found: {nll_ptxas}")
+    kernel_ptxas = {k: ptxas_report(_build.build_log(src), k)
+                    for k, src in (("factors_kernel", "vecchia_factors"),
+                                   ("nll_grad_kernel", "vecchia_factors"),
+                                   ("hist_kernel", "histogram"))}
+    for kernel, rep in kernel_ptxas.items():
+        count = 1 if kernel == "hist_kernel" else 3
+        check(len(rep) == count and all("registers" in x for x in rep),
+              f"ptxas lines of {kernel}'s {count} instance(s) (d <= 2, 4, 8 "
+              f"for the Vecchia kernels) not found: {rep}")
+        check(all(x["stack_frame_bytes"] == x["spill_store_bytes"]
+                  == x["spill_load_bytes"] == 0 for x in rep),
+              f"{kernel}: a stack frame or spills, its per-row arrays must "
+              f"stay in shared memory and registers: {rep}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(libs), "ptxas": ptxas,
-          "nll_grad_kernel": nll_ptxas})
+          "sources": sorted(libs), "ptxas": ptxas, **kernel_ptxas})
 
     coords, y, pred = make_data(args.seed, args.n, args.n_pred)
     boost_data = make_boost_data(args.seed, y, args.n_pred)
     t0 = time.perf_counter()
     cases, timed = check_kernels(coords, y, pred, args.m, args.seed, dev)
     hist_ds = gpt.Dataset(boost_data[0], label=boost_data[1], device=dev)
-    cases["histogram"], timed["histogram"] = check_histogram(
+    cases["histogram"], timed["histogram"], hist_call = check_histogram(
         hist_ds, args.seed, dev)
     del hist_ds
     t_check = time.perf_counter() - t0
@@ -825,6 +861,14 @@ def main():
     timings["histogram_ms"] = timed["histogram"]["ms"]
     timings["kernel_checks_s"] = t_check
     emit({"timings": timings, "card": smi})
+
+    # after the paths, so that the profiler's session cannot touch their
+    # host times: what one histogram call puts on the stream
+    ops = stream_ops(hist_call)
+    check(len(ops) == 1 and "hist_kernel" in ops[0],
+          f"histogram: one call put {len(ops)} operations on the stream "
+          f"(profiler trace), expected one, hist_kernel: {ops}")
+    timed["histogram"].update(stream_ops_per_call=len(ops), stream_ops=ops)
 
     # a kernel that a path runs must have been launched in that path's run
     for path, counts, names in (
@@ -856,23 +900,37 @@ def main():
                 plain_f64_ms=t["plain_f64_ms"],
                 empty_launch_ms=t["empty_launch_ms"],
                 empty_launch_device_ms=t["empty_launch_device_ms"],
+                stream_ops_per_call=t["stream_ops_per_call"],
+                stream_ops=t["stream_ops"],
+                cluster_blocks=t["cluster_blocks"],
+                stack_frame_bytes=kernel_ptxas["hist_kernel"][0][
+                    "stack_frame_bytes"],
+                ptxas=kernel_ptxas["hist_kernel"],
                 run_to_run_max_abs_diff=t["run_to_run_max_abs_diff"],
                 library_is="one index_add_ on a prepared flat index",
                 other_shapes=t["other_shapes"])
         else:
             entry["m"] = t["m"]
         if name == "vecchia_factors":
-            entry["other_shapes"] = [timed["predict"]]
+            entry.update(
+                rows_per_block=t["rows_per_block"],
+                threads_per_block=vk.BLOCK_THREADS,
+                smem_bytes_per_block=t["smem_bytes_per_block"],
+                stack_frame_bytes=max(x["stack_frame_bytes"]
+                                      for x in kernel_ptxas["factors_kernel"]),
+                ptxas=kernel_ptxas["factors_kernel"],
+                other_shapes=[timed["predict"]])
         elif name == "vecchia_nll_grad":
             entry["max_abs_err_is"] = ("largest gradient component error vs "
                                        "float64 autograd")
             rows, smem = vk.nll_launch_geometry(t["m"], coords.shape[1])
             entry.update(
-                rows_per_block=rows, threads_per_block=vk.NLL_THREADS,
+                rows_per_block=rows, threads_per_block=vk.BLOCK_THREADS,
                 smem_bytes_per_block=smem,
                 stack_frame_bytes=max(x["stack_frame_bytes"]
-                                      for x in nll_ptxas),
-                ptxas=nll_ptxas, other_shapes=t["other_shapes"])
+                                      for x in kernel_ptxas["nll_grad_kernel"]),
+                ptxas=kernel_ptxas["nll_grad_kernel"],
+                other_shapes=t["other_shapes"])
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,93 +13,167 @@
 // matrix unit because the TPU has no scatter. A GPU scatters natively, so
 // the form here is the one of the reference's own GPU learner
 // (treelearner/ocl/histogram256.cl): a block keeps a private histogram of
-// its feature tile in shared memory (HIST_F_TILE features x 256 bins x
-// (g, h, count) = 24 KB), walks chunks of HIST_ROWS rows in a grid-stride
-// loop, reads the mask first and, for rows inside it, grad, hess and one
-// byte per feature from the features-major uint8 panel (neighbouring
-// threads read neighbouring rows: coalesced), accumulates with shared-memory
-// atomics and finally adds its non-empty bins into the zeroed result with
-// global atomics. Counts are accumulated as unsigned integers, in shared
-// and in global memory, so they are exact and independent of the order; a
-// second small kernel converts them to float32 in place. The float sums are
-// order-dependent in their last bits (float atomics).
+// its feature tile in shared memory (up to HIST_F_TILE features x 256 bins
+// x (g, h, count) = 24 KB) and fills it with shared-memory atomics from the
+// features-major uint8 panel, reading the mask first and, for the rows
+// inside it, grad, hess and one byte per feature (neighbouring threads read
+// neighbouring rows: coalesced; a thread takes HIST_ILP rows at once, so
+// that their loads overlap).
+//
+// One launch does the whole call, with Hopper's thread-block clusters: a
+// cluster of C blocks (HIST_CLUSTER_BLOCKS = 16, a non-portable size) per
+// feature tile, block r of it taking the row chunks r, r + C,
+// ... After a cluster barrier, block r owns a fixed slice of the tile's
+// bin slots: it reads the slice from the C blocks' shared memory through
+// distributed shared memory, adds the C values in rank order and writes g,
+// h and float(count) straight into the output, every slot of which some
+// block writes. A second cluster barrier keeps every block's shared memory
+// alive until the others have read it. So there is no memset, no global
+// atomic and no conversion kernel: one stream operation. Counts are
+// unsigned integers, exact (to 2^24 rows a bin, where float32 stops
+// counting). The float sums are added across blocks in a fixed order, but
+// inside a block the shared atomics add in any order, so the sums still
+// vary in their last bits from run to run.
+//
+// A float atomicAdd on shared memory is a compare-and-swap loop on this
+// card (integer atomics measured 2.4x faster), and the rows' atomics are
+// what a call's time goes to. So a cluster takes as few features as keep
+// the grid within one block an SM (tile = ceil(F C / SMs), 1 .. 8): at
+// F = 5 five clusters of one feature, 80 SMs; one cluster of 8 features
+// would leave every row on 16 SMs. C = 16 measured faster than 8 there.
 //
 // Bound: bytes. A call reads n mask bytes, 8 bytes of grad and hess and F
 // bin bytes per row inside the mask and writes 12 F B bytes; it does 3 F
 // additions per row. At the sizes in use (n = 1e5, F = 5: 1.4 MB) that is
-// under a microsecond of memory time, so in practice the launch (memset,
-// two kernels) and the atomics bound it.
+// under a microsecond of memory time: in practice the shared atomics and
+// the fixed cost of a clustered launch (~5 us at C = 16) bound it.
 //
 // Plain C interface (loaded with ctypes); the launcher works on the stream
-// it is given, allocates nothing and does not synchronise. It returns
-// cudaGetLastError().
+// it is given, allocates nothing and does not synchronise. It returns the
+// launch's error code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#define HIST_THREADS 256
-#define HIST_ROWS 1024      // rows per chunk of the grid-stride loop
-#define HIST_F_TILE 8       // features per block
-#define HIST_MAX_BINS 256   // capacity of the shared histogram per feature
+namespace cg = cooperative_groups;
+
+#define HIST_THREADS 1024
+#define HIST_ILP 4              // rows a thread takes at once
+#define HIST_F_TILE 8           // the most features a cluster takes
+#define HIST_MAX_BINS 256       // capacity of the shared histogram per feature
+#define HIST_CLUSTER_BLOCKS 16  // blocks a cluster (non-portable: above 8)
+#define HIST_MAX_DEVICES 64     // devices whose cluster opt-in is remembered
+#define HIST_RANKS_AT_ONCE 4    // cluster blocks read together in the sum
 
 namespace {
 
-__global__ void __launch_bounds__(HIST_THREADS)
+// a block's histogram of its feature tile
+struct HistTile {
+  float g[HIST_F_TILE * HIST_MAX_BINS];
+  float h[HIST_F_TILE * HIST_MAX_BINS];
+  unsigned int c[HIST_F_TILE * HIST_MAX_BINS];
+};
+
+// tile: features a cluster (<= HIST_F_TILE); blockIdx.y = feature tile.
+// One block an SM (1 024 threads): ptxas may take up to 64 registers.
+__global__ void __launch_bounds__(HIST_THREADS, 1)
 hist_kernel(const unsigned char* __restrict__ bins,
             const float* __restrict__ grad, const float* __restrict__ hess,
-            const unsigned char* __restrict__ mask,
-            float* __restrict__ out_g, float* __restrict__ out_h,
-            unsigned int* __restrict__ out_c, int n, int F, int B) {
-  __shared__ float s_g[HIST_F_TILE * HIST_MAX_BINS];
-  __shared__ float s_h[HIST_F_TILE * HIST_MAX_BINS];
-  __shared__ unsigned int s_c[HIST_F_TILE * HIST_MAX_BINS];
+            const unsigned char* __restrict__ mask, float* __restrict__ out,
+            int n, int F, int B, int tile) {
+  __shared__ HistTile hist;
 
-  const int f0 = blockIdx.y * HIST_F_TILE;
-  const int nf = min(HIST_F_TILE, F - f0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int f0 = blockIdx.y * tile;
+  const int nf = min(tile, F - f0);
   const int slots = nf * HIST_MAX_BINS;
   for (int k = threadIdx.x; k < slots; k += HIST_THREADS) {
-    s_g[k] = 0.0f;
-    s_h[k] = 0.0f;
-    s_c[k] = 0u;
+    hist.g[k] = 0.0f;
+    hist.h[k] = 0.0f;
+    hist.c[k] = 0u;
   }
   __syncthreads();
 
-  const unsigned char* tile = bins + (size_t)f0 * (size_t)n;
-  const int chunks = (n + HIST_ROWS - 1) / HIST_ROWS;
-  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
-    const int row0 = chunk * HIST_ROWS;
-    const int row1 = min(n, row0 + HIST_ROWS);
-    for (int i = row0 + threadIdx.x; i < row1; i += HIST_THREADS) {
-      if (!mask[i]) continue;
-      const float g = grad[i];
-      const float h = hess[i];
-      for (int f = 0; f < nf; ++f) {
-        const int k = f * HIST_MAX_BINS + tile[(size_t)f * (size_t)n + i];
-        atomicAdd(&s_g[k], g);
-        atomicAdd(&s_h[k], h);
-        atomicAdd(&s_c[k], 1u);
+  // this block's chunks of HIST_THREADS x HIST_ILP rows
+  const unsigned char* panel = bins + (size_t)f0 * (size_t)n;
+  const int chunk = HIST_THREADS * HIST_ILP;
+  for (int row0 = rank * chunk; row0 < n; row0 += C * chunk) {
+    bool in[HIST_ILP];
+    float g[HIST_ILP], h[HIST_ILP];
+#pragma unroll
+    for (int q = 0; q < HIST_ILP; ++q) {
+      const int i = row0 + q * HIST_THREADS + threadIdx.x;
+      in[q] = i < n && mask[i];
+    }
+#pragma unroll
+    for (int q = 0; q < HIST_ILP; ++q) {
+      const int i = row0 + q * HIST_THREADS + threadIdx.x;
+      g[q] = in[q] ? grad[i] : 0.0f;
+      h[q] = in[q] ? hess[i] : 0.0f;
+    }
+    for (int f = 0; f < nf; ++f) {
+      const unsigned char* col = panel + (size_t)f * (size_t)n + row0;
+      int b[HIST_ILP];
+#pragma unroll
+      for (int q = 0; q < HIST_ILP; ++q)
+        b[q] = in[q] ? col[q * HIST_THREADS + threadIdx.x] : 0;
+#pragma unroll
+      for (int q = 0; q < HIST_ILP; ++q) {
+        if (in[q]) {
+          const int k = f * HIST_MAX_BINS + b[q];
+          atomicAdd(&hist.g[k], g[q]);
+          atomicAdd(&hist.h[k], h[q]);
+          atomicAdd(&hist.c[k], 1u);
+        }
       }
     }
   }
-  __syncthreads();
+  // every block's histogram is complete and visible to the cluster
+  cluster.sync();
 
-  for (int k = threadIdx.x; k < slots; k += HIST_THREADS) {
-    const int b = k % HIST_MAX_BINS;
-    const unsigned int c = s_c[k];
-    if (c != 0u && b < B) {
-      const size_t o = (size_t)(f0 + k / HIST_MAX_BINS) * (size_t)B + b;
-      atomicAdd(&out_g[o], s_g[k]);
-      atomicAdd(&out_h[o], s_h[k]);
-      atomicAdd(&out_c[o], c);
+  // block r: slots [lo, hi) of the tile's nf x B, the C blocks' values
+  // added in rank order (the loads of HIST_RANKS_AT_ONCE ranks issued
+  // together)
+  const int total = nf * B;
+  const int per = (total + C - 1) / C;
+  const int lo = rank * per;
+  const int hi = min(total, lo + per);
+  const size_t fb = (size_t)F * (size_t)B;
+  for (int s = lo + threadIdx.x; s < hi; s += HIST_THREADS) {
+    const int f = s / B;
+    const int k = f * HIST_MAX_BINS + (s - f * B);
+    float sg = 0.0f, sh = 0.0f;
+    unsigned int sc = 0u;
+    for (int q0 = 0; q0 < C; q0 += HIST_RANKS_AT_ONCE) {
+      float xg[HIST_RANKS_AT_ONCE], xh[HIST_RANKS_AT_ONCE];
+      unsigned int xc[HIST_RANKS_AT_ONCE];
+#pragma unroll
+      for (int u = 0; u < HIST_RANKS_AT_ONCE; ++u) {
+        if (q0 + u < C) {
+          const HistTile* other = cluster.map_shared_rank(&hist, q0 + u);
+          xg[u] = other->g[k];
+          xh[u] = other->h[k];
+          xc[u] = other->c[k];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < HIST_RANKS_AT_ONCE; ++u) {
+        if (q0 + u < C) {
+          sg += xg[u];
+          sh += xh[u];
+          sc += xc[u];
+        }
+      }
     }
+    const size_t o = (size_t)f0 * (size_t)B + (size_t)s;
+    out[o] = sg;
+    out[fb + o] = sh;
+    out[2 * fb + o] = (float)sc;
   }
-}
-
-// counts: unsigned int -> float32, in place
-__global__ void count_to_float_kernel(unsigned int* counts, int len) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < len) {
-    reinterpret_cast<float*>(counts)[k] = (float)counts[k];
-  }
+  // no block leaves (and frees its shared memory) while another reads it
+  cluster.sync();
 }
 
 __global__ void empty_kernel() {}
@@ -120,35 +194,59 @@ int sm_count() {
   return cached;
 }
 
+// a cluster of more than 8 blocks needs the kernel's opt-in, which belongs
+// to the current device: set once per device, not on every call
+cudaError_t allow_cluster() {
+  static bool allowed[HIST_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < HIST_MAX_DEVICES && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      hist_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < HIST_MAX_DEVICES) allowed[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
 int hist_max_bins() { return HIST_MAX_BINS; }
+int hist_cluster_blocks() { return HIST_CLUSTER_BLOCKS; }
 
 // bins [F, n] uint8 (features-major), grad / hess [n] f32, mask [n] uint8
-// (0 = outside), out [3, F, B] 4-byte words: on return out[0] = hist_g,
-// out[1] = hist_h, out[2] = hist_c, all float32. Requires n >= 1, F >= 1,
-// 1 <= B <= 256.
+// (0 = outside), out [3, F, B] float32, written whole (no need to clear it):
+// out[0] = hist_g, out[1] = hist_h, out[2] = hist_c. Requires n >= 1,
+// F >= 1, 1 <= B <= 256. One kernel launch.
 int histogram_launch(const unsigned char* bins, const float* grad,
                      const float* hess, const unsigned char* mask, float* out,
                      int n, int F, int B, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t fb = (size_t)F * (size_t)B;
-  cudaError_t err = cudaMemsetAsync(out, 0, 3 * fb * sizeof(float), st);
+  const int C = HIST_CLUSTER_BLOCKS;
+  if (n < 1 || F < 1 || B < 1 || B > HIST_MAX_BINS)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t allowed = allow_cluster();
+  if (allowed != cudaSuccess) return (int)allowed;
+  // features a cluster: as few as keep the grid within one block an SM, so
+  // that the rows' atomics spread over as many SMs as the features allow
+  int tile = (F * C + sm_count() - 1) / sm_count();
+  tile = tile < 1 ? 1 : (tile > HIST_F_TILE ? HIST_F_TILE : tile);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, (F + tile - 1) / tile);
+  cfg.blockDim = dim3(HIST_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, hist_kernel, bins, grad, hess, mask, out, n, F,
+                         B, tile);
   if (err != cudaSuccess) return (int)err;
-  const int chunks = (n + HIST_ROWS - 1) / HIST_ROWS;
-  const int tiles = (F + HIST_F_TILE - 1) / HIST_F_TILE;
-  // about two blocks per SM over all feature tiles; never less than one
-  const int per_tile = (2 * sm_count() + tiles - 1) / tiles;
-  dim3 grid(chunks < per_tile ? chunks : per_tile, tiles);
-  unsigned int* out_c = reinterpret_cast<unsigned int*>(out + 2 * fb);
-  hist_kernel<<<grid, HIST_THREADS, 0, st>>>(bins, grad, hess, mask, out,
-                                             out + fb, out_c, n, F, B);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int len = (int)fb;
-  count_to_float_kernel<<<(len + 255) / 256, 256, 0, st>>>(out_c, len);
   return (int)cudaGetLastError();
 }
 

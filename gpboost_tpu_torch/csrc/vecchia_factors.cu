@@ -16,36 +16,45 @@
 // 1024-row block and have the host pre-gather the neighbour coordinates
 // because Mosaic has no gather; here the threads of a row load its m
 // indices and gather its neighbour coordinates from the coordinate table
-// (L2-resident at the sizes in use). Both kernels share the covariance
-// functions and the strided triangular solve chol_solve; element e of a
-// row's array lies at [e * st].
+// (L2-resident at the sizes in use). Both kernels share one block layout,
+// the covariance functions, the gather, the fill, the column Cholesky and
+// the strided triangular solve chol_solve; element e of a row's array lies
+// at [e * st].
 //
-// - factors_kernel: ONE THREAD A ROW, the packed lower triangle of C
-//   (m(m+1)/2 floats, overwritten in place by its Cholesky factor) and the
-//   m-vectors in per-thread local arrays sized by the template capacity
-//   MCAP (24 / 40 / 64), filled and factorised row by row by row_factors
-//   (stride 1). With every row of the grid resident at once these stack
-//   frames outgrow L1 and L2 and the Cholesky's loads go to HBM.
+// Both kernels keep every per-row array in DYNAMIC SHARED MEMORY,
+// element-major: a block holds R rows, and element e of row t's arrays sits
+// at smem[e * R + t], so the threads of a warp touching the same element of
+// their rows hit consecutive banks. A block has 128 threads, R rows of
+// 128 / R LANES (R in {32, 16, 8}: the largest whose block fits
+// VF_SMEM_BUDGET, 8 always; chosen from (m, d) at launch and exported). The
+// per-dimension arrays are registers, unrolled to the tier DMAX in
+// {2, 4, 8} >= d (one instance each): nothing of a row goes to local memory.
+// One thread a row with the rows in shared memory was tried first for the
+// NLL kernel and was slower than a local-memory stack frame: only as many
+// rows as fit the SM's 228 KB are in flight (192 at m = 20, d = 2), six warps
+// an SM, each stalled on its row's chain of dependent loads and exps. The
+// lanes split the gather, the fill and the rows of each Cholesky column (one
+// barrier a column).
 //
-// - nll_grad_kernel: every per-row array in DYNAMIC SHARED MEMORY,
-//   element-major: a block holds R rows, and element e of row t's arrays
-//   sits at smem[e * R + t], so the threads of a warp touching the same
-//   element of their rows hit consecutive banks. Per row: the packed
-//   triangle (pitch by the actual m, so one instance serves every m; its
-//   room also takes the lanes' partial sums at the end), the neighbour
-//   coordinates (m d), a and u (m each; a holds c until the solve). R in
-//   {32, 16, 8} is the largest whose block fits VF_NLL_SMEM_BUDGET (8
-//   always fits), chosen from (m, d) at launch and exported as
-//   vf_nll_rows_per_block for the caller's scratch. A block has 128
-//   threads, R rows of 128 / R LANES: only as many rows as fit the SM's
-//   228 KB are in flight (192 at m = 20, d = 2), and one thread a row left
-//   six warps an SM, each stalled on its row's chain of dependent loads and
-//   exps, slower than the local-memory kernel. The lanes split the
-//   gather, the fill, the rows of each Cholesky column (one barrier a
-//   column), the two solves (a on lane 0, u on lane 1) and the gradient
-//   walk, whose partial sums lane 0 adds in lane order. The per-dimension
-//   arrays are registers, unrolled to the tier DMAX in {2, 4, 8} >= d (one
-//   instance each): nothing of a row goes to local memory.
+// - factors_kernel: per row the packed triangle (m(m+1)/2 floats,
+//   overwritten by its Cholesky factor), the neighbour coordinates (m d), c
+//   and a (m each). Lane 0 solves a = C^-1 c and adds D in slot order; the
+//   block then stores its R rows of A, R m contiguous floats, together
+//   (coalesced) and lane 0 of each row its D.
+//
+// - nll_grad_kernel: per row the packed triangle (its room also takes the
+//   lanes' partial sums at the end), the neighbour coordinates (m d), a and
+//   u (m each; a holds c until the solve). R is exported as
+//   vf_nll_rows_per_block for the caller's scratch. The two solves run on
+//   lanes 0 (a) and 1 (u), and the lanes split the gradient walk, whose
+//   partial sums lane 0 adds in lane order.
+//
+// Bound of factors_kernel: FP32 operations by the roofline (~m^3/3 FLOPs of
+// Cholesky, one solve pair, m(m+1)/2 exp/sqrt covariance evaluations),
+// ~0.010 ms at n = 1e5, m = 20; the bytes (coordinates, indices, A, D) are
+// ~17 MB, ~0.005 ms. In practice the latency of a row's dependent chain at
+// the few rows an SM that shared memory holds bounds it, as for the NLL
+// kernel.
 //
 // Bound of nll_grad_kernel: FP32 operations by the roofline (~m^3/3 FLOPs
 // of Cholesky, two solves, m(m+1)/2 exp/sqrt covariance evaluations twice:
@@ -82,17 +91,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define VF_THREADS 128  // rows per block of factors_kernel
 #define VF_MAX_M 64
 #define VF_MAX_D 8
 #define VF_MAX_P (2 + VF_MAX_D)
-// nll_grad_kernel: the most dynamic shared memory a block of 32 or 16 rows
-// may take (a third of the SM's 228 KB, so that at least three blocks share
-// an SM); a block of 8 rows is taken whatever it needs (at most 87 040
-// bytes at m = 64, d = 8)
-#define VF_NLL_SMEM_BUDGET (76 * 1024)
+// the most dynamic shared memory a block of 32 or 16 rows may take (a third
+// of the SM's 228 KB, so that at least three blocks share an SM); a block of
+// 8 rows is taken whatever it needs (at most 87 040 bytes at m = 64, d = 8)
+#define VF_SMEM_BUDGET (76 * 1024)
 #define VF_SMEM_DEFAULT_MAX (48 * 1024)  // above: opt in per kernel
-#define VF_NLL_THREADS 128  // threads a block of nll_grad_kernel: R rows x lanes
+#define VF_BLOCK_THREADS 128  // threads a block of either kernel: R rows x lanes
 #define VF_NLL_PARTS (7 + 4 * VF_MAX_D)  // partial sums a lane hands on
 
 namespace {
@@ -162,19 +169,6 @@ __device__ __forceinline__ float scaled_d2(const float* p, int ps,
   return d2;
 }
 
-// The same with a loop over the runtime d, for row_factors (whose scale and
-// row_x are local arrays)
-__device__ __forceinline__ float scaled_d2_loop(const float* p, int ps,
-                                                const float* q, int qs,
-                                                const float* s, int d) {
-  float d2 = 0.0f;
-  for (int k = 0; k < d; ++k) {
-    const float dk = (p[k * ps] - q[k * qs]) * s[k];
-    d2 += dk * dk;
-  }
-  return d2;
-}
-
 __device__ __forceinline__ float dist_of(float d2) {
   return d2 > 0.0f ? sqrtf(d2) : 0.0f;
 }
@@ -184,7 +178,7 @@ __host__ __device__ __forceinline__ int tri(int i) {
 }
 
 // The per-row arrays below are strided: element e of Lp, xn, c, a, x lies at
-// [e * st] (st = 1 for a thread's local arrays, R for a row in shared memory).
+// [e * st] (st = R, the rows of a block, for a row in shared memory).
 
 // x <- C^-1 x with the packed factor Lp (reciprocal pivots on the diagonal)
 __device__ __forceinline__ void chol_solve(const float* Lp, float* x, int m,
@@ -202,104 +196,12 @@ __device__ __forceinline__ void chol_solve(const float* Lp, float* x, int m,
   }
 }
 
-// Factors of one row by one thread. On return: xn = gathered neighbour
-// coordinates [m, d], vmask = validity bits, c = masked c_iN (unsolved),
-// a = masked C^-1 c, Lp = packed Cholesky factor of C; returns D. row_x and
-// scale hold d entries each.
-__device__ __forceinline__ float row_factors(
-    const float* __restrict__ coords, const int* __restrict__ nbr_row,
-    const float* row_x, const float* scale, float var, float var_ii, int m,
-    int d, int shape, float* Lp, float* xn, float* c, float* a, int st,
-    unsigned long long& vmask) {
-  vmask = 0ull;
-  for (int j = 0; j < m; ++j) {
-    const int idx = nbr_row[j];
-    const bool valid = idx >= 0;
-    if (valid) vmask |= 1ull << j;
-    const float* src = coords + (size_t)(valid ? idx : 0) * d;
-    for (int k = 0; k < d; ++k) xn[(j * d + k) * st] = src[k];
-  }
-  // covariance entries; invalid pair -> off-diagonal 0, diagonal 1
-  for (int j = 0; j < m; ++j) {
-    const bool vj = (vmask >> j) & 1ull;
-    const float* xj = xn + j * d * st;
-    c[j * st] = vj ? var * corr_x(dist_of(scaled_d2_loop(row_x, 1, xj, st,
-                                                         scale, d)),
-                                  shape)
-                   : 0.0f;
-    float* Bj = Lp + tri(j) * st;
-    for (int k = 0; k < j; ++k) {
-      const bool vk = (vmask >> k) & 1ull;
-      Bj[k * st] = (vj && vk)
-                       ? var * corr_x(dist_of(scaled_d2_loop(
-                                          xj, st, xn + k * d * st, st, scale,
-                                          d)),
-                                      shape)
-                       : 0.0f;
-    }
-    Bj[j * st] = vj ? var_ii : 1.0f;
-  }
-  // in-place Cholesky, row by row; the diagonal slot keeps 1 / L_jj
-  for (int i = 0; i < m; ++i) {
-    float* Li = Lp + tri(i) * st;
-    for (int j = 0; j < i; ++j) {
-      const float* Lj = Lp + tri(j) * st;
-      float s = Li[j * st];
-      for (int k = 0; k < j; ++k) s -= Li[k * st] * Lj[k * st];
-      Li[j * st] = s * Lj[j * st];
-    }
-    float s = Li[i * st];
-    for (int k = 0; k < i; ++k) s -= Li[k * st] * Li[k * st];
-    Li[i * st] = 1.0f / sqrtf(fmaxf(s, 1e-30f));
-  }
-  for (int j = 0; j < m; ++j) a[j * st] = c[j * st];
-  chol_solve(Lp, a, m, st);
-  float d_cond = var_ii;
-  for (int j = 0; j < m; ++j) {
-    if (!((vmask >> j) & 1ull)) a[j * st] = 0.0f;
-    d_cond -= c[j * st] * a[j * st];  // D from the unsolved c
-  }
-  return d_cond;
-}
-
-// pars = (var, nugget, scale_1..scale_d)
-template <int MCAP>
-__global__ void __launch_bounds__(VF_THREADS)
-factors_kernel(const float* __restrict__ pars,
-               const float* __restrict__ coords,
-               const int* __restrict__ neighbors,
-               const float* __restrict__ row_coords, float* __restrict__ A,
-               float* __restrict__ D, int n, int m, int d, int shape,
-               int include_nugget) {
-  const int i = blockIdx.x * VF_THREADS + threadIdx.x;
-  if (i >= n) return;
-  float Lp[MCAP * (MCAP + 1) / 2];
-  float xn[MCAP * VF_MAX_D];
-  float c[MCAP];
-  float a[MCAP];
-  float scale[VF_MAX_D];
-  float row_x[VF_MAX_D];
-  const float var = pars[0];
-  const float var_ii = var + (include_nugget ? pars[1] : 0.0f);
-  for (int k = 0; k < d; ++k) {
-    scale[k] = pars[2 + k];
-    row_x[k] = row_coords[(size_t)i * d + k];
-  }
-  unsigned long long vmask;
-  const float d_cond = row_factors(
-      coords, neighbors + (size_t)i * m, row_x, scale, var, var_ii, m, d,
-      shape, Lp, xn, c, a, 1, vmask);
-  float* a_out = A + (size_t)i * m;
-  for (int j = 0; j < m; ++j) a_out[j] = a[j];
-  D[i] = d_cond;
-}
-
-// nll_grad_kernel's device functions split a row's work over `lanes`
-// threads (lane = 0 .. lanes - 1): lane l takes the slots, triangle rows and
+// The device functions below split a row's work over `lanes` threads
+// (lane = 0 .. lanes - 1): lane l takes the slots, triangle rows and
 // neighbours j with j % lanes == l. Inside a lane the loops work on VF_ILP
 // independent entries at once (loads first, then the arithmetic, then the
 // stores) for the latency of a load or an exp to overlap. Every entry gets
-// the same operations in the same order as in row_factors.
+// the same operations in the same order as in a row-by-row form.
 #define VF_ILP 4
 
 // validity bits of the m slots: slot j is valid iff nbr_row[j] >= 0
@@ -389,7 +291,7 @@ __device__ __forceinline__ void fill_cov(const float* row_x,
 
 // In-place Cholesky of the packed triangle, column by column; the diagonal
 // slot keeps 1 / L_jj. Entry (i, j) is (C_ij - sum_{k<j} L_ik L_jk) * (1 /
-// L_jj) with k ascending, as in row_factors' row-by-row form. The rows of a
+// L_jj) with k ascending, as in the row-by-row form. The rows of a
 // column are independent: lane l takes rows i > j with i % lanes == l,
 // VF_ILP of them sharing each load of L_jk (a slot past the end repeats the
 // chunk's first row, which this lane owns, and is not stored). Every lane
@@ -430,6 +332,12 @@ __device__ __forceinline__ void cholesky(float* Lp, int m, int st, int lane,
   __syncthreads();
 }
 
+// floats of one row's shared-memory arrays in factors_kernel: the packed
+// triangle, the neighbour coordinates, c and a
+__host__ __device__ __forceinline__ int factors_row_floats(int m, int d) {
+  return tri(m) + m * d + 2 * m;
+}
+
 // floats of one row's shared-memory arrays in nll_grad_kernel: the packed
 // triangle (its room also takes the lanes' partial sums at the end), the
 // neighbour coordinates, a and u
@@ -440,15 +348,87 @@ __host__ __device__ __forceinline__ int nll_row_floats(int m, int d,
   return tri_room + m * d + 2 * m;
 }
 
+// pars = (var, nugget, scale_1..scale_d), d <= DMAX. The block layout of
+// nll_grad_kernel (below): R = rows rows of lanes = VF_BLOCK_THREADS / R
+// threads each, thread (lane l, row t) is thread l * R + t; dynamic shared
+// memory R * factors_row_floats(m, d) floats.
+template <int DMAX>
+__global__ void __launch_bounds__(VF_BLOCK_THREADS)
+factors_kernel(const float* __restrict__ pars,
+               const float* __restrict__ coords,
+               const int* __restrict__ neighbors,
+               const float* __restrict__ row_coords, float* __restrict__ A,
+               float* __restrict__ D, int n, int m, int d, int shape,
+               int include_nugget, int rows) {
+  extern __shared__ float vf_rows[];
+  const int R = rows;
+  const int lanes = VF_BLOCK_THREADS / R;
+  const int t = threadIdx.x % R;
+  const int lane = threadIdx.x / R;
+  const int row0 = blockIdx.x * R;
+  const int i = row0 + t;
+  // a thread past the last row works on the last row (every thread meets
+  // every barrier) and stores nothing
+  const int row = i < n ? i : n - 1;
+
+  // this row's arrays in shared memory, element e at [e * R]
+  float* Lp = vf_rows + t;
+  float* xn = Lp + tri(m) * R;
+  float* c = xn + m * d * R;
+  float* a = c + m * R;
+  float scale[DMAX], row_x[DMAX];
+  const float var = pars[0];
+  const float var_ii = var + (include_nugget ? pars[1] : 0.0f);
+#pragma unroll
+  for (int k = 0; k < DMAX; ++k) {
+    scale[k] = k < d ? pars[2 + k] : 0.0f;
+    row_x[k] = k < d ? row_coords[(size_t)row * d + k] : 0.0f;
+  }
+  const int* nbr_row = neighbors + (size_t)row * m;
+  const unsigned long long vmask = valid_mask(nbr_row, m);
+
+  gather_coords<DMAX>(coords, nbr_row, xn, m, d, R, lane, lanes);
+  __syncthreads();
+  fill_cov<DMAX>(row_x, scale, var, var_ii, xn, vmask, m, d, shape, Lp, c, R,
+                 lane, lanes);
+  // a starts as c: on the slots this lane has just filled
+  for (int j = lane; j < m; j += lanes) a[j * R] = c[j * R];
+  __syncthreads();
+  cholesky(Lp, m, R, lane, lanes);
+  // lane 0: a = C^-1 c, masked; D from the unsolved c, in slot order. The
+  // mask and var_ii are read again rather than held through the Cholesky
+  // (held, ptxas spilled them at DMAX = 2 and 8)
+  if (lane == 0) {
+    chol_solve(Lp, a, m, R);
+    float d_cond = pars[0] + (include_nugget ? pars[1] : 0.0f);
+    for (int j = 0; j < m; ++j) {
+      if (nbr_row[j] < 0) a[j * R] = 0.0f;
+      d_cond -= c[j * R] * a[j * R];
+    }
+    if (i < n) D[i] = d_cond;
+  }
+  __syncthreads();
+  // the block's rows of A are R m contiguous floats of the output: the
+  // block stores them together, neighbouring threads at neighbouring
+  // addresses (element j of row t of the block is a_blk[j * R + t])
+  const float* a_blk = vf_rows + (tri(m) + m * d + m) * R;
+  float* A_blk = A + (size_t)row0 * m;
+  const int len = (n - row0 < R ? n - row0 : R) * m;
+  for (int k = threadIdx.x; k < len; k += VF_BLOCK_THREADS) {
+    const int tk = k / m;
+    A_blk[k] = a_blk[(k - tk * m) * R + tk];
+  }
+}
+
 // logp = log(nugget, var, range) or log(nugget, var, rho_1..rho_d) (ard),
-// d <= DMAX. A block of VF_NLL_THREADS threads holds R = rows rows of
-// lanes = VF_NLL_THREADS / R threads each: thread (lane l, row t) is thread
+// d <= DMAX. A block of VF_BLOCK_THREADS threads holds R = rows rows of
+// lanes = VF_BLOCK_THREADS / R threads each: thread (lane l, row t) is thread
 // l * R + t, so a warp holds one lane of 32 rows (or of two or four lanes
 // when R = 16, 8). Dynamic shared memory R * nll_row_floats(m, d, lanes)
 // floats. scratch [ceil(n / R), 1 + p], p = 2 + n_ranges: per-block sums of
 // (l, dl/dlog nugget, dl/dlog var, dl/dlog range_k...).
 template <int DMAX>
-__global__ void __launch_bounds__(VF_NLL_THREADS)
+__global__ void __launch_bounds__(VF_BLOCK_THREADS)
 nll_grad_kernel(const float* __restrict__ logp,
                 const float* __restrict__ coords,
                 const int* __restrict__ neighbors,
@@ -459,7 +439,7 @@ nll_grad_kernel(const float* __restrict__ logp,
                 int ard, int rows) {
   extern __shared__ float vf_rows[];
   const int R = rows;
-  const int lanes = VF_NLL_THREADS / R;
+  const int lanes = VF_BLOCK_THREADS / R;
   const int t = threadIdx.x % R;
   const int lane = threadIdx.x / R;
   const int i = blockIdx.x * R + t;
@@ -679,22 +659,53 @@ nll_grad_kernel(const float* __restrict__ logp,
   }
 }
 
-// rows per block of nll_grad_kernel: the largest R in {32, 16} whose block
-// fits VF_NLL_SMEM_BUDGET, else 8; 0 outside the kernel's limits
-int rows_per_block(int m, int d) {
+// floats of one row of a kernel, for m, d and R = rows rows a block
+typedef int (*RowFloats)(int m, int d, int rows);
+
+int factors_floats(int m, int d, int) { return factors_row_floats(m, d); }
+
+int nll_floats(int m, int d, int rows) {
+  return nll_row_floats(m, d, VF_BLOCK_THREADS / rows);
+}
+
+// rows per block: the largest R in {32, 16} whose block fits
+// VF_SMEM_BUDGET, else 8; 0 outside the kernels' limits
+int rows_per_block(int m, int d, RowFloats row_floats) {
   if (m < 1 || m > VF_MAX_M || d < 1 || d > VF_MAX_D) return 0;
   int rows = 32;
-  while (rows > 8 && rows * nll_row_floats(m, d, VF_NLL_THREADS / rows) *
-                             (int)sizeof(float) >
-                         VF_NLL_SMEM_BUDGET)
+  while (rows > 8 &&
+         rows * row_floats(m, d, rows) * (int)sizeof(float) > VF_SMEM_BUDGET)
     rows >>= 1;
   return rows;
 }
 
-int smem_bytes(int m, int d) {
-  const int rows = rows_per_block(m, d);
-  return rows * nll_row_floats(m, d, VF_NLL_THREADS / rows) *
-         (int)sizeof(float);
+int smem_bytes(int m, int d, RowFloats row_floats) {
+  const int rows = rows_per_block(m, d, row_floats);
+  return rows * row_floats(m, d, rows) * (int)sizeof(float);
+}
+
+// above 48 KB of dynamic shared memory a block must opt in (set per launch:
+// attributes belong to the current device)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= VF_SMEM_DEFAULT_MAX) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DMAX>
+int launch_factors(const float* pars, const float* coords,
+                   const int* neighbors, const float* row_coords, float* A,
+                   float* D, int n, int m, int d, int shape,
+                   int include_nugget, cudaStream_t st) {
+  const int rows = rows_per_block(m, d, factors_floats);
+  const int bytes = smem_bytes(m, d, factors_floats);
+  const cudaError_t err = allow_smem(factors_kernel<DMAX>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  factors_kernel<DMAX><<<(n + rows - 1) / rows, VF_BLOCK_THREADS, bytes,
+                         st>>>(pars, coords, neighbors, row_coords, A, D, n,
+                               m, d, shape, include_nugget, rows);
+  return (int)cudaGetLastError();
 }
 
 template <int DMAX>
@@ -703,19 +714,13 @@ int launch_nll_grad(const float* logp, const float* coords,
                     const float* r, const float* row_r, const float* row_valid,
                     float* scratch, int n, int m, int d, int shape, int ard,
                     cudaStream_t st) {
-  const int rows = rows_per_block(m, d);
-  const int bytes = smem_bytes(m, d);
-  // above 48 KB a block must opt in (set per launch: attributes belong to
-  // the current device)
-  if (bytes > VF_SMEM_DEFAULT_MAX) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nll_grad_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  nll_grad_kernel<DMAX><<<(n + rows - 1) / rows, VF_NLL_THREADS, bytes, st>>>(
-      logp, coords, neighbors, row_coords, r, row_r, row_valid, scratch, n, m,
-      d, shape, ard, rows);
+  const int rows = rows_per_block(m, d, nll_floats);
+  const int bytes = smem_bytes(m, d, nll_floats);
+  const cudaError_t err = allow_smem(nll_grad_kernel<DMAX>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  nll_grad_kernel<DMAX><<<(n + rows - 1) / rows, VF_BLOCK_THREADS, bytes,
+                          st>>>(logp, coords, neighbors, row_coords, r, row_r,
+                                row_valid, scratch, n, m, d, shape, ard, rows);
   return (int)cudaGetLastError();
 }
 
@@ -729,8 +734,18 @@ int vf_max_d() { return VF_MAX_D; }
 // rows per block of the NLL kernel, and its dynamic shared memory per block
 // in bytes, for m neighbours in d dimensions (0 outside the limits); the
 // caller sizes scratch as [ceil(n / rows), 1 + p]
-int vf_nll_rows_per_block(int m, int d) { return rows_per_block(m, d); }
-int vf_nll_smem_bytes(int m, int d) { return smem_bytes(m, d); }
+int vf_nll_rows_per_block(int m, int d) {
+  return rows_per_block(m, d, nll_floats);
+}
+int vf_nll_smem_bytes(int m, int d) { return smem_bytes(m, d, nll_floats); }
+
+// the same for the factors kernel (its launch geometry, for a report)
+int vf_factors_rows_per_block(int m, int d) {
+  return rows_per_block(m, d, factors_floats);
+}
+int vf_factors_smem_bytes(int m, int d) {
+  return smem_bytes(m, d, factors_floats);
+}
 
 // A [n, m], D [n] from pars = (var, nugget, scale_1..scale_d), coords
 // [n_obs, d], neighbors int32 [n, m], row_coords [n, d]. All device
@@ -744,20 +759,14 @@ int vecchia_factors_launch(const float* pars, const float* coords,
       shape > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((n + VF_THREADS - 1) / VF_THREADS), block(VF_THREADS);
-  if (m <= 24)
-    factors_kernel<24><<<grid, block, 0, st>>>(
-        pars, coords, neighbors, row_coords, A, D, n, m, d, shape,
-        include_nugget);
-  else if (m <= 40)
-    factors_kernel<40><<<grid, block, 0, st>>>(
-        pars, coords, neighbors, row_coords, A, D, n, m, d, shape,
-        include_nugget);
-  else
-    factors_kernel<VF_MAX_M><<<grid, block, 0, st>>>(
-        pars, coords, neighbors, row_coords, A, D, n, m, d, shape,
-        include_nugget);
-  return (int)cudaGetLastError();
+  if (d <= 2)
+    return launch_factors<2>(pars, coords, neighbors, row_coords, A, D, n, m,
+                             d, shape, include_nugget, st);
+  if (d <= 4)
+    return launch_factors<4>(pars, coords, neighbors, row_coords, A, D, n, m,
+                             d, shape, include_nugget, st);
+  return launch_factors<VF_MAX_D>(pars, coords, neighbors, row_coords, A, D,
+                                  n, m, d, shape, include_nugget, st);
 }
 
 // scratch [ceil(n / vf_nll_rows_per_block(m, d)), 3 + n_ranges] per-block

@@ -11,12 +11,17 @@ The TPU kernel is a one-hot x values matrix product because the TPU has no
 scatter; the CUDA kernel (``csrc/histogram.cu``, ``sm_90a``, built by
 ``ops/kernels/_build.py`` at first use) is the native form: per-block
 histograms in shared memory filled with shared-memory atomics from a
-features-major uint8 panel, added into the zeroed result with global
-atomics. It is bound by bytes (one byte per row and feature, nine per row
-for gradient, hessian and mask), which at n = 1e5 is far less than the time
-of a launch; counts are accumulated as integers and are exact, the float
-sums depend on the order of the atomics in their last bits. There is no
-cap on the number of rows.
+features-major uint8 panel. A call is one kernel launch: a thread-block
+cluster of 16 blocks per tile of features (as few features a cluster as keep
+the grid within one block an SM), whose blocks add their histograms through
+distributed shared memory in a fixed order and write the result whole (no
+memset, no global atomics, no conversion kernel). Its bound is bytes (one
+byte per row and feature, nine per row for gradient, hessian and mask), far
+less at n = 1e5 than what it takes: the shared float atomics (a
+compare-and-swap loop on this card) and the clustered launch. Counts are
+accumulated as integers and are exact, the float sums depend on the order of
+the shared atomics in their last bits. There is no cap on the number of
+rows.
 
 Beside it stands :func:`histogram_plain` (``index_add_``), the twin of the
 JAX package's ``tree._build_histogram_xla``. The wrapper takes it only for
@@ -47,8 +52,9 @@ def _lib() -> ctypes.CDLL:
         lib.histogram_launch.restype = ci
         lib.histogram_empty_launch.argtypes = [vp]
         lib.histogram_empty_launch.restype = ci
-        lib.hist_max_bins.argtypes = []
-        lib.hist_max_bins.restype = ci
+        for fn in (lib.hist_max_bins, lib.hist_cluster_blocks):
+            fn.argtypes = []
+            fn.restype = ci
         if lib.hist_max_bins() != MAX_BINS:
             raise RuntimeError(
                 f"csrc/histogram.cu was built for {lib.hist_max_bins()} "

@@ -15,13 +15,16 @@ by ``ops/kernels/_build.py`` at first use):
 
 A row reads (m + d + 1) and writes (m + 1) floats but costs ~m^3/3 FLOPs of
 Cholesky and m(m+1)/2 exp/sqrt, so the per-row problem stays on the SM (no
-intermediate in device memory). Where its arrays live sets the time:
-``vecchia_factors`` gives a row one thread and keeps its packed triangle in
-a per-thread local array (a stack frame that spills to device memory);
-``vecchia_nll_grad`` keeps every per-row array in dynamic shared memory,
-element-major, and gives a row 128 / R threads (lanes), R rows a block,
-with R chosen from (m, d) at launch (:func:`nll_launch_geometry` mirrors
-the choice in Python; the scratch tensor has one row per block).
+intermediate in device memory): both kernels are bound by operations, and in
+practice by the latency of a row's dependent chain. Both keep every per-row
+array in dynamic shared memory, element-major, and give a row 128 / R threads
+(lanes), R rows a block, with R chosen from (m, d) at launch: the lanes split
+the gather, the fill and the rows of each column of the Cholesky. The factors
+kernel then solves on one lane and the block stores its R rows of A together
+(coalesced); the NLL kernel solves on two lanes and splits its gradient walk.
+The geometry is exported by the ``.cu`` file (:func:`factors_launch_geometry`
+reads it; :func:`nll_launch_geometry` mirrors the NLL kernel's, whose scratch
+tensor has one row per block, and is checked equal when the library loads).
 
 Beside each kernel stands its plain PyTorch version
 (:func:`vecchia_factors_plain`, :func:`vecchia_nll_grad_plain`); a wrapper
@@ -50,10 +53,11 @@ from gpboost_tpu_torch.ops.kernels._build import raise_on_error as _raise_on
 _SUPPORTED_SHAPES = (0.5, 1.5, 2.5, -1.0)  # -1.0 = gaussian (sq-exp)
 MAX_M = 64   # VF_MAX_M of the .cu file (the packed triangle's capacity)
 MAX_D = 8    # VF_MAX_D
-NLL_SMEM_BUDGET = 76 * 1024   # VF_NLL_SMEM_BUDGET: bytes a block of 32 or 16
-                              # rows of the NLL kernel may take
+SMEM_BUDGET = 76 * 1024       # VF_SMEM_BUDGET: bytes a block of 32 or 16
+                              # rows of either kernel may take
 SMEM_PER_BLOCK_MAX = 232_448  # the most shared memory a block of sm_90 has
-NLL_THREADS = 128             # VF_NLL_THREADS: threads a block, R rows x lanes
+BLOCK_THREADS = 128           # VF_BLOCK_THREADS: threads a block of either
+                              # kernel, R rows x lanes
 NLL_PARTS = 7 + 4 * MAX_D     # VF_NLL_PARTS: partial sums a lane hands on
 
 
@@ -70,20 +74,30 @@ def nll_launch_geometry(m: int, d: int) -> tuple:
     kernel for ``m`` neighbours in ``d`` dimensions: the Python mirror of
     ``vf_nll_rows_per_block`` / ``vf_nll_smem_bytes`` of the ``.cu`` file.
 
-    A block has ``NLL_THREADS`` threads: R rows of ``NLL_THREADS // R``
+    A block has ``BLOCK_THREADS`` threads: R rows of ``BLOCK_THREADS // R``
     lanes. A row keeps its packed triangle (whose room must also take the
     lanes' ``NLL_PARTS`` partial sums each), neighbour coordinates, a and u
     in shared memory; the block takes the largest R in {32, 16} whose rows
-    fit ``NLL_SMEM_BUDGET``, else 8."""
+    fit ``SMEM_BUDGET``, else 8."""
     def block_bytes(rows):
-        lanes = NLL_THREADS // rows
+        lanes = BLOCK_THREADS // rows
         tri_room = max(m * (m + 1) // 2, lanes * NLL_PARTS)
         return 4 * rows * (tri_room + m * d + 2 * m)
 
     rows = 32
-    while rows > 8 and block_bytes(rows) > NLL_SMEM_BUDGET:
+    while rows > 8 and block_bytes(rows) > SMEM_BUDGET:
         rows //= 2
     return rows, block_bytes(rows)
+
+
+def factors_launch_geometry(m: int, d: int) -> tuple:
+    """(rows per block, dynamic shared memory bytes per block) of the factors
+    kernel for ``m`` neighbours in ``d`` dimensions, as the ``.cu`` file
+    exports them (``vf_factors_rows_per_block`` / ``vf_factors_smem_bytes``;
+    needs the built library). A row keeps its packed triangle, neighbour
+    coordinates, c and a in shared memory."""
+    lib = _lib()
+    return lib.vf_factors_rows_per_block(m, d), lib.vf_factors_smem_bytes(m, d)
 
 
 def nll_blocks(n: int, rows_per_block: int) -> int:
@@ -168,7 +182,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.vf_max_m, lib.vf_max_d):
             fn.argtypes = []
             fn.restype = ci
-        for fn in (lib.vf_nll_rows_per_block, lib.vf_nll_smem_bytes):
+        for fn in (lib.vf_nll_rows_per_block, lib.vf_nll_smem_bytes,
+                   lib.vf_factors_rows_per_block, lib.vf_factors_smem_bytes):
             fn.argtypes = [ci, ci]
             fn.restype = ci
         built = (lib.vf_max_m(), lib.vf_max_d())
@@ -186,6 +201,15 @@ def _lib() -> ctypes.CDLL:
                         f"m = {m}, d = {d} with (rows, shared bytes) = {got}; "
                         f"nll_launch_geometry says "
                         f"{nll_launch_geometry(m, d)}")
+                rows, nbytes = (lib.vf_factors_rows_per_block(m, d),
+                                lib.vf_factors_smem_bytes(m, d))
+                if rows not in (8, 16, 32) or not (
+                        0 < nbytes <= SMEM_PER_BLOCK_MAX
+                        and (rows == 8 or nbytes <= SMEM_BUDGET)):
+                    raise RuntimeError(
+                        f"csrc/vecchia_factors.cu launches the factors kernel "
+                        f"at m = {m}, d = {d} with {rows} rows and {nbytes} "
+                        f"bytes of shared memory a block")
         _LIB = lib
     return _LIB
 

@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card, at small sizes: the corners that the
-full-size run of ``chip_smoke.py`` does not reach (every capacity tier of the
-factor kernel's per-thread triangle; every rows-per-block choice of the NLL
-kernel, a last block that is not full, its largest shared-memory block at
-m = 64, d = 8; d = 1 and 3, no nugget, row shards, the input checks on CUDA
-tensors). Needs an NVIDIA GPU and ``nvcc``; skipped elsewhere. Run on the GPU
-machine with
+full-size run of ``chip_smoke.py`` does not reach (for both Vecchia kernels
+every rows-per-block choice, a last block that is not full, the largest
+shared-memory block at m = 64, d = 8, a second launch bit-identical; d = 1
+and 3, no nugget, prediction rows below one wave of the card, row shards;
+the histogram over several feature tiles and clusters, fewer rows than a
+cluster has threads, one and 256 bins, an output that no memset clears; the
+input checks on CUDA tensors). Needs an NVIDIA GPU and ``nvcc``; skipped
+elsewhere. Run on the GPU machine with
 
     python -m pytest tests/test_torch_gpu_kernels.py --noconftest -q
 
@@ -63,6 +65,67 @@ def test_factors_kernel_matches_plain(dev, m, d, ard, shape):
                                         shape, ard=ard)
     np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), rtol=0, atol=2e-5)
     np.testing.assert_allclose(d_k.cpu(), d_p.cpu(), rtol=0, atol=2e-5)
+
+
+def _assert_factors_close(cp, coords, nb, shape, ard, a_k, d_k, rows=None):
+    a_p, d_p = vk.vecchia_factors_plain(cp[1:], coords, nb, cp[0], True,
+                                        shape, ard=ard, row_coords=rows)
+    np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(d_k.cpu(), d_p.cpu(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("which", ["one", "rows-1", "rows+1", "10007"])
+@pytest.mark.parametrize("m,d", [(20, 2), (40, 2), (64, 2)])
+def test_factors_kernel_last_block_not_full(dev, m, d, which):
+    rows, _ = vk.factors_launch_geometry(m, d)
+    assert rows == {20: 32, 40: 16, 64: 8}[m]
+    n = {"one": 1, "rows-1": rows - 1, "rows+1": rows + 1,
+         "10007": 10_007}[which]
+    coords, _, nb = _problem(dev, n, m, d, seed=5)
+    cp = _pars(dev, False, d)
+    a_k, d_k = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, 0.5)
+    torch.cuda.synchronize()
+    _assert_factors_close(cp, coords, nb, 0.5, False, a_k, d_k)
+
+
+def test_factors_kernel_largest_shared_memory_block(dev):
+    """m = 64, d = 8 ARD: 8 rows of 10 880 bytes, the largest block (above
+    48 KB, so the launch opts in to more dynamic shared memory)."""
+    m, d = 64, 8
+    assert vk.factors_launch_geometry(m, d) == (8, 87_040)
+    coords, _, nb = _problem(dev, 700, m, d, seed=6)
+    cp = _pars(dev, True, d)
+    a_k, d_k = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, 1.5,
+                                  ard=True)
+    torch.cuda.synchronize()
+    _assert_factors_close(cp, coords, nb, 1.5, True, a_k, d_k)
+
+
+def test_factors_kernel_prediction_rows_below_one_wave(dev):
+    """Prediction factors (``row_coords``, neighbours among the observed
+    points) for 500 rows at m = 40: 32 blocks, fewer than the card's SMs."""
+    coords, _, _ = _problem(dev, 3000, 40, 2, seed=8)
+    rows = torch.rand((500, 2), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(8))
+    nb = tv.find_neighbors_cross(rows, coords, 40)
+    n_rows, _ = vk.factors_launch_geometry(40, 2)
+    assert -(-500 // n_rows) < torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    cp = _pars(dev, False, 2)
+    a_k, d_k = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, 2.5,
+                                  row_coords=rows)
+    torch.cuda.synchronize()
+    _assert_factors_close(cp, coords, nb, 2.5, False, a_k, d_k, rows=rows)
+
+
+@pytest.mark.parametrize("m,d,ard", [(20, 2, False), (40, 3, True),
+                                     (64, 8, True)])
+def test_factors_kernel_second_launch_bit_identical(dev, m, d, ard):
+    coords, _, nb = _problem(dev, 3001, m, d, seed=7)
+    cp = _pars(dev, ard, d)
+    a1, d1 = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, 2.5, ard=ard)
+    a2, d2 = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, 2.5, ard=ard)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
 
 
 def test_factors_kernel_without_nugget_and_with_row_coords(dev):
@@ -263,7 +326,8 @@ def _assert_hist_close(got, binned, g, h, mask, B):
 @pytest.mark.parametrize("n,F,B,keep", [
     (1, 1, 1, 1.0), (1000, 5, 255, 1.0), (1023, 8, 256, 0.5),
     (1025, 9, 64, 0.03), (5000, 17, 2, 0.9), (3000, 10, 64, 0.0),
-    (300_001, 3, 256, 0.7)])
+    (300_001, 3, 256, 0.7), (100, 9, 256, 1.0), (20_000, 17, 1, 1.0),
+    (70_001, 17, 256, 0.5)])
 def test_histogram_kernel_matches_plain(dev, n, F, B, keep):
     binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, keep)
     before = hk.histogram.launches
@@ -275,6 +339,36 @@ def test_histogram_kernel_matches_plain(dev, n, F, B, keep):
     # without the panel the wrapper transposes ``binned`` itself
     again = hk.histogram(binned, g, h, mask, B)
     _assert_hist_close(again, binned, g, h, mask, B)
+
+
+def test_histogram_kernel_empty_mask_gives_zeros(dev):
+    binned, panel, g, h, _ = _hist_inputs(dev, 40_000, 17, 256, 1.0)
+    none = torch.zeros(40_000, dtype=torch.bool, device=dev)
+    got = hk.histogram(binned, g, h, none, 256, binned_t=panel)
+    for a in got:
+        assert torch.equal(a, torch.zeros_like(a))
+
+
+def _launch(panel, g, h, mask, out):
+    F, n = panel.shape
+    err = hk._lib().histogram_launch(
+        panel.data_ptr(), g.data_ptr(), h.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), n, F, out.shape[2],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,F,B", [(5000, 9, 64), (100_000, 17, 256),
+                                   (10, 3, 1)])
+def test_histogram_launch_writes_an_output_full_of_nan(dev, n, F, B):
+    """The C launcher into a buffer of NaN: every slot is written (the
+    result does not rely on a memset), in one launch."""
+    binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, 0.6)
+    out = torch.full((3, F, B), float("nan"), device=dev)
+    _launch(panel, g, h, mask, out)
+    assert not bool(out.isnan().any())
+    _assert_hist_close((out[0], out[1], out[2]), binned, g, h, mask, B)
 
 
 def test_histogram_kernel_one_bin_takes_every_row(dev):

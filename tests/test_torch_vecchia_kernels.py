@@ -278,7 +278,7 @@ def test_nll_launch_geometry_fits_the_card(d):
         assert rows <= prev_rows
         prev_rows = rows
         assert nbytes <= vk.SMEM_PER_BLOCK_MAX == 232_448
-        assert rows == 8 or nbytes <= vk.NLL_SMEM_BUDGET
+        assert rows == 8 or nbytes <= vk.SMEM_BUDGET
         assert nbytes % (4 * rows) == 0
         assert nbytes // (4 * rows) >= m * (m + 1) // 2 + m * d + 2 * m
         for n in (1, rows - 1, rows, rows + 1, 10_007, 100_000):
