@@ -29,7 +29,20 @@ one. It
    n = 100 000 rows, 5 features, 31 leaves, and the same training without a
    GP; then holds five rounds of it against the float64 plain path on the
    card, with the package's named timers on for a breakdown of a round;
-5. checks by the kernels' launch counters (set to 0 before each path, read
+5. drives the reference's default fit route (no optimizer parameters:
+   gradient descent, whole loop on the device) at the GP path's size and
+   holds it against the same descent on the float64 plain route on the
+   card, then the std errors of the fitted parameters (p + 1 launches of
+   the NLL kernel) against the same computation in float64; and 30 rounds
+   of the GPBoost algorithm with that optimizer (its learning-rate reuse
+   from the second refit on);
+6. checks that training is bit-reproducible on the card: two trainings of
+   the boosting path's L-BFGS recipe give the same scores, parameters and
+   evaluation counts to the bit, as do two launches of the histogram kernel
+   (full and 3 % mask), two float64 histograms and two ``Psi^-1 r`` solves
+   (whose ``B' v`` is a gather with a fixed order, measured beside the
+   scatter it replaces);
+7. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels, and the results
    against float64 plain versions.
 
@@ -355,6 +368,7 @@ def ptxas_report(log, kernel):
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
         regs = re.search(r"Used (\d+) registers", line)
+        smem = re.search(r"(\d+) bytes smem", line)
         if frame:
             cap = re.search(r"ILi(\d+)E", name)
             out.append(dict(instance=f"{kernel}<{cap.group(1)}>" if cap
@@ -364,6 +378,8 @@ def ptxas_report(log, kernel):
                             spill_load_bytes=int(frame.group(3))))
         elif regs and out:
             out[-1]["registers"] = int(regs.group(1))
+            if smem:
+                out[-1]["static_smem_bytes"] = int(smem.group(1))
             name = None
     return out
 
@@ -413,7 +429,8 @@ def check_histogram(ds, seed, dev):
         return panel.t().contiguous().int(), panel
 
     def compare(tag, binned, panel, g, h, mask, B):
-        got = hk.histogram(binned, g, h, mask, B, binned_t=panel)
+        got = hk.histogram(binned, g, h, mask, B, binned_t=panel,
+                           scales=hk.fixed_point_scales(g, h))
         torch.cuda.synchronize()
         want = hk.histogram_plain(binned, g.double(), h.double(), mask, B)
         scale = hk.histogram_plain(binned, g.double().abs(),
@@ -464,11 +481,29 @@ def check_histogram(ds, seed, dev):
     del bb, pb, gb, hb, mb
     torch.cuda.empty_cache()
 
-    # two launches on the same inputs: how far float atomics move the sums
-    a = hk.histogram(binned, g, h, full, B, binned_t=panel)
-    b = hk.histogram(binned, g, h, full, B, binned_t=panel)
-    run_to_run = max(float((a[k] - b[k]).abs().max()) for k in (0, 1))
-    check(torch.equal(a[2], b[2]), "histogram: counts differ between runs")
+    # two launches on the same inputs, full and 3 % mask: the fixed-point
+    # sums must be the same bits; and the float64 route (gpu_use_dp)
+    scales = hk.fixed_point_scales(g, h)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        hk.fixed_point_scales(g, h)
+    scales_ms = (time.perf_counter() - t0) / 20 * 1e3
+    g64, h64 = g.double(), h.double()
+    run_to_run, equal = 0.0, {}
+    for tag, mask in (("full_mask", full), ("3pct_mask", small)):
+        a = hk.histogram(binned, g, h, mask, B, binned_t=panel, scales=scales)
+        b = hk.histogram(binned, g, h, mask, B, binned_t=panel, scales=scales)
+        run_to_run = max(run_to_run, max(float((a[k] - b[k]).abs().max())
+                                         for k in range(3)))
+        equal[tag] = all(torch.equal(x, y) for x, y in zip(a, b))
+        a64 = hk.histogram_plain(binned, g64, h64, mask, B)
+        b64 = hk.histogram_plain(binned, g64, h64, mask, B)
+        equal[tag + "_f64_plain"] = all(torch.equal(x, y)
+                                        for x, y in zip(a64, b64))
+    check(all(equal.values()) and run_to_run == 0.0,
+          f"histogram: two launches on the same inputs differ "
+          f"({equal}, max abs difference {run_to_run})")
+    a = hk.histogram(binned, g, h, full, B, binned_t=panel, scales=scales)
 
     # times at the boosting path's shape
     def host_ms(fn, reps):
@@ -481,9 +516,9 @@ def check_histogram(ds, seed, dev):
         return dt / reps * 1e3
 
     def kernel(mask):
-        return lambda: hk.histogram(binned, g, h, mask, B, binned_t=panel)
+        return lambda: hk.histogram(binned, g, h, mask, B, binned_t=panel,
+                                    scales=scales)
 
-    g64, h64 = g.double(), h.double()
     # the library yardstick: ONE index_add_ on a prepared flat index
     flat = (binned.long() + torch.arange(F, device=dev) * B).reshape(-1)
     src = torch.stack([g, h, torch.ones_like(g)])[:, :, None].expand(
@@ -512,6 +547,7 @@ def check_histogram(ds, seed, dev):
         empty_launch_ms=time_ms(hk.empty_launch, 200),
         empty_launch_device_ms=graph_ms(hk.empty_launch, 200),
         bound_ms=b_ms, bound_by=b_by, run_to_run_max_abs_diff=run_to_run,
+        run_to_run_bit_identical=equal, scales_host_ms=scales_ms,
         cluster_blocks=hk._lib().hist_cluster_blocks())
     sb_ms, sb_by = hist_bound(n, cases[1]["rows_in_mask"], F, B)
     timed["other_shapes"] = [dict(
@@ -522,7 +558,8 @@ def check_histogram(ds, seed, dev):
         bound_ms=sb_ms, bound_by=sb_by)]
     emit({"phase": "histogram_vs_plain", "tolerance":
           f"counts exact; sums within {HIST_SUM_TOL} x sum|v| of the bin",
-          "cases": cases, "run_to_run_max_abs_diff": run_to_run})
+          "cases": cases, "run_to_run_max_abs_diff": run_to_run,
+          "run_to_run_bit_identical": equal})
     return cases, timed, kernel(full)
 
 
@@ -610,7 +647,7 @@ def main_path(coords, y, pred, m, seed, dev):
                "fit_s": t_fit, "fit_iterations": res.num_it,
                "fit_evaluations": res.num_evals,
                "host_reads_per_fit": res.num_evals, "predict_s": t_predict}
-    return launches, timings
+    return launches, timings, model
 
 
 # ---------------------------------------------------------------------------
@@ -674,8 +711,9 @@ def boosting_path(ds_args, coords, pred, m, seed, rounds, dev):
           f"histogram launched {launches['histogram']} times for {leaves} "
           "leaves (one launch per leaf: the root and the smaller child of "
           "each split)")
-    check(reads == 2 * leaves - rounds,
-          f"{reads} host reads for {leaves} leaves in {rounds} trees")
+    check(reads == 2 * leaves,
+          f"{reads} host reads for {leaves} leaves in {rounds} trees (one "
+          "a leaf, one a tree for the histogram's fixed-point scales)")
     check(len(fits) == rounds + 1,
           f"{len(fits)} covariance refits in {rounds} rounds (expected one "
           "before the first tree and one after each round: the gradient "
@@ -791,7 +829,243 @@ def boosting_path(ds_args, coords, pred, m, seed, rounds, dev):
                f"train_{rounds}r_s": t_train,
                f"train_{rounds}r_no_gp_s": t_train0,
                "boost_predict_s": t_predict}
+    return launches, timings, bst, ds
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the reference's default fit route, std errors, GPBoost with it
+# ---------------------------------------------------------------------------
+
+def gp_default_route(coords, y, m, seed, dev):
+    """``fit(y)`` with no optimizer parameters (gradient descent, the whole
+    loop on the device) against the same descent on the float64 plain
+    route; then the std errors against the same computation in float64."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.models import optimizers as opt
+
+    model = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                        gp_approx="vecchia", num_neighbors=m,
+                        vecchia_ordering="random", seed=seed,
+                        dtype=torch.float32, device=dev)
+    init = model._default_init_cov_pars(y)
+    reset_counts()
+    reads0 = opt.gd_device.host_reads
+    t0 = clock()
+    model.fit(y)
+    t_fit = clock() - t0
+    launches = read_counts()
+    reads = opt.gd_device.host_reads - reads0
+    res = model._fit_result
+    cov_pars = model.get_cov_pars()
+    nll = model.get_current_neg_log_likelihood()
+    check(model.optim_cfg.optimizer_cov == "gradient_descent",
+          "the default optimizer is not gradient descent")
+    check(reads == res.num_evals >= 2,
+          f"gd_device: {reads} host reads for {res.num_evals} evaluations")
+    check(launches["vecchia_nll_grad"] == res.num_evals,
+          f"{launches['vecchia_nll_grad']} NLL kernel launches for "
+          f"{res.num_evals} evaluations")
+    check(res.aux is not None and bool(np.all(np.isfinite(res.aux))),
+          "the fit's Psi^-1 r output is missing or not finite")
+    check(math.isfinite(nll) and bool(np.all(cov_pars > 0)),
+          f"default route: NLL {nll}, cov_pars {cov_pars}")
+
+    # the same descent, float64 plain objective on the card, same structure
+    vec = model._approx
+    m64 = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                      gp_approx="vecchia", num_neighbors=m,
+                      vecchia_ordering="random", seed=seed, device=dev)
+    m64._approx.load_structure(vec.perm, vec.neighbors.cpu().numpy())
+    y64 = torch.as_tensor(y, dtype=torch.float64, device=dev)
+    t0 = clock()
+    ref = opt.gd_device(lambda th, r: m64._approx._vg_gaussian(th, r, None),
+                        np.log(init), opt.OptimConfig(), torch.float64, y64,
+                        device=dev)
+    t_ref = clock() - t0
+    nll_rel = abs(nll - ref.nll) / abs(ref.nll)
+    cp_rel = float(np.max(np.abs(cov_pars / ref.params - 1.0)))
+    check(nll_rel <= 1e-4, f"default route NLL {nll} vs float64 {ref.nll}")
+    check(cp_rel <= 5e-2, f"default route cov_pars {cov_pars} vs float64 "
+          f"{ref.params}: relative difference {cp_rel}")
+
+    # std errors: p + 1 NLL kernel launches (forward differences, n > 8192)
+    reset_counts()
+    t0 = clock()
+    se = model.get_cov_pars(std_err=True)[1]
+    t_se = clock() - t0
+    se_launches = read_counts()["vecchia_nll_grad"]
+    m64.cov_pars_ = cov_pars.copy()
+    m64.y = y64
+    t0 = clock()
+    se64 = m64.get_cov_pars(std_err=True)[1]
+    t_se64 = clock() - t0
+    se_rel = float(np.max(np.abs(se / se64 - 1.0)))
+    check(bool(np.all(np.isfinite(se)) and np.all(se > 0)),
+          f"std errors not finite and positive: {se}")
+    check(se_launches >= len(cov_pars) + 1,
+          f"std errors made {se_launches} NLL kernel launches, fewer than "
+          f"p + 1 = {len(cov_pars) + 1}")
+    check(se_rel <= 5e-2, f"std errors {se} vs float64 {se64}: relative "
+          f"difference {se_rel}")
+    emit({"phase": "gp_default_route", "optimizer": "gradient_descent",
+          "launches": launches, "nll": nll, "nll_f64_plain": ref.nll,
+          "nll_rel_diff": nll_rel, "cov_pars": cov_pars.tolist(),
+          "cov_pars_f64_plain": ref.params.tolist(),
+          "cov_pars_max_rel_diff": cp_rel, "iterations": res.num_it,
+          "evaluations": res.num_evals, "host_reads": reads,
+          "lr_after_first": res.lr_after_first,
+          "f64_plain_iterations": ref.num_it,
+          "f64_plain_evaluations": ref.num_evals, "f64_plain_fit_s": t_ref,
+          "std_err": se.tolist(), "std_err_f64_plain": se64.tolist(),
+          "std_err_max_rel_diff": se_rel, "std_err_launches": se_launches,
+          "std_err_f64_plain_s": t_se64})
+    timings = {"fit_gd_s": t_fit, "fit_gd_iterations": res.num_it,
+               "fit_gd_evaluations": res.num_evals,
+               "fit_gd_host_reads": reads, "std_err_s": t_se}
     return launches, timings
+
+
+def boosting_default_route(ds, X, yb, coords, m, seed, rounds, dev):
+    """``train(..., gp_model=gp)`` with the GP at the default optimizer:
+    the refits from the second on start at the first refit's learning rate
+    after its first iteration (``lr_start`` of ``objective.fits``)."""
+    import gpboost_tpu_torch as gpt
+
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=m,
+                     vecchia_ordering="random", seed=seed,
+                     dtype=torch.float32, device=dev)
+    gp.set_optim_params({"init_cov_pars": [0.25, 1.0, 0.1]})
+    reset_counts()
+    t0 = clock()
+    bst = gpt.train(BOOST_PARAMS, ds, gp_model=gp, num_boost_round=rounds)
+    t_train = clock() - t0
+    launches = read_counts()
+    fits = bst.objective.fits
+    evals = sum(f["num_evals"] for f in fits)
+    leaves = sum(t.num_leaves for t in bst.trees)
+    _check_trees(bst, "gpboost_gd")
+    check(len(fits) == rounds + 1, f"{len(fits)} refits in {rounds} rounds")
+    check(launches["histogram"] == leaves,
+          f"histogram launched {launches['histogram']} times for {leaves} "
+          "leaves")
+    check(launches["vecchia_nll_grad"] == evals,
+          f"vecchia_nll_grad launched {launches['vecchia_nll_grad']} times "
+          f"for {evals} evaluations")
+    lr1 = fits[0]["lr_after_first"]
+    check(lr1 is not None and bst.objective.lr_after_first == lr1
+          and fits[0]["lr_start"] is None
+          and all(f["lr_start"] == lr1 for f in fits[1:]),
+          f"learning-rate reuse: first refit's lr after one iteration "
+          f"{lr1}, starts {[f['lr_start'] for f in fits]}")
+    score = np.zeros(len(yb))
+    mses = []
+    for k in range(rounds):
+        score += bst.predict(X, start_iteration=k, num_iteration=k + 1,
+                             raw_score=True)
+        mses.append(float(np.mean((yb - score) ** 2)))
+    check(all(b < a for a, b in zip(mses, mses[1:])),
+          f"gpboost_gd: the training MSE does not fall every round: {mses}")
+    cov_pars = gp.get_cov_pars()
+    check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+          f"cov_pars not positive: {cov_pars}")
+    emit({"phase": "boosting_default_route", "optimizer": "gradient_descent",
+          "rounds": rounds, "leaves": leaves, "fits": len(fits),
+          "evaluations": evals,
+          "evaluations_per_fit": [f["num_evals"] for f in fits],
+          "lr_after_first": lr1,
+          "lr_start_by_fit": [f["lr_start"] for f in fits],
+          "launches": launches, "mse_first": mses[0], "mse_last": mses[-1],
+          "cov_pars": cov_pars.tolist()})
+    return launches, {f"train_{rounds}r_gd_s": t_train,
+                      f"train_{rounds}r_gd_evaluations": evals}
+
+
+def incoming_bt(model, dev):
+    """The gather-only ``B' v`` of the ``Psi^-1 r`` solve at the GP path's
+    shape: its structure (the maximum in-degree K, the bytes of the padded
+    [n, K] form and of the slices the model keeps) and its time beside the
+    scatter (``index_add_``) it replaces; same bits on two calls, within
+    1e-5 x (|v| + sum |A v|) of the float64 scatter."""
+    from gpboost_tpu_torch.ops import vecchia as vops
+    from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+
+    vec = model._approx
+    nb, slices = vec.neighbors, vec._incoming
+    n, m = nb.shape
+    cp = torch.tensor([0.25, 1.0, 0.1], device=dev)
+    a, _ = vk.vecchia_factors(cp[1:], vec.coords_perm, nb, cp[0], True, 0.5)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    v = torch.randn(n, generator=gen, device=dev)
+    inc_row, inc_slot = vops.build_incoming(nb)
+    K = int(inc_row.shape[1])
+    first = vops.apply_Bt_sliced(a, slices, v)
+    same = all(torch.equal(vops.apply_Bt_sliced(a, slices, v), first)
+               for _ in range(3))
+    check(same, "gather B'v: two calls differ bit-wise")
+    want = vops.apply_Bt(a.double(), nb, v.double())
+    scale = 2 * v.abs().double() - vops.apply_Bt_sliced(
+        a.abs().double(), slices, v.abs().double())
+    errs = {}
+    for tag, got in (("sliced", first),
+                     ("padded", vops.apply_Bt_gather(a, inc_row, inc_slot,
+                                                     v)),
+                     ("scatter_f32", vops.apply_Bt(a, nb, v))):
+        err = (got.double() - want).abs()
+        check(bool((err <= 1e-5 * scale).all()),
+              f"B'v {tag}: off by {float(err.max())} vs the float64 scatter")
+        errs[tag] = float(err.max())
+    nnz = int((nb >= 0).sum())
+    out = {"n": n, "m": m, "nnz": nnz, "max_in_degree_K": K,
+           "mean_in_degree": nnz / n,
+           "padded_bytes": 8 * n * K,
+           "sliced_bytes": sum(t.numel() * t.element_size() + 8 * r.numel()
+                               for t, r, _ in slices),
+           "plan_bytes": slices.nbytes(),
+           "slices": [list(shape) for shape in slices.shapes],
+           "sliced_ms": time_ms(lambda: vops.apply_Bt_sliced(a, slices, v),
+                                20),
+           "padded_ms": time_ms(lambda: vops.apply_Bt_gather(
+               a, inc_row, inc_slot, v), 20),
+           "scatter_ms": time_ms(lambda: vops.apply_Bt(a, nb, v), 20),
+           "max_abs_err_vs_f64": errs, "bit_identical": same}
+    del inc_row, inc_slot
+    torch.cuda.empty_cache()
+    emit(dict(phase="incoming_bt", **out))
+    return out
+
+
+def determinism(first, ds, yb, coords, m, seed, dev):
+    """A second training of the boosting path's L-BFGS recipe: the same
+    scores, covariance parameters and evaluation counts to the bit; two
+    ``Psi^-1 r`` solves the same bits."""
+    import gpboost_tpu_torch as gpt
+
+    gp = _gp_model(coords, m, seed, torch.float32, dev)
+    bst = gpt.train(BOOST_PARAMS, ds, gp_model=gp,
+                    num_boost_round=first.num_trees())
+    evals = ([f["num_evals"] for f in first.objective.fits],
+             [f["num_evals"] for f in bst.objective.fits])
+    same_scores = bool(np.array_equal(first._score, bst._score))
+    same_cov = bool(np.array_equal(first.gp_model.get_cov_pars(),
+                                   gp.get_cov_pars()))
+    r = torch.as_tensor(yb - bst._score,
+                        dtype=torch.float32, device=dev)
+    cp = torch.as_tensor(gp.get_cov_pars(), dtype=torch.float32, device=dev)
+    p1 = gp._approx.psi_inv_resid(cp, r)
+    p2 = gp._approx.psi_inv_resid(cp, r)
+    same_psi = bool(torch.equal(p1, p2))
+    out = {"train_scores_bit_identical": same_scores,
+           "train_cov_pars_bit_identical": same_cov,
+           "train_evaluations_identical": evals[0] == evals[1],
+           "psi_inv_resid_bit_identical": same_psi,
+           "score_max_abs_diff": float(np.abs(first._score
+                                              - bst._score).max()),
+           "evaluations": [sum(evals[0]), sum(evals[1])]}
+    emit(dict(phase="determinism", **out))
+    check(same_scores and same_cov and evals[0] == evals[1] and same_psi,
+          f"training on the card is not bit-reproducible: {out}")
+    return out
 
 
 def main():
@@ -853,10 +1127,25 @@ def main():
         hist_ds, args.seed, dev)
     del hist_ds
     t_check = time.perf_counter() - t0
-    launches, timings = main_path(coords, y, pred, args.m, args.seed, dev)
-    boost_launches, boost_timings = boosting_path(
+    launches, timings, gp_model = main_path(coords, y, pred, args.m,
+                                            args.seed, dev)
+    bt = incoming_bt(gp_model, dev)
+    del gp_model
+    boost_launches, boost_timings, bst, ds = boosting_path(
         boost_data, coords, pred, args.m, args.seed, args.rounds, dev)
     timings.update(boost_timings)
+    determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev)
+    del bst
+    gd_launches, gd_timings = gp_default_route(coords, y, args.m, args.seed,
+                                               dev)
+    timings.update(gd_timings)
+    bgd_launches, bgd_timings = boosting_default_route(
+        ds, boost_data[0], boost_data[1], coords, args.m, args.seed,
+        args.rounds, dev)
+    timings.update(bgd_timings)
+    del ds
+    timings.update(bt_sliced_ms=bt["sliced_ms"],
+                   bt_scatter_ms=bt["scatter_ms"])
     timings["vecchia_nll_grad_ms"] = timed["nll_grad"]["ms"]
     timings["histogram_ms"] = timed["histogram"]["ms"]
     timings["kernel_checks_s"] = t_check
@@ -871,9 +1160,15 @@ def main():
     timed["histogram"].update(stream_ops_per_call=len(ops), stream_ops=ops)
 
     # a kernel that a path runs must have been launched in that path's run
+    paths = {"gp": launches, "boosting": boost_launches,
+             "gp_default_route": gd_launches,
+             "boosting_default_route": bgd_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
-            ("boosting", boost_launches, tuple(REPLACES))):
+            ("boosting", boost_launches, tuple(REPLACES)),
+            ("gp_default_route", gd_launches,
+             ("vecchia_factors", "vecchia_nll_grad")),
+            ("boosting_default_route", bgd_launches, tuple(REPLACES))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")
@@ -887,8 +1182,7 @@ def main():
         own = boost_launches if name == "histogram" else launches
         entry = {"name": name, "route": "cuda", "source": SOURCE[name],
                  "replaces": REPLACES[name], "launches": own[name],
-                 "launches_by_path": {"gp": launches[name],
-                                      "boosting": boost_launches[name]},
+                 "launches_by_path": {k: v[name] for k, v in paths.items()},
                  "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -907,6 +1201,10 @@ def main():
                     "stack_frame_bytes"],
                 ptxas=kernel_ptxas["hist_kernel"],
                 run_to_run_max_abs_diff=t["run_to_run_max_abs_diff"],
+                run_to_run_bit_identical=t["run_to_run_bit_identical"],
+                scales_host_ms=t["scales_host_ms"],
+                static_smem_bytes=kernel_ptxas["hist_kernel"][0].get(
+                    "static_smem_bytes"),
                 library_is="one index_add_ on a prepared flat index",
                 other_shapes=t["other_shapes"])
         else:

@@ -69,8 +69,16 @@ class GPBoostObjective(Objective):
 
     Gradients = Psi^-1 (F - y), hessians = 1; covariance parameters
     re-optimized (warm-started from the previous iteration's) inside
-    ``get_gradients`` each boosting iteration. ``fits`` records every refit
-    (its final NLL and its number of objective evaluations).
+    ``get_gradients`` each boosting iteration. ``fits`` records every refit:
+    its final NLL, its number of objective evaluations, the learning rate
+    gradient descent started from (``lr_start``) and the one it reached
+    after its first iteration (``lr_after_first``).
+
+    With ``reuse_learning_rates_gp_model`` (the reference's optimizer-state
+    reuse, ``re_model_template.h:841-883``, :7463-7488) the refits from the
+    second on carry state from the first: gradient descent starts at the
+    first refit's ``lr_after_first`` (kept in ``self.lr_after_first``),
+    L-BFGS keeps its curvature memory on the host route.
     """
     name = "regression_gp"
     is_constant_hessian = True
@@ -84,10 +92,8 @@ class GPBoostObjective(Objective):
                 "(ROADMAP.md Queue A, items 11 and 13)")
         self.gp_model = gp_model
         self.train_gp_model_cov_pars = train_gp_model_cov_pars
-        # carry optimizer state across boosting iterations
-        # (re_model_template.h:880 reuse_m_bfgs_from_previous_call); see
-        # OptimConfig.lbfgs_reuse_mem for what the ported route does with it
         self.reuse_learning_rates_gp_model = reuse_learning_rates_gp_model
+        self.lr_after_first = None
         self.fits = []
         self._grad_cache = None
 
@@ -117,7 +123,7 @@ class GPBoostObjective(Objective):
         if self.train_gp_model_cov_pars:
             self._optim_cov_pars_gaussian(resid)
             # on the kernel route the fit evaluates Psi^-1 resid at its
-            # final parameters itself (optimizers.lbfgs_device final_fn)
+            # final parameters itself (the device loops' final_fn)
             aux = gp._fit_result.aux
             if aux is not None and aux.shape == resid.shape:
                 return -np.asarray(aux, np.float64), np.ones_like(score)
@@ -126,21 +132,34 @@ class GPBoostObjective(Objective):
 
     def _inner_fit_params(self):
         """Per-refit optimizer adjustments: inits warm-started from the
-        current parameters, L-BFGS memory reuse requested as the reference
-        does. The user's own optimizer settings are honored as configured."""
+        current parameters, plus the reference's learning-rate / L-BFGS
+        memory reuse from the second refit on. The user's own optimizer
+        settings (maxit etc.) are honored as configured."""
         gp = self.gp_model
         params = {}
         if gp.cov_pars_ is not None:
             params["init_cov_pars"] = np.asarray(gp.cov_pars_)
+        cfg = gp.optim_cfg
         if self.reuse_learning_rates_gp_model and self.num_fits > 0:
-            gp.optim_cfg.lbfgs_reuse_mem = True
+            if (cfg.optimizer_cov == "gradient_descent"
+                    and self.lr_after_first is not None):
+                cfg._reuse_lr_start = self.lr_after_first
+            elif cfg.optimizer_cov in ("lbfgs",
+                                       "lbfgs_linesearch_nocedal_wright"):
+                cfg.lbfgs_reuse_mem = True
         return params
 
     def _optim_cov_pars_gaussian(self, resid):
         gp = self.gp_model
         gp.fit(y=resid, params=self._inner_fit_params())
+        res = gp._fit_result
+        if (self.num_fits == 0 and self.reuse_learning_rates_gp_model
+                and res.lr_after_first is not None):
+            self.lr_after_first = float(res.lr_after_first)
         self.fits.append({"nll": gp.current_nll_,
-                          "num_evals": gp._fit_result.num_evals})
+                          "num_evals": res.num_evals,
+                          "lr_start": gp.optim_cfg._reuse_lr_start,
+                          "lr_after_first": res.lr_after_first})
 
     def _gaussian_psi_inv_resid(self, resid):
         gp = self.gp_model

@@ -9,8 +9,8 @@ device of the tensors it is given:
 
 - histogram build: the hand-written CUDA kernel of
   ``ops/kernels/histogram.py`` (the role of the reference's OpenCL/CUDA
-  ``histogram16/64/256`` kernels) or its plain version, see
-  :func:`build_histogram`;
+  ``histogram16/64/256`` kernels; fixed-point sums, with scales taken once
+  per tree) or its plain version, see :func:`build_histogram`;
 - split finding: a vectorized cumulative-sum gain scan over ``[F, B]`` —
   replaces ``FeatureHistogram::FindBestThreshold``;
 - partition: elementwise leaf-id update, no row shuffling.
@@ -18,11 +18,13 @@ device of the tensors it is given:
 Histogram subtraction (parent - child = sibling) halves the histogram work
 as in ``serial_tree_learner.cpp``. In float32 it loses digits for a sibling
 that is tiny beside its parent; the reference's accelerator learners behave
-the same.
+the same. Every step adds in a fixed order, so a tree grown twice from the
+same gradients is the same tree, on the card too.
 
 The grower reads the host once per leaf: the leaf's totals and its best
-split travel in one packed tensor (``grow_tree.host_reads`` counts the
-reads).
+split travel in one packed tensor; on the histogram kernel's route once
+more per tree, for the fixed-point scales (``grow_tree.host_reads`` counts
+the reads).
 
 Numeric features only. Not ported (ROADMAP.md Queue A, item 18):
 categorical splits, monotone and interaction constraints, CEGB, forced
@@ -37,13 +39,29 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gpboost_tpu_torch.ops.kernels.histogram import (MAX_BINS, histogram,
+from gpboost_tpu_torch.ops.kernels.histogram import (MAX_BINS,
+                                                     fixed_point_scales,
+                                                     histogram,
                                                      histogram_plain)
 from gpboost_tpu_torch.utils.timer import timed
 
 
+def _on_kernel(grad, num_bins: int) -> bool:
+    return (grad.is_cuda and grad.dtype == torch.float32
+            and int(num_bins) <= MAX_BINS)
+
+
+def histogram_scales(grad, hess, num_bins: int):
+    """The histogram kernel's fixed-point scales for one tree's gradients
+    (None off the kernel route): computed once per tree, passed to every
+    :func:`build_histogram` call of it."""
+    if not _on_kernel(grad, num_bins):
+        return None
+    return fixed_point_scales(grad, hess)
+
+
 def build_histogram(binned, grad, hess, row_mask, num_bins: int,
-                    binned_t=None):
+                    binned_t=None, scales=None):
     """Per-feature histograms of gradient/hessian/count for masked rows.
 
     binned: [n, F] integer bins; grad/hess: [n]; row_mask: [n] bool.
@@ -51,14 +69,17 @@ def build_histogram(binned, grad, hess, row_mask, num_bins: int,
 
     The gate: CUDA tensors with float32 gradients and ``num_bins <= 256``
     go through the hand-written kernel (``binned_t``: the features-major
-    uint8 panel of ``Dataset.binned_t``), which launches or raises. float64
-    gradients or more than 256 bins on the GPU run the plain version there;
-    CPU tensors always do.
+    uint8 panel of ``Dataset.binned_t``; ``scales``: the tree's
+    :func:`histogram_scales`, computed here when not given), which launches
+    or raises. float64 gradients or more than 256 bins on the GPU run the
+    plain version there (fixed summation order); CPU tensors always do.
+    Either way the same inputs give the same bits.
     """
-    if (grad.is_cuda and grad.dtype == torch.float32
-            and int(num_bins) <= MAX_BINS):
+    if _on_kernel(grad, num_bins):
+        if scales is None:
+            scales = fixed_point_scales(grad, hess)
         return histogram(binned, grad, hess, row_mask, num_bins,
-                         binned_t=binned_t)
+                         binned_t=binned_t, scales=scales)
     return histogram_plain(binned, grad, hess, row_mask, num_bins)
 
 
@@ -317,13 +338,19 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
         t = np.sign(g_sum) * max(abs(g_sum) - l1, 0.0)
         return float(-t / (h_sum + l2 + 1e-15))
 
+    # the histogram kernel's fixed-point scales, once for the tree (a read)
+    scales = histogram_scales(grad, hess, max_num_bins)
+    if scales is not None:
+        grow_tree.host_reads += 1
+
     def leaf_hist(leaf_id):
         with timed("grow_tree: histogram", sync=True):
             mask = row_leaf == leaf_id
             if row_mask is not None:
                 mask = mask & row_mask
             return torch.stack(build_histogram(
-                binned, grad, hess, mask, max_num_bins, binned_t=binned_t))
+                binned, grad, hess, mask, max_num_bins, binned_t=binned_t,
+                scales=scales))
 
     # per-leaf cached state: stacked histograms [3, F, B], best split
     # (feature, bin, gain, ok, left count, default_left), totals (G, H, count)

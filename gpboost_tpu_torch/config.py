@@ -63,7 +63,11 @@ PORTED = (
 
 # accepted without effect on the ported path: logging, host threading,
 # metric choice (no validation sets yet), EFB (lossless, so trees are the
-# same without it), seeds of sampling features that are not ported
+# same without it), seeds of sampling features that are not ported, and
+# ``deterministic``: training is always deterministic, on the card too (the
+# histogram kernel and the float64 histogram sum in fixed point, ``B' v`` of
+# the Psi^-1 solve is a gather with a fixed order; no float atomics remain
+# on the path)
 _NO_EFFECT = ("verbose", "seed", "metric", "enable_bundle", "num_threads",
               "device_type", "deterministic", "force_col_wise",
               "force_row_wise", "use_gp_model_for_validation",
@@ -160,17 +164,25 @@ def _refuse_unported(key: str, value) -> None:
             f"{sorted(PORTED)}")
 
 
-def resolve_params(params: Optional[dict]) -> dict:
-    """Canonical parameter dict of a user's ``params``: aliases resolved
-    (the canonical key wins when both are present), every key checked
-    against what the port supports. Raises ``NotImplementedError`` for a
-    key that is unknown or whose feature is not ported."""
+def resolve_aliases(params: Optional[dict]) -> dict:
+    """``params`` with every alias replaced by its canonical name; when both
+    are given the canonical key wins (``Config::KeyAliasTransform``)."""
     params = dict(params or {})
     out = {}
     for key, value in params.items():
         canon = ALIAS_TABLE.get(key, key)
         if canon != key and (canon in params or canon in out):
             continue
-        _refuse_unported(canon, value)
         out[canon] = value
+    return out
+
+
+def resolve_params(params: Optional[dict]) -> dict:
+    """Canonical parameter dict of a user's ``params``: aliases resolved
+    (the canonical key wins when both are present), every key checked
+    against what the port supports. Raises ``NotImplementedError`` for a
+    key that is unknown or whose feature is not ported."""
+    out = resolve_aliases(params)
+    for key, value in out.items():
+        _refuse_unported(key, value)
     return out

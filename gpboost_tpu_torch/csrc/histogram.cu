@@ -14,33 +14,41 @@
 // the form here is the one of the reference's own GPU learner
 // (treelearner/ocl/histogram256.cl): a block keeps a private histogram of
 // its feature tile in shared memory (up to HIST_F_TILE features x 256 bins
-// x (g, h, count) = 24 KB) and fills it with shared-memory atomics from the
-// features-major uint8 panel, reading the mask first and, for the rows
-// inside it, grad, hess and one byte per feature (neighbouring threads read
-// neighbouring rows: coalesced; a thread takes HIST_ILP rows at once, so
-// that their loads overlap).
+// x (g, h: 64-bit, count: 32-bit) = 40 KB) and fills it with shared-memory
+// atomics from the features-major uint8 panel, reading the mask first and,
+// for the rows inside it, grad, hess and one byte per feature (neighbouring
+// threads read neighbouring rows: coalesced; a thread takes HIST_ILP rows at
+// once, so that their loads overlap).
+//
+// Fixed point: the sums are 64-bit integers. A row adds llrint(g * scale_g)
+// and llrint(h * scale_h) with an integer atomicAdd (native on shared
+// memory, two's complement in unsigned arithmetic); integer addition is
+// associative, so every order of the atomics gives the same sum and the
+// histogram is the same bits on every launch. The scales are powers of two
+// chosen by the caller once per tree, so that n max|g| scale_g < 2^62 (the
+// sum of n rounded terms stays below 2^63 whatever the mask); a term is
+// then exact to 2^-63 n max|g|, far below float32's rounding. A sum is
+// converted to float once, when it is written (the power-of-two scale
+// divides out exactly).
 //
 // One launch does the whole call, with Hopper's thread-block clusters: a
 // cluster of C blocks (HIST_CLUSTER_BLOCKS = 16, a non-portable size) per
 // feature tile, block r of it taking the row chunks r, r + C,
 // ... After a cluster barrier, block r owns a fixed slice of the tile's
 // bin slots: it reads the slice from the C blocks' shared memory through
-// distributed shared memory, adds the C values in rank order and writes g,
-// h and float(count) straight into the output, every slot of which some
-// block writes. A second cluster barrier keeps every block's shared memory
-// alive until the others have read it. So there is no memset, no global
-// atomic and no conversion kernel: one stream operation. Counts are
-// unsigned integers, exact (to 2^24 rows a bin, where float32 stops
-// counting). The float sums are added across blocks in a fixed order, but
-// inside a block the shared atomics add in any order, so the sums still
-// vary in their last bits from run to run.
+// distributed shared memory, adds the C values and writes g, h and
+// float(count) straight into the output, every slot of which some block
+// writes. A second cluster barrier keeps every block's shared memory alive
+// until the others have read it. So there is no memset, no global atomic
+// and no conversion kernel: one stream operation. Counts are unsigned
+// integers, exact (to 2^24 rows a bin, where float32 stops counting).
 //
-// A float atomicAdd on shared memory is a compare-and-swap loop on this
-// card (integer atomics measured 2.4x faster), and the rows' atomics are
-// what a call's time goes to. So a cluster takes as few features as keep
-// the grid within one block an SM (tile = ceil(F C / SMs), 1 .. 8): at
-// F = 5 five clusters of one feature, 80 SMs; one cluster of 8 features
-// would leave every row on 16 SMs. C = 16 measured faster than 8 there.
+// Shared integer atomics are what a call's time goes to (a float atomicAdd
+// on shared memory is a compare-and-swap loop on this card, integer atomics
+// measured 2.4x faster). So a cluster takes as few features as keep the
+// grid within one block an SM (tile = ceil(F C / SMs), 1 .. 8): at F = 5
+// five clusters of one feature, 80 SMs; one cluster of 8 features would
+// leave every row on 16 SMs. C = 16 measured faster than 8 there.
 //
 // Bound: bytes. A call reads n mask bytes, 8 bytes of grad and hess and F
 // bin bytes per row inside the mask and writes 12 F B bytes; it does 3 F
@@ -67,12 +75,18 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// a block's histogram of its feature tile
+// a block's histogram of its feature tile, g and h in fixed point
 struct HistTile {
-  float g[HIST_F_TILE * HIST_MAX_BINS];
-  float h[HIST_F_TILE * HIST_MAX_BINS];
+  unsigned long long g[HIST_F_TILE * HIST_MAX_BINS];
+  unsigned long long h[HIST_F_TILE * HIST_MAX_BINS];
   unsigned int c[HIST_F_TILE * HIST_MAX_BINS];
 };
+
+// v * scale rounded to the nearest integer, as the two's complement bits
+// that an unsigned atomicAdd adds
+__device__ __forceinline__ unsigned long long to_fixed(float v, float scale) {
+  return (unsigned long long)__float2ll_rn(v * scale);
+}
 
 // tile: features a cluster (<= HIST_F_TILE); blockIdx.y = feature tile.
 // One block an SM (1 024 threads): ptxas may take up to 64 registers.
@@ -80,7 +94,7 @@ __global__ void __launch_bounds__(HIST_THREADS, 1)
 hist_kernel(const unsigned char* __restrict__ bins,
             const float* __restrict__ grad, const float* __restrict__ hess,
             const unsigned char* __restrict__ mask, float* __restrict__ out,
-            int n, int F, int B, int tile) {
+            int n, int F, int B, int tile, float scale_g, float scale_h) {
   __shared__ HistTile hist;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -90,8 +104,8 @@ hist_kernel(const unsigned char* __restrict__ bins,
   const int nf = min(tile, F - f0);
   const int slots = nf * HIST_MAX_BINS;
   for (int k = threadIdx.x; k < slots; k += HIST_THREADS) {
-    hist.g[k] = 0.0f;
-    hist.h[k] = 0.0f;
+    hist.g[k] = 0ull;
+    hist.h[k] = 0ull;
     hist.c[k] = 0u;
   }
   __syncthreads();
@@ -101,7 +115,7 @@ hist_kernel(const unsigned char* __restrict__ bins,
   const int chunk = HIST_THREADS * HIST_ILP;
   for (int row0 = rank * chunk; row0 < n; row0 += C * chunk) {
     bool in[HIST_ILP];
-    float g[HIST_ILP], h[HIST_ILP];
+    unsigned long long g[HIST_ILP], h[HIST_ILP];
 #pragma unroll
     for (int q = 0; q < HIST_ILP; ++q) {
       const int i = row0 + q * HIST_THREADS + threadIdx.x;
@@ -110,8 +124,8 @@ hist_kernel(const unsigned char* __restrict__ bins,
 #pragma unroll
     for (int q = 0; q < HIST_ILP; ++q) {
       const int i = row0 + q * HIST_THREADS + threadIdx.x;
-      g[q] = in[q] ? grad[i] : 0.0f;
-      h[q] = in[q] ? hess[i] : 0.0f;
+      g[q] = in[q] ? to_fixed(grad[i], scale_g) : 0ull;
+      h[q] = in[q] ? to_fixed(hess[i], scale_h) : 0ull;
     }
     for (int f = 0; f < nf; ++f) {
       const unsigned char* col = panel + (size_t)f * (size_t)n + row0;
@@ -134,20 +148,21 @@ hist_kernel(const unsigned char* __restrict__ bins,
   cluster.sync();
 
   // block r: slots [lo, hi) of the tile's nf x B, the C blocks' values
-  // added in rank order (the loads of HIST_RANKS_AT_ONCE ranks issued
-  // together)
+  // added (the loads of HIST_RANKS_AT_ONCE ranks issued together)
   const int total = nf * B;
   const int per = (total + C - 1) / C;
   const int lo = rank * per;
   const int hi = min(total, lo + per);
   const size_t fb = (size_t)F * (size_t)B;
+  const float inv_g = 1.0f / scale_g;
+  const float inv_h = 1.0f / scale_h;
   for (int s = lo + threadIdx.x; s < hi; s += HIST_THREADS) {
     const int f = s / B;
     const int k = f * HIST_MAX_BINS + (s - f * B);
-    float sg = 0.0f, sh = 0.0f;
+    unsigned long long sg = 0ull, sh = 0ull;
     unsigned int sc = 0u;
     for (int q0 = 0; q0 < C; q0 += HIST_RANKS_AT_ONCE) {
-      float xg[HIST_RANKS_AT_ONCE], xh[HIST_RANKS_AT_ONCE];
+      unsigned long long xg[HIST_RANKS_AT_ONCE], xh[HIST_RANKS_AT_ONCE];
       unsigned int xc[HIST_RANKS_AT_ONCE];
 #pragma unroll
       for (int u = 0; u < HIST_RANKS_AT_ONCE; ++u) {
@@ -168,8 +183,8 @@ hist_kernel(const unsigned char* __restrict__ bins,
       }
     }
     const size_t o = (size_t)f0 * (size_t)B + (size_t)s;
-    out[o] = sg;
-    out[fb + o] = sh;
+    out[o] = __ll2float_rn((long long)sg) * inv_g;
+    out[fb + o] = __ll2float_rn((long long)sh) * inv_h;
     out[2 * fb + o] = (float)sc;
   }
   // no block leaves (and frees its shared memory) while another reads it
@@ -217,13 +232,17 @@ int hist_cluster_blocks() { return HIST_CLUSTER_BLOCKS; }
 
 // bins [F, n] uint8 (features-major), grad / hess [n] f32, mask [n] uint8
 // (0 = outside), out [3, F, B] float32, written whole (no need to clear it):
-// out[0] = hist_g, out[1] = hist_h, out[2] = hist_c. Requires n >= 1,
-// F >= 1, 1 <= B <= 256. One kernel launch.
+// out[0] = hist_g, out[1] = hist_h, out[2] = hist_c. scale_g / scale_h:
+// the fixed-point scales, powers of two with n max|grad| scale_g < 2^62
+// (likewise for hess). Requires n >= 1, F >= 1, 1 <= B <= 256. One kernel
+// launch.
 int histogram_launch(const unsigned char* bins, const float* grad,
                      const float* hess, const unsigned char* mask, float* out,
-                     int n, int F, int B, void* stream) {
+                     int n, int F, int B, float scale_g, float scale_h,
+                     void* stream) {
   const int C = HIST_CLUSTER_BLOCKS;
-  if (n < 1 || F < 1 || B < 1 || B > HIST_MAX_BINS)
+  if (n < 1 || F < 1 || B < 1 || B > HIST_MAX_BINS || !(scale_g > 0.0f) ||
+      !(scale_h > 0.0f))
     return (int)cudaErrorInvalidValue;
   const cudaError_t allowed = allow_cluster();
   if (allowed != cudaSuccess) return (int)allowed;
@@ -245,7 +264,7 @@ int histogram_launch(const unsigned char* bins, const float* grad,
   cfg.numAttrs = 1;
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, hist_kernel, bins, grad, hess, mask, out, n, F,
-                         B, tile);
+                         B, tile, scale_g, scale_h);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

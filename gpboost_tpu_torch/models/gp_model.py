@@ -7,11 +7,16 @@ names, ``fit`` / ``neg_log_likelihood`` / ``predict`` / ``set_optim_params``
 (``[nugget, variance, range...]``).
 
 Ported so far: a single GP with ``gp_approx="vecchia"`` and the gaussian
-likelihood (construct, NLL, L-BFGS fit with optional linear predictor,
-local-kriging prediction, the ``Psi^-1 r`` solve of the GPBoost algorithm). Every other structure — exact GPs, grouped
-random effects, non-gaussian likelihoods, other approximations, GP random
-coefficients, ``cluster_ids`` — raises ``NotImplementedError`` and is queued
-in ROADMAP.md.
+likelihood — construct (every keyword of the reference's constructor is
+accepted: a value that needs a structure that is not ported raises), NLL,
+fit with optional linear predictor by every optimizer of the reference's
+Gaussian Vecchia route (gradient descent, the default, L-BFGS, Nelder-Mead;
+``models/vecchia_fit.py``), std errors of covariance parameters and
+coefficients, local-kriging prediction, the ``Psi^-1 r`` solve of the
+GPBoost algorithm. Every other structure — exact GPs, grouped random
+effects, non-gaussian likelihoods, other approximations, GP random
+coefficients, ``cluster_ids`` — raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
 raises) unless ``device="cpu"`` is passed. Inputs and outputs are numpy
@@ -25,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch import config
 from gpboost_tpu_torch.models import optimizers, vecchia_fit
 from gpboost_tpu_torch.models.vecchia_model import VecchiaGP
 from gpboost_tpu_torch.ops.cov_fns import CovFunction
@@ -32,7 +38,17 @@ from gpboost_tpu_torch.utils import resolve_device
 from gpboost_tpu_torch.utils.timer import timed
 
 _OPTIM_PARAMS = ("optimizer_cov", "maxit", "delta_rel_conv", "init_cov_pars",
-                 "init_coef")
+                 "init_coef", "trace", "std_dev", "convergence_criterion",
+                 "lr_cov", "use_nesterov_acc", "acc_rate_cov",
+                 "momentum_offset", "armijo_condition",
+                 "estimate_cov_par_index")
+_CRITERIA = ("relative_change_in_log_likelihood",
+             "relative_change_in_parameters")
+# above this many data points the std errors of the covariance parameters
+# come from finite differences of the NLL gradient, below it from the dense
+# expected Fisher information (the reference package's switch)
+_DENSE_FISHER_MAX_N = 8192
+_FD_EPS = 1e-4
 # reference optimizer-name aliases (re_model_template.h:718-750, :948-952)
 _OPT_ALIASES = {
     "gradient_descent_constant_change": "gradient_descent",
@@ -59,15 +75,34 @@ class GPModel:
     """
 
     def __init__(self, group_data=None, group_rand_coef_data=None,
+                 ind_effect_group_rand_coef=None,
+                 drop_intercept_group_rand_effect=None,
                  gp_coords=None, gp_rand_coef_data=None,
                  cov_function="matern", cov_fct_shape=1.5,
-                 gp_approx="none", num_neighbors=None,
-                 vecchia_ordering="random", seed=0, cluster_ids=None,
-                 likelihood="gaussian", weights=None,
+                 gp_approx="none", cov_fct_taper_range=1.0,
+                 cov_fct_taper_shape=1.0, num_neighbors=None,
+                 vecchia_ordering="random", ind_points_selection="kmeans++",
+                 num_ind_points=500, cover_tree_radius=1.0,
+                 matrix_inversion_method="cholesky", seed=0,
+                 cluster_ids=None, likelihood="gaussian",
+                 likelihood_additional_param=None, weights=None,
+                 free_raw_data=False, vecchia_approx=None,
+                 num_parallel_threads=None, num_data=None,
                  dtype=torch.float64, device="cuda"):
-        if group_data is not None or group_rand_coef_data is not None:
-            raise _not_ported("grouped random effects (group_data)",
+        # free_raw_data and num_parallel_threads have no effect here: the
+        # data stay on the device, and the host work is PyTorch's
+        if vecchia_approx:
+            gp_approx = "vecchia"      # the reference's deprecated switch
+        if (group_data is not None or group_rand_coef_data is not None
+                or ind_effect_group_rand_coef is not None
+                or drop_intercept_group_rand_effect is not None):
+            raise _not_ported("grouped random effects (group_data, "
+                              "group_rand_coef_data, "
+                              "ind_effect_group_rand_coef, "
+                              "drop_intercept_group_rand_effect)",
                               "Queue A, item 16")
+        if num_data is not None:
+            raise _not_ported("the iid model (num_data)", "Queue A, item 16")
         if gp_rand_coef_data is not None:
             raise _not_ported("GP random coefficients (gp_rand_coef_data)",
                               "Queue A, item 15")
@@ -75,9 +110,27 @@ class GPModel:
             raise _not_ported("cluster_ids", "Queue A, item 15")
         if weights is not None:
             raise _not_ported("weights", "Queue A, item 11")
+        if likelihood_additional_param is not None:
+            raise _not_ported("likelihood_additional_param",
+                              "Queue A, item 11")
         if likelihood != "gaussian":
             raise _not_ported(f"likelihood='{likelihood}'",
                               "Queue A, items 11 and 13")
+        for key, value, default in (
+                ("cov_fct_taper_range", cov_fct_taper_range, 1.0),
+                ("cov_fct_taper_shape", cov_fct_taper_shape, 1.0),
+                ("ind_points_selection", ind_points_selection, "kmeans++"),
+                ("num_ind_points", num_ind_points, 500),
+                ("cover_tree_radius", cover_tree_radius, 1.0)):
+            if value != default:
+                raise _not_ported(f"{key}={value!r} (tapering and inducing "
+                                  "points)", "Queue A, items 14 and 17")
+        if matrix_inversion_method == "iterative":
+            raise _not_ported("matrix_inversion_method='iterative'",
+                              "Queue A, items 12 and 13")
+        if matrix_inversion_method != "cholesky":
+            raise ValueError("matrix_inversion_method: 'cholesky' or "
+                             f"'iterative', got {matrix_inversion_method!r}")
         if gp_coords is None:
             raise ValueError("GPModel: 'gp_coords' is required")
         if gp_approx != "vecchia":
@@ -87,6 +140,7 @@ class GPModel:
         self.dtype = dtype
         self.likelihood = likelihood
         self.gp_approx = gp_approx
+        self.matrix_inversion_method = matrix_inversion_method
         self.num_neighbors = num_neighbors
         self.vecchia_ordering = vecchia_ordering
         self.seed = seed
@@ -95,6 +149,8 @@ class GPModel:
         self._fit_result = None
         self.cov_pars_ = None
         self.coefs_ = None
+        self.std_dev_cov_pars_ = None
+        self.std_dev_coefs_ = None
         self.num_it_ = 0
         self.current_nll_ = None
         self._train_fixed_effects = None
@@ -134,16 +190,25 @@ class GPModel:
         return self._tensor(y_np)
 
     def set_optim_params(self, params: Optional[dict] = None):
-        """Set optimization parameters (``basic.py:5347``). Ported:
-        ``optimizer_cov``, ``maxit``, ``delta_rel_conv``, ``init_cov_pars``,
-        ``init_coef``."""
+        """Set optimization parameters (``basic.py:5347``); aliases resolve
+        through ``config.ALIAS_TABLE``. Ported: ``optimizer_cov``,
+        ``maxit``, ``delta_rel_conv``, ``init_cov_pars``, ``init_coef``,
+        ``trace``, ``std_dev``, ``convergence_criterion``, ``lr_cov``,
+        ``use_nesterov_acc``, ``acc_rate_cov``, ``momentum_offset``,
+        ``armijo_condition``, ``estimate_cov_par_index``. ``std_dev`` has no
+        effect of its own: the std errors are computed when
+        ``get_cov_pars(std_err=True)`` asks for them."""
         if not params:
             return self
+        params = config.resolve_aliases(params)
         unknown = [k for k in params if k not in _OPTIM_PARAMS]
         if unknown:
             raise NotImplementedError(
                 f"optimization parameters {unknown} are not ported to "
                 f"gpboost_tpu_torch yet; ported: {list(_OPTIM_PARAMS)}")
+        if params.get("convergence_criterion", _CRITERIA[0]) not in _CRITERIA:
+            raise ValueError(f"convergence_criterion: one of {_CRITERIA}, "
+                             f"got {params['convergence_criterion']!r}")
         cfg = self.optim_cfg
         for k, v in params.items():
             if k == "optimizer_cov":
@@ -156,6 +221,8 @@ class GPModel:
                 # by predict() (reference: set_optim_params then predict uses
                 # the new coefficients without re-fitting)
                 self.coefs_ = cfg.init_coef
+            elif k == "estimate_cov_par_index":
+                cfg.estimate_cov_par_index = np.asarray(v, dtype=np.int32)
             else:
                 setattr(cfg, k, v)
         return self
@@ -213,6 +280,8 @@ class GPModel:
         fe = fixed_effects if fixed_effects is not None else offset
         # the offset is part of the model state for later predictions
         self._train_fixed_effects = None if fe is None else self._tensor(fe)
+        self.std_dev_cov_pars_ = None
+        self.std_dev_coefs_ = None
         with timed("GPModel: fit", sync=True):
             return vecchia_fit.fit(self, self.y, self.X,
                                    self._train_fixed_effects)
@@ -270,11 +339,93 @@ class GPModel:
         return {"mu": mu_np, "var": var_np, "cov": cov}
 
     # ------------------------------------------------------------------
-    def get_cov_pars(self):
-        return None if self.cov_pars_ is None else np.asarray(self.cov_pars_)
+    def get_cov_pars(self, format_pandas=False, std_err=False):
+        """Estimated covariance parameters; with ``std_err=True`` a [2, p]
+        stack of (estimate, asymptotic std dev), as the reference's
+        ``get_cov_pars(std_err=TRUE)``. A numpy array either way (the JAX
+        package likewise ignores ``format_pandas``)."""
+        if self.cov_pars_ is None:
+            return None
+        if not std_err:
+            return np.asarray(self.cov_pars_)
+        if self.std_dev_cov_pars_ is None:
+            self.std_dev_cov_pars_ = self._calc_std_dev_cov_pars()
+        return np.vstack([np.asarray(self.cov_pars_),
+                          np.asarray(self.std_dev_cov_pars_)])
 
-    def get_coef(self):
-        return None if self.coefs_ is None else np.asarray(self.coefs_)
+    def get_coef(self, std_err=False):
+        """Regression coefficients; with ``std_err=True`` a [2, k] stack of
+        (estimate, std dev) — NaN std devs when the model holds no ``X``."""
+        if self.coefs_ is None:
+            return None
+        if not std_err:
+            return np.asarray(self.coefs_)
+        if self.std_dev_coefs_ is None:
+            self.std_dev_coefs_ = self._calc_std_dev_coefs()
+        sd = self.std_dev_coefs_
+        if sd is None:
+            sd = np.full(len(np.asarray(self.coefs_)), np.nan)
+        return np.vstack([np.asarray(self.coefs_), np.asarray(sd)])
+
+    def _fitted_fixed_part(self):
+        """Offset plus X beta of the training data (tensor or None)."""
+        fe = self._train_fixed_effects
+        if self.coefs_ is not None and self.X is not None:
+            xb = self.X @ self._tensor(self.coefs_)
+            fe = xb if fe is None else fe + xb
+        return fe
+
+    def _calc_std_dev_cov_pars(self) -> np.ndarray:
+        """Asymptotic std devs from the inverse Fisher information
+        (``CalcStdDevCovPar``, ``re_model_template.h:9775``), by the delta
+        method on the log scale.
+
+        Up to n = 8192 the dense expected Fisher information of the exact
+        covariance; beyond, the observed information by forward differences
+        (eps = 1e-4) of the NLL gradient — p + 1 gradient evaluations (on
+        the kernel route, p + 1 launches of the NLL kernel), no [n, n]
+        matrix."""
+        if self.y is None:
+            raise ValueError("std errors need the training data: call fit() "
+                             "first")
+        cov_pars = np.asarray(self.cov_pars_, np.float64)
+        lp = np.log(cov_pars)
+        if self.num_data > _DENSE_FISHER_MAX_N:
+            fe = self._fitted_fixed_part()
+            self._approx.ensure_neighbors(cov_pars)
+
+            def grad(t):
+                _, g = self._approx._vg_gaussian(
+                    torch.as_tensor(t, dtype=self.dtype, device=self.device),
+                    self.y, fe)
+                return g.detach().cpu().numpy().astype(np.float64)
+
+            p = len(lp)
+            g0 = grad(lp)
+            fi = np.empty((p, p))
+            for j in range(p):
+                t = lp.copy()
+                t[j] += _FD_EPS
+                fi[:, j] = (grad(t) - g0) / _FD_EPS
+            fi = 0.5 * (fi + fi.T)
+        else:
+            fi = _dense_fisher_information(
+                self.cov_fn, torch.as_tensor(self.coords_np,
+                                             device=self.device), lp)
+        return np.sqrt(np.maximum(np.diagonal(_inverse(fi)), 0.0)) * cov_pars
+
+    def _calc_std_dev_coefs(self):
+        """Std devs of the regression coefficients from the GLS covariance
+        (X' Psi^-1 X)^-1 (``CalcStdDevCoef``), Psi^-1 applied column by
+        column through the Vecchia precision."""
+        if self.X is None or self.coefs_ is None:
+            return None
+        X_np = self.X.detach().cpu().numpy().astype(np.float64)
+        pix = torch.stack([self._psi_solve(self.cov_pars_, X_np[:, j])
+                           for j in range(X_np.shape[1])], dim=1)
+        xtpix = (self.X.T @ pix.to(self.X.dtype)).detach().cpu().numpy()
+        return np.sqrt(np.maximum(np.diagonal(
+            _inverse(xtpix.astype(np.float64))), 0.0))
 
     def get_num_optim_iter(self):
         return self.num_it_
@@ -360,3 +511,35 @@ class GPModel:
                    dtype=torch.float64) -> "GPModel":
         with open(filename) as f:
             return cls.from_dict(json.load(f), device=device, dtype=dtype)
+
+
+def _inverse(a: np.ndarray) -> np.ndarray:
+    try:
+        return np.linalg.inv(a)
+    except np.linalg.LinAlgError:
+        return np.linalg.pinv(a)
+
+
+def _dense_fisher_information(cov_fn: CovFunction, coords: torch.Tensor,
+                              log_cov_pars: np.ndarray) -> np.ndarray:
+    """Expected Fisher information of the log-scale parameters
+    [nugget, variance, range...] of the exact Gaussian model on ``coords``:
+    FI_jk = 0.5 tr(Psi^-1 dPsi_j Psi^-1 dPsi_k), dPsi by forward-mode
+    autodiff of the covariance build (``CalcFisherInformation``,
+    ``re_model_template.h:9144``). Float64; [n, n, p] of memory."""
+    coords = coords.to(torch.float64)
+    n = coords.shape[0]
+    eye = torch.eye(n, dtype=torch.float64, device=coords.device)
+
+    def psi(lp):
+        pars = torch.exp(lp)
+        return cov_fn.cov_between(pars[1:], coords, coords) + pars[0] * eye
+
+    lp = torch.as_tensor(log_cov_pars, dtype=torch.float64,
+                         device=coords.device)
+    dpsi = torch.func.jacfwd(psi)(lp)                         # [n, n, p]
+    p = dpsi.shape[2]
+    chol = torch.linalg.cholesky(psi(lp))
+    s = torch.cholesky_solve(dpsi.reshape(n, n * p), chol).reshape(n, n, p)
+    fi = 0.5 * torch.einsum("ilj,lik->jk", s, s)
+    return fi.cpu().numpy()

@@ -79,7 +79,15 @@ class VecchiaGP:
         if neighbors is None:
             neighbors = vops.find_neighbors(self.coords_perm,
                                             self.num_neighbors)
+        self._set_neighbors(neighbors)
+
+    def _set_neighbors(self, neighbors) -> None:
+        """The neighbour matrix and, on CUDA, its transpose: the incoming
+        structure of the gather-only ``B' v`` (rebuilt whenever the
+        neighbours change; the CPU route uses the plain scatter)."""
         self.neighbors = neighbors
+        self._incoming = (vops.build_incoming_sliced(neighbors)
+                          if neighbors.is_cuda else None)
 
     def load_structure(self, perm: np.ndarray, neighbors: np.ndarray) -> None:
         """Replace the ordering permutation and the neighbor matrix by given
@@ -175,7 +183,7 @@ class VecchiaGP:
         scaled = self.cov_fn.scale_coords(
             self.coords_perm, torch.as_tensor(gp_pars, dtype=self.dtype,
                                               device=self.device))
-        self.neighbors = vops.find_neighbors(scaled, self.num_neighbors)
+        self._set_neighbors(vops.find_neighbors(scaled, self.num_neighbors))
         self._ard_neighbors_pars = gp_pars
 
     def _pred_neighbors(self, gp_pars, coords_pred):
@@ -207,7 +215,9 @@ class VecchiaGP:
     def psi_inv_resid(self, cov_pars, r):
         """Psi^-1 r via the response-scale Vecchia precision (matrix-free,
         original row order; r [n]) — the GPBoost pseudo-gradient and
-        Newton-leaf solves (``regression_objective.hpp:153-171``)."""
+        Newton-leaf solves (``regression_objective.hpp:153-171``). On CUDA
+        the transpose ``B'`` is the gather-only one, so the result is the
+        same bits on every call; on the CPU the plain scatter."""
         if self._kernel_shape is not None:
             # inside the kernel gate: the fused factor kernel, float32
             shape_code, is_ard = self._kernel_shape
@@ -218,7 +228,13 @@ class VecchiaGP:
             r = r.to(torch.float32)
         else:
             a, d = self._response_factors(cov_pars, self.neighbors)
-        out = vops.precision_matvec(a, self.neighbors, d, r[self._perm_t])
+        if r.is_cuda:
+            out = vops.precision_matvec_gather(a, self.neighbors,
+                                               self._incoming, d,
+                                               r[self._perm_t])
+        else:
+            out = vops.precision_matvec(a, self.neighbors, d,
+                                        r[self._perm_t])
         return out[self._inv_perm_t]
 
     def wls_coef(self, cov_pars, y, X, fixed_effects=None):

@@ -14,14 +14,17 @@ histograms in shared memory filled with shared-memory atomics from a
 features-major uint8 panel. A call is one kernel launch: a thread-block
 cluster of 16 blocks per tile of features (as few features a cluster as keep
 the grid within one block an SM), whose blocks add their histograms through
-distributed shared memory in a fixed order and write the result whole (no
-memset, no global atomics, no conversion kernel). Its bound is bytes (one
-byte per row and feature, nine per row for gradient, hessian and mask), far
-less at n = 1e5 than what it takes: the shared float atomics (a
-compare-and-swap loop on this card) and the clustered launch. Counts are
-accumulated as integers and are exact, the float sums depend on the order of
-the shared atomics in their last bits. There is no cap on the number of
-rows.
+distributed shared memory and write the result whole (no memset, no global
+atomics, no conversion kernel). Its bound is bytes (one byte per row and
+feature, nine per row for gradient, hessian and mask), far less at n = 1e5
+than what it takes: the shared atomics and the clustered launch.
+
+The gradient and hessian sums are 64-bit fixed-point integers with
+power-of-two scales that the caller passes (:func:`fixed_point_scales`,
+once per tree), so they do not depend on the order of the atomics: two
+launches on the same inputs give the same bits, and a sum is exact to far
+below float32's rounding. Counts are integers, exact. There is no cap on the
+number of rows.
 
 Beside it stands :func:`histogram_plain` (``index_add_``), the twin of the
 JAX package's ``tree._build_histogram_xla``. The wrapper takes it only for
@@ -31,6 +34,7 @@ raises. ``histogram.launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -38,6 +42,8 @@ import torch
 from gpboost_tpu_torch.ops.kernels import _build
 
 MAX_BINS = 256       # HIST_MAX_BINS of the .cu file (uint8 bins)
+FIXED_POINT_BITS = 62    # n max|v| scale < 2^62: a sum stays below 2^63
+_MAX_SCALE_EXP = 100     # scales within [2^-100, 2^100] (float32 range)
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -48,7 +54,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("histogram")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.histogram_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        cf = ctypes.c_float
+        lib.histogram_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf,
+                                         cf, vp]
         lib.histogram_launch.restype = ci
         lib.histogram_empty_launch.argtypes = [vp]
         lib.histogram_empty_launch.restype = ci
@@ -63,11 +71,38 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+def fixed_point_scale(max_abs: float, n_rows: int) -> float:
+    """The power of two 2^k with n_rows * max_abs * 2^k < 2^62, k within
+    [-100, 100]: the fixed-point scale of a sum of at most ``n_rows`` values
+    of magnitude at most ``max_abs``."""
+    if not math.isfinite(max_abs):
+        raise ValueError(f"histogram: a gradient or hessian is not finite "
+                         f"(max |v| = {max_abs})")
+    if max_abs <= 0.0:
+        return 1.0
+    _, e = math.frexp(float(n_rows) * max_abs)     # n max|v| < 2^e
+    k = min(max(FIXED_POINT_BITS - e, -_MAX_SCALE_EXP), _MAX_SCALE_EXP)
+    return math.ldexp(1.0, k)
+
+
+def fixed_point_scales(grad, hess) -> tuple:
+    """(scale_g, scale_h) for :func:`histogram` from the round's gradients
+    and hessians over all their rows: one reduction and one host read, to be
+    made once per tree (every mask is a subset of the rows)."""
+    n = grad.shape[0]
+    g_max, h_max = torch.stack([grad.abs().max(),
+                                hess.abs().max()]).double().tolist()
+    return fixed_point_scale(g_max, n), fixed_point_scale(h_max, n)
+
+
 def histogram_plain(binned, grad, hess, row_mask, num_bins: int):
     """Plain version of :func:`histogram`: one ``index_add_`` over the
     flattened ``feature * num_bins + bin`` index. Any device, any float
     dtype; returns (hist_g, hist_h, hist_c), each ``[F, num_bins]`` in the
-    dtype of ``grad``. On the CPU rows are added in increasing order."""
+    dtype of ``grad``. On the CPU rows are added in increasing order. On
+    CUDA (the float64 route of ``gpu_use_dp``) ``index_add_`` would add
+    floats with atomics in no fixed order, so it adds the integer words of
+    :func:`fixed_point_words` instead: the same bits on every call."""
     n, F = binned.shape
     dt = grad.dtype
     zero = torch.zeros((), dtype=dt, device=grad.device)
@@ -76,13 +111,58 @@ def histogram_plain(binned, grad, hess, row_mask, num_bins: int):
                         row_mask.to(dt)])                       # [3, n]
     offsets = torch.arange(F, device=binned.device) * num_bins
     idx = (binned.long() + offsets).reshape(-1)                 # [n * F]
+    if grad.is_cuda:
+        # a bin sums at most n rows: the words of the [n, 3] values, each
+        # row's repeated for its F features
+        words, s1, s2 = fixed_point_words(vals.t())
+        acc = torch.zeros((F * num_bins, 6), dtype=torch.int64,
+                          device=grad.device)
+        acc.index_add_(0, idx, words[:, None, :].expand(n, F, 6)
+                       .reshape(-1, 6))
+        out = from_fixed_point_words(acc, s1, s2).to(dt)
+        out = out.t().reshape(3, F, num_bins)
+        return out[0], out[1], out[2]
     out = torch.zeros((3, F * num_bins), dtype=dt, device=grad.device)
     out.index_add_(1, idx, vals[:, :, None].expand(3, n, F).reshape(3, -1))
     out = out.view(3, F, num_bins)
     return out[0], out[1], out[2]
 
 
-def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None):
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float64, exact, for integer ``e`` in [-1022, 1023]: the
+    exponent bits set directly."""
+    return ((e.long() + 1023) << 52).view(torch.float64)
+
+
+def fixed_point_words(vals):
+    """``vals`` [N, C] as two 64-bit fixed-point words a value, for sums of
+    at most N of them that integer addition makes order-free: the multiple
+    of 2^-k (k per column from its max |v|, so that N max|v| 2^k < 2^62)
+    and the remainder in units of 2^-(k + 61 - bits(N)). Returns (words
+    [N, 2C] int64, s1 [C] = 2^k, s2); :func:`from_fixed_point_words` turns
+    summed words back into float64 sums, exact to far below float64's
+    rounding of them. All on the device of ``vals``, no host read."""
+    N, C = vals.shape
+    v = vals.to(torch.float64)
+    top = v.abs().amax(dim=0) if N else v.new_zeros(C)
+    _, e = torch.frexp(torch.clamp(top * max(N, 1), min=1e-290))
+    s1 = _pow2(torch.clamp(62 - e, max=960))       # N max|v| s1 < 2^62
+    s2 = 2.0 ** (61 - max(N, 1).bit_length())       # N / 2 s2 < 2^61
+    hi = torch.round(v * s1)
+    lo = torch.round((v * s1 - hi) * s2)
+    return torch.cat([hi, lo], dim=1).to(torch.int64), s1, s2
+
+
+def from_fixed_point_words(acc, s1, s2) -> torch.Tensor:
+    """float64 sums [M, C] from summed words [M, 2C] of
+    :func:`fixed_point_words`."""
+    C = acc.shape[1] // 2
+    return (acc[:, :C].to(torch.float64) / s1
+            + acc[:, C:].to(torch.float64) / (s1 * s2))
+
+
+def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None,
+              scales=None):
     """Per-feature histograms of gradient, hessian and count over the rows
     of a mask: ``hist[f, b] = sum over {i: row_mask[i], binned[i, f] == b}``
     of ``(grad[i], hess[i], 1)``.
@@ -92,14 +172,18 @@ def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None):
     ``[F, num_bins]``.
 
     CUDA tensors go through the hand-written kernel: float32 ``grad`` and
-    ``hess``, ``num_bins <= 256``. ``binned_t`` is the features-major
-    ``[F, n]`` uint8 copy of ``binned`` that the kernel reads
-    (``Dataset.binned_t``); without it the wrapper transposes ``binned`` on
-    every call. CPU tensors go through :func:`histogram_plain`.
+    ``hess``, ``num_bins <= 256``, and ``scales`` = (scale_g, scale_h), the
+    fixed-point scales of :func:`fixed_point_scales` (a caller computes them
+    once per tree, so that a call stays one stream operation). ``binned_t``
+    is the features-major ``[F, n]`` uint8 copy of ``binned`` that the
+    kernel reads (``Dataset.binned_t``); without it the wrapper transposes
+    ``binned`` on every call. CPU tensors go through :func:`histogram_plain`
+    (``scales`` is not needed there).
 
     Shapes, dtypes, devices and contiguity are checked before the launch;
     the VALUES of the bins are not (that would cost a synchronisation): a
-    bin >= ``num_bins`` is dropped by the kernel.
+    bin >= ``num_bins`` is dropped by the kernel. A scale too small for the
+    values loses their low bits; one too large wraps the sums around.
     """
     if not grad.is_cuda:
         return histogram_plain(binned, grad, hess, row_mask, num_bins)
@@ -113,6 +197,10 @@ def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None):
     if not 1 <= int(num_bins) <= MAX_BINS:
         raise ValueError(f"num_bins: {num_bins}, the kernel takes "
                          f"1 <= num_bins <= {MAX_BINS}")
+    if scales is None or len(scales) != 2 or not all(
+            s > 0 and math.frexp(s)[0] == 0.5 for s in scales):
+        raise ValueError(f"scales: {scales!r}, the kernel takes two "
+                         "positive powers of two (fixed_point_scales)")
     if binned_t is None:
         if binned.device != device:
             raise ValueError(f"binned: lies on {binned.device}, the kernel "
@@ -128,7 +216,7 @@ def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None):
         err = _lib().histogram_launch(
             binned_t.data_ptr(), grad.data_ptr(), hess.data_ptr(),
             row_mask.data_ptr(), out.data_ptr(), n, F, int(num_bins),
-            _build.current_stream())
+            float(scales[0]), float(scales[1]), _build.current_stream())
     _build.raise_on_error(err, "histogram")
     histogram.launches += 1
     return out[0], out[1], out[2]

@@ -187,17 +187,173 @@ def apply_B(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
 
 
 def apply_Bt(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
-    """(B' v)_i = v_i - sum_{j: i in nb(j)} A[j, pos] v_j (scatter-add)."""
+    """(B' v)_i = v_i - sum_{j: i in nb(j)} A[j, pos] v_j (scatter-add).
+
+    The plain version: ``index_add_`` adds in row order on the CPU but with
+    float atomics, in no fixed order, on CUDA — the CUDA route is
+    :func:`apply_Bt_sliced`."""
     idx = torch.clamp(neighbors, min=0).long()
     contrib = torch.where(neighbors >= 0, a * v[:, None], 0.0)
     return v - torch.zeros_like(v).index_add_(
         0, idx.reshape(-1), contrib.reshape(-1))
 
 
+def _incoming_csr(neighbors: torch.Tensor):
+    """The neighbour structure transposed, in CSR form: for every target
+    row i, the (source row j, slot k) pairs with ``neighbors[j, k] == i``,
+    in increasing (j, k). Returns (flat [nnz] = j * m + k ordered by target,
+    counts [n], starts [n]) on the device of ``neighbors``."""
+    n, m = neighbors.shape
+    tgt = neighbors.reshape(-1).long()
+    flat = torch.nonzero(tgt >= 0).reshape(-1)        # increasing j * m + k
+    tgt = tgt[flat]
+    tgt, order = torch.sort(tgt, stable=True)
+    flat = flat[order]
+    counts = torch.bincount(tgt, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    return flat, counts, starts
+
+
+def _incoming_rows(flat, counts, starts, targets, width: int, m: int):
+    """(inc_row, inc_slot) [len(targets), width] of the given target rows,
+    padded with -1 / 0 beyond each row's in-degree."""
+    pos = torch.arange(width, device=flat.device)
+    valid = pos[None, :] < counts[targets][:, None]
+    at = torch.clamp(starts[targets][:, None] + pos[None, :], 0,
+                     max(flat.numel() - 1, 0))
+    src = flat[at] if flat.numel() else torch.zeros_like(at)
+    inc_row = torch.where(valid, src // m, -1).to(torch.int32)
+    inc_slot = torch.where(valid, src % m, 0).to(torch.int32)
+    return inc_row, inc_slot
+
+
+def build_incoming(neighbors: torch.Tensor):
+    """Transpose the neighbour structure: for each row i, the (source row
+    j, slot k) pairs with ``neighbors[j, k] == i`` in increasing j, padded
+    to the maximum in-degree K with -1 (the JAX package's
+    ``ops/vecchia.py::build_incoming``). Returns (inc_row [n, K],
+    inc_slot [n, K]) int32 on the device of ``neighbors``.
+
+    With a random ordering early rows are neighbours of ~ m ln(n / i)
+    later rows, so K is many times the mean in-degree m: the model keeps
+    the same pairs grouped by in-degree instead
+    (:func:`build_incoming_sliced`)."""
+    n, m = neighbors.shape
+    flat, counts, starts = _incoming_csr(neighbors)
+    K = max(int(counts.max()) if n else 0, 1)
+    targets = torch.arange(n, device=neighbors.device)
+    return _incoming_rows(flat, counts, starts, targets, K, m)
+
+
+class IncomingSlices:
+    """The pairs of :func:`build_incoming` grouped by in-degree, and the
+    gather plan of :func:`apply_Bt_sliced`.
+
+    Iterating yields the slices (targets [t], inc_row [t, w], inc_slot
+    [t, w]), one per width w = min_width, 2 min_width, 4 min_width, ...
+    (the last cut to the maximum in-degree K), holding the rows whose
+    in-degree lies in (w / 2, w] (the first: [1, min_width]). Each slice's
+    rows are the rows ``targets`` of :func:`build_incoming`'s arrays cut to
+    width w, so the padding is at most about as large as the pairs, not
+    K / m times it. Rows that no other row conditions on appear in no
+    slice.
+
+    The plan flattens all slices into one row of gathers: ``flat`` (j m + k
+    into A), ``src`` (j into v) and ``valid`` over the slices' entries one
+    after the other, and ``targets`` of all slices; ``shapes`` the (t, w)
+    of each. It is what :func:`apply_Bt_sliced` runs."""
+
+    def __init__(self, slices, m: int):
+        self.slices = slices
+        if slices:
+            rows = torch.cat([r.reshape(-1) for _, r, _ in slices])
+            slots = torch.cat([k.reshape(-1) for _, _, k in slices])
+            self.valid = rows >= 0
+            self.src = torch.clamp(rows, min=0).long()
+            self.flat = torch.where(self.valid, self.src * m + slots.long(), 0)
+            self.targets = torch.cat([t for t, _, _ in slices])
+        self.shapes = [tuple(r.shape) for _, r, _ in slices]
+
+    def __iter__(self):
+        return iter(self.slices)
+
+    def __len__(self):
+        return len(self.slices)
+
+    def nbytes(self) -> int:
+        """Bytes of the gather plan the model keeps."""
+        if not self.slices:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in (self.valid, self.src, self.flat, self.targets))
+
+
+def build_incoming_sliced(neighbors: torch.Tensor,
+                          min_width: int = 8) -> IncomingSlices:
+    """The pairs of :func:`build_incoming` grouped by in-degree
+    (:class:`IncomingSlices`), built without the padded [n, K] arrays."""
+    n, m = neighbors.shape
+    flat, counts, starts = _incoming_csr(neighbors)
+    slices = []
+    lo, width = 0, int(min_width)
+    max_deg = int(counts.max()) if n else 0
+    while lo < max_deg:
+        targets = torch.nonzero((counts > lo) & (counts <= width)).reshape(-1)
+        if targets.numel():
+            slices.append((targets,) + _incoming_rows(
+                flat, counts, starts, targets, min(width, max_deg), m))
+        lo, width = width, 2 * width
+    return IncomingSlices(slices, m)
+
+
+def _incoming_sums(a, inc_row, inc_slot, v):
+    """sum_k A[inc_row[i, k], inc_slot[i, k]] v[inc_row[i, k]] per row i,
+    padding excluded; a gather and a row sum, so the order of the terms is
+    fixed."""
+    src = torch.clamp(inc_row, min=0).long()
+    coef = a[src, inc_slot.long()]
+    return torch.sum(torch.where(inc_row >= 0, coef * v[src], 0.0), dim=1)
+
+
+def apply_Bt_gather(a: torch.Tensor, inc_row: torch.Tensor,
+                    inc_slot: torch.Tensor, v: torch.Tensor):
+    """(B' v) through the padded incoming structure of
+    :func:`build_incoming`: gathers only."""
+    return v - _incoming_sums(a, inc_row, inc_slot, v)
+
+
+def apply_Bt_sliced(a: torch.Tensor, slices: IncomingSlices,
+                    v: torch.Tensor):
+    """(B' v) through the slices of :func:`build_incoming_sliced`: one
+    gather over all slices' entries, a row sum per slice, one copy into
+    place — every row's terms added in the same order on every call
+    (bit-reproducible on CUDA, unlike the scatter of :func:`apply_Bt`)."""
+    if not len(slices):
+        return v.clone()
+    prod = torch.where(slices.valid,
+                       a.reshape(-1)[slices.flat] * v[slices.src], 0.0)
+    sums, at = [], 0
+    for t, w in slices.shapes:
+        sums.append(prod[at:at + t * w].view(t, w).sum(dim=1))
+        at += t * w
+    acc = torch.zeros_like(v).index_copy_(0, slices.targets,
+                                          torch.cat(sums))
+    return v - acc
+
+
 def precision_matvec(a, neighbors, d_cond, v):
-    """(B' D^-1 B) v — matrix-free Vecchia precision product, O(n m)."""
+    """(B' D^-1 B) v — matrix-free Vecchia precision product, O(n m); the
+    plain version (scatter-add transpose)."""
     bv = apply_B(a, neighbors, v)
     return apply_Bt(a, neighbors, bv / d_cond)
+
+
+def precision_matvec_gather(a, neighbors, slices, d_cond, v):
+    """(B' D^-1 B) v with the gather-only transpose of
+    :func:`apply_Bt_sliced` — same math as :func:`precision_matvec`, fixed
+    summation order."""
+    bv = apply_B(a, neighbors, v)
+    return apply_Bt_sliced(a, slices, bv / d_cond)
 
 
 def vecchia_nll(a, d_cond, neighbors, r, row_weight=None):

@@ -10,6 +10,18 @@ import gpboost_tpu as gpb
 import gpboost_tpu_torch as gpt
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data(n=1500, seed=0):
     rng = np.random.default_rng(seed)
     X = np.column_stack([

@@ -3,9 +3,10 @@ NLL, L-BFGS fit, predict, state carried across (n = 600, m = 10, d = 2,
 float64, CPU; inputs from a numpy seed handed to both sides).
 
 Tolerances: NLL 1e-8; fitted NLL 1e-5 relative and ``cov_pars_`` rtol 2e-2
-(the JAX package fits with scipy's L-BFGS-B on the CPU, the port with its
-device-resident loop: different optimisers, same optimum); coefficients
-1e-3; predictions at carried-over parameters 1e-8.
+(both packages fit with scipy's L-BFGS-B on the CPU; kept from when the
+port ran its device loop there); coefficients 1e-3; predictions at
+carried-over parameters 1e-8. Gradient descent (the default route) and
+Nelder-Mead: 1e-6 relative. Std errors: 1e-6 relative.
 """
 import subprocess
 import sys
@@ -16,6 +17,18 @@ import torch
 
 import gpboost_tpu as gpb
 import gpboost_tpu_torch as gpt
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 N, M = 600, 10
 
@@ -160,8 +173,10 @@ def test_float32_model_takes_the_kernel_route_on_cpu_plain(data):
     cp = [0.25, 1.0, 0.1]
     assert abs(tm.neg_log_likelihood(cp, data["y"])
                - t64.neg_log_likelihood(cp, data["y"])) < 1e-3
+    # on the CPU the fit runs scipy's L-BFGS-B, as the JAX package's CPU
+    # route does; the device loop (and its fused Psi^-1 r) is for CUDA
     tm.fit(data["y"], params={"optimizer_cov": "lbfgs", "maxit": 5})
-    assert tm._fit_result.aux.shape == (N,)
+    assert tm._fit_result.aux is None
     assert tm._fit_result.num_evals >= 2
     assert vk.launch_counts() == {"vecchia_factors": 0,
                                   "vecchia_nll_grad": 0}
@@ -182,12 +197,167 @@ def test_unported_options_raise_not_implemented(data, kwargs):
 
 
 @pytest.mark.parametrize("optimizer", ["gradient_descent", "nelder_mead"])
-def test_unported_optimizers_raise_not_implemented(data, optimizer):
+def test_gd_and_nelder_mead_fits_match_jax(gp_fixture_data, optimizer):
+    """The host routes of the reference's other optimizers (gradient
+    descent on the CPU, Nelder-Mead) reach the JAX package's parameters on
+    the R-test fixture (n = 100, m = 10): NLL and cov_pars 1e-6 relative."""
+    kw = dict(gp_coords=gp_fixture_data["coords"],
+              cov_function="exponential", gp_approx="vecchia",
+              num_neighbors=10)
+    y = gp_fixture_data["eps"] + gp_fixture_data["xi"]
+    jm, tm = gpb.GPModel(**kw), gpt.GPModel(device="cpu", **kw)
+    tm._approx.load_structure(np.asarray(jm._approx.perm),
+                              np.asarray(jm._approx.neighbors))
+    jm.fit(y, params={"optimizer_cov": optimizer})
+    tm.fit(y, params={"optimizer_cov": optimizer})
+    nll_j = jm.get_current_neg_log_likelihood()
+    assert abs(tm.get_current_neg_log_likelihood() - nll_j) \
+        < 1e-6 * abs(nll_j)
+    np.testing.assert_allclose(tm.get_cov_pars(), jm.get_cov_pars(),
+                               rtol=1e-6)
+    assert tm._fit_result.num_evals > tm.get_num_optim_iter() > 1
+
+
+def test_unported_optimizer_params_raise(data):
     _, tm = _models(data)
-    with pytest.raises(NotImplementedError, match="lbfgs"):
-        tm.fit(data["y"], params={"optimizer_cov": optimizer})
     with pytest.raises(NotImplementedError, match="not ported"):
-        tm.set_optim_params({"use_nesterov_acc": False})
+        tm.set_optim_params({"cg_max_num_it": 10})
+    with pytest.raises(ValueError, match="convergence_criterion"):
+        tm.set_optim_params({"convergence_criterion": "relative_change"})
+    tm.set_optim_params({"estimate_cov_par_index": [1, 0, 1]})
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tm.fit(data["y"])
+
+
+C2_KEYWORDS = ("ind_effect_group_rand_coef",
+               "drop_intercept_group_rand_effect", "cov_fct_taper_range",
+               "cov_fct_taper_shape", "ind_points_selection",
+               "num_ind_points", "cover_tree_radius",
+               "matrix_inversion_method", "likelihood_additional_param",
+               "free_raw_data", "vecchia_approx", "num_parallel_threads",
+               "num_data")
+
+
+def test_every_jax_keyword_at_its_default_constructs(data):
+    """The port's constructor takes every keyword of the JAX package's, and
+    each of the ones that select structures it does not port passes at the
+    JAX default; ``vecchia_approx=True`` selects the Vecchia model,
+    ``free_raw_data`` and ``num_parallel_threads`` have no effect."""
+    import inspect
+    jpars = inspect.signature(gpb.GPModel).parameters
+    tpars = inspect.signature(gpt.GPModel).parameters
+    assert set(jpars) <= set(tpars)
+    defaults = {k: jpars[k].default for k in C2_KEYWORDS}
+    tm = gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
+                     num_neighbors=M, device="cpu", **defaults)
+    assert tm.matrix_inversion_method == "cholesky"
+    via = gpt.GPModel(gp_coords=data["coords"], vecchia_approx=True,
+                      num_neighbors=M, free_raw_data=True,
+                      num_parallel_threads=4, device="cpu")
+    assert via.gp_approx == "vecchia"
+    assert via.get_cov_pars() is None
+    via.fit(data["y"], params={"maxit": 2})
+    np.testing.assert_array_equal(via.get_cov_pars(std_err=False),
+                                  via.get_cov_pars())
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(ind_effect_group_rand_coef=[1]), "item 16"),
+    (dict(drop_intercept_group_rand_effect=[True]), "item 16"),
+    (dict(num_data=N), "item 16"),
+    (dict(cov_fct_taper_range=0.5), "items 14 and 17"),
+    (dict(cov_fct_taper_shape=2.0), "items 14 and 17"),
+    (dict(ind_points_selection="random"), "items 14 and 17"),
+    (dict(num_ind_points=100), "items 14 and 17"),
+    (dict(cover_tree_radius=0.5), "items 14 and 17"),
+    (dict(matrix_inversion_method="iterative"), "items 12 and 13"),
+    (dict(likelihood_additional_param=2.0), "item 11"),
+], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
+def test_jax_keyword_at_another_value_names_its_item(data, kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
+                    device="cpu", **kwargs)
+
+
+def test_default_route_fit_reaches_jax(gp_fixture_data):
+    """``fit(y)`` with the reference's default optimizer (gradient descent)
+    as in the JAX package's ``TestVecchiaGaussian::test_fit_gd_no_covariates``
+    (n = 100, m = 30, random ordering): cov_pars within 1e-6 relative of
+    the JAX package's, near the exact optimum."""
+    vf = gp_fixture_data
+    y = vf["eps"] + vf["xi"]
+    iu = np.triu_indices(vf["n"], 1)
+    init = [np.var(y, ddof=1) / 2, np.var(y, ddof=1) / 2,
+            np.mean(vf["D"][iu]) / 3]
+    kw = dict(gp_coords=vf["coords"], cov_function="exponential",
+              gp_approx="vecchia", num_neighbors=30,
+              vecchia_ordering="random", seed=1)
+    jm = gpb.GPModel(**kw)
+    tm = gpt.GPModel(device="cpu", **kw)
+    tm._approx.load_structure(np.asarray(jm._approx.perm),
+                              np.asarray(jm._approx.neighbors))
+    assert tm.optim_cfg.optimizer_cov == "gradient_descent"
+    jm.fit(y=y, params={"optimizer_cov": "gradient_descent",
+                        "init_cov_pars": init})
+    tm.fit(y=y, params={"init_cov_pars": init})
+    np.testing.assert_allclose(tm.get_cov_pars(), jm.get_cov_pars(),
+                               rtol=1e-6)
+    assert tm.get_num_optim_iter() == jm.get_num_optim_iter()
+    cov = tm.get_cov_pars()
+    assert abs(cov[1] - 1.076) < 0.2 and abs(cov[2] - 0.1135) < 0.05
+    assert tm._fit_result.lr_after_first == pytest.approx(
+        jm._fit_result.lr_after_first, rel=1e-10)
+
+
+def _std_err_models(data, X=None):
+    """JAX and port models on one structure at the same parameters (and
+    coefficients), fitted for one step only so that they hold the data."""
+    jm, tm = _models(data)
+    tm._approx.load_structure(np.asarray(jm._approx.perm),
+                              np.asarray(jm._approx.neighbors))
+    jm.fit(data["y"], X=X, params={"maxit": 1})
+    tm.fit(data["y"], X=X, params={"maxit": 1})
+    tm.cov_pars_ = np.array([0.16, 0.9, 0.12])
+    jm.cov_pars_ = tm.cov_pars_.copy()
+    if X is not None:
+        tm.coefs_ = np.array([0.45, 1.1])
+        jm.coefs_ = tm.coefs_.copy()
+    return jm, tm
+
+
+def test_std_errors_dense_route_match_jax(data):
+    """n <= 8192: std errors of the covariance parameters from the dense
+    expected Fisher information, and of the coefficients from
+    (X' Psi^-1 X)^-1, both within 1e-6 relative of the JAX package's."""
+    jm, tm = _std_err_models(data, X=data["X"])
+    got, want = tm.get_cov_pars(std_err=True), jm.get_cov_pars(std_err=True)
+    assert got.shape == (2, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert np.all(got[1] > 0)
+    got_c, want_c = tm.get_coef(std_err=True), jm.get_coef(std_err=True)
+    assert got_c.shape == (2, 2)
+    np.testing.assert_allclose(got_c, want_c, rtol=1e-6)
+    # computed once, and afresh after the next fit
+    assert tm.get_cov_pars(std_err=True) is not got
+    assert tm.std_dev_cov_pars_ is not None
+    tm.fit(data["y"], X=data["X"], params={"maxit": 1})
+    assert tm.std_dev_cov_pars_ is None and tm.std_dev_coefs_ is None
+
+
+def test_std_errors_finite_difference_route_matches_jax(data, monkeypatch):
+    """Beyond n = 8192 the std errors come from forward differences of the
+    NLL gradient (eps = 1e-4): the port's helper against the JAX package's
+    formula on the same gradients — both switched to that route at n = 600
+    (a JAX model above 8192 points takes ~25 s to build on the CPU)."""
+    from gpboost_tpu_torch.models import gp_model as tgp
+    jm, tm = _std_err_models(data)
+    dense = tm.get_cov_pars(std_err=True)
+    tm.std_dev_cov_pars_ = None
+    monkeypatch.setattr(tgp, "_DENSE_FISHER_MAX_N", N - 1)
+    monkeypatch.setattr(jm, "num_data", 8193)
+    got, want = tm.get_cov_pars(std_err=True), jm.get_cov_pars(std_err=True)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert not np.allclose(got[1], dense[1], rtol=1e-6)   # another route
 
 
 def test_default_device_raises_without_a_gpu(data):

@@ -4,9 +4,11 @@ every rows-per-block choice, a last block that is not full, the largest
 shared-memory block at m = 64, d = 8, a second launch bit-identical; d = 1
 and 3, no nugget, prediction rows below one wave of the card, row shards;
 the histogram over several feature tiles and clusters, fewer rows than a
-cluster has threads, one and 256 bins, an output that no memset clears; the
-input checks on CUDA tensors). Needs an NVIDIA GPU and ``nvcc``; skipped
-elsewhere. Run on the GPU machine with
+cluster has threads, one and 256 bins, an output that no memset clears, two
+launches bit-identical (float64 plain route too), the fixed-point scale at
+its overflow edge; the gather-only ``B' v``; two GPBoost trainings
+bit-identical; the input checks on CUDA tensors). Needs an NVIDIA GPU and
+``nvcc``; skipped elsewhere. Run on the GPU machine with
 
     python -m pytest tests/test_torch_gpu_kernels.py --noconftest -q
 
@@ -14,7 +16,9 @@ Tolerances: A, D atol 2e-5 vs the float32 plain version; NLL 1e-5 relative
 and gradient rtol 1e-3 (+ 1e-3 absolute per 900 rows: float32 row terms
 add up) vs float64 autograd, two launches bit-identical; histogram
 counts exact, its gradient / hessian sums within 1e-5 x (sum of |v| over the
-bin) of the float64 plain version (float32 atomics add in any order).
+bin) of the float64 plain version (fixed-point sums, rounded to float32 once)
+and bit-identical from launch to launch; gather ``B' v`` within 1e-5 of the
+scatter in float32, bit-identical from call to call.
 """
 import numpy as np
 import pytest
@@ -330,30 +334,34 @@ def _assert_hist_close(got, binned, g, h, mask, B):
     (70_001, 17, 256, 0.5)])
 def test_histogram_kernel_matches_plain(dev, n, F, B, keep):
     binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, keep)
+    scales = hk.fixed_point_scales(g, h)
     before = hk.histogram.launches
-    got = hk.histogram(binned, g, h, mask, B, binned_t=panel)
+    got = hk.histogram(binned, g, h, mask, B, binned_t=panel, scales=scales)
     torch.cuda.synchronize()
     assert hk.histogram.launches == before + 1
     assert all(a.shape == (F, B) and a.dtype == torch.float32 for a in got)
     _assert_hist_close(got, binned, g, h, mask, B)
-    # without the panel the wrapper transposes ``binned`` itself
-    again = hk.histogram(binned, g, h, mask, B)
-    _assert_hist_close(again, binned, g, h, mask, B)
+    # without the panel the wrapper transposes ``binned`` itself: same bits
+    again = hk.histogram(binned, g, h, mask, B, scales=scales)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 def test_histogram_kernel_empty_mask_gives_zeros(dev):
     binned, panel, g, h, _ = _hist_inputs(dev, 40_000, 17, 256, 1.0)
     none = torch.zeros(40_000, dtype=torch.bool, device=dev)
-    got = hk.histogram(binned, g, h, none, 256, binned_t=panel)
+    got = hk.histogram(binned, g, h, none, 256, binned_t=panel,
+                       scales=hk.fixed_point_scales(g, h))
     for a in got:
         assert torch.equal(a, torch.zeros_like(a))
 
 
-def _launch(panel, g, h, mask, out):
+def _launch(panel, g, h, mask, out, scales=None):
     F, n = panel.shape
+    scale_g, scale_h = scales or hk.fixed_point_scales(g, h)
     err = hk._lib().histogram_launch(
         panel.data_ptr(), g.data_ptr(), h.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), n, F, out.shape[2],
+        out.data_ptr(), n, F, out.shape[2], scale_g, scale_h,
         torch.cuda.current_stream().cuda_stream)
     assert err == 0
     torch.cuda.synchronize()
@@ -371,16 +379,63 @@ def test_histogram_launch_writes_an_output_full_of_nan(dev, n, F, B):
     _assert_hist_close((out[0], out[1], out[2]), binned, g, h, mask, B)
 
 
+def test_histogram_launch_empty_mask_writes_zeros_over_nan(dev):
+    binned, panel, g, h, _ = _hist_inputs(dev, 30_000, 9, 256, 1.0)
+    none = torch.zeros(30_000, dtype=torch.bool, device=dev)
+    out = torch.full((3, 9, 256), float("nan"), device=dev)
+    _launch(panel, g, h, none, out)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("dp", [False, True])
+@pytest.mark.parametrize("keep", [1.0, 0.03])
+def test_histogram_two_launches_bit_identical(dev, dp, keep):
+    """The same inputs give the same bits: the kernel's fixed-point sums,
+    and the float64 plain route (``gpu_use_dp``) on the card."""
+    binned, panel, g, h, mask = _hist_inputs(dev, 100_000, 5, 254, keep)
+    if dp:
+        g, h = g.double(), h.double()
+    before = hk.histogram.launches
+    runs = [build_histogram(binned, g, h, mask, 254, binned_t=panel)
+            for _ in range(3)]
+    assert hk.histogram.launches == before + (0 if dp else 3)
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+    _assert_hist_close(runs[0], binned, g.float(), h.float(), mask, 254)
+
+
+@pytest.mark.parametrize("big", [3.0e30, -1.0e25, 7.0])
+def test_histogram_fixed_point_scale_at_its_overflow_edge(dev, big):
+    """Every row in one bin, the largest |g| at the top of the fixed-point
+    range (n max|g| scale just below 2^62, all of one sign): the sums stay
+    finite and within tolerance."""
+    n, F, B = 100_000, 3, 256
+    binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, 1.0)
+    binned[:, 1] = 5
+    panel[1] = 5
+    g = torch.full((n,), big, dtype=torch.float32, device=dev)
+    g[::7] *= 0.5
+    h = g.abs() * 0.25
+    scales = hk.fixed_point_scales(g, h)
+    assert n * abs(big) * scales[0] < 2.0 ** 62 <= 2 * n * abs(big) * scales[0]
+    got = hk.histogram(binned, g, h, mask, B, binned_t=panel, scales=scales)
+    assert all(bool(a.isfinite().all()) for a in got)
+    _assert_hist_close(got, binned, g, h, mask, B)
+    assert float(got[2][1, 5]) == n
+
 def test_histogram_kernel_one_bin_takes_every_row(dev):
     n, F, B = 50_000, 4, 256
     binned, panel, g, h, mask = _hist_inputs(dev, n, F, B, 1.0)
     binned[:, 2] = 255
     panel[2] = 255
-    got = hk.histogram(binned, g, h, mask, B, binned_t=panel)
+    scales = hk.fixed_point_scales(g, h)
+    got = hk.histogram(binned, g, h, mask, B, binned_t=panel, scales=scales)
     _assert_hist_close(got, binned, g, h, mask, B)
     assert float(got[2][2, 255]) == n
     # bins at or above num_bins are dropped, not written out of bounds
-    low = hk.histogram(binned, g, h, mask, 200, binned_t=panel)
+    low = hk.histogram(binned, g, h, mask, 200, binned_t=panel,
+                       scales=scales)
     assert float(low[2][2].sum()) == 0.0
     assert float(low[2][0].sum()) == float((binned[:, 0] < 200).sum())
 
@@ -397,18 +452,25 @@ def test_histogram_cuda_tensors_that_the_kernel_does_not_take_raise(dev):
         ("binned_t", dict(binned_t=panel.t().contiguous().t())),
         ("num_bins", dict(num_bins=257)),
         ("num_bins", dict(num_bins=0)),
+        ("scales", dict(scales=None)),
+        ("scales", dict(scales=(3.0, 1.0))),
+        ("scales", dict(scales=(1.0, -2.0))),
+        ("scales", dict(scales=(1.0,))),
     ]
+    scales = hk.fixed_point_scales(g, h)
     before = hk.histogram.launches
     for name, kw in bad:
         args = dict(grad=g, hess=h, row_mask=mask, num_bins=16,
-                    binned_t=panel)
+                    binned_t=panel, scales=scales)
         args.update(kw)
         with pytest.raises(ValueError, match=f"^{name}:"):
             hk.histogram(binned, args["grad"], args["hess"],
                          args["row_mask"], args["num_bins"],
-                         binned_t=args["binned_t"])
+                         binned_t=args["binned_t"], scales=args["scales"])
     with pytest.raises(ValueError, match="^binned:"):
-        hk.histogram(binned.cpu(), g, h, mask, 16)
+        hk.histogram(binned.cpu(), g, h, mask, 16, scales=scales)
+    with pytest.raises(ValueError, match="^histogram: a gradient"):
+        hk.fixed_point_scales(torch.full_like(g, float("nan")), h)
     assert hk.histogram.launches == before
 
 
@@ -464,3 +526,51 @@ def test_boosting_on_the_card_goes_through_the_histogram_kernel(dev):
                          num_neighbors=5, device="cpu")
     with pytest.raises(ValueError, match="same device"):
         gpt.Booster(params=params, train_set=ds, gp_model=cpu_gp)
+
+
+# ---------------------------------------------------------------------------
+# gather-only B' v, and a GPBoost training twice
+# ---------------------------------------------------------------------------
+
+def test_gather_bt_bit_identical_and_matches_scatter(dev):
+    n, m = 20_000, 15
+    coords, r, nb = _problem(dev, n, m, 2)
+    cp = _pars(dev, False, 2)
+    a, _ = vk.vecchia_factors(cp[1:], coords, nb, cp[0], True, 0.5)
+    slices = tv.build_incoming_sliced(nb)
+    first = tv.apply_Bt_sliced(a, slices, r)
+    for _ in range(3):
+        assert torch.equal(tv.apply_Bt_sliced(a, slices, r), first)
+    want = tv.apply_Bt(a, nb, r)
+    assert float((first - want).abs().max()) <= 1e-5
+    inc_row, inc_slot = tv.build_incoming(nb)
+    padded = tv.apply_Bt_gather(a, inc_row, inc_slot, r)
+    assert float((padded - want).abs().max()) <= 1e-5
+
+
+def test_gpboost_training_on_the_card_is_bit_reproducible(dev):
+    """Two ``train(..., gp_model=gp)`` runs on the same data: the same
+    scores, covariance parameters and evaluation counts, to the bit — with
+    the default optimizer (gradient descent on the device) and L-BFGS."""
+    import gpboost_tpu_torch as gpt
+    rng = np.random.default_rng(5)
+    n = 5000
+    X = rng.uniform(size=(n, 5))
+    coords = rng.uniform(size=(n, 2))
+    y = (2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + np.sin(6 * coords[:, 0])
+         + 0.3 * rng.standard_normal(n))
+    params = {"objective": "regression", "num_leaves": 15, "verbose": -1}
+    ds = gpt.Dataset(X, label=y)
+    for optim in ({}, {"optimizer_cov": "lbfgs"}):
+        runs = []
+        for _ in range(2):
+            gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                             gp_approx="vecchia", num_neighbors=10,
+                             dtype=torch.float32)
+            gp.set_optim_params(dict(optim, init_cov_pars=[0.25, 1.0, 0.1]))
+            bst = gpt.train(params, ds, gp_model=gp, num_boost_round=4)
+            runs.append((bst._score.copy(), gp.get_cov_pars().copy(),
+                         [f["num_evals"] for f in bst.objective.fits]))
+        np.testing.assert_array_equal(runs[0][0], runs[1][0])
+        np.testing.assert_array_equal(runs[0][1], runs[1][1])
+        assert runs[0][2] == runs[1][2]

@@ -18,6 +18,18 @@ from gpboost_tpu_torch.boosting.tree import build_histogram
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(n, F, B, seed=0, keep=0.8):
     rng = np.random.default_rng(seed)
     binned = rng.integers(0, B, size=(n, F)).astype(np.int32)
@@ -91,3 +103,53 @@ def test_uint8_panel_holds_256_bins():
     want = np.bincount(binned[:, 0], minlength=256)
     np.testing.assert_array_equal(got[2][0].numpy(), want)
     assert hk.MAX_BINS == 256
+
+
+@pytest.mark.parametrize("max_abs,n", [(3.0, 100_000), (1e-3, 7),
+                                       (2.5e30, 1_000_003), (1.0, 1)])
+def test_fixed_point_scale_keeps_a_sum_below_2_63(max_abs, n):
+    """The kernel's scale 2^k: n max|v| 2^k in [2^61, 2^62), so that a sum
+    of n rounded terms stays below 2^63 whatever the mask, with the most
+    bits the bound allows; from tensors, one scale for g and one for h."""
+    s = hk.fixed_point_scale(max_abs, n)
+    assert np.frexp(s)[0] == 0.5                       # a power of two
+    assert 2.0 ** 61 <= n * max_abs * s < 2.0 ** 62
+    g = torch.full((n,), -max_abs, dtype=torch.float32)
+    sg, sh = hk.fixed_point_scales(g, g.abs() / 4)
+    assert sg == hk.fixed_point_scale(float(g.abs().max()), n)
+    assert sh == 4 * sg
+
+
+def test_fixed_point_scale_edges():
+    assert hk.fixed_point_scale(0.0, 1000) == 1.0      # all zero: any scale
+    assert hk.fixed_point_scale(1e-38, 10) == 2.0 ** 100     # clamped
+    with pytest.raises(ValueError, match="not finite"):
+        hk.fixed_point_scale(float("inf"), 10)
+    # the rounded fixed-point sum of float32 values is their float64 sum
+    # to ~n / scale (what the kernel computes, emulated with numpy)
+    rng = np.random.default_rng(2)
+    v = rng.standard_normal(100_000).astype(np.float32)
+    s = hk.fixed_point_scale(float(np.abs(v).max()), len(v))
+    fixed = np.sum(np.rint(v.astype(np.float64) * s).astype(np.int64)) / s
+    assert abs(fixed - v.astype(np.float64).sum()) <= len(v) / s
+
+
+@pytest.mark.parametrize("n,scale", [(20_000, 1.0), (3000, 1e-200),
+                                     (7, 1e250), (0, 1.0)])
+def test_fixed_point_words_sum_exactly(n, scale):
+    """The CUDA route of ``histogram_plain`` (``gpu_use_dp``): sums of two
+    64-bit fixed-point words a value, order-free; on the CPU here, against
+    the exact sum of each bin (``math.fsum``): equal to float64 rounding."""
+    import math
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 97, n)
+    v = rng.standard_normal((n, 3)) * scale
+    v[:, 2] = 1.0
+    words, s1, s2 = hk.fixed_point_words(torch.as_tensor(v))
+    acc = torch.zeros((97, 6), dtype=torch.int64).index_add_(
+        0, torch.as_tensor(idx), words)
+    got = hk.from_fixed_point_words(acc, s1, s2).numpy()
+    want = np.array([[math.fsum(v[idx == b, c]) for c in range(3)]
+                     for b in range(97)])
+    np.testing.assert_allclose(got, want, rtol=1e-15, atol=0)
+    assert np.array_equal(got[:, 2], np.bincount(idx, minlength=97))

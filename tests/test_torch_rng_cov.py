@@ -14,6 +14,18 @@ from gpboost_tpu.utils import rng as jrng
 from gpboost_tpu_torch.ops import cov_fns as tcov
 from gpboost_tpu_torch.utils import rng as trng
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 FAMILIES = [
     ("exponential", 0.0), ("matern", 0.5), ("matern", 1.5), ("matern", 2.5),
     ("gaussian", 0.0), ("matern_ard", 0.5), ("matern_ard", 1.5),

@@ -17,6 +17,18 @@ import gpboost_tpu_torch as gpt
 from gpboost_tpu.boosting import tree as jt
 from gpboost_tpu_torch.boosting import tree as tt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 ATOL = 1e-10
 
 

@@ -31,6 +31,18 @@ from gpboost_tpu_torch.ops import vecchia as tv
 from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _f32(x):
     return torch.tensor(np.asarray(x), dtype=torch.float32)
 

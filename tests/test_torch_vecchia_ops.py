@@ -17,6 +17,18 @@ from gpboost_tpu_torch.ops import vecchia as tv
 from gpboost_tpu_torch.ops.cov_fns import CovFunction as TCov
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests: the suite runs in several
+    worker processes at once, and PyTorch's default of a thread a core in
+    each makes its small CPU ops wait on each other (a GD fit here took
+    ~580 s with six processes at once, 4.5 s with one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("ordering", ["none", "random", "time",
                                       "time_random_space"])
 def test_apply_ordering_equal(ordering):
@@ -192,3 +204,58 @@ def test_matvecs_and_prediction_match_jax(gp_fixture_data):
                                    atol=1e-10)
         np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), rtol=0,
                                    atol=1e-10)
+
+
+@pytest.mark.parametrize("n,m", [(100, 30), (1500, 12)])
+def test_incoming_structure_matches_jax(gp_fixture_data, n, m):
+    """``build_incoming`` equals the JAX package's; the slices of
+    ``build_incoming_sliced`` are its rows cut to their widths."""
+    if n == 100:
+        _, _, nb = _fixture_problem(gp_fixture_data, m=m)
+    else:
+        _, _, nb = _random_problem(n, m)
+    want_row, want_slot = jv.build_incoming(nb)
+    inc_row, inc_slot = tv.build_incoming(torch.tensor(nb))
+    assert inc_row.dtype == inc_slot.dtype == torch.int32
+    np.testing.assert_array_equal(inc_row.numpy(), want_row)
+    np.testing.assert_array_equal(inc_slot.numpy(), want_slot)
+    K = inc_row.shape[1]
+    covered = np.zeros(n, bool)
+    slices = tv.build_incoming_sliced(torch.tensor(nb))
+    for targets, rows, slots in slices:
+        w = rows.shape[1]
+        assert w <= K
+        np.testing.assert_array_equal(rows.numpy(), want_row[targets][:, :w])
+        np.testing.assert_array_equal(slots.numpy(),
+                                      want_slot[targets][:, :w])
+        assert (want_row[targets][:, w:] == -1).all()
+        covered[targets.numpy()] = True
+    # every row that some row conditions on is in exactly one slice
+    np.testing.assert_array_equal(covered, (want_row >= 0).any(1))
+    assert sum(len(t) for t, _, _ in slices) == covered.sum()
+
+
+def test_gather_transpose_matches_jax_apply_bt(gp_fixture_data):
+    """``apply_Bt_gather`` (padded rows) and ``apply_Bt_sliced`` equal the
+    JAX package's scatter ``apply_Bt`` at 1e-12 in float64; the gather
+    precision product equals the plain one."""
+    rng = np.random.default_rng(11)
+    for coords, y, nb in (_fixture_problem(gp_fixture_data, m=15),
+                          _random_problem(1500, 12)):
+        cp = np.asarray([0.2, 1.1, 0.13])
+        (a_j, d_j), (a_t, d_t) = _both_factors("exponential", 0.0, cp, coords,
+                                               nb)
+        v = rng.standard_normal(len(y))
+        want = np.asarray(jv.apply_Bt(a_j, jnp.asarray(nb), jnp.asarray(v)))
+        nb_t, v_t = torch.tensor(nb), torch.tensor(v)
+        inc_row, inc_slot = tv.build_incoming(nb_t)
+        assert bool((inc_row < 0).any())                  # padded rows
+        got = tv.apply_Bt_gather(a_t, inc_row, inc_slot, v_t)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+        slices = tv.build_incoming_sliced(nb_t)
+        np.testing.assert_allclose(tv.apply_Bt_sliced(a_t, slices, v_t),
+                                   want, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(
+            tv.precision_matvec_gather(a_t, nb_t, slices, d_t, v_t).numpy(),
+            tv.precision_matvec(a_t, nb_t, d_t, v_t).numpy(), rtol=0,
+            atol=1e-12)
