@@ -42,9 +42,26 @@ one. It
    (full and 3 % mask), two float64 histograms and two ``Psi^-1 r`` solves
    (whose ``B' v`` is a gather with a fixed order, measured beside the
    scatter it replaces);
-7. checks by the kernels' launch counters (set to 0 before each path, read
-   after it) that each path went through its kernels, and the results
-   against float64 plain versions.
+7. drives the non-Gaussian path of the reference's benchmark
+   (``bench.py:323-385``) at its width — a ``bernoulli_logit`` Vecchia GP
+   with ``matrix_inversion_method="iterative"`` at n = 100 000, m = 20,
+   200 probes, 100 Lanczos steps, float32 (``ng_path``): construct, NLL, one
+   timed value-and-gradient with its breakdown (Newton steps, mode-CG
+   iterations, Lanczos, gradient CG, backward, host reads), one LaGaBoost
+   gradient, the L-BFGS fit cut to NG_MAXIT iterations, prediction with
+   simulated variances at 10 000 points; a profiler trace showing that the
+   precision product (forward and backward) and diag(Q) add with no
+   colliding indices; the float32 path against float64 on the card at
+   n = 10 000 with the same probes (``ng_precision``); the LaGaBoost
+   algorithm, ``Dataset`` -> ``train({"objective": "binary"}, ds,
+   gp_model=gp, num_boost_round=3)`` -> ``Booster.predict(...,
+   predict_var=True)`` (``lagaboost``), whose second training must give the
+   same bits (``determinism``);
+8. checks by the kernels' launch counters (set to 0 before each path, read
+   after it) that each path went through its kernels — the histogram kernel
+   once a leaf on the LaGaBoost path, the Vecchia kernels never on the
+   non-Gaussian path (the latent factors have no nugget, outside the kernel
+   gate) — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -86,6 +103,29 @@ CMP_COV_PARS_RTOL = 5e-2
 HIST_SUM_TOL = 1e-5       # x (sum of |v| over the bin)
 SHAPES = (0.5, 1.5, 2.5, -1.0)
 NLL_OTHER_M = (40, 64)    # the NLL kernel's other shapes: 16 and 8 rows a block
+# the non-Gaussian path (the reference package's benchmark, bench.py:323-385):
+# a bernoulli_logit Vecchia GP, iterative Laplace, at the full width of the
+# bench (n = 1e5, m = 20, 200 probes, 100 Lanczos steps); only the depth is
+# cut: the fit's L-BFGS iterations (bench: maxit 50), the LaGaBoost rounds
+# (bench: 30) and each LaGaBoost refit's iterations (bench: the default 1000)
+NG_COV_PARS = [1.0, 0.1]
+NG_MAXIT = 2
+NG_ROUNDS = 3
+NG_REFIT_MAXIT = 1
+NG_PARAMS = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
+             "min_data_in_leaf": 20, "verbose": -1}
+# float32 vs float64 on the card at n = 1e4, same structure, same probes;
+# the H100 reads about 1e-5 (NLL) and 3e-6 (gradient), a float32 gradient
+# off by a lost term or a bad adjoint solve reads percents
+NG_PRECISION_N = 10_000
+NG_NLL_RTOL = 1e-4
+NG_GRAD_RTOL = 1e-3
+# a Bernoulli response variance is at most 1/4; in float32 the 30-node
+# quadrature's sums may round it up by at most ~30 units in the last place
+VAR_TOP = 0.25 * (1.0 + 30 * 2.0 ** -24)
+# names of operations that add with colliding indices (float atomics)
+SCATTERS = ("index_add", "scatter_add", "index_put", "scatter_reduce",
+            "indexFunc", "put_")
 
 
 def emit(obj):
@@ -147,6 +187,28 @@ def make_data(seed, n, n_pred):
          + 0.5 * rng.standard_normal(n))
     pred = rng.uniform(size=(n_pred, 2)).astype(np.float64)
     return coords, y, pred
+
+
+def make_ng_data(seed, n, n_pred):
+    """The non-Gaussian recipe of the reference package's benchmark
+    (bench.py:325-361, the same draws for seed 0): coordinates and a binary
+    response from f = sin(6 x1) + cos(4 x2), then 5 features, a fixed effect
+    and a second binary response from the same generator; prediction
+    coordinates and features."""
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(size=(n, 2)).astype(np.float64)
+    f_lat = np.sin(6 * coords[:, 0]) + np.cos(4 * coords[:, 1])
+    yb = rng.binomial(1, 1.0 / (1.0 + np.exp(-f_lat))).astype(np.float64)
+    rng_x = np.random.default_rng(seed + 1)
+    Xn = rng_x.uniform(size=(n, 5))
+    Fb = 2.0 * np.sin(5 * Xn[:, 0]) + Xn[:, 1] ** 2 + Xn[:, 2]
+    Fb = Fb - Fb.mean()
+    ybb = rng.binomial(1, 1.0 / (1.0 + np.exp(-(Fb + f_lat)))).astype(
+        np.float64)
+    pred = np.random.default_rng(seed + 2).uniform(size=(n_pred, 2))
+    X_pred = np.random.default_rng(seed + 3).uniform(size=(n_pred, 5))
+    return dict(coords=coords, yb=yb, Xn=Xn, ybb=ybb, pred=pred,
+                X_pred=X_pred)
 
 
 def make_boost_data(seed, y, n_pred):
@@ -1035,10 +1097,12 @@ def incoming_bt(model, dev):
     return out
 
 
-def determinism(first, ds, yb, coords, m, seed, dev):
+def determinism(first, ds, yb, coords, m, seed, dev, ng_first=None,
+                ng_ds=None, ng_coords=None):
     """A second training of the boosting path's L-BFGS recipe: the same
     scores, covariance parameters and evaluation counts to the bit; two
-    ``Psi^-1 r`` solves the same bits."""
+    ``Psi^-1 r`` solves the same bits; with ``ng_first``, a second LaGaBoost
+    training the same bits too."""
     import gpboost_tpu_torch as gpt
 
     gp = _gp_model(coords, m, seed, torch.float32, dev)
@@ -1062,10 +1126,324 @@ def determinism(first, ds, yb, coords, m, seed, dev):
            "score_max_abs_diff": float(np.abs(first._score
                                               - bst._score).max()),
            "evaluations": [sum(evals[0]), sum(evals[1])]}
+    same_ng = True
+    if ng_first is not None:
+        gp_ng = _ng_model(ng_coords, m, seed, torch.float32, dev,
+                          NG_REFIT_MAXIT)
+        bst_ng = gpt.train(NG_PARAMS, ng_ds, gp_model=gp_ng,
+                           num_boost_round=ng_first.num_trees())
+        ev_ng = ([f["num_evals"] for f in ng_first.objective.fits],
+                 [f["num_evals"] for f in bst_ng.objective.fits])
+        ng_out = {
+            "scores_bit_identical": bool(np.array_equal(ng_first._score,
+                                                        bst_ng._score)),
+            "cov_pars_bit_identical": bool(np.array_equal(
+                ng_first.gp_model.get_cov_pars(), gp_ng.get_cov_pars())),
+            "evaluations_identical": ev_ng[0] == ev_ng[1],
+            "score_max_abs_diff": float(np.abs(ng_first._score
+                                               - bst_ng._score).max()),
+            "evaluations": ev_ng}
+        out["lagaboost"] = ng_out
+        same_ng = (ng_out["scores_bit_identical"]
+                   and ng_out["cov_pars_bit_identical"]
+                   and ng_out["evaluations_identical"])
     emit(dict(phase="determinism", **out))
-    check(same_scores and same_cov and evals[0] == evals[1] and same_psi,
-          f"training on the card is not bit-reproducible: {out}")
+    check(same_scores and same_cov and evals[0] == evals[1] and same_psi
+          and same_ng, f"training on the card is not bit-reproducible: {out}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the non-Gaussian Vecchia GP and LaGaBoost (bench.py:323-385)
+# ---------------------------------------------------------------------------
+
+def _ng_model(coords, m, seed, dtype, dev, maxit):
+    import gpboost_tpu_torch as gpt
+    gp = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                     gp_approx="vecchia", num_neighbors=m,
+                     vecchia_ordering="random", seed=seed,
+                     likelihood="bernoulli_logit",
+                     matrix_inversion_method="iterative", dtype=dtype,
+                     device=dev)
+    gp.set_optim_params({"optimizer_cov": "lbfgs",
+                         "init_cov_pars": NG_COV_PARS, "maxit": maxit})
+    return gp
+
+
+def _laplace_vg(model, y, timed_scopes):
+    """One value-and-gradient of the iterative Laplace NLL at the fit's
+    settings (200 probes, 100 Lanczos steps) at NG_COV_PARS, through the
+    model's ``nll_laplace_iterative`` and autograd; with ``timed_scopes``
+    the package's named scopes and counters give its breakdown."""
+    from gpboost_tpu_torch.models.vecchia_model import LAPLACE_COUNTS
+    from gpboost_tpu_torch.ops import cg as cgops
+    from gpboost_tpu_torch.utils import timer
+    kw = model._iter_kwargs(fit=True)
+    y_t = model._y_tensor(y)
+    th = torch.log(torch.tensor(NG_COV_PARS, dtype=model.dtype,
+                                device=model.device)).requires_grad_(True)
+    timer.clear()
+    timer.enable(timed_scopes)
+    LAPLACE_COUNTS.clear()
+    reads0 = cgops.pcg.host_reads
+    t0 = clock()
+    with timer.timed("forward", sync=True):
+        nll = model._approx.nll_laplace_iterative(torch.exp(th), y_t, None,
+                                                  None, **kw)
+    with timer.timed("backward", sync=True):
+        (grad,) = torch.autograd.grad(nll, th)
+    t_vg = clock() - t0
+    timer.enable(False)
+    counts = dict(LAPLACE_COUNTS)
+    counts["host_reads"] = (cgops.pcg.host_reads - reads0
+                            + counts.get("newton_reads", 0))
+    scopes = {name: {"seconds": sec, "calls": calls}
+              for name, (sec, calls) in sorted(timer.totals().items())}
+    return (float(nll.detach()), grad.double().cpu().numpy(), t_vg, scopes,
+            counts)
+
+
+def ng_path(ng, m, seed, dev):
+    """The non-Gaussian GP path through the public API at the bench's width:
+    construct, NLL, one timed value-and-gradient with its breakdown, one
+    LaGaBoost gradient d NLL / dF, the L-BFGS fit at NG_MAXIT iterations,
+    prediction (response mean and simulated variance) at the prediction
+    points. No Vecchia kernel may run: the latent factors have no nugget."""
+    from gpboost_tpu_torch.models.vecchia_model import LAPLACE_COUNTS
+    coords, yb, pred = ng["coords"], ng["yb"], ng["pred"]
+    reset_counts()
+    t0 = clock()
+    model = _ng_model(coords, m, seed, torch.float32, dev, NG_MAXIT)
+    t_construct = clock() - t0
+    t0 = clock()
+    nll_init = model.neg_log_likelihood(NG_COV_PARS, yb)
+    t_nll = clock() - t0
+    # the first value-and-gradient in a process pays one-time costs (its
+    # first backward); timed alone, then the breakdown of a second one
+    _, _, t_vg_first, _, _ = _laplace_vg(model, yb, False)
+    nll_vg, grad, t_vg, scopes, counts = _laplace_vg(model, yb, True)
+    LAPLACE_COUNTS.clear()
+    t0 = clock()
+    g_f = model._approx.grad_F_laplace(
+        torch.tensor(NG_COV_PARS, dtype=torch.float32, device=dev),
+        model._y_tensor(yb), None,
+        torch.zeros(len(yb), dtype=torch.float32, device=dev))
+    t_grad_f = clock() - t0
+    counts_grad_f = dict(LAPLACE_COUNTS)
+    LAPLACE_COUNTS.clear()
+    t0 = clock()
+    model.fit(y=yb)
+    t_fit = clock() - t0
+    counts_fit = dict(LAPLACE_COUNTS)
+    LAPLACE_COUNTS.clear()
+    t0 = clock()
+    out = model.predict(gp_coords_pred=pred, predict_var=True,
+                        predict_response=True)
+    t_pred = clock() - t0
+    counts_pred = dict(LAPLACE_COUNTS)
+    launches = read_counts()
+
+    res = model._fit_result
+    cov_pars = model.get_cov_pars()
+    nll_fit = model.get_current_neg_log_likelihood()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the non-Gaussian GP path launched a kernel: {launches}")
+    check(math.isfinite(nll_init) and math.isfinite(nll_vg)
+          and bool(np.all(np.isfinite(grad))),
+          f"NLL or gradient not finite: {nll_init}, {nll_vg}, {grad}")
+    check(bool(torch.isfinite(g_f).all()) and g_f.shape == (len(yb),),
+          "d NLL / dF not finite or of the wrong shape")
+    check(math.isfinite(nll_fit) and nll_fit < nll_vg,
+          f"the fit did not lower the NLL (200 probes): {nll_vg} -> "
+          f"{nll_fit}")
+    check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+          f"cov_pars not positive: {cov_pars}")
+    check(res.num_evals >= 2, f"{res.num_evals} evaluations in the fit")
+    mu, var = out["mu"], out["var"]
+    check(mu.shape == (len(pred),) and var.shape == (len(pred),),
+          f"prediction shapes {mu.shape}, {var.shape}")
+    check(bool(np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                       & (var <= VAR_TOP))),
+          f"response means outside (0, 1) or variances outside (0, 0.25]: "
+          f"{mu.min()}, {mu.max()}, {var.min()}, {var.max()}")
+    emit({"phase": "ng_path", "n": len(yb), "m": m, "n_pred": len(pred),
+          "likelihood": "bernoulli_logit",
+          "matrix_inversion_method": "iterative",
+          "iterative_settings": model._iter_kwargs(fit=True),
+          "nll_init_50_probes": nll_init, "nll_vg_200_probes": nll_vg,
+          "grad": grad.tolist(), "nll_fit": nll_fit,
+          "cov_pars": cov_pars.tolist(), "maxit": NG_MAXIT,
+          "num_it": res.num_it, "num_evals": res.num_evals,
+          "launches": launches, "vg_first_s": t_vg_first, "vg_s": t_vg,
+          "vg_scopes": scopes,
+          "vg_counts": counts, "grad_f_s": t_grad_f,
+          "grad_f_counts": counts_grad_f, "fit_counts": counts_fit,
+          "predict_counts": counts_pred,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "pred_mu_range": [float(mu.min()), float(mu.max())],
+          "pred_var_range": [float(var.min()), float(var.max())]})
+    timings = {"ng_construct_s": t_construct, "ng_nll_s": t_nll,
+               "ng_vg_first_s": t_vg_first, "ng_vg_s": t_vg,
+               "ng_grad_f_s": t_grad_f, "ng_fit_s": t_fit,
+               "ng_fit_evaluations": res.num_evals,
+               "ng_predict_s": t_pred}
+    return launches, timings, model
+
+
+def ng_precision(ng, m, seed, dev):
+    """The float32 path against the same computation in float64 on the
+    card at NG_PRECISION_N points: same ordering and neighbours, same probes
+    (drawn in float64 by both), the NLL and its gradient at the fit's
+    settings; the float64 iterative NLL beside the exact dense one
+    (reported)."""
+    import gpboost_tpu_torch as gpt
+    n = NG_PRECISION_N
+    coords, yb = ng["coords"][:n], ng["yb"][:n]
+    m32 = _ng_model(coords, m, seed, torch.float32, dev, NG_MAXIT)
+    m64 = _ng_model(coords, m, seed, torch.float64, dev, NG_MAXIT)
+    m64._approx.load_structure(m32._approx.perm,
+                               m32._approx.neighbors.cpu().numpy())
+    v32, g32, t32, _, c32 = _laplace_vg(m32, yb, False)
+    v64, g64, t64, _, c64 = _laplace_vg(m64, yb, False)
+    nll_rel = abs(v32 - v64) / abs(v64)
+    grad_rel = float(np.max(np.abs(g32 - g64)) / np.max(np.abs(g64)))
+    dense = gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                        gp_approx="vecchia", num_neighbors=m,
+                        likelihood="bernoulli_logit", device=dev)
+    dense._approx.load_structure(m32._approx.perm,
+                                 m32._approx.neighbors.cpu().numpy())
+    t0 = clock()
+    exact = dense.neg_log_likelihood(NG_COV_PARS, yb)
+    t_exact = clock() - t0
+    del dense
+    torch.cuda.empty_cache()
+    out = {"n": n, "nll_f32": v32, "nll_f64": v64, "nll_rel_diff": nll_rel,
+           "nll_tolerance": NG_NLL_RTOL, "grad_f32": g32.tolist(),
+           "grad_f64": g64.tolist(), "grad_max_rel_diff": grad_rel,
+           "grad_tolerance": NG_GRAD_RTOL, "vg_f32_s": t32, "vg_f64_s": t64,
+           "counts_f32": c32, "counts_f64": c64,
+           "nll_exact_dense_f64": exact, "dense_s": t_exact,
+           "iterative_minus_exact_f64": v64 - exact}
+    emit(dict(phase="ng_precision", **out))
+    check(nll_rel <= NG_NLL_RTOL, f"float32 NLL {v32} vs float64 {v64}")
+    check(grad_rel <= NG_GRAD_RTOL, f"float32 gradient {g32} vs float64 "
+          f"{g64}: relative difference {grad_rel}")
+    return out
+
+
+def precision_ops_trace(model, dev):
+    """The precision product (forward and backward) and diag(Q) on the
+    non-Gaussian path's structure, k = 8 right-hand sides, under the
+    profiler (its CPU side: the names of the operations called): no
+    operation that adds with colliding indices."""
+    from torch.profiler import ProfilerActivity, profile
+    from gpboost_tpu_torch.ops import vecchia as vops
+    vec = model._approx
+    a, d = vec._latent_factors(torch.tensor(NG_COV_PARS, device=dev))
+    a = a.detach().requires_grad_(True)
+    d = d.detach().requires_grad_(True)
+    V = torch.randn(vec.n, 8, device=dev, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = vops.precision_product(a, d, V, vec.neighbors, vec._incoming)
+        torch.autograd.grad(out.sum(), (a, d, V))
+        vops.precision_diag(a.detach(), vec.neighbors, d.detach(),
+                            vec._incoming)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    bad = [x for x in names if any(b in x for b in SCATTERS)]
+    # device time of one product at the path's right-hand-side counts: one
+    # (mode-finder CG), 200 (Lanczos and the gradient CG at the fit's
+    # settings), 128 (a chunk of posterior draws)
+    with torch.no_grad():
+        a0, d0 = a.detach(), d.detach()
+        qv_ms = {}
+        for k in (1, 128, 200):
+            Vk = torch.randn(vec.n, k, device=dev)
+            qv_ms[k] = time_ms(lambda: vops.precision_product(
+                a0, d0, Vk, vec.neighbors, vec._incoming), 10)
+            del Vk
+    torch.cuda.empty_cache()
+    emit({"phase": "precision_ops_trace", "ops": names, "scatters": bad,
+          "qv_ms_by_k": qv_ms})
+    check(any("index" in x for x in names), f"empty trace: {names}")
+    check(not bad, f"the precision product or diag(Q) scatters: {bad}")
+    return names
+
+
+def lagaboost(ng, m, seed, dev):
+    """The LaGaBoost algorithm through the public API at the bench's width:
+    ``Dataset`` -> ``train(objective="binary", gp_model=gp)`` with NG_ROUNDS
+    rounds (each refit at most NG_REFIT_MAXIT L-BFGS iterations) ->
+    ``Booster.predict(X, gp_coords_pred=..., predict_var=True)``."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    from gpboost_tpu_torch.models.vecchia_model import LAPLACE_COUNTS
+    from gpboost_tpu_torch.utils import timer
+    reset_counts()
+    LAPLACE_COUNTS.clear()
+    t0 = clock()
+    ds = gpt.Dataset(ng["Xn"], label=ng["ybb"], device=dev)
+    t_dataset = clock() - t0
+    gp = _ng_model(ng["coords"], m, seed, torch.float32, dev, NG_REFIT_MAXIT)
+    timer.clear()
+    timer.enable(True)
+    t0 = clock()
+    rounds = NG_ROUNDS
+    bst = gpt.train(NG_PARAMS, ds, gp_model=gp, num_boost_round=rounds)
+    t_train = clock() - t0
+    timer.enable(False)
+    scopes = {name: {"seconds": sec, "calls": calls}
+              for name, (sec, calls) in sorted(timer.totals().items())}
+    counts = dict(LAPLACE_COUNTS)
+    LAPLACE_COUNTS.clear()
+    t0 = clock()
+    out = bst.predict(ng["X_pred"], gp_coords_pred=ng["pred"],
+                      predict_var=True)
+    t_pred = clock() - t0
+    counts_pred = dict(LAPLACE_COUNTS)
+    launches = read_counts()
+    reads = grow_tree.host_reads
+
+    fits = bst.objective.fits
+    leaves = sum(t.num_leaves for t in bst.trees)
+    check(bst.num_trees() == rounds, f"{bst.num_trees()} trees")
+    _check_trees(bst, "lagaboost")
+    check(launches["histogram"] == leaves,
+          f"lagaboost: histogram launched {launches['histogram']} times for "
+          f"{leaves} leaves")
+    check(reads == 2 * leaves, f"lagaboost: {reads} host reads for {leaves} "
+          "leaves")
+    check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
+          f"lagaboost launched a Vecchia kernel: {launches}")
+    check(len(fits) == rounds + 1, f"{len(fits)} refits in {rounds} rounds")
+    nlls = [f["nll"] for f in fits]
+    check(all(math.isfinite(v) for v in nlls) and nlls[-1] < nlls[0],
+          f"the Laplace NLL did not fall over the rounds: {nlls}")
+    cov_pars = gp.get_cov_pars()
+    check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+          f"cov_pars not positive: {cov_pars}")
+    mu, var = out["response_mean"], out["response_var"]
+    n_p = len(ng["pred"])
+    check(mu.shape == (n_p,) and var.shape == (n_p,),
+          f"prediction shapes {mu.shape}, {var.shape}")
+    check(bool(np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                       & (var <= VAR_TOP))),
+          f"lagaboost predictions outside (0, 1) / (0, 0.25]: {mu.min()}, "
+          f"{mu.max()}, {var.min()}, {var.max()}")
+    emit({"phase": "lagaboost", "n": len(ng["ybb"]), "features": 5,
+          "rounds": rounds, "refit_maxit": NG_REFIT_MAXIT, "leaves": leaves,
+          "fits": len(fits), "evaluations_per_fit":
+              [f["num_evals"] for f in fits], "nll_by_fit": nlls,
+          "cov_pars": cov_pars.tolist(), "launches": launches,
+          "host_reads_per_tree": reads / rounds, "counts": counts,
+          "predict_counts": counts_pred,
+          "scopes": scopes, "init_score": float(bst.init_score[0]),
+          "pred_mu_range": [float(mu.min()), float(mu.max())]})
+    timings = {"lagaboost_dataset_s": t_dataset,
+               "lagaboost_train_s": t_train, "lagaboost_rounds": rounds,
+               "lagaboost_predict_s": t_pred}
+    return launches, timings, bst, ds
 
 
 def main():
@@ -1134,8 +1512,6 @@ def main():
     boost_launches, boost_timings, bst, ds = boosting_path(
         boost_data, coords, pred, args.m, args.seed, args.rounds, dev)
     timings.update(boost_timings)
-    determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev)
-    del bst
     gd_launches, gd_timings = gp_default_route(coords, y, args.m, args.seed,
                                                dev)
     timings.update(gd_timings)
@@ -1143,7 +1519,18 @@ def main():
         ds, boost_data[0], boost_data[1], coords, args.m, args.seed,
         args.rounds, dev)
     timings.update(bgd_timings)
-    del ds
+
+    # the non-Gaussian path: GP, float32 vs float64, LaGaBoost
+    ng = make_ng_data(args.seed, args.n, args.n_pred)
+    ng_launches, ng_timings, ng_model = ng_path(ng, args.m, args.seed, dev)
+    timings.update(ng_timings)
+    ng_precision(ng, args.m, args.seed, dev)
+    lg_launches, lg_timings, bst_ng, ds_ng = lagaboost(
+        ng, args.m, args.seed, dev)
+    timings.update(lg_timings)
+    determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
+                ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"])
+    del bst, ds, bst_ng, ds_ng
     timings.update(bt_sliced_ms=bt["sliced_ms"],
                    bt_scatter_ms=bt["scatter_ms"])
     timings["vecchia_nll_grad_ms"] = timed["nll_grad"]["ms"]
@@ -1158,17 +1545,23 @@ def main():
           f"histogram: one call put {len(ops)} operations on the stream "
           f"(profiler trace), expected one, hist_kernel: {ops}")
     timed["histogram"].update(stream_ops_per_call=len(ops), stream_ops=ops)
+    # after it: the process's first profiler session with CUDA activities
+    # must be the histogram's (a second one records no device operation)
+    precision_ops_trace(ng_model, dev)
+    del ng_model
 
     # a kernel that a path runs must have been launched in that path's run
     paths = {"gp": launches, "boosting": boost_launches,
              "gp_default_route": gd_launches,
-             "boosting_default_route": bgd_launches}
+             "boosting_default_route": bgd_launches,
+             "ng_path": ng_launches, "lagaboost": lg_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
             ("gp_default_route", gd_launches,
              ("vecchia_factors", "vecchia_nll_grad")),
-            ("boosting_default_route", bgd_launches, tuple(REPLACES))):
+            ("boosting_default_route", bgd_launches, tuple(REPLACES)),
+            ("lagaboost", lg_launches, ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")

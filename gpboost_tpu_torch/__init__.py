@@ -4,12 +4,20 @@ The port grows module by module beside the JAX package, which stays the
 reference. Ported so far:
 
 - the Gaussian Vecchia GP (``GPModel`` with ``gp_approx="vecchia"``:
-  construct, NLL, L-BFGS fit, prediction) with its two fused kernels written
-  by hand in CUDA C++ (``csrc/vecchia_factors.cu``);
+  construct, NLL, fit by every optimizer of the reference's route, std
+  errors, prediction) with its two fused kernels written by hand in CUDA
+  C++ (``csrc/vecchia_factors.cu``);
 - tree boosting and the GPBoost algorithm (``Dataset``, ``Booster``,
   ``train(params, dataset, gp_model=gp)``, ``Booster.predict``): the
-  host-driven leaf-wise learner for numeric features with the L2 objective,
-  every histogram through a hand-written CUDA kernel (``csrc/histogram.cu``).
+  host-driven leaf-wise learner for numeric features with the L2 and binary
+  objectives, every histogram through a hand-written CUDA kernel
+  (``csrc/histogram.cu``);
+- the non-Gaussian Vecchia GP (the likelihood families of ``likelihoods/``,
+  Laplace approximation, dense or ``matrix_inversion_method="iterative"``:
+  CG + stochastic Lanczos log-determinant, ``ops/cg.py``) and the LaGaBoost
+  algorithm (``train({"objective": "binary"}, dataset, gp_model=gp)`` with
+  a ``bernoulli_logit`` GP). Its heavy work is plain PyTorch, as in the JAX
+  package: no kernel of its own; its trees go through the histogram kernel.
 
 There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,

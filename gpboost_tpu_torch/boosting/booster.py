@@ -2,8 +2,8 @@
 
 The equivalent of the reference's ``GBDT`` class
 (``src/LightGBM/boosting/gbdt.cpp``): ``TrainOneIter`` (:404) becomes
-``update()`` — gradients from the objective (including the GPBoost
-coupling), one leaf-wise tree per round, shrinkage, score update — and the
+``update()`` — gradients from the objective (including the GPBoost and
+LaGaBoost couplings), one leaf-wise tree per round, shrinkage, score update — and the
 ``Booster`` public class mirrors ``gpboost.Booster`` (``basic.py:2323``):
 train / predict / save, ``gp_model`` attachment and combined prediction
 (``basic.py:3560-3650``).
@@ -161,7 +161,11 @@ class Booster:
                 gp_coords_pred=None, predict_var=False, pred_latent=False):
         """Predict on raw features. With an attached gp_model and
         ``gp_coords_pred``, returns the combined tree + random-effects
-        prediction as a dict (``basic.py:3560-3650``)."""
+        prediction as a dict (``basic.py:3560-3650``): for a non-Gaussian
+        gp_model the response mean and variance (or, with
+        ``pred_latent``, the fixed effect and the latent random effect's
+        mean and variance). Without a gp_model, ``binary`` returns
+        probabilities unless ``raw_score``."""
         if pred_leaf or pred_contrib:
             raise NotImplementedError(
                 "pred_leaf / pred_contrib are not ported to "
@@ -213,6 +217,30 @@ class Booster:
         else:  # loaded model: embedded training label/score
             train_score = self._loaded_train_score
             train_label = self._loaded_train_label
+        if not gp.is_gaussian:
+            # LaGaBoost (the JAX package's booster.py:1305-1324): the
+            # latent random effect given the trees' training score, or the
+            # response mean and variance with the trees' prediction as the
+            # fixed effect
+            if pred_latent:
+                gp_pred = gp.predict(y=train_label,
+                                     fixed_effects=train_score,
+                                     gp_coords_pred=gp_coords_pred,
+                                     predict_var=predict_var,
+                                     predict_response=False)
+                return {"fixed_effect": raw,
+                        "random_effect_mean": gp_pred["mu"],
+                        "random_effect_cov": gp_pred["var"],
+                        "response_mean": None, "response_var": None}
+            gp_pred = gp.predict(y=train_label, fixed_effects=train_score,
+                                 fixed_effects_pred=raw,
+                                 gp_coords_pred=gp_coords_pred,
+                                 predict_var=predict_var,
+                                 predict_response=True)
+            return {"response_mean": gp_pred["mu"],
+                    "response_var": gp_pred["var"],
+                    "fixed_effect": raw,
+                    "random_effect_mean": None, "random_effect_cov": None}
         resid = train_label - train_score
         gp_pred = gp.predict(y=resid, gp_coords_pred=gp_coords_pred,
                              predict_var=predict_var,

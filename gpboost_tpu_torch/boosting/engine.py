@@ -13,10 +13,11 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           callbacks=None, train_gp_model_cov_pars: bool = True) -> Booster:
     """Train a (GP)Boost model (mirrors ``gpboost.train``, ``engine.py:21``)
     with the host-driven loop: ``num_boost_round`` calls of
-    ``Booster.update``. With a ``gp_model`` this is the GPBoost algorithm;
-    the model must be set up with ``optimizer_cov='lbfgs'``
-    (``gp_model.set_optim_params``), the only optimizer ported so far — the
-    reference's default ``gradient_descent`` raises at the first refit.
+    ``Booster.update``. With a ``gp_model`` this is the GPBoost algorithm
+    (gaussian likelihood) or the LaGaBoost algorithm (the others; the
+    objective names no distribution then, e.g. ``"binary"``), the GP's
+    parameters refitted every round with its optimizer settings
+    (``gp_model.set_optim_params``).
 
     Validation sets, callbacks, early stopping, custom objectives / metrics
     and continued training are not ported (ROADMAP.md Queue A, item 18) and

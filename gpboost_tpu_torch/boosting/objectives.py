@@ -1,19 +1,29 @@
 """Boosting objective functions (gradients/hessians per data point).
 
 Mirrors the reference's ``src/LightGBM/objective/*.hpp`` for what is ported:
-the L2 regression objective and the GPBoost coupling of
-``regression_objective.hpp:153-186`` — with an attached Gaussian ``GPModel``
-the gradients are ``Psi^-1 (F - y)`` (generalized residuals) and the
-covariance parameters are re-optimized, warm-started, in every iteration.
+the L2 regression objective, the binary log-loss (``binary_objective.hpp``)
+and the coupling with a ``GPModel`` of ``regression_objective.hpp:153-186``:
+
+- the GPBoost algorithm (gaussian likelihood): gradients ``Psi^-1 (F - y)``
+  (generalized residuals), the covariance parameters re-optimized,
+  warm-started, in every iteration;
+- the LaGaBoost algorithm (other likelihoods): gradients d NLL_Laplace / dF
+  at the current score, hessians 1, the covariance and auxiliary parameters
+  re-optimized (warm-started) at the current score in every iteration.
 
 Scores, labels and gradients are host float64 arrays, as in the reference's
-host loop; the covariance refit and the ``Psi^-1`` solve run on the model's
-device. Other objectives and the non-Gaussian (LaGaBoost) branch are not
-ported (ROADMAP.md Queue A, items 11, 13 and 18).
+host loop; the covariance refit, the ``Psi^-1`` solve and the Laplace
+gradient run on the model's device. Other objectives are not ported
+(ROADMAP.md Queue A, item 18).
 """
 from __future__ import annotations
 
 import numpy as np
+from scipy.stats import norm
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
 
 
 class Objective:
@@ -63,16 +73,59 @@ class RegressionL2(Objective):
         return self._apply_weight(score - self.label, np.ones_like(score))
 
 
-class GPBoostObjective(Objective):
-    """Objective coupling boosting with a GPModel — the GPBoost algorithm
-    (``regression_objective.hpp:153-186``), Gaussian likelihood.
+class Binary(Objective):
+    """Binary log-loss with logit link (``binary_objective.hpp``).
 
-    Gradients = Psi^-1 (F - y), hessians = 1; covariance parameters
-    re-optimized (warm-started from the previous iteration's) inside
-    ``get_gradients`` each boosting iteration. ``fits`` records every refit:
-    its final NLL, its number of objective evaluations, the learning rate
-    gradient descent started from (``lr_start``) and the one it reached
-    after its first iteration (``lr_after_first``).
+    ``is_unbalance`` weights the positive class by cnt_neg / cnt_pos
+    (binary_objective.hpp:70-79); ``scale_pos_weight`` sets the positive
+    weight explicitly (they are mutually exclusive in the reference).
+    """
+    name = "binary"
+
+    def __init__(self, sigmoid=1.0, is_unbalance=False, scale_pos_weight=1.0):
+        self.sigmoid = float(sigmoid)
+        self.is_unbalance = bool(is_unbalance)
+        self.scale_pos_weight = float(scale_pos_weight)
+
+    def _pos_weight(self):
+        if self.is_unbalance:
+            pos = max(float(np.sum(self.label > 0)), 1.0)
+            neg = float(np.sum(self.label <= 0))
+            return neg / pos
+        return self.scale_pos_weight
+
+    def boost_from_average(self):
+        w_pos = self._pos_weight()
+        suml = float(np.sum(np.where(self.label > 0, w_pos, 1.0)
+                            * self.label))
+        sumw = float(np.sum(np.where(self.label > 0, w_pos, 1.0)))
+        p = np.clip(suml / sumw, 1e-12, 1 - 1e-12)
+        return float(np.log(p / (1 - p)) / self.sigmoid)
+
+    def get_gradients(self, score):
+        p = _sigmoid(self.sigmoid * score)
+        lw = np.where(self.label > 0, self._pos_weight(), 1.0)
+        grad = self.sigmoid * (p - self.label) * lw
+        hess = self.sigmoid ** 2 * p * (1 - p) * lw
+        return self._apply_weight(grad, hess)
+
+    def convert_output(self, score):
+        return _sigmoid(self.sigmoid * score)
+
+
+class GPBoostObjective(Objective):
+    """Objective coupling boosting with a GPModel — the GPBoost and LaGaBoost
+    algorithms (``regression_objective.hpp:153-186``).
+
+    Gaussian: gradients = Psi^-1 (F - y), hessians = 1; covariance
+    parameters re-optimized (warm-started from the previous iteration's)
+    inside ``get_gradients`` each boosting iteration. Other likelihoods
+    (LaGaBoost): gradients = d NLL_Laplace / dF at the current score,
+    hessians = 1, the GP re-fitted at the current score (as fixed effects)
+    each iteration. ``fits`` records every refit: its final NLL, its
+    number of objective evaluations, the learning rate gradient descent
+    started from (``lr_start``) and the one it reached after its first
+    iteration (``lr_after_first``).
 
     With ``reuse_learning_rates_gp_model`` (the reference's optimizer-state
     reuse, ``re_model_template.h:841-883``, :7463-7488) the refits from the
@@ -85,11 +138,6 @@ class GPBoostObjective(Objective):
 
     def __init__(self, gp_model, train_gp_model_cov_pars=True,
                  reuse_learning_rates_gp_model=True):
-        if not gp_model.is_gaussian:
-            raise NotImplementedError(
-                f"gp_model with likelihood '{gp_model.likelihood}': the "
-                "LaGaBoost algorithm is not ported to gpboost_tpu_torch yet "
-                "(ROADMAP.md Queue A, items 11 and 13)")
         self.gp_model = gp_model
         self.train_gp_model_cov_pars = train_gp_model_cov_pars
         self.reuse_learning_rates_gp_model = reuse_learning_rates_gp_model
@@ -102,7 +150,20 @@ class GPBoostObjective(Objective):
         return len(self.fits)
 
     def boost_from_average(self):
-        return float(np.mean(self.label))
+        if self.gp_model.is_gaussian:
+            return float(np.mean(self.label))
+        # LaGaBoost: the reference's FindInitialValueBoosting, by likelihood
+        lik = self.gp_model.likelihood
+        m = np.mean(self.label)
+        if lik == "bernoulli_probit":
+            return float(norm.ppf(np.clip(m, 1e-12, 1 - 1e-12)))
+        if lik == "bernoulli_logit":
+            p = np.clip(m, 1e-12, 1 - 1e-12)
+            return float(np.log(p / (1 - p)))
+        if lik in ("poisson", "gamma", "negative_binomial",
+                   "negative_binomial_1", "lognormal"):
+            return float(np.log(max(m, 1e-20)))
+        return 0.0
 
     def get_gradients(self, score):
         # the end-of-iteration refit (Booster.update tail, mirroring
@@ -119,6 +180,11 @@ class GPBoostObjective(Objective):
 
     def _get_gradients_impl(self, score):
         gp = self.gp_model
+        if not gp.is_gaussian:
+            # LaGaBoost
+            if self.train_gp_model_cov_pars:
+                self._optim_cov_pars_laplace(score)
+            return self._laplace_grad_F(score), np.ones_like(score)
         resid = self.label - score
         if self.train_gp_model_cov_pars:
             self._optim_cov_pars_gaussian(resid)
@@ -150,8 +216,28 @@ class GPBoostObjective(Objective):
         return params
 
     def _optim_cov_pars_gaussian(self, resid):
+        self._refit(y=resid)
+
+    def _optim_cov_pars_laplace(self, score):
+        self._refit(y=self.label,
+                    fixed_effects=np.asarray(score, dtype=np.float64))
+
+    def _laplace_grad_F(self, score):
+        """d NLL / dF at the current score (``grad_F_laplace`` with its
+        defaults, as the JAX package's objective calls it)."""
         gp = self.gp_model
-        gp.fit(y=resid, params=self._inner_fit_params())
+        if gp.cov_pars_ is None:
+            raise ValueError(
+                "train_gp_model_cov_pars=False needs covariance parameters: "
+                "fit the gp_model first")
+        g = gp._approx.grad_F_laplace(
+            gp._tensor(gp.cov_pars_), gp._y_tensor(self.label),
+            gp._aux_tensor(), gp._tensor(score))
+        return g.detach().cpu().numpy().astype(np.float64)
+
+    def _refit(self, **fit_args):
+        gp = self.gp_model
+        gp.fit(params=self._inner_fit_params(), **fit_args)
         res = gp._fit_result
         if (self.num_fits == 0 and self.reuse_learning_rates_gp_model
                 and res.lr_after_first is not None):
@@ -174,18 +260,19 @@ class GPBoostObjective(Objective):
 _ALIASES = {
     "regression_l2": "regression", "l2": "regression",
     "mean_squared_error": "regression", "mse": "regression",
-    "rmse": "regression",
+    "rmse": "regression", "binary_logloss": "binary",
 }
 
 
 def create_objective(name: str, params: dict, gp_model=None) -> Objective:
     """Objective factory (``objective_function.cpp:17-129``): ``regression``
-    (and its aliases), with or without a ``gp_model``."""
+    and ``binary`` (and their aliases), with or without a ``gp_model`` —
+    with one, the response distribution is the GPModel's likelihood."""
     name = _ALIASES.get(name, name)
-    if name not in ("regression", "regression_gp"):
+    if name not in ("regression", "regression_gp", "binary"):
         raise NotImplementedError(
             f"objective '{name}' is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18); ported: 'regression'")
+            "(ROADMAP.md Queue A, item 18); ported: 'regression', 'binary'")
     if gp_model is not None:
         return GPBoostObjective(
             gp_model,
@@ -195,4 +282,13 @@ def create_objective(name: str, params: dict, gp_model=None) -> Objective:
                 "reuse_learning_rates_gp_model", True))
     if name == "regression_gp":
         raise ValueError("objective 'regression_gp' needs a gp_model")
+    if name == "binary":
+        if params.get("is_unbalance", False) and float(
+                params.get("scale_pos_weight", 1.0)) != 1.0:
+            raise ValueError("Cannot set is_unbalance and scale_pos_weight "
+                             "at the same time")
+        return Binary(sigmoid=float(params.get("sigmoid", 1.0)),
+                      is_unbalance=bool(params.get("is_unbalance", False)),
+                      scale_pos_weight=float(
+                          params.get("scale_pos_weight", 1.0)))
     return RegressionL2()

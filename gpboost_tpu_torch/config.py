@@ -47,6 +47,7 @@ _ALIASES_OF = {
     "feature_contri": ("feature_contrib", "fc", "fp", "feature_penalty"),
     "is_provide_training_metric": ("training_metric", "is_training_metric",
                                    "train_metric"),
+    "is_unbalance": ("unbalance", "unbalanced_sets"),
 }
 ALIAS_TABLE = {alias: name for name, aliases in _ALIASES_OF.items()
                for alias in aliases}
@@ -59,6 +60,7 @@ PORTED = (
     "lambda_l2", "min_gain_to_split", "max_bin", "min_data_in_bin",
     "boost_from_average", "tree_learner", "num_class",
     "train_gp_model_cov_pars", "reuse_learning_rates_gp_model", "gpu_use_dp",
+    "sigmoid", "is_unbalance", "scale_pos_weight",
 )
 
 # accepted without effect on the ported path: logging, host threading,

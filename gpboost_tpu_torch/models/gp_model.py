@@ -4,19 +4,26 @@ API mirrors the reference Python package's ``gpboost.GPModel``
 (``python-package/gpboost/basic.py:4054-6600``): same constructor argument
 names, ``fit`` / ``neg_log_likelihood`` / ``predict`` / ``set_optim_params``
 / ``model_to_dict`` methods, same covariance parameter layout
-(``[nugget, variance, range...]``).
+(``[nugget, variance, range...]`` for the gaussian likelihood,
+``[variance, range...]`` for the others).
 
-Ported so far: a single GP with ``gp_approx="vecchia"`` and the gaussian
+Ported so far: a single GP with ``gp_approx="vecchia"``. Gaussian
 likelihood — construct (every keyword of the reference's constructor is
 accepted: a value that needs a structure that is not ported raises), NLL,
 fit with optional linear predictor by every optimizer of the reference's
 Gaussian Vecchia route (gradient descent, the default, L-BFGS, Nelder-Mead;
 ``models/vecchia_fit.py``), std errors of covariance parameters and
 coefficients, local-kriging prediction, the ``Psi^-1 r`` solve of the
-GPBoost algorithm. Every other structure — exact GPs, grouped random
-effects, non-gaussian likelihoods, other approximations, GP random
-coefficients, ``cluster_ids`` — raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+GPBoost algorithm. Non-Gaussian likelihoods (the families of
+``likelihoods/``) — the Vecchia-Laplace approximation: NLL (dense, or
+``matrix_inversion_method="iterative"``: CG + stochastic Lanczos), fit of
+covariance and auxiliary parameters and coefficients (L-BFGS, the default
+for them, Nelder-Mead, gradient descent), prediction of the latent or
+response mean and variance (simulated variances above 20 000 points or with
+``nsim_var_pred``), the LaGaBoost gradient d NLL / dF. Every other
+structure — exact GPs, grouped random effects, other approximations, GP
+random coefficients, ``cluster_ids``, weights — raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
 raises) unless ``device="cpu"`` is passed. Inputs and outputs are numpy
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from gpboost_tpu_torch import config
+from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models import optimizers, vecchia_fit
 from gpboost_tpu_torch.models.vecchia_model import VecchiaGP
 from gpboost_tpu_torch.ops.cov_fns import CovFunction
@@ -41,13 +49,20 @@ _OPTIM_PARAMS = ("optimizer_cov", "maxit", "delta_rel_conv", "init_cov_pars",
                  "init_coef", "trace", "std_dev", "convergence_criterion",
                  "lr_cov", "use_nesterov_acc", "acc_rate_cov",
                  "momentum_offset", "armijo_condition",
-                 "estimate_cov_par_index")
+                 "estimate_cov_par_index", "estimate_aux_pars",
+                 "init_aux_pars", "cg_max_num_it", "cg_max_num_it_tridiag",
+                 "cg_delta_conv", "num_rand_vec_trace",
+                 "reuse_rand_vec_trace", "seed_rand_vec_trace",
+                 "cg_preconditioner_type", "piv_chol_rank")
 _CRITERIA = ("relative_change_in_log_likelihood",
              "relative_change_in_parameters")
 # above this many data points the std errors of the covariance parameters
 # come from finite differences of the NLL gradient, below it from the dense
 # expected Fisher information (the reference package's switch)
 _DENSE_FISHER_MAX_N = 8192
+# above this many data points the Vecchia-Laplace prediction simulates its
+# variances (the reference package's switch to predict_laplace_sim)
+_SIM_PRED_MIN_N = 20000
 _FD_EPS = 1e-4
 # reference optimizer-name aliases (re_model_template.h:718-750, :948-952)
 _OPT_ALIASES = {
@@ -58,15 +73,52 @@ _OPT_ALIASES = {
 }
 
 
+# response checks per likelihood (the JAX package's ``_validate_y``)
+_Y_RULES = (
+    (("bernoulli_probit", "bernoulli_logit"),
+     lambda y: np.all((y == 0) | (y == 1)), "0 or 1"),
+    (("poisson", "negative_binomial", "negative_binomial_1"),
+     lambda y: not (np.any(y < 0) or np.any(y != np.floor(y))),
+     "a non-negative integer"),
+    (("gamma", "lognormal"), lambda y: not np.any(y <= 0),
+     "strictly positive"),
+    (("zero_inflated_gamma", "zero_censored_power_transformed_normal"),
+     lambda y: not np.any(y < 0), "non-negative"),
+    (("beta",), lambda y: not np.any((y <= 0) | (y >= 1)), "in (0, 1)"),
+    (("zoctn", "beta_binomial", "binomial_logit", "binomial_probit"),
+     lambda y: not (np.any(y < 0) or np.any(y > 1)), "in [0, 1]"),
+)
+
+
 def _not_ported(what: str, queue: str):
     return NotImplementedError(
         f"{what} is not ported to gpboost_tpu_torch yet (ROADMAP.md "
-        f"{queue}); ported: gp_coords with gp_approx='vecchia' and "
-        "likelihood='gaussian'")
+        f"{queue}); ported: gp_coords with gp_approx='vecchia'")
+
+
+def _canonical_likelihood(lik: str) -> str:
+    """The family name behind a likelihood string (approximation suffixes
+    stripped, aliases resolved); raises for what the port cannot run."""
+    base, approx = lk.parse_likelihood_variants(lik)
+    if approx == "lss_laplace":
+        raise NotImplementedError(
+            f"approximation_type 'lss_laplace' (likelihood '{lik}') is not "
+            "supported")
+    if approx == "fisher_laplace" and base not in (
+            "gaussian_heteroscedastic", "t", "gaussian"):
+        raise NotImplementedError(
+            f"approximation_type 'fisher_laplace' is not implemented for "
+            f"likelihood '{base}'")
+    lk.get_family(base)                  # unknown names raise ValueError
+    if base in lk.NOT_PORTED:
+        raise NotImplementedError(
+            f"likelihood='{lik}' is not ported to gpboost_tpu_torch yet "
+            f"({lk.NOT_PORTED[base]})")
+    return base
 
 
 class GPModel:
-    """Gaussian process model (Vecchia approximation, gaussian likelihood).
+    """Gaussian process model (Vecchia approximation).
 
     Parameters follow ``gpboost.GPModel`` (``basic.py:4054``); ``dtype`` and
     ``device`` say where and in which precision the model computes.
@@ -110,12 +162,12 @@ class GPModel:
             raise _not_ported("cluster_ids", "Queue A, item 15")
         if weights is not None:
             raise _not_ported("weights", "Queue A, item 11")
-        if likelihood_additional_param is not None:
-            raise _not_ported("likelihood_additional_param",
-                              "Queue A, item 11")
-        if likelihood != "gaussian":
-            raise _not_ported(f"likelihood='{likelihood}'",
-                              "Queue A, items 11 and 13")
+        likelihood = _canonical_likelihood(likelihood)
+        if likelihood == "gaussian" and likelihood_additional_param is not None:
+            raise _not_ported(
+                "likelihood_additional_param with likelihood='gaussian' (the "
+                "latent-process parametrisation with the nugget as an "
+                "auxiliary parameter)", "Queue A, item 15")
         for key, value, default in (
                 ("cov_fct_taper_range", cov_fct_taper_range, 1.0),
                 ("cov_fct_taper_shape", cov_fct_taper_shape, 1.0),
@@ -125,12 +177,14 @@ class GPModel:
             if value != default:
                 raise _not_ported(f"{key}={value!r} (tapering and inducing "
                                   "points)", "Queue A, items 14 and 17")
-        if matrix_inversion_method == "iterative":
-            raise _not_ported("matrix_inversion_method='iterative'",
-                              "Queue A, items 12 and 13")
-        if matrix_inversion_method != "cholesky":
+        if matrix_inversion_method not in ("cholesky", "iterative"):
             raise ValueError("matrix_inversion_method: 'cholesky' or "
                              f"'iterative', got {matrix_inversion_method!r}")
+        if matrix_inversion_method == "iterative" and likelihood == "gaussian":
+            raise _not_ported(
+                "matrix_inversion_method='iterative' with "
+                "likelihood='gaussian' (the iterative Gaussian Vecchia "
+                "route)", "Queue A, item 12")
         if gp_coords is None:
             raise ValueError("GPModel: 'gp_coords' is required")
         if gp_approx != "vecchia":
@@ -139,6 +193,7 @@ class GPModel:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.likelihood = likelihood
+        self.likelihood_additional_param = likelihood_additional_param
         self.gp_approx = gp_approx
         self.matrix_inversion_method = matrix_inversion_method
         self.num_neighbors = num_neighbors
@@ -153,6 +208,8 @@ class GPModel:
         self.std_dev_coefs_ = None
         self.num_it_ = 0
         self.current_nll_ = None
+        self.aux_pars_ = None
+        self.nsim_var_pred = None
         self._train_fixed_effects = None
 
         coords = np.asarray(gp_coords, dtype=np.float64)
@@ -170,7 +227,10 @@ class GPModel:
         self.y = None
         self.X = None
         self.optim_cfg = optimizers.OptimConfig()
-        self.num_cov_pars = 1 + cf.num_cov_par
+        if not self.is_gaussian:
+            # the reference's default for non-Gaussian likelihoods
+            self.optim_cfg.optimizer_cov = "lbfgs"
+        self.num_cov_pars = cf.num_cov_par + (1 if self.is_gaussian else 0)
 
     # ------------------------------------------------------------------
     def _tensor(self, x, ravel=False) -> torch.Tensor:
@@ -187,6 +247,10 @@ class GPModel:
                 f"{self.num_data} data points")
         if np.any(~np.isfinite(y_np)):
             raise ValueError("NaN or Inf in response variable / label")
+        for names, ok, what in _Y_RULES:
+            if self.likelihood in names and not ok(y_np):
+                raise ValueError(f"Response must be {what} for likelihood "
+                                 f"'{self.likelihood}'")
         return self._tensor(y_np)
 
     def set_optim_params(self, params: Optional[dict] = None):
@@ -209,6 +273,11 @@ class GPModel:
         if params.get("convergence_criterion", _CRITERIA[0]) not in _CRITERIA:
             raise ValueError(f"convergence_criterion: one of {_CRITERIA}, "
                              f"got {params['convergence_criterion']!r}")
+        if not params.get("reuse_rand_vec_trace", True):
+            raise NotImplementedError(
+                "reuse_rand_vec_trace=False (new probe vectors in every "
+                "evaluation) is not ported to gpboost_tpu_torch yet "
+                "(ROADMAP.md Queue A, item 12)")
         cfg = self.optim_cfg
         for k, v in params.items():
             if k == "optimizer_cov":
@@ -223,8 +292,28 @@ class GPModel:
                 self.coefs_ = cfg.init_coef
             elif k == "estimate_cov_par_index":
                 cfg.estimate_cov_par_index = np.asarray(v, dtype=np.int32)
+            elif k == "init_aux_pars":
+                self.aux_pars_ = np.atleast_1d(np.asarray(v, np.float64))
             else:
                 setattr(cfg, k, v)
+        return self
+
+    def set_prediction_data(self, vecchia_pred_type=None,
+                            num_neighbors_pred=None, nsim_var_pred=None,
+                            **kwargs):
+        """Prediction-time settings (``GPModel.set_prediction_data``).
+        Ported: ``nsim_var_pred`` (simulated predictive variances of the
+        Vecchia-Laplace prediction, with that many draws). The other
+        settings and the validation prediction data raise (ROADMAP.md
+        Queue A, items 15 and 18)."""
+        given = dict(kwargs, vecchia_pred_type=vecchia_pred_type,
+                     num_neighbors_pred=num_neighbors_pred)
+        unported = sorted(k for k, v in given.items() if v is not None)
+        if unported:
+            raise _not_ported(f"set_prediction_data({', '.join(unported)})",
+                              "Queue A, items 15 and 18")
+        if nsim_var_pred is not None:
+            self.nsim_var_pred = int(nsim_var_pred)
         return self
 
     @property
@@ -232,6 +321,32 @@ class GPModel:
         """Whether the likelihood is gaussian (what the boosting objective
         asks before it takes the ``Psi^-1 r`` route)."""
         return self.likelihood == "gaussian"
+
+    def get_aux_pars(self):
+        """Auxiliary parameters of the likelihood (user scale), or None."""
+        return self.aux_pars_
+
+    def _aux_tensor(self, aux_pars=None):
+        """The likelihood's aux parameters as a tensor: given, fitted, or
+        the family's defaults; None for a family without any."""
+        fam = lk.get_family(self.likelihood)
+        if fam.num_aux_pars == 0:
+            return None
+        if aux_pars is None:
+            aux_pars = (self.aux_pars_ if self.aux_pars_ is not None
+                        else fam.default_aux_pars(
+                            self.likelihood_additional_param))
+        return self._tensor(np.atleast_1d(np.asarray(aux_pars, np.float64)))
+
+    def _iter_kwargs(self, fit: bool) -> dict:
+        """Settings of the iterative Laplace NLL: a fit's (at least 200
+        probes, ``vecchia_fit.ng_iter_kwargs``) or a single evaluation's
+        (the configured number of probes), as in the JAX package."""
+        cfg = self.optim_cfg
+        kw = vecchia_fit.ng_iter_kwargs(cfg, self.num_data)
+        if not fit:
+            kw["num_rand_vec_trace"] = int(cfg.num_rand_vec_trace)
+        return kw
 
     def _psi_solve(self, cov_pars, r) -> torch.Tensor:
         """Psi^-1 r for a vector ``r`` [n] in the original row order, at
@@ -245,21 +360,37 @@ class GPModel:
                                               self._tensor(r, ravel=True))
 
     # ------------------------------------------------------------------
-    def neg_log_likelihood(self, cov_pars, y, fixed_effects=None) -> float:
+    def neg_log_likelihood(self, cov_pars, y, fixed_effects=None,
+                           aux_pars=None) -> float:
         """Negative log-marginal-likelihood of the Vecchia approximation at
-        given parameters (``GPB_EvalNegLogLikelihood``; ``basic.py:5284``)."""
+        given parameters (``GPB_EvalNegLogLikelihood``; ``basic.py:5284``):
+        the Laplace-approximate one for non-Gaussian likelihoods (iterative
+        with ``matrix_inversion_method="iterative"``, with the configured
+        ``num_rand_vec_trace`` probes)."""
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
         y_t = self._y_tensor(y)
         fe = None if fixed_effects is None else self._tensor(fixed_effects)
+        if not self.is_gaussian:
+            cp, ap = self._tensor(cov_pars_np), self._aux_tensor(aux_pars)
+            with torch.no_grad():
+                if self.matrix_inversion_method == "iterative":
+                    return float(self._approx.nll_laplace_iterative(
+                        cp, y_t, ap, fe, **self._iter_kwargs(fit=False)))
+                return float(self._approx.nll_laplace(cp, y_t, ap, fe))
         self._approx.ensure_neighbors(cov_pars_np)
         return float(self._approx.nll_gaussian_value(
             self._tensor(cov_pars_np), y_t, fe))
 
     def _default_init_cov_pars(self, y: np.ndarray) -> np.ndarray:
         """Data-driven inits (``REModelTemplate::FindInitCovPar``, :4388):
-        variances var(y)/2, GP ranges mean(dist)/3 heuristic."""
+        gaussian: nugget and variance var(y)/2; other likelihoods: variance
+        var(y) (1 for the Bernoulli families); GP ranges mean(dist)/3."""
         var_y = float(np.var(y, ddof=1))
-        pars = [var_y / 2.0, var_y / 2.0]
+        if self.is_gaussian:
+            pars = [var_y / 2.0, var_y / 2.0]
+        else:
+            pars = [1.0 if self.likelihood in ("bernoulli_probit",
+                                               "bernoulli_logit") else var_y]
         extra = self.cov_fn.num_cov_par - 1
         m = min(self.coords_np.shape[0], 500)
         sub = self.coords_np[:m]
@@ -293,7 +424,11 @@ class GPModel:
                 fixed_effects_pred=None):
         """Posterior prediction (``GPModel.predict``, ``basic.py:5778``) by
         local kriging on the observed neighbors of each prediction point
-        (``vecchia_pred_type='order_obs_first_cond_obs_only'``).
+        (``vecchia_pred_type='order_obs_first_cond_obs_only'``). For a
+        non-Gaussian likelihood: kriging on the posterior mode, the latent
+        variance dense up to 20 000 points, simulated above or with
+        ``set_prediction_data(nsim_var_pred=...)``, the response moments by
+        quadrature (``predict_response``).
 
         Returns dict with 'mu', 'var', 'cov' (numpy) like the reference.
         """
@@ -323,13 +458,29 @@ class GPModel:
         cp = np.asarray(gp_coords_pred, dtype=np.float64)
         if cp.ndim == 1:
             cp = cp[:, None]
-        self._approx.ensure_neighbors(cov_pars_np)
+        want_var = bool(predict_var or predict_cov_mat)
         with torch.no_grad(), timed("GPModel: predict", sync=True):
-            mean, var = self._approx.predict_gaussian(
-                self._tensor(cov_pars_np), y_t, self._tensor(cp), fe,
-                bool(predict_response), bool(predict_var or predict_cov_mat))
-            if fep is not None:
-                mean = mean + fep
+            if self.is_gaussian:
+                self._approx.ensure_neighbors(cov_pars_np)
+                mean, var = self._approx.predict_gaussian(
+                    self._tensor(cov_pars_np), y_t, self._tensor(cp), fe,
+                    bool(predict_response), want_var)
+                if fep is not None:
+                    mean = mean + fep
+            elif (self.nsim_var_pred is not None
+                  or self.num_data > _SIM_PRED_MIN_N):
+                # simulated predictive variances, matrix-free
+                # (Sample_Posterior_LaplaceApprox_Vecchia, likelihoods.h:6818)
+                mean, var = self._approx.predict_laplace_sim(
+                    self._tensor(cov_pars_np), y_t, self._aux_tensor(),
+                    self._tensor(cp), fe, fep, bool(predict_response),
+                    want_var, nsim=int(self.nsim_var_pred or 1000),
+                    seed=self.optim_cfg.seed_rand_vec_trace)
+            else:
+                mean, var = self._approx.predict_laplace(
+                    self._tensor(cov_pars_np), y_t, self._aux_tensor(),
+                    self._tensor(cp), fe, fep, bool(predict_response),
+                    want_var)
         mu_np = mean.cpu().numpy()
         var_np = None if var is None else var.cpu().numpy()
         # cond-obs-only Vecchia predictions are conditionally independent
@@ -388,6 +539,12 @@ class GPModel:
         if self.y is None:
             raise ValueError("std errors need the training data: call fit() "
                              "first")
+        if not self.is_gaussian:
+            raise _not_ported(
+                "std errors of a non-Gaussian model (the JAX package has "
+                "none for the Laplace approximation; its Fisher information "
+                "is the Gaussian one of models/gaussian.py)",
+                "Queue A, items 11 and 16")
         cov_pars = np.asarray(self.cov_pars_, np.float64)
         lp = np.log(cov_pars)
         if self.num_data > _DENSE_FISHER_MAX_N:
@@ -415,17 +572,48 @@ class GPModel:
         return np.sqrt(np.maximum(np.diagonal(_inverse(fi)), 0.0)) * cov_pars
 
     def _calc_std_dev_coefs(self):
-        """Std devs of the regression coefficients from the GLS covariance
-        (X' Psi^-1 X)^-1 (``CalcStdDevCoef``), Psi^-1 applied column by
-        column through the Vecchia precision."""
+        """Std devs of the regression coefficients. Gaussian: from the GLS
+        covariance (X' Psi^-1 X)^-1 (``CalcStdDevCoef``), Psi^-1 applied
+        column by column through the Vecchia precision. Other likelihoods:
+        the square root of the diagonal of the inverse Hessian of the dense
+        Laplace NLL w.r.t. the coefficients (``CalcStdDevCoefNonGaussian``,
+        ``re_model_template.h:9825``), by central differences of its
+        autograd gradient, as the JAX package."""
         if self.X is None or self.coefs_ is None:
             return None
+        if not self.is_gaussian:
+            return self._calc_std_dev_coefs_laplace()
         X_np = self.X.detach().cpu().numpy().astype(np.float64)
         pix = torch.stack([self._psi_solve(self.cov_pars_, X_np[:, j])
                            for j in range(X_np.shape[1])], dim=1)
         xtpix = (self.X.T @ pix.to(self.X.dtype)).detach().cpu().numpy()
         return np.sqrt(np.maximum(np.diagonal(
             _inverse(xtpix.astype(np.float64))), 0.0))
+
+    def _calc_std_dev_coefs_laplace(self):
+        cp, aux = self._tensor(self.cov_pars_), self._aux_tensor()
+        fe0 = self._train_fixed_effects
+
+        def grad(b):
+            bt = self._tensor(b).requires_grad_(True)
+            with torch.enable_grad():
+                fe = self.X @ bt if fe0 is None else self.X @ bt + fe0
+                nll = self._approx.nll_laplace(cp, self.y, aux, fe)
+                (g,) = torch.autograd.grad(nll, bt)
+            return g.detach().cpu().numpy().astype(np.float64)
+
+        beta = np.asarray(self.coefs_, np.float64)
+        p = len(beta)
+        eps = float(np.finfo(np.float64).eps) ** (1.0 / 3.0)
+        H = np.zeros((p, p))
+        for i in range(p):
+            step = eps * max(abs(beta[i]), 1.0)
+            b1, b2 = beta.copy(), beta.copy()
+            b1[i] += step
+            b2[i] -= step
+            H[i] = (grad(b1) - grad(b2)) / (2 * step)
+        return np.sqrt(np.maximum(np.diagonal(_inverse((H + H.T) / 2.0)),
+                                  0.0))
 
     def get_num_optim_iter(self):
         return self.num_it_
@@ -438,8 +626,9 @@ class GPModel:
 
         Like the reference, the training data needed to re-create predictions
         (coordinates / y / X) is embedded. The keys are those of the JAX
-        package's ``GPModel.model_to_dict``, so either package reads the
-        other's output for the models both support."""
+        package's ``GPModel.model_to_dict`` (likelihood, aux parameters
+        included), plus ``matrix_inversion_method``, so either package reads
+        the other's output for the models both support."""
         d = {
             "likelihood": self.likelihood,
             "cov_function": self.cov_function_name,
@@ -452,9 +641,11 @@ class GPModel:
                 np.asarray(self.cov_pars_, dtype=np.float64)),
             "coefs": None if self.coefs_ is None else list(
                 np.asarray(self.coefs_, dtype=np.float64)),
-            "aux_pars": None,
+            "aux_pars": None if self.aux_pars_ is None else list(
+                np.asarray(self.aux_pars_, dtype=np.float64)),
             "num_data": self.num_data,
             "iid_model": False,
+            "matrix_inversion_method": self.matrix_inversion_method,
         }
         if include_data:
             d["gp_coords"] = self.coords_np.tolist()
@@ -476,9 +667,8 @@ class GPModel:
             if d.get(key) is not None:
                 raise _not_ported(f"a saved model with '{key}'",
                                   "Queue A, items 15-16")
-        if d.get("iid_model") or d.get("aux_pars") is not None:
-            raise _not_ported("a saved iid or non-gaussian model",
-                              "Queue A, items 11 and 16")
+        if d.get("iid_model"):
+            raise _not_ported("a saved iid model", "Queue A, item 16")
         if d.get("gp_coords") is None:
             raise ValueError("from_dict: the saved model holds no "
                              "'gp_coords' (saved without data?)")
@@ -490,7 +680,11 @@ class GPModel:
             gp_approx=d.get("gp_approx", "none"),
             num_neighbors=d.get("num_neighbors"),
             vecchia_ordering=d.get("vecchia_ordering", "random"),
+            matrix_inversion_method=d.get("matrix_inversion_method",
+                                          "cholesky"),
             seed=d.get("seed", 0), dtype=dtype, device=device)
+        if d.get("aux_pars") is not None:
+            model.aux_pars_ = np.asarray(d["aux_pars"], dtype=np.float64)
         if d.get("cov_pars") is not None:
             model.cov_pars_ = np.asarray(d["cov_pars"], dtype=np.float64)
         if d.get("coefs") is not None:

@@ -51,7 +51,17 @@ class OptimConfig:
     delta_rel_conv: float = 1e-6
     convergence_criterion: str = _REL_LL
     armijo_condition: bool = True
+    estimate_aux_pars: bool = True
     trace: bool = False
+    # iterative-method settings (matrix_inversion_method="iterative")
+    cg_max_num_it: int = 1000
+    cg_max_num_it_tridiag: int = 1000
+    cg_delta_conv: float = 1e-2
+    num_rand_vec_trace: int = 50
+    reuse_rand_vec_trace: bool = True
+    seed_rand_vec_trace: int = 1
+    cg_preconditioner_type: str = ""
+    piv_chol_rank: int = 50
     init_cov_pars: Optional[np.ndarray] = None
     init_coef: Optional[np.ndarray] = None
     std_dev: bool = False

@@ -1,8 +1,11 @@
-"""Fitting of Vecchia-approximated models (Gaussian likelihood).
+"""Fitting of Vecchia-approximated models (Gaussian and Vecchia-Laplace).
 
-The dispatch of the reference package's Gaussian Vecchia fit
+The dispatch of the reference package's Vecchia fit
 (``gpboost_tpu/models/vecchia_fit.py``), with its accelerator route read as
-"a CUDA model that the fused kernels serve (``_kernel_shape``), isotropic":
+"a CUDA model":
+
+Gaussian likelihood ("a CUDA model that the fused kernels serve
+(``_kernel_shape``), isotropic"):
 
 - L-BFGS: :func:`optimizers.lbfgs_device` on that route, else scipy's
   L-BFGS-B (:func:`optimizers.lbfgs`; :func:`optimizers.lbfgs_host` with
@@ -13,6 +16,17 @@ The dispatch of the reference package's Gaussian Vecchia fit
   :func:`optimizers.gd_device` on that route for ``gradient_descent`` when
   neither ``trace`` nor the parameter criterion is set, else the host loop
   with the coefficient update after every step.
+
+Non-Gaussian likelihoods (:func:`fit_laplace`; the JAX package's
+``vecchia_fit.py:235-390``): the parameters are [log covariance parameters,
+auxiliary parameters on their optimisation scale, coefficients], the NLL is
+the dense Laplace one (n <= 8192 and ``matrix_inversion_method="cholesky"``)
+or the iterative one (:func:`ng_iter_kwargs`), differentiated by autograd.
+L-BFGS is scipy's L-BFGS-B on the host over the value-and-gradient on the
+card at every n (the JAX package's host-line-search route; its device loops
+below 20 000 points exist for the TPU's watchdog, and on the GPU each
+iterative evaluation already reads the host in every CG stop test);
+Nelder-Mead and gradient descent as the JAX package routes them.
 """
 from __future__ import annotations
 
@@ -21,12 +35,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models import optimizers
 
 _LBFGS_NAMES = ("lbfgs", "lbfgs_linesearch_nocedal_wright")
 _KNOWN = _LBFGS_NAMES + ("gradient_descent", "nelder_mead",
                          "fisher_scoring", "newton", "adam")
 _COEF_ROUNDS = 3
+# the iterative Laplace NLL takes at least this many probes in a fit (the
+# JAX package's GPBOOST_TPU_NG_MIN_PROBES default, a constant here)
+NG_MIN_PROBES = 200
 
 
 def device_loop_eligible(vec) -> bool:
@@ -35,6 +53,17 @@ def device_loop_eligible(vec) -> bool:
     covariance is isotropic (no neighbour redetermination mid-fit)."""
     return (vec.device.type == "cuda" and vec._kernel_shape is not None
             and vec.cov_fn.is_isotropic)
+
+
+def _check_cfg(cfg):
+    if cfg.optimizer_cov not in _KNOWN:
+        raise ValueError(f"unknown optimizer_cov '{cfg.optimizer_cov}'")
+    if cfg.estimate_cov_par_index is not None and np.any(
+            np.asarray(cfg.estimate_cov_par_index) == 0):
+        raise NotImplementedError(
+            "estimate_cov_par_index with a parameter held fixed is not "
+            "ported to gpboost_tpu_torch yet (the masked fit of the exact "
+            "models: ROADMAP.md Queue A, item 16)")
 
 
 def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
@@ -47,16 +76,11 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     structure built at construction. With ``X`` the device loops and
     L-BFGS alternate GLS coefficients and a covariance fit, three rounds;
     the host gradient descent updates the coefficients after every step."""
+    if not model.is_gaussian:
+        return fit_laplace(model, y, X, fixed_effects)
     cfg = model.optim_cfg
     vec = model._approx
-    if cfg.optimizer_cov not in _KNOWN:
-        raise ValueError(f"unknown optimizer_cov '{cfg.optimizer_cov}'")
-    if cfg.estimate_cov_par_index is not None and np.any(
-            np.asarray(cfg.estimate_cov_par_index) == 0):
-        raise NotImplementedError(
-            "estimate_cov_par_index with a parameter held fixed is not "
-            "ported to gpboost_tpu_torch yet (the masked fit of the exact "
-            "models: ROADMAP.md Queue A, item 16)")
+    _check_cfg(cfg)
     y_np = y.detach().cpu().numpy().astype(np.float64)
     has_coef = X is not None
     init_cov = (cfg.init_cov_pars if cfg.init_cov_pars is not None
@@ -98,7 +122,7 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
         v, g = vec._vg_gaussian(
             torch.as_tensor(theta, dtype=model.dtype, device=vec.device),
             residual(), None)
-        return float(v), g.detach().cpu().numpy().astype(np.float64)
+        return float(v.detach()), g.cpu().numpy().astype(np.float64)
 
     def alternate(run, theta0):
         """``run(theta)`` -> OptimResult; with coefficients, three rounds
@@ -151,6 +175,114 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     model.cov_pars_ = result.params
     model.coefs_ = (None if beta is None
                     else beta.detach().cpu().numpy().astype(np.float64))
+    model.num_it_ = result.num_it
+    model.current_nll_ = float(result.nll)
+    model._fit_result = result
+    return model
+
+
+def ng_iter_kwargs(cfg, n: int) -> dict:
+    """Iterative Vecchia-Laplace settings of a fit, from the optimizer
+    config: at least ``NG_MIN_PROBES`` probes, at most 100 Lanczos steps."""
+    return dict(
+        num_rand_vec_trace=max(int(cfg.num_rand_vec_trace), NG_MIN_PROBES),
+        lanczos_steps=min(int(cfg.cg_max_num_it_tridiag), 100, n),
+        cg_tol=cfg.cg_delta_conv, cg_max_iter=cfg.cg_max_num_it,
+        seed_rand_vec_trace=cfg.seed_rand_vec_trace,
+        preconditioner=cfg.cg_preconditioner_type,
+        piv_chol_rank=cfg.piv_chol_rank)
+
+
+def uses_iterative(model) -> bool:
+    """The iterative Laplace NLL: asked for, or too many points for the
+    dense one."""
+    from gpboost_tpu_torch.models.vecchia_model import DENSE_LAPLACE_MAX_N
+    return (model.matrix_inversion_method == "iterative"
+            or model.num_data > DENSE_LAPLACE_MAX_N)
+
+
+def fit_laplace(model, y: torch.Tensor, X: Optional[torch.Tensor],
+                fixed_effects: Optional[torch.Tensor] = None):
+    """Estimate the covariance parameters, the auxiliary parameters of the
+    likelihood (``estimate_aux_pars``) and, with ``X``, the coefficients of
+    a non-Gaussian Vecchia model by the Laplace-approximate NLL. Every call
+    starts from ``cfg.init_cov_pars`` (or the data-driven inits), the
+    model's current aux parameters (or the family's defaults) and
+    ``cfg.init_coef`` (or zeros)."""
+    cfg = model.optim_cfg
+    vec = model._approx
+    _check_cfg(cfg)
+    fam = lk.get_family(model.likelihood)
+    y_np = y.detach().cpu().numpy().astype(np.float64)
+    has_coef = X is not None
+    init_cov = (cfg.init_cov_pars if cfg.init_cov_pars is not None
+                else model._default_init_cov_pars(y_np))
+    n_cov = len(init_cov)
+    if model.aux_pars_ is not None:
+        init_aux = np.atleast_1d(np.asarray(model.aux_pars_, np.float64))
+    else:
+        init_aux = fam.default_aux_pars(model.likelihood_additional_param)
+    n_aux = (len(init_aux) if (init_aux is not None and cfg.estimate_aux_pars)
+             else 0)
+    aux_fixed = (None if init_aux is None else torch.as_tensor(
+        init_aux, dtype=model.dtype, device=vec.device))
+    n_coef = X.shape[1] if has_coef else 0
+    init_beta = (np.asarray(cfg.init_coef, np.float64)
+                 if has_coef and cfg.init_coef is not None
+                 else np.zeros(n_coef))
+    theta0 = np.concatenate([
+        np.log(np.maximum(np.asarray(init_cov, np.float64), 1e-300)),
+        lk.aux_to_optim_scale(fam, init_aux[:n_aux]) if n_aux
+        else np.zeros(0), init_beta])
+
+    def unpack(theta: torch.Tensor):
+        cov = torch.exp(theta[:n_cov])
+        aux = (lk.aux_from_optim_scale(fam, theta[n_cov:n_cov + n_aux])
+               if n_aux else aux_fixed)
+        beta = theta[n_cov + n_aux:] if has_coef else None
+        return cov, aux, beta
+
+    iterative = uses_iterative(model)
+    kw = ng_iter_kwargs(cfg, vec.n)
+
+    def nll_of(theta: torch.Tensor):
+        cov, aux, beta = unpack(theta)
+        fp = fixed_effects
+        if beta is not None:
+            xb = X @ beta
+            fp = xb if fp is None else fp + xb
+        if iterative:
+            return vec.nll_laplace_iterative(cov, y, aux, fp, **kw)
+        return vec.nll_laplace(cov, y, aux, fp)
+
+    eval_count = {"n": 0}
+
+    def vg(theta):
+        """Host objective: numpy log-scale parameters -> (NLL, gradient)
+        on the model's device."""
+        eval_count["n"] += 1
+        th = torch.as_tensor(theta, dtype=model.dtype,
+                             device=vec.device).requires_grad_(True)
+        with torch.enable_grad():
+            v = nll_of(th)
+            (g,) = torch.autograd.grad(v, th)
+        return float(v.detach()), g.cpu().numpy().astype(np.float64)
+
+    opt = cfg.optimizer_cov
+    if opt in _LBFGS_NAMES:
+        result = optimizers.lbfgs(vg, theta0, cfg)
+    elif opt == "nelder_mead":
+        result = optimizers.nelder_mead(lambda t: vg(t)[0], theta0, cfg)
+    else:
+        result = optimizers.gradient_descent(
+            lambda t: vg(t)[0], lambda t: vg(t)[1], theta0, cfg)
+    result.num_evals = eval_count["n"]
+    cov, aux, beta = unpack(torch.as_tensor(np.log(result.params),
+                                            dtype=torch.float64))
+    model.cov_pars_ = cov.numpy()
+    model.aux_pars_ = None if aux is None else \
+        aux.detach().cpu().numpy().astype(np.float64)
+    model.coefs_ = None if beta is None else beta.numpy()
     model.num_it_ = result.num_it
     model.current_nll_ = float(result.nll)
     model._fit_result = result

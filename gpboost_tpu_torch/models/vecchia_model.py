@@ -1,30 +1,164 @@
-"""Vecchia-approximated GP model paths (Gaussian response).
+"""Vecchia-approximated GP model paths (Gaussian response + Vecchia-Laplace).
 
 Dispatch target of ``GPModel`` for ``gp_approx="vecchia"``. Mirrors the
 reference's ``CreateREComponentsVecchia`` (``Vecchia_utils.cpp:1060``) +
-the Gaussian Vecchia branch of ``REModelTemplate``.
+the Gaussian and Laplace Vecchia branches of ``REModelTemplate``.
 
 Cost structure: factor build O(n m^3) (one per-row Cholesky), solves
-O(n m). Models inside the kernel gate (float32, nugget among the
+O(n m). Gaussian models inside the kernel gate (float32, nugget among the
 parameters, exponential / Matern 0.5, 1.5, 2.5 / gaussian, isotropic or ARD)
 go through the fused kernels of ``ops/kernels/vecchia_factors.py``; every
 other model differentiates the plain factor build with ``torch.autograd``.
 
-Not ported yet (ROADMAP.md): Vecchia-Laplace for non-Gaussian likelihoods,
-GP random coefficients, ``cluster_ids``, the other ``vecchia_pred_type``
-variants, row sharding over several GPUs.
+Non-Gaussian likelihoods (Vecchia-Laplace; the JAX package's
+``vecchia_model.py:62-200``, ``:892-1422``): the latent process has no
+nugget, so its factors stay outside the kernel gate, as in the JAX package,
+and come from the plain build with autograd. The posterior mode is found by
+Newton-CG (``_FindModeCG``, implicit backward); the NLL is either dense
+(:meth:`VecchiaGP.nll_laplace`, exact, n <= 8192) or matrix-free
+(:meth:`VecchiaGP.nll_laplace_iterative`: CG + stochastic Lanczos
+log-determinant, the reference fork's iterative method). Every precision
+product goes through ``ops/vecchia.py::precision_product``, whose backward
+is made of gathers; on CUDA its transpose is the sliced gather too, so no
+float atomics run on the path, forward or backward.
+
+Not ported yet (ROADMAP.md): GP random coefficients, ``cluster_ids``, the
+other ``vecchia_pred_type`` variants, the heteroscedastic two-set model,
+the banded compute layout ``BandedB``, variance reduction and the low-rank
+preconditioners of the iterative method, row sharding over several GPUs.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import numpy as np
 import torch
 
+from gpboost_tpu_torch import likelihoods as lk
+from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val,
+                                              _response_moments, dense_solve,
+                                              find_mode_prec, mode_vjp,
+                                              newton_mode)
+from gpboost_tpu_torch.ops import cg as cgops
 from gpboost_tpu_torch.ops import vecchia as vops
 from gpboost_tpu_torch.ops.cov_fns import CovFunction
 from gpboost_tpu_torch.ops.kernels import vecchia_factors as vkern
 from gpboost_tpu_torch.utils import resolve_device
+from gpboost_tpu_torch.utils.timer import timed
+
+# cg_preconditioner_type resolution (reference names, basic.py:5147-5159):
+# 'diag' is the Jacobi preconditioner on diag(Q) + W; the low-rank family is
+# not ported
+_PRECOND_DIAG = ("", "default", "vadu", "sigma_inv_plus_btwb", "jacobi",
+                 "vecchia_approximation_with_diagonal_update")
+_PRECOND_LOW_RANK = ("pivoted_cholesky", "fitc", "nystrom",
+                     "predictive_process_plus_diagonal")
+# the dense Laplace route holds [n, n] matrices; above this the iterative one
+DENSE_LAPLACE_MAX_N = 8192
+# posterior draws of predict_laplace_sim per chunk ([n, chunk] solves)
+SIM_CHUNK = 128
+
+# what the Vecchia-Laplace path did since the last reset (read by the chip
+# run's breakdown): Newton steps, the Newton loop's host reads (objective
+# values), CG iterations of the mode finder, of its adjoint solve, of the
+# log-determinant's gradient solve and of the posterior draws, Lanczos steps
+LAPLACE_COUNTS: Counter = Counter()
+
+
+def _resolve_precond_name(name) -> str:
+    """'diag' (Jacobi on diag(Q) + W). The low-rank names raise: they are
+    not ported; unknown names raise — a requested preconditioner is never
+    silently ignored."""
+    s = str(name or "").lower()
+    if s in _PRECOND_DIAG:
+        return "diag"
+    if s in _PRECOND_LOW_RANK:
+        raise NotImplementedError(
+            f"cg_preconditioner_type {name!r} (the low-rank preconditioners) "
+            f"is not ported to gpboost_tpu_torch yet ({cgops.ITEM})")
+    raise ValueError(
+        f"unsupported cg_preconditioner_type {name!r} for the Vecchia "
+        f"approximation; options: {_PRECOND_DIAG[2]} (default, diagonal of "
+        f"the vadu matrix) or one of {_PRECOND_LOW_RANK}")
+
+
+def _mode_cg_tols(dtype):
+    """(cg tol, max_iter) for the mode-finder solves: float32 CG stalls
+    below ~1e-5 relative residual, float64 keeps the tight tolerance."""
+    if dtype == torch.float32:
+        return 1e-5, 400
+    return 1e-6, 1000
+
+
+def _cg_solve(a, d, vec, tol, max_iter, count):
+    """(w, rhs) -> (Q + W)^-1 rhs by Jacobi-preconditioned CG (on
+    diag(Q) + W), its iterations added to ``LAPLACE_COUNTS[count]``."""
+    nb, sl = vec.neighbors, vec._incoming
+    diag_q = vops.precision_diag(a, nb, d, sl)
+
+    def solve(w, rhs):
+        pre_d = torch.clamp(diag_q + w, min=1e-10)[:, None]
+        x, it = cgops.pcg(
+            lambda V: vops.precision_product(a, d, V, nb, sl)
+            + w[:, None] * V, rhs, lambda r: r / pre_d, tol=tol,
+            max_iter=max_iter)
+        LAPLACE_COUNTS[count] += it
+        return x
+    return solve
+
+
+class _FindModeCG(torch.autograd.Function):
+    """Matrix-free posterior mode: :func:`newton_mode` with each Newton
+    step solved by CG (one host read a step besides CG's stop tests and
+    the halvings), differentiable w.r.t. (a, d, F, aux) by
+    :func:`mode_vjp` with an adjoint CG solve (the JAX package's
+    ``_find_mode_cg`` and ``_find_mode_cg_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, a, d, F, aux, vec, y):
+        cg_tol, cg_maxit = _mode_cg_tols(d.dtype)
+        with timed("Laplace: mode (Newton-CG)", sync=True):
+            b = newton_mode(lk.get_family(vec.likelihood), y, F,
+                            _aux_val(aux), vec._q_mv(a, d),
+                            _cg_solve(a, d, vec, cg_tol, cg_maxit,
+                                      "mode_cg_iters"), LAPLACE_COUNTS)
+        ctx.save_for_backward(a, d, F, aux, y, b)
+        ctx.vec = vec
+        return b
+
+    @staticmethod
+    def backward(ctx, v):
+        a, d, F, aux, y, b = ctx.saved_tensors
+        vec = ctx.vec
+        nb, sl = vec.neighbors, vec._incoming
+        cg_tol, cg_maxit = _mode_cg_tols(d.dtype)
+        adj_tol = cg_tol * (1e-2 if d.dtype != torch.float32 else 1.0)
+        adjoint = _cg_solve(a.detach(), d.detach(), vec, adj_tol, cg_maxit,
+                            "adjoint_cg_iters")
+
+        def solve(w, rhs):
+            with timed("Laplace: mode adjoint CG", sync=True):
+                return adjoint(w, rhs)
+        out = mode_vjp(
+            lk.get_family(vec.likelihood), y, b, v, solve,
+            lambda a_, d_: vops.precision_product(a_, d_, b, nb, sl),
+            (a, d, F, aux), ctx.needs_input_grad[:4])
+        return out[0], out[1], out[2], out[3], None, None
+
+
+class _PermuteRows(torch.autograd.Function):
+    """x[perm] whose backward is the gather g[inv_perm] (autograd's own
+    backward of an index is an accumulating scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.inv_perm = inv_perm
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.inv_perm], None, None
 
 
 class VecchiaGP:
@@ -41,10 +175,10 @@ class VecchiaGP:
                  seed: int = 0, likelihood: str = "gaussian",
                  num_neighbors_pred: Optional[int] = None,
                  dtype=torch.float64, device="cuda"):
-        if likelihood != "gaussian":
+        if likelihood in lk.NOT_PORTED:
             raise NotImplementedError(
-                f"likelihood '{likelihood}': only the gaussian Vecchia model "
-                "is ported (Vecchia-Laplace: ROADMAP.md Queue A, item 13)")
+                f"likelihood '{likelihood}' is not ported to "
+                f"gpboost_tpu_torch yet ({lk.NOT_PORTED[likelihood]})")
         if ordering in ("time", "time_random_space"):
             raise NotImplementedError(
                 f"vecchia_ordering '{ordering}' needs a space-time "
@@ -64,6 +198,7 @@ class VecchiaGP:
         self.dtype = dtype
         self.coords = torch.as_tensor(coords, dtype=dtype, device=self.device)
         self._ard_neighbors_pars = None
+        self._probe_cache = None
         self._set_structure(vops.apply_ordering(n, ordering, seed), None)
         # (shape code, is_ard) when the fused kernels serve this model
         self._kernel_shape = self._kernel_shape_code()
@@ -114,11 +249,11 @@ class VecchiaGP:
     def _kernel_shape_code(self):
         """(matern-shape code, is_ard) for the fused kernels, or None if
         the model/kernel combination is not eligible. The kernels build the
-        response covariance (nugget among the parameters), which is the only
-        parametrization this class has so far; latent-process models must
-        stay outside the gate when they are ported."""
+        response covariance (nugget among the parameters): the latent
+        process of a non-Gaussian model, which has no nugget, stays outside
+        the gate (the JAX package's ``_pallas_shape_code``)."""
         cf = self.cov_fn
-        if self.dtype != torch.float32:
+        if self.dtype != torch.float32 or self.likelihood != "gaussian":
             return None
         if cf.cov_fct_type in ("matern", "matern_ard"):
             for s in (0.5, 1.5, 2.5):
@@ -228,13 +363,8 @@ class VecchiaGP:
             r = r.to(torch.float32)
         else:
             a, d = self._response_factors(cov_pars, self.neighbors)
-        if r.is_cuda:
-            out = vops.precision_matvec_gather(a, self.neighbors,
-                                               self._incoming, d,
-                                               r[self._perm_t])
-        else:
-            out = vops.precision_matvec(a, self.neighbors, d,
-                                        r[self._perm_t])
+        out = vops.precision_product(a, d, r[self._perm_t], self.neighbors,
+                                     self._incoming)
         return out[self._inv_perm_t]
 
     def wls_coef(self, cov_pars, y, X, fixed_effects=None):
@@ -275,3 +405,271 @@ class VecchiaGP:
                 self.cov_fn, cov_pars[1:], cov_pars[0], self.coords,
                 coords_pred, nb_pred, r, bool(predict_response))
         return mean, (var if predict_var else None)
+
+    # ---- Vecchia-Laplace (non-Gaussian) -------------------------------
+    def _latent_factors(self, cov_pars):
+        """Latent-process factors (no nugget): Sigma^-1 ~ B' D^-1 B. The
+        plain build with autograd, on the card too: the kernel gate needs
+        the nugget among the parameters, as in the JAX package."""
+        with timed("Laplace: latent factors", sync=True):
+            return vops.build_factors(self.cov_fn, cov_pars, self.coords_perm,
+                                      self.neighbors, None, False)
+
+    def _q_mv(self, a, d):
+        """V -> Q V through :func:`vops.precision_product` (gather-only
+        transpose and backward on CUDA)."""
+        nb, sl = self.neighbors, self._incoming
+        return lambda V: vops.precision_product(a, d, V, nb, sl)
+
+    def _permuted(self, y, fixed_part):
+        """(y, F) in the ordering's row order; F stays differentiable, its
+        backward a gather."""
+        yp = y[self._perm_t]
+        Fp = (torch.zeros(self.n, dtype=self.dtype, device=self.device)
+              if fixed_part is None else _PermuteRows.apply(
+                  fixed_part, self._perm_t, self._inv_perm_t))
+        return yp, Fp
+
+    def _dense_precision(self, cov_pars):
+        """Dense Sigma^-1 = B' D^-1 B (exact small-n path). Returns (Q, d).
+        B is written entry by entry (each (row, neighbour) pair once, no
+        accumulation)."""
+        a, d = self._latent_factors(cov_pars)
+        n = self.n
+        nb = self.neighbors
+        mask = nb >= 0
+        rows = torch.arange(n, device=self.device)[:, None].expand_as(nb)
+        A = torch.zeros((n, n), dtype=a.dtype, device=self.device).index_put(
+            (rows[mask], nb[mask].long()), a[mask])
+        Bmat = torch.eye(n, dtype=a.dtype, device=self.device) - A
+        return Bmat.T @ (Bmat / d[:, None]), d
+
+    def nll_laplace(self, cov_pars: torch.Tensor, y: torch.Tensor,
+                    aux_pars, fixed_part=None) -> torch.Tensor:
+        """Laplace-approximate NLL with the Vecchia latent precision
+        (``FindModePostRandEffCalcMLLVecchia``, likelihoods.h:2765): dense
+        logdet and solves (exact); cov_pars = [var, range, ...] (no nugget
+        for non-Gaussian likelihoods). Differentiable in cov_pars, aux_pars
+        and fixed_part."""
+        fam = lk.get_family(self.likelihood)
+        yp, Fp = self._permuted(y, fixed_part)
+        Q, d = self._dense_precision(cov_pars)
+        b = find_mode_prec(self.likelihood, Q, yp, Fp, aux_pars)
+        loc = Fp + b
+        w = -fam.d2_loc(yp, loc, aux_pars)
+        loglik = torch.sum(fam.log_lik(yp, loc, aux_pars))
+        quad = torch.dot(b, Q @ b)
+        # logdet(Sigma^-1 + W) - logdet(Sigma^-1); logdet(Sigma^-1) = -sum log d
+        _, ld1 = torch.linalg.slogdet(Q + torch.diag(w))
+        ld0 = -torch.sum(torch.log(d))
+        return -(loglik - 0.5 * quad - 0.5 * (ld1 - ld0))
+
+    def laplace_probes(self, num_rand_vec_trace: int, seed: int):
+        """(e, Zg) [n, k]: standard-normal value probes (scaled by the
+        preconditioner's square root in :meth:`nll_laplace_iterative`) and
+        Rademacher gradient probes, drawn in float64 from a
+        ``torch.Generator`` on the model's device seeded with ``seed``, then
+        cast to the model's dtype — so a float32 and a float64 model see the
+        same probes. The same seed gives the same probes in every
+        evaluation (the reference's ``reuse_rand_vec_trace``); kept
+        between calls."""
+        key = (int(num_rand_vec_trace), int(seed))
+        if self._probe_cache is None or self._probe_cache[0] != key:
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            e = cgops.normal_probes(gen, self.n, key[0], torch.float64)
+            zg = cgops.rademacher_probes(gen, self.n, key[0], torch.float64)
+            self._probe_cache = (key, e.to(self.dtype), zg.to(self.dtype))
+        return self._probe_cache[1], self._probe_cache[2]
+
+    def nll_laplace_iterative(self, cov_pars, y, aux_pars, fixed_part=None,
+                              num_rand_vec_trace: int = 50,
+                              lanczos_steps: int = 50,
+                              cg_tol: float = 1e-3, cg_max_iter: int = 1000,
+                              seed_rand_vec_trace: int = 1,
+                              variance_reduction: bool = False,
+                              preconditioner: str = "",
+                              piv_chol_rank: int = 50):
+        """Laplace NLL with preconditioned CG + stochastic Lanczos logdet —
+        the reference fork's iterative method (arXiv:2310.12000), O(n m k)
+        per multi-RHS precision product, no dense [n, n] matrix.
+        Differentiable in cov_pars, aux_pars and fixed_part (the gradient
+        w.r.t. the log-determinant is the Hutchinson estimate over
+        Rademacher probes). Preconditioner: Jacobi on diag(Q) + W; the
+        low-rank preconditioners and variance reduction raise
+        (ROADMAP.md Queue A, item 12)."""
+        _resolve_precond_name(preconditioner)
+        if variance_reduction:
+            raise NotImplementedError(
+                "variance reduction of the stochastic log-determinant "
+                f"gradient is not ported to gpboost_tpu_torch yet "
+                f"({cgops.ITEM})")
+        e, Zg = self.laplace_probes(num_rand_vec_trace, seed_rand_vec_trace)
+        return self._nll_laplace_iterative(cov_pars, y, aux_pars, fixed_part,
+                                           e, Zg, lanczos_steps, cg_tol,
+                                           cg_max_iter)
+
+    def _nll_laplace_iterative(self, cov_pars, y, aux_pars, fixed_part, e,
+                               Zg, lanczos_steps, cg_tol, cg_max_iter):
+        """:meth:`nll_laplace_iterative` with the probes given: ``e``
+        [n, k] standard normal (value probes Z = sqrt(diag P) e) and ``Zg``
+        [n, k] Rademacher (gradient probes), in permuted row order."""
+        fam = lk.get_family(self.likelihood)
+        a, d = self._latent_factors(cov_pars)
+        yp, Fp = self._permuted(y, fixed_part)
+        aux = _aux_arg(aux_pars, yp)
+        b = _FindModeCG.apply(a, d, Fp, aux, self, yp)
+        auxv = _aux_val(aux)
+        loc = Fp + b
+        w = -fam.d2_loc(yp, loc, auxv)
+        loglik = torch.sum(fam.log_lik(yp, loc, auxv))
+        q_mv = self._q_mv(a, d)
+        quad = torch.dot(b, q_mv(b))
+
+        def a_mv(V):
+            return q_mv(V) + vops._cols(w, V) * V
+
+        with torch.no_grad():
+            pre_diag = torch.clamp(
+                vops.precision_diag(a, self.neighbors, d, self._incoming)
+                + w, min=1e-10)
+        pre = cgops.JacobiPreconditioner(pre_diag)
+        Z = torch.sqrt(pre_diag)[:, None] * e
+        logdet_A = cgops.stochastic_logdet_grad(
+            a_mv, None, Z, lanczos_steps, pre.solve, pre.logdet(), cg_tol,
+            cg_max_iter, probes_grad=Zg, stats=LAPLACE_COUNTS)
+        # logdet(Sigma^-1) = -sum log d (exact)
+        logdet_ratio = logdet_A + torch.sum(torch.log(d))
+        return -(loglik - 0.5 * quad - 0.5 * logdet_ratio)
+
+    def grad_F_laplace(self, cov_pars, y, aux_pars, fixed_part,
+                       iterative: Optional[bool] = None, **iter_kwargs):
+        """d NLL / dF for LaGaBoost (``regression_objective.hpp:173-186``) by
+        autograd: the dense Laplace NLL at small n, the matrix-free
+        iterative one above ``DENSE_LAPLACE_MAX_N`` (the fit driver's rule).
+        The iterative route takes ``nll_laplace_iterative``'s defaults
+        (50 probes, 50 Lanczos steps, CG tolerance 1e-3) unless
+        ``iter_kwargs`` say otherwise, as the JAX package's objective
+        calls it."""
+        if iterative is None:
+            iterative = self.n > DENSE_LAPLACE_MAX_N
+        fe = fixed_part.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            if iterative:
+                nll = self.nll_laplace_iterative(cov_pars, y, aux_pars, fe,
+                                                 **iter_kwargs)
+            else:
+                nll = self.nll_laplace(cov_pars, y, aux_pars, fe)
+            (g,) = torch.autograd.grad(nll, fe)
+        return g
+
+    def _cross_cov(self, gp_pars, coords1, coords2):
+        """Cross-covariance for isotropic and coordinate-scaled kernels
+        (distances from coordinate differences, as the JAX package)."""
+        if self.cov_fn.is_isotropic:
+            diff = coords1[:, None, :] - coords2[None, :, :]
+            d = vops._safe_dist(torch.sum(diff * diff, -1))
+            return self.cov_fn.cov_matrix(gp_pars, dist=d)
+        return self.cov_fn.cov_matrix(gp_pars, coords1=coords1,
+                                      coords2=coords2)
+
+    def _find_mode_dense(self, cov_pars, y, aux, fixed_part):
+        """The dense Newton mode for the prediction: (b, w, Q) in
+        permuted order."""
+        fam = lk.get_family(self.likelihood)
+        yp, Fp = self._permuted(y, fixed_part)
+        Q, _ = self._dense_precision(cov_pars)
+        b = newton_mode(fam, yp, Fp, aux, lambda v: Q @ v, dense_solve(Q))
+        return b, -fam.d2_loc(yp, Fp + b, aux), Q
+
+    def predict_laplace(self, cov_pars, y, aux_pars, coords_pred,
+                        fixed_part=None, fixed_part_pred=None,
+                        predict_response=True, predict_var=False):
+        """Vecchia-Laplace prediction with dense algebra: the mode, local
+        kriging on the latent mode values, and the posterior variance
+        Sigma_pp - Sigma_po (Sigma + W^-1)^-1 Sigma_op with
+        (Sigma + W^-1)^-1 = W (Q + W)^-1 Q."""
+        b_perm, w_perm, Q = self._find_mode_dense(cov_pars, y, aux_pars,
+                                                  fixed_part)
+        b_orig = b_perm[self._inv_perm_t]
+        nb_pred = self._pred_neighbors(cov_pars, coords_pred)
+        mean_lat, _ = vops.predict_vecchia_response(
+            self.cov_fn, cov_pars, 0.0, self.coords, coords_pred, nb_pred,
+            b_orig, False)
+        if fixed_part_pred is not None:
+            mean_lat = mean_lat + fixed_part_pred
+        var = None
+        if predict_var or predict_response:
+            M = Q + torch.diag(w_perm)
+            c_po = self._cross_cov(cov_pars, coords_pred, self.coords_perm)
+            z = torch.linalg.solve(M, Q @ c_po.T)
+            quad = torch.einsum("pn,n,np->p", c_po, w_perm, z)
+            var = torch.clamp(cov_pars[0] - quad, min=1e-12)
+        return self._respond(mean_lat, var, aux_pars, predict_response,
+                             predict_var)
+
+    def _respond(self, mean_lat, var, aux, predict_response, predict_var):
+        if predict_response:
+            mean, var_resp = _response_moments(self.likelihood, mean_lat, var,
+                                               aux)
+            return mean, (var_resp if predict_var else None)
+        return mean_lat, (var if predict_var else None)
+
+    def predict_laplace_sim(self, cov_pars, y, aux_pars, coords_pred,
+                            fixed_part=None, fixed_part_pred=None,
+                            predict_response=True, predict_var=False,
+                            nsim: int = 1000, seed: int = 1,
+                            cg_tol: float = 1e-6, cg_max_iter: int = 1000):
+        """Scalable Vecchia-Laplace prediction with SIMULATED predictive
+        variances (``nsim_var_pred``; reference
+        ``Sample_Posterior_LaplaceApprox_Vecchia``, likelihoods.h:6818-7121).
+
+        Matrix-free: the Newton-CG mode, posterior draws
+        u = H^-1 (B' D^-1/2 z1 + W^1/2 z2) ~ N(0, H^-1), H = Q + W, solved
+        by Jacobi-PCG in chunks of ``SIM_CHUNK`` draws (so the [n, m, chunk]
+        gathers stay bounded), and the latent predictive variance
+        var_p = Dp_p + mean_k (Bpo_p u^k)^2 with (Bpo, Dp) the latent
+        conditioning of each prediction point on its observed neighbours.
+        The draws come in float64 from a ``torch.Generator`` seeded with
+        ``seed`` on the model's device, cast to the model's dtype."""
+        fam = lk.get_family(self.likelihood)
+        nb = self.neighbors
+        a, d = self._latent_factors(cov_pars)
+        yp, Fp = self._permuted(y, fixed_part)
+        aux = _aux_arg(aux_pars, yp)
+        auxv = _aux_val(aux)
+        b = _FindModeCG.apply(a, d, Fp, aux, self, yp)
+        w = torch.clamp(-fam.d2_loc(yp, Fp + b, auxv), min=1e-10)
+        b_orig = b[self._inv_perm_t]
+        nb_pred = self._pred_neighbors(cov_pars, coords_pred)
+        a_pred, d_pred = vops.build_factors(
+            self.cov_fn, cov_pars, self.coords, nb_pred, None, False,
+            row_coords=coords_pred)
+        idx_p = torch.clamp(nb_pred, min=0).long()
+        a_p = a_pred * (nb_pred >= 0).to(self.dtype)
+        mean_lat = torch.sum(a_p * b_orig[idx_p], dim=1)
+        if fixed_part_pred is not None:
+            mean_lat = mean_lat + fixed_part_pred
+        var = None
+        if predict_var or predict_response:
+            solve = _cg_solve(a, d, self, cg_tol, cg_max_iter,
+                              "sim_cg_iters")
+            sqrt_dinv = (1.0 / torch.sqrt(d))[:, None]
+            sqrt_w = torch.sqrt(w)[:, None]
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            chunk = min(int(nsim), SIM_CHUNK)
+            n_chunks = (int(nsim) + chunk - 1) // chunk
+            s2_sum = torch.zeros(coords_pred.shape[0], dtype=self.dtype,
+                                 device=self.device)
+            for _ in range(n_chunks):
+                z1 = cgops.normal_probes(gen, self.n, chunk).to(self.dtype)
+                z2 = cgops.normal_probes(gen, self.n, chunk).to(self.dtype)
+                # z ~ N(0, H): B' D^-1/2 z1 + W^1/2 z2
+                z = vops._bt(a, nb, self._incoming, sqrt_dinv * z1) \
+                    + sqrt_w * z2
+                u = solve(w, z)
+                u_orig = u[self._inv_perm_t]                 # [n, chunk]
+                s = torch.sum(a_p[:, :, None] * u_orig[idx_p], dim=1)
+                s2_sum = s2_sum + torch.sum(s * s, dim=1)
+            var = d_pred + s2_sum / (n_chunks * chunk)
+        return self._respond(mean_lat, var, auxv, predict_response,
+                             predict_var)

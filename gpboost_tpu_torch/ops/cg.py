@@ -1,0 +1,235 @@
+"""Iterative solvers: preconditioned CG + stochastic Lanczos log-determinants.
+
+The JAX package's ``gpboost_tpu/ops/cg.py`` in PyTorch (the reference's
+``include/GPBoost/CG_utils.h``; papers arXiv:2310.12000, 2405.14492):
+
+- :func:`pcg`: preconditioned conjugate gradients, batched over the columns
+  of an [n, k] right-hand side (per-column alpha / beta). The loop is
+  Python; its stop test (every column's residual below ``tol`` times its
+  right-hand side's norm, or ``max_iter``) is read on the host once an
+  iteration, so it stops at the iteration where the JAX package's
+  ``while_loop`` stops.
+- :func:`lanczos_tridiag`: per-probe Lanczos tridiagonalisation (batched
+  over probes), feeding the stochastic log-determinant
+  ``logdet(A) ~ mean_k ||z_k||^2 e1' U log(L) U' e1``
+  (reference ``LogDetStochTridiag``, CG_utils.h:384).
+- :func:`stochastic_logdet_grad`: the same quantity with a Hutchinson
+  surrogate for its gradient: value from Lanczos (detached), derivative from
+  ``mean_k (A^-1 z_k)' A(theta) z_k`` with ``A^-1 z_k`` detached, whose
+  theta-gradient is the unbiased trace estimator tr(A^-1 dA).
+- :class:`JacobiPreconditioner`.
+
+Probe vectors come from an explicit ``torch.Generator`` on the tensor's
+device. Not ported (ROADMAP.md Queue A, item 12): ``pcg_implicit``, the
+variance-reduced gradient ``stochastic_logdet_grad_vr``, the low-rank
+preconditioners ``LowRankDiagPreconditioner`` / ``nystrom_preconditioner``
+— each raises.
+
+The heavy work here — the multi-RHS precision products inside CG and
+Lanczos — is plain PyTorch, as in the JAX package (no Pallas kernel there).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from gpboost_tpu_torch.utils.timer import timed
+
+ITEM = "ROADMAP.md Queue A, item 12"
+
+
+def rademacher_probes(generator: torch.Generator, n: int, num_probes: int,
+                      dtype=torch.float64) -> torch.Tensor:
+    """[n, num_probes] of +-1 from ``generator`` (on its device)."""
+    bits = torch.randint(0, 2, (n, num_probes), generator=generator,
+                         device=generator.device)
+    return (2 * bits - 1).to(dtype)
+
+
+def normal_probes(generator: torch.Generator, n: int, num_probes: int,
+                  dtype=torch.float64) -> torch.Tensor:
+    """[n, num_probes] standard normal from ``generator``."""
+    return torch.randn((n, num_probes), generator=generator,
+                       device=generator.device, dtype=dtype)
+
+
+def pcg(matvec: Callable, B: torch.Tensor,
+        precond_solve: Optional[Callable] = None,
+        tol: float = 1e-2, max_iter: int = 1000,
+        x0: Optional[torch.Tensor] = None):
+    """Batched preconditioned CG: solve A X = B for SPD A, B [n, k].
+
+    All k systems iterate together (per-column alpha/beta); the loop stops
+    when every column's residual norm is below tol * ||b|| or after
+    ``max_iter`` iterations. Returns (X, num_iter). ``pcg.host_reads``
+    counts the stop tests read on the host (one an iteration, one more at
+    the end)."""
+    if B.dim() == 1:
+        X, it = pcg(matvec, B[:, None], precond_solve, tol, max_iter,
+                    None if x0 is None else x0[:, None])
+        return X[:, 0], it
+    Pinv = precond_solve if precond_solve is not None else (lambda r: r)
+    X = torch.zeros_like(B) if x0 is None else x0
+    R = B - matvec(X)
+    Z = Pinv(R)
+    P = Z
+    rz = torch.sum(R * Z, dim=0)
+    b_norm = torch.sqrt(torch.sum(B * B, dim=0))
+    tol_vec = tol * torch.clamp(b_norm, min=1e-30)
+    it = 0
+    while it < max_iter:
+        r_norm = torch.sqrt(torch.sum(R * R, dim=0))
+        pcg.host_reads += 1
+        if not bool(torch.any(r_norm > tol_vec)):
+            break
+        AP = matvec(P)
+        denom = torch.sum(P * AP, dim=0)
+        alpha = rz / torch.where(denom > 0, denom, 1e-30)
+        X = X + alpha[None, :] * P
+        R = R - alpha[None, :] * AP
+        Z = Pinv(R)
+        rz_new = torch.sum(R * Z, dim=0)
+        beta = rz_new / torch.where(rz > 0, rz, 1e-30)
+        P = Z + beta[None, :] * P
+        rz = rz_new
+        it += 1
+    return X, it
+
+
+pcg.host_reads = 0
+
+
+def lanczos_tridiag(matvec: Callable, Z: torch.Tensor, num_steps: int,
+                    precond_solve: Optional[Callable] = None):
+    """Batched Lanczos: tridiagonalise (P^-1)A w.r.t. the P-inner product
+    for each probe column of Z [n, k]. Returns (alphas [steps, k],
+    betas [steps-1, k]) of the tridiagonal matrices (reference
+    ``CGTridiagVecchiaLaplace``, CG_utils.h:167). No host read."""
+    k = Z.shape[1]
+    Pinv = precond_solve if precond_solve is not None else (lambda r: r)
+    q_prev = torch.zeros_like(Z)
+    r = Z
+    z = Pinv(r)
+    gamma = torch.sqrt(torch.clamp(torch.sum(r * z, dim=0), min=1e-30))
+    q = r / gamma[None, :]
+    qz = z / gamma[None, :]
+    beta_prev = torch.zeros(k, dtype=Z.dtype, device=Z.device)
+    alphas, betas = [], []
+    for _ in range(num_steps):
+        w = matvec(qz) - beta_prev[None, :] * q_prev
+        alpha = torch.sum(qz * w, dim=0)
+        w = w - alpha[None, :] * q
+        wz = Pinv(w)
+        beta = torch.sqrt(torch.clamp(torch.sum(w * wz, dim=0), min=1e-30))
+        q_prev, q, qz = q, w / beta[None, :], wz / beta[None, :]
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+    return torch.stack(alphas), torch.stack(betas)[:-1]
+
+
+def _logdet_from_tridiag(alphas, betas, z_norms_sq):
+    """Stochastic logdet from per-probe tridiagonal matrices:
+    logdet ~ mean_k ||z_k||_P^2 * (e1' U log(Lambda) U' e1). A probe whose
+    matrix is not finite (parameters a line search overshot to) gives NaN,
+    as in the JAX package, instead of the exception ``eigh`` raises."""
+    T = (torch.diag_embed(alphas.T) + torch.diag_embed(betas.T, offset=1)
+         + torch.diag_embed(betas.T, offset=-1))          # [k, steps, steps]
+    finite = torch.isfinite(T).all(dim=2).all(dim=1)
+    T = torch.where(finite[:, None, None], T,
+                    torch.eye(T.shape[1], dtype=T.dtype, device=T.device))
+    evals, evecs = torch.linalg.eigh(T)
+    evals = torch.clamp(evals, min=1e-30)
+    tau = evecs[:, 0, :]
+    vals = z_norms_sq * torch.sum(tau * tau * torch.log(evals), dim=1)
+    return torch.mean(torch.where(finite, vals, torch.nan))
+
+
+def stochastic_logdet_grad(matvec_of_theta: Callable, theta_free,
+                           Z: torch.Tensor, num_lanczos_steps: int = 50,
+                           precond_solve: Optional[Callable] = None,
+                           precond_logdet: Optional[torch.Tensor] = None,
+                           cg_tol: float = 1e-2, cg_max_iter: int = 1000,
+                           probes_grad: Optional[torch.Tensor] = None,
+                           stats: Optional[dict] = None):
+    """Differentiable stochastic logdet(A(theta)).
+
+    ``matvec_of_theta(V)`` is A V, differentiable through the autograd graph
+    of the parameters it closes over (``theta_free`` is unused: the JAX
+    signature's pytree). The value is the preconditioned Lanczos quadrature
+    estimate of logdet(P^-1 A) + logdet(P), detached; the value probes
+    ``Z`` must be ~ N(0, P). The gradient is the Hutchinson surrogate
+    mean_k (A^-1 z)' A(theta) z with A^-1 z detached, over ``probes_grad``
+    (E[z z'] = I; Rademacher) when given, else ``Z``:
+    ``val + (s - s.detach())``, whose value is ``val`` to the bit. Called
+    with gradients disabled it returns the value alone and skips the
+    surrogate's CG solve (what the JAX package's compiled value leaves out).
+    ``stats`` (a dict), when given, gets the Lanczos steps and CG iterations
+    added under ``lanczos_steps`` and ``grad_cg_iters``; the two halves are
+    timed scopes (``utils/timer``)."""
+    want_grad = torch.is_grad_enabled()
+    with torch.no_grad():
+        with timed("cg: Lanczos", sync=True):
+            alphas, betas = lanczos_tridiag(matvec_of_theta, Z,
+                                            num_lanczos_steps, precond_solve)
+            Pz = precond_solve(Z) if precond_solve is not None else Z
+            z_norms_sq = torch.sum(Z * Pz, dim=0)
+            val = _logdet_from_tridiag(alphas, betas, z_norms_sq)
+            if precond_logdet is not None:
+                val = val + precond_logdet
+        if stats is not None:
+            stats["lanczos_steps"] = stats.get("lanczos_steps", 0) \
+                + num_lanczos_steps
+        if not want_grad:
+            return val
+        Zg = probes_grad if probes_grad is not None else Z
+        with timed("cg: gradient CG", sync=True):
+            Ainv_Zg, it = pcg(matvec_of_theta, Zg, precond_solve, tol=cg_tol,
+                              max_iter=cg_max_iter)
+    if stats is not None:
+        stats["grad_cg_iters"] = stats.get("grad_cg_iters", 0) + it
+    # mean_k z' A^-1 A(theta) z: its value is a constant (= n in
+    # expectation), its theta-derivative the estimate of tr(A^-1 dA)
+    surrogate = torch.mean(torch.sum(Ainv_Zg * matvec_of_theta(Zg), dim=0))
+    return val + (surrogate - surrogate.detach())
+
+
+class JacobiPreconditioner(NamedTuple):
+    d: torch.Tensor
+
+    def solve(self, R):
+        return R / (self.d[:, None] if R.dim() == 2 else self.d)
+
+    def logdet(self):
+        return torch.sum(torch.log(self.d))
+
+    def sample_probes(self, generator: torch.Generator,
+                      num_probes: int) -> torch.Tensor:
+        e = normal_probes(generator, self.d.shape[0], num_probes,
+                          self.d.dtype)
+        return torch.sqrt(self.d)[:, None] * e
+
+
+def _not_ported(name: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported to gpboost_tpu_torch yet ({ITEM}: "
+            "implicit-differentiation CG, variance reduction and the "
+            "low-rank preconditioners)")
+    fn.__name__ = name
+    return fn
+
+
+pcg_implicit = _not_ported("pcg_implicit")
+stochastic_logdet_grad_vr = _not_ported("stochastic_logdet_grad_vr")
+nystrom_preconditioner = _not_ported("nystrom_preconditioner")
+
+
+class LowRankDiagPreconditioner:
+    """P = U U' + diag(d) of the JAX package: not ported (item 12)."""
+
+    create = staticmethod(_not_ported("LowRankDiagPreconditioner"))
+
+    def __init__(self, *args, **kwargs):
+        _not_ported("LowRankDiagPreconditioner")()

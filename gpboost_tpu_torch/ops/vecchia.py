@@ -180,22 +180,35 @@ def build_factors(cov_fn: CovFunction, cov_pars: torch.Tensor,
     return a, d_cond
 
 
+def _cols(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` [n] broadcast against ``like`` [n] or [n, k]."""
+    return x if like.dim() == 1 else x[:, None]
+
+
 def apply_B(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
-    """(B v)_i = v_i - sum_k A[i,k] v[nb[i,k]]."""
+    """(B v)_i = v_i - sum_k A[i,k] v[nb[i,k]], for v [n] or [n, k]."""
     idx = torch.clamp(neighbors, min=0).long()
-    return v - torch.sum(a * v[idx], dim=1)
+    if v.dim() == 1:
+        return v - torch.sum(a * v[idx], dim=1)
+    return v - torch.sum(a[:, :, None] * v[idx], dim=1)
 
 
 def apply_Bt(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
-    """(B' v)_i = v_i - sum_{j: i in nb(j)} A[j, pos] v_j (scatter-add).
+    """(B' v)_i = v_i - sum_{j: i in nb(j)} A[j, pos] v_j (scatter-add), for
+    v [n] or [n, k].
 
     The plain version: ``index_add_`` adds in row order on the CPU but with
     float atomics, in no fixed order, on CUDA — the CUDA route is
     :func:`apply_Bt_sliced`."""
     idx = torch.clamp(neighbors, min=0).long()
-    contrib = torch.where(neighbors >= 0, a * v[:, None], 0.0)
+    if v.dim() == 1:
+        contrib = torch.where(neighbors >= 0, a * v[:, None], 0.0)
+        return v - torch.zeros_like(v).index_add_(
+            0, idx.reshape(-1), contrib.reshape(-1))
+    contrib = torch.where((neighbors >= 0)[:, :, None],
+                          a[:, :, None] * v[:, None, :], 0.0)
     return v - torch.zeros_like(v).index_add_(
-        0, idx.reshape(-1), contrib.reshape(-1))
+        0, idx.reshape(-1), contrib.reshape(-1, v.shape[1]))
 
 
 def _incoming_csr(neighbors: torch.Tensor):
@@ -322,38 +335,118 @@ def apply_Bt_gather(a: torch.Tensor, inc_row: torch.Tensor,
     return v - _incoming_sums(a, inc_row, inc_slot, v)
 
 
-def apply_Bt_sliced(a: torch.Tensor, slices: IncomingSlices,
-                    v: torch.Tensor):
-    """(B' v) through the slices of :func:`build_incoming_sliced`: one
+def incoming_sums(coef: torch.Tensor, slices: IncomingSlices,
+                  v: torch.Tensor) -> torch.Tensor:
+    """sum_{(j, k): nb[j, k] = i} coef[j, k] v_j for every row i, for v [n]
+    or [n, k], through the slices of :func:`build_incoming_sliced`: one
     gather over all slices' entries, a row sum per slice, one copy into
     place — every row's terms added in the same order on every call
-    (bit-reproducible on CUDA, unlike the scatter of :func:`apply_Bt`)."""
+    (bit-reproducible on CUDA, unlike a scatter)."""
     if not len(slices):
-        return v.clone()
-    prod = torch.where(slices.valid,
-                       a.reshape(-1)[slices.flat] * v[slices.src], 0.0)
+        return torch.zeros_like(v)
+    c = coef.reshape(-1)[slices.flat]
+    valid = slices.valid
+    if v.dim() == 2:
+        c, valid = c[:, None], valid[:, None]
+    prod = torch.where(valid, c * v[slices.src], 0.0)
     sums, at = [], 0
     for t, w in slices.shapes:
-        sums.append(prod[at:at + t * w].view(t, w).sum(dim=1))
+        sums.append(prod[at:at + t * w].view(t, w, *v.shape[1:]).sum(dim=1))
         at += t * w
-    acc = torch.zeros_like(v).index_copy_(0, slices.targets,
-                                          torch.cat(sums))
-    return v - acc
+    return torch.zeros_like(v).index_copy_(0, slices.targets,
+                                           torch.cat(sums))
+
+
+def apply_Bt_sliced(a: torch.Tensor, slices: IncomingSlices,
+                    v: torch.Tensor):
+    """(B' v) through the slices of :func:`build_incoming_sliced`, for v [n]
+    or [n, k]: gathers only, a fixed summation order
+    (:func:`incoming_sums`)."""
+    return v - incoming_sums(a, slices, v)
 
 
 def precision_matvec(a, neighbors, d_cond, v):
-    """(B' D^-1 B) v — matrix-free Vecchia precision product, O(n m); the
-    plain version (scatter-add transpose)."""
+    """(B' D^-1 B) v — matrix-free Vecchia precision product, O(n m), for v
+    [n] or [n, k]; the plain version (scatter-add transpose)."""
     bv = apply_B(a, neighbors, v)
-    return apply_Bt(a, neighbors, bv / d_cond)
+    return apply_Bt(a, neighbors, bv / _cols(d_cond, bv))
 
 
-def precision_matvec_gather(a, neighbors, slices, d_cond, v):
-    """(B' D^-1 B) v with the gather-only transpose of
-    :func:`apply_Bt_sliced` — same math as :func:`precision_matvec`, fixed
-    summation order."""
-    bv = apply_B(a, neighbors, v)
-    return apply_Bt_sliced(a, slices, bv / d_cond)
+def precision_diag(a, neighbors, d_cond, slices=None):
+    """diag(B' D^-1 B): 1/d_i + sum_{j: i in nb(j)} A[j, .]^2 / d_j (the
+    JAX package's ``vecchia_model._precision_diag``). With ``slices`` the
+    sum is the gather of :func:`incoming_sums`; without, the plain scatter."""
+    if slices is not None:
+        return 1.0 / d_cond + incoming_sums(a * a, slices, 1.0 / d_cond)
+    idx = torch.clamp(neighbors, min=0).long()
+    contrib = torch.where(neighbors >= 0, a * a / d_cond[:, None], 0.0)
+    return 1.0 / d_cond + torch.zeros_like(d_cond).index_add_(
+        0, idx.reshape(-1), contrib.reshape(-1))
+
+
+class _PrecisionProduct(torch.autograd.Function):
+    """Q(a, d) V = B' D^-1 B V with a backward made of gathers only.
+
+    With s = B V, u = s / d and the output's cotangent G:
+    grad u = B G; grad d_i = -sum_k (B G)_ik s_ik / d_i^2;
+    grad V = B' (B G / d); grad a_ij = -sum_k u_ik G[nb_ij, k]
+    - sum_k (B G / d)_ik V[nb_ij, k]. ``B'`` is the transpose ``bt``
+    (the sliced gather on CUDA, the scatter on the CPU); nothing in the
+    backward scatters, so with the gather transpose no ``index_add_`` with
+    colliding indices runs, forward or backward."""
+
+    @staticmethod
+    def forward(ctx, a, d, V, neighbors, slices):
+        # padding slots contribute nothing, whatever ``a`` holds there
+        a = torch.where(neighbors >= 0, a, 0.0)
+        s = apply_B(a, neighbors, V)
+        u = s / _cols(d, s)
+        out = _bt(a, neighbors, slices, u)
+        ctx.save_for_backward(a, d, V, s)
+        ctx.neighbors, ctx.slices = neighbors, slices
+        return out
+
+    @staticmethod
+    def backward(ctx, G):
+        a, d, V, s = ctx.saved_tensors
+        nb, slices = ctx.neighbors, ctx.slices
+        vec = V.dim() == 1
+        if vec:
+            G, V, s = G[:, None], V[:, None], s[:, None]
+        G = G.contiguous()
+        dc = d[:, None]
+        BG = apply_B(a, nb, G)
+        BGd = BG / dc
+        grad_a = grad_d = grad_V = None
+        if ctx.needs_input_grad[0]:
+            idx = torch.clamp(nb, min=0).long()
+            u = s / dc
+            ga = -(torch.sum(u[:, None, :] * G[idx], dim=2)
+                   + torch.sum(BGd[:, None, :] * V[idx], dim=2))
+            grad_a = torch.where(nb >= 0, ga, 0.0)
+        if ctx.needs_input_grad[1]:
+            grad_d = -torch.sum(BG * s, dim=1) / (d * d)
+        if ctx.needs_input_grad[2]:
+            grad_V = _bt(a, nb, slices, BGd)
+            if vec:
+                grad_V = grad_V[:, 0]
+        return grad_a, grad_d, grad_V, None, None
+
+
+def _bt(a, neighbors, slices, v):
+    if slices is not None:
+        return apply_Bt_sliced(a, slices, v)
+    return apply_Bt(a, neighbors, v)
+
+
+def precision_product(a: torch.Tensor, d_cond: torch.Tensor,
+                      V: torch.Tensor, neighbors: torch.Tensor,
+                      slices: Optional[IncomingSlices] = None):
+    """Q V = B' D^-1 B V for V [n] or [n, k], differentiable in (a, d, V)
+    with the gather-only backward of :class:`_PrecisionProduct`. ``slices``
+    (:func:`build_incoming_sliced`) selects the gather transpose — the CUDA
+    route; without them the plain scatter (the CPU route)."""
+    return _PrecisionProduct.apply(a, d_cond, V, neighbors, slices)
 
 
 def vecchia_nll(a, d_cond, neighbors, r, row_weight=None):

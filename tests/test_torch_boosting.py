@@ -300,7 +300,7 @@ UNPORTED = [
     {"line_search_step_length": True},
     {"device_resident_boosting": "true"}, {"tree_learner": "voting"},
     {"tree_learner": "feature"}, {"num_class": 3},
-    {"objective": "binary"}, {"objective": "regression_l1"},
+    {"objective": "poisson"}, {"objective": "regression_l1"},
     {"early_stopping_round": 5}, {"some_unknown_key": 1},
 ]
 

@@ -256,6 +256,6 @@ def test_gather_transpose_matches_jax_apply_bt(gp_fixture_data):
         np.testing.assert_allclose(tv.apply_Bt_sliced(a_t, slices, v_t),
                                    want, rtol=0, atol=1e-12)
         np.testing.assert_allclose(
-            tv.precision_matvec_gather(a_t, nb_t, slices, d_t, v_t).numpy(),
+            tv.precision_product(a_t, d_t, v_t, nb_t, slices).numpy(),
             tv.precision_matvec(a_t, nb_t, d_t, v_t).numpy(), rtol=0,
             atol=1e-12)
