@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``gpboost_tpu_torch``).
 
     python3 chip_smoke.py [--seed 0] [--n 100000] [--m 20] [--n-pred 10000]
-                          [--rounds 30]
+                          [--rounds 30] [--grouped-n 1000000]
 
 Needs one NVIDIA GPU with ``nvcc`` on the machine; exits non-zero without
 one. It
@@ -57,11 +57,30 @@ one. It
    gp_model=gp, num_boost_round=3)`` -> ``Booster.predict(...,
    predict_var=True)`` (``lagaboost``), whose second training must give the
    same bits (``determinism``);
-8. checks by the kernels' launch counters (set to 0 before each path, read
+8. drives grouped random effects at full width: the Gaussian LMM
+   (``grouped_lmm``: n = 1 000 000 rows, two crossed random intercepts of
+   1 000 and 10 000 levels, the second Zipf-skewed, a random slope on the
+   first, q = 12 000, X an intercept and two covariates, float64 —
+   construct, NLL, the default fit, an L-BFGS fit, std errors, prediction
+   at 10 000 rows of which 10 % at unseen levels; the L-BFGS optimum
+   within 15 % of the simulation's truth), the same NLL and gradient on
+   the card against the float64 CPU run on 20 000 rows
+   (``grouped_vs_cpu``), the GPBoost algorithm with a grouped random
+   intercept of 1 000 levels at the boosting path's size, 30 rounds with
+   the default optimizer and with L-BFGS (``grouped_boosting``), a
+   ``bernoulli_logit`` GLMM on the LMM's design without the slope (the
+   b-space Laplace approximation, ``grouped_glmm``: fit, prediction of the
+   response mean and variance), a profiler trace of the grouped NLL
+   (forward and backward) and Z' v with no scatter
+   (``grouped_ops_trace``), and a second grouped GPBoost training and GLMM
+   fit that must give the same bits (``determinism``);
+9. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
-   once a leaf on the LaGaBoost path, the Vecchia kernels never on the
-   non-Gaussian path (the latent factors have no nugget, outside the kernel
-   gate) — and the results against float64 plain versions.
+   once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
+   Vecchia kernels never on the non-Gaussian path (the latent factors have
+   no nugget, outside the kernel gate), no kernel on the grouped LMM and
+   GLMM (their work is ``torch.linalg`` on [q, q] and gathers, as in the
+   JAX package) — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -123,6 +142,20 @@ NG_GRAD_RTOL = 1e-3
 # a Bernoulli response variance is at most 1/4; in float32 the 30-node
 # quadrature's sums may round it up by at most ~30 units in the last place
 VAR_TOP = 0.25 * (1.0 + 30 * 2.0 ** -24)
+# grouped random effects (path A: the Gaussian LMM at n = 1e6, two crossed
+# intercepts of 1 000 and 10 000 levels, the second Zipf-skewed, a slope on
+# the first, q = 12 000; path C: bernoulli_logit on that design without the
+# slope; path B: GPBoost with 1 000 levels at the boosting path's size)
+GR_N = 1_000_000
+GR_LEVELS = (1000, 10000)
+GR_ZIPF = 1.1
+GR_TRUTH = [1.0, 0.5, 0.3, 0.2]   # error, intercept 1, intercept 2, slope 1
+GR_BETA = [1.0, 0.5, -0.3]
+GR_UNSEEN = 0.1                   # share of prediction rows at unseen levels
+GR_TRUTH_RTOL = 0.15              # fitted cov_pars vs the simulation's truth
+GR_CPU_N = 20_000                 # rows of the card-vs-CPU check
+GR_CPU_RTOL = 1e-9
+GB_LEVELS = 1000
 # names of operations that add with colliding indices (float atomics)
 SCATTERS = ("index_add", "scatter_add", "index_put", "scatter_reduce",
             "indexFunc", "put_")
@@ -1098,11 +1131,13 @@ def incoming_bt(model, dev):
 
 
 def determinism(first, ds, yb, coords, m, seed, dev, ng_first=None,
-                ng_ds=None, ng_coords=None):
+                ng_ds=None, ng_coords=None, grouped=None, glmm=None):
     """A second training of the boosting path's L-BFGS recipe: the same
     scores, covariance parameters and evaluation counts to the bit; two
     ``Psi^-1 r`` solves the same bits; with ``ng_first``, a second LaGaBoost
-    training the same bits too."""
+    training the same bits too; with ``grouped`` (the first training and
+    its data), a second grouped GPBoost training, and with ``glmm`` (the
+    fitted model and its data), a second GLMM fit, the same bits."""
     import gpboost_tpu_torch as gpt
 
     gp = _gp_model(coords, m, seed, torch.float32, dev)
@@ -1147,9 +1182,49 @@ def determinism(first, ds, yb, coords, m, seed, dev, ng_first=None,
         same_ng = (ng_out["scores_bit_identical"]
                    and ng_out["cov_pars_bit_identical"]
                    and ng_out["evaluations_identical"])
+    same_grouped = True
+    if grouped is not None:
+        g_first, bd = grouped
+        gp_g = _grouped_gp(bd["g"], dev)
+        bst_g = gpt.train(BOOST_PARAMS, gpt.Dataset(bd["X"], label=bd["y"],
+                                                    device=dev),
+                          gp_model=gp_g, num_boost_round=g_first.num_trees())
+        ev_g = ([f["num_evals"] for f in g_first.objective.fits],
+                [f["num_evals"] for f in bst_g.objective.fits])
+        g_out = {
+            "scores_bit_identical": bool(np.array_equal(g_first._score,
+                                                        bst_g._score)),
+            "cov_pars_bit_identical": bool(np.array_equal(
+                g_first.gp_model.get_cov_pars(), gp_g.get_cov_pars())),
+            "evaluations_identical": ev_g[0] == ev_g[1],
+            "score_max_abs_diff": float(np.abs(g_first._score
+                                               - bst_g._score).max()),
+            "evaluations": [sum(ev_g[0]), sum(ev_g[1])]}
+        out["grouped_boosting"] = g_out
+        same_grouped = (g_out["scores_bit_identical"]
+                        and g_out["cov_pars_bit_identical"]
+                        and g_out["evaluations_identical"])
+    same_glmm = True
+    if glmm is not None:
+        m_first, gd = glmm
+        m2 = _glmm_model(gd, dev)
+        m2.fit(gd["yb"])
+        c_out = {
+            "cov_pars_bit_identical": bool(np.array_equal(
+                m_first.get_cov_pars(), m2.get_cov_pars())),
+            "nll_bit_identical": (m_first.get_current_neg_log_likelihood()
+                                  == m2.get_current_neg_log_likelihood()),
+            "evaluations": [m_first._fit_result.num_evals,
+                            m2._fit_result.num_evals]}
+        out["glmm"] = c_out
+        same_glmm = (c_out["cov_pars_bit_identical"]
+                     and c_out["nll_bit_identical"]
+                     and c_out["evaluations"][0] == c_out["evaluations"][1])
+        del m2
     emit(dict(phase="determinism", **out))
     check(same_scores and same_cov and evals[0] == evals[1] and same_psi
-          and same_ng, f"training on the card is not bit-reproducible: {out}")
+          and same_ng and same_grouped and same_glmm,
+          f"training on the card is not bit-reproducible: {out}")
     return out
 
 
@@ -1446,6 +1521,450 @@ def lagaboost(ng, m, seed, dev):
     return launches, timings, bst, ds
 
 
+# ---------------------------------------------------------------------------
+# phase 7: grouped random effects (Woodbury LMM, GPBoost, b-space GLMM)
+# ---------------------------------------------------------------------------
+
+def make_grouped_data(seed, n, n_pred):
+    """The grouped design: two crossed random intercepts, GR_LEVELS[0]
+    levels drawn uniformly and GR_LEVELS[1] levels with Zipf-skewed sizes
+    (exponent GR_ZIPF; every level holds one row at least), a random slope
+    on the first, X an intercept and two covariates; the response from
+    GR_TRUTH and GR_BETA. Prediction rows: a GR_UNSEEN share with labels
+    training never saw (in both columns), the rest at training levels."""
+    rng = np.random.default_rng(seed + 10)
+    l1, l2 = GR_LEVELS
+    g1 = rng.integers(0, l1, n)
+    p = 1.0 / np.arange(1, l2 + 1) ** GR_ZIPF
+    g2 = rng.permutation(np.concatenate(
+        [np.arange(l2), rng.choice(l2, n - l2, p=p / p.sum())]))
+    xs = rng.uniform(-1.0, 1.0, n)
+    X = np.column_stack([np.ones(n), rng.standard_normal(n),
+                         rng.uniform(size=n)])
+    s2, v1, v2, v3 = GR_TRUTH
+    b1 = np.sqrt(v1) * rng.standard_normal(l1)
+    b2 = np.sqrt(v2) * rng.standard_normal(l2)
+    b3 = np.sqrt(v3) * rng.standard_normal(l1)
+    y = (X @ np.asarray(GR_BETA) + b1[g1] + b2[g2] + xs * b3[g1]
+         + np.sqrt(s2) * rng.standard_normal(n))
+    latent_glmm = b1[g1] + b2[g2]
+    yb = rng.binomial(1, 1.0 / (1.0 + np.exp(-latent_glmm))).astype(
+        np.float64)
+    unseen = rng.random(n_pred) < GR_UNSEEN
+    gp1 = np.where(unseen, l1 + rng.integers(0, 37, n_pred),
+                   rng.integers(0, l1, n_pred))
+    gp2 = np.where(unseen, l2 + rng.integers(0, 41, n_pred),
+                   rng.choice(l2, n_pred, p=p / p.sum()))
+    return dict(g1=g1, g2=g2, xs=xs, X=X, y=y, yb=yb,
+                group_pred=np.column_stack([gp1, gp2]),
+                xs_pred=rng.uniform(-1.0, 1.0, n_pred),
+                X_pred=np.column_stack([np.ones(n_pred),
+                                        rng.standard_normal(n_pred),
+                                        rng.uniform(size=n_pred)]),
+                unseen=unseen, largest_level=int(np.bincount(g2).max()))
+
+
+def _lmm_kwargs(gd, rows=slice(None)):
+    return dict(group_data=np.column_stack([gd["g1"][rows], gd["g2"][rows]]),
+                group_rand_coef_data=gd["xs"][rows],
+                ind_effect_group_rand_coef=[1])
+
+
+def grouped_lmm(gd, seed, dev):
+    """Path (A), the Gaussian LMM through the public API at full width:
+    construct, NLL, the default fit (gradient descent, GLS coefficients),
+    std errors (q-space Fisher information, GLS covariance), prediction
+    with variances at GR_N_PRED rows (unseen levels included), an L-BFGS
+    fit; no kernel runs on it. Also times one value-and-gradient, the
+    [q, q] Cholesky and inverse it is made of, and Z' v through the
+    fixed-order plan beside the ``index_add_`` scatter it replaces."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.models import grouped as tg
+    y, X = gd["y"], gd["X"]
+    reset_counts()
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    model = gpt.GPModel(device=dev, **_lmm_kwargs(gd))
+    t_construct = clock() - t0
+    Z = model._Z
+    init = model._default_init_cov_pars(y)
+    fe_ols = X @ np.linalg.lstsq(X, y, rcond=None)[0]
+    nll_init = model.neg_log_likelihood(init, y, fixed_effects=fe_ols)
+    t0 = clock()
+    model.neg_log_likelihood(init, y, fixed_effects=fe_ols)
+    t_nll = clock() - t0
+    # one value-and-gradient of the profiled NLL (the unit of a fit), warm,
+    # and the two dense [q, q] operations it is made of
+    th = torch.as_tensor(np.log(init[1:] / init[0]), dtype=torch.float64,
+                         device=dev)
+    r = torch.as_tensor(y - fe_ols, dtype=torch.float64, device=dev)
+    tg.nll_profiled_value_and_grad(Z, th, r)
+    t0 = clock()
+    tg.nll_profiled_value_and_grad(Z, th, r)
+    t_vg = clock() - t0
+    M = Z.ztz().clone()
+    M.diagonal().add_(1.0 / tg._sigma_b_diag(Z, torch.exp(th)))
+    chol_ms = time_ms(lambda: torch.linalg.cholesky(M), 3)
+    L = torch.linalg.cholesky(M)
+    cholinv_ms = time_ms(lambda: torch.cholesky_inverse(L), 3)
+    # the triangular solve that gives diag(M^-1) too (not used: measured
+    # as the alternative to the inverse)
+    eye = torch.eye(Z.q, dtype=torch.float64, device=dev)
+    trsm_ms = time_ms(lambda: torch.linalg.solve_triangular(
+        L, eye, upper=False), 3)
+    del M, L, eye
+    # Z' v: the plan (a gather, row sums, one copy into place) beside the
+    # scatter it replaces, and its bits over 10 calls
+    v = torch.as_tensor(np.random.default_rng(seed).standard_normal(Z.n),
+                        dtype=torch.float64, device=dev)
+    zt_ms = time_ms(lambda: tg.zt_mul(Z, v), 10)
+
+    def scatter():
+        out = torch.zeros(Z.q, dtype=v.dtype, device=dev)
+        for idx, w in zip(Z.idx, Z.weights):
+            out.index_add_(0, idx, v if w is None else w * v)
+        return out
+
+    scatter_ms = time_ms(scatter, 10)
+    zt_ref = tg.zt_mul(Z, v)
+    zt_same = all(torch.equal(zt_ref, tg.zt_mul(Z, v)) for _ in range(10))
+    zt_err = float((zt_ref - scatter()).abs().max())
+    tg.GROUPED_COUNTS.clear()
+
+    t0 = clock()
+    model.fit(y, X=X)
+    t_gd = clock() - t0
+    res_gd = model._fit_result
+    counts_gd = dict(tg.GROUPED_COUNTS)
+    nll_gd = model.get_current_neg_log_likelihood()
+    cp_gd, coef_gd = model.get_cov_pars(), model.get_coef()
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    cp_sd = model.get_cov_pars(std_err=True)
+    coef_sd = model.get_coef(std_err=True)
+    t_se = clock() - t0
+    counts_se = dict(tg.GROUPED_COUNTS)
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    out = model.predict(group_data_pred=gd["group_pred"],
+                        group_rand_coef_data_pred=gd["xs_pred"],
+                        X_pred=gd["X_pred"], predict_var=True)
+    t_pred = clock() - t0
+    counts_pred = dict(tg.GROUPED_COUNTS)
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    model.fit(y, X=X, params={"optimizer_cov": "lbfgs"})
+    t_lbfgs = clock() - t0
+    res_lb = model._fit_result
+    counts_lb = dict(tg.GROUPED_COUNTS)
+    nll_lb = model.get_current_neg_log_likelihood()
+    cp_lb = model.get_cov_pars()
+    launches = read_counts()
+
+    truth = np.asarray(GR_TRUTH)
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the grouped LMM path launched a kernel: {launches}")
+    for tag, nll in (("gd", nll_gd), ("lbfgs", nll_lb)):
+        check(math.isfinite(nll) and nll <= nll_init,
+              f"{tag}: the fitted NLL {nll} is above the NLL at the initial "
+              f"parameters {nll_init}")
+    # the truth gate holds the L-BFGS optimum: the default descent stops at
+    # the reference's relative NLL change of 1e-6, at n = 1e6 a change of
+    # ~1.4 units, short of the optimum (its distance is reported)
+    rel_lb = np.abs(cp_lb / truth - 1.0)
+    rel_gd = np.abs(cp_gd / truth - 1.0)
+    check(bool(np.all(rel_lb <= GR_TRUTH_RTOL)),
+          f"lbfgs: cov_pars {cp_lb} not within {GR_TRUTH_RTOL} of the "
+          f"truth {truth}: {rel_lb}")
+    check(bool(np.all(np.isfinite(cp_sd[1])) and np.all(cp_sd[1] > 0)
+               and np.all(np.isfinite(coef_sd[1]))
+               and np.all(coef_sd[1] > 0)),
+          f"std errors not finite and positive: {cp_sd}, {coef_sd}")
+    check(zt_same, "Z' v through the plan differs between calls")
+    check(zt_err <= 1e-9 * float(zt_ref.abs().max()),
+          f"Z' v through the plan vs the scatter: {zt_err}")
+    mu, var = out["mu"], out["var"]
+    n_p = len(gd["unseen"])
+    check(mu.shape == (n_p,) and var.shape == (n_p,)
+          and bool(np.all(np.isfinite(mu)) and np.all(var > 0)),
+          f"predictions: shapes {mu.shape}, {var.shape}, var min "
+          f"{np.min(var)}")
+    u = gd["unseen"]
+    prior = (cp_gd[0] + cp_gd[1] + cp_gd[2]
+             + cp_gd[3] * gd["xs_pred"][u] ** 2)
+    err_unseen = float(np.max(np.abs(var[u] - prior) / prior))
+    err_mu_unseen = float(np.max(np.abs(mu[u] - gd["X_pred"][u] @ coef_gd)))
+    check(err_unseen < 1e-10 and err_mu_unseen < 1e-10,
+          f"unseen levels: variance {err_unseen}, mean {err_mu_unseen} off "
+          "the prior")
+    share = ((counts_gd.get("qq_factor", 0) * chol_ms
+              + counts_gd.get("qq_inverse", 0) * cholinv_ms)
+             / (t_gd * 1e3))
+    emit({"phase": "grouped_lmm", "n": Z.n, "q": Z.q,
+          "levels": list(GR_LEVELS), "zipf": GR_ZIPF,
+          "largest_level_rows": gd["largest_level"],
+          "plan_bytes": Z.nbytes(), "truth": GR_TRUTH, "beta": GR_BETA,
+          "nll_init": nll_init, "nll_gd": nll_gd, "nll_lbfgs": nll_lb,
+          "cov_pars_gd": cp_gd.tolist(), "cov_pars_lbfgs": cp_lb.tolist(),
+          "coef_gd": coef_gd.tolist(), "cov_pars_std": cp_sd[1].tolist(),
+          "coef_std": coef_sd[1].tolist(),
+          "gd": {"iterations": res_gd.num_it,
+                 "evaluations": res_gd.num_evals, "counts": counts_gd,
+                 "converged": res_gd.converged,
+                 "nll_history_tail": res_gd.history[-4:],
+                 "rel_to_truth": rel_gd.tolist()},
+          "lbfgs": {"iterations": res_lb.num_it,
+                    "evaluations": res_lb.num_evals, "counts": counts_lb,
+                    "rel_to_truth": rel_lb.tolist()},
+          "std_err_counts": counts_se, "predict_counts": counts_pred,
+          "vg_ms": t_vg * 1e3, "cholesky_ms": chol_ms,
+          "cholesky_inverse_ms": cholinv_ms,
+          "triangular_solve_identity_ms": trsm_ms,
+          "gd_fit_dense_share_est": share,
+          "zt_plan_ms": zt_ms, "zt_scatter_ms": scatter_ms,
+          "zt_max_abs_diff_vs_scatter": zt_err,
+          "zt_bit_identical_10_calls": zt_same,
+          "unseen_rows": int(u.sum()), "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    timings = {"lmm_construct_s": t_construct, "lmm_nll_ms": t_nll * 1e3,
+               "lmm_vg_ms": t_vg * 1e3, "lmm_fit_gd_s": t_gd,
+               "lmm_fit_gd_evaluations": res_gd.num_evals,
+               "lmm_fit_lbfgs_s": t_lbfgs,
+               "lmm_fit_lbfgs_evaluations": res_lb.num_evals,
+               "lmm_std_err_s": t_se, "lmm_predict_s": t_pred}
+    return launches, timings
+
+
+def grouped_vs_cpu(gd, dev):
+    """The grouped NLL and its gradient on the card against the float64 CPU
+    run (``index_add_``) on the first GR_CPU_N rows: relative difference at
+    most GR_CPU_RTOL. Returns the card's model for the trace."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.models import grouped as tg
+    rows = slice(0, GR_CPU_N)
+    y = gd["y"][rows]
+    fe = gd["X"][rows] @ np.asarray(GR_BETA)
+    out = {}
+    for name in ("cuda", "cpu"):
+        m = gpt.GPModel(device=dev if name == "cuda" else "cpu",
+                        **_lmm_kwargs(gd, rows))
+        t0 = clock()
+        nll = m.neg_log_likelihood(GR_TRUTH, y, fixed_effects=fe)
+        th = torch.as_tensor(np.log(np.asarray(GR_TRUTH[1:]) / GR_TRUTH[0]),
+                             dtype=torch.float64, device=m.device)
+        _, g, _ = tg.nll_profiled_value_and_grad(
+            m._Z, th, torch.as_tensor(y - fe, dtype=torch.float64,
+                                      device=m.device))
+        out[name] = (nll, g.cpu().numpy(), clock() - t0, m)
+    nll_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    g_rel = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1]))
+                  / np.max(np.abs(out["cpu"][1])))
+    emit({"phase": "grouped_vs_cpu", "n": GR_CPU_N, "q": out["cuda"][3]._Z.q,
+          "nll_cuda": out["cuda"][0], "nll_cpu_f64": out["cpu"][0],
+          "nll_rel_diff": nll_rel, "grad_max_rel_diff": g_rel,
+          "tolerance": GR_CPU_RTOL, "cuda_s": out["cuda"][2],
+          "cpu_s": out["cpu"][2]})
+    check(nll_rel <= GR_CPU_RTOL and g_rel <= GR_CPU_RTOL,
+          f"grouped NLL on the card vs the CPU: {nll_rel}, gradient "
+          f"{g_rel}")
+    return out["cuda"][3]
+
+
+def grouped_ops_trace(model, yb, dev):
+    """The grouped NLL (forward and backward, Gaussian and Laplace) and
+    Z' v on the card under the profiler (its CPU side: the names of the
+    operations called): no operation that adds with colliding indices."""
+    from torch.profiler import ProfilerActivity, profile
+    from gpboost_tpu_torch.models import grouped as tg
+    Z = model._Z
+    r = model._tensor(np.random.default_rng(1).standard_normal(Z.n))
+    th = model._tensor(np.log(np.asarray(GR_TRUTH[1:]) / GR_TRUTH[0]))
+    ybt = model._tensor(yb)
+    Z.pair_plan()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tg.nll_profiled_value_and_grad(Z, th, r)
+        tg.zt_mul(Z, r)
+        cp = model._tensor(GR_TRUTH[1:]).requires_grad_(True)
+        v = tg.nll_laplace(Z, "bernoulli_logit", cp, None, ybt, None)
+        torch.autograd.grad(v, cp)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    bad = [x for x in names if any(b in x for b in SCATTERS)]
+    emit({"phase": "grouped_ops_trace", "ops": names, "scatters": bad})
+    check(any("index" in x for x in names), f"empty trace: {names}")
+    check(not bad, f"the grouped NLL or Z' v scatters: {bad}")
+    return names
+
+
+def _grouped_boost_data(seed, n, n_pred):
+    rng = np.random.default_rng(seed + 20)
+    X = rng.uniform(size=(n, 5))
+    f = 2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + X[:, 2]
+    g = rng.integers(0, GB_LEVELS, n)
+    y = f + 0.7 * rng.standard_normal(GB_LEVELS)[g] \
+        + 0.5 * rng.standard_normal(n)
+    gp = rng.integers(0, GB_LEVELS, n_pred)
+    unseen = rng.random(n_pred) < GR_UNSEEN
+    gp[unseen] = GB_LEVELS + rng.integers(0, 29, int(unseen.sum()))
+    return dict(X=X, y=y, g=g, X_pred=rng.uniform(size=(n_pred, 5)),
+                group_pred=gp)
+
+
+def _grouped_gp(g, dev, optimizer=None):
+    import gpboost_tpu_torch as gpt
+    gp = gpt.GPModel(group_data=g, device=dev)
+    if optimizer:
+        gp.set_optim_params({"optimizer_cov": optimizer})
+    return gp
+
+
+def grouped_boosting(seed, n, n_pred, rounds, dev):
+    """Path (B), the GPBoost algorithm with a grouped random intercept of
+    GB_LEVELS levels in the GP's place: ``train(BOOST_PARAMS, ds,
+    gp_model=GPModel(group_data=...))`` with the default optimizer (GD,
+    learning-rate reuse) and with L-BFGS (memory reuse), then
+    ``Booster.predict(X, group_data_pred=..., predict_var=True)``. The
+    histogram kernel launches once a leaf; no Vecchia kernel runs."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    from gpboost_tpu_torch.models import grouped as tg
+    bd = _grouped_boost_data(seed, n, n_pred)
+    out, timings, first = {}, {}, None
+    for tag, opt in (("gd", None), ("lbfgs", "lbfgs")):
+        reset_counts()
+        tg.GROUPED_COUNTS.clear()
+        ds = gpt.Dataset(bd["X"], label=bd["y"], device=dev)
+        gp = _grouped_gp(bd["g"], dev, opt)
+        t0 = clock()
+        bst = gpt.train(BOOST_PARAMS, ds, gp_model=gp,
+                        num_boost_round=rounds)
+        t_train = clock() - t0
+        launches = read_counts()
+        reads = grow_tree.host_reads
+        counts = dict(tg.GROUPED_COUNTS)
+        fits = bst.objective.fits
+        leaves = sum(t.num_leaves for t in bst.trees)
+        check(bst.num_trees() == rounds, f"{bst.num_trees()} trees")
+        _check_trees(bst, f"grouped_{tag}")
+        check(launches["histogram"] == leaves,
+              f"grouped {tag}: histogram launched {launches['histogram']} "
+              f"times for {leaves} leaves")
+        check(reads == 2 * leaves, f"grouped {tag}: {reads} host reads for "
+              f"{leaves} leaves")
+        check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
+              == 0, f"grouped {tag} launched a Vecchia kernel: {launches}")
+        check(len(fits) == rounds + 1, f"grouped {tag}: {len(fits)} refits "
+              f"in {rounds} rounds")
+        nlls = [f["nll"] for f in fits]
+        check(all(math.isfinite(v) for v in nlls) and nlls[-1] < nlls[1],
+              f"grouped {tag}: the NLL did not fall from round 1: {nlls}")
+        cov_pars = gp.get_cov_pars()
+        check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+              f"grouped {tag}: cov_pars not positive: {cov_pars}")
+        entry = {"leaves": leaves, "fits": len(fits),
+                 "evaluations": sum(f["num_evals"] for f in fits),
+                 "nll_round_1": nlls[1], "nll_last_round": nlls[-1],
+                 "cov_pars": cov_pars.tolist(), "launches": launches,
+                 "counts": counts, "host_reads_per_tree": reads / rounds,
+                 "train_mse": float(np.mean((bd["y"] - bst._score) ** 2))}
+        timings[f"grouped_train_{rounds}r" + ("_lbfgs" if opt else "")
+                + "_s"] = t_train
+        if first is None:
+            first = (bst, ds, launches)
+            t0 = clock()
+            pred = bst.predict(bd["X_pred"], group_data_pred=bd["group_pred"],
+                               predict_var=True)
+            timings["grouped_boost_predict_s"] = clock() - t0
+            mu, var = pred["response_mean"], pred["response_var"]
+            check(mu.shape == (n_pred,) and bool(
+                np.all(np.isfinite(mu)) and np.all(var > 0)),
+                "grouped boosting predictions not finite / positive")
+            entry["pred_var_range"] = [float(var.min()), float(var.max())]
+        out[tag] = entry
+    emit({"phase": "grouped_boosting", "n": n, "levels": GB_LEVELS,
+          "rounds": rounds, **out})
+    return first[2], timings, first[0], bd
+
+
+def _glmm_model(gd, dev):
+    import gpboost_tpu_torch as gpt
+    return gpt.GPModel(group_data=np.column_stack([gd["g1"], gd["g2"]]),
+                       likelihood="bernoulli_logit", device=dev)
+
+
+def grouped_glmm(gd, dev):
+    """Path (C), the b-space Laplace GLMM: ``bernoulli_logit`` on the LMM's
+    design without the slope (q = sum of GR_LEVELS): construct, NLL at the
+    initial parameters, the default fit (L-BFGS), prediction of the
+    response mean and variance at GR_N_PRED rows."""
+    from gpboost_tpu_torch.models import grouped as tg
+    reset_counts()
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    model = _glmm_model(gd, dev)
+    t_construct = clock() - t0
+    init = model._default_init_cov_pars(gd["yb"])
+    t0 = clock()
+    nll_init = model.neg_log_likelihood(init, gd["yb"])
+    t_nll = clock() - t0
+    counts_nll = dict(tg.GROUPED_COUNTS)
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    model.fit(gd["yb"])
+    t_fit = clock() - t0
+    counts_fit = dict(tg.GROUPED_COUNTS)
+    res = model._fit_result
+    tg.GROUPED_COUNTS.clear()
+    t0 = clock()
+    out = model.predict(group_data_pred=gd["group_pred"], predict_var=True,
+                        predict_response=True)
+    t_pred = clock() - t0
+    counts_pred = dict(tg.GROUPED_COUNTS)
+    launches = read_counts()
+    nll_fit = model.get_current_neg_log_likelihood()
+    cov_pars = model.get_cov_pars()
+    # one Newton step's dense work at the fitted parameters: H = Z'WZ +
+    # Sigma_b^-1 (the plan's sums), its Cholesky, the LU the JAX package
+    # solves with
+    _, w, db = tg.laplace_mode_and_w(model._Z, model.likelihood,
+                                     model._tensor(cov_pars), None,
+                                     model._tensor(gd["yb"]), None)
+    ztwz_ms = time_ms(lambda: model._Z._ztwz(w), 3)
+    H = model._Z._ztwz(w)
+    H.diagonal().add_(1.0 / db)
+    h_chol_ms = time_ms(lambda: torch.linalg.cholesky(H), 3)
+    rhs = torch.ones(model._Z.q, 1, dtype=H.dtype, device=dev)
+    h_lu_ms = time_ms(lambda: torch.linalg.solve(H, rhs), 3)
+    del H, w, rhs
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the GLMM path launched a kernel: {launches}")
+    check(math.isfinite(nll_fit) and nll_fit <= nll_init,
+          f"the GLMM fit did not lower the NLL: {nll_init} -> {nll_fit}")
+    check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+          f"GLMM cov_pars not positive: {cov_pars}")
+    mu, var = out["mu"], out["var"]
+    check(bool(np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                       & (var <= 0.25))),
+          f"GLMM predictions outside (0, 1) / (0, 0.25]: {mu.min()}, "
+          f"{mu.max()}, {var.min()}, {var.max()}")
+    emit({"phase": "grouped_glmm", "n": model._Z.n, "q": model._Z.q,
+          "likelihood": "bernoulli_logit", "truth": GR_TRUTH[1:3],
+          "nll_init": nll_init, "nll_fit": nll_fit,
+          "cov_pars": cov_pars.tolist(), "iterations": res.num_it,
+          "evaluations": res.num_evals, "nll_counts": counts_nll,
+          "fit_counts": counts_fit, "predict_counts": counts_pred,
+          "launches": launches, "ztwz_ms": ztwz_ms,
+          "h_cholesky_ms": h_chol_ms, "h_lu_solve_ms": h_lu_ms,
+          "pred_mu_range": [float(mu.min()), float(mu.max())],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    timings = {"glmm_construct_s": t_construct, "glmm_nll_s": t_nll,
+               "glmm_fit_s": t_fit, "glmm_fit_evaluations": res.num_evals,
+               "glmm_predict_s": t_pred}
+    return launches, timings, model
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1453,6 +1972,7 @@ def main():
     ap.add_argument("--m", type=int, default=20)
     ap.add_argument("--n-pred", type=int, default=10_000)
     ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--grouped-n", type=int, default=GR_N)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1528,9 +2048,23 @@ def main():
     lg_launches, lg_timings, bst_ng, ds_ng = lagaboost(
         ng, args.m, args.seed, dev)
     timings.update(lg_timings)
+
+    # grouped random effects: the LMM, GPBoost with them, the GLMM
+    gd = make_grouped_data(args.seed, args.grouped_n, args.n_pred)
+    lmm_launches, lmm_timings = grouped_lmm(gd, args.seed, dev)
+    timings.update(lmm_timings)
+    torch.cuda.empty_cache()
+    trace_model = grouped_vs_cpu(gd, dev)
+    gb_launches, gb_timings, bst_g, gb_data = grouped_boosting(
+        args.seed, args.n, args.n_pred, args.rounds, dev)
+    timings.update(gb_timings)
+    glmm_launches, glmm_timings, glmm_model = grouped_glmm(gd, dev)
+    timings.update(glmm_timings)
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
-                ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"])
-    del bst, ds, bst_ng, ds_ng
+                ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
+                grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
+    del bst, ds, bst_ng, ds_ng, bst_g, glmm_model
+    torch.cuda.empty_cache()
     timings.update(bt_sliced_ms=bt["sliced_ms"],
                    bt_scatter_ms=bt["scatter_ms"])
     timings["vecchia_nll_grad_ms"] = timed["nll_grad"]["ms"]
@@ -1549,19 +2083,24 @@ def main():
     # must be the histogram's (a second one records no device operation)
     precision_ops_trace(ng_model, dev)
     del ng_model
+    grouped_ops_trace(trace_model, gd["yb"][:GR_CPU_N], dev)
+    del trace_model
 
     # a kernel that a path runs must have been launched in that path's run
     paths = {"gp": launches, "boosting": boost_launches,
              "gp_default_route": gd_launches,
              "boosting_default_route": bgd_launches,
-             "ng_path": ng_launches, "lagaboost": lg_launches}
+             "ng_path": ng_launches, "lagaboost": lg_launches,
+             "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
+             "grouped_glmm": glmm_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
             ("gp_default_route", gd_launches,
              ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting_default_route", bgd_launches, tuple(REPLACES)),
-            ("lagaboost", lg_launches, ("histogram",))):
+            ("lagaboost", lg_launches, ("histogram",)),
+            ("grouped_boosting", gb_launches, ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")
@@ -1571,10 +2110,13 @@ def main():
                       ("vecchia_nll_grad", "nll_grad"),
                       ("histogram", "histogram")):
         t = timed[key]
-        # launches: in the run of the path that the kernel was ported for
-        own = boost_launches if name == "histogram" else launches
+        # launches: in the runs of the paths that the kernel was ported
+        # for (the histogram's: the GPBoost path with the Vecchia GP and
+        # with grouped random effects)
+        own = (boost_launches[name] + gb_launches[name]
+               if name == "histogram" else launches[name])
         entry = {"name": name, "route": "cuda", "source": SOURCE[name],
-                 "replaces": REPLACES[name], "launches": own[name],
+                 "replaces": REPLACES[name], "launches": own,
                  "launches_by_path": {k: v[name] for k, v in paths.items()},
                  "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],

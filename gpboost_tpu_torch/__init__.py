@@ -17,7 +17,14 @@ reference. Ported so far:
   CG + stochastic Lanczos log-determinant, ``ops/cg.py``) and the LaGaBoost
   algorithm (``train({"objective": "binary"}, dataset, gp_model=gp)`` with
   a ``bernoulli_logit`` GP). Its heavy work is plain PyTorch, as in the JAX
-  package: no kernel of its own; its trees go through the histogram kernel.
+  package: no kernel of its own; its trees go through the histogram kernel;
+- grouped random effects (``GPModel(group_data=...)`` with random slopes,
+  or ``num_data`` for the iid model): the Woodbury route in q-space for the
+  gaussian likelihood (NLL, fit, std errors, prediction), the GPBoost
+  algorithm with them, and the b-space Laplace approximation for the other
+  likelihoods; no kernel of their own either (their sums over rows go
+  through a fixed-order plan on the GPU, their dense work is
+  ``torch.linalg`` on [q, q] matrices).
 
 There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,

@@ -39,6 +39,11 @@ from gpboost_tpu_torch.utils.timer import timed
 _TAIL = "ROADMAP.md Queue A, item 18"
 
 
+def _cov_or_var(gp_pred: dict):
+    return gp_pred["cov"] if gp_pred.get("cov") is not None \
+        else gp_pred["var"]
+
+
 class Booster:
     """Gradient-boosting model, optionally combined with a GPModel.
 
@@ -158,26 +163,39 @@ class Booster:
     def predict(self, data, num_iteration: Optional[int] = None,
                 start_iteration: int = 0, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
-                gp_coords_pred=None, predict_var=False, pred_latent=False):
-        """Predict on raw features. With an attached gp_model and
-        ``gp_coords_pred``, returns the combined tree + random-effects
-        prediction as a dict (``basic.py:3560-3650``): for a non-Gaussian
-        gp_model the response mean and variance (or, with
-        ``pred_latent``, the fixed effect and the latent random effect's
-        mean and variance). Without a gp_model, ``binary`` returns
-        probabilities unless ``raw_score``."""
+                group_data_pred=None, group_rand_coef_data_pred=None,
+                gp_coords_pred=None, gp_rand_coef_data_pred=None,
+                cluster_ids_pred=None, predict_var=False, pred_latent=False):
+        """Predict on raw features. With an attached gp_model and its
+        prediction data (``group_data_pred`` / ``group_rand_coef_data_pred``
+        for grouped random effects, ``gp_coords_pred`` for a GP), returns
+        the combined tree + random-effects prediction as a dict
+        (``basic.py:3560-3650``): ``fixed_effect``, ``random_effect_mean``,
+        ``random_effect_cov`` (the variances with ``predict_var``),
+        ``response_mean``, ``response_var``; for a non-Gaussian gp_model
+        the response mean and variance (or, with ``pred_latent``, the fixed
+        effect and the latent random effect's mean and variance). Without a
+        gp_model, ``binary`` returns probabilities unless ``raw_score``."""
         if pred_leaf or pred_contrib:
             raise NotImplementedError(
                 "pred_leaf / pred_contrib are not ported to "
                 f"gpboost_tpu_torch yet ({_TAIL})")
+        if gp_rand_coef_data_pred is not None or cluster_ids_pred is not None:
+            raise NotImplementedError(
+                "gp_rand_coef_data_pred / cluster_ids_pred are not ported to "
+                "gpboost_tpu_torch yet (ROADMAP.md Queue A, item 15)")
         data = np.asarray(data, dtype=np.float64)
         if data.ndim == 1:
             data = data[:, None]
         raw = self._predict_raw(data, num_iteration,
                                 start_iteration=start_iteration)
-        if self.gp_model is not None and gp_coords_pred is not None:
-            return self._predict_with_gp(raw, gp_coords_pred, predict_var,
-                                         pred_latent)
+        if self.gp_model is not None and (gp_coords_pred is not None
+                                          or group_data_pred is not None):
+            return self._predict_with_gp(
+                raw, dict(group_data_pred=group_data_pred,
+                          group_rand_coef_data_pred=group_rand_coef_data_pred,
+                          gp_coords_pred=gp_coords_pred,
+                          predict_var=predict_var), pred_latent)
         if raw_score:
             return raw
         return self.objective.convert_output(raw)
@@ -208,8 +226,7 @@ class Booster:
                           else dev(tree.default_left)))
         return vals
 
-    def _predict_with_gp(self, raw, gp_coords_pred, predict_var,
-                         pred_latent):
+    def _predict_with_gp(self, raw, pred_kwargs, pred_latent):
         gp = self.gp_model
         if self.train_set is not None:
             train_score = self._score
@@ -225,33 +242,28 @@ class Booster:
             if pred_latent:
                 gp_pred = gp.predict(y=train_label,
                                      fixed_effects=train_score,
-                                     gp_coords_pred=gp_coords_pred,
-                                     predict_var=predict_var,
-                                     predict_response=False)
+                                     predict_response=False, **pred_kwargs)
                 return {"fixed_effect": raw,
                         "random_effect_mean": gp_pred["mu"],
-                        "random_effect_cov": gp_pred["var"],
+                        "random_effect_cov": _cov_or_var(gp_pred),
                         "response_mean": None, "response_var": None}
             gp_pred = gp.predict(y=train_label, fixed_effects=train_score,
                                  fixed_effects_pred=raw,
-                                 gp_coords_pred=gp_coords_pred,
-                                 predict_var=predict_var,
-                                 predict_response=True)
+                                 predict_response=True, **pred_kwargs)
             return {"response_mean": gp_pred["mu"],
                     "response_var": gp_pred["var"],
                     "fixed_effect": raw,
                     "random_effect_mean": None, "random_effect_cov": None}
         resid = train_label - train_score
-        gp_pred = gp.predict(y=resid, gp_coords_pred=gp_coords_pred,
-                             predict_var=predict_var,
-                             predict_response=not pred_latent)
+        gp_pred = gp.predict(y=resid, predict_response=not pred_latent,
+                             **pred_kwargs)
         return {"response_mean": raw + gp_pred["mu"],
                 "response_var": gp_pred["var"],
                 "fixed_effect": raw,
                 "random_effect_mean": gp_pred["mu"],
                 # reference: with predict_var=TRUE random_effect_cov
                 # carries the predictive VARIANCES (basic.py:3560-3650)
-                "random_effect_cov": gp_pred["var"]}
+                "random_effect_cov": _cov_or_var(gp_pred)}
 
     # ------------------------------------------------------------------
     def feature_importance(self, importance_type: str = "split",

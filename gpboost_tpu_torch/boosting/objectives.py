@@ -12,8 +12,10 @@ and the coupling with a ``GPModel`` of ``regression_objective.hpp:153-186``:
   re-optimized (warm-started) at the current score in every iteration.
 
 Scores, labels and gradients are host float64 arrays, as in the reference's
-host loop; the covariance refit, the ``Psi^-1`` solve and the Laplace
-gradient run on the model's device. Other objectives are not ported
+host loop; the covariance refit, the ``Psi^-1`` solve (Vecchia or, for
+grouped random effects, Woodbury) and the Laplace gradient run on the
+model's device. LaGaBoost with grouped random effects is not ported
+(ROADMAP.md Queue A, item 16). Other objectives are not ported
 (ROADMAP.md Queue A, item 18).
 """
 from __future__ import annotations
@@ -138,6 +140,14 @@ class GPBoostObjective(Objective):
 
     def __init__(self, gp_model, train_gp_model_cov_pars=True,
                  reuse_learning_rates_gp_model=True):
+        if getattr(gp_model, "_grouped_only", False) \
+                and not gp_model.is_gaussian:
+            raise NotImplementedError(
+                "LaGaBoost with grouped random effects (a non-Gaussian "
+                "grouped gp_model) is not ported to gpboost_tpu_torch yet: "
+                "its gradient d NLL / dF needs a q-space route (the JAX "
+                "package's laplace.gradient_wrt_F builds the dense [n, n] "
+                "covariance) (ROADMAP.md Queue A, item 16)")
         self.gp_model = gp_model
         self.train_gp_model_cov_pars = train_gp_model_cov_pars
         self.reuse_learning_rates_gp_model = reuse_learning_rates_gp_model

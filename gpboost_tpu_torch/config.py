@@ -48,6 +48,10 @@ _ALIASES_OF = {
     "is_provide_training_metric": ("training_metric", "is_training_metric",
                                    "train_metric"),
     "is_unbalance": ("unbalance", "unbalanced_sets"),
+    # the query / group column of the ranking objectives (not the grouped
+    # random effects of GPModel(group_data=...), which are no parameter)
+    "group_column": ("group", "group_id", "query_column", "query",
+                     "query_id"),
 }
 ALIAS_TABLE = {alias: name for name, aliases in _ALIASES_OF.items()
                for alias in aliases}
@@ -114,6 +118,7 @@ NOT_PORTED = {
     "is_provide_training_metric": (False, _TAIL),
     "snapshot_freq": (-1, _TAIL),
     "pred_early_stop": (False, _TAIL),
+    "group_column": ("", _TAIL + ": ranking objectives"),
 }
 
 

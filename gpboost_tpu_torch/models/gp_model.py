@@ -1,29 +1,38 @@
-"""User-facing ``GPModel`` — Gaussian process model facade (PyTorch port).
+"""User-facing ``GPModel`` — the GP / mixed-effects model facade (PyTorch
+port).
 
 API mirrors the reference Python package's ``gpboost.GPModel``
 (``python-package/gpboost/basic.py:4054-6600``): same constructor argument
-names, ``fit`` / ``neg_log_likelihood`` / ``predict`` / ``set_optim_params``
-/ ``model_to_dict`` methods, same covariance parameter layout
-(``[nugget, variance, range...]`` for the gaussian likelihood,
-``[variance, range...]`` for the others).
+names, ``fit`` / ``neg_log_likelihood`` / ``predict`` /
+``predict_training_data_random_effects`` / ``set_optim_params`` /
+``get_cov_pars`` / ``summary`` / ``model_to_dict`` methods, same covariance
+parameter layout (the error variance first for the gaussian likelihood,
+then each component's parameters). One class, two model structures, as the
+JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
 
-Ported so far: a single GP with ``gp_approx="vecchia"``. Gaussian
-likelihood — construct (every keyword of the reference's constructor is
-accepted: a value that needs a structure that is not ported raises), NLL,
-fit with optional linear predictor by every optimizer of the reference's
-Gaussian Vecchia route (gradient descent, the default, L-BFGS, Nelder-Mead;
-``models/vecchia_fit.py``), std errors of covariance parameters and
-coefficients, local-kriging prediction, the ``Psi^-1 r`` solve of the
-GPBoost algorithm. Non-Gaussian likelihoods (the families of
-``likelihoods/``) — the Vecchia-Laplace approximation: NLL (dense, or
-``matrix_inversion_method="iterative"``: CG + stochastic Lanczos), fit of
-covariance and auxiliary parameters and coefficients (L-BFGS, the default
-for them, Nelder-Mead, gradient descent), prediction of the latent or
-response mean and variance (simulated variances above 20 000 points or with
-``nsim_var_pred``), the LaGaBoost gradient d NLL / dF. Every other
-structure — exact GPs, grouped random effects, other approximations, GP
-random coefficients, ``cluster_ids``, weights — raises
-``NotImplementedError`` naming its ROADMAP.md item.
+- **grouped random effects** (``group_data``, with random slopes
+  ``group_rand_coef_data`` / ``ind_effect_group_rand_coef`` and
+  ``drop_intercept_group_rand_effect``; ``num_data`` alone gives the iid
+  model, a single-group dummy whose variance is pinned at 1e-20 after the
+  fit): the Woodbury route of ``models/grouped.py`` (``_grouped_only``).
+  Gaussian likelihood — NLL, the profiled fit by gradient descent (the
+  default), L-BFGS, Nelder-Mead or Adam with GLS coefficient updates, std
+  errors from the Fisher information in q-space, prediction with unseen
+  levels and the full covariance, the ``Psi^-1 r`` solve of the GPBoost
+  algorithm. Other likelihoods — the Laplace approximation in b-space
+  (``models/laplace_fit.py``).
+- **a Vecchia GP** (``gp_coords`` with ``gp_approx="vecchia"``,
+  ``models/vecchia_model.py``): gaussian likelihood — NLL, fit by every
+  optimizer of the reference's Gaussian Vecchia route
+  (``models/vecchia_fit.py``), std errors, local-kriging prediction, the
+  ``Psi^-1 r`` solve; other likelihoods — the Vecchia-Laplace
+  approximation (dense, or ``matrix_inversion_method="iterative"``: CG +
+  stochastic Lanczos), its fit and prediction, the LaGaBoost gradient.
+
+Every other structure — exact GPs, other approximations, grouped effects
+together with a GP, GP random coefficients, ``cluster_ids``, weights, the
+iterative route of grouped models — raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
 raises) unless ``device="cpu"`` is passed. Inputs and outputs are numpy
@@ -39,13 +48,17 @@ import torch
 
 from gpboost_tpu_torch import config
 from gpboost_tpu_torch import likelihoods as lk
-from gpboost_tpu_torch.models import optimizers, vecchia_fit
+from gpboost_tpu_torch.models import grouped, laplace_fit, optimizers
+from gpboost_tpu_torch.models import vecchia_fit
+from gpboost_tpu_torch.models.laplace import _response_moments
+from gpboost_tpu_torch.models.covariance import split_cov_pars
+from gpboost_tpu_torch.models.spec import ModelSpec, make_model_data
 from gpboost_tpu_torch.models.vecchia_model import VecchiaGP
 from gpboost_tpu_torch.ops.cov_fns import CovFunction
 from gpboost_tpu_torch.utils import resolve_device
 from gpboost_tpu_torch.utils.timer import timed
 
-_OPTIM_PARAMS = ("optimizer_cov", "maxit", "delta_rel_conv", "init_cov_pars",
+_OPTIM_PARAMS = ("optimizer_cov", "optimizer_coef", "maxit", "delta_rel_conv", "init_cov_pars",
                  "init_coef", "trace", "std_dev", "convergence_criterion",
                  "lr_cov", "use_nesterov_acc", "acc_rate_cov",
                  "momentum_offset", "armijo_condition",
@@ -90,10 +103,17 @@ _Y_RULES = (
 )
 
 
+# the optimizers of the grouped Gaussian fit (the profiled route)
+_PROFILED = ("gradient_descent", "lbfgs", "lbfgs_linesearch_nocedal_wright",
+             "nelder_mead", "adam")
+
+
 def _not_ported(what: str, queue: str):
     return NotImplementedError(
         f"{what} is not ported to gpboost_tpu_torch yet (ROADMAP.md "
-        f"{queue}); ported: gp_coords with gp_approx='vecchia'")
+        f"{queue}); ported: gp_coords with gp_approx='vecchia', and "
+        "group_data (grouped random effects) or num_data (the iid model) "
+        "without gp_coords")
 
 
 def _canonical_likelihood(lik: str) -> str:
@@ -118,12 +138,14 @@ def _canonical_likelihood(lik: str) -> str:
 
 
 class GPModel:
-    """Gaussian process model (Vecchia approximation).
+    """Gaussian process and grouped random-effects model: grouped random
+    intercepts and slopes (the Woodbury route) or a Vecchia-approximated GP,
+    gaussian or non-Gaussian likelihood (module docstring).
 
     Parameters follow ``gpboost.GPModel`` (``basic.py:4054``); ``dtype`` and
     ``device`` say where and in which precision the model computes.
-    ``dtype=torch.float32`` on a CUDA device routes the model through the
-    hand-written Vecchia kernels.
+    ``dtype=torch.float32`` on a CUDA device routes a Gaussian Vecchia model
+    through the hand-written Vecchia kernels.
     """
 
     def __init__(self, group_data=None, group_rand_coef_data=None,
@@ -145,16 +167,28 @@ class GPModel:
         # data stay on the device, and the host work is PyTorch's
         if vecchia_approx:
             gp_approx = "vecchia"      # the reference's deprecated switch
-        if (group_data is not None or group_rand_coef_data is not None
-                or ind_effect_group_rand_coef is not None
-                or drop_intercept_group_rand_effect is not None):
-            raise _not_ported("grouped random effects (group_data, "
-                              "group_rand_coef_data, "
-                              "ind_effect_group_rand_coef, "
-                              "drop_intercept_group_rand_effect)",
-                              "Queue A, item 16")
-        if num_data is not None:
-            raise _not_ported("the iid model (num_data)", "Queue A, item 16")
+        group_keys = {"group_data": group_data,
+                      "group_rand_coef_data": group_rand_coef_data,
+                      "ind_effect_group_rand_coef": ind_effect_group_rand_coef,
+                      "drop_intercept_group_rand_effect":
+                          drop_intercept_group_rand_effect,
+                      "num_data": num_data}
+        given = [k for k, v in group_keys.items() if v is not None]
+        self._iid_model = False
+        if gp_coords is not None and given:
+            raise _not_ported(
+                f"grouped random effects or the iid model ({', '.join(given)}"
+                ") together with a GP (gp_coords)", "Queue A, item 15")
+        if gp_coords is None and group_data is None:
+            if num_data is None:
+                raise ValueError(
+                    "GPModel: Both 'group_data' and 'gp_coords' are None. "
+                    "Provide at least one of them or provide 'num_data' if "
+                    "you want an iid model")
+            # the reference's single-group dummy (R GPModel.R:553-560)
+            group_data = np.zeros(int(num_data))
+            self._iid_model = True
+        self._grouped_only = gp_coords is None
         if gp_rand_coef_data is not None:
             raise _not_ported("GP random coefficients (gp_rand_coef_data)",
                               "Queue A, item 15")
@@ -180,14 +214,18 @@ class GPModel:
         if matrix_inversion_method not in ("cholesky", "iterative"):
             raise ValueError("matrix_inversion_method: 'cholesky' or "
                              f"'iterative', got {matrix_inversion_method!r}")
-        if matrix_inversion_method == "iterative" and likelihood == "gaussian":
+        if matrix_inversion_method == "iterative" and self._grouped_only:
+            raise _not_ported(
+                "matrix_inversion_method='iterative' for grouped random "
+                "effects (CG and stochastic Lanczos in b-space)",
+                "Queue A, item 12")
+        if (matrix_inversion_method == "iterative" and likelihood == "gaussian"
+                and not self._grouped_only):
             raise _not_ported(
                 "matrix_inversion_method='iterative' with "
                 "likelihood='gaussian' (the iterative Gaussian Vecchia "
                 "route)", "Queue A, item 12")
-        if gp_coords is None:
-            raise ValueError("GPModel: 'gp_coords' is required")
-        if gp_approx != "vecchia":
+        if not self._grouped_only and gp_approx != "vecchia":
             raise _not_ported(f"gp_approx='{gp_approx}'",
                               "Queue A, items 16-17")
         self.device = resolve_device(device)
@@ -211,7 +249,46 @@ class GPModel:
         self.aux_pars_ = None
         self.nsim_var_pred = None
         self._train_fixed_effects = None
-
+        self.y = None
+        self.X = None
+        self.optim_cfg = optimizers.OptimConfig()
+        if not self.is_gaussian:
+            # the reference's default for non-Gaussian likelihoods
+            self.optim_cfg.optimizer_cov = "lbfgs"
+        self._approx = None
+        self._Z = None
+        self.spec = None
+        self.cov_fn = None
+        self.coords_np = None
+        if self._grouped_only:
+            self._drop_intercept_group_rand_effect = (
+                None if drop_intercept_group_rand_effect is None
+                else [int(v) for v in np.atleast_1d(np.asarray(
+                    drop_intercept_group_rand_effect)).astype(int)])
+            with timed("GPModel: grouped layout", sync=True):
+                components, self.data, info = make_model_data(
+                    group_data, group_rand_coef_data,
+                    ind_effect_group_rand_coef,
+                    drop_intercept_group_rand_effect, dtype=dtype,
+                    device=self.device)
+                self.num_data = info["num_data"]
+                self._group_maps = info["group_maps"]
+                self.spec = ModelSpec(components=tuple(components),
+                                      likelihood=likelihood,
+                                      num_data=self.num_data)
+                # on the card every sum over rows goes through a plan with
+                # a fixed order (no float atomics); on the CPU index_add_
+                self._Z = grouped.GroupedZ(
+                    self.spec, self.data,
+                    deterministic=self.device.type == "cuda", dtype=dtype)
+                # what depends on the data only, built once: Z'Z for the
+                # gaussian likelihood, the pair plan of Z'WZ for the others
+                if self.is_gaussian:
+                    self._Z.ztz()
+                elif self._Z.deterministic:
+                    self._Z.pair_plan()
+            self.num_cov_pars = self.spec.num_cov_par
+            return
         coords = np.asarray(gp_coords, dtype=np.float64)
         coords = coords.reshape(len(coords), -1)
         self.num_data = coords.shape[0]
@@ -224,12 +301,6 @@ class GPModel:
                 coords, cf, num_neighbors=(num_neighbors or 20),
                 ordering=vecchia_ordering, seed=seed, likelihood=likelihood,
                 dtype=dtype, device=self.device)
-        self.y = None
-        self.X = None
-        self.optim_cfg = optimizers.OptimConfig()
-        if not self.is_gaussian:
-            # the reference's default for non-Gaussian likelihoods
-            self.optim_cfg.optimizer_cov = "lbfgs"
         self.num_cov_pars = cf.num_cov_par + (1 if self.is_gaussian else 0)
 
     # ------------------------------------------------------------------
@@ -256,12 +327,13 @@ class GPModel:
     def set_optim_params(self, params: Optional[dict] = None):
         """Set optimization parameters (``basic.py:5347``); aliases resolve
         through ``config.ALIAS_TABLE``. Ported: ``optimizer_cov``,
-        ``maxit``, ``delta_rel_conv``, ``init_cov_pars``, ``init_coef``,
-        ``trace``, ``std_dev``, ``convergence_criterion``, ``lr_cov``,
-        ``use_nesterov_acc``, ``acc_rate_cov``, ``momentum_offset``,
-        ``armijo_condition``, ``estimate_cov_par_index``. ``std_dev`` has no
-        effect of its own: the std errors are computed when
-        ``get_cov_pars(std_err=True)`` asks for them."""
+        ``optimizer_coef`` ("wls"), ``maxit``, ``delta_rel_conv``,
+        ``init_cov_pars``, ``init_coef``, ``trace``, ``std_dev``,
+        ``convergence_criterion``, ``lr_cov``, ``use_nesterov_acc``,
+        ``acc_rate_cov``, ``momentum_offset``, ``armijo_condition``,
+        ``estimate_cov_par_index`` and the settings of the iterative
+        method. ``std_dev`` has no effect of its own: the std errors are
+        computed when ``get_cov_pars(std_err=True)`` asks for them."""
         if not params:
             return self
         params = config.resolve_aliases(params)
@@ -273,6 +345,10 @@ class GPModel:
         if params.get("convergence_criterion", _CRITERIA[0]) not in _CRITERIA:
             raise ValueError(f"convergence_criterion: one of {_CRITERIA}, "
                              f"got {params['convergence_criterion']!r}")
+        if params.get("optimizer_coef", "wls") not in ("wls",
+                                                       "gradient_descent"):
+            raise ValueError("optimizer_coef: 'wls' or 'gradient_descent', "
+                             f"got {params['optimizer_coef']!r}")
         if not params.get("reuse_rand_vec_trace", True):
             raise NotImplementedError(
                 "reuse_rand_vec_trace=False (new probe vectors in every "
@@ -303,9 +379,10 @@ class GPModel:
                             **kwargs):
         """Prediction-time settings (``GPModel.set_prediction_data``).
         Ported: ``nsim_var_pred`` (simulated predictive variances of the
-        Vecchia-Laplace prediction, with that many draws). The other
-        settings and the validation prediction data raise (ROADMAP.md
-        Queue A, items 15 and 18)."""
+        Vecchia-Laplace prediction, with that many draws; the grouped
+        models' Cholesky route computes its variances exactly and does not
+        read it). The other settings and the validation prediction data
+        raise (ROADMAP.md Queue A, items 15 and 18)."""
         given = dict(kwargs, vecchia_pred_type=vecchia_pred_type,
                      num_neighbors_pred=num_neighbors_pred)
         unported = sorted(k for k, v in given.items() if v is not None)
@@ -315,6 +392,12 @@ class GPModel:
         if nsim_var_pred is not None:
             self.nsim_var_pred = int(nsim_var_pred)
         return self
+
+    def use_mesh(self, mesh=None, halo=None):
+        """Row sharding over several devices (the JAX package's
+        ``use_mesh``): not ported."""
+        raise _not_ported("use_mesh (row sharding over several GPUs)",
+                          "Queue A, item 20")
 
     @property
     def is_gaussian(self) -> bool:
@@ -349,11 +432,15 @@ class GPModel:
         return kw
 
     def _psi_solve(self, cov_pars, r) -> torch.Tensor:
-        """Psi^-1 r for a vector ``r`` [n] in the original row order, at
-        ``cov_pars`` = [nugget, variance, range...] — matrix-free through the
-        Vecchia precision. Used by the GPBoost objective. Returns a tensor on
-        the model's device."""
+        """Psi^-1 r for ``r`` [n] (or [n, k] for a grouped model) in the
+        original row order, at the Gaussian ``cov_pars`` — matrix-free
+        through the Vecchia precision, or by Woodbury in q-space. Used by
+        the GPBoost objective. Returns a tensor on the model's device."""
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
+        if self._grouped_only:
+            with torch.no_grad():
+                return grouped.psi_inv_mul(self._Z, self._tensor(cov_pars_np),
+                                           self._tensor(r))
         self._approx.ensure_neighbors(cov_pars_np)
         with torch.no_grad():
             return self._approx.psi_inv_resid(self._tensor(cov_pars_np),
@@ -362,14 +449,24 @@ class GPModel:
     # ------------------------------------------------------------------
     def neg_log_likelihood(self, cov_pars, y, fixed_effects=None,
                            aux_pars=None) -> float:
-        """Negative log-marginal-likelihood of the Vecchia approximation at
-        given parameters (``GPB_EvalNegLogLikelihood``; ``basic.py:5284``):
-        the Laplace-approximate one for non-Gaussian likelihoods (iterative
-        with ``matrix_inversion_method="iterative"``, with the configured
+        """Negative log-marginal-likelihood at given parameters
+        (``GPB_EvalNegLogLikelihood``; ``basic.py:5284``): exact for a
+        grouped Gaussian model (Woodbury), the Laplace-approximate one for
+        non-Gaussian likelihoods (iterative for a Vecchia model with
+        ``matrix_inversion_method="iterative"``, with the configured
         ``num_rand_vec_trace`` probes)."""
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
         y_t = self._y_tensor(y)
         fe = None if fixed_effects is None else self._tensor(fixed_effects)
+        if self._grouped_only:
+            cp = self._tensor(cov_pars_np)
+            with torch.no_grad():
+                if self.is_gaussian:
+                    r = y_t if fe is None else y_t - fe
+                    return float(grouped.nll_gaussian(self._Z, cp, r))
+                return float(grouped.nll_laplace(
+                    self._Z, self.likelihood, cp, self._aux_tensor(aux_pars),
+                    y_t, fe))
         if not self.is_gaussian:
             cp, ap = self._tensor(cov_pars_np), self._aux_tensor(aux_pars)
             with torch.no_grad():
@@ -381,16 +478,33 @@ class GPModel:
         return float(self._approx.nll_gaussian_value(
             self._tensor(cov_pars_np), y_t, fe))
 
+    def _nll_laplace(self, cov_pars, aux, fixed_part):
+        """The dense Laplace NLL of either structure (a tensor,
+        differentiable in all three) at the training response."""
+        if self._grouped_only:
+            return grouped.nll_laplace(self._Z, self.likelihood, cov_pars,
+                                       aux, self.y, fixed_part)
+        return self._approx.nll_laplace(cov_pars, self.y, aux, fixed_part)
+
     def _default_init_cov_pars(self, y: np.ndarray) -> np.ndarray:
         """Data-driven inits (``REModelTemplate::FindInitCovPar``, :4388):
-        gaussian: nugget and variance var(y)/2; other likelihoods: variance
-        var(y) (1 for the Bernoulli families); GP ranges mean(dist)/3."""
+        gaussian: error variance var(y)/2, each component's variance
+        var(y)/2 / (number of components); other likelihoods: each
+        component's variance var(y) / (number of components), 1 for the
+        Bernoulli families; GP ranges mean(dist)/3."""
         var_y = float(np.var(y, ddof=1))
+        bernoulli = self.likelihood in ("bernoulli_probit", "bernoulli_logit")
+        if self._grouped_only:
+            ncomp = max(len(self.spec.components), 1)
+            if self.is_gaussian:
+                pars = [var_y / 2.0] + [var_y / 2.0 / ncomp] * ncomp
+            else:
+                pars = [1.0 if bernoulli else var_y / ncomp] * ncomp
+            return np.asarray(pars, dtype=np.float64)
         if self.is_gaussian:
             pars = [var_y / 2.0, var_y / 2.0]
         else:
-            pars = [1.0 if self.likelihood in ("bernoulli_probit",
-                                               "bernoulli_logit") else var_y]
+            pars = [1.0 if bernoulli else var_y]
         extra = self.cov_fn.num_cov_par - 1
         m = min(self.coords_np.shape[0], 500)
         sub = self.coords_np[:m]
@@ -414,26 +528,169 @@ class GPModel:
         self.std_dev_cov_pars_ = None
         self.std_dev_coefs_ = None
         with timed("GPModel: fit", sync=True):
-            return vecchia_fit.fit(self, self.y, self.X,
-                                   self._train_fixed_effects)
+            if not self._grouped_only:
+                return vecchia_fit.fit(self, self.y, self.X,
+                                       self._train_fixed_effects)
+            if self.is_gaussian:
+                self._fit_grouped_gaussian()
+            else:
+                laplace_fit.fit(
+                    self, self.y, self.X, self._train_fixed_effects,
+                    lambda cov, aux, fp: grouped.nll_laplace(
+                        self._Z, self.likelihood, cov, aux, self.y, fp),
+                    with_adam=True)
+            self._pin_iid_dummy()
+        return self
+
+    def _pin_iid_dummy(self):
+        """iid models: the dummy single-group variance collapses during
+        fitting; pin it at the reference's 1e-20 lower bound and refresh the
+        reported NLL there (the R goldens are quoted at the bound)."""
+        if not self._iid_model or self.cov_pars_ is None:
+            return
+        cp = np.asarray(self.cov_pars_, dtype=np.float64).copy()
+        idx = 1 if self.is_gaussian else 0
+        if cp[idx] >= 1e-6:
+            return      # did not collapse: keep the fitted value
+        cp[idx] = 1e-20
+        self.cov_pars_ = cp
+        fe = self._fitted_fixed_part()
+        self.current_nll_ = float(self.neg_log_likelihood(
+            cp, self.y.cpu().numpy(), aux_pars=self.aux_pars_,
+            fixed_effects=None if fe is None else fe.cpu().numpy()))
+
+    def _fit_grouped_gaussian(self):
+        """The profiled-nugget fit of a grouped Gaussian model
+        (``_fit_gaussian_profiled``'s grouped branch, JAX
+        ``gp_model.py:971-1110``): log ratios v_j / sigma2, sigma2 profiled
+        out; with ``X``, GLS coefficient updates through ``psi_inv_mul``
+        (after every gradient-descent step, between three L-BFGS rounds,
+        after Nelder-Mead and Adam)."""
+        cfg = self.optim_cfg
+        if cfg.optimizer_cov not in _PROFILED:
+            raise _not_ported(
+                f"optimizer_cov='{cfg.optimizer_cov}' for grouped random "
+                "effects (Fisher scoring and Newton on the dense [n, n] "
+                "covariance)", "Queue A, item 16")
+        if cfg.estimate_cov_par_index is not None and np.any(
+                np.asarray(cfg.estimate_cov_par_index) == 0):
+            raise _not_ported(
+                "estimate_cov_par_index with a parameter held fixed (the "
+                "masked fit on the dense [n, n] covariance)",
+                "Queue A, item 16")
+        Z, y, X = self._Z, self.y, self.X
+        fe = self._train_fixed_effects
+        y_np = y.cpu().numpy().astype(np.float64)
+        init = (cfg.init_cov_pars if cfg.init_cov_pars is not None
+                else self._default_init_cov_pars(y_np))
+        init = np.asarray(init, np.float64)
+        has_coef = X is not None
+        state = {"beta": None, "version": 0}
+        if has_coef:
+            state["beta"] = self._tensor(
+                cfg.init_coef if cfg.init_coef is not None
+                else np.linalg.lstsq(X.cpu().numpy().astype(np.float64),
+                                     y_np, rcond=None)[0])
+        y_fe = y if fe is None else y - fe
+
+        def residual():
+            return y_fe if state["beta"] is None else y_fe - X @ state["beta"]
+
+        cache = {}
+        evals = {"n": 0}
+
+        def vg(theta):
+            """(nll, gradient, sigma2_hat) on the host; the last point is
+            kept, so gradient descent's value and gradient at one point
+            cost one evaluation."""
+            theta = np.asarray(theta, np.float64)
+            key = (theta.tobytes(), state["version"])
+            if cache.get("key") != key:
+                evals["n"] += 1
+                v, g, s2 = grouped.nll_profiled_value_and_grad(
+                    Z, self._tensor(theta), residual())
+                row = torch.cat([v.reshape(1), g, s2.reshape(1)]).cpu(
+                    ).numpy().astype(np.float64)           # the one read
+                grouped.GROUPED_COUNTS["evaluations"] += 1
+                grouped.GROUPED_COUNTS["host_reads"] += 1
+                cache.update(key=key, out=(row[0], row[1:-1], row[-1]))
+            return cache["out"]
+
+        def full_from_ratio(ratio, sigma2):
+            return np.concatenate([[sigma2], np.asarray(ratio) * sigma2])
+
+        def coef_update(theta):
+            if not has_coef:
+                return
+            s2 = vg(theta)[2]
+            full = self._tensor(full_from_ratio(np.exp(theta), s2))
+            with torch.no_grad():
+                # Psi^-1 [X, y]: one Cholesky for both
+                w = grouped.psi_inv_mul(Z, full,
+                                        torch.cat([X, y_fe[:, None]], 1))
+                state["beta"] = torch.linalg.solve(X.T @ w[:, :-1],
+                                                   X.T @ w[:, -1])
+            state["version"] += 1
+
+        theta0 = np.log(np.maximum(init[1:] / init[0], 1e-300))
+        coef_update(theta0)
+        opt = cfg.optimizer_cov
+        if opt == "gradient_descent":
+            result = optimizers.gradient_descent(
+                lambda t: vg(t)[0], lambda t: vg(t)[1], theta0, cfg,
+                callback=(lambda it, theta, nll: coef_update(theta))
+                if has_coef else None)
+        elif opt in laplace_fit.LBFGS_NAMES:
+            theta = theta0
+            for _ in range(3 if has_coef else 1):
+                result = optimizers.lbfgs(lambda t: vg(t)[:2], theta, cfg)
+                theta = np.log(result.params)
+                coef_update(theta)
+        elif opt == "nelder_mead":
+            result = optimizers.nelder_mead(lambda t: vg(t)[0], theta0, cfg)
+            coef_update(np.log(result.params))
+        else:
+            result = optimizers.adam(lambda t: vg(t)[:2], theta0, cfg)
+            coef_update(np.log(result.params))
+        nll, _, sigma2 = vg(np.log(result.params))
+        self.cov_pars_ = full_from_ratio(result.params, sigma2)
+        self.coefs_ = (None if state["beta"] is None else
+                       state["beta"].cpu().numpy().astype(np.float64))
+        result.nll = nll
+        result.params = self.cov_pars_
+        result.num_evals = evals["n"]
+        self.num_it_ = result.num_it
+        self.current_nll_ = nll
+        self._fit_result = result
+        return result
 
     # ------------------------------------------------------------------
-    def predict(self, y=None, gp_coords_pred=None, X_pred=None,
-                predict_cov_mat=False, predict_var=False, cov_pars=None,
-                predict_response=True, fixed_effects=None,
+    def predict(self, y=None, group_data_pred=None,
+                group_rand_coef_data_pred=None, gp_coords_pred=None,
+                gp_rand_coef_data_pred=None, cluster_ids_pred=None,
+                X_pred=None, predict_cov_mat=False, predict_var=False,
+                cov_pars=None, predict_response=True, fixed_effects=None,
                 fixed_effects_pred=None):
-        """Posterior prediction (``GPModel.predict``, ``basic.py:5778``) by
+        """Posterior prediction (``GPModel.predict``, ``basic.py:5778``).
+
+        Grouped model (``group_data_pred``, ``group_rand_coef_data_pred``;
+        for the iid model only ``X_pred`` or ``fixed_effects_pred``): the
+        posterior of the random effects, a level training never saw at its
+        prior (mean 0, its variance; correlated only with rows of the same
+        new label), the full covariance with ``predict_cov_mat``; the
+        response scale adds the error variance (gaussian) or takes the
+        response moments (quadrature). Vecchia model (``gp_coords_pred``):
         local kriging on the observed neighbors of each prediction point
-        (``vecchia_pred_type='order_obs_first_cond_obs_only'``). For a
-        non-Gaussian likelihood: kriging on the posterior mode, the latent
+        (``vecchia_pred_type='order_obs_first_cond_obs_only'``); for a
+        non-Gaussian likelihood kriging on the posterior mode, the latent
         variance dense up to 20 000 points, simulated above or with
-        ``set_prediction_data(nsim_var_pred=...)``, the response moments by
-        quadrature (``predict_response``).
+        ``set_prediction_data(nsim_var_pred=...)``.
 
         Returns dict with 'mu', 'var', 'cov' (numpy) like the reference.
         """
-        if gp_coords_pred is None:
-            raise ValueError("predict: 'gp_coords_pred' is required")
+        if gp_rand_coef_data_pred is not None or cluster_ids_pred is not None:
+            raise _not_ported("gp_rand_coef_data_pred / cluster_ids_pred",
+                              "Queue A, item 15")
         cp_src = cov_pars if cov_pars is not None else self.cov_pars_
         if cp_src is None:
             raise ValueError("predict: the model is not fitted; pass "
@@ -447,14 +704,27 @@ class GPModel:
               else self._tensor(fixed_effects))
         fep = (None if fixed_effects_pred is None
                else self._tensor(fixed_effects_pred))
-        if self.coefs_ is not None:
-            beta = self._tensor(self.coefs_)
-            if X_pred is not None:
-                xbp = self._tensor(X_pred) @ beta
-                fep = xbp if fep is None else fep + xbp
-            if self.X is not None:
-                xb = self.X @ beta
-                fe = xb if fe is None else fe + xb
+        beta = None if self.coefs_ is None else self._tensor(self.coefs_)
+        if beta is not None and X_pred is not None:
+            xbp = self._tensor(X_pred) @ beta
+            fep = xbp if fep is None else fep + xbp
+        if self._grouped_only:
+            if gp_coords_pred is not None:
+                raise ValueError("predict: 'gp_coords_pred' given, but the "
+                                 "model has no Gaussian process")
+            with torch.no_grad(), timed("GPModel: predict", sync=True):
+                return self._predict_grouped(
+                    y_t, group_data_pred, group_rand_coef_data_pred, X_pred,
+                    self._tensor(cov_pars_np), beta, fe, fep, predict_var,
+                    predict_cov_mat, predict_response)
+        if group_data_pred is not None or group_rand_coef_data_pred is not None:
+            raise ValueError("predict: 'group_data_pred' given, but the "
+                             "model has no grouped random effects")
+        if gp_coords_pred is None:
+            raise ValueError("predict: 'gp_coords_pred' is required")
+        if beta is not None and self.X is not None:
+            xb = self.X @ beta
+            fe = xb if fe is None else fe + xb
         cp = np.asarray(gp_coords_pred, dtype=np.float64)
         if cp.ndim == 1:
             cp = cp[:, None]
@@ -488,6 +758,126 @@ class GPModel:
         cov = (None if (not predict_cov_mat or var_np is None)
                else np.diag(var_np))
         return {"mu": mu_np, "var": var_np, "cov": cov}
+
+    def _pred_codes(self, group_data_pred, group_rand_coef_data_pred):
+        """Level codes [n_p, n_code_cols] of the prediction rows (a label
+        training never saw gets a fresh code >= the number of levels, one
+        per distinct new label, in order of first appearance) and the
+        multipliers [n_p, ncomp] (slope covariates, 1 for intercepts)
+        (``_build_pred_data``, JAX ``gp_model.py:1755``)."""
+        gd = np.asarray(group_data_pred)
+        if gd.ndim == 1:
+            gd = gd[:, None]
+        if gd.shape[1] != len(self._group_maps):
+            raise ValueError(
+                f"group_data_pred has {gd.shape[1]} column(s), the model "
+                f"{len(self._group_maps)}")
+        codes = np.empty(gd.shape, dtype=np.int64)
+        for j, levels in enumerate(self._group_maps):
+            lab = gd[:, j].astype(str)
+            pos = np.minimum(np.searchsorted(levels, lab), len(levels) - 1)
+            found = levels[pos] == lab
+            codes[:, j] = pos
+            if not np.all(found):
+                _, first, inv = np.unique(lab[~found], return_index=True,
+                                          return_inverse=True)
+                rank = np.argsort(np.argsort(first))
+                codes[~found, j] = len(levels) + rank[inv.reshape(-1)]
+        n_p = gd.shape[0]
+        weights = torch.ones((n_p, len(self.spec.components)),
+                             dtype=self.dtype, device=self.device)
+        if any(c.is_slope for c in self.spec.components):
+            if group_rand_coef_data_pred is None:
+                raise ValueError("predict: 'group_rand_coef_data_pred' is "
+                                 "required for a model with random slopes")
+            rc = self._tensor(group_rand_coef_data_pred)
+            rc = rc[:, None] if rc.dim() == 1 else rc
+            for j, comp in enumerate(self.spec.components):
+                if comp.is_slope:
+                    weights[:, j] = rc[:, comp.slope_data_idx]
+        return torch.as_tensor(codes, device=self.device), weights
+
+    def _predict_grouped(self, y_t, group_data_pred,
+                         group_rand_coef_data_pred, X_pred, cp, beta, fe,
+                         fep, predict_var, predict_cov_mat,
+                         predict_response):
+        """The Woodbury-route prediction (``_predict_grouped``, JAX
+        ``gp_model.py:1535``)."""
+        if group_data_pred is None:
+            if not self._iid_model:
+                raise ValueError("predict: 'group_data_pred' is required")
+            for cand in (X_pred, fep):
+                if cand is not None:
+                    n_pred = np.asarray(
+                        cand.cpu() if torch.is_tensor(cand) else cand
+                    ).shape[0]
+                    break
+            else:
+                raise ValueError(
+                    "Need to provide at least one of 'X_pred', "
+                    "'gp_coords_pred' or 'fixed_effects_pred' to determine "
+                    "the number of prediction points for an iid model")
+            group_data_pred = np.zeros(n_pred)
+        codes, weights = self._pred_codes(group_data_pred,
+                                          group_rand_coef_data_pred)
+        fixed = fe
+        if beta is not None and self.X is not None:
+            xb = self.X @ beta
+            fixed = xb if fixed is None else fixed + xb
+        nugget, comps = split_cov_pars(self.spec, cp)
+        if self.is_gaussian:
+            r = y_t if fixed is None else y_t - fixed
+            b_mean, postcov = grouped.posterior_b_gaussian(self._Z, cp, r)
+        else:
+            b_mean, postcov = grouped.posterior_b_laplace(
+                self._Z, self.likelihood, cp, self._aux_tensor(), y_t, fixed)
+        mean, var, cov = grouped.predict_from_posterior(
+            self.spec, b_mean, postcov, torch.cat(comps),
+            bool(predict_cov_mat), codes, weights)
+        del postcov
+        if fep is not None:
+            mean = mean + fep
+        if self.is_gaussian:
+            if predict_response:
+                var = var + nugget
+                if cov is not None:
+                    cov.diagonal().add_(nugget)
+        elif predict_response:
+            mean, var = _response_moments(self.likelihood, mean,
+                                          torch.clamp(var, min=0.0),
+                                          self._aux_tensor())
+            cov = None
+        want_var = bool(predict_var or predict_cov_mat)
+        return {"mu": mean.cpu().numpy(),
+                "var": var.cpu().numpy() if want_var else None,
+                "cov": None if cov is None else cov.cpu().numpy()}
+
+    def predict_training_data_random_effects(self, predict_var=False):
+        """Posterior means (and variances) of the random effects at the
+        training points (``GPB_PredictREModelTrainingDataRandomEffects``;
+        ``basic.py:6319``). Grouped model: one column per component, its
+        effect at each row's level without the slope covariate
+        (re_model_template.h:4102-4115), then as many variance columns."""
+        if not self._grouped_only:
+            raise _not_ported("predict_training_data_random_effects of a "
+                              "Vecchia model", "Queue A, item 15")
+        if self.y is None or self.cov_pars_ is None:
+            raise ValueError("fit() must be called first")
+        cp = self._tensor(self.cov_pars_)
+        fixed = self._fitted_fixed_part()
+        with torch.no_grad():
+            if self.is_gaussian:
+                r = self.y if fixed is None else self.y - fixed
+                b_mean, postcov = grouped.posterior_b_gaussian(self._Z, cp, r)
+            else:
+                b_mean, postcov = grouped.posterior_b_laplace(
+                    self._Z, self.likelihood, cp, self._aux_tensor(), self.y,
+                    fixed)
+            pcdiag = torch.diagonal(postcov)
+            cols = [b_mean[idx] for idx in self._Z.idx]
+            if predict_var:
+                cols += [pcdiag[idx] for idx in self._Z.idx]
+        return np.column_stack([c.cpu().numpy() for c in cols])
 
     # ------------------------------------------------------------------
     def get_cov_pars(self, format_pandas=False, std_err=False):
@@ -531,11 +921,13 @@ class GPModel:
         (``CalcStdDevCovPar``, ``re_model_template.h:9775``), by the delta
         method on the log scale.
 
-        Up to n = 8192 the dense expected Fisher information of the exact
-        covariance; beyond, the observed information by forward differences
-        (eps = 1e-4) of the NLL gradient — p + 1 gradient evaluations (on
-        the kernel route, p + 1 launches of the NLL kernel), no [n, n]
-        matrix."""
+        Grouped model: the expected Fisher information in q-space
+        (``grouped.fisher_information``: one [q, q] Cholesky and inverse,
+        no [n, n] matrix). Vecchia model: up to n = 8192 the dense expected
+        Fisher information of the exact covariance; beyond, the observed
+        information by forward differences (eps = 1e-4) of the NLL
+        gradient — p + 1 gradient evaluations (on the kernel route, p + 1
+        launches of the NLL kernel), no [n, n] matrix."""
         if self.y is None:
             raise ValueError("std errors need the training data: call fit() "
                              "first")
@@ -547,7 +939,12 @@ class GPModel:
                 "Queue A, items 11 and 16")
         cov_pars = np.asarray(self.cov_pars_, np.float64)
         lp = np.log(cov_pars)
-        if self.num_data > _DENSE_FISHER_MAX_N:
+        if self._grouped_only:
+            with torch.no_grad():
+                fi = grouped.fisher_information(
+                    self._Z, self._tensor(cov_pars)).cpu().numpy().astype(
+                        np.float64)
+        elif self.num_data > _DENSE_FISHER_MAX_N:
             fe = self._fitted_fixed_part()
             self._approx.ensure_neighbors(cov_pars)
 
@@ -573,19 +970,23 @@ class GPModel:
 
     def _calc_std_dev_coefs(self):
         """Std devs of the regression coefficients. Gaussian: from the GLS
-        covariance (X' Psi^-1 X)^-1 (``CalcStdDevCoef``), Psi^-1 applied
-        column by column through the Vecchia precision. Other likelihoods:
-        the square root of the diagonal of the inverse Hessian of the dense
-        Laplace NLL w.r.t. the coefficients (``CalcStdDevCoefNonGaussian``,
+        covariance (X' Psi^-1 X)^-1 (``CalcStdDevCoef``), Psi^-1 X by
+        Woodbury (grouped) or column by column through the Vecchia
+        precision. Other likelihoods: the square root of the diagonal of
+        the inverse Hessian of the dense Laplace NLL w.r.t. the
+        coefficients (``CalcStdDevCoefNonGaussian``,
         ``re_model_template.h:9825``), by central differences of its
         autograd gradient, as the JAX package."""
         if self.X is None or self.coefs_ is None:
             return None
         if not self.is_gaussian:
             return self._calc_std_dev_coefs_laplace()
-        X_np = self.X.detach().cpu().numpy().astype(np.float64)
-        pix = torch.stack([self._psi_solve(self.cov_pars_, X_np[:, j])
-                           for j in range(X_np.shape[1])], dim=1)
+        if self._grouped_only:
+            pix = self._psi_solve(self.cov_pars_, self.X.cpu().numpy())
+        else:
+            X_np = self.X.detach().cpu().numpy().astype(np.float64)
+            pix = torch.stack([self._psi_solve(self.cov_pars_, X_np[:, j])
+                               for j in range(X_np.shape[1])], dim=1)
         xtpix = (self.X.T @ pix.to(self.X.dtype)).detach().cpu().numpy()
         return np.sqrt(np.maximum(np.diagonal(
             _inverse(xtpix.astype(np.float64))), 0.0))
@@ -598,7 +999,7 @@ class GPModel:
             bt = self._tensor(b).requires_grad_(True)
             with torch.enable_grad():
                 fe = self.X @ bt if fe0 is None else self.X @ bt + fe0
-                nll = self._approx.nll_laplace(cp, self.y, aux, fe)
+                nll = self._nll_laplace(cp, aux, fe)
                 (g,) = torch.autograd.grad(nll, bt)
             return g.detach().cpu().numpy().astype(np.float64)
 
@@ -621,14 +1022,66 @@ class GPModel:
     def get_current_neg_log_likelihood(self):
         return self.current_nll_
 
+    def _cov_par_names(self):
+        """The reference's names of the covariance parameters
+        (``Error_term``, ``Group_k`` / ``Group_k_rand_coef``, ``GP_var``,
+        ``GP_range``)."""
+        names = ["Error_term"] if self.is_gaussian else []
+        if self._grouped_only:
+            for k, comp in enumerate(self.spec.components):
+                names.append(f"Group_{k + 1}"
+                             + ("_rand_coef" if comp.is_slope else ""))
+            return names
+        names.append("GP_var")
+        extra = self.cov_fn.num_cov_par - 1
+        names += ["GP_range" + (f"_{i + 1}" if extra > 1 else "")
+                  for i in range(extra)]
+        return names
+
+    def summary(self):
+        """Print the estimates (and std devs once computed), as the JAX
+        package's ``summary``; an iid model shows only the error variance
+        (GPModel.R:2281-2292)."""
+        names = list(self._cov_par_names())
+        cps = [] if self.cov_pars_ is None else list(
+            np.asarray(self.cov_pars_))
+        sds = (None if self.std_dev_cov_pars_ is None
+               else list(np.asarray(self.std_dev_cov_pars_)))
+        if self._iid_model:
+            keep = [i for i, nm in enumerate(names) if nm == "Error_term"]
+            names = [names[i] for i in keep]
+            cps = [cps[i] for i in keep if i < len(cps)]
+            if sds is not None:
+                sds = [sds[i] for i in keep]
+        if names and cps:
+            print("Covariance parameters:")
+            if sds is not None:
+                for name, est, sd in zip(names, cps, sds):
+                    print(f"  {name}: {est:.6g} (std dev {sd:.6g})")
+            else:
+                print(dict(zip(names, cps)))
+        if self.coefs_ is not None:
+            print("Linear regression coefficients:")
+            if self.std_dev_coefs_ is not None:
+                for j, (est, s) in enumerate(zip(
+                        np.asarray(self.coefs_),
+                        np.asarray(self.std_dev_coefs_))):
+                    print(f"  beta_{j}: {est:.6g} (std dev {s:.6g})")
+            else:
+                print(np.asarray(self.coefs_))
+        if self.aux_pars_ is not None:
+            print("Additional parameters:")
+            print(np.asarray(self.aux_pars_))
+        return self
+
     def model_to_dict(self, include_data: bool = True):
         """Serialize (``GPModel.model_to_dict``, ``basic.py:6445``).
 
         Like the reference, the training data needed to re-create predictions
-        (coordinates / y / X) is embedded. The keys are those of the JAX
-        package's ``GPModel.model_to_dict`` (likelihood, aux parameters
-        included), plus ``matrix_inversion_method``, so either package reads
-        the other's output for the models both support."""
+        (raw group labels / coordinates / y / X) is embedded. The keys are
+        those of the JAX package's ``GPModel.model_to_dict`` (likelihood, aux
+        parameters included), plus ``matrix_inversion_method``, so either
+        package reads the other's output for the models both support."""
         d = {
             "likelihood": self.likelihood,
             "cov_function": self.cov_function_name,
@@ -644,11 +1097,27 @@ class GPModel:
             "aux_pars": None if self.aux_pars_ is None else list(
                 np.asarray(self.aux_pars_, dtype=np.float64)),
             "num_data": self.num_data,
-            "iid_model": False,
+            "iid_model": self._iid_model,
             "matrix_inversion_method": self.matrix_inversion_method,
         }
         if include_data:
-            d["gp_coords"] = self.coords_np.tolist()
+            if self._grouped_only:
+                codes = self.data.group_codes.cpu().numpy()
+                gd = np.empty(codes.shape, dtype=object)
+                for j, levels in enumerate(self._group_maps):
+                    gd[:, j] = levels[codes[:, j]]
+                d["group_data"] = gd.astype(str).tolist()
+                if self.data.slope_data is not None:
+                    d["group_rand_coef_data"] = self.data.slope_data.cpu(
+                        ).numpy().astype(np.float64).tolist()
+                    d["ind_effect_group_rand_coef"] = [
+                        c.code_col + 1 for c in self.spec.components
+                        if c.is_slope]
+                    if self._drop_intercept_group_rand_effect is not None:
+                        d["drop_intercept_group_rand_effect"] = (
+                            self._drop_intercept_group_rand_effect)
+            else:
+                d["gp_coords"] = self.coords_np.tolist()
             if self.y is not None:
                 d["y"] = self.y.cpu().numpy().astype(np.float64).tolist()
             if self.X is not None:
@@ -659,30 +1128,42 @@ class GPModel:
     def from_dict(cls, d: dict, device="cuda",
                   dtype=torch.float64) -> "GPModel":
         """Rebuild a GPModel from ``model_to_dict`` output — this package's
-        or the JAX package's (``GPModel(model_dict=...)`` in the reference).
-        Keys of structures that are not ported raise
-        ``NotImplementedError``."""
-        for key in ("group_data", "group_rand_coef_data",
-                    "gp_rand_coef_data", "cluster_ids"):
+        or the JAX package's (``GPModel(model_dict=...)`` in the reference):
+        a grouped model (its iid model included) or a Vecchia GP. Keys of
+        structures that are not ported raise ``NotImplementedError``."""
+        for key in ("gp_rand_coef_data", "cluster_ids"):
             if d.get(key) is not None:
                 raise _not_ported(f"a saved model with '{key}'",
-                                  "Queue A, items 15-16")
-        if d.get("iid_model"):
-            raise _not_ported("a saved iid model", "Queue A, item 16")
-        if d.get("gp_coords") is None:
-            raise ValueError("from_dict: the saved model holds no "
-                             "'gp_coords' (saved without data?)")
-        model = cls(
-            gp_coords=np.asarray(d["gp_coords"], dtype=np.float64),
+                                  "Queue A, item 15")
+        kwargs = dict(
             likelihood=d.get("likelihood", "gaussian"),
             cov_function=d.get("cov_function", "matern"),
             cov_fct_shape=d.get("cov_fct_shape", 1.5),
-            gp_approx=d.get("gp_approx", "none"),
             num_neighbors=d.get("num_neighbors"),
             vecchia_ordering=d.get("vecchia_ordering", "random"),
             matrix_inversion_method=d.get("matrix_inversion_method",
                                           "cholesky"),
             seed=d.get("seed", 0), dtype=dtype, device=device)
+        if d.get("group_data") is not None:
+            kwargs["group_data"] = np.asarray(d["group_data"])
+            if d.get("group_rand_coef_data") is not None:
+                kwargs["group_rand_coef_data"] = np.asarray(
+                    d["group_rand_coef_data"], dtype=np.float64)
+                kwargs["ind_effect_group_rand_coef"] = d.get(
+                    "ind_effect_group_rand_coef", [1])
+                kwargs["drop_intercept_group_rand_effect"] = d.get(
+                    "drop_intercept_group_rand_effect")
+        elif d.get("gp_coords") is not None:
+            kwargs["gp_coords"] = np.asarray(d["gp_coords"], dtype=np.float64)
+            kwargs["gp_approx"] = d.get("gp_approx", "none")
+        elif d.get("num_data") is not None:
+            kwargs["num_data"] = d["num_data"]
+        else:
+            raise ValueError("from_dict: the saved model holds neither "
+                             "'group_data' nor 'gp_coords' (saved without "
+                             "data?)")
+        model = cls(**kwargs)
+        model._iid_model = bool(d.get("iid_model", False))
         if d.get("aux_pars") is not None:
             model.aux_pars_ = np.asarray(d["aux_pars"], dtype=np.float64)
         if d.get("cov_pars") is not None:

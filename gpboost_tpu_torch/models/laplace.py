@@ -4,12 +4,14 @@ What the Vecchia-Laplace path needs of the JAX package's
 ``gpboost_tpu/models/laplace.py``:
 
 - :func:`newton_mode` and :func:`mode_vjp`: the posterior mode of
-  sum log p(y | F + b) - 1/2 b' Q b (Newton with step halving, reference
+  sum log p(y | F + Z b) - 1/2 b' Q b (Newton with step halving, reference
   ``FindModePostRandEffCalcMLL_Stable``, ``likelihoods.h:1843-1935``) and
   its implicit differentiation through the mode equation
-  Q b = d1(y, F + b) (one adjoint solve with Q + W, then the
+  Q b = Z' d1(y, F + Z b) (one adjoint solve with Q + Z'WZ, then the
   vector-Jacobian product of the mode equation), for any solver of
-  (Q + W) x = r: dense here, CG in ``vecchia_model.py``;
+  (Q + Z'WZ) x = r: dense here, CG in ``vecchia_model.py``, in the
+  q-dimensional b-space of the grouped models in ``grouped.py`` (Z the
+  incidence; the identity elsewhere);
 - :func:`find_mode_prec`: that mode for a dense latent precision Q, as a
   ``torch.autograd.Function`` differentiable w.r.t. (Q, F, aux);
 - :func:`_response_moments`: response-scale mean and variance of a latent
@@ -17,9 +19,10 @@ What the Vecchia-Laplace path needs of the JAX package's
   likelihoods.h:7526), closed forms where the reference has them, else
   Gauss-Hermite quadrature.
 
-Not ported: the covariance-parametrised ``find_mode``, ``gradient_wrt_F``
-over a model specification and ``test_nll_adaptive_gh`` (ROADMAP.md
-Queue A, items 11 and 16).
+Not ported: the covariance-parametrised ``find_mode`` of the exact GP,
+``gradient_wrt_F`` over a model specification (the grouped LaGaBoost
+gradient) and ``test_nll_adaptive_gh`` (ROADMAP.md Queue A, items 11 and
+16).
 """
 from __future__ import annotations
 
@@ -68,26 +71,33 @@ def newton_halving(b, psi, delta, objective):
     return b + t * delta, val, k + 1
 
 
-def newton_mode(fam, y, F, aux, q_mv, solve, counts=None):
-    """Posterior mode of psi(b) = sum log p(y | F + b) - 1/2 b' Q b by
-    damped Newton: each step solves (Q + W) delta = d1 - Q b by
-    ``solve(w, rhs)``, then :func:`newton_halving`; it stops when psi
-    changes by less than ``NEWTON_TOL`` relative, or after
-    ``MAX_NEWTON_IT`` steps. ``q_mv`` is v -> Q v. With ``counts`` (a
+def newton_mode(fam, y, F, aux, q_mv, solve, counts=None, z=None, zt=None,
+                size=None):
+    """Posterior mode of psi(b) = sum log p(y | F + Z b) - 1/2 b' Q b by
+    damped Newton: each step solves (Q + Z'WZ) delta = Z' d1 - Q b by
+    ``solve(w, rhs)`` (w the [n] weights W), then :func:`newton_halving`;
+    it stops when psi changes by less than ``NEWTON_TOL`` relative, or
+    after ``MAX_NEWTON_IT`` steps. ``q_mv`` is v -> Q v. Z is the identity
+    unless ``z`` (b -> Z b) and ``zt`` (v -> Z' v) are given, with b of
+    ``size`` entries (the grouped models' b-space). With ``counts`` (a
     ``Counter``), adds the steps and the loop's host reads (objective
     values) to ``newton_steps`` and ``newton_reads``."""
+    z = z or (lambda b: b)
+    zt = zt or (lambda v: v)
+
     def objective(b):
-        return torch.sum(fam.log_lik(y, F + b, aux)) \
+        return torch.sum(fam.log_lik(y, F + z(b), aux)) \
             - 0.5 * torch.dot(b, q_mv(b))
 
-    b = torch.zeros_like(y)
+    b = (torch.zeros_like(y) if size is None
+         else torch.zeros(size, dtype=y.dtype, device=y.device))
     psi = float(objective(b))
     steps, reads = 0, 1
     for _ in range(MAX_NEWTON_IT):
-        loc = F + b
+        loc = F + z(b)
         d1 = fam.d_loc(y, loc, aux)
         w = torch.clamp(-fam.d2_loc(y, loc, aux), min=1e-10)
-        delta = solve(w, d1 - q_mv(b))
+        delta = solve(w, zt(d1) - q_mv(b))
         b, psi_new, tries = newton_halving(b, psi, delta, objective)
         steps += 1
         reads += tries
@@ -101,20 +111,23 @@ def newton_mode(fam, y, F, aux, q_mv, solve, counts=None):
     return b
 
 
-def mode_vjp(fam, y, b, v, solve, qb, inputs, needs):
+def mode_vjp(fam, y, b, v, solve, qb, inputs, needs, z=None, zt=None):
     """Vector-Jacobian product of the mode b, defined by the mode equation
-    g = Q(theta) b - d1(y, F + b) = 0, by implicit differentiation:
-    lam = (Q + W)^-1 v by ``solve(w, v)``, then the VJP of g at -lam.
+    g = Q(theta) b - Z' d1(y, F + Z b) = 0, by implicit differentiation:
+    lam = (Q + Z'WZ)^-1 v by ``solve(w, v)``, then the VJP of g at -lam.
     ``inputs`` = (*theta, F, aux), ``qb(*theta)`` = Q(theta) b, ``needs``
-    which inputs want a gradient. Returns a gradient (or None) per input."""
+    which inputs want a gradient; Z as in :func:`newton_mode` (``zt``
+    differentiable). Returns a gradient (or None) per input."""
+    z = z or (lambda x: x)
+    zt = zt or (lambda x: x)
     F, aux = inputs[-2], inputs[-1]
     with torch.no_grad():
-        lam = solve(-fam.d2_loc(y, F + b, _aux_val(aux)), v)
+        lam = solve(-fam.d2_loc(y, F + z(b), _aux_val(aux)), v)
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(need and x.numel() > 0)
                   for x, need in zip(inputs, needs)]
-        g = qb(*leaves[:-2]) - fam.d_loc(y, leaves[-2] + b,
-                                         _aux_val(leaves[-1]))
+        g = qb(*leaves[:-2]) - zt(fam.d_loc(y, leaves[-2] + z(b),
+                                            _aux_val(leaves[-1])))
         wrt = [x for x in leaves if x.requires_grad]
         grads = iter(torch.autograd.grad(g, wrt, grad_outputs=-lam,
                                          allow_unused=True) if wrt else ())

@@ -14,9 +14,11 @@ optimizer bridge (``optim_utils.h:562``), on the log parameter scale:
 - :func:`lbfgs` (scipy's L-BFGS-B, the reference's LBFGSpp role) and
   :func:`lbfgs_host` (hand-rolled, with curvature memory carried from call
   to call); :func:`lbfgs_device` with its state on the device;
-- :func:`nelder_mead` (scipy; the reference's OptimLib).
+- :func:`nelder_mead` (scipy; the reference's OptimLib);
+- :func:`adam` (the reference's OptimLib Adam, as optax's defaults in the
+  JAX package).
 
-``fisher_scoring`` and ``adam`` serve only models that are not ported
+``fisher_scoring`` serves only the exact models, which are not ported
 (ROADMAP.md Queue A, item 16).
 """
 from __future__ import annotations
@@ -43,6 +45,9 @@ class OptimConfig:
     """Optimization settings (subset of ``GPB_SetOptimConfig`` /
     ``gpboost.GPModel.set_optim_params``, ``basic.py:5347-5544``)."""
     optimizer_cov: str = "gradient_descent"
+    # coefficient update of the Gaussian fits: GLS ("wls"; the JAX
+    # package's grouped route treats "gradient_descent" the same way)
+    optimizer_coef: str = "wls"
     maxit: int = 1000
     lr_cov: float = 0.1
     use_nesterov_acc: bool = True
@@ -465,6 +470,44 @@ def nelder_mead(value_fn: Callable, theta0: np.ndarray,
     return OptimResult(params=np.exp(res.x), nll=float(res.fun),
                        num_it=int(res.nit), converged=bool(res.success),
                        history=[float(res.fun)])
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def adam(value_and_grad_fn: Callable, theta0: np.ndarray,
+         cfg: OptimConfig) -> OptimResult:
+    """Adam on log-scale parameters (reference: OptimLib adam), the JAX
+    package's loop with optax's update written out: learning rate
+    max(lr_cov, 1e-3), b1 0.9, b2 0.999, eps 1e-8 outside the square root,
+    bias-corrected moments; stops when the NLL changes by less than
+    ``delta_rel_conv`` relative, or after ``maxit`` steps."""
+    lr = max(float(cfg.lr_cov), 1e-3)
+    theta = np.asarray(theta0, dtype=np.float64)
+    mu = np.zeros_like(theta)
+    nu = np.zeros_like(theta)
+    nll_prev = np.inf
+    history = []
+    converged = False
+    it = 0
+    for it in range(cfg.maxit):
+        v, g = value_and_grad_fn(theta)
+        v = float(v)
+        g = np.asarray(g, dtype=np.float64)
+        history.append(v)
+        mu = ADAM_B1 * mu + (1.0 - ADAM_B1) * g
+        nu = ADAM_B2 * nu + (1.0 - ADAM_B2) * g * g
+        mu_hat = mu / (1.0 - ADAM_B1 ** (it + 1))
+        nu_hat = nu / (1.0 - ADAM_B2 ** (it + 1))
+        theta = theta - lr * mu_hat / (np.sqrt(nu_hat) + ADAM_EPS)
+        if abs(v - nll_prev) / max(abs(nll_prev), 1e-300) \
+                < cfg.delta_rel_conv:
+            converged = True
+            break
+        nll_prev = v
+    return OptimResult(params=np.exp(theta),
+                       nll=float(value_and_grad_fn(theta)[0]),
+                       num_it=it + 1, converged=converged, history=history)
 
 
 _LBFGS_MEM = 8

@@ -262,9 +262,9 @@ def test_every_jax_keyword_at_its_default_constructs(data):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(ind_effect_group_rand_coef=[1]), "item 16"),
-    (dict(drop_intercept_group_rand_effect=[True]), "item 16"),
-    (dict(num_data=N), "item 16"),
+    (dict(ind_effect_group_rand_coef=[1]), "item 15"),
+    (dict(drop_intercept_group_rand_effect=[True]), "item 15"),
+    (dict(num_data=N), "item 15"),
     (dict(cov_fct_taper_range=0.5), "items 14 and 17"),
     (dict(cov_fct_taper_shape=2.0), "items 14 and 17"),
     (dict(ind_points_selection="random"), "items 14 and 17"),
