@@ -74,13 +74,36 @@ one. It
    (forward and backward) and Z' v with no scatter
    (``grouped_ops_trace``), and a second grouped GPBoost training and GLMM
    fit that must give the same bits (``determinism``);
-9. checks by the kernels' launch counters (set to 0 before each path, read
+9. drives the exact GP (``gp_approx="none"``, the README's first example) at
+   full width, float64: ``exact_gp`` (Matern 1.5 with X at n = 10 000 —
+   construct, NLL, value-and-gradient, the default fit, L-BFGS and Fisher
+   scoring, std errors, ``predict`` with variances and with the covariance
+   at 1 000 points, training-data effects, the dense pieces' times, the
+   peak memory; the L-BFGS optimum within EX_TRUTH_RTOL of the truth),
+   ``exact_vs_cpu`` (n = 2 000: NLL, gradients, Fisher information and a
+   prediction against the float64 CPU run within 1e-9; a Newton fit),
+   ``exact_clustered`` (1 000 clusters of 100 on the batched blocks: the
+   default fit, ``predict`` with 10 % of the points in unseen clusters, at
+   their prior), ``exact_combined`` (with a 100-level random intercept, and
+   with a GP random coefficient, n = 5 000), ``exact_laplace``
+   (``bernoulli_logit`` at n = 5 000; card vs CPU at n = 1 000 within 1e-9),
+   30 rounds of GPBoost and of LaGaBoost with it at n = 5 000
+   (``exact_boosting``, ``exact_lagaboost``) and of LaGaBoost with 1 000
+   grouped levels at n = 100 000 (``grouped_lagaboost``), a second run of
+   the three trainings and of the clustered fit that must give the same bits
+   (``determinism_exact``) and a profiler trace of the dense and the
+   clustered value-and-gradient with no scatter (``exact_ops_trace``);
+   after each of the three trainings the histogram kernel is held against
+   its plain version on that path's own Dataset (all rows, 3 %) and timed
+   there (the kernels line's histogram ``other_shapes``);
+10. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
    Vecchia kernels never on the non-Gaussian path (the latent factors have
    no nugget, outside the kernel gate), no kernel on the grouped LMM and
-   GLMM (their work is ``torch.linalg`` on [q, q] and gathers, as in the
-   JAX package) — and the results against float64 plain versions.
+   GLMM and the exact GP (their work is ``torch.linalg`` and gathers, as in
+   the JAX package), the histogram kernel once a leaf on the three boosting
+   paths of 9 — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -505,6 +528,70 @@ def stream_ops(fn):
     return names
 
 
+def _hist_values(gen, n, dev):
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev) + 0.5
+    return g, h
+
+
+def _hist_compare(tag, binned, panel, g, h, mask, B):
+    """One launch against the float64 plain version: counts exact, sums
+    within HIST_SUM_TOL x the sum of |v| over the bin."""
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
+    got = hk.histogram(binned, g, h, mask, B, binned_t=panel,
+                       scales=hk.fixed_point_scales(g, h))
+    torch.cuda.synchronize()
+    want = hk.histogram_plain(binned, g.double(), h.double(), mask, B)
+    scale = hk.histogram_plain(binned, g.double().abs(),
+                               h.double().abs(), mask, B)
+    check(torch.equal(got[2].double(), want[2]),
+          f"histogram[{tag}]: counts differ from the plain version "
+          "(they must be exact)")
+    errs = []
+    for k, what in ((0, "gradient"), (1, "hessian")):
+        err = (got[k].double() - want[k]).abs()
+        check(bool((err <= HIST_SUM_TOL * scale[k] + 1e-30).all()),
+              f"histogram[{tag}]: {what} sums off by up to "
+              f"{float(err.max())}, more than {HIST_SUM_TOL} x the sum "
+              "of |v| over the bin, vs the float64 plain version")
+        errs.append(float(err.max()))
+    n, F = binned.shape
+    return dict(case=tag, n=n, F=F, B=B, rows_in_mask=int(mask.sum()),
+                max_abs_err=max(errs))
+
+
+def check_histogram_on(ds, seed, dev, path):
+    """The histogram kernel against its float64 plain version on a boosting
+    path's own Dataset, all rows and 3 % of them in the mask, and its time
+    there (all rows) beside the plain version's and the bound."""
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, F, B = ds.num_data, ds.num_features, ds.max_num_bins
+    binned, panel = ds.binned, ds.binned_t
+    g, h = _hist_values(gen, n, dev)
+    full = torch.ones(n, dtype=torch.bool, device=dev)
+    small = torch.rand(n, generator=gen, device=dev) < 0.03
+    cases = [_hist_compare(f"{path}_full_mask", binned, panel, g, h, full, B),
+             _hist_compare(f"{path}_3pct_mask", binned, panel, g, h, small,
+                           B)]
+    scales = hk.fixed_point_scales(g, h)
+
+    def kernel():
+        return hk.histogram(binned, g, h, full, B, binned_t=panel,
+                            scales=scales)
+
+    b_ms, b_by = hist_bound(n, n, F, B)
+    timed = dict(case=f"{path}_full_mask", n=n, F=F, B=B, rows_in_mask=n,
+                 ms=time_ms(kernel, 50), device_ms=graph_ms(kernel, 50),
+                 plain_ms=time_ms(lambda: hk.histogram_plain(
+                     binned, g, h, full, B), 5),
+                 bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "histogram_vs_plain", "path": path, "tolerance":
+          f"counts exact; sums within {HIST_SUM_TOL} x sum|v| of the bin",
+          "cases": cases})
+    return cases, timed
+
+
 def check_histogram(ds, seed, dev):
     """The histogram kernel against its float64 plain version on the card:
     counts exact, gradient / hessian sums within HIST_SUM_TOL x the sum of
@@ -513,66 +600,40 @@ def check_histogram(ds, seed, dev):
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def values(n):
-        g = torch.randn(n, generator=gen, device=dev)
-        h = torch.rand(n, generator=gen, device=dev) + 0.5
-        return g, h
-
     def random_bins(n, F, B):
         panel = torch.randint(0, B, (F, n), generator=gen,
                               device=dev).to(torch.uint8)
         return panel.t().contiguous().int(), panel
 
-    def compare(tag, binned, panel, g, h, mask, B):
-        got = hk.histogram(binned, g, h, mask, B, binned_t=panel,
-                           scales=hk.fixed_point_scales(g, h))
-        torch.cuda.synchronize()
-        want = hk.histogram_plain(binned, g.double(), h.double(), mask, B)
-        scale = hk.histogram_plain(binned, g.double().abs(),
-                                   h.double().abs(), mask, B)
-        check(torch.equal(got[2].double(), want[2]),
-              f"histogram[{tag}]: counts differ from the plain version "
-              "(they must be exact)")
-        errs = []
-        for k, what in ((0, "gradient"), (1, "hessian")):
-            err = (got[k].double() - want[k]).abs()
-            check(bool((err <= HIST_SUM_TOL * scale[k] + 1e-30).all()),
-                  f"histogram[{tag}]: {what} sums off by up to "
-                  f"{float(err.max())}, more than {HIST_SUM_TOL} x the sum "
-                  "of |v| over the bin, vs the float64 plain version")
-            errs.append(float(err.max()))
-        n, F = binned.shape
-        return dict(case=tag, n=n, F=F, B=B, rows_in_mask=int(mask.sum()),
-                    max_abs_err=max(errs))
-
     n, F, B = ds.num_data, ds.num_features, ds.max_num_bins
     binned, panel = ds.binned, ds.binned_t
-    g, h = values(n)
+    g, h = _hist_values(gen, n, dev)
     full = torch.ones(n, dtype=torch.bool, device=dev)
     small = torch.rand(n, generator=gen, device=dev) < 0.03
-    cases = [compare("full_mask", binned, panel, g, h, full, B),
-             compare("3pct_mask", binned, panel, g, h, small, B),
-             compare("empty_mask", binned, panel, g, h, ~full, B)]
+    cases = [_hist_compare("full_mask", binned, panel, g, h, full, B),
+             _hist_compare("3pct_mask", binned, panel, g, h, small, B),
+             _hist_compare("empty_mask", binned, panel, g, h, ~full, B)]
     check(cases[2]["rows_in_mask"] == 0, "the empty mask is not empty")
     # worst contention: every row of the mask in one bin of one feature
     one_bin = binned[:, 2] == binned[0, 2]
-    case = compare("one_bin_mask", binned, panel, g, h, one_bin, B)
+    case = _hist_compare("one_bin_mask", binned, panel, g, h, one_bin, B)
     check(case["rows_in_mask"] >= n // (2 * B), "one-bin mask too small")
     cases.append(case)
     squeezed = panel.clone()
     squeezed[2] = 7
-    cases.append(compare("one_bin_all_rows", squeezed.t().contiguous().int(),
-                         squeezed, g, h, full, B))
+    cases.append(_hist_compare("one_bin_all_rows",
+                               squeezed.t().contiguous().int(), squeezed, g,
+                               h, full, B))
     b50, p50 = random_bins(n, 50, B)
-    cases.append(compare("F50", b50, p50, g, h, full, B))
+    cases.append(_hist_compare("F50", b50, p50, g, h, full, B))
     b64, p64 = random_bins(n, F, 64)
-    cases.append(compare("B64", b64, p64, g, h, full, 64))
+    cases.append(_hist_compare("B64", b64, p64, g, h, full, 64))
     del b50, p50, b64, p64, squeezed
     n_big = 1_000_003
     bb, pb = random_bins(n_big, F, 256)
-    gb, hb = values(n_big)
+    gb, hb = _hist_values(gen, n_big, dev)
     mb = torch.rand(n_big, generator=gen, device=dev) < 0.9
-    cases.append(compare("n1000003", bb, pb, gb, hb, mb, 256))
+    cases.append(_hist_compare("n1000003", bb, pb, gb, hb, mb, 256))
     del bb, pb, gb, hb, mb
     torch.cuda.empty_cache()
 
@@ -1965,6 +2026,672 @@ def grouped_glmm(gd, dev):
     return launches, timings, model
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the exact GP (gp_approx="none", the README's first example)
+# ---------------------------------------------------------------------------
+
+EX_N = 10_000                     # the top of where users run the exact GP
+EX_N_PRED = 1_000
+EX_TRUTH = [0.25, 1.0, 0.1]       # nugget, variance, range (Matern 1.5)
+EX_BETA = [1.0, 0.5]
+EX_TRUTH_RTOL = 0.35              # L-BFGS cov_pars vs the simulation's truth
+EX_CPU_N = 2_000                  # points of the card-vs-CPU check
+EX_CPU_RTOL = 1e-9
+EX_CLUSTERS, EX_CLUSTER_SIZE = 1_000, 100
+EX_SMALL_N = 5_000                # combined, Laplace and boosting phases
+EX_LEVELS = 100
+EX_LAP_CPU_N = 1_000
+EX_UNSEEN = 0.1                   # share of prediction rows in new clusters
+
+
+def _matern15(coords1, coords2, var, rng_):
+    from gpboost_tpu_torch.ops.cov_fns import euclidean_distance
+    x = math.sqrt(3.0) * euclidean_distance(coords1, coords2) / rng_
+    return var * (1.0 + x) * torch.exp(-x)
+
+
+def _simulate_gp(coords_t, var, range_, z):
+    """A draw of a Matern-1.5 GP at ``coords_t`` on the card: the lower
+    Cholesky factor of its covariance (plus 1e-8 I) times ``z``."""
+    cov = _matern15(coords_t, coords_t, var, range_)
+    cov.diagonal().add_(1e-8)
+    out = torch.linalg.cholesky(cov) @ z
+    del cov
+    return out
+
+
+def make_exact_data(seed, n, n_pred, dev):
+    """The README's first example at size: n points uniform in the unit
+    square, X = [1, N(0, 1)], y = X beta + a Matern-1.5 GP (variance,
+    range of EX_TRUTH) + noise (the nugget), simulated on the card from
+    ``seed``; prediction points and their X."""
+    rng = np.random.default_rng(seed + 30)
+    coords = rng.uniform(size=(n, 2))
+    X = np.column_stack([np.ones(n), rng.standard_normal(n)])
+    z = torch.as_tensor(rng.standard_normal(n), device=dev)
+    b = _simulate_gp(torch.as_tensor(coords, device=dev), EX_TRUTH[1],
+                     EX_TRUTH[2], z).cpu().numpy()
+    y = X @ np.asarray(EX_BETA) + b \
+        + math.sqrt(EX_TRUTH[0]) * rng.standard_normal(n)
+    pred = rng.uniform(size=(n_pred, 2))
+    X_pred = np.column_stack([np.ones(n_pred), rng.standard_normal(n_pred)])
+    return dict(coords=coords, X=X, y=y, b=b, pred=pred, X_pred=X_pred)
+
+
+def _exact_model(coords, dev, **kw):
+    import gpboost_tpu_torch as gpt
+    return gpt.GPModel(gp_coords=coords, cov_function="matern",
+                       cov_fct_shape=1.5, device=dev, **kw)
+
+
+def _timed(fn):
+    t0 = clock()
+    out = fn()
+    return out, clock() - t0
+
+
+def exact_gp(ex, dev):
+    """The README's first example through the public API at n = EX_N,
+    float64: construct, NLL, one value-and-gradient (the profiled one a fit
+    evaluates, and the full one), the default fit (profiled gradient
+    descent, GLS coefficients), an L-BFGS and a Fisher-scoring fit, std
+    errors, ``predict`` with variances and with the covariance matrix at
+    EX_N_PRED points, ``predict_training_data_random_effects``; the peak
+    memory. Gates: the fitted NLL no higher than at the inits, the L-BFGS
+    cov_pars within EX_TRUTH_RTOL of the truth, no kernel launched."""
+    from gpboost_tpu_torch.models import gaussian as tga
+    torch.cuda.empty_cache()
+    # earlier phases' tensors still live: the phase's own peak is the
+    # peak above what was allocated at its start
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    y, X = ex["y"], ex["X"]
+    gp, t_construct = _timed(lambda: _exact_model(ex["coords"], dev))
+    init = gp._default_init_cov_pars(y)
+    beta_ols = np.linalg.lstsq(X, y, rcond=None)[0]
+    nll_init, t_nll = _timed(lambda: gp.neg_log_likelihood(
+        init, y, fixed_effects=X @ beta_ols))
+    r = gp._tensor(y - X @ beta_ols)
+    th_full = gp._tensor(np.log(init))
+    vidx = gp._variance_index()
+    ratio = np.asarray(init[1:]).copy()
+    ratio[vidx] /= init[0]
+    th_ratio = gp._tensor(np.log(ratio))
+    tga.nll_profiled_value_and_grad(gp.spec, gp.data, th_ratio, r)
+    _, t_vg = _timed(lambda: tga.nll_profiled_value_and_grad(
+        gp.spec, gp.data, th_ratio, r)[1].cpu())
+    _, t_vg_full = _timed(lambda: tga.nll_value_and_grad_log_scale(
+        gp.spec, gp.data, th_full, r)[1].cpu())
+    _, t_fit = _timed(lambda: gp.fit(y, X=X))
+    res_gd = gp._fit_result
+    nll_gd, cp_gd = gp.get_current_neg_log_likelihood(), gp.get_cov_pars()
+    _, t_lbfgs = _timed(lambda: gp.fit(y, X=X, params={
+        "optimizer_cov": "lbfgs"}))
+    res_lb = gp._fit_result
+    cp_lb, nll_lb = gp.get_cov_pars(), gp.get_current_neg_log_likelihood()
+    _, t_fisher = _timed(lambda: gp.fit(y, X=X, params={
+        "optimizer_cov": "fisher_scoring"}))
+    res_fs = gp._fit_result
+    cp_fs, nll_fs = gp.get_cov_pars(), gp.get_current_neg_log_likelihood()
+    (sd_cov, sd_coef), t_sd = _timed(lambda: (
+        gp.get_cov_pars(std_err=True)[1], gp.get_coef(std_err=True)[1]))
+    pred, t_pred = _timed(lambda: gp.predict(
+        gp_coords_pred=ex["pred"], X_pred=ex["X_pred"], predict_var=True))
+    pcov, t_pcov = _timed(lambda: gp.predict(
+        gp_coords_pred=ex["pred"], X_pred=ex["X_pred"],
+        predict_cov_mat=True))
+    tre, t_tre = _timed(lambda: gp.predict_training_data_random_effects(
+        predict_var=True))
+    peak_gb = (torch.cuda.max_memory_allocated() - mem_start) / 1e9
+    # the dense pieces at the fitted parameters: Psi's Cholesky, the
+    # inverse of the gradient's backward, one Fisher information
+    cp_t = gp._tensor(cp_lb)
+    psi = tga.build_psi(gp.spec, gp.data, cp_t)
+    chol_ms = time_ms(lambda: torch.linalg.cholesky(psi), 3)
+    L = torch.linalg.cholesky(psi)
+    del psi
+    inv_ms = time_ms(lambda: torch.cholesky_inverse(L), 3)
+    eye = torch.eye(EX_N, dtype=L.dtype, device=dev)
+    solve_ms = time_ms(lambda: torch.cholesky_solve(eye, L), 2)
+    del L, eye
+    _, t_fi = _timed(lambda: gp._gauss_ops().fisher(cp_t).cpu())
+    launches = read_counts()
+    rel = np.abs(cp_lb - np.asarray(EX_TRUTH)) / np.asarray(EX_TRUTH)
+    mu, var = pred["mu"], pred["var"]
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0}, f"exact_gp launched: {launches}")
+    check(all(math.isfinite(v) and v <= nll_init
+              for v in (nll_gd, nll_lb, nll_fs)),
+          f"an exact fit did not lower the NLL from {nll_init}: GD {nll_gd}, "
+          f"L-BFGS {nll_lb}, Fisher {nll_fs}")
+    check(bool(np.all(rel <= EX_TRUTH_RTOL)),
+          f"exact L-BFGS cov_pars {cp_lb} not within {EX_TRUTH_RTOL} of the "
+          f"truth {EX_TRUTH}: {rel}")
+    check(mu.shape == (EX_N_PRED,) and bool(np.all(np.isfinite(mu))
+                                            and np.all(var > 0)),
+          "exact predictions not finite / variances not positive")
+    check(bool(np.allclose(np.diag(pcov["cov"]), var, rtol=1e-10)
+               and np.allclose(pcov["mu"], mu, rtol=1e-12, atol=1e-12)),
+          "predict_cov_mat's diagonal is not predict_var's variance")
+    check(tre.shape == (EX_N, 2) and bool(np.all(np.isfinite(tre))
+                                          and np.all(tre[:, 1] > 0)),
+          "training-data random effects not finite")
+    check(bool(np.all(np.isfinite(sd_cov)) and np.all(sd_cov > 0)
+               and np.all(np.isfinite(sd_coef))), "std errors not finite")
+    emit({"phase": "exact_gp", "n": EX_N, "n_pred": EX_N_PRED,
+          "cov_function": "matern 1.5", "truth": EX_TRUTH,
+          "beta_truth": EX_BETA, "nll_init": nll_init,
+          "gd": {"cov_pars": cp_gd.tolist(), "nll": nll_gd,
+                 "iterations": res_gd.num_it,
+                 "evaluations": res_gd.num_evals},
+          "lbfgs": {"cov_pars": cp_lb.tolist(), "nll": nll_lb,
+                    "iterations": res_lb.num_it,
+                    "evaluations": res_lb.num_evals,
+                    "rel_diff_truth": rel.tolist(),
+                    "tolerance": EX_TRUTH_RTOL},
+          "fisher_scoring": {"cov_pars": cp_fs.tolist(), "nll": nll_fs,
+                             "iterations": res_fs.num_it},
+          "coef": gp.get_coef().tolist(), "std_dev_cov_pars": sd_cov.tolist(),
+          "std_dev_coef": sd_coef.tolist(), "launches": launches,
+          "pred_var_range": [float(var.min()), float(var.max())],
+          "peak_mem_gb": peak_gb, "mem_at_start_gb": mem_start / 1e9})
+    timings = {"exact_construct_s": t_construct, "exact_nll_s": t_nll,
+               "exact_vg_ms": 1e3 * t_vg, "exact_vg_full_ms": 1e3 * t_vg_full,
+               "exact_fit_gd_s": t_fit,
+               "exact_fit_gd_evaluations": res_gd.num_evals,
+               "exact_fit_lbfgs_s": t_lbfgs,
+               "exact_fit_lbfgs_evaluations": res_lb.num_evals,
+               "exact_fit_fisher_s": t_fisher,
+               "exact_fit_fisher_iterations": res_fs.num_it,
+               "exact_std_err_s": t_sd, "exact_predict_s": t_pred,
+               "exact_predict_cov_s": t_pcov,
+               "exact_training_effects_s": t_tre,
+               "exact_cholesky_ms": chol_ms, "exact_cholesky_inverse_ms": inv_ms,
+               "exact_solve_n_columns_ms": solve_ms,
+               "exact_fisher_information_s": t_fi,
+               "exact_peak_mem_gb": peak_gb}
+    del gp
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
+def exact_vs_cpu(ex, dev):
+    """The exact GP on EX_CPU_N points, card against the float64 CPU run:
+    NLL, its gradient (profiled and full) and the Fisher information,
+    a prediction's mean and variance, each within EX_CPU_RTOL relative;
+    then a Newton fit on the card (the Hessian of the NLL)."""
+    from gpboost_tpu_torch.models import gaussian as tga
+    rows = slice(0, EX_CPU_N)
+    coords, y, X = ex["coords"][rows], ex["y"][rows], ex["X"][rows]
+    fe = X @ np.asarray(EX_BETA)
+    out = {}
+    for name in ("cuda", "cpu"):
+        m = _exact_model(coords, dev if name == "cuda" else "cpu")
+        t0 = clock()
+        nll = m.neg_log_likelihood(EX_TRUTH, y, fixed_effects=fe)
+        r = m._tensor(y - fe)
+        lp = m._tensor(np.log(EX_TRUTH))
+        _, g_full = tga.nll_value_and_grad_log_scale(m.spec, m.data, lp, r)
+        _, g_prof, _ = tga.nll_profiled_value_and_grad(
+            m.spec, m.data, m._tensor(np.log([4.0, 0.1])), r)
+        fi = m._gauss_ops().fisher(m._tensor(EX_TRUTH))
+        pred = m.predict(y=y, gp_coords_pred=ex["pred"][:200],
+                         cov_pars=EX_TRUTH, fixed_effects=fe,
+                         predict_var=True)
+        out[name] = dict(nll=nll, g_full=g_full.cpu().numpy(),
+                         g_prof=g_prof.cpu().numpy(), fi=fi.cpu().numpy(),
+                         mu=pred["mu"], var=pred["var"], s=clock() - t0)
+    a, b = out["cuda"], out["cpu"]
+
+    def rel(key):
+        return float(np.max(np.abs(np.asarray(a[key]) - np.asarray(b[key])))
+                     / np.max(np.abs(np.asarray(b[key]))))
+
+    diffs = {k: rel(k) for k in ("nll", "g_full", "g_prof", "fi", "mu",
+                                 "var")}
+    m = _exact_model(coords, dev)
+    _, t_newton = _timed(lambda: m.fit(y, params={"optimizer_cov": "newton"}))
+    nll_newton = m.get_current_neg_log_likelihood()
+    nll_init = m.neg_log_likelihood(m._default_init_cov_pars(y), y)
+    emit({"phase": "exact_vs_cpu", "n": EX_CPU_N, "rel_diff": diffs,
+          "tolerance": EX_CPU_RTOL, "cuda_s": a["s"], "cpu_s": b["s"],
+          "newton": {"cov_pars": m.get_cov_pars().tolist(),
+                     "nll": nll_newton, "nll_init": nll_init,
+                     "iterations": m.num_it_, "seconds": t_newton}})
+    check(all(v <= EX_CPU_RTOL for v in diffs.values()),
+          f"exact GP on the card vs the CPU: {diffs}")
+    check(math.isfinite(nll_newton) and nll_newton <= nll_init,
+          f"the Newton fit did not lower the NLL: {nll_init} -> "
+          f"{nll_newton}")
+    return {"exact_newton_fit_s": t_newton,
+            "exact_newton_iterations": m.num_it_}
+
+
+def make_clustered_data(seed, dev, n_pred):
+    """EX_CLUSTERS independent replications of the Matern-1.5 GP, each on
+    EX_CLUSTER_SIZE points of its own in the unit square, plus the nugget;
+    prediction points in training clusters and (EX_UNSEEN of them) in
+    clusters training never saw."""
+    rng = np.random.default_rng(seed + 40)
+    C, m = EX_CLUSTERS, EX_CLUSTER_SIZE
+    coords = rng.uniform(size=(C, m, 2))
+    ct = torch.as_tensor(coords, device=dev)
+    diff = ct[:, :, None, :] - ct[:, None, :, :]
+    x = math.sqrt(3.0) * torch.sqrt(torch.sum(diff * diff, -1)) / EX_TRUTH[2]
+    cov = EX_TRUTH[1] * (1.0 + x) * torch.exp(-x)
+    cov.diagonal(dim1=1, dim2=2).add_(1e-8)
+    z = torch.as_tensor(rng.standard_normal((C, m, 1)), device=dev)
+    b = (torch.linalg.cholesky(cov) @ z)[..., 0].cpu().numpy().ravel()
+    del cov
+    ids = np.repeat(np.arange(C) * 7 + 3, m)      # ids, not codes
+    y = b + math.sqrt(EX_TRUTH[0]) * rng.standard_normal(C * m)
+    unseen = rng.random(n_pred) < EX_UNSEEN
+    ids_pred = np.where(unseen, 7 * C + 5 + rng.integers(0, 50, n_pred),
+                        ids[rng.integers(0, C * m, n_pred)])
+    return dict(coords=coords.reshape(-1, 2), y=y, ids=ids,
+                pred=rng.uniform(size=(n_pred, 2)), ids_pred=ids_pred,
+                unseen=unseen)
+
+
+def exact_clustered(cd, dev):
+    """``cluster_ids`` on the batched-block route (EX_CLUSTERS blocks of
+    EX_CLUSTER_SIZE, n = 1e5): construct, the default fit, ``predict`` with
+    variances; the rows in unseen clusters must be the prior (mean 0,
+    variance nugget + GP variance)."""
+    reset_counts()
+    gp, t_construct = _timed(lambda: _exact_model(
+        cd["coords"], dev, cluster_ids=cd["ids"]))
+    check(gp._clustered_batched, "cluster_ids model is not batched")
+    _, t_fit = _timed(lambda: gp.fit(cd["y"]))
+    res = gp._fit_result
+    nll_init = gp.neg_log_likelihood(gp._default_init_cov_pars(cd["y"]),
+                                     cd["y"])
+    pred, t_pred = _timed(lambda: gp.predict(
+        gp_coords_pred=cd["pred"], cluster_ids_pred=cd["ids_pred"],
+        predict_var=True))
+    launches = read_counts()
+    cp = gp.get_cov_pars()
+    mu, var = pred["mu"], pred["var"]
+    u = cd["unseen"]
+    prior = cp[0] + cp[1]
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0}, f"exact_clustered launched: {launches}")
+    check(math.isfinite(gp.get_current_neg_log_likelihood())
+          and gp.get_current_neg_log_likelihood() <= nll_init,
+          "the clustered fit did not lower the NLL")
+    check(bool(np.all(mu[u] == 0.0)
+               and np.allclose(var[u], prior, rtol=1e-14, atol=0)),
+          "predictions in unseen clusters are not the prior")
+    check(bool(np.all(np.isfinite(mu)) and np.all(var[~u] > cp[0])
+               and np.all(var[~u] < prior)),
+          "clustered predictions not finite / not between nugget and prior")
+    emit({"phase": "exact_clustered", "n": len(cd["y"]),
+          "clusters": EX_CLUSTERS, "cluster_size": EX_CLUSTER_SIZE,
+          "truth": EX_TRUTH, "cov_pars": cp.tolist(),
+          "nll": gp.get_current_neg_log_likelihood(), "nll_init": nll_init,
+          "iterations": res.num_it, "evaluations": res.num_evals,
+          "n_pred": len(mu), "unseen_rows": int(u.sum()),
+          "launches": launches})
+    timings = {"clustered_construct_s": t_construct,
+               "clustered_fit_s": t_fit,
+               "clustered_fit_evaluations": res.num_evals,
+               "clustered_predict_s": t_pred}
+    return timings, gp
+
+
+def exact_combined(seed, dev, n_pred):
+    """An exact GP plus a EX_LEVELS-level random intercept, and a GP random
+    coefficient, each at n = EX_SMALL_N: the default fit and ``predict``
+    with variances (unseen levels included)."""
+    rng = np.random.default_rng(seed + 50)
+    n = EX_SMALL_N
+    coords = rng.uniform(size=(n, 2))
+    ct = torch.as_tensor(coords, device=dev)
+    b_gp = _simulate_gp(ct, EX_TRUTH[1], EX_TRUTH[2], torch.as_tensor(
+        rng.standard_normal(n), device=dev)).cpu().numpy()
+    g = rng.integers(0, EX_LEVELS, n)
+    y_g = b_gp + 0.5 * rng.standard_normal(EX_LEVELS)[g] \
+        + math.sqrt(EX_TRUTH[0]) * rng.standard_normal(n)
+    zc = rng.standard_normal(n)
+    b_rc = _simulate_gp(ct, 0.5, EX_TRUTH[2], torch.as_tensor(
+        rng.standard_normal(n), device=dev)).cpu().numpy()
+    y_rc = b_gp + zc * b_rc + math.sqrt(EX_TRUTH[0]) * rng.standard_normal(n)
+    pred = rng.uniform(size=(n_pred, 2))
+    g_pred = np.where(rng.random(n_pred) < EX_UNSEEN, EX_LEVELS + 1,
+                      rng.integers(0, EX_LEVELS, n_pred))
+    reset_counts()
+    out, timings = {}, {}
+    for tag, kw, y, pkw in (
+            ("grouped", dict(group_data=g), y_g,
+             dict(group_data_pred=g_pred)),
+            ("rand_coef", dict(gp_rand_coef_data=zc), y_rc,
+             dict(gp_rand_coef_data_pred=rng.standard_normal(n_pred)))):
+        gp = _exact_model(coords, dev, **kw)
+        nll_init = gp.neg_log_likelihood(gp._default_init_cov_pars(y), y)
+        _, t_fit = _timed(lambda: gp.fit(y))
+        pred_out, t_pred = _timed(lambda: gp.predict(
+            gp_coords_pred=pred, predict_var=True, **pkw))
+        nll = gp.get_current_neg_log_likelihood()
+        check(math.isfinite(nll) and nll <= nll_init,
+              f"combined {tag}: the fit did not lower the NLL")
+        check(bool(np.all(np.isfinite(pred_out["mu"]))
+                   and np.all(pred_out["var"] > 0)),
+              f"combined {tag}: predictions not finite / positive")
+        out[tag] = {"cov_pars": gp.get_cov_pars().tolist(), "nll": nll,
+                    "nll_init": nll_init,
+                    "iterations": gp._fit_result.num_it,
+                    "evaluations": gp._fit_result.num_evals,
+                    "names": gp._cov_par_names()}
+        timings[f"combined_{tag}_fit_s"] = t_fit
+        timings[f"combined_{tag}_predict_s"] = t_pred
+        del gp
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0}, f"exact_combined launched: {launches}")
+    emit({"phase": "exact_combined", "n": n, "levels": EX_LEVELS,
+          "n_pred": n_pred, **out})
+    return timings
+
+
+def exact_laplace(ex, dev):
+    """A ``bernoulli_logit`` exact GP (Matern 1.5) at n = EX_SMALL_N on the
+    first points of the exact data, latent = its GP draw: NLL, one
+    value-and-gradient, the default fit (L-BFGS), a response-scale
+    ``predict``; the NLL and gradient on the card against the float64 CPU
+    run at EX_LAP_CPU_N points within EX_CPU_RTOL."""
+    from gpboost_tpu_torch.models import laplace as tla
+    rows = slice(0, EX_SMALL_N)
+    coords = ex["coords"][rows]
+    rng = np.random.default_rng(31)
+    yb = rng.binomial(1, 1.0 / (1.0 + np.exp(-ex["b"][rows]))).astype(float)
+    reset_counts()
+    gp, t_construct = _timed(lambda: _exact_model(
+        coords, dev, likelihood="bernoulli_logit"))
+    init = gp._default_init_cov_pars(yb)
+    nll_init, t_nll = _timed(lambda: gp.neg_log_likelihood(init, yb))
+    ybt = gp._tensor(yb)
+    _, t_vg = _timed(lambda: tla.nll_value_and_grad(
+        gp.spec, gp.data, gp._tensor(init), None, ybt)[1][0].cpu())
+    _, t_fit = _timed(lambda: gp.fit(yb))
+    res = gp._fit_result
+    pred, t_pred = _timed(lambda: gp.predict(
+        gp_coords_pred=ex["pred"], predict_var=True, predict_response=True))
+    launches = read_counts()
+    nll_fit = gp.get_current_neg_log_likelihood()
+    mu, var = pred["mu"], pred["var"]
+    cpu = {}
+    for name in ("cuda", "cpu"):
+        m = _exact_model(coords[:EX_LAP_CPU_N], dev if name == "cuda"
+                         else "cpu", likelihood="bernoulli_logit")
+        v, (g, _, _) = tla.nll_value_and_grad(
+            m.spec, m.data, m._tensor([1.0, 0.1]), None,
+            m._tensor(yb[:EX_LAP_CPU_N]))
+        cpu[name] = (float(v), g.cpu().numpy())
+    nll_rel = abs(cpu["cuda"][0] - cpu["cpu"][0]) / abs(cpu["cpu"][0])
+    g_rel = float(np.max(np.abs(cpu["cuda"][1] - cpu["cpu"][1]))
+                  / np.max(np.abs(cpu["cpu"][1])))
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0}, f"exact_laplace launched: {launches}")
+    check(math.isfinite(nll_fit) and nll_fit <= nll_init,
+          f"the exact Laplace fit did not lower the NLL: {nll_init} -> "
+          f"{nll_fit}")
+    check(bool(np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                       & (var <= 0.25))),
+          "exact Laplace predictions outside (0, 1) / (0, 0.25]")
+    check(nll_rel <= EX_CPU_RTOL and g_rel <= EX_CPU_RTOL,
+          f"exact Laplace NLL on the card vs the CPU: {nll_rel}, gradient "
+          f"{g_rel}")
+    emit({"phase": "exact_laplace", "n": EX_SMALL_N,
+          "likelihood": "bernoulli_logit", "nll_init": nll_init,
+          "nll_fit": nll_fit, "cov_pars": gp.get_cov_pars().tolist(),
+          "iterations": res.num_it, "evaluations": res.num_evals,
+          "cpu_check": {"n": EX_LAP_CPU_N, "nll_rel_diff": nll_rel,
+                        "grad_max_rel_diff": g_rel,
+                        "tolerance": EX_CPU_RTOL},
+          "pred_mu_range": [float(mu.min()), float(mu.max())],
+          "launches": launches})
+    del gp
+    return {"laplace_construct_s": t_construct, "laplace_nll_s": t_nll,
+            "laplace_vg_s": t_vg, "laplace_fit_s": t_fit,
+            "laplace_fit_evaluations": res.num_evals,
+            "laplace_predict_s": t_pred}
+
+
+def _boost_checks(bst, tag, launches, reads, rounds):
+    leaves = sum(t.num_leaves for t in bst.trees)
+    fits = bst.objective.fits
+    check(bst.num_trees() == rounds, f"{tag}: {bst.num_trees()} trees")
+    _check_trees(bst, tag)
+    check(launches["histogram"] == leaves,
+          f"{tag}: histogram launched {launches['histogram']} times for "
+          f"{leaves} leaves")
+    check(reads == 2 * leaves, f"{tag}: {reads} host reads for {leaves} "
+          "leaves")
+    check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
+          f"{tag} launched a Vecchia kernel: {launches}")
+    check(len(fits) == rounds + 1, f"{tag}: {len(fits)} refits in {rounds} "
+          "rounds")
+    nlls = [f["nll"] for f in fits]
+    check(all(math.isfinite(v) for v in nlls), f"{tag}: NLLs {nlls}")
+    return {"leaves": leaves, "fits": len(fits),
+            "evaluations": sum(f["num_evals"] for f in fits),
+            "nll_first_fit": nlls[0], "nll_last_fit": nlls[-1],
+            "launches": launches, "host_reads_per_tree": reads / rounds}
+
+
+def make_exact_boost_data(seed, n, n_pred):
+    """The boosting recipe (PERF.md section 4) at n points: the GP data's
+    coordinates and response plus f(X) on 5 features; a binary response
+    from the same latent for LaGaBoost."""
+    coords, y, pred = make_data(seed, n, n_pred)
+    X, yb, X_pred = make_boost_data(seed, y, n_pred)
+    rng = np.random.default_rng(seed + 60)
+    f = 2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + X[:, 2]
+    lat = f - f.mean() + np.sin(6 * coords[:, 0]) + np.cos(4 * coords[:, 1])
+    ybin = rng.binomial(1, 1.0 / (1.0 + np.exp(-lat))).astype(float)
+    return dict(coords=coords, pred=pred, X=X, y=yb, X_pred=X_pred,
+                ybin=ybin, seed=seed)
+
+
+def _exact_boost_gp(coords, dev, likelihood="gaussian"):
+    import gpboost_tpu_torch as gpt
+    return gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                       likelihood=likelihood, device=dev)
+
+
+def exact_boosting(bd, rounds, dev, binary=False):
+    """The GPBoost algorithm (``binary``: LaGaBoost, objective "binary",
+    ``bernoulli_logit``) with the exact GP (exponential) in the Vecchia
+    GP's place, ``rounds`` rounds, the default optimizer, then
+    ``Booster.predict`` with variances. The histogram kernel once a leaf,
+    the Vecchia kernels never."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    tag = "exact_lagaboost" if binary else "exact_boosting"
+    reset_counts()
+    label = bd["ybin"] if binary else bd["y"]
+    ds = gpt.Dataset(bd["X"], label=label, device=dev)
+    gp = _exact_boost_gp(bd["coords"], dev,
+                         "bernoulli_logit" if binary else "gaussian")
+    params = NG_PARAMS if binary else BOOST_PARAMS
+    bst, t_train = _timed(lambda: gpt.train(params, ds, gp_model=gp,
+                                            num_boost_round=rounds))
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    out, t_pred = _timed(lambda: bst.predict(
+        bd["X_pred"], gp_coords_pred=bd["pred"], predict_var=True))
+    entry = _boost_checks(bst, tag, launches, reads, rounds)
+    # the kernel against its plain version at this path's shape (after
+    # the path's counts are read: these launches are not the path's)
+    hist = check_histogram_on(ds, bd["seed"], dev, tag)
+    mu, var = out["response_mean"], out["response_var"]
+    ok_mu = (np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                    & (var <= VAR_TOP))
+             if binary else np.all(np.isfinite(mu)) and np.all(var > 0))
+    check(mu.shape == (len(bd["pred"]),) and bool(ok_mu),
+          f"{tag}: predictions out of range")
+    emit({"phase": tag, "n": len(label), "rounds": rounds,
+          "cov_pars": gp.get_cov_pars().tolist(), **entry,
+          "pred_mu_range": [float(mu.min()), float(mu.max())]})
+    return (launches, {f"{tag}_train_{rounds}r_s": t_train,
+                       f"{tag}_evaluations": entry["evaluations"],
+                       f"{tag}_predict_s": t_pred}, bst, hist)
+
+
+def grouped_lagaboost(seed, n, n_pred, rounds, dev):
+    """LaGaBoost with a grouped random intercept (GB_LEVELS levels) at the
+    grouped GPBoost recipe's size: a binary response from its features and
+    levels, ``train({"objective": "binary"}, ..., gp_model=GPModel(
+    group_data=..., likelihood="bernoulli_logit"))`` for ``rounds`` rounds,
+    then ``Booster.predict`` (10 % unseen levels). Its gradient d NLL / dF
+    runs in b-space; the histogram kernel once a leaf."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    bd = _grouped_boost_data(seed, n, n_pred)
+    rng = np.random.default_rng(seed + 21)
+    f = 2.0 * np.sin(5 * bd["X"][:, 0]) + bd["X"][:, 1] ** 2 + bd["X"][:, 2]
+    lat = f - f.mean() + 0.7 * rng.standard_normal(GB_LEVELS)[bd["g"]]
+    bd["ybin"] = rng.binomial(1, 1.0 / (1.0 + np.exp(-lat))).astype(float)
+    reset_counts()
+    ds = gpt.Dataset(bd["X"], label=bd["ybin"], device=dev)
+    gp = gpt.GPModel(group_data=bd["g"], likelihood="bernoulli_logit",
+                     device=dev)
+    bst, t_train = _timed(lambda: gpt.train(NG_PARAMS, ds, gp_model=gp,
+                                            num_boost_round=rounds))
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    out, t_pred = _timed(lambda: bst.predict(
+        bd["X_pred"], group_data_pred=bd["group_pred"], predict_var=True))
+    entry = _boost_checks(bst, "grouped_lagaboost", launches, reads, rounds)
+    hist = check_histogram_on(ds, seed, dev, "grouped_lagaboost")
+    mu, var = out["response_mean"], out["response_var"]
+    check(bool(np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                       & (var <= VAR_TOP))),
+          "grouped_lagaboost: predictions out of range")
+    emit({"phase": "grouped_lagaboost", "n": n, "levels": GB_LEVELS,
+          "rounds": rounds, "cov_pars": gp.get_cov_pars().tolist(), **entry,
+          "pred_mu_range": [float(mu.min()), float(mu.max())]})
+    return (launches, {f"grouped_lagaboost_train_{rounds}r_s": t_train,
+                       "grouped_lagaboost_evaluations": entry["evaluations"],
+                       "grouped_lagaboost_predict_s": t_pred}, bst, bd,
+            hist)
+
+
+def exact_determinism(ex_boost, ex_laga, g_laga, clustered, dev):
+    """Second runs of the new paths, each the same bits as the first: the
+    exact GPBoost and LaGaBoost trainings, the grouped LaGaBoost training
+    (scores, cov_pars, evaluation counts) and the clustered fit (cov_pars,
+    NLL)."""
+    import gpboost_tpu_torch as gpt
+    out = {}
+    for tag, (first, data, binary) in (("exact_boosting", ex_boost),
+                                       ("exact_lagaboost", ex_laga),
+                                       ("grouped_lagaboost", g_laga)):
+        if tag == "grouped_lagaboost":
+            gp = gpt.GPModel(group_data=data["g"],
+                             likelihood="bernoulli_logit", device=dev)
+            label = data["ybin"]
+        else:
+            gp = _exact_boost_gp(data["coords"], dev,
+                                 "bernoulli_logit" if binary else "gaussian")
+            label = data["ybin"] if binary else data["y"]
+        bst = gpt.train(NG_PARAMS if binary else BOOST_PARAMS,
+                        gpt.Dataset(data["X"], label=label, device=dev),
+                        gp_model=gp, num_boost_round=first.num_trees())
+        ev = ([f["num_evals"] for f in first.objective.fits],
+              [f["num_evals"] for f in bst.objective.fits])
+        out[tag] = {
+            "scores_bit_identical": bool(np.array_equal(first._score,
+                                                        bst._score)),
+            "cov_pars_bit_identical": bool(np.array_equal(
+                first.gp_model.get_cov_pars(), gp.get_cov_pars())),
+            "evaluations_identical": bool(ev[0] == ev[1]),
+            "score_max_abs_diff": float(np.abs(first._score
+                                               - bst._score).max()),
+            "evaluations": [sum(ev[0]), sum(ev[1])]}
+        del bst, gp
+    first_gp, cd = clustered
+    gp2 = _exact_model(cd["coords"], dev, cluster_ids=cd["ids"])
+    gp2.fit(cd["y"])
+    out["clustered_fit"] = {
+        "cov_pars_bit_identical": bool(np.array_equal(
+            first_gp.get_cov_pars(), gp2.get_cov_pars())),
+        "nll_bit_identical": bool(
+            first_gp.get_current_neg_log_likelihood()
+            == gp2.get_current_neg_log_likelihood()),
+        "evaluations": [first_gp._fit_result.num_evals,
+                        gp2._fit_result.num_evals]}
+    emit({"phase": "determinism_exact", **out})
+    ok = all(v["scores_bit_identical"] and v["cov_pars_bit_identical"]
+             and v["evaluations_identical"]
+             for k, v in out.items() if k != "clustered_fit")
+    c = out["clustered_fit"]
+    ok = ok and c["cov_pars_bit_identical"] and c["nll_bit_identical"] \
+        and c["evaluations"][0] == c["evaluations"][1]
+    check(ok, f"the new paths are not bit-reproducible on the card: {out}")
+    return out
+
+
+def exact_ops_trace(ex, clustered_gp, dev):
+    """The exact value-and-gradient (profiled and full, dense) and the
+    clustered one on the card under the profiler (its CPU side): no
+    operation that adds with colliding indices."""
+    from torch.profiler import ProfilerActivity, profile
+    from gpboost_tpu_torch.models import clustered as tcl
+    from gpboost_tpu_torch.models import gaussian as tga
+    rows = slice(0, EX_CPU_N)
+    m = _exact_model(ex["coords"][rows], dev)
+    r = m._tensor(ex["y"][rows] - ex["X"][rows] @ np.asarray(EX_BETA))
+    rc = clustered_gp._tensor(np.random.default_rng(2).standard_normal(
+        clustered_gp.num_data))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tga.nll_profiled_value_and_grad(m.spec, m.data,
+                                        m._tensor(np.log([4.0, 0.1])), r)
+        tga.nll_value_and_grad_log_scale(m.spec, m.data,
+                                         m._tensor(np.log(EX_TRUTH)), r)
+        tcl.nll_profiled_value_and_grad(
+            clustered_gp.cov_fn, clustered_gp._tensor(np.log([4.0, 0.1])),
+            clustered_gp._blocks, rc)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    bad = [x for x in names if any(b in x for b in SCATTERS)]
+    emit({"phase": "exact_ops_trace", "ops": names, "scatters": bad})
+    check(any("cholesky" in x for x in names), f"empty trace: {names}")
+    check(not bad, f"the exact value-and-gradient scatters: {bad}")
+    return names
+
+
+def exact_paths(seed, n, n_pred, rounds, dev):
+    """Phase 8 in order; returns (launches by path, timings, the first runs
+    that ``exact_determinism`` repeats)."""
+    timings = {}
+    ex = make_exact_data(seed, EX_N, EX_N_PRED, dev)
+    l_gp, t = exact_gp(ex, dev)
+    timings.update(t)
+    timings.update(exact_vs_cpu(ex, dev))
+    cd = make_clustered_data(seed, dev, n_pred)
+    t, cl_gp = exact_clustered(cd, dev)
+    timings.update(t)
+    timings.update(exact_combined(seed, dev, EX_N_PRED))
+    timings.update(exact_laplace(ex, dev))
+    bd = make_exact_boost_data(seed, EX_SMALL_N, EX_N_PRED)
+    l_b, t, bst_b, h_b = exact_boosting(bd, rounds, dev)
+    timings.update(t)
+    l_l, t, bst_l, h_l = exact_boosting(bd, rounds, dev, binary=True)
+    timings.update(t)
+    l_g, t, bst_g, gbd, h_g = grouped_lagaboost(seed, n, n_pred, rounds, dev)
+    timings.update(t)
+    launches = {"exact_gp": l_gp, "exact_boosting": l_b,
+                "exact_lagaboost": l_l, "grouped_lagaboost": l_g}
+    firsts = dict(ex_boost=(bst_b, bd, False), ex_laga=(bst_l, bd, True),
+                  g_laga=(bst_g, gbd, True), clustered=(cl_gp, cd), ex=ex)
+    hist = ([c for cases, _ in (h_b, h_l, h_g) for c in cases],
+            [shape for _, shape in (h_b, h_l, h_g)])
+    return launches, timings, firsts, hist
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2015,7 +2742,6 @@ def main():
               f"stay in shared memory and registers: {rep}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(libs), "ptxas": ptxas, **kernel_ptxas})
-
     coords, y, pred = make_data(args.seed, args.n, args.n_pred)
     boost_data = make_boost_data(args.seed, y, args.n_pred)
     t0 = time.perf_counter()
@@ -2060,10 +2786,21 @@ def main():
     timings.update(gb_timings)
     glmm_launches, glmm_timings, glmm_model = grouped_glmm(gd, dev)
     timings.update(glmm_timings)
+    torch.cuda.empty_cache()
+
+    # the exact GP: alone, clustered, combined, Laplace, boosting with it,
+    # and LaGaBoost with grouped effects
+    ex_launches, ex_timings, firsts, ex_hist = exact_paths(
+        args.seed, args.n, args.n_pred, args.rounds, dev)
+    timings.update(ex_timings)
+    cases["histogram"] += ex_hist[0]
+    timed["histogram"]["other_shapes"] += ex_hist[1]
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
     del bst, ds, bst_ng, ds_ng, bst_g, glmm_model
+    exact_determinism(firsts["ex_boost"], firsts["ex_laga"], firsts["g_laga"],
+                      firsts["clustered"], dev)
     torch.cuda.empty_cache()
     timings.update(bt_sliced_ms=bt["sliced_ms"],
                    bt_scatter_ms=bt["scatter_ms"])
@@ -2085,6 +2822,8 @@ def main():
     del ng_model
     grouped_ops_trace(trace_model, gd["yb"][:GR_CPU_N], dev)
     del trace_model
+    exact_ops_trace(firsts["ex"], firsts["clustered"][0], dev)
+    del firsts
 
     # a kernel that a path runs must have been launched in that path's run
     paths = {"gp": launches, "boosting": boost_launches,
@@ -2092,7 +2831,7 @@ def main():
              "boosting_default_route": bgd_launches,
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
-             "grouped_glmm": glmm_launches}
+             "grouped_glmm": glmm_launches, **ex_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -2100,7 +2839,12 @@ def main():
              ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting_default_route", bgd_launches, tuple(REPLACES)),
             ("lagaboost", lg_launches, ("histogram",)),
-            ("grouped_boosting", gb_launches, ("histogram",))):
+            ("grouped_boosting", gb_launches, ("histogram",)),
+            ("exact_boosting", ex_launches["exact_boosting"], ("histogram",)),
+            ("exact_lagaboost", ex_launches["exact_lagaboost"],
+             ("histogram",)),
+            ("grouped_lagaboost", ex_launches["grouped_lagaboost"],
+             ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")

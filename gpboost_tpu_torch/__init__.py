@@ -24,7 +24,13 @@ reference. Ported so far:
   algorithm with them, and the b-space Laplace approximation for the other
   likelihoods; no kernel of their own either (their sums over rows go
   through a fixed-order plan on the GPU, their dense work is
-  ``torch.linalg`` on [q, q] matrices).
+  ``torch.linalg`` on [q, q] matrices);
+- the exact GP (``gp_approx="none"``, the default), alone or with grouped
+  effects, GP random coefficients and ``cluster_ids`` (batched per-cluster
+  blocks): NLL, the profiled, masked, Fisher-scoring and Newton fits, std
+  errors, prediction, the dense Laplace approximation, GPBoost and
+  LaGaBoost with it, and LaGaBoost with grouped effects (in b-space); its
+  dense work is ``torch.linalg``'s Cholesky, as in the JAX package.
 
 There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,

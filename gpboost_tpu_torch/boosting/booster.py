@@ -168,7 +168,9 @@ class Booster:
                 cluster_ids_pred=None, predict_var=False, pred_latent=False):
         """Predict on raw features. With an attached gp_model and its
         prediction data (``group_data_pred`` / ``group_rand_coef_data_pred``
-        for grouped random effects, ``gp_coords_pred`` for a GP), returns
+        for grouped random effects, ``gp_coords_pred`` for a GP, with
+        ``gp_rand_coef_data_pred`` / ``cluster_ids_pred`` for an exact GP
+        that has them), returns
         the combined tree + random-effects prediction as a dict
         (``basic.py:3560-3650``): ``fixed_effect``, ``random_effect_mean``,
         ``random_effect_cov`` (the variances with ``predict_var``),
@@ -180,10 +182,6 @@ class Booster:
             raise NotImplementedError(
                 "pred_leaf / pred_contrib are not ported to "
                 f"gpboost_tpu_torch yet ({_TAIL})")
-        if gp_rand_coef_data_pred is not None or cluster_ids_pred is not None:
-            raise NotImplementedError(
-                "gp_rand_coef_data_pred / cluster_ids_pred are not ported to "
-                "gpboost_tpu_torch yet (ROADMAP.md Queue A, item 15)")
         data = np.asarray(data, dtype=np.float64)
         if data.ndim == 1:
             data = data[:, None]
@@ -195,6 +193,8 @@ class Booster:
                 raw, dict(group_data_pred=group_data_pred,
                           group_rand_coef_data_pred=group_rand_coef_data_pred,
                           gp_coords_pred=gp_coords_pred,
+                          gp_rand_coef_data_pred=gp_rand_coef_data_pred,
+                          cluster_ids_pred=cluster_ids_pred,
                           predict_var=predict_var), pred_latent)
         if raw_score:
             return raw

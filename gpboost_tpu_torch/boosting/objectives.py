@@ -12,11 +12,10 @@ and the coupling with a ``GPModel`` of ``regression_objective.hpp:153-186``:
   re-optimized (warm-started) at the current score in every iteration.
 
 Scores, labels and gradients are host float64 arrays, as in the reference's
-host loop; the covariance refit, the ``Psi^-1`` solve (Vecchia or, for
-grouped random effects, Woodbury) and the Laplace gradient run on the
-model's device. LaGaBoost with grouped random effects is not ported
-(ROADMAP.md Queue A, item 16). Other objectives are not ported
-(ROADMAP.md Queue A, item 18).
+host loop; the covariance refit, the ``Psi^-1`` solve (Vecchia, Woodbury
+for grouped random effects, or a dense Cholesky for an exact GP) and the
+Laplace gradient run on the model's device. Other objectives are not ported (ROADMAP.md Queue A,
+item 18).
 """
 from __future__ import annotations
 
@@ -140,14 +139,6 @@ class GPBoostObjective(Objective):
 
     def __init__(self, gp_model, train_gp_model_cov_pars=True,
                  reuse_learning_rates_gp_model=True):
-        if getattr(gp_model, "_grouped_only", False) \
-                and not gp_model.is_gaussian:
-            raise NotImplementedError(
-                "LaGaBoost with grouped random effects (a non-Gaussian "
-                "grouped gp_model) is not ported to gpboost_tpu_torch yet: "
-                "its gradient d NLL / dF needs a q-space route (the JAX "
-                "package's laplace.gradient_wrt_F builds the dense [n, n] "
-                "covariance) (ROADMAP.md Queue A, item 16)")
         self.gp_model = gp_model
         self.train_gp_model_cov_pars = train_gp_model_cov_pars
         self.reuse_learning_rates_gp_model = reuse_learning_rates_gp_model
@@ -233,16 +224,16 @@ class GPBoostObjective(Objective):
                     fixed_effects=np.asarray(score, dtype=np.float64))
 
     def _laplace_grad_F(self, score):
-        """d NLL / dF at the current score (``grad_F_laplace`` with its
-        defaults, as the JAX package's objective calls it)."""
+        """d NLL / dF at the current score (the model's LaGaBoost gradient:
+        Vecchia with ``grad_F_laplace``'s defaults, as the JAX package's
+        objective calls it; dense for an exact GP; in b-space for grouped
+        effects)."""
         gp = self.gp_model
         if gp.cov_pars_ is None:
             raise ValueError(
                 "train_gp_model_cov_pars=False needs covariance parameters: "
                 "fit the gp_model first")
-        g = gp._approx.grad_F_laplace(
-            gp._tensor(gp.cov_pars_), gp._y_tensor(self.label),
-            gp._aux_tensor(), gp._tensor(score))
+        g = gp._grad_F_laplace(self.label, score)
         return g.detach().cpu().numpy().astype(np.float64)
 
     def _refit(self, **fit_args):

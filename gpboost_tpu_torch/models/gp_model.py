@@ -7,8 +7,8 @@ names, ``fit`` / ``neg_log_likelihood`` / ``predict`` /
 ``predict_training_data_random_effects`` / ``set_optim_params`` /
 ``get_cov_pars`` / ``summary`` / ``model_to_dict`` methods, same covariance
 parameter layout (the error variance first for the gaussian likelihood,
-then each component's parameters). One class, two model structures, as the
-JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
+then each component's parameters). One class, three model structures, as
+the JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
 
 - **grouped random effects** (``group_data``, with random slopes
   ``group_rand_coef_data`` / ``ind_effect_group_rand_coef`` and
@@ -16,11 +16,18 @@ JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
   model, a single-group dummy whose variance is pinned at 1e-20 after the
   fit): the Woodbury route of ``models/grouped.py`` (``_grouped_only``).
   Gaussian likelihood — NLL, the profiled fit by gradient descent (the
-  default), L-BFGS, Nelder-Mead or Adam with GLS coefficient updates, std
-  errors from the Fisher information in q-space, prediction with unseen
-  levels and the full covariance, the ``Psi^-1 r`` solve of the GPBoost
-  algorithm. Other likelihoods — the Laplace approximation in b-space
-  (``models/laplace_fit.py``).
+  default), L-BFGS, Nelder-Mead or Adam with GLS coefficient updates,
+  Fisher scoring, Newton, held parameters, std errors from the Fisher
+  information in q-space, prediction with unseen levels and the full
+  covariance, the ``Psi^-1 r`` solve of the GPBoost algorithm. Other
+  likelihoods — the Laplace approximation in b-space
+  (``models/laplace_fit.py``), the LaGaBoost gradient there.
+- **an exact GP** (``gp_coords`` with ``gp_approx="none"``, the default;
+  ``_exact``), alone or with grouped effects, GP random coefficients and
+  ``cluster_ids`` (a Gaussian GP alone with ``cluster_ids`` on the batched
+  blocks of ``models/clustered.py``): the dense routes of
+  ``models/gaussian.py`` (the same fits as the grouped models, std errors,
+  prediction, training-data effects) and of ``models/laplace.py``.
 - **a Vecchia GP** (``gp_coords`` with ``gp_approx="vecchia"``,
   ``models/vecchia_model.py``): gaussian likelihood — NLL, fit by every
   optimizer of the reference's Gaussian Vecchia route
@@ -29,9 +36,9 @@ JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
   approximation (dense, or ``matrix_inversion_method="iterative"``: CG +
   stochastic Lanczos), its fit and prediction, the LaGaBoost gradient.
 
-Every other structure — exact GPs, other approximations, grouped effects
-together with a GP, GP random coefficients, ``cluster_ids``, weights, the
-iterative route of grouped models — raises ``NotImplementedError`` naming
+Every other structure — other approximations, grouped effects, GP random
+coefficients or ``cluster_ids`` with a Vecchia GP, weights, the iterative
+route of grouped and exact models — raises ``NotImplementedError`` naming
 its ROADMAP.md item.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
@@ -40,21 +47,25 @@ arrays; tensors stay on the model's device in between.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from gpboost_tpu_torch import config
 from gpboost_tpu_torch import likelihoods as lk
-from gpboost_tpu_torch.models import grouped, laplace_fit, optimizers
-from gpboost_tpu_torch.models import vecchia_fit
+from gpboost_tpu_torch.models import (clustered, gaussian, grouped, laplace,
+                                      laplace_fit, optimizers, vecchia_fit)
 from gpboost_tpu_torch.models.laplace import _response_moments
-from gpboost_tpu_torch.models.covariance import split_cov_pars
-from gpboost_tpu_torch.models.spec import ModelSpec, make_model_data
+from gpboost_tpu_torch.models.covariance import (cluster_mask, component_cov,
+                                                 split_cov_pars, total_re_cov)
+from gpboost_tpu_torch.models.spec import (GroupedRESpec, ModelData,
+                                           ModelSpec, make_model_data,
+                                           map_cluster_ids)
 from gpboost_tpu_torch.models.vecchia_model import VecchiaGP
-from gpboost_tpu_torch.ops.cov_fns import CovFunction
+from gpboost_tpu_torch.ops.cov_fns import CovFunction, euclidean_distance
 from gpboost_tpu_torch.utils import resolve_device
 from gpboost_tpu_torch.utils.timer import timed
 
@@ -82,6 +93,9 @@ _OPT_ALIASES = {
     "gradient_descent_constant_change": "gradient_descent",
     "gradient_descent_increase_lr": "gradient_descent",
     "gradient_descent_reset_lr": "gradient_descent",
+    "newton_constant_change": "newton",
+    "newt_constant_change": "newton",
+    "fisher_scoring_constant_change": "fisher_scoring",
     "lbfgs_not_profile_out_nugget": "lbfgs",
 }
 
@@ -139,8 +153,10 @@ def _canonical_likelihood(lik: str) -> str:
 
 class GPModel:
     """Gaussian process and grouped random-effects model: grouped random
-    intercepts and slopes (the Woodbury route) or a Vecchia-approximated GP,
-    gaussian or non-Gaussian likelihood (module docstring).
+    intercepts and slopes (the Woodbury route), an exact GP (with or without
+    grouped effects, GP random coefficients and ``cluster_ids``) or a
+    Vecchia-approximated GP, gaussian or non-Gaussian likelihood (module
+    docstring).
 
     Parameters follow ``gpboost.GPModel`` (``basic.py:4054``); ``dtype`` and
     ``device`` say where and in which precision the model computes.
@@ -175,10 +191,18 @@ class GPModel:
                       "num_data": num_data}
         given = [k for k, v in group_keys.items() if v is not None]
         self._iid_model = False
-        if gp_coords is not None and given:
-            raise _not_ported(
-                f"grouped random effects or the iid model ({', '.join(given)}"
-                ") together with a GP (gp_coords)", "Queue A, item 15")
+        is_vecchia = gp_coords is not None and gp_approx == "vecchia"
+        if is_vecchia:
+            for what, value in (
+                    ("grouped random effects or the iid model ("
+                     f"{', '.join(given)}) together with a Vecchia GP",
+                     given),
+                    ("GP random coefficients (gp_rand_coef_data) with "
+                     "gp_approx='vecchia'", gp_rand_coef_data is not None),
+                    ("cluster_ids with gp_approx='vecchia'",
+                     cluster_ids is not None)):
+                if value:
+                    raise _not_ported(what, "Queue A, item 15")
         if gp_coords is None and group_data is None:
             if num_data is None:
                 raise ValueError(
@@ -188,12 +212,12 @@ class GPModel:
             # the reference's single-group dummy (R GPModel.R:553-560)
             group_data = np.zeros(int(num_data))
             self._iid_model = True
-        self._grouped_only = gp_coords is None
-        if gp_rand_coef_data is not None:
-            raise _not_ported("GP random coefficients (gp_rand_coef_data)",
-                              "Queue A, item 15")
-        if cluster_ids is not None:
-            raise _not_ported("cluster_ids", "Queue A, item 15")
+        if gp_coords is None and gp_rand_coef_data is not None:
+            raise ValueError("'gp_rand_coef_data' needs 'gp_coords'")
+        # the Woodbury route serves grouped effects alone; everything else
+        # but a Vecchia GP is an exact (dense) model
+        self._grouped_only = gp_coords is None and cluster_ids is None
+        self._exact = not (self._grouped_only or is_vecchia)
         if weights is not None:
             raise _not_ported("weights", "Queue A, item 11")
         likelihood = _canonical_likelihood(likelihood)
@@ -214,20 +238,20 @@ class GPModel:
         if matrix_inversion_method not in ("cholesky", "iterative"):
             raise ValueError("matrix_inversion_method: 'cholesky' or "
                              f"'iterative', got {matrix_inversion_method!r}")
-        if matrix_inversion_method == "iterative" and self._grouped_only:
+        if matrix_inversion_method == "iterative" and not is_vecchia:
             raise _not_ported(
                 "matrix_inversion_method='iterative' for grouped random "
-                "effects (CG and stochastic Lanczos in b-space)",
+                "effects and exact GPs (CG and stochastic Lanczos)",
                 "Queue A, item 12")
         if (matrix_inversion_method == "iterative" and likelihood == "gaussian"
-                and not self._grouped_only):
+                and is_vecchia):
             raise _not_ported(
                 "matrix_inversion_method='iterative' with "
                 "likelihood='gaussian' (the iterative Gaussian Vecchia "
                 "route)", "Queue A, item 12")
-        if not self._grouped_only and gp_approx != "vecchia":
+        if gp_coords is not None and gp_approx not in ("vecchia", "none"):
             raise _not_ported(f"gp_approx='{gp_approx}'",
-                              "Queue A, items 16-17")
+                              "Queue A, item 17")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.likelihood = likelihood
@@ -260,33 +284,65 @@ class GPModel:
         self.spec = None
         self.cov_fn = None
         self.coords_np = None
-        if self._grouped_only:
-            self._drop_intercept_group_rand_effect = (
-                None if drop_intercept_group_rand_effect is None
-                else [int(v) for v in np.atleast_1d(np.asarray(
-                    drop_intercept_group_rand_effect)).astype(int)])
-            with timed("GPModel: grouped layout", sync=True):
+        self._drop_intercept_group_rand_effect = (
+            None if drop_intercept_group_rand_effect is None
+            else [int(v) for v in np.atleast_1d(np.asarray(
+                drop_intercept_group_rand_effect)).astype(int)])
+        self._cluster_map = None
+        self._clustered_batched = False
+        self._blocks = None
+        if not is_vecchia:
+            if gp_coords is not None:
+                coords = np.asarray(gp_coords, dtype=np.float64)
+                self.coords_np = coords.reshape(len(coords), -1)
+                self.cov_fn = CovFunction.create(
+                    cov_function, shape=cov_fct_shape,
+                    dim_coords=self.coords_np.shape[1])
+                # the batched per-cluster blocks (JAX gp_model.py:340-345)
+                self._clustered_batched = (
+                    cluster_ids is not None and group_data is None
+                    and gp_rand_coef_data is None and self.is_gaussian
+                    and self.cov_fn.is_isotropic)
+                if (dtype == torch.float32 and self.device.type == "cuda"
+                        and torch.backends.cuda.matmul.allow_tf32):
+                    raise RuntimeError(
+                        "a float32 exact GP needs TF32 off for its distance "
+                        "products (a reduced-precision cross term makes Psi "
+                        "non-positive-definite): set "
+                        "torch.backends.cuda.matmul.allow_tf32 = False")
+            with timed("GPModel: model data", sync=True):
                 components, self.data, info = make_model_data(
                     group_data, group_rand_coef_data,
                     ind_effect_group_rand_coef,
                     drop_intercept_group_rand_effect, dtype=dtype,
-                    device=self.device)
+                    device=self.device, gp_coords=gp_coords,
+                    cov_fn=self.cov_fn, gp_rand_coef_data=gp_rand_coef_data,
+                    cluster_ids=cluster_ids,
+                    dense_dists=not self._clustered_batched)
                 self.num_data = info["num_data"]
                 self._group_maps = info["group_maps"]
+                self._cluster_map = info["cluster_map"]
                 self.spec = ModelSpec(components=tuple(components),
                                       likelihood=likelihood,
                                       num_data=self.num_data)
-                # on the card every sum over rows goes through a plan with
-                # a fixed order (no float atomics); on the CPU index_add_
-                self._Z = grouped.GroupedZ(
-                    self.spec, self.data,
-                    deterministic=self.device.type == "cuda", dtype=dtype)
-                # what depends on the data only, built once: Z'Z for the
-                # gaussian likelihood, the pair plan of Z'WZ for the others
-                if self.is_gaussian:
-                    self._Z.ztz()
-                elif self._Z.deterministic:
-                    self._Z.pair_plan()
+                if self._clustered_batched:
+                    self._blocks = clustered.prepare_blocks(
+                        self.data.cluster_codes.cpu().numpy(),
+                        self.coords_np, dtype=dtype, device=self.device)
+                if self._grouped_only:
+                    # on the card every sum over rows goes through a plan
+                    # with a fixed order (no float atomics); on the CPU
+                    # index_add_
+                    self._Z = grouped.GroupedZ(
+                        self.spec, self.data,
+                        deterministic=self.device.type == "cuda",
+                        dtype=dtype)
+                    # what depends on the data only, built once: Z'Z for the
+                    # gaussian likelihood, the pair plan of Z'WZ for others
+                    if self.is_gaussian:
+                        self._Z.ztz()
+                    elif self._Z.deterministic:
+                        self._Z.pair_plan()
             self.num_cov_pars = self.spec.num_cov_par
             return
         coords = np.asarray(gp_coords, dtype=np.float64)
@@ -432,19 +488,51 @@ class GPModel:
         return kw
 
     def _psi_solve(self, cov_pars, r) -> torch.Tensor:
-        """Psi^-1 r for ``r`` [n] (or [n, k] for a grouped model) in the
-        original row order, at the Gaussian ``cov_pars`` — matrix-free
-        through the Vecchia precision, or by Woodbury in q-space. Used by
-        the GPBoost objective. Returns a tensor on the model's device."""
+        """Psi^-1 r for ``r`` [n] (or [n, k] for a grouped or exact model)
+        in the original row order, at the Gaussian ``cov_pars`` —
+        matrix-free through the Vecchia precision, by Woodbury in q-space,
+        by the cluster blocks, or by a dense Cholesky. Used by the GPBoost
+        objective. Returns a tensor on the model's device."""
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
-        if self._grouped_only:
+        cp = self._tensor(cov_pars_np)
+        if self._approx is None:
             with torch.no_grad():
-                return grouped.psi_inv_mul(self._Z, self._tensor(cov_pars_np),
-                                           self._tensor(r))
+                return self._gauss_ops().psi_solve(cp, self._tensor(r))
         self._approx.ensure_neighbors(cov_pars_np)
         with torch.no_grad():
-            return self._approx.psi_inv_resid(self._tensor(cov_pars_np),
-                                              self._tensor(r, ravel=True))
+            return self._approx.psi_inv_resid(cp, self._tensor(r, ravel=True))
+
+    def _gauss_ops(self) -> "_GaussOps":
+        """The Gaussian NLL's pieces of this model's structure: grouped
+        (Woodbury in q-space), the cluster blocks, or dense."""
+        if self._grouped_only:
+            Z = self._Z
+            return _GaussOps(
+                nll=lambda cp, r: grouped.nll_gaussian(Z, cp, r),
+                nll_twice=lambda cp, r: grouped.nll_gaussian_twice(Z, cp, r),
+                vg_profiled=lambda th, r: grouped.nll_profiled_value_and_grad(
+                    Z, th, r),
+                fisher=lambda cp: grouped.fisher_information(Z, cp),
+                psi_solve=lambda cp, R: grouped.psi_inv_mul(Z, cp, R))
+        spec, data = self.spec, self.data
+        ops = _GaussOps(
+            nll=lambda cp, r: gaussian.neg_log_likelihood(spec, data, cp, r),
+            nll_twice=lambda cp, r: gaussian.neg_log_likelihood_twice(
+                spec, data, cp, r),
+            vg_profiled=lambda th, r: gaussian.nll_profiled_value_and_grad(
+                spec, data, th, r),
+            fisher=lambda cp: gaussian.fisher_information(
+                spec, data, torch.log(cp)),
+            psi_solve=lambda cp, R: gaussian.psi_inv_mul(spec, data, cp, R))
+        if self._clustered_batched:
+            cf, blocks = self.cov_fn, self._blocks
+            ops.nll = lambda cp, r: clustered.nll_gaussian(cf, cp, blocks, r)
+            ops.vg_profiled = (lambda th, r: clustered
+                               .nll_profiled_value_and_grad(cf, th, blocks,
+                                                            r))
+            ops.psi_solve = (lambda cp, R: clustered.psi_inv_blocks_mul(
+                cf, cp, blocks, R))
+        return ops
 
     # ------------------------------------------------------------------
     def neg_log_likelihood(self, cov_pars, y, fixed_effects=None,
@@ -458,15 +546,14 @@ class GPModel:
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
         y_t = self._y_tensor(y)
         fe = None if fixed_effects is None else self._tensor(fixed_effects)
-        if self._grouped_only:
+        if self._approx is None:
             cp = self._tensor(cov_pars_np)
             with torch.no_grad():
                 if self.is_gaussian:
                     r = y_t if fe is None else y_t - fe
-                    return float(grouped.nll_gaussian(self._Z, cp, r))
-                return float(grouped.nll_laplace(
-                    self._Z, self.likelihood, cp, self._aux_tensor(aux_pars),
-                    y_t, fe))
+                    return float(self._gauss_ops().nll(cp, r))
+                return float(self._nll_laplace(cp, self._aux_tensor(aux_pars),
+                                               fe, y_t))
         if not self.is_gaussian:
             cp, ap = self._tensor(cov_pars_np), self._aux_tensor(aux_pars)
             with torch.no_grad():
@@ -478,39 +565,61 @@ class GPModel:
         return float(self._approx.nll_gaussian_value(
             self._tensor(cov_pars_np), y_t, fe))
 
-    def _nll_laplace(self, cov_pars, aux, fixed_part):
-        """The dense Laplace NLL of either structure (a tensor,
-        differentiable in all three) at the training response."""
+    def _nll_laplace(self, cov_pars, aux, fixed_part, y=None):
+        """The dense Laplace NLL of any structure (a tensor, differentiable
+        in all three) at the response ``y`` (default: the training one)."""
+        y = self.y if y is None else y
         if self._grouped_only:
             return grouped.nll_laplace(self._Z, self.likelihood, cov_pars,
-                                       aux, self.y, fixed_part)
-        return self._approx.nll_laplace(cov_pars, self.y, aux, fixed_part)
+                                       aux, y, fixed_part)
+        if self._exact:
+            return laplace.neg_log_marginal_likelihood(
+                self.spec, self.data, cov_pars, aux, y, fixed_part)
+        return self._approx.nll_laplace(cov_pars, y, aux, fixed_part)
+
+    def _grad_F_laplace(self, y, F) -> torch.Tensor:
+        """d NLL / dF at the fitted parameters and the fixed effects F (the
+        LaGaBoost gradient): b-space for grouped effects, the dense Laplace
+        route of an exact model, the Vecchia-Laplace one."""
+        cp, aux = self._tensor(self.cov_pars_), self._aux_tensor()
+        y_t, F_t = self._y_tensor(y), self._tensor(F)
+        if self._grouped_only:
+            return grouped.gradient_wrt_F(self._Z, self.likelihood, cp, aux,
+                                          y_t, F_t)
+        if self._exact:
+            return laplace.gradient_wrt_F(self.spec, self.data, cp, aux, y_t,
+                                          F_t)
+        return self._approx.grad_F_laplace(cp, y_t, aux, F_t)
 
     def _default_init_cov_pars(self, y: np.ndarray) -> np.ndarray:
         """Data-driven inits (``REModelTemplate::FindInitCovPar``, :4388):
         gaussian: error variance var(y)/2, each component's variance
         var(y)/2 / (number of components); other likelihoods: each
         component's variance var(y) / (number of components), 1 for the
-        Bernoulli families; GP ranges mean(dist)/3."""
+        Bernoulli families; GP ranges mean(dist)/3 over the first 500
+        coordinates."""
         var_y = float(np.var(y, ddof=1))
         bernoulli = self.likelihood in ("bernoulli_probit", "bernoulli_logit")
-        if self._grouped_only:
-            ncomp = max(len(self.spec.components), 1)
-            if self.is_gaussian:
-                pars = [var_y / 2.0] + [var_y / 2.0 / ncomp] * ncomp
-            else:
-                pars = [1.0 if bernoulli else var_y / ncomp] * ncomp
-            return np.asarray(pars, dtype=np.float64)
-        if self.is_gaussian:
-            pars = [var_y / 2.0, var_y / 2.0]
+        if self._approx is not None:
+            comps = [self.cov_fn.num_cov_par]
         else:
-            pars = [1.0 if bernoulli else var_y]
-        extra = self.cov_fn.num_cov_par - 1
-        m = min(self.coords_np.shape[0], 500)
-        sub = self.coords_np[:m]
-        d = np.sqrt(((sub[:, None, :] - sub[None, :, :]) ** 2).sum(-1))
-        mean_dist = float(d[np.triu_indices(m, 1)].mean())
-        pars.extend([mean_dist / 3.0] * extra)
+            comps = [c.num_cov_par for c in self.spec.components]
+        ncomp = max(len(comps), 1)
+        if self.is_gaussian:
+            pars, var_each = [var_y / 2.0], var_y / 2.0 / ncomp
+        else:
+            pars, var_each = [], (1.0 if bernoulli else var_y / ncomp)
+        mean_dist = None
+        for num_par in comps:
+            pars.append(var_each)
+            if num_par > 1:
+                if mean_dist is None:
+                    m = min(self.coords_np.shape[0], 500)
+                    sub = self.coords_np[:m]
+                    d = np.sqrt(((sub[:, None, :] - sub[None, :, :]) ** 2
+                                 ).sum(-1))
+                    mean_dist = float(d[np.triu_indices(m, 1)].mean())
+                pars.extend([mean_dist / 3.0] * (num_par - 1))
         return np.asarray(pars, dtype=np.float64)
 
     def fit(self, y, X=None, params=None, offset=None, fixed_effects=None):
@@ -528,17 +637,15 @@ class GPModel:
         self.std_dev_cov_pars_ = None
         self.std_dev_coefs_ = None
         with timed("GPModel: fit", sync=True):
-            if not self._grouped_only:
+            if self._approx is not None:
                 return vecchia_fit.fit(self, self.y, self.X,
                                        self._train_fixed_effects)
             if self.is_gaussian:
-                self._fit_grouped_gaussian()
+                self._fit_gaussian()
             else:
-                laplace_fit.fit(
-                    self, self.y, self.X, self._train_fixed_effects,
-                    lambda cov, aux, fp: grouped.nll_laplace(
-                        self._Z, self.likelihood, cov, aux, self.y, fp),
-                    with_adam=True)
+                laplace_fit.fit(self, self.y, self.X,
+                                self._train_fixed_effects, self._nll_laplace,
+                                with_adam=True)
             self._pin_iid_dummy()
         return self
 
@@ -559,43 +666,74 @@ class GPModel:
             cp, self.y.cpu().numpy(), aux_pars=self.aux_pars_,
             fixed_effects=None if fe is None else fe.cpu().numpy()))
 
-    def _fit_grouped_gaussian(self):
-        """The profiled-nugget fit of a grouped Gaussian model
-        (``_fit_gaussian_profiled``'s grouped branch, JAX
-        ``gp_model.py:971-1110``): log ratios v_j / sigma2, sigma2 profiled
-        out; with ``X``, GLS coefficient updates through ``psi_inv_mul``
-        (after every gradient-descent step, between three L-BFGS rounds,
-        after Nelder-Mead and Adam)."""
+    def _fit_gaussian(self):
+        """The Gaussian fit of a grouped or exact model (JAX
+        ``gp_model.py:910-925``): with a parameter held fixed the masked
+        fit, Fisher scoring and Newton's method in the full
+        parametrisation, every other optimizer profiled."""
         cfg = self.optim_cfg
-        if cfg.optimizer_cov not in _PROFILED:
-            raise _not_ported(
-                f"optimizer_cov='{cfg.optimizer_cov}' for grouped random "
-                "effects (Fisher scoring and Newton on the dense [n, n] "
-                "covariance)", "Queue A, item 16")
-        if cfg.estimate_cov_par_index is not None and np.any(
-                np.asarray(cfg.estimate_cov_par_index) == 0):
-            raise _not_ported(
-                "estimate_cov_par_index with a parameter held fixed (the "
-                "masked fit on the dense [n, n] covariance)",
-                "Queue A, item 16")
-        Z, y, X = self._Z, self.y, self.X
-        fe = self._train_fixed_effects
-        y_np = y.cpu().numpy().astype(np.float64)
-        init = (cfg.init_cov_pars if cfg.init_cov_pars is not None
-                else self._default_init_cov_pars(y_np))
-        init = np.asarray(init, np.float64)
-        has_coef = X is not None
-        state = {"beta": None, "version": 0}
-        if has_coef:
-            state["beta"] = self._tensor(
+        X, fe = self.X, self._train_fixed_effects
+        y_fe = self.y if fe is None else self.y - fe
+        y_np = self.y.cpu().numpy().astype(np.float64)
+        init = np.asarray(cfg.init_cov_pars if cfg.init_cov_pars is not None
+                          else self._default_init_cov_pars(y_np), np.float64)
+        beta = None
+        if X is not None:
+            beta = self._tensor(
                 cfg.init_coef if cfg.init_coef is not None
                 else np.linalg.lstsq(X.cpu().numpy().astype(np.float64),
                                      y_np, rcond=None)[0])
-        y_fe = y if fe is None else y - fe
+        state = {"beta": beta, "version": 0}
+        ops = self._gauss_ops()
 
         def residual():
             return y_fe if state["beta"] is None else y_fe - X @ state["beta"]
 
+        def coef_update(full):
+            """GLS coefficients at the full parameters (numpy): Psi^-1 [X,
+            y] by one factorisation."""
+            if X is None:
+                return
+            with torch.no_grad():
+                w = ops.psi_solve(self._tensor(full),
+                                  torch.cat([X, y_fe[:, None]], 1))
+                state["beta"] = torch.linalg.solve(X.T @ w[:, :-1],
+                                                   X.T @ w[:, -1])
+            state["version"] += 1
+
+        if cfg.estimate_cov_par_index is not None and np.any(
+                np.asarray(cfg.estimate_cov_par_index) == 0):
+            result = self._fit_gaussian_masked(ops, init, residual,
+                                               coef_update)
+        elif cfg.optimizer_cov in _PROFILED:
+            result = self._fit_gaussian_profiled(ops, init, residual,
+                                                 coef_update, state)
+        elif cfg.optimizer_cov in ("fisher_scoring", "newton"):
+            result = self._fit_gaussian_full(ops, init, residual,
+                                             coef_update)
+        else:
+            raise ValueError(f"unknown optimizer_cov '{cfg.optimizer_cov}'")
+        self.coefs_ = (None if state["beta"] is None else
+                       state["beta"].cpu().numpy().astype(np.float64))
+        self.num_it_ = result.num_it
+        self._fit_result = result
+        return result
+
+    def _variance_index(self) -> np.ndarray:
+        """Positions in cov_pars[1:] of the components' variances (the
+        entries the profiled parametrisation divides by the nugget)."""
+        return np.asarray([a - 1 for _, a, _ in self.spec.cov_par_slices()])
+
+    def _fit_gaussian_profiled(self, ops, init, residual, coef_update,
+                               state):
+        """The profiled-nugget fit (JAX ``gp_model.py:971-1110``): log
+        ratios of the variances to sigma2 (ranges as they are), sigma2 at
+        its optimum; with ``X``, GLS coefficient updates (after every
+        gradient-descent step, between three L-BFGS rounds, after
+        Nelder-Mead and Adam)."""
+        cfg = self.optim_cfg
+        vidx = self._variance_index()
+        has_coef = self.X is not None
         cache = {}
         evals = {"n": 0}
 
@@ -607,61 +745,117 @@ class GPModel:
             key = (theta.tobytes(), state["version"])
             if cache.get("key") != key:
                 evals["n"] += 1
-                v, g, s2 = grouped.nll_profiled_value_and_grad(
-                    Z, self._tensor(theta), residual())
+                v, g, s2 = ops.vg_profiled(self._tensor(theta), residual())
                 row = torch.cat([v.reshape(1), g, s2.reshape(1)]).cpu(
                     ).numpy().astype(np.float64)           # the one read
-                grouped.GROUPED_COUNTS["evaluations"] += 1
-                grouped.GROUPED_COUNTS["host_reads"] += 1
+                if self._grouped_only:
+                    grouped.GROUPED_COUNTS["evaluations"] += 1
+                    grouped.GROUPED_COUNTS["host_reads"] += 1
                 cache.update(key=key, out=(row[0], row[1:-1], row[-1]))
             return cache["out"]
 
         def full_from_ratio(ratio, sigma2):
-            return np.concatenate([[sigma2], np.asarray(ratio) * sigma2])
+            full = np.concatenate([[sigma2], np.asarray(ratio, np.float64)])
+            full[vidx + 1] *= sigma2
+            return full
 
-        def coef_update(theta):
-            if not has_coef:
-                return
-            s2 = vg(theta)[2]
-            full = self._tensor(full_from_ratio(np.exp(theta), s2))
-            with torch.no_grad():
-                # Psi^-1 [X, y]: one Cholesky for both
-                w = grouped.psi_inv_mul(Z, full,
-                                        torch.cat([X, y_fe[:, None]], 1))
-                state["beta"] = torch.linalg.solve(X.T @ w[:, :-1],
-                                                   X.T @ w[:, -1])
-            state["version"] += 1
+        def coef_update_theta(theta):
+            if has_coef:
+                coef_update(full_from_ratio(np.exp(theta), vg(theta)[2]))
 
-        theta0 = np.log(np.maximum(init[1:] / init[0], 1e-300))
-        coef_update(theta0)
+        ratio0 = np.asarray(init[1:], np.float64).copy()
+        ratio0[vidx] = ratio0[vidx] / init[0]
+        theta0 = np.log(np.maximum(ratio0, 1e-300))
+        coef_update_theta(theta0)
         opt = cfg.optimizer_cov
         if opt == "gradient_descent":
             result = optimizers.gradient_descent(
                 lambda t: vg(t)[0], lambda t: vg(t)[1], theta0, cfg,
-                callback=(lambda it, theta, nll: coef_update(theta))
+                callback=(lambda it, theta, nll: coef_update_theta(theta))
                 if has_coef else None)
         elif opt in laplace_fit.LBFGS_NAMES:
             theta = theta0
             for _ in range(3 if has_coef else 1):
                 result = optimizers.lbfgs(lambda t: vg(t)[:2], theta, cfg)
                 theta = np.log(result.params)
-                coef_update(theta)
+                coef_update_theta(theta)
         elif opt == "nelder_mead":
             result = optimizers.nelder_mead(lambda t: vg(t)[0], theta0, cfg)
-            coef_update(np.log(result.params))
+            coef_update_theta(np.log(result.params))
         else:
             result = optimizers.adam(lambda t: vg(t)[:2], theta0, cfg)
-            coef_update(np.log(result.params))
+            coef_update_theta(np.log(result.params))
         nll, _, sigma2 = vg(np.log(result.params))
         self.cov_pars_ = full_from_ratio(result.params, sigma2)
-        self.coefs_ = (None if state["beta"] is None else
-                       state["beta"].cpu().numpy().astype(np.float64))
         result.nll = nll
         result.params = self.cov_pars_
         result.num_evals = evals["n"]
-        self.num_it_ = result.num_it
         self.current_nll_ = nll
-        self._fit_result = result
+        return result
+
+    def _vg_full(self, ops, theta, r):
+        """(nll, d nll / d log cov_pars) in the full parametrisation."""
+        th = self._tensor(theta).requires_grad_(True)
+        with torch.enable_grad():
+            v = ops.nll(torch.exp(th), r)
+            (g,) = torch.autograd.grad(v, th)
+        return float(v.detach()), g.cpu().numpy().astype(np.float64)
+
+    def _fit_gaussian_masked(self, ops, init, residual, coef_update):
+        """The fit with covariance parameters held at their inits
+        (``estimate_cov_par_index``; JAX ``gp_model.py:1112``): the full
+        parametrisation, L-BFGS on the free log-parameters, three rounds
+        with GLS coefficient updates when there is ``X``."""
+        log_init = np.log(np.maximum(init, 1e-300))
+        coef_update(np.exp(log_init))
+        theta, num_it = optimizers.lbfgs_masked(
+            lambda t: self._vg_full(ops, t, residual()), log_init,
+            np.flatnonzero(np.asarray(self.optim_cfg.estimate_cov_par_index,
+                                      dtype=bool)),
+            self.optim_cfg, rounds=3 if self.X is not None else 1,
+            after_round=lambda t: coef_update(np.exp(t)))
+        self.cov_pars_ = np.exp(theta)
+        with torch.no_grad():
+            nll = float(ops.nll(self._tensor(self.cov_pars_), residual()))
+        self.current_nll_ = nll
+        return optimizers.OptimResult(params=self.cov_pars_, nll=nll,
+                                      num_it=num_it, converged=True)
+
+    def _fit_gaussian_full(self, ops, init, residual, coef_update):
+        """Fisher scoring, or Newton's method with the Hessian of the NLL
+        (``optimizer_cov="newton"``, JAX ``gp_model.py:1178-1227``), on the
+        log parameters; the GLS coefficients after every step."""
+        cfg = self.optim_cfg
+
+        def value_fn(theta):
+            with torch.no_grad():
+                return float(ops.nll(torch.exp(self._tensor(theta)),
+                                     residual()))
+
+        def grad_fn(theta):
+            return self._vg_full(ops, theta, residual())[1]
+
+        if cfg.optimizer_cov == "newton":
+            def fisher_fn(theta):
+                r = residual().detach()
+                with torch.enable_grad():
+                    h = torch.autograd.functional.hessian(
+                        lambda t: ops.nll_twice(torch.exp(t), r),
+                        self._tensor(theta))
+                return h.cpu().numpy().astype(np.float64)
+        else:
+            def fisher_fn(theta):
+                with torch.no_grad():
+                    return ops.fisher(torch.exp(self._tensor(theta))).cpu(
+                        ).numpy().astype(np.float64)
+
+        if self.X is not None:
+            coef_update(init)
+        result = optimizers.fisher_scoring(
+            value_fn, grad_fn, fisher_fn, np.log(np.maximum(init, 1e-300)),
+            cfg, callback=lambda it, theta, nll: coef_update(np.exp(theta)))
+        self.cov_pars_ = result.params
+        self.current_nll_ = float(result.nll)
         return result
 
     # ------------------------------------------------------------------
@@ -679,7 +873,13 @@ class GPModel:
         prior (mean 0, its variance; correlated only with rows of the same
         new label), the full covariance with ``predict_cov_mat``; the
         response scale adds the error variance (gaussian) or takes the
-        response moments (quadrature). Vecchia model (``gp_coords_pred``):
+        response moments (quadrature). Exact model (``gp_coords_pred`` and
+        the structure's other prediction data: ``group_data_pred``,
+        ``gp_rand_coef_data_pred``, ``cluster_ids_pred`` — an unseen cluster
+        id is an independent cluster, cluster 0 when none are given): the
+        exact posterior (dense, or by the cluster blocks), for a
+        non-Gaussian likelihood the Laplace posterior. Vecchia model
+        (``gp_coords_pred``):
         local kriging on the observed neighbors of each prediction point
         (``vecchia_pred_type='order_obs_first_cond_obs_only'``); for a
         non-Gaussian likelihood kriging on the posterior mode, the latent
@@ -688,9 +888,10 @@ class GPModel:
 
         Returns dict with 'mu', 'var', 'cov' (numpy) like the reference.
         """
-        if gp_rand_coef_data_pred is not None or cluster_ids_pred is not None:
-            raise _not_ported("gp_rand_coef_data_pred / cluster_ids_pred",
-                              "Queue A, item 15")
+        if self._approx is not None and (gp_rand_coef_data_pred is not None
+                                         or cluster_ids_pred is not None):
+            raise _not_ported("gp_rand_coef_data_pred / cluster_ids_pred "
+                              "of a Vecchia model", "Queue A, item 15")
         cp_src = cov_pars if cov_pars is not None else self.cov_pars_
         if cp_src is None:
             raise ValueError("predict: the model is not fitted; pass "
@@ -709,22 +910,40 @@ class GPModel:
             xbp = self._tensor(X_pred) @ beta
             fep = xbp if fep is None else fep + xbp
         if self._grouped_only:
-            if gp_coords_pred is not None:
-                raise ValueError("predict: 'gp_coords_pred' given, but the "
-                                 "model has no Gaussian process")
+            for key, value in (("gp_coords_pred", gp_coords_pred),
+                               ("gp_rand_coef_data_pred",
+                                gp_rand_coef_data_pred),
+                               ("cluster_ids_pred", cluster_ids_pred)):
+                if value is not None:
+                    raise ValueError(
+                        f"predict: '{key}' given, but the model has no "
+                        "Gaussian process and no cluster_ids")
             with torch.no_grad(), timed("GPModel: predict", sync=True):
                 return self._predict_grouped(
                     y_t, group_data_pred, group_rand_coef_data_pred, X_pred,
                     self._tensor(cov_pars_np), beta, fe, fep, predict_var,
                     predict_cov_mat, predict_response)
+        if beta is not None and self.X is not None:
+            xb = self.X @ beta
+            fe = xb if fe is None else fe + xb
+        if self._exact:
+            with torch.no_grad(), timed("GPModel: predict", sync=True):
+                mean, var, cov = self._predict_exact(
+                    y_t, fe, fep, self._tensor(cov_pars_np), group_data_pred,
+                    group_rand_coef_data_pred, gp_coords_pred,
+                    gp_rand_coef_data_pred, cluster_ids_pred,
+                    bool(predict_var), bool(predict_cov_mat),
+                    bool(predict_response))
+            want_var = bool(predict_var or predict_cov_mat)
+            return {"mu": mean.cpu().numpy(),
+                    "var": var.cpu().numpy() if (want_var and var is not None)
+                    else None,
+                    "cov": None if cov is None else cov.cpu().numpy()}
         if group_data_pred is not None or group_rand_coef_data_pred is not None:
             raise ValueError("predict: 'group_data_pred' given, but the "
                              "model has no grouped random effects")
         if gp_coords_pred is None:
             raise ValueError("predict: 'gp_coords_pred' is required")
-        if beta is not None and self.X is not None:
-            xb = self.X @ beta
-            fe = xb if fe is None else fe + xb
         cp = np.asarray(gp_coords_pred, dtype=np.float64)
         if cp.ndim == 1:
             cp = cp[:, None]
@@ -759,12 +978,93 @@ class GPModel:
                else np.diag(var_np))
         return {"mu": mu_np, "var": var_np, "cov": cov}
 
-    def _pred_codes(self, group_data_pred, group_rand_coef_data_pred):
-        """Level codes [n_p, n_code_cols] of the prediction rows (a label
+    def _predict_exact(self, y_t, fe, fep, cp, group_data_pred,
+                       group_rand_coef_data_pred, gp_coords_pred,
+                       gp_rand_coef_data_pred, cluster_ids_pred, predict_var,
+                       predict_cov_mat, predict_response):
+        """Prediction of an exact model (JAX ``gp_model.py:1500-1533``):
+        Gaussian by ``gaussian.predict`` (the cluster blocks for a batched
+        ``cluster_ids`` model), other likelihoods by ``laplace.predict``.
+        Returns (mean, var, cov) tensors (var / cov None where not
+        asked)."""
+        data_pred = self._build_pred_data(
+            group_data_pred, group_rand_coef_data_pred, gp_coords_pred,
+            gp_rand_coef_data_pred, cluster_ids_pred)
+        cross_dists = pred_dists = None
+        if data_pred.coords is not None and self.cov_fn.is_isotropic:
+            cross_dists = euclidean_distance(data_pred.coords,
+                                             self.data.coords)
+            if predict_cov_mat:
+                pred_dists = euclidean_distance(data_pred.coords,
+                                                data_pred.coords)
+        if not self.is_gaussian:
+            return laplace.predict(
+                self.spec, self.data, cp, self._aux_tensor(), y_t, fe,
+                data_pred, cross_dists, predict_var, predict_cov_mat,
+                pred_dists, fep, predict_response)
+        r = y_t if fe is None else y_t - fe
+        if self._clustered_batched:
+            mean, var, cov = clustered.predict(
+                self.cov_fn, cp, self._blocks, r, data_pred.coords,
+                data_pred.cluster_codes, predict_var, predict_cov_mat,
+                predict_response)
+        else:
+            mean, var, cov = gaussian.predict(
+                self.spec, self.data, cp, r, data_pred, cross_dists,
+                predict_var, predict_cov_mat, pred_dists, predict_response)
+        return (mean if fep is None else mean + fep), var, cov
+
+    def _build_pred_data(self, group_data_pred, group_rand_coef_data_pred,
+                         gp_coords_pred, gp_rand_coef_data_pred,
+                         cluster_ids_pred) -> ModelData:
+        """The prediction points of an exact model as :class:`ModelData`
+        (JAX ``_build_pred_data``, ``gp_model.py:1755``): level codes with
+        fresh codes for unseen labels, coordinates, GP random-coefficient
+        covariates, cluster codes (an unseen id a fresh code; cluster 0
+        when the model has clusters and none are given, as in the JAX
+        package)."""
+        n_p = None
+        data_pred = ModelData()
+        if gp_coords_pred is not None:
+            c = np.asarray(gp_coords_pred, dtype=np.float64)
+            data_pred.coords = self._tensor(c[:, None] if c.ndim == 1 else c)
+            n_p = data_pred.coords.shape[0]
+        elif self.data.coords is not None:
+            raise ValueError("predict: 'gp_coords_pred' is required")
+        if self.data.group_codes is not None:
+            if group_data_pred is None:
+                raise ValueError("predict: 'group_data_pred' is required")
+            data_pred.group_codes = torch.as_tensor(
+                self._code_labels(group_data_pred), device=self.device)
+            n_p = data_pred.group_codes.shape[0]
+            if self.data.slope_data is not None:
+                if group_rand_coef_data_pred is None:
+                    raise ValueError(
+                        "predict: 'group_rand_coef_data_pred' is required "
+                        "for a model with random slopes")
+                rc = np.asarray(group_rand_coef_data_pred, np.float64)
+                data_pred.slope_data = self._tensor(
+                    rc[:, None] if rc.ndim == 1 else rc)
+        if self.data.gp_rand_coef_data is not None:
+            if gp_rand_coef_data_pred is None:
+                raise ValueError("predict: 'gp_rand_coef_data_pred' is "
+                                 "required for a model with GP random "
+                                 "coefficients")
+            rc = np.asarray(gp_rand_coef_data_pred, np.float64)
+            data_pred.gp_rand_coef_data = self._tensor(
+                rc[:, None] if rc.ndim == 1 else rc)
+        if self._cluster_map is not None:
+            codes = (np.zeros(n_p, dtype=np.int64) if cluster_ids_pred is None
+                     else map_cluster_ids(self._cluster_map,
+                                          cluster_ids_pred))
+            data_pred.cluster_codes = torch.as_tensor(codes,
+                                                      device=self.device)
+        return data_pred
+
+    def _code_labels(self, group_data_pred) -> np.ndarray:
+        """Level codes [n_p, n_code_cols] of prediction labels: a label
         training never saw gets a fresh code >= the number of levels, one
-        per distinct new label, in order of first appearance) and the
-        multipliers [n_p, ncomp] (slope covariates, 1 for intercepts)
-        (``_build_pred_data``, JAX ``gp_model.py:1755``)."""
+        per distinct new label, in order of first appearance."""
         gd = np.asarray(group_data_pred)
         if gd.ndim == 1:
             gd = gd[:, None]
@@ -783,7 +1083,15 @@ class GPModel:
                                           return_inverse=True)
                 rank = np.argsort(np.argsort(first))
                 codes[~found, j] = len(levels) + rank[inv.reshape(-1)]
-        n_p = gd.shape[0]
+        return codes
+
+    def _pred_codes(self, group_data_pred, group_rand_coef_data_pred):
+        """Level codes of the prediction rows (:meth:`_code_labels`) and
+        the multipliers [n_p, ncomp] (slope covariates, 1 for intercepts)
+        of the grouped predictor (``_build_pred_data``, JAX
+        ``gp_model.py:1755``)."""
+        codes = self._code_labels(group_data_pred)
+        n_p = codes.shape[0]
         weights = torch.ones((n_p, len(self.spec.components)),
                              dtype=self.dtype, device=self.device)
         if any(c.is_slope for c in self.spec.components):
@@ -857,14 +1165,20 @@ class GPModel:
         training points (``GPB_PredictREModelTrainingDataRandomEffects``;
         ``basic.py:6319``). Grouped model: one column per component, its
         effect at each row's level without the slope covariate
-        (re_model_template.h:4102-4115), then as many variance columns."""
-        if not self._grouped_only:
+        (re_model_template.h:4102-4115), then as many variance columns.
+        Exact model: the same per component (its base covariance times the
+        posterior's y_aux)."""
+        if self._approx is not None:
             raise _not_ported("predict_training_data_random_effects of a "
                               "Vecchia model", "Queue A, item 15")
         if self.y is None or self.cov_pars_ is None:
             raise ValueError("fit() must be called first")
         cp = self._tensor(self.cov_pars_)
         fixed = self._fitted_fixed_part()
+        if self._exact:
+            with torch.no_grad():
+                cols = self._training_effects_exact(cp, fixed, predict_var)
+            return np.column_stack([c.cpu().numpy() for c in cols])
         with torch.no_grad():
             if self.is_gaussian:
                 r = self.y if fixed is None else self.y - fixed
@@ -878,6 +1192,63 @@ class GPModel:
             if predict_var:
                 cols += [pcdiag[idx] for idx in self._Z.idx]
         return np.column_stack([c.cpu().numpy() for c in cols])
+
+    def _training_effects_exact(self, cp, fixed, predict_var):
+        """Columns of :meth:`predict_training_data_random_effects` of an
+        exact model (JAX ``gp_model.py:1660-1741``): per component its
+        posterior mean Sigma_c Z_c' y_aux, without the covariate multiplier
+        at the output point — Gaussian y_aux = Psi^-1 r, Laplace y_aux = d1
+        at the mode, its posterior solve through (Sigma + W^-1)^-1 =
+        W (I + Sigma W)^-1 —, then as many variance columns."""
+        spec, data = self.spec, self.data
+        n = self.num_data
+        sigma2, comp_pars = split_cov_pars(spec, cp)
+        sigma = total_re_cov(spec, data, comp_pars)
+        if self.is_gaussian:
+            r = self.y if fixed is None else self.y - fixed
+            chol = torch.linalg.cholesky(sigma + sigma2 * torch.eye(
+                n, dtype=sigma.dtype, device=sigma.device))
+            y_aux = torch.cholesky_solve(r[:, None], chol)[:, 0]
+
+            def post_solve(cross):
+                return torch.cholesky_solve(cross.T, chol)
+        else:
+            fam = lk.get_family(self.likelihood)
+            aux = self._aux_tensor()
+            F = torch.zeros_like(self.y) if fixed is None else fixed
+            b = laplace.find_mode(self.likelihood, sigma, self.y, F, aux)
+            loc = F + b
+            y_aux = fam.d_loc(self.y, loc, aux)
+            w = -fam.d2_loc(self.y, loc, aux)
+            M = sigma * w[None, :]
+            M.diagonal().add_(1.0)
+
+            def post_solve(cross):
+                return w[:, None] * torch.linalg.solve(M, cross.T)
+        mean_cols, var_cols = [], []
+        for comp, pars in zip(spec.components, comp_pars):
+            # the base covariance, no covariate multipliers on either side
+            if isinstance(comp, GroupedRESpec):
+                base = dataclasses.replace(comp, is_slope=False,
+                                           slope_data_idx=-1)
+                z_out = (data.slope_data[:, comp.slope_data_idx]
+                         if comp.is_slope else None)
+            else:
+                base = dataclasses.replace(comp, is_random_coef=False,
+                                           rand_coef_data_idx=-1)
+                z_out = (data.gp_rand_coef_data[:, comp.rand_coef_data_idx]
+                         if comp.is_random_coef else None)
+            cov_c = component_cov(base, pars, data)
+            mask = cluster_mask(data)
+            if mask is not None:
+                cov_c = torch.where(mask, cov_c, 0.0)
+            mean_cols.append(cov_c @ (y_aux if z_out is None
+                                      else z_out * y_aux))
+            if predict_var:
+                cross = cov_c if z_out is None else cov_c * z_out[None, :]
+                var_cols.append(torch.diagonal(cov_c) - torch.sum(
+                    cross * post_solve(cross).T, dim=1))
+        return mean_cols + var_cols
 
     # ------------------------------------------------------------------
     def get_cov_pars(self, format_pandas=False, std_err=False):
@@ -923,7 +1294,9 @@ class GPModel:
 
         Grouped model: the expected Fisher information in q-space
         (``grouped.fisher_information``: one [q, q] Cholesky and inverse,
-        no [n, n] matrix). Vecchia model: up to n = 8192 the dense expected
+        no [n, n] matrix). Exact model: the dense expected Fisher
+        information (``gaussian.fisher_information``). Vecchia model: up to
+        n = 8192 the dense expected
         Fisher information of the exact covariance; beyond, the observed
         information by forward differences (eps = 1e-4) of the NLL
         gradient — p + 1 gradient evaluations (on the kernel route, p + 1
@@ -939,11 +1312,10 @@ class GPModel:
                 "Queue A, items 11 and 16")
         cov_pars = np.asarray(self.cov_pars_, np.float64)
         lp = np.log(cov_pars)
-        if self._grouped_only:
+        if self._approx is None:
             with torch.no_grad():
-                fi = grouped.fisher_information(
-                    self._Z, self._tensor(cov_pars)).cpu().numpy().astype(
-                        np.float64)
+                fi = self._gauss_ops().fisher(self._tensor(cov_pars)).cpu(
+                    ).numpy().astype(np.float64)
         elif self.num_data > _DENSE_FISHER_MAX_N:
             fe = self._fitted_fixed_part()
             self._approx.ensure_neighbors(cov_pars)
@@ -963,9 +1335,16 @@ class GPModel:
                 fi[:, j] = (grad(t) - g0) / _FD_EPS
             fi = 0.5 * (fi + fi.T)
         else:
-            fi = _dense_fisher_information(
-                self.cov_fn, torch.as_tensor(self.coords_np,
-                                             device=self.device), lp)
+            # the dense expected information of the exact model on the
+            # same coordinates (float64)
+            comps, data, _ = make_model_data(
+                gp_coords=self.coords_np, cov_fn=self.cov_fn,
+                device=self.device, dense_dists=True)
+            with torch.no_grad():
+                fi = gaussian.fisher_information(
+                    ModelSpec(components=tuple(comps),
+                              num_data=self.num_data), data,
+                    torch.as_tensor(lp, device=self.device)).cpu().numpy()
         return np.sqrt(np.maximum(np.diagonal(_inverse(fi)), 0.0)) * cov_pars
 
     def _calc_std_dev_coefs(self):
@@ -981,7 +1360,7 @@ class GPModel:
             return None
         if not self.is_gaussian:
             return self._calc_std_dev_coefs_laplace()
-        if self._grouped_only:
+        if self._approx is None:
             pix = self._psi_solve(self.cov_pars_, self.X.cpu().numpy())
         else:
             X_np = self.X.detach().cpu().numpy().astype(np.float64)
@@ -1027,10 +1406,20 @@ class GPModel:
         (``Error_term``, ``Group_k`` / ``Group_k_rand_coef``, ``GP_var``,
         ``GP_range``)."""
         names = ["Error_term"] if self.is_gaussian else []
-        if self._grouped_only:
-            for k, comp in enumerate(self.spec.components):
-                names.append(f"Group_{k + 1}"
-                             + ("_rand_coef" if comp.is_slope else ""))
+        if self._approx is None:
+            k_group = 0
+            for comp in self.spec.components:
+                if isinstance(comp, GroupedRESpec):
+                    k_group += 1
+                    names.append(f"Group_{k_group}"
+                                 + ("_rand_coef" if comp.is_slope else ""))
+                    continue
+                prefix = "GP" + ("_rand_coef" if comp.is_random_coef else "")
+                names.append(f"{prefix}_var")
+                extra = comp.num_cov_par - 1
+                names += [f"{prefix}_range" + (f"_{i + 1}" if extra > 1
+                                               else "")
+                          for i in range(extra)]
             return names
         names.append("GP_var")
         extra = self.cov_fn.num_cov_par - 1
@@ -1101,7 +1490,7 @@ class GPModel:
             "matrix_inversion_method": self.matrix_inversion_method,
         }
         if include_data:
-            if self._grouped_only:
+            if self._approx is None and self.data.group_codes is not None:
                 codes = self.data.group_codes.cpu().numpy()
                 gd = np.empty(codes.shape, dtype=object)
                 for j, levels in enumerate(self._group_maps):
@@ -1116,8 +1505,15 @@ class GPModel:
                     if self._drop_intercept_group_rand_effect is not None:
                         d["drop_intercept_group_rand_effect"] = (
                             self._drop_intercept_group_rand_effect)
-            else:
+            if self.coords_np is not None:
                 d["gp_coords"] = self.coords_np.tolist()
+            if self._approx is None:
+                if self.data.gp_rand_coef_data is not None:
+                    d["gp_rand_coef_data"] = self.data.gp_rand_coef_data.cpu(
+                        ).numpy().astype(np.float64).tolist()
+                if self._cluster_map is not None:
+                    d["cluster_ids"] = self._cluster_map[
+                        self.data.cluster_codes.cpu().numpy()].tolist()
             if self.y is not None:
                 d["y"] = self.y.cpu().numpy().astype(np.float64).tolist()
             if self.X is not None:
@@ -1131,10 +1527,6 @@ class GPModel:
         or the JAX package's (``GPModel(model_dict=...)`` in the reference):
         a grouped model (its iid model included) or a Vecchia GP. Keys of
         structures that are not ported raise ``NotImplementedError``."""
-        for key in ("gp_rand_coef_data", "cluster_ids"):
-            if d.get(key) is not None:
-                raise _not_ported(f"a saved model with '{key}'",
-                                  "Queue A, item 15")
         kwargs = dict(
             likelihood=d.get("likelihood", "gaussian"),
             cov_function=d.get("cov_function", "matern"),
@@ -1153,15 +1545,20 @@ class GPModel:
                     "ind_effect_group_rand_coef", [1])
                 kwargs["drop_intercept_group_rand_effect"] = d.get(
                     "drop_intercept_group_rand_effect")
-        elif d.get("gp_coords") is not None:
+        if d.get("gp_coords") is not None:
             kwargs["gp_coords"] = np.asarray(d["gp_coords"], dtype=np.float64)
             kwargs["gp_approx"] = d.get("gp_approx", "none")
-        elif d.get("num_data") is not None:
+            if d.get("gp_rand_coef_data") is not None:
+                kwargs["gp_rand_coef_data"] = np.asarray(
+                    d["gp_rand_coef_data"], dtype=np.float64)
+        if d.get("cluster_ids") is not None:
+            kwargs["cluster_ids"] = np.asarray(d["cluster_ids"])
+        if "group_data" not in kwargs and "gp_coords" not in kwargs:
+            if d.get("num_data") is None:
+                raise ValueError("from_dict: the saved model holds neither "
+                                 "'group_data' nor 'gp_coords' (saved "
+                                 "without data?)")
             kwargs["num_data"] = d["num_data"]
-        else:
-            raise ValueError("from_dict: the saved model holds neither "
-                             "'group_data' nor 'gp_coords' (saved without "
-                             "data?)")
         model = cls(**kwargs)
         model._iid_model = bool(d.get("iid_model", False))
         if d.get("aux_pars") is not None:
@@ -1195,26 +1592,16 @@ def _inverse(a: np.ndarray) -> np.ndarray:
         return np.linalg.pinv(a)
 
 
-def _dense_fisher_information(cov_fn: CovFunction, coords: torch.Tensor,
-                              log_cov_pars: np.ndarray) -> np.ndarray:
-    """Expected Fisher information of the log-scale parameters
-    [nugget, variance, range...] of the exact Gaussian model on ``coords``:
-    FI_jk = 0.5 tr(Psi^-1 dPsi_j Psi^-1 dPsi_k), dPsi by forward-mode
-    autodiff of the covariance build (``CalcFisherInformation``,
-    ``re_model_template.h:9144``). Float64; [n, n, p] of memory."""
-    coords = coords.to(torch.float64)
-    n = coords.shape[0]
-    eye = torch.eye(n, dtype=torch.float64, device=coords.device)
-
-    def psi(lp):
-        pars = torch.exp(lp)
-        return cov_fn.cov_between(pars[1:], coords, coords) + pars[0] * eye
-
-    lp = torch.as_tensor(log_cov_pars, dtype=torch.float64,
-                         device=coords.device)
-    dpsi = torch.func.jacfwd(psi)(lp)                         # [n, n, p]
-    p = dpsi.shape[2]
-    chol = torch.linalg.cholesky(psi(lp))
-    s = torch.cholesky_solve(dpsi.reshape(n, n * p), chol).reshape(n, n, p)
-    fi = 0.5 * torch.einsum("ilj,lik->jk", s, s)
-    return fi.cpu().numpy()
+@dataclasses.dataclass
+class _GaussOps:
+    """The Gaussian NLL's pieces of one model structure, at full parameters
+    ``cp`` (tensors) and the residual ``r``: ``nll`` (differentiable once,
+    cheaply), ``nll_twice`` (differentiable twice), ``vg_profiled`` (the
+    profiled value, gradient in the log ratios and sigma2_hat),
+    ``fisher`` (the expected information of the log parameters),
+    ``psi_solve`` (Psi^-1 R)."""
+    nll: Callable
+    nll_twice: Callable
+    vg_profiled: Callable
+    fisher: Callable
+    psi_solve: Callable

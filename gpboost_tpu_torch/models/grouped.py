@@ -400,6 +400,26 @@ def nll_gaussian(Z: GroupedZ, cov_pars: torch.Tensor,
     return 0.5 * (quad + logdet + Z.n * LOG_2PI)
 
 
+def nll_gaussian_twice(Z: GroupedZ, cov_pars: torch.Tensor,
+                       r: torch.Tensor) -> torch.Tensor:
+    """:func:`nll_gaussian` by autograd through ``torch.linalg.cholesky`` of
+    the [q, q] M: differentiable twice (the Hessian of Newton's method),
+    still no [n, n] matrix."""
+    sigma2 = cov_pars[0]
+    db = _sigma_b_diag(Z, cov_pars[1:])
+    shift = sigma2 / db
+    with torch.no_grad():
+        ztr = Z._zt(r)
+    M = Z.ztz() + torch.diag(shift)
+    L = torch.linalg.cholesky(M)
+    u = torch.linalg.solve_triangular(L, ztr[:, None], upper=False)[:, 0]
+    quad = (torch.dot(r, r) - torch.dot(u, u)) / sigma2
+    logdet = (Z.n * torch.log(sigma2)
+              + 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+              - torch.sum(torch.log(shift)))
+    return 0.5 * (quad + logdet + Z.n * LOG_2PI)
+
+
 def nll_profiled(Z: GroupedZ, ratio_vars: torch.Tensor, r: torch.Tensor):
     """Profiled-nugget NLL at ratio_vars = comp_vars / sigma2: returns
     (nll, sigma2_hat)."""
@@ -623,6 +643,21 @@ def nll_laplace_value_and_grad(Z: GroupedZ, lik_name: str,
         v = nll_laplace(Z, lik_name, cp, ap, y, F)
         grads = torch.autograd.grad(v, [cp] if ap is None else [cp, ap])
     return v.detach(), grads[0], (None if ap is None else grads[1])
+
+
+def gradient_wrt_F(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor, aux,
+                   y: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """d NLL / dF of the b-space Laplace NLL at the fixed effects F (the
+    LaGaBoost gradient with grouped effects; the JAX package takes it from
+    the dense [n, n] route, ``laplace.gradient_wrt_F``). Through the mode's
+    implicit backward (``mode_vjp`` over Z) and the gather backwards of Z b,
+    Z'v and Z'WZ: O(n + q^3), bit-reproducible on the card."""
+    Ft = F.detach().requires_grad_(True)
+    with torch.enable_grad():
+        v = nll_laplace(Z, lik_name, cov_pars.detach(),
+                        None if aux is None else aux.detach(), y, Ft)
+        (g,) = torch.autograd.grad(v, Ft)
+    return g
 
 
 def laplace_mode_and_w(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor,

@@ -38,6 +38,12 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     models' route, as the JAX package's ``laplace_fit``), else gradient
     descent (its Vecchia route)."""
     cfg = model.optim_cfg
+    if cfg.estimate_cov_par_index is not None and np.any(
+            np.asarray(cfg.estimate_cov_par_index) == 0):
+        raise NotImplementedError(
+            "estimate_cov_par_index with a parameter held fixed is not "
+            "ported for non-Gaussian likelihoods (the JAX package's Laplace "
+            "fit does not read it; ROADMAP.md Queue A, item 11)")
     fam = lk.get_family(model.likelihood)
     y_np = y.detach().cpu().numpy().astype(np.float64)
     has_coef = X is not None

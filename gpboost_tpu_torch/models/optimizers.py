@@ -16,10 +16,9 @@ optimizer bridge (``optim_utils.h:562``), on the log parameter scale:
   to call); :func:`lbfgs_device` with its state on the device;
 - :func:`nelder_mead` (scipy; the reference's OptimLib);
 - :func:`adam` (the reference's OptimLib Adam, as optax's defaults in the
-  JAX package).
-
-``fisher_scoring`` serves only the exact models, which are not ported
-(ROADMAP.md Queue A, item 16).
+  JAX package);
+- :func:`fisher_scoring` (and Newton's method, which is Fisher scoring
+  with the Hessian of the NLL in the information's place).
 """
 from __future__ import annotations
 
@@ -354,6 +353,55 @@ def gd_device(vg_fn: Callable, theta0: np.ndarray, cfg: OptimConfig,
 gd_device.host_reads = 0
 
 
+def fisher_scoring(value_fn: Callable, grad_fn: Callable,
+                   fisher_fn: Callable, theta0: np.ndarray, cfg: OptimConfig,
+                   callback: Optional[Callable] = None) -> OptimResult:
+    """Fisher scoring on the log scale: step = FI^-1 grad, each entry capped
+    at log(100) (``UpdateCovAuxPars``, ``re_model_template.h:7584-7600``),
+    halved until the NLL does not rise (at most 30 halvings); stops on the
+    relative change of the NLL (the JAX package's rule: the other criterion
+    runs to ``maxit`` or until no step is accepted)."""
+    theta = np.asarray(theta0, dtype=np.float64)
+    nll = float(value_fn(theta))
+    history = [nll]
+    converged = False
+    it = 0
+    for it in range(cfg.maxit):
+        g = np.asarray(grad_fn(theta), dtype=np.float64)
+        fi = np.asarray(fisher_fn(theta), dtype=np.float64)
+        try:
+            step = np.linalg.solve(fi, g)
+        except np.linalg.LinAlgError:
+            step = g
+        step = np.clip(step, -MAX_GRADIENT_UPDATE_LOG_SCALE,
+                       MAX_GRADIENT_UPDATE_LOG_SCALE)
+        lr_try = 1.0
+        accepted = False
+        for _ in range(MAX_LR_SHRINKAGE_STEPS):
+            cand = theta - lr_try * step
+            nll_new = float(value_fn(cand))
+            if np.isfinite(nll_new) and nll_new <= nll:
+                accepted = True
+                break
+            lr_try *= LR_SHRINKAGE_FACTOR
+        if not accepted:
+            break
+        theta = cand
+        history.append(nll_new)
+        if cfg.trace:
+            _trace(it, nll_new, theta)
+        if callback is not None:
+            callback(it, theta, nll_new)
+        if cfg.convergence_criterion == _REL_LL and abs(nll_new - nll) \
+                / max(abs(nll), 1e-300) < cfg.delta_rel_conv:
+            nll = nll_new
+            converged = True
+            break
+        nll = nll_new
+    return OptimResult(params=np.exp(theta), nll=nll, num_it=it + 1,
+                       converged=converged, history=history)
+
+
 def lbfgs_host(value_and_grad_fn: Callable, theta0: np.ndarray,
                cfg: OptimConfig, mem=None):
     """Hand-rolled L-BFGS (two-loop recursion + Armijo backtracking) with
@@ -452,6 +500,37 @@ def lbfgs(value_and_grad_fn: Callable, theta0: np.ndarray,
     return OptimResult(params=np.exp(res.x), nll=float(res.fun),
                        num_it=int(res.nit), converged=bool(res.success),
                        history=[float(res.fun)])
+
+
+def lbfgs_masked(value_and_grad_fn: Callable, theta0: np.ndarray,
+                 free: np.ndarray, cfg: OptimConfig, rounds: int = 1,
+                 after_round: Optional[Callable] = None):
+    """:func:`lbfgs` on the entries ``free`` of the log-parameters, the
+    others held at ``theta0`` (``estimate_cov_par_index``; JAX
+    ``gp_model.py:1112``). ``value_and_grad_fn`` takes and differentiates
+    the full vector; ``rounds`` fits, each followed by
+    ``after_round(theta)`` (the GLS coefficient update). Returns the full
+    log-parameters and the last fit's iterations."""
+    free = np.asarray(free)
+
+    def full(theta_free):
+        t = np.array(theta0, dtype=np.float64)
+        t[free] = theta_free
+        return t
+
+    def vg(theta_free):
+        v, g = value_and_grad_fn(full(theta_free))
+        return v, np.asarray(g)[free]
+
+    theta_free, num_it = np.asarray(theta0, np.float64)[free], 0
+    if len(free):
+        for _ in range(rounds):
+            result = lbfgs(vg, theta_free, cfg)
+            theta_free = np.log(result.params)
+            if after_round is not None:
+                after_round(full(theta_free))
+        num_it = result.num_it
+    return full(theta_free), num_it
 
 
 def nelder_mead(value_fn: Callable, theta0: np.ndarray,

@@ -57,12 +57,15 @@ def device_loop_eligible(vec) -> bool:
 def _check_cfg(cfg):
     if cfg.optimizer_cov not in _KNOWN:
         raise ValueError(f"unknown optimizer_cov '{cfg.optimizer_cov}'")
-    if cfg.estimate_cov_par_index is not None and np.any(
+
+
+def _held(cfg):
+    """Indices of the free log-parameters when ``estimate_cov_par_index``
+    holds some at their inits, else None."""
+    if cfg.estimate_cov_par_index is None or not np.any(
             np.asarray(cfg.estimate_cov_par_index) == 0):
-        raise NotImplementedError(
-            "estimate_cov_par_index with a parameter held fixed is not "
-            "ported to gpboost_tpu_torch yet (the masked fit of the exact "
-            "models: ROADMAP.md Queue A, item 16)")
+        return None
+    return np.flatnonzero(np.asarray(cfg.estimate_cov_par_index, bool))
 
 
 def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
@@ -143,9 +146,21 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     on_device = device_loop_eligible(vec)
     gd_on_device = (on_device and not cfg.trace and cfg.convergence_criterion
                     == "relative_change_in_log_likelihood")
-    device_route = ((opt in _LBFGS_NAMES and on_device)
-                    or (opt == "gradient_descent" and gd_on_device))
-    if device_route:
+    free = _held(cfg)
+    device_route = free is None and (
+        (opt in _LBFGS_NAMES and on_device)
+        or (opt == "gradient_descent" and gd_on_device))
+    if free is not None:
+        # parameters held at their inits: L-BFGS on the free ones, as the
+        # exact models' masked fit (the JAX package's Vecchia fit does not
+        # read estimate_cov_par_index)
+        theta, num_it = optimizers.lbfgs_masked(
+            vg, theta0, free, cfg, _COEF_ROUNDS if has_coef else 1,
+            coef_update)
+        result = optimizers.OptimResult(params=np.exp(theta),
+                                        nll=vg(theta)[0], num_it=num_it,
+                                        converged=True)
+    elif device_route:
         # the whole fit on the device, in float32 like the kernels; without
         # coefficients the GPBoost pseudo-gradient solve Psi^-1 r at the
         # final parameters rides along as the fit's extra output

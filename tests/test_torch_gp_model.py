@@ -192,6 +192,18 @@ def test_float32_model_takes_the_kernel_route_on_cpu_plain(data):
     dict(gp_approx="vecchia", cov_function="matern", cov_fct_shape=0.7),
 ])
 def test_unported_options_raise_not_implemented(data, kwargs):
+    """Structures the port does not have raise naming their ROADMAP item.
+    ``gp_approx="none"`` (the exact GP) is ported: it constructs, and its
+    NLL is the JAX package's within 1e-10 relative."""
+    if kwargs == {"gp_approx": "none"}:
+        tm = gpt.GPModel(gp_coords=data["coords"], device="cpu", **kwargs)
+        jm = gpb.GPModel(gp_coords=data["coords"], **kwargs)
+        assert tm._exact
+        cp = [0.25, 1.0, 0.1]
+        nll_j = jm.neg_log_likelihood(cp, data["y"])
+        assert abs(tm.neg_log_likelihood(cp, data["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gpt.GPModel(gp_coords=data["coords"], device="cpu", **kwargs)
 
@@ -219,14 +231,47 @@ def test_gd_and_nelder_mead_fits_match_jax(gp_fixture_data, optimizer):
 
 
 def test_unported_optimizer_params_raise(data):
-    _, tm = _models(data)
+    """Unported optimizer settings raise. A held parameter
+    (``estimate_cov_par_index``) is ported: the Vecchia fit keeps it at its
+    init and runs L-BFGS on the others. The JAX package's Vecchia fit does
+    not read the setting, so the reference is scipy's L-BFGS-B on the JAX
+    package's NLL over the free log-parameters: cov_pars within 1e-4
+    relative of its optimum; the JAX NLL at the port's optimum is the
+    port's within 1e-8 relative, and its gradient there in the free
+    parameters below 1 % of the one at the inits."""
+    jm, tm = _models(data)
     with pytest.raises(NotImplementedError, match="not ported"):
         tm.set_optim_params({"lr_coef": 0.1})
     with pytest.raises(ValueError, match="convergence_criterion"):
         tm.set_optim_params({"convergence_criterion": "relative_change"})
-    tm.set_optim_params({"estimate_cov_par_index": [1, 0, 1]})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tm.fit(data["y"])
+    tm._approx.load_structure(np.asarray(jm._approx.perm),
+                              np.asarray(jm._approx.neighbors))
+    init = [0.2, 1.0, 0.1]
+    tm.set_optim_params({"estimate_cov_par_index": [1, 0, 1],
+                         "init_cov_pars": init})
+    tm.fit(data["y"])
+    cp = tm.get_cov_pars()
+    assert cp[1] == init[1] and cp[0] != init[0] and cp[2] != init[2]
+    import jax.numpy as jnp
+    y_j = jm._with_y(data["y"]).y
+    nll_j, g_j = jm._approx._vg_gaussian(jnp.log(jnp.asarray(cp)), y_j, None)
+    _, g0_j = jm._approx._vg_gaussian(jnp.log(jnp.asarray(init)), y_j, None)
+    assert abs(tm.get_current_neg_log_likelihood() - float(nll_j)) \
+        < 1e-8 * abs(float(nll_j))
+    assert np.linalg.norm(np.asarray(g_j)[[0, 2]]) \
+        < 1e-2 * np.linalg.norm(np.asarray(g0_j)[[0, 2]])
+    from scipy.optimize import minimize
+
+    def ref_vg(t_free):
+        t = np.log(init)
+        t[[0, 2]] = t_free
+        v, g = jm._approx._vg_gaussian(jnp.asarray(t), y_j, None)
+        return float(v), np.asarray(g, np.float64)[[0, 2]]
+
+    ref = minimize(ref_vg, np.log(init)[[0, 2]], jac=True,
+                   method="L-BFGS-B", options={"ftol": 1e-14,
+                                               "gtol": 1e-10})
+    np.testing.assert_allclose(cp[[0, 2]], np.exp(ref.x), rtol=1e-4)
 
 
 C2_KEYWORDS = ("ind_effect_group_rand_coef",

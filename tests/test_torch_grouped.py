@@ -371,16 +371,32 @@ def test_woodbury_fit_and_predict_consistency(d):
 
 
 # ---------------------------------------------------------------------------
-# what stays raising, each naming its ROADMAP.md item
+# what stays raising, each naming its ROADMAP.md item, and what the exact
+# route made work (held to the JAX package's dense route)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(matrix_inversion_method="iterative"), "item 12"),
     (dict(weights=np.ones(500)), "item 11"),
-    (dict(cluster_ids=np.zeros(500)), "item 15"),
+    (dict(cluster_ids=np.zeros(500)), None),
     (dict(gp_coords=np.zeros((500, 2)), gp_approx="vecchia"), "item 15"),
 ], ids=["iterative", "weights", "cluster_ids", "with_gp"])
 def test_unported_grouped_structures_raise(d, kwargs, item):
+    """The unported structures raise naming their item. ``cluster_ids``
+    beside grouped effects is ported (the dense route with the
+    block-diagonal mask, as in the JAX package): two clusters here, its NLL
+    the JAX package's within 1e-10 relative."""
+    if item is None:
+        cid = np.where(np.arange(500) < 200, 3, 9)
+        tm = gpt.GPModel(group_data=d["groups"], cluster_ids=cid,
+                         device="cpu")
+        jm = gpb.GPModel(group_data=d["groups"], cluster_ids=cid)
+        assert tm._exact and not tm._grouped_only
+        cp = [0.2, 0.6]
+        nll_j = jm.neg_log_likelihood(cp, d["y"])
+        assert abs(tm.neg_log_likelihood(cp, d["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
+        return
     with pytest.raises(NotImplementedError, match=item):
         gpt.GPModel(group_data=d["groups"], device="cpu", **kwargs)
 
@@ -391,20 +407,51 @@ def test_unported_grouped_structures_raise(d, kwargs, item):
     ({"estimate_cov_par_index": [1, 0]}, "item 16"),
 ], ids=["fisher_scoring", "newton", "held_parameter"])
 def test_unported_grouped_fits_raise(d, params, item):
+    """Ported since the exact route: Fisher scoring (the q-space Fisher
+    information), Newton (the Hessian of the q-space NLL) and a held
+    parameter (L-BFGS on the free ones) on a grouped model, without an
+    [n, n] matrix, reach the JAX package's dense route (n = 500, with X):
+    cov_pars, coefficients and the NLL within 1e-6 relative. ``item`` is
+    the ROADMAP item these fits were queued under."""
+    X = np.column_stack([np.ones(500), d["x_slope"]])
+    init = {"init_cov_pars": [0.2, 0.5]}
     m = gpt.GPModel(group_data=d["groups"], device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        m.fit(y=d["y"], params=params)
+    m.fit(y=d["y"], X=X, params=dict(params, **init))
+    jm = gpb.GPModel(group_data=d["groups"])
+    jm.fit(y=d["y"], X=X, params=dict(params, **init))
+    assert m._grouped_only and item == "item 16"
+    np.testing.assert_allclose(m.get_cov_pars(), jm.get_cov_pars(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(m.get_coef(), jm.get_coef(), rtol=1e-6)
+    nll_j = jm.get_current_neg_log_likelihood()
+    assert abs(m.get_current_neg_log_likelihood() - nll_j) \
+        < 1e-6 * abs(nll_j)
+    if "estimate_cov_par_index" in params:
+        assert m.get_cov_pars()[1] == 0.5
 
 
 def test_grouped_lagaboost_and_mesh_raise(d):
+    """LaGaBoost with grouped effects is ported: one round of
+    ``train({"objective": "binary"}, ..., gp_model=grouped)`` runs, and its
+    gradient d NLL / dF in b-space (no [n, n]) is the JAX package's dense
+    ``laplace.gradient_wrt_F`` within 1e-8 relative. Row sharding still
+    raises naming item 20."""
+    from gpboost_tpu.models import laplace as jl
     yb = (d["y"] > 0).astype(float)
     gp = gpt.GPModel(group_data=d["groups"], likelihood="bernoulli_logit",
                      device="cpu")
     ds = gpt.Dataset(np.column_stack([d["x_slope"], d["v"]]), label=yb,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        gpt.train({"objective": "binary", "verbose": -1}, ds, gp_model=gp,
-                  num_boost_round=1)
+    bst = gpt.train({"objective": "binary", "verbose": -1}, ds, gp_model=gp,
+                    num_boost_round=1)
+    assert len(bst.trees) == 1 and np.isfinite(gp.get_cov_pars()).all()
+    score = 0.3 * d["v"]
+    g = gp._grad_F_laplace(yb, score).numpy()
+    jm = gpb.GPModel(group_data=d["groups"], likelihood="bernoulli_logit")
+    gj = np.asarray(jl.gradient_wrt_F(
+        jm.spec, jm._with_y(yb), jnp.asarray(gp.get_cov_pars()), None,
+        jnp.asarray(score)))
+    np.testing.assert_allclose(g, gj, rtol=1e-8, atol=1e-12)
     with pytest.raises(NotImplementedError, match="item 20"):
         gp.use_mesh(None)
 

@@ -174,7 +174,9 @@ def test_train_and_saved_model(data, tmp_path):
                     "random_effect_mean", "random_effect_cov"):
             np.testing.assert_allclose(got[key], np.asarray(ref[key]),
                                        rtol=0, atol=1e-10, err_msg=key)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # cluster_ids_pred is ported (exact GPs); a model trained without
+    # cluster_ids refuses it
+    with pytest.raises(ValueError, match="cluster_ids"):
         tb.predict(data["Xp"], group_data_pred=data["gp"],
                    cluster_ids_pred=np.zeros(8))
 
