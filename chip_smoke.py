@@ -96,14 +96,34 @@ one. It
    after each of the three trainings the histogram kernel is held against
    its plain version on that path's own Dataset (all rows, 3 %) and timed
    there (the kernels line's histogram ``other_shapes``);
-10. checks by the kernels' launch counters (set to 0 before each path, read
+10. drives the low-rank and full-scale approximations at full width,
+   float64, num_ind_points = 500 (kmeans++), FSVA m = 30: ``fitc_gp`` and
+   ``fsva_gp`` (n = 100 000: inducing points timed apart, construct, NLL,
+   a value-and-gradient, the default and the L-BFGS fit, prediction with
+   variances at 10 000 points, FSVA also with nsim_var_pred = 100, and its
+   peak memory), ``lowrank_vs_cpu`` (FITC, full-scale tapering and FSVA at
+   n = 2 000 against the float64 CPU run within 1e-9), ``fsa_gp``
+   (full-scale tapering at n = 10 000, taper range 0.1: NLL, L-BFGS fit,
+   prediction), ``fsva_laplace`` (``bernoulli_logit``, iterative, n =
+   100 000: a value-and-gradient with its breakdown, the fit cut to
+   LR_NG_MAXIT, prediction), ``lowrank_clustered`` (FITC and FSVA with 100
+   clusters of 1 000 points, 50 inducing points each, batched: fit and
+   prediction, unseen clusters at the prior exactly), ``fsva_boosting``
+   (LR_FSVA_ROUNDS rounds) and ``fitc_lagaboost`` (30 rounds; the
+   histogram kernel held against its plain version on their Datasets),
+   second runs of the FSVA
+   fit and of both trainings that must give the same bits
+   (``determinism_lowrank``) and a profiler trace of the FSVA
+   value-and-gradient with no scatter (``lowrank_ops_trace``);
+11. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
    Vecchia kernels never on the non-Gaussian path (the latent factors have
    no nugget, outside the kernel gate), no kernel on the grouped LMM and
    GLMM and the exact GP (their work is ``torch.linalg`` and gathers, as in
    the JAX package), the histogram kernel once a leaf on the three boosting
-   paths of 9 — and the results against float64 plain versions.
+   paths of 9 and the two of 10, no kernel on the low-rank GPs — and the
+   results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -2691,6 +2711,478 @@ def exact_paths(seed, n, n_pred, rounds, dev):
     return launches, timings, firsts, hist
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the low-rank and full-scale approximations (fitc,
+# full_scale_tapering, full_scale_vecchia; Gaussian and Laplace; cluster_ids;
+# GPBoost and LaGaBoost with them)
+# ---------------------------------------------------------------------------
+
+LR_K = 500                        # num_ind_points, the package default
+LR_M = 30                         # FSVA neighbours, the package default
+LR_INIT = [0.25, 1.0, 0.1]        # the boosting recipe's inits
+LR_CPU_N = 2_000                  # points of the card-vs-CPU checks
+LR_CPU_N_PRED = 200
+LR_CPU_RTOL = 1e-9
+LR_NSIM = 100                     # the second prediction's nsim_var_pred
+LR_EXACT_VAR_POINTS = 500         # FSVA points with exact variances
+FSA_N = 10_000                    # Psi is dense [n, n]: the exact GP's top
+FSA_TAPER = 0.1
+LRC_CLUSTERS, LRC_SIZE, LRC_K = 100, 1_000, 50
+LRC_UNSEEN = 0.1
+LR_NG_MAXIT = 1                   # depth cut of the FSVA-Laplace fit
+LR_NG_VAR_POINTS = 256            # prediction points with Laplace variances
+LR_FSVA_ROUNDS = 10               # depth cut of fsva_boosting (recipe: 30)
+
+
+def _lowrank_model(coords, approx, dev, **kw):
+    import gpboost_tpu_torch as gpt
+    if approx.startswith("full_scale_vecchia"):
+        kw.setdefault("num_neighbors", LR_M)
+    return gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                       gp_approx=approx, device=dev, **kw)
+
+
+def lowrank_gp(coords, y, pred, approx, dev):
+    """A FITC (``approx="fitc"``) or full-scale Vecchia GP through the public
+    API at the main path's size, float64, the package's defaults
+    (num_ind_points = LR_K, kmeans++; FSVA m = LR_M): inducing-point
+    selection (timed apart), construct, NLL, a value-and-gradient, the
+    default fit (gradient descent) and an L-BFGS one, prediction with
+    variances at the prediction points (FSVA: simulated, the package's
+    rule at this size, and with nsim_var_pred = LR_NSIM); FSVA's peak
+    memory above what earlier phases hold. No kernel launches."""
+    from gpboost_tpu_torch.ops.inducing import select_inducing_points
+    tag = "fitc" if approx == "fitc" else "fsva"
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, t_ind = _timed(lambda: select_inducing_points(coords, LR_K,
+                                                     "kmeans++", 0,
+                                                     device=dev))
+    gp, t_construct = _timed(lambda: _lowrank_model(coords, approx, dev))
+    init = gp._default_init_cov_pars(y)
+    nll0, t_nll = _timed(lambda: gp.neg_log_likelihood(init, y))
+    th = torch.log(gp._tensor(init))
+    y_t = gp._tensor(y)
+    gp._approx._vg_gaussian(th, y_t, None)
+    _, t_vg = _timed(lambda: gp._approx._vg_gaussian(th, y_t, None))
+    _, t_gd = _timed(lambda: gp.fit(y))
+    res_gd, nll_gd, cp_gd = gp._fit_result, gp.current_nll_, gp.cov_pars_
+    _, t_lb = _timed(lambda: gp.fit(y, params={"optimizer_cov": "lbfgs"}))
+    res_lb = gp._fit_result
+    check(nll_gd <= nll0 and gp.current_nll_ <= nll0,
+          f"{tag}: fitted NLLs {nll_gd}, {gp.current_nll_} above the one at "
+          f"the inits {nll0}")
+    out, t_pred = _timed(lambda: gp.predict(gp_coords_pred=pred,
+                                            predict_var=True))
+    mu, var = out["mu"], out["var"]
+    # FSVA's variances at this size are simulated (clamped at 0)
+    check(mu.shape == (len(pred),) and bool(np.all(np.isfinite(mu))
+                                            and np.all(np.isfinite(var))
+                                            and np.all(var >= 0)),
+          f"{tag}: predictions not finite / variances negative: "
+          f"{np.isfinite(mu).all()}, {var.min()}")
+    timings = {f"{tag}_inducing_points_s": t_ind,
+               f"{tag}_construct_s": t_construct, f"{tag}_nll_s": t_nll,
+               f"{tag}_vg_s": t_vg, f"{tag}_fit_gd_s": t_gd,
+               f"{tag}_fit_gd_evaluations": res_gd.num_evals,
+               f"{tag}_fit_lbfgs_s": t_lb,
+               f"{tag}_fit_lbfgs_evaluations": res_lb.num_evals,
+               f"{tag}_predict_s": t_pred}
+    entry = {"phase": f"{tag}_gp", "n": len(y), "k": LR_K,
+             "n_pred": len(pred), "nll_at_inits": nll0,
+             "fit_gd": {"cov_pars": np.asarray(cp_gd).tolist(),
+                        "nll": nll_gd, "iterations": res_gd.num_it,
+                        "evaluations": res_gd.num_evals},
+             "fit_lbfgs": {"cov_pars": gp.get_cov_pars().tolist(),
+                           "nll": gp.current_nll_,
+                           "iterations": res_lb.num_it,
+                           "evaluations": res_lb.num_evals},
+             "pred_var_range": [float(var.min()), float(var.max())]}
+    if tag == "fsva":
+        gp.set_prediction_data(nsim_var_pred=LR_NSIM)
+        out2, t_pred2 = _timed(lambda: gp.predict(gp_coords_pred=pred,
+                                                  predict_var=True))
+        gp.nsim_var_pred = None
+        check(bool(np.array_equal(out2["mu"], mu) and np.all(
+            out2["var"] >= 0)), "fsva: the simulated means moved")
+        timings[f"fsva_predict_nsim{LR_NSIM}_s"] = t_pred2
+        # the exact variances at the first LR_EXACT_VAR_POINTS points (few
+        # enough for the package's exact route) against the simulated ones
+        ex, t_ex = _timed(lambda: gp.predict(
+            gp_coords_pred=pred[:LR_EXACT_VAR_POINTS], predict_var=True))
+        timings[f"fsva_predict_exact_var_{LR_EXACT_VAR_POINTS}_s"] = t_ex
+        sl = slice(0, LR_EXACT_VAR_POINTS)
+        check(bool(np.allclose(ex["mu"], mu[sl], rtol=1e-9, atol=1e-12)
+                   and np.all(ex["var"] > 0)),
+              "fsva: the exact route's means differ from the simulated "
+              "route's, or its variances are not positive")
+        entry["sim_var_vs_exact"] = {
+            f"nsim{n_s}": {"mean_abs_err": float(np.mean(np.abs(
+                v[sl] - ex["var"]))), "max_rel_err": float(np.max(np.abs(
+                    v[sl] - ex["var"]) / ex["var"])),
+                "clamped_at_0": int(np.sum(v == 0.0))}
+            for n_s, v in ((1000, var), (LR_NSIM, out2["var"]))}
+        timings["fsva_peak_mem_gb"] = (torch.cuda.max_memory_allocated()
+                                       - mem_start) / 1e9
+        entry["peak_mem_gb_above_start"] = timings["fsva_peak_mem_gb"]
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"{tag}: a kernel launched on the low-rank path: {launches}")
+    entry["launches"] = launches
+    emit(entry)
+    return launches, timings, gp
+
+
+def lowrank_vs_cpu(coords, y, pred, dev):
+    """FITC, full-scale tapering and FSVA on the card against the float64
+    CPU run at the first LR_CPU_N points, on the card's inducing points and
+    (FSVA) structure: NLL, gradient, prediction mean and variance within
+    LR_CPU_RTOL relative; the inducing-point selection of the two devices
+    side by side."""
+    rows = slice(0, LR_CPU_N)
+    c, yy, pp = coords[rows], y[rows], pred[:LR_CPU_N_PRED]
+    cp = np.asarray(LR_INIT)
+    out = {}
+    for approx, kw in (("fitc", {}),
+                       ("full_scale_tapering",
+                        {"cov_fct_taper_range": FSA_TAPER}),
+                       ("full_scale_vecchia", {})):
+        g, h = (_lowrank_model(c, approx, d, **kw)
+                for d in (dev, torch.device("cpu")))
+        ind_diff = float((g._approx.ind_points.cpu()
+                          - h._approx.ind_points).abs().max())
+        h._approx.ind_points = g._approx.ind_points.cpu()
+        if approx == "full_scale_vecchia":
+            h._approx.load_structure(g._approx.perm,
+                                     g._approx.neighbors.cpu().numpy())
+        res = []
+        for m in (g, h):
+            _, grad = m._approx._vg_gaussian(torch.log(m._tensor(cp)),
+                                             m._tensor(yy), None)
+            pr = m.predict(y=yy, gp_coords_pred=pp, cov_pars=cp,
+                           predict_var=True)
+            res.append((m.neg_log_likelihood(cp, yy),
+                        grad.cpu().numpy(), pr["mu"], pr["var"]))
+
+        def rel(i):
+            a, b = np.asarray(res[0][i]), np.asarray(res[1][i])
+            return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)),
+                                                     1e-300))
+        diffs = {"nll": rel(0), "grad": rel(1), "mu": rel(2), "var": rel(3),
+                 "inducing_points_max_abs_diff": ind_diff}
+        out[approx] = diffs
+        check(all(v <= LR_CPU_RTOL for k, v in diffs.items()
+                  if k != "inducing_points_max_abs_diff"),
+              f"{approx}: the card differs from the CPU run: {diffs}")
+    emit({"phase": "lowrank_vs_cpu", "n": LR_CPU_N, "rel_diff": out,
+          "tolerance": LR_CPU_RTOL})
+
+
+def fsa_gp(coords, y, pred, dev):
+    """Full-scale tapering (the Cholesky route, dense Psi) at the first
+    FSA_N points, taper range FSA_TAPER, k = LR_K: construct, NLL, an
+    L-BFGS fit, prediction with (simulated, the package's rule at this
+    size) variances."""
+    rows = slice(0, FSA_N)
+    c, yy = coords[rows], y[rows]
+    reset_counts()
+    gp, t_construct = _timed(lambda: _lowrank_model(
+        c, "full_scale_tapering", dev, cov_fct_taper_range=FSA_TAPER))
+    nll0, t_nll = _timed(lambda: gp.neg_log_likelihood(
+        gp._default_init_cov_pars(yy), yy))
+    _, t_fit = _timed(lambda: gp.fit(yy, params={"optimizer_cov": "lbfgs"}))
+    check(gp.current_nll_ <= nll0, f"fsa: fitted NLL {gp.current_nll_} "
+          f"above the one at the inits {nll0}")
+    out, t_pred = _timed(lambda: gp.predict(gp_coords_pred=pred,
+                                            predict_var=True))
+    # simulated at this size (clamped at 0); exact at the first points
+    ex, t_ex = _timed(lambda: gp.predict(
+        gp_coords_pred=pred[:LR_EXACT_VAR_POINTS], predict_var=True))
+    sl = slice(0, LR_EXACT_VAR_POINTS)
+    check(bool(np.all(np.isfinite(out["mu"])) and np.all(out["var"] >= 0)
+               and np.all(ex["var"] > 0)
+               and np.allclose(ex["mu"], out["mu"][sl], rtol=1e-9,
+                               atol=1e-12)),
+          "fsa: predictions not finite / variances negative / the exact "
+          "route's means differ")
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"fsa: a kernel launched: {launches}")
+    emit({"phase": "fsa_gp", "n": FSA_N, "k": LR_K, "taper_range": FSA_TAPER,
+          "nll_at_inits": nll0, "cov_pars": gp.get_cov_pars().tolist(),
+          "nll": gp.current_nll_, "evaluations": gp._fit_result.num_evals,
+          "sim_var_vs_exact": {
+              "mean_abs_err": float(np.mean(np.abs(out["var"][sl]
+                                                   - ex["var"]))),
+              "max_rel_err": float(np.max(np.abs(out["var"][sl] - ex["var"])
+                                          / ex["var"])),
+              "clamped_at_0": int(np.sum(out["var"] == 0.0))},
+          "launches": launches})
+    return {"fsa_construct_s": t_construct, "fsa_nll_s": t_nll,
+            "fsa_fit_lbfgs_s": t_fit,
+            "fsa_fit_lbfgs_evaluations": gp._fit_result.num_evals,
+            "fsa_predict_s": t_pred,
+            f"fsa_predict_exact_var_{LR_EXACT_VAR_POINTS}_s": t_ex}
+
+
+def fsva_laplace(ng, dev):
+    """``bernoulli_logit`` with FSVA (m = LR_M, k = LR_K), iterative, at the
+    non-Gaussian recipe's size: one value-and-gradient at the fit's
+    settings with its breakdown (mode, the k-column CG of the exact
+    log-determinant term, Lanczos, gradient CG), an L-BFGS fit cut to
+    LR_NG_MAXIT iterations, prediction: latent means at every prediction
+    point, response mean and variance at the first LR_NG_VAR_POINTS."""
+    from gpboost_tpu_torch.models.fsva_model import FSVA_COUNTS
+    from gpboost_tpu_torch.utils import timer
+    reset_counts()
+    gp, t_construct = _timed(lambda: _lowrank_model(
+        ng["coords"], "full_scale_vecchia", dev,
+        likelihood="bernoulli_logit", matrix_inversion_method="iterative"))
+    kw = gp._iter_kwargs(fit=True)
+    y_t = gp._tensor(ng["yb"])
+    th = torch.log(gp._tensor(NG_COV_PARS)).requires_grad_(True)
+    timer.clear()
+    timer.enable(True)
+    FSVA_COUNTS.clear()
+    t0 = clock()
+    with timer.timed("forward", sync=True):
+        nll = gp._approx.nll_laplace_iterative(torch.exp(th), y_t, None, None,
+                                               **kw)
+    with timer.timed("backward", sync=True):
+        (grad,) = torch.autograd.grad(nll, th)
+    t_vg = clock() - t0
+    timer.enable(False)
+    scopes = {name: {"seconds": sec, "calls": calls}
+              for name, (sec, calls) in sorted(timer.totals().items())}
+    counts = dict(FSVA_COUNTS)
+    check(math.isfinite(float(nll.detach())) and bool(
+        torch.all(torch.isfinite(grad))), "fsva_laplace: NLL or gradient "
+          "not finite")
+    _, t_fit = _timed(lambda: gp.fit(ng["yb"], params={
+        "optimizer_cov": "lbfgs", "maxit": LR_NG_MAXIT,
+        "init_cov_pars": NG_COV_PARS}))
+    check(math.isfinite(gp.current_nll_), "fsva_laplace: fit NLL")
+    out, t_pred = _timed(lambda: gp.predict(
+        gp_coords_pred=ng["pred"], predict_response=False))
+    out_v, t_pred_v = _timed(lambda: gp.predict(
+        gp_coords_pred=ng["pred"][:LR_NG_VAR_POINTS], predict_var=True))
+    mu, var = out_v["mu"], out_v["var"]
+    check(bool(np.all(np.isfinite(out["mu"])) and np.all((mu > 0) & (mu < 1))
+               and np.all((var > 0) & (var <= VAR_TOP))),
+          "fsva_laplace: predictions out of range")
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"fsva_laplace: a kernel launched: {launches}")
+    emit({"phase": "fsva_laplace", "n": len(ng["yb"]), "m": LR_M, "k": LR_K,
+          "nll": float(nll.detach()), "grad": grad.cpu().numpy().tolist(),
+          "scopes": scopes, "counts": counts, "fit_maxit": LR_NG_MAXIT,
+          "fit_cov_pars": gp.get_cov_pars().tolist(),
+          "fit_nll": gp.current_nll_,
+          "fit_evaluations": gp._fit_result.num_evals,
+          "var_points": LR_NG_VAR_POINTS, "launches": launches})
+    return {"fsva_laplace_construct_s": t_construct,
+            "fsva_laplace_vg_s": t_vg, "fsva_laplace_fit_s": t_fit,
+            "fsva_laplace_fit_evaluations": gp._fit_result.num_evals,
+            "fsva_laplace_predict_mean_s": t_pred,
+            f"fsva_laplace_predict_var_{LR_NG_VAR_POINTS}_s": t_pred_v}
+
+
+def lowrank_clustered(coords, y, pred, seed, dev):
+    """FITC and FSVA with ``cluster_ids``: LRC_CLUSTERS clusters of
+    LRC_SIZE points (the main data's points in order), LRC_K inducing
+    points a cluster (the equal-size clusters batched): the default fit
+    and prediction, LRC_UNSEEN of the prediction points in clusters
+    training never saw, which must get the prior exactly."""
+    n = LRC_CLUSTERS * LRC_SIZE
+    ids = np.repeat(np.arange(LRC_CLUSTERS), LRC_SIZE)
+    rng = np.random.default_rng(seed + 90)
+    ids_pred = rng.integers(0, LRC_CLUSTERS, len(pred))
+    unseen = rng.uniform(size=len(pred)) < LRC_UNSEEN
+    ids_pred[unseen] = LRC_CLUSTERS + rng.integers(0, 10, int(unseen.sum()))
+    timings, entry = {}, {"phase": "lowrank_clustered", "n": n,
+                          "clusters": LRC_CLUSTERS, "k": LRC_K,
+                          "unseen_points": int(unseen.sum())}
+    reset_counts()
+    for approx in ("fitc", "full_scale_vecchia"):
+        tag = "fitc" if approx == "fitc" else "fsva"
+        gp, t_c = _timed(lambda: _lowrank_model(
+            coords[:n], approx, dev, num_ind_points=LRC_K, cluster_ids=ids))
+        check(gp._approx.stacked is not None,
+              f"{tag}: the equal-size clusters are not batched")
+        _, t_fit = _timed(lambda: gp.fit(y[:n]))
+        out, t_pred = _timed(lambda: gp.predict(
+            gp_coords_pred=pred, cluster_ids_pred=ids_pred,
+            predict_var=True))
+        cp = gp.get_cov_pars()
+        prior_ok = bool(np.all(out["mu"][unseen] == 0.0) and np.all(
+            out["var"][unseen] == cp[1] + cp[0]))
+        check(prior_ok, f"{tag}: unseen clusters not at the prior")
+        check(bool(np.all(np.isfinite(out["mu"])) and np.all(out["var"] > 0)),
+              f"{tag}: clustered predictions not finite / not positive")
+        timings.update({f"lowrank_clustered_{tag}_construct_s": t_c,
+                        f"lowrank_clustered_{tag}_fit_s": t_fit,
+                        f"lowrank_clustered_{tag}_fit_evaluations":
+                            gp._fit_result.num_evals,
+                        f"lowrank_clustered_{tag}_predict_s": t_pred})
+        entry[tag] = {"cov_pars": cp.tolist(), "nll": gp.current_nll_,
+                      "evaluations": gp._fit_result.num_evals,
+                      "unseen_at_prior": prior_ok}
+    launches = read_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"lowrank_clustered: a kernel launched: {launches}")
+    entry["launches"] = launches
+    emit(entry)
+    return timings
+
+
+def _lowrank_boost_gp(coords, dev, binary):
+    gp = _lowrank_model(coords, "fitc" if binary else "full_scale_vecchia",
+                        dev, likelihood="bernoulli_logit" if binary
+                        else "gaussian")
+    if not binary:
+        gp.set_optim_params({"optimizer_cov": "lbfgs",
+                             "init_cov_pars": LR_INIT})
+    return gp
+
+
+def lowrank_boosting(bd, rounds, dev, binary=False):
+    """``fsva_boosting``: the boosting recipe (PERF.md section 4) with the
+    FSVA GP (L-BFGS refits from LR_INIT); ``fitc_lagaboost``: the
+    non-Gaussian recipe's LaGaBoost (objective "binary") with a
+    ``bernoulli_logit`` FITC GP; ``rounds`` rounds, then
+    ``Booster.predict`` with variances. The histogram kernel once a leaf,
+    the Vecchia kernels never."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    tag = "fitc_lagaboost" if binary else "fsva_boosting"
+    reset_counts()
+    ds = gpt.Dataset(bd["X"], label=bd["label"], device=dev)
+    gp = _lowrank_boost_gp(bd["coords"], dev, binary)
+    bst, t_train = _timed(lambda: gpt.train(
+        NG_PARAMS if binary else BOOST_PARAMS, ds, gp_model=gp,
+        num_boost_round=rounds))
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    out, t_pred = _timed(lambda: bst.predict(
+        bd["X_pred"], gp_coords_pred=bd["pred"], predict_var=True))
+    entry = _boost_checks(bst, tag, launches, reads, rounds)
+    hist = check_histogram_on(ds, bd["seed"], dev, tag)
+    mu, var = out["response_mean"], out["response_var"]
+    # FSVA's Gaussian variances at this size are simulated (clamped at 0)
+    ok_mu = (np.all((mu > 0) & (mu < 1)) and np.all((var > 0)
+                                                    & (var <= VAR_TOP))
+             if binary else np.all(np.isfinite(mu)) and np.all(var >= 0))
+    check(mu.shape == (len(bd["pred"]),) and bool(ok_mu),
+          f"{tag}: predictions out of range")
+    emit({"phase": tag, "n": len(bd["label"]), "rounds": rounds,
+          "cov_pars": gp.get_cov_pars().tolist(), **entry,
+          "pred_mu_range": [float(mu.min()), float(mu.max())]})
+    return (launches, {f"{tag}_train_{rounds}r_s": t_train,
+                       f"{tag}_evaluations": entry["evaluations"],
+                       f"{tag}_predict_s": t_pred}, bst, hist)
+
+
+def lowrank_determinism(fsva_gp, coords, y, boost, dev):
+    """Second runs, each the same bits as the first: the FSVA L-BFGS fit
+    (cov_pars, NLL, evaluations; a new model from the same inits) and the
+    fsva_boosting and fitc_lagaboost trainings (scores, cov_pars,
+    evaluation counts)."""
+    import gpboost_tpu_torch as gpt
+    out = {}
+    gp2 = _lowrank_model(coords, "full_scale_vecchia", dev)
+    gp2.fit(y, params={"optimizer_cov": "lbfgs"})
+    out["fsva_fit"] = {
+        "cov_pars_bit_identical": bool(np.array_equal(
+            fsva_gp.get_cov_pars(), gp2.get_cov_pars())),
+        "nll_bit_identical": bool(fsva_gp.current_nll_ == gp2.current_nll_),
+        "evaluations": [fsva_gp._fit_result.num_evals,
+                        gp2._fit_result.num_evals]}
+    del gp2
+    for tag, (first, data, binary) in boost.items():
+        gp = _lowrank_boost_gp(data["coords"], dev, binary)
+        bst = gpt.train(NG_PARAMS if binary else BOOST_PARAMS,
+                        gpt.Dataset(data["X"], label=data["label"],
+                                    device=dev),
+                        gp_model=gp, num_boost_round=first.num_trees())
+        ev = ([f["num_evals"] for f in first.objective.fits],
+              [f["num_evals"] for f in bst.objective.fits])
+        out[tag] = {
+            "scores_bit_identical": bool(np.array_equal(first._score,
+                                                        bst._score)),
+            "cov_pars_bit_identical": bool(np.array_equal(
+                first.gp_model.get_cov_pars(), gp.get_cov_pars())),
+            "evaluations_identical": bool(ev[0] == ev[1]),
+            "score_max_abs_diff": float(np.abs(first._score
+                                               - bst._score).max()),
+            "evaluations": [sum(ev[0]), sum(ev[1])]}
+        del bst, gp
+    emit({"phase": "determinism_lowrank", **out})
+    f = out["fsva_fit"]
+    ok = (f["cov_pars_bit_identical"] and f["nll_bit_identical"]
+          and f["evaluations"][0] == f["evaluations"][1])
+    ok = ok and all(v["scores_bit_identical"] and v["cov_pars_bit_identical"]
+                    and v["evaluations_identical"]
+                    for k, v in out.items() if k != "fsva_fit")
+    check(ok, f"the low-rank paths are not bit-reproducible on the card: "
+          f"{out}")
+    return out
+
+
+def lowrank_ops_trace(coords, y, dev):
+    """The FSVA value-and-gradient (residual factors, Woodbury, Lambda^-1
+    products, their backward) on the card at LR_CPU_N points under the
+    profiler (its CPU side): no operation that adds with colliding
+    indices."""
+    from torch.profiler import ProfilerActivity, profile
+    gp = _lowrank_model(coords[:LR_CPU_N], "full_scale_vecchia", dev)
+    th = torch.log(gp._tensor(LR_INIT))
+    y_t = gp._tensor(y[:LR_CPU_N])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gp._approx._vg_gaussian(th, y_t, None)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    bad = [x for x in names if any(b in x for b in SCATTERS)]
+    emit({"phase": "lowrank_ops_trace", "ops": names, "scatters": bad})
+    check(any("cholesky" in x for x in names), f"empty trace: {names}")
+    check(not bad, f"the FSVA value-and-gradient scatters: {bad}")
+    return names
+
+
+def lowrank_paths(coords, y, pred, ng, seed, rounds, dev):
+    """Phase 9 in order; returns (launches by path, timings, what
+    ``lowrank_determinism`` repeats, the histogram checks)."""
+    timings = {}
+    l_fitc, t, _ = lowrank_gp(coords, y, pred, "fitc", dev)
+    timings.update(t)
+    l_fsva, t, fsva = lowrank_gp(coords, y, pred, "full_scale_vecchia", dev)
+    timings.update(t)
+    lowrank_vs_cpu(coords, y, pred, dev)
+    timings.update(fsa_gp(coords, y, pred, dev))
+    torch.cuda.empty_cache()
+    timings.update(fsva_laplace(ng, dev))
+    torch.cuda.empty_cache()
+    timings.update(lowrank_clustered(coords, y, pred, seed, dev))
+    X, yb, X_pred = make_boost_data(seed, y, len(pred))
+    bd_g = dict(coords=coords, pred=pred, X=X, label=yb, X_pred=X_pred,
+                seed=seed)
+    bd_b = dict(coords=ng["coords"], pred=ng["pred"], X=ng["Xn"],
+                label=ng["ybb"], X_pred=ng["X_pred"], seed=seed)
+    l_b, t, bst_b, h_b = lowrank_boosting(bd_g, min(rounds, LR_FSVA_ROUNDS),
+                                          dev)
+    timings.update(t)
+    l_l, t, bst_l, h_l = lowrank_boosting(bd_b, rounds, dev, binary=True)
+    timings.update(t)
+    launches = {"fitc_gp": l_fitc, "fsva_gp": l_fsva,
+                "fsva_boosting": l_b, "fitc_lagaboost": l_l}
+    firsts = dict(fsva=fsva, boost={"fsva_boosting": (bst_b, bd_g, False),
+                                    "fitc_lagaboost": (bst_l, bd_b, True)})
+    hist = ([c for cases, _ in (h_b, h_l) for c in cases],
+            [shape for _, shape in (h_b, h_l)])
+    return launches, timings, firsts, hist
+
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2795,12 +3287,20 @@ def main():
     timings.update(ex_timings)
     cases["histogram"] += ex_hist[0]
     timed["histogram"]["other_shapes"] += ex_hist[1]
+    # the low-rank and full-scale approximations
+    lr_launches, lr_timings, lr_firsts, lr_hist = lowrank_paths(
+        coords, y, pred, ng, args.seed, args.rounds, dev)
+    timings.update(lr_timings)
+    cases["histogram"] += lr_hist[0]
+    timed["histogram"]["other_shapes"] += lr_hist[1]
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
     del bst, ds, bst_ng, ds_ng, bst_g, glmm_model
     exact_determinism(firsts["ex_boost"], firsts["ex_laga"], firsts["g_laga"],
                       firsts["clustered"], dev)
+    lowrank_determinism(lr_firsts["fsva"], coords, y, lr_firsts["boost"], dev)
+    del lr_firsts
     torch.cuda.empty_cache()
     timings.update(bt_sliced_ms=bt["sliced_ms"],
                    bt_scatter_ms=bt["scatter_ms"])
@@ -2824,6 +3324,7 @@ def main():
     del trace_model
     exact_ops_trace(firsts["ex"], firsts["clustered"][0], dev)
     del firsts
+    lowrank_ops_trace(coords, y, dev)
 
     # a kernel that a path runs must have been launched in that path's run
     paths = {"gp": launches, "boosting": boost_launches,
@@ -2831,7 +3332,7 @@ def main():
              "boosting_default_route": bgd_launches,
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
-             "grouped_glmm": glmm_launches, **ex_launches}
+             "grouped_glmm": glmm_launches, **ex_launches, **lr_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -2844,6 +3345,9 @@ def main():
             ("exact_lagaboost", ex_launches["exact_lagaboost"],
              ("histogram",)),
             ("grouped_lagaboost", ex_launches["grouped_lagaboost"],
+             ("histogram",)),
+            ("fsva_boosting", lr_launches["fsva_boosting"], ("histogram",)),
+            ("fitc_lagaboost", lr_launches["fitc_lagaboost"],
              ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "

@@ -30,7 +30,15 @@ reference. Ported so far:
   blocks): NLL, the profiled, masked, Fisher-scoring and Newton fits, std
   errors, prediction, the dense Laplace approximation, GPBoost and
   LaGaBoost with it, and LaGaBoost with grouped effects (in b-space); its
-  dense work is ``torch.linalg``'s Cholesky, as in the JAX package.
+  dense work is ``torch.linalg``'s Cholesky, as in the JAX package;
+- the low-rank and full-scale approximations (``gp_approx="fitc"``,
+  ``"full_scale_tapering"``, ``"full_scale_vecchia"`` and its
+  residual-correlation variant; inducing points by kmeans++, random or
+  cover tree), alone or with ``cluster_ids``, Gaussian and Laplace, inside
+  GPBoost and LaGaBoost: Woodbury solves over [k, k] Cholesky factors, a
+  dense Cholesky for full-scale tapering, and for full-scale Vecchia a
+  Vecchia residual whose factors and precision products gather forward and
+  backward; no kernel of their own either.
 
 There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,

@@ -35,11 +35,20 @@ the JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
   ``Psi^-1 r`` solve; other likelihoods — the Vecchia-Laplace
   approximation (dense, or ``matrix_inversion_method="iterative"``: CG +
   stochastic Lanczos), its fit and prediction, the LaGaBoost gradient.
+- **a low-rank or full-scale GP** (``gp_approx="fitc"``,
+  ``"full_scale_tapering"``, ``"full_scale_vecchia"``,
+  ``"full_scale_vecchia_correlation_based"``; ``models/fitc_model.py``,
+  ``models/fsva_model.py``), alone or with ``cluster_ids``
+  (``models/clustered_approx.py``): the same routes as the Vecchia GP
+  (the fits of ``models/vecchia_fit.py``, std errors, prediction with exact
+  or simulated variances, the Laplace approximation, GPBoost and
+  LaGaBoost).
 
-Every other structure — other approximations, grouped effects, GP random
-coefficients or ``cluster_ids`` with a Vecchia GP, weights, the iterative
-route of grouped and exact models — raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+Every other structure — the other approximations, grouped effects, GP
+random coefficients or ``cluster_ids`` with a Vecchia GP, grouped effects
+or GP random coefficients with a low-rank GP, weights, the iterative route
+of grouped, exact and full-scale-tapering models — raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
 raises) unless ``device="cpu"`` is passed. Inputs and outputs are numpy
@@ -64,7 +73,11 @@ from gpboost_tpu_torch.models.covariance import (cluster_mask, component_cov,
 from gpboost_tpu_torch.models.spec import (GroupedRESpec, ModelData,
                                            ModelSpec, make_model_data,
                                            map_cluster_ids)
-from gpboost_tpu_torch.models.vecchia_model import VecchiaGP
+from gpboost_tpu_torch.models.clustered_approx import ClusteredApprox
+from gpboost_tpu_torch.models.fitc_model import FITCGP
+from gpboost_tpu_torch.models.fsva_model import FSVAGP
+from gpboost_tpu_torch.models.vecchia_model import (DENSE_LAPLACE_MAX_N,
+                                                    VecchiaGP)
 from gpboost_tpu_torch.ops.cov_fns import CovFunction, euclidean_distance
 from gpboost_tpu_torch.utils import resolve_device
 from gpboost_tpu_torch.utils.timer import timed
@@ -122,12 +135,23 @@ _PROFILED = ("gradient_descent", "lbfgs", "lbfgs_linesearch_nocedal_wright",
              "nelder_mead", "adam")
 
 
+# the low-rank and full-scale approximations (fitc_model.py, fsva_model.py)
+LOWRANK_APPROX = ("fitc", "full_scale_tapering", "full_scale_vecchia",
+                  "full_scale_vecchia_correlation_based")
+_LOWRANK_KEYWORDS = (("cov_fct_taper_range", 1.0),
+                     ("cov_fct_taper_shape", 1.0),
+                     ("ind_points_selection", "kmeans++"),
+                     ("num_ind_points", 500), ("cover_tree_radius", 1.0))
+
+
 def _not_ported(what: str, queue: str):
     return NotImplementedError(
         f"{what} is not ported to gpboost_tpu_torch yet (ROADMAP.md "
-        f"{queue}); ported: gp_coords with gp_approx='vecchia', and "
-        "group_data (grouped random effects) or num_data (the iid model) "
-        "without gp_coords")
+        f"{queue}); ported: gp_coords with gp_approx='none' (the exact GP, "
+        "with group_data, gp_rand_coef_data or cluster_ids), 'vecchia', "
+        f"{', '.join(repr(a) for a in LOWRANK_APPROX)} (with cluster_ids), "
+        "and group_data (grouped random effects) or num_data (the iid "
+        "model) without gp_coords")
 
 
 def _canonical_likelihood(lik: str) -> str:
@@ -192,6 +216,12 @@ class GPModel:
         given = [k for k, v in group_keys.items() if v is not None]
         self._iid_model = False
         is_vecchia = gp_coords is not None and gp_approx == "vecchia"
+        self._lowrank = gp_coords is not None and gp_approx in LOWRANK_APPROX
+        if self._lowrank and (given or gp_rand_coef_data is not None):
+            raise NotImplementedError(
+                f"gp_approx='{gp_approx}' supports a single GP component "
+                "(as the JAX package): no grouped random effects, iid model "
+                "or GP random coefficients beside it")
         if is_vecchia:
             for what, value in (
                     ("grouped random effects or the iid model ("
@@ -215,9 +245,9 @@ class GPModel:
         if gp_coords is None and gp_rand_coef_data is not None:
             raise ValueError("'gp_rand_coef_data' needs 'gp_coords'")
         # the Woodbury route serves grouped effects alone; everything else
-        # but a Vecchia GP is an exact (dense) model
+        # but a Vecchia or a low-rank GP is an exact (dense) model
         self._grouped_only = gp_coords is None and cluster_ids is None
-        self._exact = not (self._grouped_only or is_vecchia)
+        self._exact = not (self._grouped_only or is_vecchia or self._lowrank)
         if weights is not None:
             raise _not_ported("weights", "Queue A, item 11")
         likelihood = _canonical_likelihood(likelihood)
@@ -226,19 +256,24 @@ class GPModel:
                 "likelihood_additional_param with likelihood='gaussian' (the "
                 "latent-process parametrisation with the nugget as an "
                 "auxiliary parameter)", "Queue A, item 15")
-        for key, value, default in (
-                ("cov_fct_taper_range", cov_fct_taper_range, 1.0),
-                ("cov_fct_taper_shape", cov_fct_taper_shape, 1.0),
-                ("ind_points_selection", ind_points_selection, "kmeans++"),
-                ("num_ind_points", num_ind_points, 500),
-                ("cover_tree_radius", cover_tree_radius, 1.0)):
-            if value != default:
-                raise _not_ported(f"{key}={value!r} (tapering and inducing "
-                                  "points)", "Queue A, items 14 and 17")
+        values = dict(cov_fct_taper_range=cov_fct_taper_range,
+                      cov_fct_taper_shape=cov_fct_taper_shape,
+                      ind_points_selection=ind_points_selection,
+                      num_ind_points=num_ind_points,
+                      cover_tree_radius=cover_tree_radius)
+        for key, default in _LOWRANK_KEYWORDS:
+            if values[key] != default and not self._lowrank:
+                raise NotImplementedError(
+                    f"{key}={values[key]!r} with gp_approx='{gp_approx}': "
+                    "the keyword is read by the low-rank approximations "
+                    f"({', '.join(LOWRANK_APPROX)}, ported) and by "
+                    "gp_approx='tapering' (not ported; ROADMAP.md Queue A, "
+                    "items 14 and 17)")
         if matrix_inversion_method not in ("cholesky", "iterative"):
             raise ValueError("matrix_inversion_method: 'cholesky' or "
                              f"'iterative', got {matrix_inversion_method!r}")
-        if matrix_inversion_method == "iterative" and not is_vecchia:
+        if matrix_inversion_method == "iterative" and not (is_vecchia
+                                                           or self._lowrank):
             raise _not_ported(
                 "matrix_inversion_method='iterative' for grouped random "
                 "effects and exact GPs (CG and stochastic Lanczos)",
@@ -249,9 +284,14 @@ class GPModel:
                 "matrix_inversion_method='iterative' with "
                 "likelihood='gaussian' (the iterative Gaussian Vecchia "
                 "route)", "Queue A, item 12")
-        if gp_coords is not None and gp_approx not in ("vecchia", "none"):
+        if gp_coords is not None and gp_approx in ("tapering",
+                                                   "vecchia_latent"):
             raise _not_ported(f"gp_approx='{gp_approx}'",
-                              "Queue A, item 17")
+                              "Queue A, item 14" if gp_approx == "tapering"
+                              else "Queue A, item 15")
+        if gp_coords is not None and not (gp_approx in ("vecchia", "none")
+                                          or self._lowrank):
+            raise ValueError(f"gp_approx '{gp_approx}' is not supported")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.likelihood = likelihood
@@ -259,6 +299,11 @@ class GPModel:
         self.gp_approx = gp_approx
         self.matrix_inversion_method = matrix_inversion_method
         self.num_neighbors = num_neighbors
+        self.num_ind_points = num_ind_points
+        self.ind_points_selection = ind_points_selection
+        self.cover_tree_radius = cover_tree_radius
+        self.cov_fct_taper_range = cov_fct_taper_range
+        self.cov_fct_taper_shape = cov_fct_taper_shape
         self.vecchia_ordering = vecchia_ordering
         self.seed = seed
         self.cov_function_name = cov_function
@@ -289,9 +334,10 @@ class GPModel:
             else [int(v) for v in np.atleast_1d(np.asarray(
                 drop_intercept_group_rand_effect)).astype(int)])
         self._cluster_map = None
+        self._lowrank_codes = None
         self._clustered_batched = False
         self._blocks = None
-        if not is_vecchia:
+        if not (is_vecchia or self._lowrank):
             if gp_coords is not None:
                 coords = np.asarray(gp_coords, dtype=np.float64)
                 self.coords_np = coords.reshape(len(coords), -1)
@@ -352,12 +398,58 @@ class GPModel:
         cf = CovFunction.create(cov_function, shape=cov_fct_shape,
                                 dim_coords=coords.shape[1])
         self.cov_fn = cf
-        with timed("GPModel: ordering + neighbor search", sync=True):
-            self._approx = VecchiaGP(
-                coords, cf, num_neighbors=(num_neighbors or 20),
-                ordering=vecchia_ordering, seed=seed, likelihood=likelihood,
-                dtype=dtype, device=self.device)
+        if self._lowrank:
+            self._approx = self._make_lowrank(coords, cluster_ids)
+        else:
+            with timed("GPModel: ordering + neighbor search", sync=True):
+                self._approx = VecchiaGP(
+                    coords, cf, num_neighbors=(num_neighbors or 20),
+                    ordering=vecchia_ordering, seed=seed,
+                    likelihood=likelihood, dtype=dtype, device=self.device)
         self.num_cov_pars = cf.num_cov_par + (1 if self.is_gaussian else 0)
+
+    def _make_lowrank(self, coords: np.ndarray, cluster_ids):
+        """The FITC / full-scale-tapering or full-scale-Vecchia model of
+        ``self.gp_approx`` (JAX ``gp_model.py:230-301``), one a cluster
+        with ``cluster_ids``."""
+        fsva = self.gp_approx.startswith("full_scale_vecchia")
+
+        def make_sub(cc):
+            if fsva:
+                return FSVAGP(
+                    cc, self.cov_fn, num_neighbors=(self.num_neighbors or 30),
+                    num_ind_points=self.num_ind_points,
+                    ind_points_selection=self.ind_points_selection,
+                    ordering=self.vecchia_ordering, seed=self.seed,
+                    cover_tree_radius=self.cover_tree_radius,
+                    likelihood=self.likelihood,
+                    neighbor_selection=(
+                        "residual_correlation"
+                        if self.gp_approx.endswith("correlation_based")
+                        else "nearest"),
+                    dtype=self.dtype, device=self.device)
+            return FITCGP(
+                cc, self.cov_fn, num_ind_points=self.num_ind_points,
+                ind_points_selection=self.ind_points_selection,
+                seed=self.seed, cover_tree_radius=self.cover_tree_radius,
+                likelihood=self.likelihood, gp_approx=self.gp_approx,
+                cov_fct_taper_range=self.cov_fct_taper_range,
+                cov_fct_taper_shape=self.cov_fct_taper_shape,
+                matrix_inversion_method=self.matrix_inversion_method,
+                dtype=self.dtype, device=self.device)
+
+        with timed("GPModel: inducing points + structure", sync=True):
+            if cluster_ids is None:
+                return make_sub(coords)
+            cid = np.asarray(cluster_ids).ravel()
+            if cid.shape[0] != coords.shape[0]:
+                raise ValueError(f"cluster_ids has {cid.shape[0]} entries "
+                                 f"for {coords.shape[0]} data points")
+            self._cluster_map, codes = np.unique(cid, return_inverse=True)
+            self._lowrank_codes = codes.reshape(-1)
+            return ClusteredApprox(coords, codes.reshape(-1), make_sub,
+                                   likelihood=self.likelihood,
+                                   dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------------
     def _tensor(self, x, ravel=False) -> torch.Tensor:
@@ -500,7 +592,8 @@ class GPModel:
                 return self._gauss_ops().psi_solve(cp, self._tensor(r))
         self._approx.ensure_neighbors(cov_pars_np)
         with torch.no_grad():
-            return self._approx.psi_inv_resid(cp, self._tensor(r, ravel=True))
+            return self._approx.psi_inv_resid(
+                cp, self._tensor(r, ravel=not self._lowrank))
 
     def _gauss_ops(self) -> "_GaussOps":
         """The Gaussian NLL's pieces of this model's structure: grouped
@@ -556,8 +649,11 @@ class GPModel:
                                                fe, y_t))
         if not self.is_gaussian:
             cp, ap = self._tensor(cov_pars_np), self._aux_tensor(aux_pars)
+            if self._lowrank:
+                self._approx.ensure_neighbors(cov_pars_np)
             with torch.no_grad():
-                if self.matrix_inversion_method == "iterative":
+                if (self.matrix_inversion_method == "iterative"
+                        and hasattr(self._approx, "nll_laplace_iterative")):
                     return float(self._approx.nll_laplace_iterative(
                         cp, y_t, ap, fe, **self._iter_kwargs(fit=False)))
                 return float(self._approx.nll_laplace(cp, y_t, ap, fe))
@@ -884,12 +980,15 @@ class GPModel:
         (``vecchia_pred_type='order_obs_first_cond_obs_only'``); for a
         non-Gaussian likelihood kriging on the posterior mode, the latent
         variance dense up to 20 000 points, simulated above or with
-        ``set_prediction_data(nsim_var_pred=...)``.
+        ``set_prediction_data(nsim_var_pred=...)``. Low-rank model
+        (``gp_coords_pred``, ``cluster_ids_pred`` with ``cluster_ids``):
+        :meth:`_predict_lowrank`.
 
         Returns dict with 'mu', 'var', 'cov' (numpy) like the reference.
         """
-        if self._approx is not None and (gp_rand_coef_data_pred is not None
-                                         or cluster_ids_pred is not None):
+        if self._approx is not None and not self._lowrank and (
+                gp_rand_coef_data_pred is not None
+                or cluster_ids_pred is not None):
             raise _not_ported("gp_rand_coef_data_pred / cluster_ids_pred "
                               "of a Vecchia model", "Queue A, item 15")
         cp_src = cov_pars if cov_pars is not None else self.cov_pars_
@@ -949,7 +1048,11 @@ class GPModel:
             cp = cp[:, None]
         want_var = bool(predict_var or predict_cov_mat)
         with torch.no_grad(), timed("GPModel: predict", sync=True):
-            if self.is_gaussian:
+            if self._lowrank:
+                mean, var = self._predict_lowrank(
+                    y_t, fe, fep, cov_pars_np, self._tensor(cp),
+                    cluster_ids_pred, bool(predict_response), want_var)
+            elif self.is_gaussian:
                 self._approx.ensure_neighbors(cov_pars_np)
                 mean, var = self._approx.predict_gaussian(
                     self._tensor(cov_pars_np), y_t, self._tensor(cp), fe,
@@ -977,6 +1080,39 @@ class GPModel:
         cov = (None if (not predict_cov_mat or var_np is None)
                else np.diag(var_np))
         return {"mu": mu_np, "var": var_np, "cov": cov}
+
+    def _predict_lowrank(self, y_t, fe, fep, cov_pars_np, coords_pred,
+                         cluster_ids_pred, predict_response, want_var):
+        """Prediction of a low-rank model (JAX ``gp_model.py:1440-1490``):
+        Gaussian with exact or simulated variances (``nsim_var_pred``), the
+        Laplace posterior otherwise — FSVA's iterative route above
+        ``DENSE_LAPLACE_MAX_N`` points or with
+        ``matrix_inversion_method="iterative"`` (the JAX package's dense
+        one holds [n, n]). Returns (mean, var) tensors."""
+        self._approx.ensure_neighbors(cov_pars_np)
+        cp = self._tensor(cov_pars_np)
+        extra = {}
+        if isinstance(self._approx, ClusteredApprox):
+            if cluster_ids_pred is None:
+                raise ValueError("cluster_ids_pred is required for "
+                                 "predictions from a model trained with "
+                                 "cluster_ids")
+            extra["codes_pred"] = map_cluster_ids(self._cluster_map,
+                                                  cluster_ids_pred)
+        elif cluster_ids_pred is not None:
+            raise ValueError("predict: 'cluster_ids_pred' given, but the "
+                             "model has no cluster_ids")
+        if self.is_gaussian:
+            mean, var = self._approx.predict_gaussian(
+                cp, y_t, coords_pred, fe, predict_response, want_var,
+                nsim_var_pred=self.nsim_var_pred, **extra)
+            return (mean if fep is None else mean + fep), var
+        if isinstance(self._approx, FSVAGP):
+            extra["iterative"] = (self.matrix_inversion_method == "iterative"
+                                  or self.num_data > DENSE_LAPLACE_MAX_N)
+        return self._approx.predict_laplace(
+            cp, y_t, self._aux_tensor(), coords_pred, fe, fep,
+            predict_response, want_var, **extra)
 
     def _predict_exact(self, y_t, fe, fep, cp, group_data_pred,
                        group_rand_coef_data_pred, gp_coords_pred,
@@ -1169,8 +1305,9 @@ class GPModel:
         Exact model: the same per component (its base covariance times the
         posterior's y_aux)."""
         if self._approx is not None:
-            raise _not_ported("predict_training_data_random_effects of a "
-                              "Vecchia model", "Queue A, item 15")
+            raise _not_ported(
+                "predict_training_data_random_effects of an approximated GP",
+                "Queue A, item 17" if self._lowrank else "Queue A, item 15")
         if self.y is None or self.cov_pars_ is None:
             raise ValueError("fit() must be called first")
         cp = self._tensor(self.cov_pars_)
@@ -1339,7 +1476,8 @@ class GPModel:
             # same coordinates (float64)
             comps, data, _ = make_model_data(
                 gp_coords=self.coords_np, cov_fn=self.cov_fn,
-                device=self.device, dense_dists=True)
+                cluster_ids=self._lowrank_codes, device=self.device,
+                dense_dists=True)
             with torch.no_grad():
                 fi = gaussian.fisher_information(
                     ModelSpec(components=tuple(comps),
@@ -1478,6 +1616,11 @@ class GPModel:
             "gp_approx": self.gp_approx,
             "num_neighbors": self.num_neighbors,
             "vecchia_ordering": self.vecchia_ordering,
+            "num_ind_points": self.num_ind_points,
+            "ind_points_selection": self.ind_points_selection,
+            "cover_tree_radius": self.cover_tree_radius,
+            "cov_fct_taper_range": self.cov_fct_taper_range,
+            "cov_fct_taper_shape": self.cov_fct_taper_shape,
             "seed": self.seed,
             "cov_pars": None if self.cov_pars_ is None else list(
                 np.asarray(self.cov_pars_, dtype=np.float64)),
@@ -1514,6 +1657,9 @@ class GPModel:
                 if self._cluster_map is not None:
                     d["cluster_ids"] = self._cluster_map[
                         self.data.cluster_codes.cpu().numpy()].tolist()
+            elif self._lowrank_codes is not None:
+                d["cluster_ids"] = self._cluster_map[
+                    self._lowrank_codes].tolist()
             if self.y is not None:
                 d["y"] = self.y.cpu().numpy().astype(np.float64).tolist()
             if self.X is not None:
@@ -1525,8 +1671,10 @@ class GPModel:
                   dtype=torch.float64) -> "GPModel":
         """Rebuild a GPModel from ``model_to_dict`` output — this package's
         or the JAX package's (``GPModel(model_dict=...)`` in the reference):
-        a grouped model (its iid model included) or a Vecchia GP. Keys of
-        structures that are not ported raise ``NotImplementedError``."""
+        a grouped model (its iid model included), an exact, Vecchia or
+        low-rank GP (the JAX package's dict has no taper keys: they take
+        their defaults). Keys of structures that are not ported raise
+        ``NotImplementedError``."""
         kwargs = dict(
             likelihood=d.get("likelihood", "gaussian"),
             cov_function=d.get("cov_function", "matern"),
@@ -1535,6 +1683,8 @@ class GPModel:
             vecchia_ordering=d.get("vecchia_ordering", "random"),
             matrix_inversion_method=d.get("matrix_inversion_method",
                                           "cholesky"),
+            **{key: d.get(key, default) for key, default in _LOWRANK_KEYWORDS
+               if d.get("gp_approx") in LOWRANK_APPROX},
             seed=d.get("seed", 0), dtype=dtype, device=device)
         if d.get("group_data") is not None:
             kwargs["group_data"] = np.asarray(d["group_data"])

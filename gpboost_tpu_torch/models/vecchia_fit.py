@@ -1,4 +1,5 @@
-"""Fitting of Vecchia-approximated models (Gaussian and Vecchia-Laplace).
+"""Fitting of Vecchia-approximated and low-rank models (Gaussian and
+Laplace).
 
 The dispatch of the reference package's Vecchia fit
 (``gpboost_tpu/models/vecchia_fit.py``), with its accelerator route read as
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from gpboost_tpu_torch.models import laplace_fit, optimizers
+from gpboost_tpu_torch.models.vecchia_model import VecchiaGP
 
 _LBFGS_NAMES = laplace_fit.LBFGS_NAMES
 _KNOWN = _LBFGS_NAMES + ("gradient_descent", "nelder_mead",
@@ -48,10 +50,21 @@ NG_MIN_PROBES = 200
 
 def device_loop_eligible(vec) -> bool:
     """Whether the whole-fit loops with their state on the device serve the
-    model: the fused NLL kernel does (CUDA, inside the kernel gate) and the
-    covariance is isotropic (no neighbour redetermination mid-fit)."""
-    return (vec.device.type == "cuda" and vec._kernel_shape is not None
-            and vec.cov_fn.is_isotropic)
+    model: a Vecchia GP that the fused NLL kernel serves (CUDA, inside the
+    kernel gate) with an isotropic covariance (no neighbour redetermination
+    mid-fit). The low-rank models (FITC, full-scale) have no fused kernel
+    and always take the host route."""
+    return (isinstance(vec, VecchiaGP) and vec.device.type == "cuda"
+            and vec._kernel_shape is not None and vec.cov_fn.is_isotropic)
+
+
+def redetermines_neighbors(vec) -> bool:
+    """Whether a fit redetermines the model's neighbours at power-of-2
+    evaluations: a Vecchia GP with a coordinate-scaled (ARD) covariance, a
+    full-scale Vecchia GP with residual-correlation neighbours."""
+    if isinstance(vec, VecchiaGP):
+        return not vec.cov_fn.is_isotropic
+    return getattr(vec, "redetermines_neighbors", False)
 
 
 def _check_cfg(cfg):
@@ -114,9 +127,9 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
 
     def vg(theta):
         """Host objective: numpy log-parameters -> (NLL, gradient)."""
-        if not vec.cov_fn.is_isotropic:
-            # correlation-based neighbour redetermination at power-of-2
-            # evaluations (re_model_template.h:4630-4656)
+        if redetermines_neighbors(vec):
+            # neighbour redetermination at power-of-2 evaluations
+            # (re_model_template.h:4630-4656)
             c = eval_count["n"]
             if ((c + 1) & c) == 0:
                 vec.ensure_neighbors(np.exp(np.asarray(theta)))
@@ -224,8 +237,20 @@ def fit_laplace(model, y: torch.Tensor, X: Optional[torch.Tensor],
     :func:`ng_iter_kwargs`) — through ``models/laplace_fit.py::fit``."""
     vec = model._approx
     _check_cfg(model.optim_cfg)
-    iterative = uses_iterative(model)
+    # FITC's Woodbury NLL scales without the iterative route, full-scale
+    # tapering and clustered low-rank models have none (as in the JAX
+    # package)
+    iterative = uses_iterative(model) and hasattr(vec,
+                                                  "nll_laplace_iterative")
     kw = ng_iter_kwargs(model.optim_cfg, vec.n)
+    if not isinstance(vec, VecchiaGP):
+        # neighbours by residual correlation at the inits (JAX
+        # vecchia_fit.py:292)
+        cfg = model.optim_cfg
+        vec.ensure_neighbors(
+            cfg.init_cov_pars if cfg.init_cov_pars is not None
+            else model._default_init_cov_pars(
+                y.detach().cpu().numpy().astype(np.float64)))
 
     def nll(cov, aux, fp):
         if iterative:

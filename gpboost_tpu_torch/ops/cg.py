@@ -20,10 +20,11 @@ The JAX package's ``gpboost_tpu/ops/cg.py`` in PyTorch (the reference's
 - :class:`JacobiPreconditioner`.
 
 Probe vectors come from an explicit ``torch.Generator`` on the tensor's
-device. Not ported (ROADMAP.md Queue A, item 12): ``pcg_implicit``, the
-variance-reduced gradient ``stochastic_logdet_grad_vr``, the low-rank
-preconditioners ``LowRankDiagPreconditioner`` / ``nystrom_preconditioner``
-— each raises.
+device. :func:`pcg_implicit` (CG with an implicit backward) serves the
+full-scale Vecchia Laplace approximation with the Jacobi preconditioner.
+Not ported (ROADMAP.md Queue A, item 12): the variance-reduced gradient
+``stochastic_logdet_grad_vr``, the low-rank preconditioners
+``LowRankDiagPreconditioner`` / ``nystrom_preconditioner`` — each raises.
 
 The heavy work here — the multi-RHS precision products inside CG and
 Lanczos — is plain PyTorch, as in the JAX package (no Pallas kernel there).
@@ -215,13 +216,72 @@ def _not_ported(name: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
             f"{name} is not ported to gpboost_tpu_torch yet ({ITEM}: "
-            "implicit-differentiation CG, variance reduction and the "
-            "low-rank preconditioners)")
+            "variance reduction and the low-rank preconditioners)")
     fn.__name__ = name
     return fn
 
 
-pcg_implicit = _not_ported("pcg_implicit")
+class _PCGImplicit(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, B, mv_of_theta, pre_diag, tol, max_iter, stats,
+                *theta):
+        pre = JacobiPreconditioner(pre_diag)
+        with torch.no_grad():
+            X, it = pcg(lambda V: mv_of_theta(theta, V), B, pre.solve, tol,
+                        max_iter)
+        if stats is not None:
+            stats["implicit_cg_iters"] = stats.get("implicit_cg_iters",
+                                                   0) + it
+        ctx.save_for_backward(X, pre_diag, *theta)
+        ctx.mv_of_theta, ctx.tol, ctx.max_iter = mv_of_theta, tol, max_iter
+        ctx.stats = stats
+        return X
+
+    @staticmethod
+    def backward(ctx, X_bar):
+        X, pre_diag, *theta = ctx.saved_tensors
+        mv = ctx.mv_of_theta
+        with torch.no_grad():
+            lam, it = pcg(lambda V: mv(theta, V), X_bar,
+                          JacobiPreconditioner(pre_diag).solve, ctx.tol,
+                          ctx.max_iter)
+        if ctx.stats is not None:
+            ctx.stats["implicit_adjoint_cg_iters"] = ctx.stats.get(
+                "implicit_adjoint_cg_iters", 0) + it
+        needs = ctx.needs_input_grad[6:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(theta, needs)]
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(mv(leaves, X), wrt,
+                                             grad_outputs=-lam,
+                                             allow_unused=True)
+                         if wrt else ())
+        g_theta = [next(grads) if t.requires_grad else None for t in leaves]
+        return (lam if ctx.needs_input_grad[0] else None, None, None, None,
+                None, None, *g_theta)
+
+
+def pcg_implicit(mv_of_theta: Callable, theta, B: torch.Tensor,
+                 pre_diag: torch.Tensor, tol: float = 1e-8,
+                 max_iter: int = 1000, pre_U=None,
+                 stats: Optional[dict] = None) -> torch.Tensor:
+    """X = A(theta)^-1 B by Jacobi-preconditioned CG (``pre_diag``), with
+    implicit differentiation (the JAX package's ``pcg_implicit``):
+    ``mv_of_theta(theta, V)`` is the SPD product, differentiable in the
+    tensors of the tuple ``theta``. The backward solves one adjoint system
+    A lam = X_bar and returns d theta = -VJP_theta(A(theta) X)[lam],
+    dB = lam — no graph is kept through the CG iterations. The low-rank
+    preconditioner (``pre_U``) is not ported and raises (item 12).
+    ``stats`` (a dict), when given, gets the CG iterations added under
+    ``implicit_cg_iters`` and ``implicit_adjoint_cg_iters``."""
+    if pre_U is not None:
+        _not_ported("pcg_implicit with the low-rank preconditioner (pre_U)")()
+    return _PCGImplicit.apply(B, mv_of_theta, pre_diag, tol, max_iter, stats,
+                              *theta)
+
+
 stochastic_logdet_grad_vr = _not_ported("stochastic_logdet_grad_vr")
 nystrom_preconditioner = _not_ported("nystrom_preconditioner")
 

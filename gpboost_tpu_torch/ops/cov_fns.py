@@ -14,9 +14,10 @@ Ported so far (the families the Vecchia kernels serve):
 - ``matern_ard`` / ``gaussian_ard`` via per-dimension coordinate scaling
   (``cov_fcts.h:249-330``).
 
-General-shape Matern (Bessel K), wendland/tapering, space-time, hurst,
-linear and powered_exponential are queued in ROADMAP.md (Queue A, item 14)
-and raise ``NotImplementedError`` here.
+General-shape Matern (Bessel K), the wendland covariance and tapering,
+space-time, hurst, linear and powered_exponential are queued in ROADMAP.md
+(Queue A, item 14) and raise ``NotImplementedError`` here; only the Wendland
+taper of ``full_scale_tapering`` (:func:`wendland_correlation`) is ported.
 
 Parameter vector layout per component (original scale, as user-facing):
 ``[sigma2, range]`` for isotropic, ``[sigma2, rho_1..rho_d]`` for ARD.
@@ -87,15 +88,40 @@ def _matern_mult_const(shape: float) -> float:
 
 
 def euclidean_distance(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
-    """Pairwise Euclidean distances [n1, n2] via inner products (the same
-    formula as the reference package, so that both agree to rounding)."""
-    sq1 = torch.sum(c1 * c1, dim=-1)[:, None]
-    sq2 = torch.sum(c2 * c2, dim=-1)[None, :]
-    d2 = torch.clamp(sq1 + sq2 - 2.0 * (c1 @ c2.T), min=0.0)
+    """Pairwise Euclidean distances [..., n1, n2] via inner products (the
+    same formula as the reference package, so that both agree to rounding);
+    leading batch dimensions broadcast."""
+    sq1 = torch.sum(c1 * c1, dim=-1)[..., :, None]
+    sq2 = torch.sum(c2 * c2, dim=-1)[..., None, :]
+    d2 = torch.clamp(sq1 + sq2 - 2.0 * (c1 @ c2.transpose(-1, -2)), min=0.0)
     # double-where: sqrt'(0) = inf would poison gradients when coordinates are
     # parameter-scaled (ARD) and i == j distances are exactly 0
     pos = d2 > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)), 0.0)
+
+
+def wendland_correlation(dist: torch.Tensor, taper_range: float,
+                         taper_shape: float, taper_mu: float) -> torch.Tensor:
+    """Wendland correlation (compact support), shapes 0, 1 and 2
+    (``cov_fcts.h`` ``WendlandCorrelationShape{0,1,2}``, the Bevilacqua et
+    al. (2019) parametrisation) — the taper of ``full_scale_tapering``. The
+    wendland covariance and ``gp_approx="tapering"`` themselves stay queued
+    (ROADMAP.md Queue A, item 14)."""
+    r = dist / taper_range
+    rc = torch.clamp(r, max=1.0)
+    base = torch.clamp(1.0 - rc, min=0.0)
+    if abs(taper_shape) < 1e-10:
+        corr = torch.pow(base, taper_mu)
+    elif abs(taper_shape - 1.0) < 1e-10:
+        corr = torch.pow(base, taper_mu + 1.0) * (1.0 + rc * (taper_mu + 1.0))
+    elif abs(taper_shape - 2.0) < 1e-10:
+        corr = torch.pow(base, taper_mu + 2.0) * (
+            1.0 + rc * (taper_mu + 2.0)
+            + rc * rc * (taper_mu * taper_mu + 4.0 * taper_mu + 3.0) / 3.0)
+    else:
+        raise ValueError(
+            f"taper_shape {taper_shape} not supported (only 0, 1, 2)")
+    return torch.where(r >= 1.0, torch.zeros_like(corr), corr)
 
 
 @dataclass(frozen=True)

@@ -180,17 +180,166 @@ def build_factors(cov_fn: CovFunction, cov_pars: torch.Tensor,
     return a, d_cond
 
 
+# entries of one [n, m, q] gather of a wide right-hand side (1.6 GB in
+# float64): the residual factor build and a wide precision product take
+# their columns in chunks of :func:`col_chunk` to stay below it
+GATHER_BUDGET = 3 * 2 ** 26
+
+
+def col_chunk(n: int, m: int) -> int:
+    """Columns of an [n, q] right-hand side whose [n, m, q] gather fits
+    ``GATHER_BUDGET``."""
+    return max(1, GATHER_BUDGET // max(n * m, 1))
+
+
+def incoming_pair_sums(W: torch.Tensor, neighbors: torch.Tensor,
+                       slices: Optional["IncomingSlices"]) -> torch.Tensor:
+    """sum_{(j, k): nb[j, k] = i} W[j, k] for every row i, W [n, m, q]:
+    the transpose of the neighbour gather. With ``slices`` (CUDA) a gather
+    over the incoming pairs and a row sum per slice, in a fixed order; on
+    the CPU the plain ``index_add_`` (padding slots must hold zeros)."""
+    n, m, q = W.shape
+    if slices is None:
+        idx = torch.clamp(neighbors, min=0).long().reshape(-1)
+        return torch.zeros((n, q), dtype=W.dtype, device=W.device
+                           ).index_add_(0, idx, W.reshape(n * m, q))
+    if not len(slices):
+        return torch.zeros((n, q), dtype=W.dtype, device=W.device)
+    prod = torch.where(slices.valid[:, None], W.reshape(n * m, q)[slices.flat],
+                       0.0)
+    sums, at = [], 0
+    for t, w in slices.shapes:
+        sums.append(prod[at:at + t * w].view(t, w, q).sum(dim=1))
+        at += t * w
+    return torch.zeros((n, q), dtype=W.dtype, device=W.device).index_copy_(
+        0, slices.targets, torch.cat(sums))
+
+
+class _LowRankPairs(torch.autograd.Function):
+    """(G [n, m, m], g [n, m]) with G_i = V_i V_i' and g_i = V_i p_i,
+    V_i = P[nb_i] [m, k] the rows of P [n, k] at row i's neighbours: the
+    low-rank part of the residual covariances of a full-scale Vecchia
+    approximation. Built :func:`col_chunk` columns of P at a time (the
+    [n, m, k] gather stays within ``GATHER_BUDGET``), the chunks added in a
+    fixed order.
+
+    Backward, with S_i = Gbar_i + Gbar_i': dV_i = S_i V_i + gbar_i p_i' and
+    dP = V-gather transpose of dV plus sum_j gbar_ij V_ij — the transpose is
+    :func:`incoming_pair_sums`, a gather with a fixed order on CUDA (the
+    backward of ``P[nb]`` would be an accumulating scatter)."""
+
+    @staticmethod
+    def forward(ctx, P, neighbors, slices):
+        idx = torch.clamp(neighbors, min=0).long()
+        n, m = neighbors.shape
+        G = torch.zeros((n, m, m), dtype=P.dtype, device=P.device)
+        g = torch.zeros((n, m), dtype=P.dtype, device=P.device)
+        step = col_chunk(n, m)
+        for s in range(0, P.shape[1], step):
+            Pc = P[:, s:s + step]
+            Vc = Pc[idx]
+            G = G + Vc @ Vc.mT
+            g = g + (Vc @ Pc[:, :, None])[..., 0]
+        ctx.save_for_backward(P)
+        ctx.neighbors, ctx.slices = neighbors, slices
+        return G, g
+
+    @staticmethod
+    def backward(ctx, Gbar, gbar):
+        (P,) = ctx.saved_tensors
+        nb, slices = ctx.neighbors, ctx.slices
+        idx = torch.clamp(nb, min=0).long()
+        S = Gbar + Gbar.mT
+        gbar = torch.where(nb >= 0, gbar, 0.0)
+        parts = []
+        step = col_chunk(*nb.shape)
+        for s in range(0, P.shape[1], step):
+            Pc = P[:, s:s + step]
+            Vc = Pc[idx]
+            dV = S @ Vc + gbar[:, :, None] * Pc[:, None, :]
+            dV = torch.where((nb >= 0)[:, :, None], dV, 0.0)
+            parts.append(incoming_pair_sums(dV, nb, slices)
+                         + (gbar[:, None, :] @ Vc)[:, 0, :])
+        return torch.cat(parts, dim=1), None, None
+
+
+def build_factors_residual(cov_fn: CovFunction, cov_pars: torch.Tensor,
+                           coords: torch.Tensor, neighbors: torch.Tensor,
+                           lr_rows: torch.Tensor,
+                           nugget: Optional[torch.Tensor],
+                           include_nugget: bool, slices=None):
+    """Vecchia factors of the RESIDUAL process of a full-scale Vecchia
+    approximation (the JAX package's ``build_factors_residual``): residual
+    covariance r(s_i, s_j) = k(s_i, s_j) - p_i . p_j with p_i =
+    ``lr_rows[i]`` = (L_mm^-1 K_m,i)' [n, k] (``re_model_template.h:
+    4667-4771``). Returns (A, D): B = I - scatter(A), Lambda^-1 ~ B' D^-1 B
+    for Vecchia(residual (+ nugget I with ``include_nugget``)). The
+    low-rank products go through :class:`_LowRankPairs` (column chunks,
+    gather-only backward with ``slices`` on CUDA)."""
+    scaled = not cov_fn.is_isotropic and cov_fn.has_coord_scaling
+    if scaled:
+        coords = cov_fn.scale_coords(coords, cov_pars)
+    n, m = neighbors.shape
+    mask = neighbors >= 0
+    idx = torch.clamp(neighbors, min=0).long()
+    nb_coords = coords[idx]
+    diffs = nb_coords[:, :, None, :] - nb_coords[:, None, :, :]
+    d_nn = _safe_dist(torch.sum(diffs * diffs, -1))
+    di = coords[:, None, :] - nb_coords
+    d_in = _safe_dist(torch.sum(di * di, -1))
+    if scaled:
+        c_nn = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_nn, cov_pars)
+        c_in = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_in, cov_pars)
+    else:
+        c_nn = cov_fn.cov_matrix(cov_pars, dist=d_nn)
+        c_in = cov_fn.cov_matrix(cov_pars, dist=d_in)
+    G, g = _LowRankPairs.apply(lr_rows, neighbors, slices)
+    c_nn = c_nn - G
+    c_in = c_in - g
+    var_ii = cov_pars[0] - torch.sum(lr_rows * lr_rows, dim=1)
+    eye = torch.eye(m, dtype=coords.dtype, device=coords.device)
+    if include_nugget and nugget is not None:
+        c_nn = c_nn + nugget * eye[None]
+        var_ii = var_ii + nugget
+    pair_mask = mask[:, :, None] & mask[:, None, :]
+    c_nn = torch.where(pair_mask, c_nn, eye[None])
+    c_in = torch.where(mask, c_in, 0.0)
+    chol, info = torch.linalg.cholesky_ex(c_nn)
+    a = torch.cholesky_solve(c_in[..., None], chol)[..., 0]
+    a = torch.where(mask, a, 0.0)
+    d_cond = var_ii - torch.sum(c_in * a, dim=1)
+    d_cond = torch.where(info == 0, d_cond, math.nan)
+    return a, torch.clamp(d_cond, min=1e-12)
+
+
 def _cols(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``x`` [n] broadcast against ``like`` [n] or [n, k]."""
     return x if like.dim() == 1 else x[:, None]
 
 
 def apply_B(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
-    """(B v)_i = v_i - sum_k A[i,k] v[nb[i,k]], for v [n] or [n, k]."""
+    """(B v)_i = v_i - sum_k A[i,k] v[nb[i,k]], for v [n] or [n, k] (a
+    batched [1, m] x [m, k] product a row: one pass over the gathered
+    rows; on the CPU one sparse product, :func:`_sparse_A`). ``a`` must be 0
+    in the padding slots."""
     idx = torch.clamp(neighbors, min=0).long()
     if v.dim() == 1:
         return v - torch.sum(a * v[idx], dim=1)
-    return v - torch.sum(a[:, :, None] * v[idx], dim=1)
+    if not v.is_cuda:
+        return v - torch.sparse.mm(_sparse_A(a, neighbors, v.shape[0]), v)
+    return v - (a[:, None, :] @ v[idx])[:, 0, :]
+
+
+def _sparse_A(a: torch.Tensor, neighbors: torch.Tensor, n: int,
+              transpose: bool = False) -> torch.Tensor:
+    """A (or A') [n, n] as a sparse COO matrix: A[i, nb[i, k]] = a[i, k]
+    (each pair once, no duplicates)."""
+    mask = neighbors >= 0
+    rows = torch.arange(neighbors.shape[0], device=a.device)[:, None]
+    rows, cols = rows.expand_as(neighbors)[mask], neighbors[mask].long()
+    return torch.sparse_coo_tensor(
+        torch.stack([cols, rows] if transpose else [rows, cols]), a[mask],
+        (n, n), check_invariants=False)
 
 
 def apply_Bt(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
@@ -199,12 +348,17 @@ def apply_Bt(a: torch.Tensor, neighbors: torch.Tensor, v: torch.Tensor):
 
     The plain version: ``index_add_`` adds in row order on the CPU but with
     float atomics, in no fixed order, on CUDA — the CUDA route is
-    :func:`apply_Bt_sliced`."""
+    :func:`apply_Bt_sliced`. Many columns on the CPU: one sparse product
+    A' v (:func:`_sparse_A`; ``index_add_`` there adds row by row, ~10x
+    slower)."""
     idx = torch.clamp(neighbors, min=0).long()
     if v.dim() == 1:
         contrib = torch.where(neighbors >= 0, a * v[:, None], 0.0)
         return v - torch.zeros_like(v).index_add_(
             0, idx.reshape(-1), contrib.reshape(-1))
+    if not v.is_cuda:
+        return v - torch.sparse.mm(
+            _sparse_A(a, neighbors, v.shape[0], transpose=True), v)
     contrib = torch.where((neighbors >= 0)[:, :, None],
                           a[:, :, None] * v[:, None, :], 0.0)
     return v - torch.zeros_like(v).index_add_(
@@ -344,14 +498,15 @@ def incoming_sums(coef: torch.Tensor, slices: IncomingSlices,
     (bit-reproducible on CUDA, unlike a scatter)."""
     if not len(slices):
         return torch.zeros_like(v)
-    c = coef.reshape(-1)[slices.flat]
-    valid = slices.valid
-    if v.dim() == 2:
-        c, valid = c[:, None], valid[:, None]
-    prod = torch.where(valid, c * v[slices.src], 0.0)
+    c = torch.where(slices.valid, coef.reshape(-1)[slices.flat], 0.0)
     sums, at = [], 0
     for t, w in slices.shapes:
-        sums.append(prod[at:at + t * w].view(t, w, *v.shape[1:]).sum(dim=1))
+        src, cs = slices.src[at:at + t * w], c[at:at + t * w].view(t, w)
+        if v.dim() == 1:
+            sums.append(torch.sum(cs * v[src].view(t, w), dim=1))
+        else:
+            # a [1, w] x [w, k] product a target row
+            sums.append((cs[:, None, :] @ v[src].view(t, w, -1))[:, 0, :])
         at += t * w
     return torch.zeros_like(v).index_copy_(0, slices.targets,
                                            torch.cat(sums))
@@ -421,8 +576,8 @@ class _PrecisionProduct(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             idx = torch.clamp(nb, min=0).long()
             u = s / dc
-            ga = -(torch.sum(u[:, None, :] * G[idx], dim=2)
-                   + torch.sum(BGd[:, None, :] * V[idx], dim=2))
+            ga = -((G[idx] @ u[:, :, None])[..., 0]
+                   + (V[idx] @ BGd[:, :, None])[..., 0])
             grad_a = torch.where(nb >= 0, ga, 0.0)
         if ctx.needs_input_grad[1]:
             grad_d = -torch.sum(BG * s, dim=1) / (d * d)
@@ -441,12 +596,19 @@ def _bt(a, neighbors, slices, v):
 
 def precision_product(a: torch.Tensor, d_cond: torch.Tensor,
                       V: torch.Tensor, neighbors: torch.Tensor,
-                      slices: Optional[IncomingSlices] = None):
+                      slices: Optional[IncomingSlices] = None,
+                      col_chunk: Optional[int] = None):
     """Q V = B' D^-1 B V for V [n] or [n, k], differentiable in (a, d, V)
     with the gather-only backward of :class:`_PrecisionProduct`. ``slices``
     (:func:`build_incoming_sliced`) selects the gather transpose — the CUDA
-    route; without them the plain scatter (the CPU route)."""
-    return _PrecisionProduct.apply(a, d_cond, V, neighbors, slices)
+    route; without them the plain scatter (the CPU route). ``col_chunk``
+    bounds the [n, m, q] gathers of a wide V: its columns go through in
+    chunks of that many."""
+    if col_chunk is None or V.dim() == 1 or V.shape[1] <= col_chunk:
+        return _PrecisionProduct.apply(a, d_cond, V, neighbors, slices)
+    return torch.cat([_PrecisionProduct.apply(a, d_cond, V[:, s:s + col_chunk],
+                                              neighbors, slices)
+                      for s in range(0, V.shape[1], col_chunk)], dim=1)
 
 
 def vecchia_nll(a, d_cond, neighbors, r, row_weight=None):

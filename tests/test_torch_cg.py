@@ -185,7 +185,7 @@ def test_jacobi_preconditioner_and_probes():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tcg.pcg_implicit(None, None, None),
+    lambda: tcg.pcg_implicit(None, (), None, None, pre_U=object()),
     lambda: tcg.stochastic_logdet_grad_vr(None, None, None, None, None),
     lambda: tcg.nystrom_preconditioner(None, 10, 2, None),
     lambda: tcg.LowRankDiagPreconditioner.create(None, None),

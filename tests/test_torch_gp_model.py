@@ -193,12 +193,12 @@ def test_float32_model_takes_the_kernel_route_on_cpu_plain(data):
 ])
 def test_unported_options_raise_not_implemented(data, kwargs):
     """Structures the port does not have raise naming their ROADMAP item.
-    ``gp_approx="none"`` (the exact GP) is ported: it constructs, and its
-    NLL is the JAX package's within 1e-10 relative."""
-    if kwargs == {"gp_approx": "none"}:
+    ``gp_approx="none"`` (the exact GP) and ``"fitc"`` are ported: they
+    construct, and their NLL is the JAX package's within 1e-10 relative."""
+    if kwargs in ({"gp_approx": "none"}, {"gp_approx": "fitc"}):
         tm = gpt.GPModel(gp_coords=data["coords"], device="cpu", **kwargs)
         jm = gpb.GPModel(gp_coords=data["coords"], **kwargs)
-        assert tm._exact
+        assert tm._exact == (kwargs["gp_approx"] == "none")
         cp = [0.25, 1.0, 0.1]
         nll_j = jm.neg_log_likelihood(cp, data["y"])
         assert abs(tm.neg_log_likelihood(cp, data["y"]) - nll_j) \
