@@ -115,15 +115,36 @@ one. It
    fit and of both trainings that must give the same bits
    (``determinism_lowrank``) and a profiler trace of the FSVA
    value-and-gradient with no scatter (``lowrank_ops_trace``);
-11. checks by the kernels' launch counters (set to 0 before each path, read
+11. drives the iterative methods (``matrix_inversion_method="iterative"``)
+   at full width: ``grouped_iterative`` (the LMM of 8 — the public NLL, the
+   iterative one, a value-and-gradient with its CG and Lanczos counts, the
+   L-BFGS fit within IT_GR_RTOL / IT_GR_ATOL of 8's Cholesky fit,
+   prediction with simulated variances, ``get_num_cg_steps``; the GLMM fit
+   within IT_GLMM_RTOL / IT_GLMM_ATOL of 8's, prediction, a second fit to
+   the same bits), ``vecchia_laplace_lowrank`` (7's non-Gaussian GP with
+   ``cg_preconditioner_type="pivoted_cholesky"``: NLL, a value-and-gradient
+   within IT_PRECOND_RTOL of the Jacobi one, the fit cut to
+   IT_LOWRANK_MAXIT, CG-step counts at ranks IT_RANKS beside the Jacobi
+   one), ``fsa_iterative``
+   (full-scale tapering by CG at n = 100 000, taper range FSA_IT_TAPER:
+   construct, NLL, a value-and-gradient with its breakdown, the fit cut to
+   FSA_IT_MAXIT, prediction; at n = FSA_N the NLL and the fit's exact NLL
+   against the Cholesky route), ``grouped_poisson_lagaboost``
+   (fault C3: ``objective="poisson"`` with a Poisson grouped GLMM,
+   IT_POISSON_ROUNDS rounds), ``iterative_keyword_cholesky`` (fault C4: the
+   exact and the Gaussian Vecchia GP with the keyword give the Cholesky
+   NLLs' bits) and a profiler trace of the iterative value-and-gradients
+   with no scatter (``iterative_ops_trace``);
+12. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
    Vecchia kernels never on the non-Gaussian path (the latent factors have
    no nugget, outside the kernel gate), no kernel on the grouped LMM and
    GLMM and the exact GP (their work is ``torch.linalg`` and gathers, as in
    the JAX package), the histogram kernel once a leaf on the three boosting
-   paths of 9 and the two of 10, no kernel on the low-rank GPs — and the
-   results against float64 plain versions.
+   paths of 9, the two of 10 and the Poisson LaGaBoost of 11, no kernel on
+   the low-rank GPs and the iterative routes — and the results against
+   float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -1814,7 +1835,7 @@ def grouped_lmm(gd, seed, dev):
                "lmm_fit_lbfgs_s": t_lbfgs,
                "lmm_fit_lbfgs_evaluations": res_lb.num_evals,
                "lmm_std_err_s": t_se, "lmm_predict_s": t_pred}
-    return launches, timings
+    return launches, timings, {"cov_pars": cp_lb, "coef": model.get_coef()}
 
 
 def grouped_vs_cpu(gd, dev):
@@ -3184,6 +3205,479 @@ def lowrank_paths(coords, y, pred, ng, seed, rounds, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the iterative methods (matrix_inversion_method="iterative")
+# ---------------------------------------------------------------------------
+
+IT_GR_RTOL, IT_GR_ATOL = 0.1, 0.02    # the JAX tests' tiers against Cholesky:
+IT_GLMM_RTOL, IT_GLMM_ATOL = 0.15, 0.03   # tests/test_iterative.py
+IT_PRECOND_RTOL = 2e-2                # tests/test_preconditioners.py
+IT_RANKS = (50, 200)                  # piv_chol_rank of the CG-step counts
+IT_LOWRANK_MAXIT = 1    # depth cut of the low-rank preconditioner's fit (at
+                        # NG_MAXIT its line search takes many ~7 s evaluations)
+FSA_IT_TAPER = 0.03     # at n = 1e5 the ~300 neighbours that FSA_TAPER
+                        # gives at FSA_N
+FSA_IT_MAXIT = 3        # depth cut of the n = 1e5 iterative FSA fit
+FSA_IT_LANCZOS = 50     # its Lanczos steps (the value's; the package: 200)
+FSA_IT_NSIM = 100       # nsim_var_pred of its prediction (the package: 1000)
+FSA_IT_PROBES = 500     # the JAX test's probes for the n = FSA_N gate
+# the n = FSA_N gate (tests/test_fitc_golden.py::
+# TestFullScaleTaperingIterative holds the NLL within 0.1 at n = 100, an NLL
+# of 124: 8e-4 relative; here relative, since the stochastic log-determinant's
+# error grows with n) and the fit: the exact (Cholesky) NLL at the iterative
+# optimum within 0.1 of the Cholesky optimum's (the JAX test's parameter tier,
+# sum |d cov_pars| < 0.1, is reported: on this data both fits lie on the ridge
+# of constant sigma1^2 / range, where the parameters are not identified)
+FSA_IT_NLL_RTOL = 1e-3
+FSA_IT_FIT_NLL_ATOL = 0.1
+IT_POISSON_ROUNDS = 10
+
+
+def _scopes():
+    from gpboost_tpu_torch.utils import timer
+    return {name: {"seconds": sec, "calls": calls}
+            for name, (sec, calls) in sorted(timer.totals().items())}
+
+
+def grouped_iterative(gd, lmm_fit, glmm_cov_pars, dev):
+    """Grouped random effects with ``matrix_inversion_method="iterative"``
+    on phase 8's data (n = GR_N, q = 12 000, float64): the LMM — construct,
+    the public NLL (the Cholesky one, as in the JAX package) beside the
+    iterative one, one value-and-gradient with its CG / Lanczos counts and
+    timed scopes, the L-BFGS fit (cov_pars within IT_GR_RTOL / IT_GR_ATOL
+    of phase 8's Cholesky fit), prediction with simulated variances at the
+    prediction rows (unseen levels at their prior exactly),
+    ``get_num_cg_steps``; then the ``bernoulli_logit`` GLMM (q = 11 000):
+    fit (within IT_GLMM_RTOL / IT_GLMM_ATOL of phase 8's), prediction, and
+    a second fit that must give the same bits. No kernel runs."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.models import grouped as tg
+    from gpboost_tpu_torch.models import laplace_fit
+    from gpboost_tpu_torch.utils import timer
+    y, X = gd["y"], gd["X"]
+    reset_counts()
+    tg.GROUPED_COUNTS.clear()
+    model, t_construct = _timed(lambda: gpt.GPModel(
+        device=dev, matrix_inversion_method="iterative", **_lmm_kwargs(gd)))
+    Z = model._Z
+    init = model._default_init_cov_pars(y)
+    fe_ols = X @ np.linalg.lstsq(X, y, rcond=None)[0]
+    nll_pub, t_nll = _timed(lambda: model.neg_log_likelihood(
+        init, y, fixed_effects=fe_ols))
+    kw = laplace_fit.grouped_iter_kwargs(model.optim_cfg)
+    th = model._tensor(np.log(init[1:] / init[0]))
+    r = model._tensor(y - fe_ols)
+    with torch.no_grad():
+        (nll_it, _), t_nll_it = _timed(
+            lambda: tg.nll_profiled_iterative(Z, torch.exp(th), r, **kw))
+    tg.nll_profiled_iterative_value_and_grad(Z, th, r, **kw)
+    tg.GROUPED_COUNTS.clear()
+    timer.clear()
+    timer.enable(True)
+    (v, g, s2), t_vg = _timed(
+        lambda: tg.nll_profiled_iterative_value_and_grad(Z, th, r, **kw))
+    timer.enable(False)
+    scopes, counts_vg = _scopes(), dict(tg.GROUPED_COUNTS)
+    tg.GROUPED_COUNTS.clear()
+    _, t_fit = _timed(lambda: model.fit(y, X=X, params={
+        "optimizer_cov": "lbfgs"}))
+    counts_fit = dict(tg.GROUPED_COUNTS)
+    res = model._fit_result
+    cp, coef = model.get_cov_pars(), model.get_coef()
+    tg.GROUPED_COUNTS.clear()
+    pred_kw = dict(group_data_pred=gd["group_pred"],
+                   group_rand_coef_data_pred=gd["xs_pred"],
+                   X_pred=gd["X_pred"], predict_var=True)
+    out, t_pred = _timed(lambda: model.predict(**pred_kw))
+    counts_pred = dict(tg.GROUPED_COUNTS)
+    steps, t_steps = _timed(model.get_num_cg_steps)
+    # the Cholesky route's variances at the same parameters (not gated:
+    # the simulated ones carry 1000 draws' noise)
+    model.matrix_inversion_method = "cholesky"
+    out_ch = model.predict(**pred_kw)
+    model.matrix_inversion_method = "iterative"
+    launches = read_counts()
+    check(all(v_ == 0 for v_ in launches.values()),
+          f"grouped_iterative: a kernel launched: {launches}")
+    check(math.isfinite(float(v)) and bool(torch.all(torch.isfinite(g))),
+          "grouped_iterative: the value-and-gradient is not finite")
+    want = np.asarray(lmm_fit["cov_pars"])
+    check(bool(np.all(np.abs(cp - want) <= IT_GR_ATOL + IT_GR_RTOL
+                      * np.abs(want))),
+          f"grouped_iterative: cov_pars {cp} not within rtol {IT_GR_RTOL} / "
+          f"atol {IT_GR_ATOL} of the Cholesky fit's {want}")
+    mu, var = out["mu"], out["var"]
+    u = gd["unseen"]
+    prior = cp[0] + cp[1] + cp[2] + cp[3] * gd["xs_pred"][u] ** 2
+    err_unseen = float(np.max(np.abs(var[u] - prior) / prior))
+    check(bool(np.all(np.isfinite(mu)) and np.all(var > 0))
+          and err_unseen < 1e-10,
+          f"grouped_iterative: predictions not finite / positive, or the "
+          f"unseen levels off their prior by {err_unseen}")
+    seen = ~u
+    var_rel = np.abs(var[seen] - out_ch["var"][seen]) / out_ch["var"][seen]
+    emit({"phase": "grouped_iterative", "n": Z.n, "q": Z.q,
+          "settings": kw, "nll_public_cholesky": nll_pub,
+          "nll_iterative": float(nll_it), "vg_nll": float(v),
+          "vg_grad": g.cpu().numpy().tolist(), "vg_scopes": scopes,
+          "vg_counts": counts_vg, "fit_counts": counts_fit,
+          "fit_iterations": res.num_it, "fit_evaluations": res.num_evals,
+          "cov_pars": cp.tolist(), "coef": coef.tolist(),
+          "cov_pars_cholesky": want.tolist(),
+          "coef_cholesky": np.asarray(lmm_fit["coef"]).tolist(),
+          "predict_counts": counts_pred, "nsim_var_pred": 1000,
+          "pred_mean_max_abs_diff_vs_cholesky": float(np.max(np.abs(
+              mu - out_ch["mu"]))),
+          "pred_var_rel_diff_vs_cholesky": {
+              "mean": float(np.mean(var_rel)),
+              "max": float(np.max(var_rel))},
+          "num_cg_steps": steps, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    timings = {"it_lmm_construct_s": t_construct, "it_lmm_nll_ms": t_nll * 1e3,
+               "it_lmm_nll_iterative_ms": t_nll_it * 1e3,
+               "it_lmm_vg_s": t_vg, "it_lmm_fit_lbfgs_s": t_fit,
+               "it_lmm_fit_lbfgs_evaluations": res.num_evals,
+               "it_lmm_predict_s": t_pred, "it_lmm_num_cg_steps_s": t_steps}
+    del model, out_ch
+    torch.cuda.empty_cache()
+
+    glmm = []
+    for _ in range(2):
+        tg.GROUPED_COUNTS.clear()
+        gm = gpt.GPModel(group_data=np.column_stack([gd["g1"], gd["g2"]]),
+                         likelihood="bernoulli_logit",
+                         matrix_inversion_method="iterative", device=dev)
+        _, t_gfit = _timed(lambda: gm.fit(gd["yb"]))
+        glmm.append((gm, t_gfit, dict(tg.GROUPED_COUNTS)))
+    gm, t_gfit, counts_gfit = glmm[0]
+    cp_g = gm.get_cov_pars()
+    out_g, t_gpred = _timed(lambda: gm.predict(
+        group_data_pred=gd["group_pred"], predict_var=True,
+        predict_response=True))
+    g_steps = gm.get_num_cg_steps()
+    second = glmm[1][0]
+    same = (np.array_equal(cp_g, second.get_cov_pars())
+            and gm.current_nll_ == second.current_nll_
+            and gm._fit_result.num_evals == second._fit_result.num_evals)
+    want_g = np.asarray(glmm_cov_pars)
+    check(bool(np.all(np.abs(cp_g - want_g) <= IT_GLMM_ATOL + IT_GLMM_RTOL
+                      * np.abs(want_g))),
+          f"grouped_iterative GLMM: cov_pars {cp_g} not within rtol "
+          f"{IT_GLMM_RTOL} / atol {IT_GLMM_ATOL} of the Cholesky fit's "
+          f"{want_g}")
+    check(same, "grouped_iterative GLMM: two fits differ in their bits: "
+          f"{cp_g} / {second.get_cov_pars()}, {gm.current_nll_} / "
+          f"{second.current_nll_}")
+    mu_g, var_g = out_g["mu"], out_g["var"]
+    check(bool(np.all((mu_g > 0) & (mu_g < 1))
+               and np.all((var_g > 0) & (var_g <= 0.25))),
+          "grouped_iterative GLMM: predictions outside (0, 1) / (0, 0.25]")
+    launches_g = read_counts()
+    check(all(v_ == 0 for v_ in launches_g.values()),
+          f"grouped_iterative GLMM: a kernel launched: {launches_g}")
+    emit({"phase": "grouped_iterative_glmm", "q": gm._Z.q,
+          "cov_pars": cp_g.tolist(), "cov_pars_cholesky": want_g.tolist(),
+          "nll_fit": gm.current_nll_, "fit_evaluations":
+          gm._fit_result.num_evals, "fit_counts": counts_gfit,
+          "second_fit_same_bits": same, "num_cg_steps": g_steps,
+          "pred_mu_range": [float(mu_g.min()), float(mu_g.max())],
+          "launches": launches_g})
+    del glmm, gm, second
+    timings.update(it_glmm_fit_s=t_gfit, it_glmm_predict_s=t_gpred)
+    return launches, timings
+
+
+def vecchia_laplace_lowrank(ng, m, seed, dev):
+    """Phase 7's non-Gaussian GP (n = 1e5, m = 20, ``bernoulli_logit``,
+    float32, 200 probes, 100 Lanczos steps) with
+    ``cg_preconditioner_type="pivoted_cholesky"`` (the randomised-Nystrom
+    low-rank + diagonal preconditioner, rank ``piv_chol_rank`` = 50): the
+    public NLL, one value-and-gradient with its breakdown, its NLL against
+    the Jacobi ("vadu") one at the same parameters and probes (within
+    IT_PRECOND_RTOL), the L-BFGS fit cut to IT_LOWRANK_MAXIT,
+    ``get_num_cg_steps`` with vadu and the low-rank preconditioner of ranks
+    IT_RANKS. No Vecchia kernel."""
+    from gpboost_tpu_torch.models.vecchia_model import LAPLACE_COUNTS
+    coords, yb = ng["coords"], ng["yb"]
+    reset_counts()
+    model = _ng_model(coords, m, seed, torch.float32, dev, IT_LOWRANK_MAXIT)
+    model.set_optim_params({"cg_preconditioner_type": "pivoted_cholesky"})
+    nll_pub, t_nll = _timed(lambda: model.neg_log_likelihood(NG_COV_PARS,
+                                                             yb))
+    nll_vg, grad, t_vg, scopes, counts = _laplace_vg(model, yb, True)
+    kw = model._iter_kwargs(fit=True)
+    kw["preconditioner"] = "vadu"
+    LAPLACE_COUNTS.clear()
+    with torch.no_grad():
+        nll_vadu, t_vadu = _timed(lambda: float(
+            model._approx.nll_laplace_iterative(
+                model._tensor(NG_COV_PARS), model._y_tensor(yb), None, None,
+                **kw)))
+    counts_vadu = dict(LAPLACE_COUNTS)
+    emit({"phase": "vecchia_laplace_lowrank_vg", "nll_vg": nll_vg,
+          "vg_s": t_vg, "vg_scopes": scopes, "vg_counts": counts,
+          "nll_vadu": nll_vadu, "nll_vadu_s": t_vadu,
+          "nll_vadu_counts": counts_vadu})
+    LAPLACE_COUNTS.clear()
+    _, t_fit = _timed(lambda: model.fit(y=yb))
+    counts_fit = dict(LAPLACE_COUNTS)
+    steps = {}
+    t_steps = {}
+    for pname, rank in (("vadu", IT_RANKS[0]),) + tuple(
+            ("pivoted_cholesky", r) for r in IT_RANKS):
+        model.set_optim_params({"cg_preconditioner_type": pname,
+                                "piv_chol_rank": rank})
+        key = pname if pname == "vadu" else f"rank_{rank}"
+        steps[key], t_steps[key] = _timed(model.get_num_cg_steps)
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"vecchia_laplace_lowrank launched a kernel: {launches}")
+    check(math.isfinite(nll_vg) and bool(np.all(np.isfinite(grad))),
+          f"vecchia_laplace_lowrank: NLL or gradient not finite: {nll_vg}")
+    check(abs(nll_vg - nll_vadu) <= IT_PRECOND_RTOL * abs(nll_vadu),
+          f"vecchia_laplace_lowrank: the low-rank NLL {nll_vg} not within "
+          f"{IT_PRECOND_RTOL} of the vadu one {nll_vadu}")
+    check(math.isfinite(model.get_current_neg_log_likelihood()),
+          "vecchia_laplace_lowrank: fit NLL not finite")
+    emit({"phase": "vecchia_laplace_lowrank", "n": len(yb), "m": m,
+          "settings": model._iter_kwargs(fit=True) | {
+              "preconditioner": "pivoted_cholesky", "piv_chol_rank": 50},
+          "nll_public_50_probes": nll_pub, "nll_vg": nll_vg,
+          "nll_vadu": nll_vadu, "grad": grad.tolist(), "vg_scopes": scopes,
+          "vg_counts": counts, "fit_counts": counts_fit,
+          "fit_maxit": IT_LOWRANK_MAXIT,
+          "fit_cov_pars": model.get_cov_pars().tolist(),
+          "fit_evaluations": model._fit_result.num_evals,
+          "num_cg_steps": steps, "num_cg_steps_s": t_steps,
+          "launches": launches})
+    return launches, {"it_lowrank_nll_s": t_nll, "it_lowrank_vg_s": t_vg,
+                      "it_lowrank_fit_s": t_fit,
+                      "it_lowrank_fit_evaluations":
+                          model._fit_result.num_evals}
+
+
+def fsa_iterative(coords, y, pred, dev):
+    """Full-scale tapering with ``matrix_inversion_method="iterative"`` on
+    the GP data (n = 1e5, exponential, float64, LR_K kmeans++ inducing
+    points, taper range FSA_IT_TAPER): construct (k_t and the taper
+    structure's bytes), the NLL, one value-and-gradient with its breakdown,
+    the L-BFGS fit cut to FSA_IT_MAXIT, prediction at the prediction
+    points (FSA_IT_NSIM simulated draws for the variances); then on
+    ``fsa_gp``'s data (FSA_N points, FSA_TAPER) the iterative NLL (within
+    FSA_IT_NLL_RTOL) and the L-BFGS fit (its exact NLL within
+    FSA_IT_FIT_NLL_ATOL of the Cholesky optimum's) against the Cholesky
+    route."""
+    from gpboost_tpu_torch.models.fitc_model import FSA_COUNTS
+    from gpboost_tpu_torch.utils import timer
+    reset_counts()
+    FSA_COUNTS.clear()
+    gp, t_construct = _timed(lambda: _lowrank_model(
+        coords, "full_scale_tapering", dev, cov_fct_taper_range=FSA_IT_TAPER,
+        matrix_inversion_method="iterative"))
+    gp.set_optim_params({"cg_max_num_it_tridiag": FSA_IT_LANCZOS})
+    ts = gp._approx.taper
+    init = gp._default_init_cov_pars(y)
+    nll0, t_nll = _timed(lambda: gp.neg_log_likelihood(init, y))
+    th = torch.log(gp._tensor(init)).requires_grad_(True)
+    y_t = gp._tensor(y)
+    FSA_COUNTS.clear()
+    timer.clear()
+    timer.enable(True)
+    t0 = clock()
+    with timer.timed("forward", sync=True):
+        nll = gp._approx.nll_gaussian(torch.exp(th), y_t, None)
+    with timer.timed("backward", sync=True):
+        (grad,) = torch.autograd.grad(nll, th)
+    t_vg = clock() - t0
+    timer.enable(False)
+    scopes, counts = _scopes(), dict(FSA_COUNTS)
+    FSA_COUNTS.clear()
+    _, t_fit = _timed(lambda: gp.fit(y, params={
+        "optimizer_cov": "lbfgs", "maxit": FSA_IT_MAXIT}))
+    counts_fit = dict(FSA_COUNTS)
+    gp.set_prediction_data(nsim_var_pred=FSA_IT_NSIM)
+    FSA_COUNTS.clear()
+    out, t_pred = _timed(lambda: gp.predict(gp_coords_pred=pred,
+                                            predict_var=True))
+    counts_pred = dict(FSA_COUNTS)
+    steps = gp.get_num_cg_steps()
+    check(math.isfinite(float(nll.detach())) and bool(
+        torch.all(torch.isfinite(grad))), "fsa_iterative: NLL or gradient")
+    check(math.isfinite(gp.current_nll_) and gp.current_nll_ <= nll0 + 1.0,
+          f"fsa_iterative: fit NLL {gp.current_nll_} vs {nll0} at the inits")
+    check(bool(np.all(np.isfinite(out["mu"])) and np.all(out["var"] >= 0)),
+          "fsa_iterative: predictions not finite / variances negative")
+    # the JAX test's tiers against the Cholesky route at FSA_N points
+    rows = slice(0, FSA_N)
+    c, yy = coords[rows], y[rows]
+    it = _lowrank_model(c, "full_scale_tapering", dev,
+                        cov_fct_taper_range=FSA_TAPER,
+                        matrix_inversion_method="iterative")
+    ch = _lowrank_model(c, "full_scale_tapering", dev,
+                        cov_fct_taper_range=FSA_TAPER)
+    it.set_optim_params({"num_rand_vec_trace": FSA_IT_PROBES,
+                         "cg_max_num_it_tridiag": FSA_IT_LANCZOS})
+    init_s = ch._default_init_cov_pars(yy)
+    nll_it, nll_ch = it.neg_log_likelihood(init_s, yy), \
+        ch.neg_log_likelihood(init_s, yy)
+    params = {"optimizer_cov": "lbfgs", "init_cov_pars": init_s}
+    _, t_fit_s = _timed(lambda: it.fit(yy, params=params))
+    ch.fit(yy, params=params)
+    cp_it, cp_ch = it.get_cov_pars(), ch.get_cov_pars()
+    gap = ch.neg_log_likelihood(cp_it, yy) - ch.current_nll_
+    launches = read_counts()
+    check(all(v_ == 0 for v_ in launches.values()),
+          f"fsa_iterative: a kernel launched: {launches}")
+    check(abs(nll_it - nll_ch) <= FSA_IT_NLL_RTOL * abs(nll_ch),
+          f"fsa_iterative: NLL {nll_it} vs Cholesky {nll_ch}")
+    check(gap < FSA_IT_FIT_NLL_ATOL,
+          f"fsa_iterative: the exact NLL at the iterative optimum {cp_it} "
+          f"is {gap} above the Cholesky optimum's {cp_ch}")
+    emit({"phase": "fsa_iterative", "n": len(y), "k": LR_K,
+          "taper_range": FSA_IT_TAPER, "k_t": int(ts.idx.shape[1]),
+          "taper_bytes": ts.nbytes(),
+          "settings": {"num_rand_vec_trace": gp._approx.num_rand_vec_trace,
+                       "lanczos_steps": gp._approx.lanczos_steps,
+                       "cg_tol": gp._approx.cg_tol},
+          "nll_at_inits": nll0, "vg_nll": float(nll.detach()),
+          "vg_grad": grad.cpu().numpy().tolist(), "vg_scopes": scopes,
+          "vg_counts": counts, "fit_maxit": FSA_IT_MAXIT,
+          "fit_counts": counts_fit, "fit_cov_pars": gp.get_cov_pars().tolist(),
+          "fit_evaluations": gp._fit_result.num_evals,
+          "predict_counts": counts_pred, "nsim_var_pred": FSA_IT_NSIM,
+          "num_cg_steps": steps,
+          "gate_n": FSA_N, "gate_nll_iterative": nll_it,
+          "gate_nll_cholesky": nll_ch, "gate_cov_pars_iterative":
+          cp_it.tolist(), "gate_cov_pars_cholesky": cp_ch.tolist(),
+          "gate_fit_evaluations": it._fit_result.num_evals,
+          "gate_exact_nll_gap_at_iterative_optimum": gap,
+          "gate_cov_pars_abs_sum_diff": float(np.sum(np.abs(cp_it - cp_ch))),
+          "gate_var_over_range": [float(cp_it[1] / cp_it[2]),
+                                  float(cp_ch[1] / cp_ch[2])],
+          "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"fsa_it_construct_s": t_construct, "fsa_it_nll_s": t_nll,
+            "fsa_it_vg_s": t_vg, "fsa_it_fit_lbfgs_s": t_fit,
+            "fsa_it_fit_lbfgs_evaluations": gp._fit_result.num_evals,
+            "fsa_it_predict_s": t_pred, f"fsa_it_fit_{FSA_N}_s": t_fit_s}
+
+
+def grouped_poisson_lagaboost(seed, n, n_pred, dev):
+    """Fault C3 on the card: the grouped LaGaBoost recipe with a Poisson
+    response, ``likelihood="poisson"``, ``objective="poisson"``,
+    IT_POISSON_ROUNDS rounds; the histogram kernel once a leaf."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    bd = _grouped_boost_data(seed, n, n_pred)
+    rng = np.random.default_rng(seed + 22)
+    f = 2.0 * np.sin(5 * bd["X"][:, 0]) + bd["X"][:, 1] ** 2 + bd["X"][:, 2]
+    lat = 0.5 * (f - f.mean()) + 0.5 * rng.standard_normal(GB_LEVELS)[bd["g"]]
+    ypois = rng.poisson(np.exp(lat)).astype(float)
+    reset_counts()
+    ds = gpt.Dataset(bd["X"], label=ypois, device=dev)
+    gp = gpt.GPModel(group_data=bd["g"], likelihood="poisson", device=dev)
+    params = dict(NG_PARAMS, objective="poisson")
+    bst, t_train = _timed(lambda: gpt.train(
+        params, ds, gp_model=gp, num_boost_round=IT_POISSON_ROUNDS))
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    out, t_pred = _timed(lambda: bst.predict(
+        bd["X_pred"], group_data_pred=bd["group_pred"], predict_var=True))
+    entry = _boost_checks(bst, "grouped_poisson_lagaboost", launches, reads,
+                          IT_POISSON_ROUNDS)
+    mu, var = out["response_mean"], out["response_var"]
+    check(bool(np.all(mu > 0) and np.all(var > 0) and np.all(np.isfinite(
+        mu))), "grouped_poisson_lagaboost: predictions out of range")
+    emit({"phase": "grouped_poisson_lagaboost", "n": n, "levels": GB_LEVELS,
+          "rounds": IT_POISSON_ROUNDS, "cov_pars": gp.get_cov_pars().tolist(),
+          **entry, "pred_mu_range": [float(mu.min()), float(mu.max())]})
+    return launches, {
+        f"grouped_poisson_lagaboost_train_{IT_POISSON_ROUNDS}r_s": t_train,
+        "grouped_poisson_lagaboost_evaluations": entry["evaluations"],
+        "grouped_poisson_lagaboost_predict_s": t_pred}
+
+
+def iterative_keyword_cholesky(coords, y, m, seed, dev):
+    """Fault C4 on the card: the exact GP (n = EX_N, the README's example)
+    and the Gaussian Vecchia GP (the GP path's n, m, float32) built with
+    ``matrix_inversion_method="iterative"`` take the Cholesky route, as in
+    the JAX package: their NLLs are the Cholesky models' bits."""
+    import gpboost_tpu_torch as gpt
+    ex = make_exact_data(seed, EX_N, 10, dev)
+    out = {}
+    for tag, make, cp, yy in (
+            ("exact", lambda meth: _exact_model(
+                ex["coords"], dev, matrix_inversion_method=meth),
+             EX_TRUTH, ex["y"] - ex["X"] @ np.asarray(EX_BETA)),
+            ("vecchia", lambda meth: gpt.GPModel(
+                gp_coords=coords, cov_function="exponential",
+                gp_approx="vecchia", num_neighbors=m, seed=seed,
+                matrix_inversion_method=meth, dtype=torch.float32,
+                device=dev), [0.25, 1.0, 0.1], y)):
+        vals = {}
+        for meth in ("iterative", "cholesky"):
+            model = make(meth)
+            vals[meth] = model.neg_log_likelihood(cp, yy)
+            del model
+        check(vals["iterative"] == vals["cholesky"]
+              and math.isfinite(vals["cholesky"]),
+              f"{tag}: the iterative keyword's NLL {vals['iterative']} is "
+              f"not the Cholesky route's {vals['cholesky']}")
+        out[tag] = vals
+    emit({"phase": "iterative_keyword_cholesky", "n_exact": EX_N,
+          "n_vecchia": len(y), "nll": out, "same_bits": True})
+
+
+def iterative_ops_trace(gd, coords, y, dev):
+    """The iterative value-and-gradients on the card under the profiler
+    (its CPU side): the grouped profiled NLL at GR_CPU_N rows and the
+    full-scale-tapering NLL at LR_CPU_N points, forward and backward — no
+    operation that adds with colliding indices."""
+    from torch.profiler import ProfilerActivity, profile
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.models import grouped as tg
+    rows = slice(0, GR_CPU_N)
+    gm = gpt.GPModel(device=dev, matrix_inversion_method="iterative",
+                     **_lmm_kwargs(gd, rows))
+    th = gm._tensor(np.log(np.asarray(GR_TRUTH[1:]) / GR_TRUTH[0]))
+    r = gm._tensor(gd["y"][rows] - gd["X"][rows] @ np.asarray(GR_BETA))
+    fsa = _lowrank_model(coords[:LR_CPU_N], "full_scale_tapering", dev,
+                         cov_fct_taper_range=FSA_TAPER,
+                         matrix_inversion_method="iterative")
+    th_f = torch.log(fsa._tensor(LR_INIT))
+    y_f = fsa._tensor(y[:LR_CPU_N])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tg.nll_profiled_iterative_value_and_grad(gm._Z, th, r)
+        fsa._approx._vg_gaussian(th_f, y_f, None)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    bad = [x for x in names if any(b in x for b in SCATTERS)]
+    emit({"phase": "iterative_ops_trace", "ops": names, "scatters": bad})
+    check(any("index" in x for x in names), f"empty trace: {names}")
+    check(not bad, f"an iterative value-and-gradient scatters: {bad}")
+    return names
+
+
+def iterative_paths(gd, lmm_fit, glmm_cov_pars, ng, coords, y, pred, m,
+                    seed, n, n_pred, dev):
+    """Phase 10 in order; returns (launches by path, timings)."""
+    timings = {}
+    l_gr, t = grouped_iterative(gd, lmm_fit, glmm_cov_pars, dev)
+    timings.update(t)
+    l_lr, t = vecchia_laplace_lowrank(ng, m, seed, dev)
+    timings.update(t)
+    torch.cuda.empty_cache()
+    timings.update(fsa_iterative(coords, y, pred, dev))
+    torch.cuda.empty_cache()
+    l_po, t = grouped_poisson_lagaboost(seed, n, n_pred, dev)
+    timings.update(t)
+    iterative_keyword_cholesky(coords, y, m, seed, dev)
+    torch.cuda.empty_cache()
+    return {"grouped_iterative": l_gr, "vecchia_laplace_lowrank": l_lr,
+            "grouped_poisson_lagaboost": l_po}, timings
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3269,7 +3763,7 @@ def main():
 
     # grouped random effects: the LMM, GPBoost with them, the GLMM
     gd = make_grouped_data(args.seed, args.grouped_n, args.n_pred)
-    lmm_launches, lmm_timings = grouped_lmm(gd, args.seed, dev)
+    lmm_launches, lmm_timings, lmm_fit = grouped_lmm(gd, args.seed, dev)
     timings.update(lmm_timings)
     torch.cuda.empty_cache()
     trace_model = grouped_vs_cpu(gd, dev)
@@ -3293,6 +3787,12 @@ def main():
     timings.update(lr_timings)
     cases["histogram"] += lr_hist[0]
     timed["histogram"]["other_shapes"] += lr_hist[1]
+    # the iterative methods: grouped effects in b-space, the low-rank
+    # preconditioner, full-scale tapering by CG; faults C3 and C4
+    it_launches, it_timings = iterative_paths(
+        gd, lmm_fit, glmm_model.get_cov_pars(), ng, coords, y, pred, args.m,
+        args.seed, args.n, args.n_pred, dev)
+    timings.update(it_timings)
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -3325,6 +3825,7 @@ def main():
     exact_ops_trace(firsts["ex"], firsts["clustered"][0], dev)
     del firsts
     lowrank_ops_trace(coords, y, dev)
+    iterative_ops_trace(gd, coords, y, dev)
 
     # a kernel that a path runs must have been launched in that path's run
     paths = {"gp": launches, "boosting": boost_launches,
@@ -3332,7 +3833,8 @@ def main():
              "boosting_default_route": bgd_launches,
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
-             "grouped_glmm": glmm_launches, **ex_launches, **lr_launches}
+             "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
+             **it_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -3348,7 +3850,9 @@ def main():
              ("histogram",)),
             ("fsva_boosting", lr_launches["fsva_boosting"], ("histogram",)),
             ("fitc_lagaboost", lr_launches["fitc_lagaboost"],
-             ("histogram",))):
+             ("histogram",)),
+            ("grouped_poisson_lagaboost",
+             it_launches["grouped_poisson_lagaboost"], ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")

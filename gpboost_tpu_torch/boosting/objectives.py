@@ -262,18 +262,32 @@ _ALIASES = {
     "regression_l2": "regression", "l2": "regression",
     "mean_squared_error": "regression", "mse": "regression",
     "rmse": "regression", "binary_logloss": "binary",
+    "xentropy": "cross_entropy",
 }
+# the names an objective may have beside a gp_model: the response
+# distribution is then the GPModel's likelihood (JAX
+# objectives.py:776-787)
+GP_OBJECTIVES = ("regression", "binary", "regression_gp", "poisson", "gamma",
+                 "cross_entropy")
 
 
 def create_objective(name: str, params: dict, gp_model=None) -> Objective:
-    """Objective factory (``objective_function.cpp:17-129``): ``regression``
-    and ``binary`` (and their aliases), with or without a ``gp_model`` —
-    with one, the response distribution is the GPModel's likelihood."""
+    """Objective factory (``objective_function.cpp:17-129``). With a
+    ``gp_model`` any of ``GP_OBJECTIVES`` (and their aliases) gives the
+    GPBoost / LaGaBoost objective — the response distribution is the
+    GPModel's likelihood — and any other name is a ``ValueError``, as in
+    the JAX package. Without one: ``regression`` and ``binary``."""
     name = _ALIASES.get(name, name)
-    if name not in ("regression", "regression_gp", "binary"):
+    if gp_model is not None and name not in GP_OBJECTIVES:
+        raise ValueError(
+            f"objective '{name}' cannot be combined with a gp_model; the "
+            "response distribution is specified via the GPModel likelihood")
+    if gp_model is None and name not in ("regression", "regression_gp",
+                                         "binary"):
         raise NotImplementedError(
             f"objective '{name}' is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18); ported: 'regression', 'binary'")
+            "(ROADMAP.md Queue A, item 18); ported: 'regression', 'binary' "
+            f"and, with a gp_model, {', '.join(GP_OBJECTIVES)}")
     if gp_model is not None:
         return GPBoostObjective(
             gp_model,

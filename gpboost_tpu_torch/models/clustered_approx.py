@@ -61,7 +61,8 @@ class ClusteredApprox:
         if self.likelihood != "gaussian" or len(subs) < 2 or len(
                 {s.n for s in subs}) != 1:
             return None
-        if all(isinstance(s, FITCGP) for s in subs):
+        if all(isinstance(s, FITCGP) and not s._use_iterative
+               for s in subs):
             if len({(s.gp_approx, tuple(s.ind_points.shape))
                     for s in subs}) == 1:
                 return FITCGP.stack(subs)
@@ -76,6 +77,12 @@ class ClusteredApprox:
     def redetermines_neighbors(self) -> bool:
         return any(getattr(s, "redetermines_neighbors", False)
                    for s in self.subs)
+
+    def sync_iter_cfg(self, cfg):
+        """Pass the iterative route's settings to every sub-model."""
+        for sub in self.subs:
+            if hasattr(sub, "sync_iter_cfg"):
+                sub.sync_iter_cfg(cfg)
 
     def ensure_neighbors(self, cov_pars_full):
         for sub in self.subs:

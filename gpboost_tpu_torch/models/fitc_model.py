@@ -14,14 +14,21 @@ tapering's latent covariance is dense ([n, n], ``models/laplace.py``).
 FITC's Laplace prediction stays in k-space too, where the JAX package forms
 the dense [n, n] covariance.
 
+Full-scale tapering with ``matrix_inversion_method="iterative"`` (the
+reference's ``CGFSA`` / ``CGTridiagFSA``, ``CG_utils.h:507,622``) never
+forms the dense Psi: Psi x = V'(V x) + (T o (Sigma - Q) + diag) x with the
+taper-sparse residual of ``ops/fitc.py`` (a gather-only product), the
+quadratic form by CG with an implicit backward, the log-determinant by
+stochastic Lanczos, both under the FITC preconditioner V'V + diag
+(``ops/cg.py::LowRankDiagPreconditioner``); solves and predictions by the
+same CG. Its Laplace approximation stays dense, as in the JAX package.
+
 No kernel runs here (the JAX package has none for these models): the work
-is ``torch.linalg`` on [n, k] and [k, k] matrices. The taper-sparse
-iterative route of full-scale tapering (``matrix_inversion_method=
-"iterative"``, the JAX module's ``nll_gaussian_iterative``) raises
-(ROADMAP.md Queue A, item 12).
+is ``torch.linalg`` on [n, k] and [k, k] matrices and gathers.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import numpy as np
@@ -34,17 +41,26 @@ from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val,
                                               newton_halving, MAX_NEWTON_IT,
                                               NEWTON_TOL)
 from gpboost_tpu_torch.models.predvar import sim_pred_mean_var
+from gpboost_tpu_torch.ops import cg as cgops
 from gpboost_tpu_torch.ops import fitc as fops
 from gpboost_tpu_torch.ops.cov_fns import CovFunction, wendland_correlation
 from gpboost_tpu_torch.ops.inducing import select_inducing_points
 from gpboost_tpu_torch.utils import resolve_device
 from gpboost_tpu_torch.utils.log import log_info
+from gpboost_tpu_torch.utils.timer import timed
 
 # above this many entries of C [n_p, n] the variances of full-scale tapering
 # are simulated unless nsim_var_pred says otherwise (the JAX package's rule)
 SIM_VAR_MIN_ENTRIES = 50_000_000
 # prediction points a cross-covariance block holds at once
 PRED_CHUNK = 2048
+LOG_2PI = fops.LOG_2PI
+
+# what full-scale tapering's iterative route did since the last reset (read
+# by the chip run's breakdown): CG iterations of the quadratic form's solve
+# and of its adjoint, Lanczos steps, CG iterations of the log-determinant's
+# gradient solve and of the solves of GLS, prediction and get_num_cg_steps
+FSA_COUNTS: Counter = Counter()
 
 
 def log_scale_value_and_grad(nll_gaussian, th, y, fp):
@@ -100,13 +116,6 @@ class FITCGP:
         if num_ind_points > np.unique(coords, axis=0).shape[0]:
             raise ValueError(
                 "Cannot have more inducing points than (unique) samples")
-        if (gp_approx == "full_scale_tapering"
-                and matrix_inversion_method == "iterative"):
-            raise NotImplementedError(
-                "gp_approx='full_scale_tapering' with "
-                "matrix_inversion_method='iterative' (the taper-sparse CG "
-                "route with the FITC preconditioner) is not ported to "
-                "gpboost_tpu_torch yet (ROADMAP.md Queue A, item 12)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.n = coords.shape[0]
@@ -116,12 +125,41 @@ class FITCGP:
         self.taper_range = float(cov_fct_taper_range)
         self.taper_shape = float(cov_fct_taper_shape)
         self.taper_mu = taper_mu(coords.shape[1], self.taper_shape)
+        self.matrix_inversion_method = matrix_inversion_method
+        # the iterative route's settings (the reference's defaults;
+        # sync_iter_cfg takes the optimizer config's)
+        self.num_rand_vec_trace = 50
+        self.lanczos_steps = 50
+        self.cg_tol = 1e-4
+        self.cg_max_iter = 1000
         self.seed_rand_vec_trace = 1
+        self._probe_cache = None
         self.coords = torch.as_tensor(coords, dtype=dtype, device=self.device)
         self.ind_points = select_inducing_points(
             coords, num_ind_points, ind_points_selection, seed,
             cover_tree_radius=cover_tree_radius,
             device=self.device).to(dtype)
+        self.taper = None
+        if self._use_iterative:
+            with timed("FSA: taper structure", sync=True):
+                self.taper = fops.taper_structure(
+                    self.coords, self.taper_range, self.taper_shape,
+                    self.taper_mu)
+
+    @property
+    def _use_iterative(self) -> bool:
+        return (self.gp_approx == "full_scale_tapering"
+                and self.matrix_inversion_method == "iterative")
+
+    def sync_iter_cfg(self, cfg):
+        """Take the optimizer config's settings of the iterative route
+        (the JAX package's ``sync_iter_cfg``: at most 200 Lanczos
+        steps)."""
+        self.num_rand_vec_trace = max(int(cfg.num_rand_vec_trace), 1)
+        self.lanczos_steps = min(int(cfg.cg_max_num_it_tridiag), 200)
+        self.cg_tol = float(cfg.cg_delta_conv)
+        self.cg_max_iter = int(cfg.cg_max_num_it)
+        self.seed_rand_vec_trace = int(cfg.seed_rand_vec_trace)
 
     @classmethod
     def stack(cls, subs) -> "FITCGP":
@@ -150,6 +188,8 @@ class FITCGP:
         if self.gp_approx == "fitc":
             return torch.sum(fops.fitc_nll(self.cov_fn, cov_pars, self.coords,
                                            self.ind_points, r))
+        if self._use_iterative:
+            return self.nll_gaussian_iterative(cov_pars, y, fixed_part)
         return torch.sum(fops.fsa_nll_from_psi(self._fsa_psi(cov_pars), r))
 
     def nll_gaussian_value(self, cov_pars, y, fixed_part=None):
@@ -164,8 +204,108 @@ class FITCGP:
                             self.taper_mu, cov_pars, self.coords,
                             self.ind_points)
 
+    # ---- full-scale tapering, iterative (CGFSA, CG_utils.h:507-900) ------
+    def _fsa_iter_theta(self, cov_pars):
+        """The differentiable pieces of the matrix-free Psi: (v [k, n],
+        vals [n, k_t], diag + nugget [n]) with Psi x = v'(v x) +
+        ``fsa_resid_mv(vals, diag + nugget, x)``."""
+        nugget, gp_pars = cov_pars[0], cov_pars[1:]
+        with timed("FSA: taper values", sync=True):
+            _, _, _, v = fops.fitc_parts(self.cov_fn, gp_pars, self.coords,
+                                         self.ind_points, nugget)
+            vals, diag = fops.fsa_taper_values(self.cov_fn, gp_pars, v,
+                                               self.taper)
+        return v, vals, diag + nugget
+
+    def _psi_of(self, theta, X):
+        v, vals, dfull = theta
+        return fops.fsa_resid_mv(vals, dfull, X, self.taper) + v.T @ (v @ X)
+
+    @staticmethod
+    def _fitc_preconditioner(theta):
+        """The FITC preconditioner v'v + diag of the current parameters,
+        detached (the JAX package's ``stop_gradient``)."""
+        v, _, dfull = theta
+        return cgops.LowRankDiagPreconditioner.create(
+            v.detach().T, torch.clamp(dfull.detach(), min=1e-10))
+
+    def fsa_probes(self, num_rand_vec_trace: int, seed: int):
+        """(e_r [k, K], e_n [n, K], Zg [n, K]): the standard normals of the
+        value probes U e_r + sqrt(d) e_n ~ N(0, P) under the FITC
+        preconditioner and the Rademacher gradient probes, drawn in
+        float64 in that order from a ``torch.Generator`` seeded with
+        ``seed`` and cast to the model's dtype; kept between calls."""
+        key = (int(num_rand_vec_trace), int(seed))
+        if self._probe_cache is None or self._probe_cache[0] != key:
+            gen = torch.Generator(device=self.device).manual_seed(key[1])
+            draws = (cgops.normal_probes(gen, self.ind_points.shape[0],
+                                         key[0]),
+                     cgops.normal_probes(gen, self.n, key[0]),
+                     cgops.rademacher_probes(gen, self.n, key[0]))
+            self._probe_cache = (key, tuple(t.to(self.dtype) for t in draws))
+        return self._probe_cache[1]
+
+    def nll_gaussian_iterative(self, cov_pars, y, fixed_part=None):
+        """Gaussian full-scale-tapering NLL, matrix-free (the JAX package's
+        ``nll_gaussian_iterative``): the quadratic form r' Psi^-1 r by CG
+        with an implicit backward, logdet Psi by preconditioned stochastic
+        Lanczos with the Hutchinson gradient over Rademacher probes, both
+        under the FITC preconditioner. O(n k_t + n k) a product;
+        differentiable in cov_pars and fixed_part."""
+        e_r, e_n, zg = self.fsa_probes(self.num_rand_vec_trace,
+                                       self.seed_rand_vec_trace)
+        return self._nll_gaussian_iterative(cov_pars, y, fixed_part, e_r,
+                                            e_n, zg)
+
+    def _nll_gaussian_iterative(self, cov_pars, y, fixed_part, e_r, e_n,
+                                zg):
+        """:meth:`nll_gaussian_iterative` with the draws given."""
+        r = y if fixed_part is None else y - fixed_part
+        theta = self._fsa_iter_theta(cov_pars)
+        with torch.no_grad(), timed("cg: preconditioner", sync=True):
+            pre = self._fitc_preconditioner(theta)
+            Z = pre.probes_from(e_r, e_n)
+            pre_logdet = pre.logdet()
+        with timed("FSA: quadratic-form CG", sync=True):
+            alpha = cgops.pcg_implicit(self._psi_of, theta, r, pre.d,
+                                       self.cg_tol, self.cg_max_iter,
+                                       pre_U=pre.U, stats=FSA_COUNTS)
+        logdet = cgops.stochastic_logdet_grad(
+            lambda V: self._psi_of(theta, V), None, Z, self.lanczos_steps,
+            pre.solve, pre_logdet, self.cg_tol, self.cg_max_iter,
+            probes_grad=zg, stats=FSA_COUNTS)
+        return 0.5 * (torch.dot(r, alpha) + logdet + r.shape[0] * LOG_2PI)
+
+    def _iterative_solver(self, cov_pars, tol, count):
+        """R -> Psi^-1 R by CG under the FITC preconditioner (to ``tol``),
+        its iterations added to ``FSA_COUNTS[count]``."""
+        theta = self._fsa_iter_theta(cov_pars)
+        pre = self._fitc_preconditioner(theta)
+
+        def solve(R):
+            X, it = cgops.pcg(lambda V: self._psi_of(theta, V), R, pre.solve,
+                              tol=tol, max_iter=self.cg_max_iter)
+            FSA_COUNTS[count] += it
+            return X
+        return solve
+
+    def num_cg_steps(self, cov_pars, y, tol, max_iter) -> int:
+        """CG iterations of one solve Psi x = y under the FITC
+        preconditioner (``GPModel.get_num_cg_steps``)."""
+        with torch.no_grad():
+            theta = self._fsa_iter_theta(cov_pars)
+            _, it = cgops.pcg(lambda V: self._psi_of(theta, V), y,
+                              self._fitc_preconditioner(theta).solve,
+                              tol=tol, max_iter=max_iter)
+        return int(it)
+
     def _psi_solver(self, cov_pars):
-        """R -> Psi^-1 R for R [n] or [n, q], factorising once."""
+        """R -> Psi^-1 R for R [n] or [n, q], factorising once (by CG for
+        the iterative route, to min(cg_tol, 1e-6) as in the JAX
+        package)."""
+        if self._use_iterative:
+            return self._iterative_solver(cov_pars, min(self.cg_tol, 1e-6),
+                                          "solve_cg_iters")
         if self.gp_approx == "fitc":
             def solve(R):
                 R2 = R if R.dim() == 2 else R[:, None]

@@ -44,10 +44,17 @@ the JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
   or simulated variances, the Laplace approximation, GPBoost and
   LaGaBoost).
 
+``matrix_inversion_method="iterative"`` (CG and stochastic Lanczos, the
+reference fork's iterative methods) runs the matrix-free routes where the
+JAX package has them: grouped random effects in b-space (fit, prediction
+with simulated variances), the non-Gaussian Vecchia GP (with the Jacobi or
+a low-rank preconditioner), full-scale tapering and full-scale Vecchia;
+the exact GP, the Gaussian Vecchia GP and FITC take their Cholesky route,
+as in the JAX package. ``get_num_cg_steps`` reads the conditioning.
+
 Every other structure — the other approximations, grouped effects, GP
 random coefficients or ``cluster_ids`` with a Vecchia GP, grouped effects
-or GP random coefficients with a low-rank GP, weights, the iterative route
-of grouped, exact and full-scale-tapering models — raises
+or GP random coefficients with a low-rank GP, weights — raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
@@ -272,18 +279,10 @@ class GPModel:
         if matrix_inversion_method not in ("cholesky", "iterative"):
             raise ValueError("matrix_inversion_method: 'cholesky' or "
                              f"'iterative', got {matrix_inversion_method!r}")
-        if matrix_inversion_method == "iterative" and not (is_vecchia
-                                                           or self._lowrank):
-            raise _not_ported(
-                "matrix_inversion_method='iterative' for grouped random "
-                "effects and exact GPs (CG and stochastic Lanczos)",
-                "Queue A, item 12")
-        if (matrix_inversion_method == "iterative" and likelihood == "gaussian"
-                and is_vecchia):
-            raise _not_ported(
-                "matrix_inversion_method='iterative' with "
-                "likelihood='gaussian' (the iterative Gaussian Vecchia "
-                "route)", "Queue A, item 12")
+        # "iterative" has its own route for grouped-only models, the
+        # non-Gaussian Vecchia GP, full-scale tapering and full-scale
+        # Vecchia; elsewhere (the exact GP, the Gaussian Vecchia GP, FITC)
+        # the JAX package computes the Cholesky result, and so does the port
         if gp_coords is not None and gp_approx in ("tapering",
                                                    "vecchia_latent"):
             raise _not_ported(f"gp_approx='{gp_approx}'",
@@ -500,8 +499,9 @@ class GPModel:
         if not params.get("reuse_rand_vec_trace", True):
             raise NotImplementedError(
                 "reuse_rand_vec_trace=False (new probe vectors in every "
-                "evaluation) is not ported to gpboost_tpu_torch yet "
-                "(ROADMAP.md Queue A, item 12)")
+                "evaluation) is not supported: the JAX package accepts the "
+                "keyword and draws the same probes all the same (ROADMAP.md, "
+                "Queue C, \"Not faults\")")
         cfg = self.optim_cfg
         for k, v in params.items():
             if k == "optimizer_cov":
@@ -600,11 +600,18 @@ class GPModel:
         (Woodbury in q-space), the cluster blocks, or dense."""
         if self._grouped_only:
             Z = self._Z
+            vg = (lambda th, r: grouped.nll_profiled_value_and_grad(Z, th, r))
+            if self.matrix_inversion_method == "iterative":
+                # the profiled fit by CG and stochastic Lanczos (JAX
+                # gp_model.py:1003-1015); the GLS coefficients and the
+                # Psi^-1 solves keep the Cholesky route, as there
+                kw = laplace_fit.grouped_iter_kwargs(self.optim_cfg)
+                vg = (lambda th, r: grouped
+                      .nll_profiled_iterative_value_and_grad(Z, th, r, **kw))
             return _GaussOps(
                 nll=lambda cp, r: grouped.nll_gaussian(Z, cp, r),
                 nll_twice=lambda cp, r: grouped.nll_gaussian_twice(Z, cp, r),
-                vg_profiled=lambda th, r: grouped.nll_profiled_value_and_grad(
-                    Z, th, r),
+                vg_profiled=vg,
                 fisher=lambda cp: grouped.fisher_information(Z, cp),
                 psi_solve=lambda cp, R: grouped.psi_inv_mul(Z, cp, R))
         spec, data = self.spec, self.data
@@ -658,6 +665,8 @@ class GPModel:
                         cp, y_t, ap, fe, **self._iter_kwargs(fit=False)))
                 return float(self._approx.nll_laplace(cp, y_t, ap, fe))
         self._approx.ensure_neighbors(cov_pars_np)
+        if hasattr(self._approx, "sync_iter_cfg"):
+            self._approx.sync_iter_cfg(self.optim_cfg)
         return float(self._approx.nll_gaussian_value(
             self._tensor(cov_pars_np), y_t, fe))
 
@@ -739,8 +748,12 @@ class GPModel:
             if self.is_gaussian:
                 self._fit_gaussian()
             else:
+                nll = self._nll_laplace
+                if (self._grouped_only
+                        and self.matrix_inversion_method == "iterative"):
+                    nll = laplace_fit.grouped_iterative_nll(self)
                 laplace_fit.fit(self, self.y, self.X,
-                                self._train_fixed_effects, self._nll_laplace,
+                                self._train_fixed_effects, nll,
                                 with_adam=True)
             self._pin_iid_dummy()
         return self
@@ -1269,16 +1282,36 @@ class GPModel:
             xb = self.X @ beta
             fixed = xb if fixed is None else fixed + xb
         nugget, comps = split_cov_pars(self.spec, cp)
-        if self.is_gaussian:
-            r = y_t if fixed is None else y_t - fixed
-            b_mean, postcov = grouped.posterior_b_gaussian(self._Z, cp, r)
+        # the iterative route: the posterior by CG and simulated variances
+        # from nsim_var_pred draws (default 1000), no [q, q] covariance
+        # (JAX gp_model.py:1546-1590); the full covariance keeps the
+        # Cholesky route
+        if self.matrix_inversion_method == "iterative" and not predict_cov_mat:
+            nsim = int(self.nsim_var_pred or 1000)
+            seed = int(self.optim_cfg.seed_rand_vec_trace)
+            if self.is_gaussian:
+                r = y_t if fixed is None else y_t - fixed
+                b_mean, draws = grouped.posterior_b_gaussian_iterative(
+                    self._Z, cp, r, nsim, seed)
+            else:
+                b_mean, draws = grouped.posterior_b_laplace_iterative(
+                    self._Z, self.likelihood, cp, self._aux_tensor(), y_t,
+                    fixed, nsim, seed)
+            mean, var = grouped.predict_from_posterior_draws(
+                self.spec, b_mean, draws, torch.cat(comps), codes, weights)
+            cov = None
         else:
-            b_mean, postcov = grouped.posterior_b_laplace(
-                self._Z, self.likelihood, cp, self._aux_tensor(), y_t, fixed)
-        mean, var, cov = grouped.predict_from_posterior(
-            self.spec, b_mean, postcov, torch.cat(comps),
-            bool(predict_cov_mat), codes, weights)
-        del postcov
+            if self.is_gaussian:
+                r = y_t if fixed is None else y_t - fixed
+                b_mean, postcov = grouped.posterior_b_gaussian(self._Z, cp, r)
+            else:
+                b_mean, postcov = grouped.posterior_b_laplace(
+                    self._Z, self.likelihood, cp, self._aux_tensor(), y_t,
+                    fixed)
+            mean, var, cov = grouped.predict_from_posterior(
+                self.spec, b_mean, postcov, torch.cat(comps),
+                bool(predict_cov_mat), codes, weights)
+            del postcov
         if fep is not None:
             mean = mean + fep
         if self.is_gaussian:
@@ -1303,13 +1336,13 @@ class GPModel:
         effect at each row's level without the slope covariate
         (re_model_template.h:4102-4115), then as many variance columns.
         Exact model: the same per component (its base covariance times the
-        posterior's y_aux)."""
-        if self._approx is not None:
-            raise _not_ported(
-                "predict_training_data_random_effects of an approximated GP",
-                "Queue A, item 17" if self._lowrank else "Queue A, item 15")
+        posterior's y_aux). Approximated GP (Vecchia, FITC, full-scale
+        tapering or full-scale Vecchia): the latent prediction at the
+        training coordinates, a column of means and one of variances."""
         if self.y is None or self.cov_pars_ is None:
             raise ValueError("fit() must be called first")
+        if self._approx is not None:
+            return self._training_effects_approx(predict_var)
         cp = self._tensor(self.cov_pars_)
         fixed = self._fitted_fixed_part()
         if self._exact:
@@ -1329,6 +1362,23 @@ class GPModel:
             if predict_var:
                 cols += [pcdiag[idx] for idx in self._Z.idx]
         return np.column_stack([c.cpu().numpy() for c in cols])
+
+    def _training_effects_approx(self, predict_var):
+        """:meth:`predict_training_data_random_effects` of an approximated
+        GP (Vecchia, FITC, full-scale tapering or full-scale Vecchia; JAX
+        ``gp_model.py:1742-1752``): the latent prediction at the training
+        coordinates with zero covariates — one column of means, then the
+        variances with ``predict_var``."""
+        cid = None
+        if self._cluster_map is not None and self._lowrank_codes is not None:
+            cid = self._cluster_map[self._lowrank_codes]
+        pred = self.predict(
+            gp_coords_pred=self.coords_np, cluster_ids_pred=cid,
+            predict_var=predict_var, predict_response=False,
+            X_pred=None if self.X is None else np.zeros(tuple(self.X.shape)))
+        if predict_var:
+            return np.column_stack([pred["mu"], pred["var"]])
+        return pred["mu"][:, None]
 
     def _training_effects_exact(self, cp, fixed, predict_var):
         """Columns of :meth:`predict_training_data_random_effects` of an
@@ -1532,6 +1582,52 @@ class GPModel:
             H[i] = (grad(b1) - grad(b2)) / (2 * step)
         return np.sqrt(np.maximum(np.diagonal(_inverse((H + H.T) / 2.0)),
                                   0.0))
+
+    def get_num_cg_steps(self) -> int:
+        """CG iterations of one solve of the model's system at the fitted
+        parameters under the live ``cg_preconditioner_type`` — the
+        conditioning diagnostic the reference exposes as
+        ``GPB_GetNumCGSteps`` (JAX ``gp_model.py:471``). Grouped model:
+        (Z'WZ + diag(shift)) x = Z'y under the Jacobi diagonal (W = 1 and
+        shift = sigma2 / Sigma_b for the gaussian likelihood, W at the
+        Laplace mode and shift = Sigma_b^-1 otherwise). Vecchia GP: the
+        latent precision Q x = y (permuted) under the Jacobi diagonal or
+        the Nystrom preconditioner of rank ``piv_chol_rank``. Full-scale
+        tapering: Psi x = y under the FITC preconditioner (the JAX package
+        raises there). Needs ``matrix_inversion_method="iterative"`` and a
+        fitted model."""
+        if self.matrix_inversion_method != "iterative":
+            raise ValueError("get_num_cg_steps requires "
+                             "matrix_inversion_method='iterative'")
+        if self.cov_pars_ is None or self.y is None:
+            raise ValueError("fit() must be called first")
+        cfg = self.optim_cfg
+        tol, max_iter = float(cfg.cg_delta_conv), int(cfg.cg_max_num_it)
+        cp = self._tensor(self.cov_pars_)
+        if self._grouped_only:
+            Z = self._Z
+            with torch.no_grad():
+                if self.is_gaussian:
+                    w = None
+                    shift = cp[0] / grouped._sigma_b_diag(Z, cp[1:])
+                else:
+                    _, w, db = grouped.laplace_mode_and_w(
+                        Z, self.likelihood, cp, self._aux_tensor(), self.y,
+                        self._train_fixed_effects)
+                    shift = 1.0 / db
+                return grouped.num_cg_steps(Z, w, shift, Z._zt(self.y), tol,
+                                            max_iter)
+        if isinstance(self._approx, VecchiaGP):
+            return self._approx.num_cg_steps(
+                cp[1:] if self.is_gaussian else cp, self.y,
+                cfg.cg_preconditioner_type, int(cfg.piv_chol_rank),
+                int(cfg.seed_rand_vec_trace), tol, max_iter)
+        if isinstance(self._approx, FITCGP) and self._approx._use_iterative:
+            return self._approx.num_cg_steps(cp, self.y, tol, max_iter)
+        raise NotImplementedError(
+            "get_num_cg_steps is implemented for grouped random effects, the "
+            "Vecchia GP and full-scale tapering (as in the JAX package, "
+            "which also has no count for the other structures)")
 
     def get_num_optim_iter(self):
         return self.num_it_

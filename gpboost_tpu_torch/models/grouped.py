@@ -28,8 +28,17 @@ autograd Function (:func:`logdet_quad`) gives logdet M and v' M^-1 v with a
 backward of one ``cholesky_inverse`` instead of autograd through the
 Cholesky.
 
-Not ported (ROADMAP.md Queue A): the iterative (CG) routes and likelihood
-weights (items 12, 11), row sharding (item 20).
+The iterative route (``matrix_inversion_method="iterative"``; reference
+``CGRandomEffectsVec``, ``CG_utils.h:979``) stays in b-space without any
+[q, q] matrix: the system M = Z'WZ + diag(shift) is applied through Z'v
+and Z b (so on the card through the same fixed-order plans: bit-
+reproducible, no scatter), solved by CG under its exact diagonal (the
+Jacobi preconditioner that stands in for the reference's SSOR and
+incomplete Cholesky), its log-determinant by stochastic Lanczos; the
+posterior draws of the simulated predictive variances by the same CG.
+
+Not ported (ROADMAP.md Queue A): likelihood weights (item 11), row
+sharding (item 20).
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ from gpboost_tpu_torch.models.covariance import _grouped_cross_cov
 from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val, mode_vjp,
                                               newton_mode)
 from gpboost_tpu_torch.models.spec import ModelData, ModelSpec
+from gpboost_tpu_torch.ops import cg as cgops
+from gpboost_tpu_torch.utils.timer import timed
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -51,8 +62,15 @@ LOG_2PI = math.log(2.0 * math.pi)
 # breakdown): dense O(q^3) operations on [q, q] matrices — factorisations
 # (Cholesky, LU solve: ``qq_factor``) and inverses (``qq_inverse``) —,
 # objective evaluations of the fits and their host reads, Newton steps of
-# the Laplace mode finder and its host reads
+# the Laplace mode finder and its host reads; on the iterative route the
+# CG iterations of the quadratic form (``quad_cg_iters``), of the Newton-CG
+# mode (``mode_cg_iters``) and its adjoint (``mode_adjoint_cg_iters``), of
+# the log-determinant's gradient (``grad_cg_iters``) and of the posterior
+# draws (``sim_cg_iters``), and the Lanczos steps (``lanczos_steps``)
 GROUPED_COUNTS: Counter = Counter()
+# posterior draws solved at once by the iterative prediction ([n, chunk]
+# products)
+SIM_CHUNK = 64
 
 
 def grouped_layout(spec: ModelSpec):
@@ -154,6 +172,8 @@ class GroupedZ:
             data.slope_data[:, c.slope_data_idx].to(dtype) if c.is_slope
             else None for c in spec.components]
         self.deterministic = bool(deterministic)
+        self._probe_cache = None
+        self._zt_sq_plan = None
         self._zt_plan = None
         self._pair_plan = None
         self._ztz = None
@@ -209,6 +229,25 @@ class GroupedZ:
         for idx, w in zip(self.idx, self.weights):
             out.index_add_(0, idx, v if w is None else
                            (w * v if v.dim() == 1 else w[:, None] * v))
+        return out
+
+    def _zt_sq(self, v: torch.Tensor) -> torch.Tensor:
+        """Sums of v per level with the squared multipliers: diag(Z'
+        diag(v) Z) (only a row's own level of a component reaches the
+        diagonal of the stacked layout)."""
+        if all(w is None for w in self.weights):
+            return self._zt(v)
+        if self.deterministic:
+            if self._zt_sq_plan is None:
+                rows = torch.arange(self.n, device=self.device).repeat(
+                    len(self.idx))
+                wsq = self._stacked_weights()
+                self._zt_sq_plan = SegmentPlan(torch.cat(self.idx), rows,
+                                               wsq * wsq, self.q)
+            return self._zt_sq_plan.sums(v)
+        out = torch.zeros(self.q, dtype=v.dtype, device=v.device)
+        for idx, w in zip(self.idx, self.weights):
+            out.index_add_(0, idx, v if w is None else w * w * v)
         return out
 
     def _z(self, b: torch.Tensor) -> torch.Tensor:
@@ -680,3 +719,303 @@ def posterior_b_laplace(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor,
     GROUPED_COUNTS["qq_inverse"] += 1
     return b, (torch.cholesky_inverse(L) if L is not None
                else torch.linalg.inv(H))
+
+
+# ---------------------------------------------------------------------------
+# iterative route (matrix_inversion_method="iterative"): CG + stochastic
+# Lanczos in b-space, no [q, q] matrix (CGRandomEffectsVec, CG_utils.h:979)
+# ---------------------------------------------------------------------------
+
+def ztw_z_diag(Z: GroupedZ, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """diag(Z' diag(w) Z) [q] (w = 1 when None); a constant of the
+    preconditioner, not differentiated."""
+    with torch.no_grad():
+        return Z._zt_sq(torch.ones(Z.n, dtype=Z.dtype, device=Z.device)
+                        if w is None else w)
+
+
+def _mv_sys(Z: GroupedZ, w_obs: Optional[torch.Tensor], shift: torch.Tensor,
+            V: torch.Tensor) -> torch.Tensor:
+    """(Z' diag(w_obs) Z + diag(shift)) V for V [q] or [q, k],
+    differentiable in ``w_obs`` and ``shift`` (Z b and Z'v by their
+    gather-backward Functions)."""
+    zv = z_mul(Z, V)
+    if w_obs is not None:
+        zv = zv * (w_obs if V.dim() == 1 else w_obs[:, None])
+    return zt_mul(Z, zv) + (shift if V.dim() == 1 else shift[:, None]) * V
+
+
+def _jacobi(diag: torch.Tensor) -> cgops.JacobiPreconditioner:
+    return cgops.JacobiPreconditioner(torch.clamp(diag.detach(), min=1e-10))
+
+
+def _quadform_cg(matvec, u, pre_solve, tol, max_iter):
+    """Differentiable u' M^-1 u without differentiating the CG loop: the
+    stationary surrogate 2 u'v - v'Mv at v = M^-1 u (detached) has the
+    exact value and exact first derivatives."""
+    with torch.no_grad(), timed("cg: quadratic-form CG", sync=True):
+        v, it = cgops.pcg(matvec, u.detach(), pre_solve, tol=tol,
+                          max_iter=max_iter)
+    GROUPED_COUNTS["quad_cg_iters"] += it
+    return 2.0 * torch.dot(u, v) - torch.dot(v, matvec(v))
+
+
+def grouped_probes(Z: GroupedZ, num_rand_vec_trace: int, seed: int):
+    """(e, Zg) [q, k]: standard-normal value probes (scaled by the Jacobi
+    preconditioner's square root) and Rademacher gradient probes, drawn in
+    float64 from a ``torch.Generator`` seeded with ``seed`` on Z's device
+    and cast to Z's dtype; the same in every evaluation, kept on Z."""
+    key = (int(num_rand_vec_trace), int(seed))
+    if Z._probe_cache is None or Z._probe_cache[0] != key:
+        gen = torch.Generator(device=Z.device).manual_seed(key[1])
+        e = cgops.normal_probes(gen, Z.q, key[0])
+        zg = cgops.rademacher_probes(gen, Z.q, key[0])
+        Z._probe_cache = (key, e.to(Z.dtype), zg.to(Z.dtype))
+    return Z._probe_cache[1], Z._probe_cache[2]
+
+
+def nll_profiled_iterative(Z: GroupedZ, ratio_vars: torch.Tensor,
+                           r: torch.Tensor, num_rand_vec_trace: int = 50,
+                           lanczos_steps: int = 50, cg_tol: float = 1e-6,
+                           cg_max_iter: int = 1000, seed: int = 1,
+                           probes=None):
+    """Profiled-nugget Gaussian NLL, matrix-free (the JAX package's
+    ``nll_profiled_iterative``): CG for the Woodbury quadratic form,
+    stochastic Lanczos for logdet M, M = Z'Z + Sigma_b^-1 (ratio scale).
+    ``probes`` = (e, Zg) [q, k] replaces the port's own draws. Returns
+    (nll, sigma2_hat)."""
+    db = _sigma_b_diag(Z, ratio_vars)
+    shift = 1.0 / db
+
+    def matvec(V):
+        return _mv_sys(Z, None, shift, V)
+
+    pre = _jacobi(ztw_z_diag(Z) + shift)
+    quadform = _quadform_cg(matvec, zt_mul(Z, r), pre.solve, cg_tol,
+                            cg_max_iter)
+    sigma2_hat = (torch.dot(r, r) - quadform) / Z.n
+    e, zg = (probes if probes is not None
+             else grouped_probes(Z, num_rand_vec_trace, seed))
+    logdet_m = cgops.stochastic_logdet_grad(
+        matvec, None, torch.sqrt(pre.d)[:, None] * e, lanczos_steps,
+        pre.solve, pre.logdet(), cg_tol, cg_max_iter, probes_grad=zg,
+        stats=GROUPED_COUNTS)
+    logdet_tilde = logdet_m + torch.sum(torch.log(db))
+    nll = 0.5 * (Z.n * (torch.log(sigma2_hat) + LOG_2PI + 1.0)
+                 + logdet_tilde)
+    return nll, sigma2_hat
+
+
+def nll_profiled_iterative_value_and_grad(Z: GroupedZ,
+                                          log_ratio_vars: torch.Tensor,
+                                          r: torch.Tensor, **kw):
+    """(nll, d nll / d log_ratio_vars, sigma2_hat) of
+    :func:`nll_profiled_iterative`, by autograd."""
+    th = log_ratio_vars.detach().requires_grad_(True)
+    with torch.enable_grad():
+        nll, s2 = nll_profiled_iterative(Z, torch.exp(th), r.detach(), **kw)
+        (g,) = torch.autograd.grad(nll, th)
+    return nll.detach(), g, s2.detach()
+
+
+def _h_cg_solve(Z: GroupedZ, db: torch.Tensor, tol: float, count: str,
+                max_iter: int = 1000):
+    """(w, rhs) -> (Z'WZ + Sigma_b^-1)^-1 rhs by Jacobi-preconditioned CG,
+    its iterations added to ``GROUPED_COUNTS[count]``."""
+    def solve(w, rhs):
+        pre = _jacobi(ztw_z_diag(Z, w) + 1.0 / db)
+        x, it = cgops.pcg(lambda V: _mv_sys(Z, w, 1.0 / db, V), rhs,
+                          pre.solve, tol=tol, max_iter=max_iter)
+        GROUPED_COUNTS[count] += it
+        return x
+    return solve
+
+
+class _FindModeGroupedCG(torch.autograd.Function):
+    """Matrix-free posterior mode in b-space: :func:`newton_mode` with
+    each Newton step solved by CG to 1e-8, differentiable in (db, F, aux)
+    by :func:`mode_vjp` with an adjoint CG solve to 1e-10 (the JAX
+    package's ``find_mode_grouped_cg`` and its backward)."""
+
+    @staticmethod
+    def forward(ctx, db, F, aux, lik_name, y, Z):
+        fam = lk.get_family(lik_name)
+        with timed("Laplace: mode (Newton-CG)", sync=True):
+            b = newton_mode(fam, y, F, _aux_val(aux), lambda v: v / db,
+                            _h_cg_solve(Z, db, 1e-8, "mode_cg_iters"),
+                            GROUPED_COUNTS, z=Z._z, zt=Z._zt, size=Z.q)
+        ctx.save_for_backward(db, F, aux, y, b)
+        ctx.lik_name, ctx.Z = lik_name, Z
+        return b
+
+    @staticmethod
+    def backward(ctx, v):
+        db, F, aux, y, b = ctx.saved_tensors
+        Z = ctx.Z
+        with timed("Laplace: mode adjoint CG", sync=True):
+            out = mode_vjp(lk.get_family(ctx.lik_name), y, b, v,
+                           _h_cg_solve(Z, db, 1e-10, "mode_adjoint_cg_iters"),
+                           lambda db_: b / db_, (db, F, aux),
+                           ctx.needs_input_grad[:3],
+                           z=Z._z, zt=lambda d: zt_mul(Z, d))
+        return out[0], out[1], out[2], None, None, None
+
+
+def find_mode_grouped_cg(lik_name: str, Z: GroupedZ, db: torch.Tensor,
+                         F: torch.Tensor, aux, y: torch.Tensor
+                         ) -> torch.Tensor:
+    """Posterior mode of b [q] by Newton-CG (no [q, q] matrix)."""
+    return _FindModeGroupedCG.apply(db, F, _aux_arg(aux, y), lik_name, y, Z)
+
+
+def nll_laplace_iterative(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor,
+                          aux, y: torch.Tensor,
+                          F: Optional[torch.Tensor] = None,
+                          num_rand_vec_trace: int = 50,
+                          lanczos_steps: int = 50, cg_tol: float = 1e-6,
+                          cg_max_iter: int = 1000, seed: int = 1,
+                          probes=None) -> torch.Tensor:
+    """Laplace NLL in b-space, matrix-free (the JAX package's
+    ``nll_laplace_iterative``): the Newton-CG mode and the stochastic
+    log-determinant of H = Z'WZ + Sigma_b^-1 (logdet(I + Sigma_b Z'WZ) =
+    logdet H + sum log db). Differentiable in (cov_pars, aux, F);
+    ``probes`` = (e, Zg) [q, k] replaces the port's own draws."""
+    fam = lk.get_family(lik_name)
+    F = _offset(y, F)
+    db = _sigma_b_diag(Z, cov_pars)
+    b = find_mode_grouped_cg(lik_name, Z, db, F, aux, y)
+    loc = F + z_mul(Z, b)
+    w = -fam.d2_loc(y, loc, aux)
+    loglik = torch.sum(fam.log_lik(y, loc, aux))
+    quad = torch.sum(b * b / db)
+
+    def matvec(V):
+        return _mv_sys(Z, w, 1.0 / db, V)
+
+    pre = _jacobi(ztw_z_diag(Z, w.detach()) + 1.0 / db)
+    e, zg = (probes if probes is not None
+             else grouped_probes(Z, num_rand_vec_trace, seed))
+    logdet_h = cgops.stochastic_logdet_grad(
+        matvec, None, torch.sqrt(pre.d)[:, None] * e, lanczos_steps,
+        pre.solve, pre.logdet(), cg_tol, cg_max_iter, probes_grad=zg,
+        stats=GROUPED_COUNTS)
+    return -(loglik - 0.5 * quad - 0.5 * (logdet_h + torch.sum(torch.log(db))))
+
+
+def nll_laplace_iterative_value_and_grad(Z: GroupedZ, lik_name: str,
+                                         cov_pars: torch.Tensor, aux,
+                                         y: torch.Tensor,
+                                         F: Optional[torch.Tensor] = None,
+                                         **kw):
+    """(nll, d nll / d cov_pars, d nll / d aux or None) of
+    :func:`nll_laplace_iterative`, by autograd."""
+    cp = cov_pars.detach().requires_grad_(True)
+    ap = None if aux is None else aux.detach().requires_grad_(True)
+    with torch.enable_grad():
+        v = nll_laplace_iterative(Z, lik_name, cp, ap, y, F, **kw)
+        grads = torch.autograd.grad(v, [cp] if ap is None else [cp, ap])
+    return v.detach(), grads[0], (None if ap is None else grads[1])
+
+
+def _draws_by_cg(Z: GroupedZ, solve, rhs_of, nsim: int, seed: int):
+    """[q, nsim] solutions of ``solve`` on the right-hand sides
+    ``rhs_of(z1 [n, c], z2 [q, c])`` of standard normals drawn in float64
+    from a ``torch.Generator`` seeded with ``seed`` (z1 then z2, a chunk of
+    ``SIM_CHUNK`` draws at a time: [n, c] products, never [n, nsim])."""
+    gen = torch.Generator(device=Z.device).manual_seed(int(seed))
+    out = []
+    for s in range(0, int(nsim), SIM_CHUNK):
+        c = min(SIM_CHUNK, int(nsim) - s)
+        z1 = cgops.normal_probes(gen, Z.n, c).to(Z.dtype)
+        z2 = cgops.normal_probes(gen, Z.q, c).to(Z.dtype)
+        out.append(solve(rhs_of(z1, z2)))
+    return torch.cat(out, dim=1)
+
+
+def posterior_b_gaussian_iterative(Z: GroupedZ, cov_pars: torch.Tensor,
+                                   r: torch.Tensor, nsim: int, seed: int,
+                                   cg_tol: float = 1e-8,
+                                   cg_max_iter: int = 1000):
+    """Iterative Gaussian posterior of b (the JAX package's
+    ``posterior_b_gaussian_iterative``): mean M^-1 Z'r by CG and draws
+    u ~ N(0, sigma2 M^-1) as sqrt(sigma2) M^-1 (Z'z1 + sqrt(shift) z2),
+    M = Z'Z + diag(shift), shift = sigma2 / db (the reference's
+    ``Sample_Posterior_LaplaceApprox_GroupedRE`` sampling,
+    likelihoods.h:6852). Returns (b_mean [q], draws [q, nsim])."""
+    sigma2 = cov_pars[0]
+    shift = sigma2 / _sigma_b_diag(Z, cov_pars[1:])
+    pre = _jacobi(ztw_z_diag(Z) + shift)
+
+    def solve(B):
+        x, it = cgops.pcg(lambda V: _mv_sys(Z, None, shift, V), B, pre.solve,
+                          tol=cg_tol, max_iter=cg_max_iter)
+        GROUPED_COUNTS["sim_cg_iters"] += it
+        return x
+
+    b_mean = solve(Z._zt(r))
+    draws = _draws_by_cg(
+        Z, solve, lambda z1, z2: Z._zt(z1) + torch.sqrt(shift)[:, None] * z2,
+        nsim, seed)
+    return b_mean, torch.sqrt(sigma2) * draws
+
+
+def posterior_b_laplace_iterative(Z: GroupedZ, lik_name: str,
+                                  cov_pars: torch.Tensor, aux,
+                                  y: torch.Tensor, F: Optional[torch.Tensor],
+                                  nsim: int, seed: int, cg_tol: float = 1e-8,
+                                  cg_max_iter: int = 1000):
+    """Iterative Laplace posterior of b (the JAX package's
+    ``posterior_b_laplace_iterative``): the Newton-CG mode and draws
+    u ~ N(0, H^-1) as H^-1 (Z' W^1/2 z1 + Sigma_b^-1/2 z2),
+    H = Z'WZ + Sigma_b^-1. Returns (mode [q], draws [q, nsim])."""
+    fam = lk.get_family(lik_name)
+    F = _offset(y, F)
+    db = _sigma_b_diag(Z, cov_pars)
+    b = find_mode_grouped_cg(lik_name, Z, db, F, aux, y)
+    w = torch.clamp(-fam.d2_loc(y, F + Z._z(b), aux), min=1e-10)
+    solve = _h_cg_solve(Z, db, cg_tol, "sim_cg_iters", cg_max_iter)
+    sqrt_w = torch.sqrt(w)[:, None]
+    draws = _draws_by_cg(
+        Z, lambda B: solve(w, B),
+        lambda z1, z2: Z._zt(sqrt_w * z1) + z2 / torch.sqrt(db)[:, None],
+        nsim, seed)
+    return b, draws
+
+
+def predict_from_posterior_draws(spec: ModelSpec, b_mean: torch.Tensor,
+                                 draws: torch.Tensor, comp_vars: torch.Tensor,
+                                 pred_codes: torch.Tensor,
+                                 pred_weights: torch.Tensor):
+    """Latent prediction mean and SIMULATED variance from posterior draws
+    (no [q, q] covariance): mean as :func:`predict_from_posterior`, var =
+    mean over the draws of (sum_j a_j u[idx_j])^2, plus the prior variance
+    of each level training never saw (JAX ``predict_from_posterior_draws``;
+    the level's component by ``code_col``). Returns (mean, var)."""
+    offsets, sizes, _ = grouped_layout(spec)
+    mean = torch.zeros(pred_codes.shape[0], dtype=b_mean.dtype,
+                       device=b_mean.device)
+    sims = torch.zeros((pred_codes.shape[0], draws.shape[1]),
+                       dtype=b_mean.dtype, device=b_mean.device)
+    var_unseen = torch.zeros_like(mean)
+    for j, comp in enumerate(spec.components):
+        codes = pred_codes[:, comp.code_col]
+        seen = codes < sizes[j]
+        idx = offsets[j] + torch.clamp(codes, max=sizes[j] - 1)
+        wj = pred_weights[:, j]
+        mean = mean + torch.where(seen, wj * b_mean[idx], 0.0)
+        sims = sims + torch.where(seen, wj, 0.0)[:, None] * draws[idx]
+        var_unseen = var_unseen + torch.where(seen, 0.0,
+                                              wj * wj * comp_vars[j])
+    return mean, torch.mean(sims * sims, dim=1) + var_unseen
+
+
+def num_cg_steps(Z: GroupedZ, w: Optional[torch.Tensor],
+                 shift: torch.Tensor, rhs: torch.Tensor, tol: float,
+                 max_iter: int) -> int:
+    """CG iterations of one solve (Z'WZ + diag(shift)) x = rhs under the
+    Jacobi preconditioner (``GPModel.get_num_cg_steps``)."""
+    with torch.no_grad():
+        pre = _jacobi(ztw_z_diag(Z, w) + shift)
+        _, it = cgops.pcg(lambda V: _mv_sys(Z, w, shift, V), rhs, pre.solve,
+                          tol=tol, max_iter=max_iter)
+    return int(it)

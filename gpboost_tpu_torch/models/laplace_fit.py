@@ -10,7 +10,9 @@ model supplies the NLL (its Vecchia or grouped Laplace approximation);
 this module owns the parameter vector and the optimizer dispatch:
 L-BFGS (scipy's L-BFGS-B over the value-and-gradient on the model's
 device, the default for non-Gaussian likelihoods), Nelder-Mead, Adam (the
-grouped models) and gradient descent.
+grouped models) and gradient descent. A grouped model with
+``matrix_inversion_method="iterative"`` fits its matrix-free NLL
+(:func:`grouped_iterative_nll`).
 """
 from __future__ import annotations
 
@@ -20,9 +22,41 @@ import numpy as np
 import torch
 
 from gpboost_tpu_torch import likelihoods as lk
-from gpboost_tpu_torch.models import optimizers
+from gpboost_tpu_torch.models import grouped, optimizers
 
 LBFGS_NAMES = ("lbfgs", "lbfgs_linesearch_nocedal_wright")
+# the reference's preconditioner names for grouped random effects
+# (basic.py:5416: ssor the default, incomplete_cholesky): both are served by
+# the Jacobi diagonal of Z'WZ + Sigma_b^-1
+GROUPED_PRECONDITIONERS = ("", "default", "ssor", "jacobi",
+                           "incomplete_cholesky")
+
+
+def grouped_iter_kwargs(cfg) -> dict:
+    """Settings of a grouped model's iterative fit (the JAX package's
+    ``laplace_fit.py:64-90``): at least 50 probes, 50 Lanczos steps, CG to
+    min(``cg_delta_conv``, 1e-6). A preconditioner name the grouped route
+    does not know raises."""
+    pn = str(cfg.cg_preconditioner_type or "").lower()
+    if pn not in GROUPED_PRECONDITIONERS:
+        raise ValueError(
+            f"unsupported cg_preconditioner_type {pn!r} for grouped random "
+            "effects; options: ssor (default) or incomplete_cholesky (both "
+            "served by the Jacobi diagonal)")
+    return dict(num_rand_vec_trace=max(int(cfg.num_rand_vec_trace), 50),
+                lanczos_steps=50, cg_tol=min(float(cfg.cg_delta_conv), 1e-6),
+                cg_max_iter=int(cfg.cg_max_num_it),
+                seed=int(cfg.seed_rand_vec_trace))
+
+
+def grouped_iterative_nll(model) -> Callable:
+    """``nll(cov, aux, fixed_part)`` of a grouped model's iterative
+    Laplace fit: Newton-CG mode and stochastic log-determinant in b-space
+    (``grouped.nll_laplace_iterative``, the reference's
+    ``CGRandomEffectsVec`` route, CG_utils.h:979)."""
+    kw = grouped_iter_kwargs(model.optim_cfg)
+    return lambda cov, aux, fp: grouped.nll_laplace_iterative(
+        model._Z, model.likelihood, cov, aux, model.y, fp, **kw)
 
 
 def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],

@@ -96,6 +96,8 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     cfg = model.optim_cfg
     vec = model._approx
     _check_cfg(cfg)
+    if hasattr(vec, "sync_iter_cfg"):
+        vec.sync_iter_cfg(cfg)
     y_np = y.detach().cpu().numpy().astype(np.float64)
     has_coef = X is not None
     init_cov = (cfg.init_cov_pars if cfg.init_cov_pars is not None

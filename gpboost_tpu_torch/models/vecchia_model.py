@@ -22,10 +22,16 @@ product goes through ``ops/vecchia.py::precision_product``, whose backward
 is made of gathers; on CUDA its transpose is the sliced gather too, so no
 float atomics run on the path, forward or backward.
 
+The iterative route's preconditioner is the Jacobi one on diag(Q) + W
+(``cg_preconditioner_type`` "vadu", the default) or a randomised-Nystrom
+low-rank plus diagonal one sketched from Q + W ("pivoted_cholesky",
+"fitc", "nystrom", "predictive_process_plus_diagonal", of rank
+``piv_chol_rank``); with the Jacobi one the log-determinant's gradient can
+take the optimal-c control variate (``variance_reduction``).
+
 Not ported yet (ROADMAP.md): GP random coefficients, ``cluster_ids``, the
 other ``vecchia_pred_type`` variants, the heteroscedastic two-set model,
-the banded compute layout ``BandedB``, variance reduction and the low-rank
-preconditioners of the iterative method, row sharding over several GPUs.
+the banded compute layout ``BandedB``, row sharding over several GPUs.
 """
 from __future__ import annotations
 
@@ -48,8 +54,8 @@ from gpboost_tpu_torch.utils import resolve_device
 from gpboost_tpu_torch.utils.timer import timed
 
 # cg_preconditioner_type resolution (reference names, basic.py:5147-5159):
-# 'diag' is the Jacobi preconditioner on diag(Q) + W; the low-rank family is
-# not ported
+# 'diag' is the Jacobi preconditioner on diag(Q) + W, 'low_rank' the
+# randomised-Nystrom low-rank + diagonal one (ops/cg.py)
 _PRECOND_DIAG = ("", "default", "vadu", "sigma_inv_plus_btwb", "jacobi",
                  "vecchia_approximation_with_diagonal_update")
 _PRECOND_LOW_RANK = ("pivoted_cholesky", "fitc", "nystrom",
@@ -67,20 +73,20 @@ LAPLACE_COUNTS: Counter = Counter()
 
 
 def _resolve_precond_name(name) -> str:
-    """'diag' (Jacobi on diag(Q) + W). The low-rank names raise: they are
-    not ported; unknown names raise — a requested preconditioner is never
-    silently ignored."""
+    """'diag' (Jacobi on diag(Q) + W) or 'low_rank' (the randomised-Nystrom
+    stand-in for the reference's pivoted-Cholesky / FITC preconditioners).
+    Unknown names raise — a requested preconditioner is never silently
+    ignored."""
     s = str(name or "").lower()
     if s in _PRECOND_DIAG:
         return "diag"
     if s in _PRECOND_LOW_RANK:
-        raise NotImplementedError(
-            f"cg_preconditioner_type {name!r} (the low-rank preconditioners) "
-            f"is not ported to gpboost_tpu_torch yet ({cgops.ITEM})")
+        return "low_rank"
     raise ValueError(
         f"unsupported cg_preconditioner_type {name!r} for the Vecchia "
         f"approximation; options: {_PRECOND_DIAG[2]} (default, diagonal of "
-        f"the vadu matrix) or one of {_PRECOND_LOW_RANK}")
+        f"the vadu matrix) or one of {_PRECOND_LOW_RANK} (randomised-"
+        "Nystrom low-rank + diagonal)")
 
 
 def _mode_cg_tols(dtype):
@@ -464,22 +470,30 @@ class VecchiaGP:
         ld0 = -torch.sum(torch.log(d))
         return -(loglik - 0.5 * quad - 0.5 * (ld1 - ld0))
 
-    def laplace_probes(self, num_rand_vec_trace: int, seed: int):
+    def laplace_probes(self, num_rand_vec_trace: int, seed: int,
+                       rank: int = 0):
         """(e, Zg) [n, k]: standard-normal value probes (scaled by the
         preconditioner's square root in :meth:`nll_laplace_iterative`) and
         Rademacher gradient probes, drawn in float64 from a
         ``torch.Generator`` on the model's device seeded with ``seed``, then
         cast to the model's dtype — so a float32 and a float64 model see the
-        same probes. The same seed gives the same probes in every
-        evaluation (the reference's ``reuse_rand_vec_trace``); kept
-        between calls."""
-        key = (int(num_rand_vec_trace), int(seed))
+        same probes. With ``rank`` > 0 also the low-rank preconditioner's
+        draws from the same stream: (e, Zg, omega [n, rank], e_r
+        [rank, k]), the Nystrom sketch and the low-rank half of the probes
+        (e then serves as their diagonal half). The same seed gives the
+        same draws in every evaluation (the reference's
+        ``reuse_rand_vec_trace``); kept between calls."""
+        key = (int(num_rand_vec_trace), int(seed), int(rank))
         if self._probe_cache is None or self._probe_cache[0] != key:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            e = cgops.normal_probes(gen, self.n, key[0], torch.float64)
-            zg = cgops.rademacher_probes(gen, self.n, key[0], torch.float64)
-            self._probe_cache = (key, e.to(self.dtype), zg.to(self.dtype))
-        return self._probe_cache[1], self._probe_cache[2]
+            k = key[0]
+            draws = [cgops.normal_probes(gen, self.n, k),
+                     cgops.rademacher_probes(gen, self.n, k)]
+            if rank:
+                draws += [cgops.normal_probes(gen, self.n, key[2]),
+                          cgops.normal_probes(gen, key[2], k)]
+            self._probe_cache = (key, tuple(t.to(self.dtype) for t in draws))
+        return self._probe_cache[1]
 
     def nll_laplace_iterative(self, cov_pars, y, aux_pars, fixed_part=None,
                               num_rand_vec_trace: int = 50,
@@ -494,25 +508,37 @@ class VecchiaGP:
         per multi-RHS precision product, no dense [n, n] matrix.
         Differentiable in cov_pars, aux_pars and fixed_part (the gradient
         w.r.t. the log-determinant is the Hutchinson estimate over
-        Rademacher probes). Preconditioner: Jacobi on diag(Q) + W; the
-        low-rank preconditioners and variance reduction raise
-        (ROADMAP.md Queue A, item 12)."""
-        _resolve_precond_name(preconditioner)
-        if variance_reduction:
+        Rademacher probes, or with ``variance_reduction`` the optimal-c
+        control-variate estimate over the value probes). Preconditioner
+        (``preconditioner``, :func:`_resolve_precond_name`): Jacobi on
+        diag(Q) + W, or the randomised-Nystrom low-rank + diagonal one of
+        rank min(``piv_chol_rank``, n), sketched from Q + W with the factors
+        detached; variance reduction takes the Jacobi one only, as in the
+        JAX package."""
+        low_rank = _resolve_precond_name(preconditioner) == "low_rank"
+        if low_rank and variance_reduction:
             raise NotImplementedError(
-                "variance reduction of the stochastic log-determinant "
-                f"gradient is not ported to gpboost_tpu_torch yet "
-                f"({cgops.ITEM})")
-        e, Zg = self.laplace_probes(num_rand_vec_trace, seed_rand_vec_trace)
-        return self._nll_laplace_iterative(cov_pars, y, aux_pars, fixed_part,
-                                           e, Zg, lanczos_steps, cg_tol,
-                                           cg_max_iter)
+                "optimal-c variance reduction is implemented for the 'vadu' "
+                "(diagonal) preconditioner only, as in the JAX package")
+        rank = min(int(piv_chol_rank), self.n) if low_rank else 0
+        draws = self.laplace_probes(num_rand_vec_trace, seed_rand_vec_trace,
+                                    rank)
+        return self._nll_laplace_iterative(
+            cov_pars, y, aux_pars, fixed_part, draws[0], draws[1],
+            lanczos_steps, cg_tol, cg_max_iter,
+            low_rank=draws[2:] if low_rank else None,
+            variance_reduction=variance_reduction)
 
     def _nll_laplace_iterative(self, cov_pars, y, aux_pars, fixed_part, e,
-                               Zg, lanczos_steps, cg_tol, cg_max_iter):
-        """:meth:`nll_laplace_iterative` with the probes given: ``e``
-        [n, k] standard normal (value probes Z = sqrt(diag P) e) and ``Zg``
-        [n, k] Rademacher (gradient probes), in permuted row order."""
+                               Zg, lanczos_steps, cg_tol, cg_max_iter,
+                               low_rank=None, variance_reduction=False):
+        """:meth:`nll_laplace_iterative` with the draws given, in permuted
+        row order: ``e`` [n, k] standard normal (value probes
+        Z = sqrt(diag P) e under the Jacobi preconditioner), ``Zg`` [n, k]
+        Rademacher (gradient probes); ``low_rank`` = (omega [n, r], e_r
+        [r, k]) selects the Nystrom preconditioner sketched from omega, its
+        value probes U e_r + sqrt(delta) e (the JAX package draws them as
+        ``pre.sample_probes``)."""
         fam = lk.get_family(self.likelihood)
         a, d = self._latent_factors(cov_pars)
         yp, Fp = self._permuted(y, fixed_part)
@@ -528,18 +554,69 @@ class VecchiaGP:
         def a_mv(V):
             return q_mv(V) + vops._cols(w, V) * V
 
-        with torch.no_grad():
-            pre_diag = torch.clamp(
-                vops.precision_diag(a, self.neighbors, d, self._incoming)
-                + w, min=1e-10)
-        pre = cgops.JacobiPreconditioner(pre_diag)
-        Z = torch.sqrt(pre_diag)[:, None] * e
-        logdet_A = cgops.stochastic_logdet_grad(
-            a_mv, None, Z, lanczos_steps, pre.solve, pre.logdet(), cg_tol,
-            cg_max_iter, probes_grad=Zg, stats=LAPLACE_COUNTS)
+        nb, sl = self.neighbors, self._incoming
+        with torch.no_grad(), timed("cg: preconditioner", sync=True):
+            if low_rank is not None:
+                omega, e_r = low_rank
+                q_sg = self._q_mv(a.detach(), d.detach())
+                w_sg = w.detach()
+                pre = cgops.nystrom_preconditioner(
+                    lambda V: q_sg(V) + w_sg[:, None] * V, self.n,
+                    omega.shape[1], dtype=self.dtype, omega=omega)
+                Z = pre.probes_from(e_r, e)
+            else:
+                pre = cgops.JacobiPreconditioner(torch.clamp(
+                    vops.precision_diag(a, nb, d, sl) + w, min=1e-10))
+                Z = torch.sqrt(pre.d)[:, None] * e
+            pre_logdet = pre.logdet()
+        if variance_reduction:
+            def p_diag(th):
+                a_, d_, w_ = th
+                return torch.clamp(vops.precision_diag(a_, nb, d_, sl) + w_,
+                                   min=1e-10)
+
+            logdet_A = cgops.stochastic_logdet_grad_vr(
+                lambda th, V: vops.precision_product(th[0], th[1], V, nb, sl)
+                + th[2][:, None] * V,
+                lambda th, V: p_diag(th)[:, None] * V,
+                lambda th: torch.sum(torch.log(p_diag(th))), (a, d, w), Z,
+                lanczos_steps, pre.solve, cg_tol, cg_max_iter,
+                stats=LAPLACE_COUNTS)
+        else:
+            logdet_A = cgops.stochastic_logdet_grad(
+                a_mv, None, Z, lanczos_steps, pre.solve, pre_logdet, cg_tol,
+                cg_max_iter, probes_grad=Zg, stats=LAPLACE_COUNTS)
         # logdet(Sigma^-1) = -sum log d (exact)
         logdet_ratio = logdet_A + torch.sum(torch.log(d))
         return -(loglik - 0.5 * quad - 0.5 * logdet_ratio)
+
+    def num_cg_steps(self, gp_pars, y, preconditioner, piv_chol_rank, seed,
+                     tol, max_iter, omega=None) -> int:
+        """CG iterations of one solve Q x = y (the latent precision at
+        ``gp_pars``, y in the ordering's row order) under the Jacobi
+        diagonal of Q or, for a low-rank ``preconditioner``, the Nystrom
+        one of rank min(``piv_chol_rank``, n) sketched from ``omega`` (by
+        default standard normals from a ``torch.Generator`` seeded with
+        ``seed``) — ``GPModel.get_num_cg_steps`` (JAX
+        ``gp_model.py:508-540``)."""
+        with torch.no_grad():
+            a, d = self._latent_factors(gp_pars)
+            mv = self._q_mv(a, d)
+            if _resolve_precond_name(preconditioner) == "low_rank":
+                rank = min(int(piv_chol_rank), self.n)
+                if omega is None:
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        int(seed))
+                    omega = cgops.normal_probes(gen, self.n, rank)
+                solve = cgops.nystrom_preconditioner(
+                    mv, self.n, rank, dtype=self.dtype, omega=omega).solve
+            else:
+                solve = cgops.JacobiPreconditioner(torch.clamp(
+                    vops.precision_diag(a, self.neighbors, d,
+                                        self._incoming), min=1e-10)).solve
+            _, it = cgops.pcg(mv, y[self._perm_t], solve, tol=tol,
+                              max_iter=max_iter)
+        return int(it)
 
     def grad_F_laplace(self, cov_pars, y, aux_pars, fixed_part,
                        iterative: Optional[bool] = None, **iter_kwargs):

@@ -9,16 +9,25 @@
 - full-scale tapering: Psi = Q + T o (Sigma - Q) + sigma2 I with a compactly
   supported Wendland taper T, dense (the Cholesky route).
 
-Every function takes coordinates with optional leading batch dimensions
-(``[..., n, d]``, inducing points ``[..., k, d]``): the equal-size clusters of
-a ``cluster_ids`` model run as one batch. The taper-sparse iterative route of
-full-scale tapering (the JAX module's ``taper_neighbors`` /
-``fsa_taper_values`` / ``fsa_resid_mv``) is not ported (ROADMAP.md Queue A,
-item 12).
+Every dense function takes coordinates with optional leading batch
+dimensions (``[..., n, d]``, inducing points ``[..., k, d]``): the equal-size
+clusters of a ``cluster_ids`` model run as one batch.
+
+The taper-sparse structure of full-scale tapering's iterative route
+(reference ``CGFSA``, ``CG_utils.h:507-900``): the tapered residual
+T o (Sigma - Q) has compact support, stored Vecchia-style as [n, k_t]
+arrays — the indices of the other points within the taper range
+(:func:`taper_neighbors`, -1 padded), their distances and taper values
+(:class:`TaperStructure`), and the position of each pair's transpose
+(``rev``). The residual's entries (:func:`fsa_taper_values`) and its
+product (:func:`fsa_resid_mv`) are gathers, forward and backward: the
+support is symmetric, so every transposed sum is a gather through ``rev``
+and nothing scatters.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -190,3 +199,207 @@ def fsa_nll_from_psi(psi: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                                           upper=False)[..., 0]
     return 0.5 * (torch.sum(alpha * alpha, -1) + 2.0 * _log_diag_sum(chol)
                   + r.shape[-1] * LOG_2PI)
+
+
+# ---------------------------------------------------------------------------
+# the taper-sparse structure of full-scale tapering's iterative route
+# ---------------------------------------------------------------------------
+
+# rows of the structure a chunk of the neighbour search holds ([c, n])
+TAPER_SEARCH_CHUNK = 1024
+# bytes a gathered block [c, k_t, q] of a product may take
+TAPER_GATHER_BYTES = 1 << 30
+
+
+class TaperStructure(NamedTuple):
+    """The support of the tapered residual: ``idx`` [n, k_t] (int64, -1
+    padded) the other points within the taper range, ``rev`` [n, k_t] the
+    position of row i in row idx[i, j] (0 at padding), ``mask`` [n, k_t],
+    ``dist`` [n, k_t] their distances and ``taper`` [n, k_t] the taper's
+    values there (0 at padding). Built once from the coordinates."""
+    idx: torch.Tensor
+    rev: torch.Tensor
+    mask: torch.Tensor
+    dist: torch.Tensor
+    taper: torch.Tensor
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self)
+
+
+def _row_chunk(n: int, per_row_bytes: int, budget: int = TAPER_GATHER_BYTES):
+    return max(1, min(n, budget // max(per_row_bytes, 1)))
+
+
+def taper_neighbors(coords: torch.Tensor, taper_range: float,
+                    chunk: int = TAPER_SEARCH_CHUNK) -> torch.Tensor:
+    """[n, k_t] int64 indices of the OTHER points within the taper support
+    of each point (distance < ``taper_range``, self excluded), nearest
+    first, -1 padded; k_t is the largest in-radius count. Chunks of rows
+    (distances from coordinate differences, :func:`distance`) and a
+    ``topk`` per chunk, after a first pass that counts."""
+    n = coords.shape[0]
+    r2 = float(taper_range) ** 2
+
+    def d2_chunk(s):
+        rows = coords[s:s + chunk]
+        d2 = None
+        for j in range(coords.shape[1]):
+            dj = rows[:, None, j] - coords[None, :, j]
+            d2 = dj * dj if d2 is None else d2 + dj * dj
+        ids = torch.arange(s, s + rows.shape[0], device=coords.device)
+        ok = (d2 < r2) & (ids[:, None] != torch.arange(
+            n, device=coords.device)[None, :])
+        return d2, ok
+
+    counts = torch.cat([d2_chunk(s)[1].sum(dim=1)
+                        for s in range(0, n, chunk)])
+    k_t = max(int(counts.max()), 1)
+    out = []
+    for s in range(0, n, chunk):
+        d2, ok = d2_chunk(s)
+        neg, ix = torch.topk(torch.where(ok, -d2, -math.inf), k_t, dim=1)
+        out.append(torch.where(torch.isfinite(neg), ix, -1))
+    return torch.cat(out)
+
+
+def taper_structure(coords: torch.Tensor, taper_range: float,
+                    taper_shape: float, taper_mu: float) -> TaperStructure:
+    """:class:`TaperStructure` of ``coords`` [n, d] (the JAX package
+    recomputes distances and the taper each evaluation; they are constant,
+    so they are kept)."""
+    idx = taper_neighbors(coords, taper_range)
+    n, k_t = idx.shape
+    mask = idx >= 0
+    ixs = torch.clamp(idx, min=0)
+    rev = torch.zeros_like(idx)
+    step = _row_chunk(n, k_t * k_t)
+    rows = torch.arange(n, device=idx.device)
+    for s in range(0, n, step):
+        hit = idx[ixs[s:s + step]] == rows[s:s + step, None, None]
+        rev[s:s + step] = torch.argmax(hit.to(torch.int8), dim=2)
+    d2 = None
+    for j in range(coords.shape[1]):
+        dj = coords[:, None, j] - coords[ixs, j]
+        d2 = dj * dj if d2 is None else d2 + dj * dj
+    pos = mask & (d2 > 0.0)
+    dist = torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)), 0.0)
+    taper = torch.where(mask, wendland_correlation(
+        dist, taper_range, taper_shape, taper_mu), 0.0)
+    return TaperStructure(idx, torch.where(mask, rev, 0), mask, dist, taper)
+
+
+def _transposed(g: torch.Tensor, ts: TaperStructure) -> torch.Tensor:
+    """g^T on the support: out[i, j] = g[idx[i, j], rev[i, j]] (0 at
+    padding) — a gather."""
+    return torch.where(ts.mask, g[torch.clamp(ts.idx, min=0), ts.rev], 0.0)
+
+
+def _pair_gather(W: torch.Tensor, coef: torch.Tensor, ts: TaperStructure
+                 ) -> torch.Tensor:
+    """out[i] = sum_j coef[i, j] W[idx[i, j]] for W [n, q]: a gather of
+    W's rows and a batched [1, k_t] x [k_t, q] product, by chunks of rows
+    within ``TAPER_GATHER_BYTES`` (on the CPU one sparse product, as
+    ``ops/vecchia.py::apply_B`` there)."""
+    n, k_t = ts.idx.shape
+    q = W.shape[1]
+    ixs = torch.clamp(ts.idx, min=0)
+    if W.device.type == "cpu":
+        rows = torch.arange(n, device=W.device)[:, None].expand_as(ts.idx)
+        A = torch.sparse_coo_tensor(
+            torch.stack([rows[ts.mask], ts.idx[ts.mask]]), coef[ts.mask],
+            (n, n), check_invariants=False)
+        return torch.sparse.mm(A, W)
+    step = _row_chunk(n, k_t * q * W.element_size())
+    out = []
+    for s in range(0, n, step):
+        c = coef[s:s + step]
+        out.append(torch.bmm(c[:, None, :], W[ixs[s:s + step]])[:, 0])
+    return torch.cat(out) if len(out) > 1 else out[0]
+
+
+class _PairInner(torch.autograd.Function):
+    """pq[i, j] = v[:, i] . v[:, idx[i, j]] for v [k, n] (0 at padding).
+    Backward: grad v[:, i] = sum_j (G + G^T)[i, j] v[:, idx[i, j]], G^T
+    through ``rev`` — gathers only."""
+
+    @staticmethod
+    def forward(ctx, v, ts):
+        vt = v.T.contiguous()
+        n, k_t = ts.idx.shape
+        ixs = torch.clamp(ts.idx, min=0)
+        step = _row_chunk(n, k_t * vt.shape[1] * vt.element_size())
+        parts = []
+        for s in range(0, n, step):
+            parts.append(torch.bmm(vt[ixs[s:s + step]],
+                                   vt[s:s + step, :, None])[:, :, 0])
+        out = torch.where(ts.mask, torch.cat(parts), 0.0)
+        ctx.save_for_backward(vt)
+        ctx.ts = ts
+        return out
+
+    @staticmethod
+    def backward(ctx, G):
+        (vt,) = ctx.saved_tensors
+        ts = ctx.ts
+        G = torch.where(ts.mask, G, 0.0)
+        gsym = G + _transposed(G, ts)
+        return _pair_gather(vt, gsym, ts).T, None
+
+
+class _ResidMatvec(torch.autograd.Function):
+    """(R + diag) X with R[i, idx[i, j]] = vals[i, j], R symmetric, X [n]
+    or [n, q]. Backward: grad X = (R + diag) G (R symmetric), grad vals =
+    rows of G dotted with the gathered rows of X, grad diag = rowsum(G X)
+    — gathers only."""
+
+    @staticmethod
+    def forward(ctx, vals, diag, X, ts):
+        vec = X.dim() == 1
+        X2 = X[:, None] if vec else X
+        out = diag[:, None] * X2 + _pair_gather(X2, vals, ts)
+        ctx.save_for_backward(vals, diag, X2)
+        ctx.ts, ctx.vec = ts, vec
+        return out[:, 0] if vec else out
+
+    @staticmethod
+    def backward(ctx, G):
+        vals, diag, X2 = ctx.saved_tensors
+        ts = ctx.ts
+        G2 = G[:, None] if ctx.vec else G
+        g_vals = g_diag = g_x = None
+        if ctx.needs_input_grad[0]:
+            n, k_t = ts.idx.shape
+            ixs = torch.clamp(ts.idx, min=0)
+            step = _row_chunk(n, k_t * X2.shape[1] * X2.element_size())
+            parts = [torch.bmm(X2[ixs[s:s + step]],
+                               G2[s:s + step, :, None])[:, :, 0]
+                     for s in range(0, n, step)]
+            g_vals = torch.where(ts.mask, torch.cat(parts), 0.0)
+        if ctx.needs_input_grad[1]:
+            g_diag = torch.sum(G2 * X2, dim=1)
+        if ctx.needs_input_grad[2]:
+            g_x = diag[:, None] * G2 + _pair_gather(G2, vals, ts)
+            if ctx.vec:
+                g_x = g_x[:, 0]
+        return g_vals, g_diag, g_x, None
+
+
+def fsa_taper_values(cov_fn: CovFunction, gp_pars: torch.Tensor,
+                     v: torch.Tensor, ts: TaperStructure):
+    """Tapered-residual entries on the support: vals[i, j] =
+    T(d_ij) (k(d_ij) - p_i . p_j) for j = idx[i, :] (0 at padding) and
+    diag[i] = sigma1^2 - |p_i|^2 (T(0) = 1), p_i = v[:, i] = L_mm^-1 C_m,i
+    (the JAX package's ``fsa_taper_values``; the inner products by
+    :class:`_PairInner`, never [n, k_t, k] at once)."""
+    k_val = cov_fn.cov_matrix(gp_pars, dist=ts.dist)
+    vals = ts.taper * (k_val - _PairInner.apply(v, ts))
+    return vals, gp_pars[0] - torch.sum(v * v, dim=0)
+
+
+def fsa_resid_mv(vals: torch.Tensor, diag: torch.Tensor, X: torch.Tensor,
+                 ts: TaperStructure) -> torch.Tensor:
+    """(T o (Sigma - Q) + diag(diag)) X on the support, X [n] or [n, q]: a
+    gather-only product, forward and backward (the support is
+    symmetric)."""
+    return _ResidMatvec.apply(vals, diag, X, ts)

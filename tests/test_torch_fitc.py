@@ -1,7 +1,8 @@
 """FITC and full-scale tapering in the port (``ops/fitc.py``,
 ``models/fitc_model.py``) against the JAX package on the CPU, float64 —
-the port's counterpart of ``tests/test_fitc_golden.py`` (every class but
-``TestFullScaleTaperingIterative``: that route raises, naming item 12).
+the port's counterpart of ``tests/test_fitc_golden.py`` (its class
+``TestFullScaleTaperingIterative`` is mirrored in
+``tests/test_torch_fsa_iterative.py``).
 
 Tolerances: Gaussian NLLs and gradients 1e-10 relative to the JAX package;
 Laplace NLLs 1e-8, their gradients 1e-6 relative, d NLL / dF and the
@@ -24,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import gpboost_tpu as gpb
+from gpboost_tpu.ops import cg as jcg
 from gpboost_tpu.utils.rng import sim_rand_unif
 
 import gpboost_tpu_torch as gpt
@@ -163,10 +165,31 @@ class TestFullScaleTapering:
         assert np.all(np.isfinite(pred["mu"])) and np.all(pred["var"] >= 0)
 
     def test_fsa_iterative_raises_item_12(self, gp_fixture_data):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            gpt.GPModel(gp_coords=gp_fixture_data["coords"],
-                        gp_approx="full_scale_tapering", num_ind_points=20,
-                        matrix_inversion_method="iterative", device="cpu")
+        """The iterative route this case pinned as a raise (item 12) is
+        ported: with the JAX package's probes (its FITC preconditioner's
+        normals from the first key of ``split(PRNGKey(1))``, split once
+        more, Rademacher probes from the second) the NLL equals the JAX
+        package's at 1e-8 (``tests/test_torch_fsa_iterative.py`` holds
+        the route)."""
+        f = gp_fixture_data
+        y = f["eps"] + f["xi"]
+        jm, tm = _pair(f, gp_approx="full_scale_tapering",
+                       num_ind_points=20, matrix_inversion_method="iterative")
+        nll_j = float(jm._approx.nll_gaussian(jnp.asarray(CP),
+                                              jnp.asarray(y)))
+        a, k = jm._approx, jm._approx.num_rand_vec_trace
+        k1, k2 = jax.random.split(jax.random.PRNGKey(a.seed_rand_vec_trace))
+        k1a, k1b = jax.random.split(k1)
+        draws = (jax.random.normal(k1a, (20, k), jnp.float64),
+                 jax.random.normal(k1b, (f["n"], k), jnp.float64),
+                 jcg.rademacher_probes(k2, f["n"], k, jnp.float64))
+        ta = tm._approx
+        ta.lanczos_steps, ta.cg_tol = a.lanczos_steps, a.cg_tol
+        with torch.no_grad():
+            nll_t = float(ta._nll_gaussian_iterative(
+                torch.tensor(CP, dtype=torch.float64), torch.tensor(y), None,
+                *[torch.tensor(np.asarray(d)) for d in draws]))
+        assert abs(nll_t - nll_j) < 1e-8 * abs(nll_j)
 
 
 class TestFITCLaplaceWoodbury:

@@ -315,10 +315,32 @@ def test_every_jax_keyword_at_its_default_constructs(data):
     (dict(ind_points_selection="random"), "items 14 and 17"),
     (dict(num_ind_points=100), "items 14 and 17"),
     (dict(cover_tree_radius=0.5), "items 14 and 17"),
-    (dict(matrix_inversion_method="iterative"), "item 12"),
+    (dict(matrix_inversion_method="iterative"), None),
     (dict(likelihood_additional_param=2.0), "item 15"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_jax_keyword_at_another_value_names_its_item(data, kwargs, item):
+    """Keywords at values the port does not run raise naming their item.
+    ``matrix_inversion_method="iterative"`` (item None) is accepted since
+    fault C4's repair: a Gaussian Vecchia GP and an exact GP take the
+    Cholesky route, as the JAX package does — on ROADMAP.md's input
+    (n = 200, ``default_rng(1)``, y = sin(5 x1) + 0.3 eps, exponential,
+    ``num_neighbors=10``) the JAX package's NLLs at [0.1, 1.0, 0.2] at
+    1e-12 relative, and the same bits as the Cholesky models."""
+    if item is None:
+        rng = np.random.default_rng(1)
+        x = rng.uniform(size=(200, 2))
+        y = np.sin(5 * x[:, 0]) + 0.3 * rng.standard_normal(200)
+        for approx, want in (("vecchia", 135.0316502558083),
+                             ("none", 134.83850277500795)):
+            nll = {}
+            for method in ("iterative", "cholesky"):
+                m = gpt.GPModel(gp_coords=x, cov_function="exponential",
+                                gp_approx=approx, num_neighbors=10,
+                                matrix_inversion_method=method, device="cpu")
+                nll[method] = m.neg_log_likelihood([0.1, 1.0, 0.2], y)
+            assert abs(nll["iterative"] - want) < 1e-12 * want
+            assert nll["iterative"] == nll["cholesky"]
+        return
     with pytest.raises(NotImplementedError, match=item):
         gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
                     device="cpu", **kwargs)

@@ -20,8 +20,10 @@ import torch
 
 import gpboost_tpu as gpb
 import gpboost_tpu_torch as gpt
+import jax
 import jax.numpy as jnp
 from gpboost_tpu.models import gaussian as jgauss
+from gpboost_tpu.ops import cg as jcg
 from gpboost_tpu.models import grouped as jg
 from gpboost_tpu_torch.models import grouped as tg
 from gpboost_tpu_torch.models import spec as tspec
@@ -376,7 +378,7 @@ def test_woodbury_fit_and_predict_consistency(d):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(matrix_inversion_method="iterative"), "item 12"),
+    (dict(matrix_inversion_method="iterative"), "iterative"),
     (dict(weights=np.ones(500)), "item 11"),
     (dict(cluster_ids=np.zeros(500)), None),
     (dict(gp_coords=np.zeros((500, 2)), gp_approx="vecchia"), "item 15"),
@@ -385,7 +387,33 @@ def test_unported_grouped_structures_raise(d, kwargs, item):
     """The unported structures raise naming their item. ``cluster_ids``
     beside grouped effects is ported (the dense route with the
     block-diagonal mask, as in the JAX package): two clusters here, its NLL
-    the JAX package's within 1e-10 relative."""
+    the JAX package's within 1e-10 relative. So is the iterative route
+    (item 12): the public NLL is the Cholesky one, as in the JAX package
+    (1e-10), and the profiled iterative value-and-gradient with the JAX
+    package's probes equals its own at 1e-5
+    (``tests/test_torch_grouped_iterative.py`` holds the route)."""
+    if item == "iterative":
+        groups = np.column_stack([d["groups"], d["groups2"]])
+        tm = gpt.GPModel(group_data=groups, device="cpu", **kwargs)
+        jm = gpb.GPModel(group_data=groups, **kwargs)
+        cp = [0.2, 0.6, 0.3]
+        nll_j = jm.neg_log_likelihood(cp, d["y"])
+        assert abs(tm.neg_log_likelihood(cp, d["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
+        th = np.log([3.0, 1.5])
+        vj, gj, _ = jg.nll_profiled_iterative_value_and_grad(
+            jm.spec, jm._with_y(d["y"]), jnp.asarray(th), None, None, 30, 20)
+        k1, k2 = jax.random.split(jax.random.PRNGKey(1))
+        q = tm._Z.q
+        probes = (torch.tensor(np.asarray(jax.random.normal(
+            k1, (q, 30), jnp.float64))), torch.tensor(np.asarray(
+                jcg.rademacher_probes(k2, q, 30, jnp.float64))))
+        vt, gt, _ = tg.nll_profiled_iterative_value_and_grad(
+            tm._Z, torch.tensor(th), torch.tensor(d["y"]), lanczos_steps=20,
+            probes=probes)
+        assert abs(float(vt) - float(vj)) < 1e-5 * abs(float(vj))
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5)
+        return
     if item is None:
         cid = np.where(np.arange(500) < 200, 3, 9)
         tm = gpt.GPModel(group_data=d["groups"], cluster_ids=cid,
@@ -462,7 +490,23 @@ def test_iid_model_needs_num_data():
 
 
 def test_vecchia_training_data_random_effects_raise(d):
-    m = gpt.GPModel(gp_coords=np.random.default_rng(0).uniform(size=(50, 2)),
-                    gp_approx="vecchia", num_neighbors=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """Ported since this case pinned the raise (items 15 and 17): a
+    Vecchia model's training-data effects are the latent prediction at its
+    coordinates, the JAX package's at 1e-8 relative on the same ordering
+    and neighbours (``tests/test_torch_training_effects.py`` holds the
+    other approximations); an unfitted model raises."""
+    coords = np.random.default_rng(0).uniform(size=(50, 2))
+    kw = dict(gp_coords=coords, gp_approx="vecchia", num_neighbors=5)
+    m, jm = gpt.GPModel(device="cpu", **kw), gpb.GPModel(**kw)
+    m._approx.load_structure(np.asarray(jm._approx.perm),
+                             np.asarray(jm._approx.neighbors))
+    with pytest.raises(ValueError, match="fit"):
         m.predict_training_data_random_effects()
+    y = d["y"][:50]
+    m.y, jm.data = m._y_tensor(y), jm._with_y(y)
+    m.cov_pars_ = jm.cov_pars_ = np.array([0.2, 1.0, 0.3])
+    got = m.predict_training_data_random_effects(predict_var=True)
+    want = np.asarray(jm.predict_training_data_random_effects(
+        predict_var=True))
+    assert np.all(np.max(np.abs(got - want), 0)
+                  < 1e-8 * np.max(np.abs(want), 0))

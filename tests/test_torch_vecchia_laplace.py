@@ -231,13 +231,23 @@ def test_prediction_settings(data):
     assert tm.set_prediction_data(nsim_var_pred=50).nsim_var_pred == 50
     with pytest.raises(NotImplementedError, match="item"):
         tm.set_prediction_data(vecchia_pred_type="order_pred_first")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the JAX package accepts reuse_rand_vec_trace=False and draws the same
+    # probes all the same; the port refuses it, pointing at ROADMAP.md's
+    # "Not faults"
+    with pytest.raises(NotImplementedError, match="Not faults"):
         tm.set_optim_params({"reuse_rand_vec_trace": False})
     tm.set_optim_params({"cg_preconditioner_type": "fitc"})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
-                    num_neighbors=M, likelihood="bernoulli_logit",
-                    matrix_inversion_method="iterative", device="cpu",
-                    ).set_optim_params(
-            {"cg_preconditioner_type": "fitc"}).neg_log_likelihood(
-                CP, data["y"])
+    # the low-rank preconditioners are ported (ROADMAP.md item 12): the
+    # public NLL runs the Nystrom one of rank piv_chol_rank
+    it = gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
+                     num_neighbors=M, likelihood="bernoulli_logit",
+                     matrix_inversion_method="iterative", device="cpu")
+    it.set_optim_params({"cg_preconditioner_type": "fitc",
+                         "piv_chol_rank": 20})
+    nll = it.neg_log_likelihood(CP, data["y"])
+    assert np.isfinite(nll) and nll == float(it._approx.nll_laplace_iterative(
+        torch.tensor(CP, dtype=torch.float64), it._y_tensor(data["y"]), None,
+        num_rand_vec_trace=it.optim_cfg.num_rand_vec_trace,
+        lanczos_steps=min(it.optim_cfg.cg_max_num_it_tridiag, 100, N),
+        cg_tol=it.optim_cfg.cg_delta_conv, preconditioner="fitc",
+        piv_chol_rank=20))
