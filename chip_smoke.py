@@ -135,16 +135,35 @@ one. It
    exact and the Gaussian Vecchia GP with the keyword give the Cholesky
    NLLs' bits) and a profiler trace of the iterative value-and-gradients
    with no scatter (``iterative_ops_trace``);
-12. checks by the kernels' launch counters (set to 0 before each path, read
+12. drives the rest of the Vecchia GP (phase 11): ``vecchia_clustered``
+   (VR_CLUSTERS clusters of VR_CLUSTER_SIZE, float32: construct, NLL,
+   L-BFGS fit, prediction with unseen clusters at the prior; both Vecchia
+   kernels launched, held against their plain versions on the path's
+   cluster-padded neighbour matrices and timed there; a second fit to the
+   same bits; card vs CPU at VR_CPU_CLUSTERS clusters), ``vecchia_pred_types``
+   (the five ``vecchia_pred_type`` values in float64 at the main path's
+   fitted parameters, each against cond_obs_only and, at PT_CPU_N points,
+   against the exact posterior and the CPU), ``vecchia_svc`` (one GP random
+   coefficient, float32, the plain build), ``vecchia_combined`` (CB_LEVELS
+   grouped levels beside the GP: Cholesky and iterative fits within the
+   grouped gate, prediction with unseen levels, CB_ROUNDS GPBoost rounds
+   twice to the same bits; no scatter in its traced value-and-gradients
+   nor the coefficient model's, ``vecchia_rest_ops_trace``),
+   ``vecchia_laplace_cluster_svc`` (``bernoulli_logit``, iterative, with
+   clusters and with a coefficient: fits cut to LCS_MAXIT, prediction by
+   Newton-CG and CG) and ``heteroscedastic_latent`` (the two-set model and
+   ``gp_approx="vecchia_latent"`` at HET_N points, card vs CPU);
+13. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
    Vecchia kernels never on the non-Gaussian path (the latent factors have
    no nugget, outside the kernel gate), no kernel on the grouped LMM and
    GLMM and the exact GP (their work is ``torch.linalg`` and gathers, as in
    the JAX package), the histogram kernel once a leaf on the three boosting
-   paths of 9, the two of 10 and the Poisson LaGaBoost of 11, no kernel on
-   the low-rank GPs and the iterative routes — and the results against
-   float64 plain versions.
+   paths of 9, the two of 10, the Poisson LaGaBoost of 11 and the GPBoost
+   rounds of 12, both Vecchia kernels on 12's clustered path, no kernel on
+   the low-rank GPs, the iterative routes and 12's other paths — and the
+   results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -441,6 +460,8 @@ def check_kernels(coords, y, pred, m, seed, dev):
         r_blk, smem = vk.factors_launch_geometry(int(nbrs.shape[1]), d)
         timed[tag] = dict(case=tag, n=int(nbrs.shape[0]),
                           m=int(nbrs.shape[1]), ms=ms, plain_ms=plain,
+                          padded_row_share=float(
+                              (nbrs < 0).any(1).double().mean()),
                           bound_ms=b_ms, bound_by=b_by, rows_per_block=r_blk,
                           smem_bytes_per_block=smem)
     ms = time_ms(lambda: vk.vecchia_nll_grad(lp, c32, nb, r32, 0.5), 20)
@@ -448,7 +469,9 @@ def check_kernels(coords, y, pred, m, seed, dev):
                     5)
     b_ms, b_by = bound("vecchia_nll_grad", nb, d, n, True, 1)
     timed["nll_grad"] = dict(n=n, m=m, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                             bound_by=b_by, other_shapes=[])
+                             bound_by=b_by, other_shapes=[],
+                             padded_row_share=float(
+                                 (nb < 0).any(1).double().mean()))
     # the NLL kernel's other rows-per-block choices, on the same points:
     # checked against float64 (in row shards, to bound the plain version's
     # memory) and timed
@@ -3678,6 +3701,664 @@ def iterative_paths(gd, lmm_fit, glmm_cov_pars, ng, coords, y, pred, m,
             "grouped_poisson_lagaboost": l_po}, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the Vecchia GP (cluster_ids, the prediction types,
+# GP random coefficients, grouped effects beside the GP, Laplace with
+# clusters or coefficients, the heteroscedastic and latent models)
+# ---------------------------------------------------------------------------
+
+VR_CLUSTERS = 1000                # repeated surveys: 1 000 clusters of 100
+VR_CLUSTER_SIZE = 100
+VR_TRUTH = [0.25, 1.0, 0.1]       # nugget, variance, range (exponential)
+VR_UNSEEN = 0.1                   # share of prediction rows in new clusters
+VR_CPU_CLUSTERS = 20              # 2 000 points of the card-vs-CPU check
+VR_CPU_RTOL = 1e-9
+PT_N_PRED_FULL = 10_000           # order_obs_first_cond_all's points
+PT_N_PRED = 1_000                 # order_pred_first's points
+PT_LATENT_N_PRED = 250            # the latent types' (depth cut: their W
+#                                   solves are CG on as many columns)
+PT_NN = (40, 60)                  # num_neighbors_pred: 2 m, and more
+# a type's mean vs cond_obs_only's in that one's predictive standard
+# deviations (largest, and averaged over the points), its variance relative:
+# the types differ by their approximation errors, which grow with the main
+# path's long fitted range; against the exact posterior at PT_CPU_N points
+# the tighter PT_EXACT_*
+PT_MU_SD_MAX, PT_MU_SD_MEAN, PT_VAR_RTOL = 1.0, 0.25, 0.25
+PT_EXACT_SD_MAX, PT_EXACT_SD_MEAN, PT_EXACT_VAR_RTOL = 0.5, 0.1, 0.05
+PT_CPU_N, PT_CPU_N_PRED = 2_000, 200
+SVC_MAXIT = 10                    # depth cut of the SVC fit (L-BFGS)
+CB_LEVELS = 1000
+CB_N_PRED = 1_000
+CB_ROUNDS = 10
+CB_GATE_RTOL, CB_GATE_ATOL = 0.1, 0.02     # the grouped gate (PR 11)
+LCS_MAXIT = 1                     # depth cut of the Laplace fits
+LCS_N_PRED = 1_000
+HET_N = 5_000                     # dense [n, n] precisions
+HET_N_PRED = 1_000
+HET_CPU_N = 1_000
+HET_MAXIT = 5                     # depth cut of the heteroscedastic fit
+VR_TRACE_N = 20_000               # points of the traced value-and-gradients
+
+
+def make_vr_clustered_data(seed, dev, n_pred):
+    """VR_CLUSTERS independent exponential-GP realisations on
+    VR_CLUSTER_SIZE points each, uniform in the unit square (one batched
+    [C, s, s] Cholesky on the card), plus the nugget; prediction points in
+    training clusters and (VR_UNSEEN of them) in clusters training never
+    saw."""
+    rng = np.random.default_rng(seed + 110)
+    C, s = VR_CLUSTERS, VR_CLUSTER_SIZE
+    coords = rng.uniform(size=(C, s, 2))
+    ct = torch.as_tensor(coords, device=dev)
+    diff = ct[:, :, None, :] - ct[:, None, :, :]
+    cov = VR_TRUTH[1] * torch.exp(-torch.sqrt(torch.sum(diff * diff, -1))
+                                  / VR_TRUTH[2])
+    cov.diagonal(dim1=1, dim2=2).add_(1e-8)
+    z = torch.as_tensor(rng.standard_normal((C, s, 1)), device=dev)
+    b = (torch.linalg.cholesky(cov) @ z)[..., 0].cpu().numpy().ravel()
+    del cov, diff
+    ids = np.repeat(np.arange(C) * 3 + 11, s)
+    y = b + math.sqrt(VR_TRUTH[0]) * rng.standard_normal(C * s)
+    unseen = rng.random(n_pred) < VR_UNSEEN
+    ids_pred = np.where(unseen, 3 * C + 20 + rng.integers(0, 50, n_pred),
+                        ids[rng.integers(0, C * s, n_pred)])
+    return dict(coords=coords.reshape(-1, 2), y=y, ids=ids,
+                pred=rng.uniform(size=(n_pred, 2)), ids_pred=ids_pred,
+                unseen=unseen)
+
+
+def _vr_model(coords, m, seed, dev, dtype=torch.float32, **kw):
+    import gpboost_tpu_torch as gpt
+    kw.setdefault("gp_approx", "vecchia")
+    return gpt.GPModel(gp_coords=coords, cov_function="exponential",
+                       num_neighbors=m, seed=seed, dtype=dtype, device=dev,
+                       **kw)
+
+
+def _kernels_on(vec, cp, y, pred32, nb_pred, tag):
+    """Both Vecchia kernels against their plain versions on the model's
+    own (cluster-padded) neighbour matrices, at the main path's tolerances,
+    and timed there."""
+    from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
+    nb, tab = vec.neighbors, vec.coords_perm
+    n, m = nb.shape
+    d = tab.shape[1]
+    cp32 = torch.as_tensor(cp, dtype=torch.float32, device=tab.device)
+    out = {}
+    for case, table, nbrs, rows in (("train", tab, nb, None),
+                                    ("predict", vec.coords, nb_pred, pred32)):
+        a_k, d_k = vk.vecchia_factors(cp32[1:], table, nbrs, cp32[0], True,
+                                      0.5, row_coords=rows)
+        a_p, d_p = vk.vecchia_factors_plain(cp32[1:], table, nbrs, cp32[0],
+                                            True, 0.5, row_coords=rows)
+        err = max(float((a_k - a_p).abs().max()),
+                  float((d_k - d_p).abs().max()))
+        check(math.isfinite(err) and err <= 2e-5,
+              f"vecchia_factors[{tag} {case}]: max abs err {err} > 2e-5 vs "
+              "the float32 plain version")
+        b_ms, b_by = bound("vecchia_factors", nbrs, d, table.shape[0],
+                           rows is None, 1)
+        out[f"factors_{case}"] = dict(
+            case=f"{tag}_{case}", n=int(nbrs.shape[0]), m=int(nbrs.shape[1]),
+            padded_row_share=float((nbrs < 0).any(1).double().mean()),
+            max_abs_err=err,
+            ms=time_ms(lambda: vk.vecchia_factors(
+                cp32[1:], table, nbrs, cp32[0], True, 0.5, row_coords=rows),
+                20),
+            plain_ms=time_ms(lambda: vk.vecchia_factors_plain(
+                cp32[1:], table, nbrs, cp32[0], True, 0.5, row_coords=rows),
+                5),
+            bound_ms=b_ms, bound_by=b_by)
+    lp = torch.log(cp32)
+    r32 = torch.as_tensor(y, dtype=torch.float32,
+                          device=tab.device)[vec._perm_t]
+    nll = check_nll_grad(lp, tab, nb, r32, 0.5, False)
+    b_ms, b_by = bound("vecchia_nll_grad", nb, d, n, True, 1)
+    out["nll_grad"] = dict(
+        nll, case=tag, n=n, m=m,
+        padded_row_share=float((nb < 0).any(1).double().mean()),
+        ms=time_ms(lambda: vk.vecchia_nll_grad(lp, tab, nb, r32, 0.5), 20),
+        plain_ms=time_ms(lambda: vk.vecchia_nll_grad_plain(
+            lp, tab, nb, r32, 0.5), 5),
+        bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def vecchia_clustered(vc, m, seed, dev):
+    """``cluster_ids`` on the float32 Gaussian Vecchia GP at n = 1e5
+    (VR_CLUSTERS clusters): construct, NLL, L-BFGS fit, prediction at the
+    prediction points (VR_UNSEEN of them in unseen clusters, which must be
+    at the prior). Both Vecchia kernels run the path and are held against
+    their plain versions on its cluster-padded neighbour matrix; a second
+    fit gives the same bits; the float64 model on the card meets the CPU's
+    at VR_CPU_CLUSTERS clusters within VR_CPU_RTOL."""
+    reset_counts()
+    gp, t_construct = _timed(lambda: _vr_model(
+        vc["coords"], m, seed, dev, cluster_ids=vc["ids"]))
+    init = gp._default_init_cov_pars(vc["y"])
+    nll_init, t_nll = _timed(lambda: gp.neg_log_likelihood(init, vc["y"]))
+    _, t_fit = _timed(lambda: gp.fit(vc["y"],
+                                     params={"optimizer_cov": "lbfgs"}))
+    pred, t_pred = _timed(lambda: gp.predict(
+        gp_coords_pred=vc["pred"], cluster_ids_pred=vc["ids_pred"],
+        predict_var=True))
+    launches = read_counts()
+    res = gp._fit_result
+    cp = gp.get_cov_pars()
+    check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
+          f"vecchia_clustered launched {launches}")
+    check(gp.get_current_neg_log_likelihood() < nll_init,
+          "the clustered Vecchia fit did not lower the NLL")
+    mu, var = pred["mu"], pred["var"]
+    u = vc["unseen"]
+    prior = float(cp[0] + cp[1])
+    check(bool(np.all(mu[u] == 0.0)
+               and np.allclose(var[u], prior, rtol=1e-6, atol=0)),
+          "predictions in unseen clusters are not the prior")
+    check(bool(np.all(np.isfinite(mu)) and np.all(var[~u] > 0)
+               and np.all(var[~u] <= prior * (1 + 1e-5))),
+          "clustered predictions not finite / above the prior")
+    # a second fit from the same inits: the same bits
+    gp2 = _vr_model(vc["coords"], m, seed, dev, cluster_ids=vc["ids"])
+    gp2.fit(vc["y"], params={"optimizer_cov": "lbfgs"})
+    check(np.array_equal(gp2.get_cov_pars(), cp)
+          and gp2.get_current_neg_log_likelihood()
+          == gp.get_current_neg_log_likelihood(),
+          "two clustered Vecchia fits differ in their bits")
+    del gp2
+    # the kernels on this path's cluster-padded neighbour matrices
+    from gpboost_tpu_torch.models.spec import map_cluster_ids
+    vec = gp._approx
+    pred32 = torch.as_tensor(vc["pred"], dtype=torch.float32, device=dev)
+    codes = torch.as_tensor(map_cluster_ids(gp._cluster_map, vc["ids_pred"])
+                            .astype(np.int32), device=dev)
+    nb_pred = vec._pred_neighbors(None, pred32, codes)
+    kern = _kernels_on(vec, cp, vc["y"], pred32, nb_pred, "clustered")
+    # card vs CPU, float64, on the first VR_CPU_CLUSTERS clusters
+    k = VR_CPU_CLUSTERS * VR_CLUSTER_SIZE
+    cpu_vals = []
+    for where in (dev, torch.device("cpu")):
+        g64 = _vr_model(vc["coords"][:k], m, seed, where,
+                        dtype=torch.float64, cluster_ids=vc["ids"][:k])
+        nll = g64.neg_log_likelihood(VR_TRUTH, vc["y"][:k])
+        th = torch.log(g64._tensor(VR_TRUTH))
+        _, grad = g64._approx._vg_gaussian(th, g64._y_tensor(vc["y"][:k]),
+                                           None)
+        p = g64.predict(y=vc["y"][:k], gp_coords_pred=vc["pred"][:100],
+                        cluster_ids_pred=vc["ids"][:100], cov_pars=VR_TRUTH,
+                        predict_var=True)
+        cpu_vals.append((nll, grad.cpu().numpy(), p["mu"], p["var"]))
+    a, b = cpu_vals
+    rel = max(abs(a[0] - b[0]) / abs(b[0]),
+              float(np.max(np.abs(a[1] - b[1])) / np.max(np.abs(b[1]))),
+              float(np.max(np.abs(a[2] - b[2]))),
+              float(np.max(np.abs(a[3] - b[3]) / b[3])))
+    check(rel <= VR_CPU_RTOL, f"clustered Vecchia card vs CPU: {rel}")
+    emit({"phase": "vecchia_clustered", "n": len(vc["y"]),
+          "clusters": VR_CLUSTERS, "cluster_size": VR_CLUSTER_SIZE,
+          "truth": VR_TRUTH, "cov_pars": cp.tolist(),
+          "nll_init": nll_init, "nll": gp.get_current_neg_log_likelihood(),
+          "evaluations": res.num_evals, "n_pred": len(mu),
+          "unseen_rows": int(u.sum()), "launches": launches,
+          "padded_row_share": kern["nll_grad"]["padded_row_share"],
+          "kernels_vs_plain": kern, "card_vs_cpu_max_rel_err": rel,
+          "same_bits": True})
+    timings = {"vr_clustered_construct_s": t_construct,
+               "vr_clustered_nll_ms": t_nll * 1e3,
+               "vr_clustered_fit_s": t_fit,
+               "vr_clustered_fit_evaluations": res.num_evals,
+               "vr_clustered_predict_s": t_pred}
+    return launches, timings, kern
+
+
+def vecchia_pred_types(coords, y, pred, cov_pars, m, seed, dev):
+    """The prediction types on a float64 Gaussian Vecchia GP at the GP
+    path's n with the main path's fitted parameters: cond_obs_only (the
+    default) and order_obs_first_cond_all at PT_N_PRED_FULL points (mean,
+    variance, the full covariance), order_pred_first at PT_N_PRED and both
+    latent types at PT_LATENT_N_PRED, with num_neighbors_pred 2 m and 60 (the
+    latent types at
+    2 m); each type's mean within PT_MU_SD_MAX (largest) and PT_MU_SD_MEAN
+    (averaged) of cond_obs_only's predictive standard deviations of it, its
+    variance within PT_VAR_RTOL relative; at PT_CPU_N points every type
+    within PT_EXACT_* of the exact GP's posterior (dense, on the card), and
+    on the card against the CPU within VR_CPU_RTOL (1e-8 for the latent
+    types, whose W solves are CG to 1e-10)."""
+    from gpboost_tpu_torch.models import vecchia_model as tvm
+    reset_counts()
+    gp = _vr_model(coords, m, seed, dev, dtype=torch.float64)
+    cp = [float(v) for v in cov_pars]
+    out, timings = {}, {}
+    tvm.LAPLACE_COUNTS.clear()
+    for nn in PT_NN:
+        gp.set_prediction_data(num_neighbors_pred=nn)
+        for kind, n_p in (("order_obs_first_cond_obs_only", PT_N_PRED_FULL),
+                          ("order_obs_first_cond_all", PT_N_PRED_FULL),
+                          ("order_pred_first", PT_N_PRED),
+                          ("latent_order_obs_first_cond_obs_only",
+                           PT_LATENT_N_PRED),
+                          ("latent_order_obs_first_cond_all",
+                           PT_LATENT_N_PRED)):
+            if kind.startswith("latent") and nn != PT_NN[0]:
+                continue
+            gp.set_prediction_data(vecchia_pred_type=kind)
+            before = tvm.LAPLACE_COUNTS["latent_cg_iters"]
+            p, t = _timed(lambda: gp.predict(
+                y=y, gp_coords_pred=pred[:n_p], cov_pars=cp, predict_var=True,
+                predict_cov_mat=kind != "order_obs_first_cond_obs_only"))
+            check(bool(np.all(np.isfinite(p["mu"]))
+                       and np.all(p["var"] > 0)),
+                  f"{kind} (nn {nn}): predictions not finite / variances "
+                  "not positive")
+            if p["cov"] is not None:
+                check(p["cov"].shape == (n_p, n_p)
+                      and np.allclose(np.diag(p["cov"]), p["var"]),
+                      f"{kind}: covariance shape / diagonal")
+            out[(kind, nn)] = p
+            timings[f"pt_{kind}_nn{nn}_s"] = t
+            if kind.startswith("latent"):
+                timings[f"pt_{kind}_cg_iters"] = (
+                    tvm.LAPLACE_COUNTS["latent_cg_iters"] - before)
+    dev_gate = {}
+    for (kind, nn), p in out.items():
+        ref = out[("order_obs_first_cond_obs_only", nn)]
+        n_p = len(p["mu"])
+        z = np.abs(p["mu"] - ref["mu"][:n_p]) / np.sqrt(ref["var"][:n_p])
+        rv = np.abs(p["var"] - ref["var"][:n_p]) / ref["var"][:n_p]
+        gate = dict(max_abs_mu=float(np.max(np.abs(
+            p["mu"] - ref["mu"][:n_p]))), max_mu_in_sd=float(z.max()),
+            mean_mu_in_sd=float(z.mean()), max_var_rel=float(rv.max()))
+        dev_gate[f"{kind}_nn{nn}"] = gate
+        check(gate["max_mu_in_sd"] <= PT_MU_SD_MAX
+              and gate["mean_mu_in_sd"] <= PT_MU_SD_MEAN
+              and gate["max_var_rel"] <= PT_VAR_RTOL,
+              f"{kind} (nn {nn}) vs cond_obs_only: {gate}")
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the float64 prediction types launched {launches}")
+    del gp
+    torch.cuda.empty_cache()
+    # every type on the card against the CPU, float64
+    res = {}
+    for where in ("card", "cpu"):
+        g = _vr_model(coords[:PT_CPU_N], m, seed,
+                      dev if where == "card" else torch.device("cpu"),
+                      dtype=torch.float64)
+        for kind in ("order_obs_first_cond_obs_only",
+                     "order_obs_first_cond_all", "order_pred_first",
+                     "latent_order_obs_first_cond_obs_only",
+                     "latent_order_obs_first_cond_all"):
+            g.set_prediction_data(vecchia_pred_type=kind)
+            res[(where, kind)] = g.predict(
+                y=y[:PT_CPU_N], gp_coords_pred=pred[:PT_CPU_N_PRED],
+                cov_pars=cp, predict_var=True, predict_cov_mat=True)
+    # the exact posterior at those points (float64, dense, on the card)
+    co = torch.as_tensor(coords[:PT_CPU_N], device=dev)
+    cq = torch.as_tensor(pred[:PT_CPU_N_PRED], device=dev)
+    K = cp[1] * torch.exp(-torch.cdist(co, co) / cp[2])
+    K.diagonal().add_(cp[0])
+    Kpo = cp[1] * torch.exp(-torch.cdist(cq, co) / cp[2])
+    L = torch.linalg.cholesky(K)
+    mu_ex = (Kpo @ torch.cholesky_solve(torch.as_tensor(
+        y[:PT_CPU_N], device=dev)[:, None], L))[:, 0].cpu().numpy()
+    var_ex = (cp[0] + cp[1] - torch.sum(
+        Kpo * torch.cholesky_solve(Kpo.T, L).T, 1)).cpu().numpy()
+    cpu_err, exact_err = {}, {}
+    for kind in {k for _, k in res}:
+        a, b = res[("card", kind)], res[("cpu", kind)]
+        z = np.abs(a["mu"] - mu_ex) / np.sqrt(var_ex)
+        exact_err[kind] = dict(max_mu_in_sd=float(z.max()),
+                               mean_mu_in_sd=float(z.mean()),
+                               max_var_rel=float(np.max(np.abs(
+                                   a["var"] - var_ex) / var_ex)))
+        check(exact_err[kind]["max_mu_in_sd"] <= PT_EXACT_SD_MAX
+              and exact_err[kind]["mean_mu_in_sd"] <= PT_EXACT_SD_MEAN
+              and exact_err[kind]["max_var_rel"] <= PT_EXACT_VAR_RTOL,
+              f"{kind} vs the exact GP at {PT_CPU_N} points: "
+              f"{exact_err[kind]}")
+        err = max(float(np.max(np.abs(a["mu"] - b["mu"]))),
+                  float(np.max(np.abs(a["cov"] - b["cov"]))))
+        cpu_err[kind] = err
+        tol = 1e-8 if kind.startswith("latent") else VR_CPU_RTOL
+        check(err <= tol, f"{kind}: card vs CPU {err} > {tol}")
+    emit({"phase": "vecchia_pred_types", "n": len(y), "m": m,
+          "cov_pars": cp, "num_neighbors_pred": list(PT_NN),
+          "n_pred_full": PT_N_PRED_FULL, "n_pred": PT_N_PRED,
+          "n_pred_latent": PT_LATENT_N_PRED,
+          "vs_cond_obs_only": dev_gate, "vs_exact": exact_err,
+          "card_vs_cpu": cpu_err,
+          "launches": launches, "latent_cg_iters":
+          {k: v for k, v in timings.items() if k.endswith("cg_iters")}})
+    return launches, timings
+
+
+def vecchia_svc(coords, pred, m, seed, dev):
+    """GP random coefficients on a float32 Vecchia GP at the GP path's n:
+    one coefficient column x ~ N(0, 1), y = sin(6 x1) + x cos(4 x2) + 0.5
+    eps. A value-and-gradient, the L-BFGS fit (cut to SVC_MAXIT), the
+    prediction with ``gp_rand_coef_data_pred``. The plain build on the
+    card: the Vecchia kernels' counters read 0, as in the JAX package."""
+    rng = np.random.default_rng(seed + 120)
+    n = len(coords)
+    x = rng.standard_normal(n)
+    y = (np.sin(6 * coords[:, 0]) + x * np.cos(4 * coords[:, 1])
+         + 0.5 * rng.standard_normal(n))
+    x_pred = rng.standard_normal(len(pred))
+    reset_counts()
+    gp, t_construct = _timed(lambda: _vr_model(coords, m, seed, dev,
+                                               gp_rand_coef_data=x))
+    init = gp._default_init_cov_pars(y)
+    nll_init = gp.neg_log_likelihood(init, y)
+    th = torch.log(gp._tensor(init))
+    (v, g), t_vg = _timed(lambda: gp._approx._vg_gaussian(
+        th, gp._y_tensor(y), None))
+    _, t_fit = _timed(lambda: gp.fit(y, params={"optimizer_cov": "lbfgs",
+                                                "maxit": SVC_MAXIT}))
+    p, t_pred = _timed(lambda: gp.predict(
+        gp_coords_pred=pred, gp_rand_coef_data_pred=x_pred,
+        predict_var=True))
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the SVC path launched a kernel: {launches}")
+    check(bool(torch.isfinite(g).all()) and math.isfinite(float(v)),
+          "SVC value-and-gradient not finite")
+    check(gp.get_current_neg_log_likelihood() < nll_init,
+          "the SVC fit did not lower the NLL")
+    check(bool(np.all(np.isfinite(p["mu"])) and np.all(p["var"] > 0)),
+          "SVC predictions not finite")
+    emit({"phase": "vecchia_svc", "n": n, "m": m, "maxit": SVC_MAXIT,
+          "nll_init": nll_init, "nll": gp.get_current_neg_log_likelihood(),
+          "cov_pars": gp.get_cov_pars().tolist(),
+          "evaluations": gp._fit_result.num_evals, "launches": launches})
+    return launches, {"svc_construct_s": t_construct,
+                      "svc_vg_ms": t_vg * 1e3, "svc_fit_s": t_fit,
+                      "svc_fit_evaluations": gp._fit_result.num_evals,
+                      "svc_predict_s": t_pred}
+
+
+def vecchia_combined(coords, y, pred, m, seed, dev):
+    """A float64 Vecchia GP with CB_LEVELS grouped levels beside it at the
+    GP path's n: the L-BFGS fits of the Cholesky and the iterative routes
+    within the grouped gate of each other, the prediction at CB_N_PRED
+    points with 10 % unseen levels, then ``train(..., gp_model=gp,
+    num_boost_round=CB_ROUNDS)`` twice: histogram launches = leaves, the
+    same bits (the traced value-and-gradients: ``vecchia_rest_ops_trace``)."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    rng = np.random.default_rng(seed + 130)
+    n = len(y)
+    group = rng.integers(0, CB_LEVELS, n)
+    yc = y + 0.5 * rng.standard_normal(CB_LEVELS)[group]
+    unseen = rng.random(CB_N_PRED) < 0.1
+    gp_pred = np.where(unseen, CB_LEVELS + 7,
+                       rng.integers(0, CB_LEVELS, CB_N_PRED))
+    init = [0.25, 0.25, 1.0, 0.1]
+
+    def model(method):
+        return _vr_model(coords, m, seed, dev, dtype=torch.float64,
+                         group_data=group, matrix_inversion_method=method)
+
+    reset_counts()
+    fits, timings = {}, {}
+    for method in ("cholesky", "iterative"):
+        gp, t_c = _timed(lambda: model(method))
+        _, t_f = _timed(lambda: gp.fit(yc, params={
+            "optimizer_cov": "lbfgs", "init_cov_pars": init}))
+        fits[method] = gp
+        timings.update({f"cb_{method}_construct_s": t_c,
+                        f"cb_{method}_fit_s": t_f,
+                        f"cb_{method}_fit_evaluations":
+                        gp._fit_result.num_evals})
+    cpc = fits["cholesky"].get_cov_pars()
+    cpi = fits["iterative"].get_cov_pars()
+    check(bool(np.all(np.abs(cpi - cpc) <= CB_GATE_ATOL
+                      + CB_GATE_RTOL * np.abs(cpc))),
+          f"combined: iterative fit {cpi} vs Cholesky {cpc}")
+    p, t_p = _timed(lambda: fits["cholesky"].predict(
+        gp_coords_pred=pred[:CB_N_PRED], group_data_pred=gp_pred,
+        predict_var=True))
+    timings["cb_predict_s"] = t_p
+    # exact cross-covariances with the approximate Psi^-1 (the JAX
+    # package's algorithm) can undershoot: variances clamped at 0 counted
+    check(bool(np.all(np.isfinite(p["mu"])) and np.all(p["var"] >= 0)),
+          "combined predictions not finite")
+    cb_clamped = int(np.sum(p["var"] == 0.0))
+    launches_fit = read_counts()
+    check(launches_fit == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                           "histogram": 0},
+          f"the combined fits launched {launches_fit}")
+    del fits
+    torch.cuda.empty_cache()
+    # GPBoost with the combined model, twice
+    X, yb, X_pred = make_boost_data(seed, yc, CB_N_PRED)
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        ds = gpt.Dataset(X, label=yb, device=dev)
+        gp = model("cholesky")
+        gp.set_optim_params({"optimizer_cov": "lbfgs", "init_cov_pars": init})
+        bst, t_t = _timed(lambda: gpt.train(BOOST_PARAMS, ds, gp_model=gp,
+                                            num_boost_round=CB_ROUNDS))
+        launches = read_counts()
+        reads = grow_tree.host_reads
+        runs.append((bst, launches, reads, t_t))
+    entry = _boost_checks(runs[0][0], "vecchia_combined_boosting",
+                          runs[0][1], runs[0][2], CB_ROUNDS)
+    a, b = runs[0][0], runs[1][0]
+    check(np.array_equal(np.asarray(a._score), np.asarray(b._score))
+          and np.array_equal(a.gp_model.get_cov_pars(),
+                             b.gp_model.get_cov_pars()),
+          "two combined GPBoost trainings differ in their bits")
+    out = a.predict(X_pred, gp_coords_pred=pred[:CB_N_PRED],
+                    group_data_pred=gp_pred, predict_var=True)
+    check(bool(np.all(np.isfinite(out["response_mean"]))),
+          "combined GPBoost predictions not finite")
+    timings.update({f"cb_train_{CB_ROUNDS}r_s": runs[0][3],
+                    "cb_train_evaluations": entry["evaluations"]})
+    emit({"phase": "vecchia_combined", "n": n, "levels": CB_LEVELS,
+          "cov_pars_cholesky": cpc.tolist(), "cov_pars_iterative":
+          cpi.tolist(), "n_pred": CB_N_PRED, "unseen_rows": int(unseen.sum()),
+          "pred_var_clamped_at_0": cb_clamped, **entry,
+          "same_bits": True})
+    return runs[0][1], timings
+
+
+def vecchia_laplace_cluster_svc(ng, m, seed, dev):
+    """``bernoulli_logit`` with ``matrix_inversion_method="iterative"`` at
+    the non-Gaussian path's n, float32: with VR_CLUSTERS clusters of
+    VR_CLUSTER_SIZE, and with one GP random coefficient. The fit cut to
+    LCS_MAXIT, the prediction at LCS_N_PRED points through the Newton-CG
+    mode and CG for the variances (above the dense limit)."""
+    from gpboost_tpu_torch.models import vecchia_model as tvm
+    n = len(ng["yb"])
+    rng = np.random.default_rng(seed + 140)
+    ids = np.repeat(np.arange(n // VR_CLUSTER_SIZE), VR_CLUSTER_SIZE)
+    ids_pred = np.where(rng.random(LCS_N_PRED) < VR_UNSEEN, -1,
+                        ids[rng.integers(0, n, LCS_N_PRED)])
+    x = rng.standard_normal(n)
+    out, timings = {}, {}
+    reset_counts()
+    tvm.LAPLACE_COUNTS.clear()
+    for tag, kw, pkw in (
+            ("cluster", dict(cluster_ids=ids),
+             dict(cluster_ids_pred=ids_pred)),
+            ("svc", dict(gp_rand_coef_data=x),
+             dict(gp_rand_coef_data_pred=rng.standard_normal(LCS_N_PRED)))):
+        gp = _vr_model(ng["coords"], m, seed, dev,
+                       likelihood="bernoulli_logit",
+                       matrix_inversion_method="iterative", **kw)
+        init = gp._default_init_cov_pars(ng["yb"])
+        gp.set_optim_params({"init_cov_pars": init, "maxit": LCS_MAXIT})
+        _, t_f = _timed(lambda: gp.fit(ng["yb"]))
+        p, t_p = _timed(lambda: gp.predict(
+            gp_coords_pred=ng["pred"][:LCS_N_PRED], predict_var=True,
+            predict_response=False, **pkw))
+        check(bool(np.all(np.isfinite(p["mu"])) and np.all(p["var"] > 0)),
+              f"laplace {tag}: predictions not finite")
+        if tag == "cluster":
+            u = ids_pred == -1
+            cpl = gp.get_cov_pars()
+            check(bool(np.all(p["mu"][u] == 0.0)
+                       and np.allclose(p["var"][u], cpl[0], rtol=1e-5)),
+                  "laplace cluster: unseen clusters not at the prior")
+        out[tag] = dict(cov_pars=gp.get_cov_pars().tolist(),
+                        nll=gp.get_current_neg_log_likelihood(),
+                        evaluations=gp._fit_result.num_evals)
+        timings.update({f"lcs_{tag}_fit_s": t_f, f"lcs_{tag}_predict_s": t_p,
+                        f"lcs_{tag}_fit_evaluations":
+                        gp._fit_result.num_evals})
+        del gp
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the Laplace cluster / SVC path launched {launches}")
+    emit({"phase": "vecchia_laplace_cluster_svc", "n": n, "maxit": LCS_MAXIT,
+          "n_pred": LCS_N_PRED, **out, "launches": launches,
+          "counts": dict(tvm.LAPLACE_COUNTS)})
+    return launches, timings
+
+
+def make_het_data(seed, n, n_pred):
+    rng = np.random.default_rng(seed + 150)
+    coords = rng.uniform(size=(n, 2))
+    f1 = np.sin(6 * coords[:, 0]) + np.cos(4 * coords[:, 1])
+    f2 = 0.5 * np.sin(3 * coords[:, 1]) - 1.0
+    y = f1 + np.exp(0.5 * f2) * rng.standard_normal(n)
+    return coords, y, rng.uniform(size=(n_pred, 2))
+
+
+def heteroscedastic_latent(seed, m, dev):
+    """``gaussian_heteroscedastic`` and ``gp_approx="vecchia_latent"`` at
+    n = HET_N, float64 (both build dense [n, n] precisions): NLL, fit (the
+    heteroscedastic one cut to HET_MAXIT), prediction at HET_N_PRED
+    points; the NLLs and predictions on the card against the CPU at
+    HET_CPU_N points within VR_CPU_RTOL. No kernel runs."""
+    coords, y, pred = make_het_data(seed, HET_N, HET_N_PRED)
+    cps = {"heteroscedastic": [1.0, 0.2, 0.5, 0.2],
+           "vecchia_latent": [1.0, 0.2]}
+    kws = {"heteroscedastic": dict(likelihood="gaussian_heteroscedastic"),
+           "vecchia_latent": dict(gp_approx="vecchia_latent")}
+    reset_counts()
+    out, timings = {}, {}
+    for tag, kw in kws.items():
+        gp = _vr_model(coords, m, seed, dev, dtype=torch.float64, **kw)
+        aux = [0.3] if tag == "vecchia_latent" else None
+        nll, t_n = _timed(lambda: gp.neg_log_likelihood(cps[tag], y,
+                                                        aux_pars=aux))
+        params = {"optimizer_cov": "lbfgs", "init_cov_pars": cps[tag]}
+        if tag == "heteroscedastic":
+            params["maxit"] = HET_MAXIT
+        _, t_f = _timed(lambda: gp.fit(y, params=params))
+        p, t_p = _timed(lambda: gp.predict(gp_coords_pred=pred,
+                                           predict_var=True))
+        check(math.isfinite(nll) and gp.get_current_neg_log_likelihood()
+              <= nll, f"{tag}: the fit did not lower the NLL")
+        check(bool(np.all(np.isfinite(p["mu"])) and np.all(p["var"] > 0)),
+              f"{tag}: predictions not finite")
+        out[tag] = dict(nll_init=nll, nll=gp.get_current_neg_log_likelihood(),
+                        cov_pars=gp.get_cov_pars().tolist(),
+                        aux_pars=None if gp.get_aux_pars() is None
+                        else gp.get_aux_pars().tolist(),
+                        evaluations=gp._fit_result.num_evals)
+        timings.update({f"{tag}_nll_s": t_n, f"{tag}_fit_s": t_f,
+                        f"{tag}_fit_evaluations": gp._fit_result.num_evals,
+                        f"{tag}_predict_s": t_p})
+        del gp
+        torch.cuda.empty_cache()
+        vals = []
+        for where in (dev, torch.device("cpu")):
+            g = _vr_model(coords[:HET_CPU_N], m, seed, where,
+                          dtype=torch.float64, **kw)
+            nll_w = g.neg_log_likelihood(cps[tag], y[:HET_CPU_N],
+                                         aux_pars=aux)
+            if aux is not None:
+                g.aux_pars_ = np.asarray(aux)
+            pw = g.predict(y=y[:HET_CPU_N], gp_coords_pred=pred[:100],
+                           cov_pars=cps[tag], predict_var=True)
+            vals.append((nll_w, pw["mu"], pw["var"]))
+        a, b = vals
+        rel = max(abs(a[0] - b[0]) / abs(b[0]),
+                  float(np.max(np.abs(a[1] - b[1]))),
+                  float(np.max(np.abs(a[2] - b[2]) / b[2])))
+        check(rel <= VR_CPU_RTOL, f"{tag}: card vs CPU {rel}")
+        out[tag]["card_vs_cpu_max_rel_err"] = rel
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the heteroscedastic / latent paths launched {launches}")
+    emit({"phase": "heteroscedastic_latent", "n": HET_N,
+          "n_pred": HET_N_PRED, **out, "launches": launches})
+    return launches, timings
+
+
+def vecchia_rest_ops_trace(coords, y, m, seed, dev):
+    """The value-and-gradients of a Vecchia GP with CB_LEVELS grouped levels
+    beside it (Cholesky and iterative) and with a GP random coefficient, on
+    the card under the profiler (its CPU side) at VR_TRACE_N points: no
+    operation that adds with colliding indices."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed + 130)
+    k = VR_TRACE_N
+    group = rng.integers(0, CB_LEVELS, k)
+    x = rng.standard_normal(k)
+    models = [(_vr_model(coords[:k], m, seed, dev, dtype=torch.float64,
+                         group_data=group, matrix_inversion_method=meth),
+               [0.25, 0.25, 1.0, 0.1]) for meth in ("cholesky", "iterative")]
+    models.append((_vr_model(coords[:k], m, seed, dev, dtype=torch.float64,
+                             gp_rand_coef_data=x), [0.25, 1.0, 0.1, 0.5, 0.1]))
+
+    def vg(gp, cp):
+        return gp._approx._vg_gaussian(torch.log(gp._tensor(cp)),
+                                       gp._y_tensor(y[:k]), None)
+
+    for gp, cp in models:         # the structures built once (dense Z) first
+        vg(gp, cp)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for gp, cp in models:
+            vg(gp, cp)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    bad = [x for x in names if any(b in x for b in SCATTERS)]
+    emit({"phase": "vecchia_rest_ops_trace", "n": k, "ops": names,
+          "scatters": bad})
+    check(any("index" in x for x in names), f"empty trace: {names}")
+    check(not bad, f"a combined / SVC value-and-gradient scatters: {bad}")
+    return names
+
+
+def vecchia_rest_paths(coords, y, pred, cov_pars, ng, m, seed, dev):
+    """Phase 11 in order; returns (launches by path, timings, the kernels'
+    cases and times on the cluster-padded matrices)."""
+    timings = {}
+    vc = make_vr_clustered_data(seed, dev, len(pred))
+    l_vc, t, kern = vecchia_clustered(vc, m, seed, dev)
+    timings.update(t)
+    del vc
+    torch.cuda.empty_cache()
+    l_pt, t = vecchia_pred_types(coords, y, pred, cov_pars, m, seed, dev)
+    timings.update(t)
+    torch.cuda.empty_cache()
+    l_svc, t = vecchia_svc(coords, pred, m, seed, dev)
+    timings.update(t)
+    torch.cuda.empty_cache()
+    l_cb, t = vecchia_combined(coords, y, pred, m, seed, dev)
+    timings.update(t)
+    torch.cuda.empty_cache()
+    l_lcs, t = vecchia_laplace_cluster_svc(ng, m, seed, dev)
+    timings.update(t)
+    torch.cuda.empty_cache()
+    l_het, t = heteroscedastic_latent(seed, m, dev)
+    timings.update(t)
+    torch.cuda.empty_cache()
+    return {"vecchia_clustered": l_vc, "vecchia_pred_types": l_pt,
+            "vecchia_svc": l_svc, "vecchia_combined": l_cb,
+            "vecchia_laplace_cluster_svc": l_lcs,
+            "heteroscedastic_latent": l_het}, timings, kern
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3740,6 +4421,7 @@ def main():
     launches, timings, gp_model = main_path(coords, y, pred, args.m,
                                             args.seed, dev)
     bt = incoming_bt(gp_model, dev)
+    main_cov_pars = gp_model.get_cov_pars()
     del gp_model
     boost_launches, boost_timings, bst, ds = boosting_path(
         boost_data, coords, pred, args.m, args.seed, args.rounds, dev)
@@ -3793,6 +4475,15 @@ def main():
         gd, lmm_fit, glmm_model.get_cov_pars(), ng, coords, y, pred, args.m,
         args.seed, args.n, args.n_pred, dev)
     timings.update(it_timings)
+    # the rest of the Vecchia GP: cluster_ids, the prediction types, GP
+    # random coefficients, grouped effects beside the GP, the Laplace
+    # routes with them, the heteroscedastic and latent models
+    vr_launches, vr_timings, vr_kern = vecchia_rest_paths(
+        coords, y, pred, main_cov_pars, ng, args.m, args.seed, dev)
+    timings.update(vr_timings)
+    cases["vecchia_factors"] += [vr_kern["factors_train"],
+                                 vr_kern["factors_predict"]]
+    cases["vecchia_nll_grad"].append(vr_kern["nll_grad"])
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -3826,6 +4517,7 @@ def main():
     del firsts
     lowrank_ops_trace(coords, y, dev)
     iterative_ops_trace(gd, coords, y, dev)
+    vecchia_rest_ops_trace(coords, y, args.m, args.seed, dev)
 
     # a kernel that a path runs must have been launched in that path's run
     paths = {"gp": launches, "boosting": boost_launches,
@@ -3834,7 +4526,7 @@ def main():
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
-             **it_launches}
+             **it_launches, **vr_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -3852,7 +4544,11 @@ def main():
             ("fitc_lagaboost", lr_launches["fitc_lagaboost"],
              ("histogram",)),
             ("grouped_poisson_lagaboost",
-             it_launches["grouped_poisson_lagaboost"], ("histogram",))):
+             it_launches["grouped_poisson_lagaboost"], ("histogram",)),
+            ("vecchia_clustered", vr_launches["vecchia_clustered"],
+             ("vecchia_factors", "vecchia_nll_grad")),
+            ("vecchia_combined", vr_launches["vecchia_combined"],
+             ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")
@@ -3904,7 +4600,9 @@ def main():
                 stack_frame_bytes=max(x["stack_frame_bytes"]
                                       for x in kernel_ptxas["factors_kernel"]),
                 ptxas=kernel_ptxas["factors_kernel"],
-                other_shapes=[timed["predict"]])
+                padded_row_share=t["padded_row_share"],
+                other_shapes=[timed["predict"], vr_kern["factors_train"],
+                              vr_kern["factors_predict"]])
         elif name == "vecchia_nll_grad":
             entry["max_abs_err_is"] = ("largest gradient component error vs "
                                        "float64 autograd")
@@ -3915,7 +4613,8 @@ def main():
                 stack_frame_bytes=max(x["stack_frame_bytes"]
                                       for x in kernel_ptxas["nll_grad_kernel"]),
                 ptxas=kernel_ptxas["nll_grad_kernel"],
-                other_shapes=t["other_shapes"])
+                padded_row_share=t["padded_row_share"],
+                other_shapes=t["other_shapes"] + [vr_kern["nll_grad"]])
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

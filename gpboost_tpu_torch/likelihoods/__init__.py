@@ -18,8 +18,9 @@ Not ported: the two zero-one-censored families whose densities need the
 incomplete beta / gamma functions with derivatives
 (``zero_one_censored_transformed_beta``, ``zero_one_censored_shifted_gamma``;
 ``likelihoods/special.py``, ROADMAP.md Queue A, item 11) — registered, and
-every use raises. ``gaussian_heteroscedastic`` is registered for its name;
-its two-set model is ROADMAP.md Queue A, item 15.
+every use raises. ``gaussian_heteroscedastic`` is registered for its name:
+its two-set model is ``models/heteroscedastic.py``, and the single-location
+functions of its entry raise, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -593,18 +594,17 @@ for _name, _aux_names, _default in (
 NOT_PORTED = {
     "zero_one_censored_transformed_beta": SPECIAL_ITEM,
     "zero_one_censored_shifted_gamma": SPECIAL_ITEM,
-    "gaussian_heteroscedastic":
-        "ROADMAP.md Queue A, item 15 (models/heteroscedastic.py)",
 }
 
 
 def _ll_het_single(y, loc, aux):
     # gaussian_heteroscedastic is a TWO-location family (mean +
-    # log-variance); its model is not ported, the entry only carries the name
+    # log-variance); its model is models/heteroscedastic.py, the entry only
+    # carries the name for generic code
     raise NotImplementedError(
-        "gaussian_heteroscedastic uses the two-set engine, which is not "
-        "ported to gpboost_tpu_torch yet ("
-        + NOT_PORTED["gaussian_heteroscedastic"] + ")")
+        "gaussian_heteroscedastic uses the two-set engine "
+        "(gpboost_tpu_torch.models.heteroscedastic), not the "
+        "single-location API")
 
 
 _register(LikelihoodFamily(

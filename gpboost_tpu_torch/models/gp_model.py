@@ -35,6 +35,12 @@ the JAX package dispatches them (``gpboost_tpu/models/gp_model.py:65-345``):
   ``Psi^-1 r`` solve; other likelihoods — the Vecchia-Laplace
   approximation (dense, or ``matrix_inversion_method="iterative"``: CG +
   stochastic Lanczos), its fit and prediction, the LaGaBoost gradient.
+  With ``cluster_ids`` (searches within a cluster), GP random coefficients
+  (the covariate-weighted build), every ``vecchia_pred_type`` of
+  :meth:`GPModel.set_prediction_data`, grouped effects beside the GP
+  (``models/vecchia_combined.py``, gaussian), the heteroscedastic two-set
+  model (``models/heteroscedastic.py``) and ``gp_approx="vecchia_latent"``
+  (the nugget as the gaussian likelihood's aux parameter).
 - **a low-rank or full-scale GP** (``gp_approx="fitc"``,
   ``"full_scale_tapering"``, ``"full_scale_vecchia"``,
   ``"full_scale_vecchia_correlation_based"``; ``models/fitc_model.py``,
@@ -52,10 +58,10 @@ a low-rank preconditioner), full-scale tapering and full-scale Vecchia;
 the exact GP, the Gaussian Vecchia GP and FITC take their Cholesky route,
 as in the JAX package. ``get_num_cg_steps`` reads the conditioning.
 
-Every other structure — the other approximations, grouped effects, GP
-random coefficients or ``cluster_ids`` with a Vecchia GP, grouped effects
-or GP random coefficients with a low-rank GP, weights — raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Every other structure — ``gp_approx="tapering"``, grouped effects or GP
+random coefficients with a low-rank GP, weights — raises
+``NotImplementedError`` naming its ROADMAP.md item, and so do the
+combinations the JAX package refuses.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
 raises) unless ``device="cpu"`` is passed. Inputs and outputs are numpy
@@ -83,6 +89,7 @@ from gpboost_tpu_torch.models.spec import (GroupedRESpec, ModelData,
 from gpboost_tpu_torch.models.clustered_approx import ClusteredApprox
 from gpboost_tpu_torch.models.fitc_model import FITCGP
 from gpboost_tpu_torch.models.fsva_model import FSVAGP
+from gpboost_tpu_torch.models.vecchia_combined import VecchiaGroupedGP
 from gpboost_tpu_torch.models.vecchia_model import (DENSE_LAPLACE_MAX_N,
                                                     VecchiaGP)
 from gpboost_tpu_torch.ops.cov_fns import CovFunction, euclidean_distance
@@ -140,6 +147,14 @@ _Y_RULES = (
 # the optimizers of the grouped Gaussian fit (the profiled route)
 _PROFILED = ("gradient_descent", "lbfgs", "lbfgs_linesearch_nocedal_wright",
              "nelder_mead", "adam")
+
+
+# the reference's vecchia_pred_type values (Vecchia_utils.cpp:1634, 2018,
+# 2241); the first is the default
+VECCHIA_PRED_TYPES = ("order_obs_first_cond_obs_only",
+                      "order_obs_first_cond_all", "order_pred_first",
+                      "latent_order_obs_first_cond_obs_only",
+                      "latent_order_obs_first_cond_all")
 
 
 # the low-rank and full-scale approximations (fitc_model.py, fsva_model.py)
@@ -222,7 +237,23 @@ class GPModel:
                       "num_data": num_data}
         given = [k for k, v in group_keys.items() if v is not None]
         self._iid_model = False
-        is_vecchia = gp_coords is not None and gp_approx == "vecchia"
+        likelihood = _canonical_likelihood(likelihood)
+        self.gp_approx_user = gp_approx
+        if (likelihood == "gaussian_heteroscedastic" and gp_approx == "none"
+                and gp_coords is not None):
+            # the dense heteroscedastic model: a Vecchia approximation that
+            # conditions on ALL earlier points is exact (JAX
+            # gp_model.py:94-111)
+            n_het = len(np.asarray(gp_coords))
+            if n_het > 1000:
+                raise ValueError(
+                    "likelihood='gaussian_heteroscedastic' with "
+                    f"gp_approx='none' is only supported for n <= 1000 "
+                    f"(have n={n_het}); use gp_approx='vecchia'")
+            gp_approx, num_neighbors, vecchia_ordering = (
+                "vecchia", n_het - 1, "none")
+        is_vecchia = (gp_coords is not None
+                      and gp_approx in ("vecchia", "vecchia_latent"))
         self._lowrank = gp_coords is not None and gp_approx in LOWRANK_APPROX
         if self._lowrank and (given or gp_rand_coef_data is not None):
             raise NotImplementedError(
@@ -230,16 +261,22 @@ class GPModel:
                 "(as the JAX package): no grouped random effects, iid model "
                 "or GP random coefficients beside it")
         if is_vecchia:
-            for what, value in (
-                    ("grouped random effects or the iid model ("
-                     f"{', '.join(given)}) together with a Vecchia GP",
-                     given),
-                    ("GP random coefficients (gp_rand_coef_data) with "
-                     "gp_approx='vecchia'", gp_rand_coef_data is not None),
-                    ("cluster_ids with gp_approx='vecchia'",
-                     cluster_ids is not None)):
-                if value:
-                    raise _not_ported(what, "Queue A, item 15")
+            # the JAX package's refusals (gp_model.py:171-191)
+            for msg, bad in (
+                    ("gp_approx='vecchia' with GP random coefficients does "
+                     "not support additional grouped random effects",
+                     gp_rand_coef_data is not None and group_data is not None),
+                    ("gp_approx='vecchia' with cluster_ids does not support "
+                     "additional grouped random effects",
+                     cluster_ids is not None and group_data is not None),
+                    ("gp_approx='vecchia_latent' does not support GP random "
+                     "coefficients", gp_rand_coef_data is not None
+                     and gp_approx == "vecchia_latent"),
+                    ("Vecchia with grouped random effects currently supports "
+                     "the gaussian likelihood", group_data is not None and (
+                         likelihood != "gaussian" or gp_approx != "vecchia"))):
+                if bad:
+                    raise NotImplementedError(msg)
         if gp_coords is None and group_data is None:
             if num_data is None:
                 raise ValueError(
@@ -257,12 +294,13 @@ class GPModel:
         self._exact = not (self._grouped_only or is_vecchia or self._lowrank)
         if weights is not None:
             raise _not_ported("weights", "Queue A, item 11")
-        likelihood = _canonical_likelihood(likelihood)
-        if likelihood == "gaussian" and likelihood_additional_param is not None:
-            raise _not_ported(
-                "likelihood_additional_param with likelihood='gaussian' (the "
-                "latent-process parametrisation with the nugget as an "
-                "auxiliary parameter)", "Queue A, item 15")
+        # gaussian_heteroscedastic: two latent sets (mean and log-variance),
+        # each with its own covariance parameters (num_sets_re_ = 2)
+        self.num_sets_re = 2 if likelihood == "gaussian_heteroscedastic" else 1
+        if self.num_sets_re == 2 and not is_vecchia:
+            raise NotImplementedError(
+                "likelihood='gaussian_heteroscedastic' currently requires "
+                "gp_approx='vecchia' (like the reference's test coverage)")
         values = dict(cov_fct_taper_range=cov_fct_taper_range,
                       cov_fct_taper_shape=cov_fct_taper_shape,
                       ind_points_selection=ind_points_selection,
@@ -283,12 +321,9 @@ class GPModel:
         # non-Gaussian Vecchia GP, full-scale tapering and full-scale
         # Vecchia; elsewhere (the exact GP, the Gaussian Vecchia GP, FITC)
         # the JAX package computes the Cholesky result, and so does the port
-        if gp_coords is not None and gp_approx in ("tapering",
-                                                   "vecchia_latent"):
-            raise _not_ported(f"gp_approx='{gp_approx}'",
-                              "Queue A, item 14" if gp_approx == "tapering"
-                              else "Queue A, item 15")
-        if gp_coords is not None and not (gp_approx in ("vecchia", "none")
+        if gp_coords is not None and gp_approx == "tapering":
+            raise _not_ported("gp_approx='tapering'", "Queue A, item 14")
+        if gp_coords is not None and not (is_vecchia or gp_approx == "none"
                                           or self._lowrank):
             raise ValueError(f"gp_approx '{gp_approx}' is not supported")
         self.device = resolve_device(device)
@@ -316,6 +351,7 @@ class GPModel:
         self.current_nll_ = None
         self.aux_pars_ = None
         self.nsim_var_pred = None
+        self.vecchia_pred_type = None
         self._train_fixed_effects = None
         self.y = None
         self.X = None
@@ -333,7 +369,9 @@ class GPModel:
             else [int(v) for v in np.atleast_1d(np.asarray(
                 drop_intercept_group_rand_effect)).astype(int)])
         self._cluster_map = None
-        self._lowrank_codes = None
+        self._approx_codes = None
+        self._gp_rand_coef_np = None
+        self._combined = False
         self._clustered_batched = False
         self._blocks = None
         if not (is_vecchia or self._lowrank):
@@ -397,15 +435,70 @@ class GPModel:
         cf = CovFunction.create(cov_function, shape=cov_fct_shape,
                                 dim_coords=coords.shape[1])
         self.cov_fn = cf
+        # the parameter counts of the GP's components (the base GP and each
+        # random coefficient) and of the grouped ones (one each)
+        self._approx_comps = [cf.num_cov_par]
         if self._lowrank:
             self._approx = self._make_lowrank(coords, cluster_ids)
+        elif group_data is not None:
+            self._approx = self._make_combined(
+                coords, group_data, group_rand_coef_data,
+                ind_effect_group_rand_coef, drop_intercept_group_rand_effect)
         else:
+            if gp_rand_coef_data is not None:
+                rc = np.asarray(gp_rand_coef_data, np.float64).reshape(
+                    self.num_data, -1)
+                self._gp_rand_coef_np = rc
+                self._approx_comps = [cf.num_cov_par] * (1 + rc.shape[1])
+            if cluster_ids is not None:
+                self._set_cluster_codes(cluster_ids)
             with timed("GPModel: ordering + neighbor search", sync=True):
                 self._approx = VecchiaGP(
                     coords, cf, num_neighbors=(num_neighbors or 20),
                     ordering=vecchia_ordering, seed=seed,
-                    likelihood=likelihood, dtype=dtype, device=self.device)
-        self.num_cov_pars = cf.num_cov_par + (1 if self.is_gaussian else 0)
+                    likelihood=likelihood,
+                    nugget_in_pars=(likelihood == "gaussian"
+                                    and gp_approx == "vecchia"),
+                    rand_coef_data=self._gp_rand_coef_np,
+                    cluster_codes=self._approx_codes, dtype=dtype,
+                    device=self.device)
+        self.num_cov_pars = (sum(self._approx_comps)
+                             + (1 if self.is_gaussian else 0)
+                             ) * self.num_sets_re
+
+    def _set_cluster_codes(self, cluster_ids) -> None:
+        cid = np.asarray(cluster_ids).ravel()
+        if cid.shape[0] != self.num_data:
+            raise ValueError(f"cluster_ids has {cid.shape[0]} entries "
+                             f"for {self.num_data} data points")
+        self._cluster_map, codes = np.unique(cid, return_inverse=True)
+        self._approx_codes = codes.reshape(-1)
+
+    def _make_combined(self, coords, group_data, group_rand_coef_data,
+                       ind_effect_group_rand_coef,
+                       drop_intercept_group_rand_effect):
+        """The Vecchia GP with grouped random effects
+        (``models/vecchia_combined.py``; JAX ``gp_model.py:186-214``)."""
+        components, self.data, info = make_model_data(
+            group_data, group_rand_coef_data, ind_effect_group_rand_coef,
+            drop_intercept_group_rand_effect, dtype=self.dtype,
+            device=self.device)
+        if info["num_data"] != self.num_data:
+            raise ValueError(f"group_data has {info['num_data']} rows, "
+                             f"gp_coords {self.num_data}")
+        self._group_maps = info["group_maps"]
+        self._combined = True
+        self.spec = ModelSpec(components=tuple(components),
+                              likelihood=self.likelihood,
+                              num_data=self.num_data)
+        self._approx_comps = [1] * len(components) + self._approx_comps
+        with timed("GPModel: ordering + neighbor search", sync=True):
+            return VecchiaGroupedGP(
+                coords, self.cov_fn, self.spec, self.data,
+                num_neighbors=(self.num_neighbors or 20),
+                ordering=self.vecchia_ordering, seed=self.seed,
+                matrix_inversion_method=self.matrix_inversion_method,
+                dtype=self.dtype, device=self.device)
 
     def _make_lowrank(self, coords: np.ndarray, cluster_ids):
         """The FITC / full-scale-tapering or full-scale-Vecchia model of
@@ -444,9 +537,8 @@ class GPModel:
             if cid.shape[0] != coords.shape[0]:
                 raise ValueError(f"cluster_ids has {cid.shape[0]} entries "
                                  f"for {coords.shape[0]} data points")
-            self._cluster_map, codes = np.unique(cid, return_inverse=True)
-            self._lowrank_codes = codes.reshape(-1)
-            return ClusteredApprox(coords, codes.reshape(-1), make_sub,
+            self._set_cluster_codes(cid)
+            return ClusteredApprox(coords, self._approx_codes, make_sub,
                                    likelihood=self.likelihood,
                                    dtype=self.dtype, device=self.device)
 
@@ -525,18 +617,29 @@ class GPModel:
     def set_prediction_data(self, vecchia_pred_type=None,
                             num_neighbors_pred=None, nsim_var_pred=None,
                             **kwargs):
-        """Prediction-time settings (``GPModel.set_prediction_data``).
-        Ported: ``nsim_var_pred`` (simulated predictive variances of the
+        """Prediction-time settings (``GPModel.set_prediction_data``, JAX
+        ``gp_model.py:435-463``): ``vecchia_pred_type`` (one of
+        :data:`VECCHIA_PRED_TYPES`; the Gaussian Vecchia GP's prediction
+        route), ``num_neighbors_pred`` (the prediction's conditioning-set
+        size, at most the number of data points; default 2 m) and
+        ``nsim_var_pred`` (simulated predictive variances of the
         Vecchia-Laplace prediction, with that many draws; the grouped
         models' Cholesky route computes its variances exactly and does not
-        read it). The other settings and the validation prediction data
-        raise (ROADMAP.md Queue A, items 15 and 18)."""
-        given = dict(kwargs, vecchia_pred_type=vecchia_pred_type,
-                     num_neighbors_pred=num_neighbors_pred)
-        unported = sorted(k for k, v in given.items() if v is not None)
+        read it). The validation prediction data (``gp_coords_pred``, ...)
+        raise (ROADMAP.md Queue A, item 18)."""
+        unported = sorted(k for k, v in kwargs.items() if v is not None)
         if unported:
             raise _not_ported(f"set_prediction_data({', '.join(unported)})",
-                              "Queue A, items 15 and 18")
+                              "Queue A, item 18")
+        if vecchia_pred_type is not None:
+            if vecchia_pred_type not in VECCHIA_PRED_TYPES:
+                raise ValueError(
+                    f"vecchia_pred_type {vecchia_pred_type!r}: one of "
+                    f"{VECCHIA_PRED_TYPES}")
+            self.vecchia_pred_type = vecchia_pred_type
+        if num_neighbors_pred is not None and self._approx is not None:
+            self._approx.num_neighbors_pred = min(int(num_neighbors_pred),
+                                                  self.num_data)
         if nsim_var_pred is not None:
             self.nsim_var_pred = int(nsim_var_pred)
         return self
@@ -552,6 +655,18 @@ class GPModel:
         """Whether the likelihood is gaussian (what the boosting objective
         asks before it takes the ``Psi^-1 r`` route)."""
         return self.likelihood == "gaussian"
+
+    @property
+    def _latent_gaussian(self) -> bool:
+        """``gp_approx="vecchia_latent"`` with the gaussian likelihood: the
+        latent-process Vecchia GP with the nugget as the likelihood's
+        auxiliary parameter, through the Laplace route (JAX
+        ``gp_model.py:681-688``)."""
+        return self.is_gaussian and self.gp_approx == "vecchia_latent"
+
+    @property
+    def _laplace_route(self) -> bool:
+        return not self.is_gaussian or self._latent_gaussian
 
     def get_aux_pars(self):
         """Auxiliary parameters of the likelihood (user scale), or None."""
@@ -587,6 +702,11 @@ class GPModel:
         objective. Returns a tensor on the model's device."""
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
         cp = self._tensor(cov_pars_np)
+        if self._latent_gaussian:
+            raise NotImplementedError(
+                "Psi^-1 r of gp_approx='vecchia_latent' (the GPBoost "
+                "algorithm with it): the JAX package densifies Psi there; "
+                "use gp_approx='vecchia'")
         if self._approx is None:
             with torch.no_grad():
                 return self._gauss_ops().psi_solve(cp, self._tensor(r))
@@ -654,9 +774,20 @@ class GPModel:
                     return float(self._gauss_ops().nll(cp, r))
                 return float(self._nll_laplace(cp, self._aux_tensor(aux_pars),
                                                fe, y_t))
+        if self._latent_gaussian:
+            # latent-process Vecchia + iid noise: cov_pars = GP parameters,
+            # the nugget an aux parameter (default 1, as the JAX package)
+            ap = (self._tensor(np.atleast_1d(np.asarray(aux_pars,
+                                                        np.float64)))
+                  if aux_pars is not None else torch.ones(
+                      1, dtype=self.dtype, device=self.device))
+            self._approx.ensure_neighbors(cov_pars_np)
+            with torch.no_grad():
+                return float(self._approx.nll_laplace(
+                    self._tensor(cov_pars_np), y_t, ap, fe))
         if not self.is_gaussian:
             cp, ap = self._tensor(cov_pars_np), self._aux_tensor(aux_pars)
-            if self._lowrank:
+            if self._lowrank or self.num_sets_re == 2:
                 self._approx.ensure_neighbors(cov_pars_np)
             with torch.no_grad():
                 if (self.matrix_inversion_method == "iterative"
@@ -706,7 +837,7 @@ class GPModel:
         var_y = float(np.var(y, ddof=1))
         bernoulli = self.likelihood in ("bernoulli_probit", "bernoulli_logit")
         if self._approx is not None:
-            comps = [self.cov_fn.num_cov_par]
+            comps = list(self._approx_comps)
         else:
             comps = [c.num_cov_par for c in self.spec.components]
         ncomp = max(len(comps), 1)
@@ -725,7 +856,10 @@ class GPModel:
                                  ).sum(-1))
                     mean_dist = float(d[np.triu_indices(m, 1)].mean())
                 pars.extend([mean_dist / 3.0] * (num_par - 1))
-        return np.asarray(pars, dtype=np.float64)
+        out = np.asarray(pars, dtype=np.float64)
+        # a second latent set starts from the same values
+        # (re_model_template.h:4486-4503)
+        return np.concatenate([out] * self.num_sets_re)
 
     def fit(self, y, X=None, params=None, offset=None, fixed_effects=None):
         """Estimate covariance (and regression) parameters
@@ -999,11 +1133,6 @@ class GPModel:
 
         Returns dict with 'mu', 'var', 'cov' (numpy) like the reference.
         """
-        if self._approx is not None and not self._lowrank and (
-                gp_rand_coef_data_pred is not None
-                or cluster_ids_pred is not None):
-            raise _not_ported("gp_rand_coef_data_pred / cluster_ids_pred "
-                              "of a Vecchia model", "Queue A, item 15")
         cp_src = cov_pars if cov_pars is not None else self.cov_pars_
         if cp_src is None:
             raise ValueError("predict: the model is not fitted; pass "
@@ -1018,6 +1147,15 @@ class GPModel:
         fep = (None if fixed_effects_pred is None
                else self._tensor(fixed_effects_pred))
         beta = None if self.coefs_ is None else self._tensor(self.coefs_)
+        if self.num_sets_re == 2:
+            with torch.no_grad(), timed("GPModel: predict", sync=True):
+                mean, var = self._predict_het(
+                    y_t, fe, fep, beta, X_pred, cov_pars_np, gp_coords_pred,
+                    bool(predict_response),
+                    bool(predict_var or predict_cov_mat))
+            return {"mu": mean.cpu().numpy(),
+                    "var": None if var is None else var.cpu().numpy(),
+                    "cov": None}
         if beta is not None and X_pred is not None:
             xbp = self._tensor(X_pred) @ beta
             fep = xbp if fep is None else fep + xbp
@@ -1051,7 +1189,8 @@ class GPModel:
                     "var": var.cpu().numpy() if (want_var and var is not None)
                     else None,
                     "cov": None if cov is None else cov.cpu().numpy()}
-        if group_data_pred is not None or group_rand_coef_data_pred is not None:
+        if not self._combined and (group_data_pred is not None
+                                   or group_rand_coef_data_pred is not None):
             raise ValueError("predict: 'group_data_pred' given, but the "
                              "model has no grouped random effects")
         if gp_coords_pred is None:
@@ -1060,18 +1199,49 @@ class GPModel:
         if cp.ndim == 1:
             cp = cp[:, None]
         want_var = bool(predict_var or predict_cov_mat)
+        extra = {}
+        if not self._lowrank and not self._combined:
+            if self._approx.z is not None:
+                extra["z_pred"] = gp_rand_coef_data_pred
+            if self._approx.codes is not None:
+                if cluster_ids_pred is None:
+                    raise ValueError(
+                        "cluster_ids_pred is required for predictions from "
+                        "a model trained with cluster_ids")
+                extra["codes_pred"] = map_cluster_ids(self._cluster_map,
+                                                      cluster_ids_pred)
         with torch.no_grad(), timed("GPModel: predict", sync=True):
             if self._lowrank:
                 mean, var = self._predict_lowrank(
                     y_t, fe, fep, cov_pars_np, self._tensor(cp),
                     cluster_ids_pred, bool(predict_response), want_var)
-            elif self.is_gaussian:
-                self._approx.ensure_neighbors(cov_pars_np)
-                mean, var = self._approx.predict_gaussian(
-                    self._tensor(cov_pars_np), y_t, self._tensor(cp), fe,
-                    bool(predict_response), want_var)
+            elif self._combined:
+                mean, var = self._predict_combined(
+                    y_t, fe, cov_pars_np, self._tensor(cp), group_data_pred,
+                    group_rand_coef_data_pred, bool(predict_response),
+                    bool(predict_var))
                 if fep is not None:
                     mean = mean + fep
+            elif not self._laplace_route:
+                self._approx.ensure_neighbors(cov_pars_np)
+                mean, var, covm = self._predict_vecchia_gaussian(
+                    y_t, fe, self._tensor(cov_pars_np), self._tensor(cp),
+                    bool(predict_response), bool(predict_var), want_var,
+                    extra)
+                if fep is not None:
+                    mean = mean + fep
+                if covm is not None:
+                    return {"mu": mean.cpu().numpy(),
+                            "var": None if var is None else var.cpu().numpy(),
+                            "cov": (covm.cpu().numpy() if predict_cov_mat
+                                    else None)}
+            elif extra:
+                # random coefficients or clusters: the dense (or CG) route
+                # with the exact cross-covariance, as the JAX package
+                mean, var = self._approx.predict_laplace(
+                    self._tensor(cov_pars_np), y_t, self._aux_tensor(),
+                    self._tensor(cp), fe, fep, bool(predict_response),
+                    want_var, **extra)
             elif (self.nsim_var_pred is not None
                   or self.num_data > _SIM_PRED_MIN_N):
                 # simulated predictive variances, matrix-free
@@ -1093,6 +1263,84 @@ class GPModel:
         cov = (None if (not predict_cov_mat or var_np is None)
                else np.diag(var_np))
         return {"mu": mu_np, "var": var_np, "cov": cov}
+
+    def _predict_vecchia_gaussian(self, y_t, fe, cp, coords_pred,
+                                  predict_response, predict_var, want_var,
+                                  extra):
+        """(mean, var, cov or None) of a Gaussian Vecchia GP by
+        ``vecchia_pred_type`` (JAX ``gp_model.py:1389-1456``): the two
+        orderings with the prediction points among the conditioning sets and
+        the latent types give a full covariance, the default
+        (``order_obs_first_cond_obs_only``) local kriging with variances
+        only."""
+        vec, kind = self._approx, self.vecchia_pred_type
+        if kind == "order_pred_first":
+            mean, covm = vec.predict_gaussian_pred_first(
+                cp, y_t, coords_pred, fe, predict_response)
+            return (mean, torch.diagonal(covm) if predict_var else None,
+                    covm)
+        if kind in ("latent_order_obs_first_cond_obs_only",
+                    "latent_order_obs_first_cond_all"):
+            mean, var, covm = vec.predict_gaussian_latent_vecchia(
+                cp, y_t, coords_pred, fe, kind.endswith("cond_obs_only"),
+                predict_response)
+            return mean, var if predict_var else None, covm
+        if kind == "order_obs_first_cond_all" and len(extra) < 2:
+            mean, covm = vec.predict_gaussian_cond_all(
+                cp, y_t, coords_pred, fe, predict_response, **extra)
+            return (mean, torch.diagonal(covm) if predict_var else None,
+                    covm)
+        mean, var = vec.predict_gaussian(cp, y_t, coords_pred, fe,
+                                         predict_response, want_var, **extra)
+        return mean, var, None
+
+    def _predict_combined(self, y_t, fe, cov_pars_np, coords_pred,
+                          group_data_pred, group_rand_coef_data_pred,
+                          predict_response, predict_var):
+        """The Vecchia GP with grouped effects (JAX ``gp_model.py:
+        1357-1388``): the prediction rows' incidence, an unseen level a
+        zero row that keeps its prior variance."""
+        if group_data_pred is None:
+            raise ValueError("predict: 'group_data_pred' is required")
+        codes, weights = self._pred_codes(group_data_pred,
+                                          group_rand_coef_data_pred)
+        vec = self._approx
+        n_p = coords_pred.shape[0]
+        Zp = torch.zeros((n_p, vec.q_total), dtype=self.dtype,
+                         device=self.device)
+        for j, comp in enumerate(self.spec.components):
+            col = codes[:, comp.code_col]
+            rows = torch.nonzero(col < comp.num_groups).reshape(-1)
+            Zp[rows, vec._Z.offsets[j] + col[rows]] = weights[rows, j]
+        return vec.predict_gaussian(self._tensor(cov_pars_np), y_t,
+                                    coords_pred, fe, predict_response,
+                                    predict_var, Zp, weights)
+
+    def _predict_het(self, y_t, fe, fep, beta, X_pred, cov_pars_np,
+                     gp_coords_pred, predict_response, want_var):
+        """``gaussian_heteroscedastic`` (JAX ``gp_model.py:1311-1343``): the
+        stacked [2n] / [2 n_p] fixed parts (a single-set input applies to
+        set 0), a coefficient vector per set."""
+        if gp_coords_pred is None:
+            raise ValueError("predict: 'gp_coords_pred' is required")
+        cp = np.asarray(gp_coords_pred, dtype=np.float64)
+        cp = self._tensor(cp[:, None] if cp.ndim == 1 else cp)
+        n, n_p = self.num_data, cp.shape[0]
+        if fe is not None and fe.shape[0] != 2 * n:
+            fe = torch.cat([fe, torch.zeros_like(fe)])
+        if fep is not None and fep.shape[0] != 2 * n_p:
+            fep = torch.cat([fep, torch.zeros_like(fep)])
+        if beta is not None and self.X is not None:
+            p = self.X.shape[1]
+            b1, b2 = beta[:p], beta[p:]
+            xb = torch.cat([self.X @ b1, self.X @ b2])
+            fe = xb if fe is None else fe + xb
+            Xp = (self._tensor(X_pred) if X_pred is not None else torch.zeros(
+                (n_p, p), dtype=self.dtype, device=self.device))
+            xbp = torch.cat([Xp @ b1, Xp @ b2])
+            fep = xbp if fep is None else fep + xbp
+        return self._approx.predict_het(self._tensor(cov_pars_np), y_t, cp,
+                                        fe, fep, predict_response, want_var)
 
     def _predict_lowrank(self, y_t, fe, fep, cov_pars_np, coords_pred,
                          cluster_ids_pred, predict_response, want_var):
@@ -1370,8 +1618,8 @@ class GPModel:
         coordinates with zero covariates — one column of means, then the
         variances with ``predict_var``."""
         cid = None
-        if self._cluster_map is not None and self._lowrank_codes is not None:
-            cid = self._cluster_map[self._lowrank_codes]
+        if self._cluster_map is not None and self._approx_codes is not None:
+            cid = self._cluster_map[self._approx_codes]
         pred = self.predict(
             gp_coords_pred=self.coords_np, cluster_ids_pred=cid,
             predict_var=predict_var, predict_response=False,
@@ -1491,7 +1739,7 @@ class GPModel:
         if self.y is None:
             raise ValueError("std errors need the training data: call fit() "
                              "first")
-        if not self.is_gaussian:
+        if self._laplace_route:
             raise _not_ported(
                 "std errors of a non-Gaussian model (the JAX package has "
                 "none for the Laplace approximation; its Fisher information "
@@ -1523,11 +1771,18 @@ class GPModel:
             fi = 0.5 * (fi + fi.T)
         else:
             # the dense expected information of the exact model on the
-            # same coordinates (float64)
+            # same coordinates and structure (float64)
             comps, data, _ = make_model_data(
                 gp_coords=self.coords_np, cov_fn=self.cov_fn,
-                cluster_ids=self._lowrank_codes, device=self.device,
+                gp_rand_coef_data=self._gp_rand_coef_np,
+                cluster_ids=self._approx_codes, device=self.device,
                 dense_dists=True)
+            if self._combined:
+                comps = list(self.spec.components) + comps
+                data.group_codes = self.data.group_codes.to(torch.float64)\
+                    .long()
+                data.slope_data = (None if self.data.slope_data is None
+                                   else self.data.slope_data.double())
             with torch.no_grad():
                 fi = gaussian.fisher_information(
                     ModelSpec(components=tuple(comps),
@@ -1655,10 +1910,20 @@ class GPModel:
                                                else "")
                           for i in range(extra)]
             return names
-        names.append("GP_var")
+        if self._combined:
+            names += [f"Group_{k + 1}" for k in range(len(
+                self.spec.components))]
         extra = self.cov_fn.num_cov_par - 1
-        names += ["GP_range" + (f"_{i + 1}" if extra > 1 else "")
-                  for i in range(extra)]
+        n_gp = len(self._approx_comps) - (len(self.spec.components)
+                                          if self._combined else 0)
+        for c in range(n_gp):
+            prefix = "GP" + ("_rand_coef" if c else "")
+            names.append(f"{prefix}_var")
+            names += [f"{prefix}_range" + (f"_{i + 1}" if extra > 1 else "")
+                      for i in range(extra)]
+        if self.num_sets_re == 2:
+            names = [f"{nm}_mean" for nm in names] + [f"{nm}_log_var"
+                                                      for nm in names]
         return names
 
     def summary(self):
@@ -1709,7 +1974,7 @@ class GPModel:
             "likelihood": self.likelihood,
             "cov_function": self.cov_function_name,
             "cov_fct_shape": self.cov_fct_shape,
-            "gp_approx": self.gp_approx,
+            "gp_approx": self.gp_approx_user,
             "num_neighbors": self.num_neighbors,
             "vecchia_ordering": self.vecchia_ordering,
             "num_ind_points": self.num_ind_points,
@@ -1729,7 +1994,8 @@ class GPModel:
             "matrix_inversion_method": self.matrix_inversion_method,
         }
         if include_data:
-            if self._approx is None and self.data.group_codes is not None:
+            if ((self._approx is None or self._combined)
+                    and self.data.group_codes is not None):
                 codes = self.data.group_codes.cpu().numpy()
                 gd = np.empty(codes.shape, dtype=object)
                 for j, levels in enumerate(self._group_maps):
@@ -1753,9 +2019,12 @@ class GPModel:
                 if self._cluster_map is not None:
                     d["cluster_ids"] = self._cluster_map[
                         self.data.cluster_codes.cpu().numpy()].tolist()
-            elif self._lowrank_codes is not None:
-                d["cluster_ids"] = self._cluster_map[
-                    self._lowrank_codes].tolist()
+            else:
+                if self._approx_codes is not None:
+                    d["cluster_ids"] = self._cluster_map[
+                        self._approx_codes].tolist()
+                if self._gp_rand_coef_np is not None:
+                    d["gp_rand_coef_data"] = self._gp_rand_coef_np.tolist()
             if self.y is not None:
                 d["y"] = self.y.cpu().numpy().astype(np.float64).tolist()
             if self.X is not None:

@@ -61,7 +61,7 @@ def grouped_iterative_nll(model) -> Callable:
 
 def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
         fixed_effects: Optional[torch.Tensor], nll: Callable,
-        with_adam: bool = False):
+        with_adam: bool = False, init_cov=None):
     """Estimate the covariance parameters, the aux parameters and, with
     ``X``, the coefficients of a non-Gaussian model; ``nll(cov, aux,
     fixed_part)`` is the model's Laplace NLL (a tensor, differentiable in
@@ -70,7 +70,13 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     family's defaults) and ``cfg.init_coef`` (or zeros). Mutates ``model``
     like the Gaussian fits. ``adam`` runs Adam ``with_adam`` (the grouped
     models' route, as the JAX package's ``laplace_fit``), else gradient
-    descent (its Vecchia route)."""
+    descent (its Vecchia route). ``init_cov`` overrides the covariance
+    inits (the latent Vecchia parametrisation moves the nugget of the
+    Gaussian inits to the aux slot). ``gaussian_heteroscedastic`` (two
+    sets, ``model.num_sets_re``) has a coefficient vector per set and a
+    stacked [2n] fixed part; its intercepts start at mean(y) and
+    log(var(y) - the set-0 variance) (``FindInitialIntercept``,
+    likelihoods.h:818-867, as the JAX package)."""
     cfg = model.optim_cfg
     if cfg.estimate_cov_par_index is not None and np.any(
             np.asarray(cfg.estimate_cov_par_index) == 0):
@@ -81,9 +87,11 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     fam = lk.get_family(model.likelihood)
     y_np = y.detach().cpu().numpy().astype(np.float64)
     has_coef = X is not None
-    init_cov = (cfg.init_cov_pars if cfg.init_cov_pars is not None
-                else model._default_init_cov_pars(y_np))
+    if init_cov is None:
+        init_cov = (cfg.init_cov_pars if cfg.init_cov_pars is not None
+                    else model._default_init_cov_pars(y_np))
     n_cov = len(init_cov)
+    is_het = model.likelihood == "gaussian_heteroscedastic"
     if model.aux_pars_ is not None:
         init_aux = np.atleast_1d(np.asarray(model.aux_pars_, np.float64))
     else:
@@ -92,10 +100,15 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
              else 0)
     aux_fixed = (None if init_aux is None else torch.as_tensor(
         init_aux, dtype=model.dtype, device=model.device))
-    n_coef = X.shape[1] if has_coef else 0
+    p = X.shape[1] if has_coef else 0
+    n_coef = p * (2 if is_het else 1)
     init_beta = (np.asarray(cfg.init_coef, np.float64)
                  if has_coef and cfg.init_coef is not None
                  else np.zeros(n_coef))
+    if is_het and has_coef and cfg.init_coef is None:
+        init_beta[0] = float(np.mean(y_np))
+        init_beta[p] = np.log(max(float(np.var(y_np, ddof=1))
+                                  - float(init_cov[0]), 1e-6))
     theta0 = np.concatenate([
         np.log(np.maximum(np.asarray(init_cov, np.float64), 1e-300)),
         lk.aux_to_optim_scale(fam, init_aux[:n_aux]) if n_aux
@@ -111,6 +124,14 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     def nll_of(theta: torch.Tensor):
         cov, aux, beta = unpack(theta)
         fp = fixed_effects
+        if is_het:
+            n = y.shape[0]
+            fp_s = (torch.cat([X @ beta[:p], X @ beta[p:]]) if beta is not None
+                    else torch.zeros(2 * n, dtype=y.dtype, device=y.device))
+            if fp is not None:
+                fp_s = (fp_s + fp if fp.shape[0] == 2 * n
+                        else torch.cat([fp_s[:n] + fp, fp_s[n:]]))
+            return nll(cov, aux, fp_s)
         if beta is not None:
             xb = X @ beta
             fp = xb if fp is None else fp + xb

@@ -91,7 +91,7 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
     structure built at construction. With ``X`` the device loops and
     L-BFGS alternate GLS coefficients and a covariance fit, three rounds;
     the host gradient descent updates the coefficients after every step."""
-    if not model.is_gaussian:
+    if model._laplace_route:
         return fit_laplace(model, y, X, fixed_effects)
     cfg = model.optim_cfg
     vec = model._approx
@@ -224,10 +224,14 @@ def ng_iter_kwargs(cfg, n: int) -> dict:
 
 def uses_iterative(model) -> bool:
     """The iterative Laplace NLL: asked for, or too many points for the
-    dense one."""
+    dense one without random coefficients (the JAX package's rule); never
+    for the two-set heteroscedastic model (dense only)."""
     from gpboost_tpu_torch.models.vecchia_model import DENSE_LAPLACE_MAX_N
+    if model.likelihood == "gaussian_heteroscedastic":
+        return False
     return (model.matrix_inversion_method == "iterative"
-            or model.num_data > DENSE_LAPLACE_MAX_N)
+            or (model.num_data > DENSE_LAPLACE_MAX_N
+                and getattr(model._approx, "z", None) is None))
 
 
 def fit_laplace(model, y: torch.Tensor, X: Optional[torch.Tensor],
@@ -259,4 +263,17 @@ def fit_laplace(model, y: torch.Tensor, X: Optional[torch.Tensor],
             return vec.nll_laplace_iterative(cov, y, aux, fp, **kw)
         return vec.nll_laplace(cov, y, aux, fp)
 
-    return laplace_fit.fit(model, y, X, fixed_effects, nll)
+    init_cov = None
+    if model._latent_gaussian:
+        # the latent parametrisation: the Gaussian inits' nugget moves to
+        # the aux slot (JAX vecchia_fit.py:97-104)
+        cfg = model.optim_cfg
+        init_cov = np.asarray(
+            cfg.init_cov_pars if cfg.init_cov_pars is not None
+            else model._default_init_cov_pars(
+                y.detach().cpu().numpy().astype(np.float64)), np.float64)
+        if len(init_cov) == model.num_cov_pars:
+            model.aux_pars_ = np.atleast_1d(init_cov[0])
+            init_cov = init_cov[1:]
+    return laplace_fit.fit(model, y, X, fixed_effects, nll,
+                           init_cov=init_cov)

@@ -29,9 +29,21 @@ low-rank plus diagonal one sketched from Q + W ("pivoted_cholesky",
 ``piv_chol_rank``); with the Jacobi one the log-determinant's gradient can
 take the optimal-c control variate (``variance_reduction``).
 
-Not ported yet (ROADMAP.md): GP random coefficients, ``cluster_ids``, the
-other ``vecchia_pred_type`` variants, the heteroscedastic two-set model,
-the banded compute layout ``BandedB``, row sharding over several GPUs.
+GP random coefficients (``rand_coef_data``, the SVC build of
+``ops/vecchia.py::build_factors_svc``) and ``cluster_ids`` (``cluster_codes``:
+the neighbour searches take a row's own cluster only, -1 padding where a
+cluster has fewer earlier points) ride on the same structure; the
+random-coefficient build stays outside the kernel gate, the cluster-masked
+neighbour matrix inside it. The prediction types of ``vecchia_pred_type``
+(``predict_gaussian_cond_all`` / ``_pred_first`` / ``_latent_vecchia``),
+the heteroscedastic two-set model (``nll_het`` / ``predict_het``, through
+``models/heteroscedastic.py``) and the latent-process parametrisation
+(``nugget_in_pars=False``: ``gp_approx="vecchia_latent"``) follow the JAX
+package.
+
+Not ported (ROADMAP.md): the time orderings (item 14: they need a space-time
+covariance), the banded compute layout ``BandedB``, row sharding over
+several GPUs (item 20).
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ import numpy as np
 import torch
 
 from gpboost_tpu_torch import likelihoods as lk
+from gpboost_tpu_torch.models import heteroscedastic as het
 from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val,
                                               _response_moments, dense_solve,
                                               find_mode_prec, mode_vjp,
@@ -180,6 +193,9 @@ class VecchiaGP:
                  num_neighbors: int = 20, ordering: str = "random",
                  seed: int = 0, likelihood: str = "gaussian",
                  num_neighbors_pred: Optional[int] = None,
+                 nugget_in_pars: bool = True,
+                 rand_coef_data: Optional[np.ndarray] = None,
+                 cluster_codes: Optional[np.ndarray] = None,
                  dtype=torch.float64, device="cuda"):
         if likelihood in lk.NOT_PORTED:
             raise NotImplementedError(
@@ -189,7 +205,7 @@ class VecchiaGP:
             raise NotImplementedError(
                 f"vecchia_ordering '{ordering}' needs a space-time "
                 "covariance, which is not ported (ROADMAP.md Queue A, "
-                "items 14-15)")
+                "item 14)")
         self.device = resolve_device(device)
         coords = np.asarray(coords, dtype=np.float64)
         n = coords.shape[0]
@@ -202,7 +218,24 @@ class VecchiaGP:
         # candidate sets with -1)
         self.num_neighbors_pred = num_neighbors_pred or 2 * num_neighbors
         self.dtype = dtype
+        self.nugget_in_pars = bool(nugget_in_pars)
         self.coords = torch.as_tensor(coords, dtype=dtype, device=self.device)
+        # independent realisations per cluster_ids: cluster codes [n] in the
+        # original row order (the neighbour searches mask other codes)
+        self.codes = (None if cluster_codes is None else torch.as_tensor(
+            np.asarray(cluster_codes).astype(np.int32), device=self.device))
+        # GP random coefficients (SVC): z[:, 0] = 1 is the base GP, further
+        # columns multiply coefficient GPs with their own [var, range]
+        self.z = self.z_orig = None
+        if rand_coef_data is not None:
+            if not cov_fn.is_isotropic:
+                raise NotImplementedError(
+                    "GP random coefficients under Vecchia require an "
+                    "isotropic covariance function")
+            zr = np.asarray(rand_coef_data, np.float64).reshape(n, -1)
+            self.z_orig = torch.as_tensor(
+                np.concatenate([np.ones((n, 1)), zr], axis=1), dtype=dtype,
+                device=self.device)
         self._ard_neighbors_pars = None
         self._probe_cache = None
         self._set_structure(vops.apply_ordering(n, ordering, seed), None)
@@ -217,9 +250,14 @@ class VecchiaGP:
         self._inv_perm_t = torch.as_tensor(self.inv_perm, dtype=torch.long,
                                            device=self.device)
         self.coords_perm = self.coords[self._perm_t].contiguous()
+        self.codes_perm = (None if self.codes is None
+                           else self.codes[self._perm_t].contiguous())
+        if self.z_orig is not None:
+            self.z = self.z_orig[self._perm_t].contiguous()
         if neighbors is None:
             neighbors = vops.find_neighbors(self.coords_perm,
-                                            self.num_neighbors)
+                                            self.num_neighbors,
+                                            codes=self.codes_perm)
         self._set_neighbors(neighbors)
 
     def _set_neighbors(self, neighbors) -> None:
@@ -235,7 +273,9 @@ class VecchiaGP:
         ones (numpy arrays: ``perm`` [n], ``neighbors`` [n, m] with -1
         padding, rows in permuted order) — carries the structure of another
         model over, so that two implementations can be compared on
-        identical conditioning sets whatever their top-k tie-breaking."""
+        identical conditioning sets whatever their top-k tie-breaking. With
+        cluster codes they follow the new permutation, and a row may hold
+        indices of its own cluster only."""
         perm = np.asarray(perm)
         nb = np.asarray(neighbors)
         if perm.shape != (self.n,) or not np.array_equal(
@@ -247,6 +287,12 @@ class VecchiaGP:
                 nb >= np.arange(self.n)[:, None]):
             raise ValueError(
                 "neighbors: row i may only hold indices < i (or -1)")
+        if self.codes is not None:
+            cp = self.codes.cpu().numpy()[perm]
+            if np.any((nb >= 0) & (cp[np.maximum(nb, 0)] != cp[:, None])):
+                raise ValueError(
+                    "neighbors: a row may only hold indices of its own "
+                    "cluster")
         self.num_neighbors = nb.shape[1]
         self._ard_neighbors_pars = None
         self._set_structure(perm, torch.as_tensor(
@@ -257,9 +303,12 @@ class VecchiaGP:
         the model/kernel combination is not eligible. The kernels build the
         response covariance (nugget among the parameters): the latent
         process of a non-Gaussian model, which has no nugget, stays outside
-        the gate (the JAX package's ``_pallas_shape_code``)."""
+        the gate (the JAX package's ``_pallas_shape_code``), and so do the
+        latent parametrisation and random coefficients; a cluster-masked
+        neighbour matrix is inside it."""
         cf = self.cov_fn
-        if self.dtype != torch.float32 or self.likelihood != "gaussian":
+        if (self.dtype != torch.float32 or self.likelihood != "gaussian"
+                or not self.nugget_in_pars or self.z is not None):
             return None
         if cf.cov_fct_type in ("matern", "matern_ard"):
             for s in (0.5, 1.5, 2.5):
@@ -317,30 +366,61 @@ class VecchiaGP:
         range parameters change). No-op for isotropic kernels."""
         if self.cov_fn.is_isotropic or not self.cov_fn.has_coord_scaling:
             return
-        gp_pars = np.asarray(cov_pars_full, dtype=np.float64)[1:]
+        pars = np.asarray(cov_pars_full, dtype=np.float64)
+        gp_pars = pars[1:] if self.nugget_in_pars else pars
         if (self._ard_neighbors_pars is not None
                 and np.allclose(gp_pars, self._ard_neighbors_pars)):
             return
         scaled = self.cov_fn.scale_coords(
             self.coords_perm, torch.as_tensor(gp_pars, dtype=self.dtype,
                                               device=self.device))
-        self._set_neighbors(vops.find_neighbors(scaled, self.num_neighbors))
+        self._set_neighbors(vops.find_neighbors(scaled, self.num_neighbors,
+                                                codes=self.codes_perm))
         self._ard_neighbors_pars = gp_pars
 
-    def _pred_neighbors(self, gp_pars, coords_pred):
-        """Observed neighbors of prediction points; ARD kernels search in
-        the scaled coordinate space."""
+    def _pred_neighbors(self, gp_pars, coords_pred, codes_pred=None):
+        """Observed neighbors of prediction points (of the same cluster with
+        ``codes_pred``); ARD kernels search in the scaled coordinate
+        space."""
+        codes = ({} if codes_pred is None
+                 else dict(codes_pred=codes_pred, codes_obs=self.codes))
         if not self.cov_fn.is_isotropic and self.cov_fn.has_coord_scaling:
             return vops.find_neighbors_cross(
                 self.cov_fn.scale_coords(coords_pred, gp_pars),
                 self.cov_fn.scale_coords(self.coords, gp_pars),
-                self.num_neighbors_pred)
+                self.num_neighbors_pred, **codes)
         return vops.find_neighbors_cross(coords_pred, self.coords,
-                                         self.num_neighbors_pred)
+                                         self.num_neighbors_pred, **codes)
 
     # ---- Gaussian response-scale Vecchia ------------------------------
+    def _pars_stack(self, gp_pars):
+        """[C, p] per-component parameters of the random-coefficient
+        build."""
+        return gp_pars.reshape(self.z.shape[1], self.cov_fn.num_cov_par)
+
+    def _zp_full(self, z_pred, n_p):
+        """[n_p, C] prediction covariates with the leading ones column
+        (zeros for the coefficient columns when none are given)."""
+        ones = torch.ones((n_p, 1), dtype=self.dtype, device=self.device)
+        if z_pred is None:
+            rest = torch.zeros((n_p, self.z.shape[1] - 1), dtype=self.dtype,
+                               device=self.device)
+        else:
+            rest = torch.as_tensor(
+                np.asarray(z_pred, np.float64).reshape(n_p, -1),
+                dtype=self.dtype, device=self.device)
+        return torch.cat([ones, rest], dim=1)
+
+    def _codes_tensor(self, codes_pred):
+        return (None if codes_pred is None else torch.as_tensor(
+            np.asarray(codes_pred).astype(np.int32), device=self.device))
+
     def _response_factors(self, cov_pars, nb):
-        """(A, D) of the response covariance; cov_pars = [nugget, var, ...]."""
+        """(A, D) of the response covariance; cov_pars = [nugget, comps...]."""
+        if self.z is not None:
+            return vops.build_factors_svc(
+                self.cov_fn, self._pars_stack(cov_pars[1:]), self.coords_perm,
+                nb, self.z, cov_pars[0], True)
         return vops.build_factors(self.cov_fn, cov_pars[1:], self.coords_perm,
                                   nb, cov_pars[0], True)
 
@@ -389,11 +469,22 @@ class VecchiaGP:
 
     def predict_gaussian(self, cov_pars, y, coords_pred,
                          fixed_part=None, predict_response=True,
-                         predict_var=False):
-        """Local-kriging prediction conditioning on observed neighbors.
-        ``coords_pred`` is a tensor [n_p, d] on the model's device."""
+                         predict_var=False, z_pred=None, codes_pred=None):
+        """Local-kriging prediction conditioning on observed neighbors (of
+        the prediction point's cluster with ``codes_pred``; a cluster
+        training never saw has none, so its points are at the prior).
+        ``coords_pred`` is a tensor [n_p, d] on the model's device; ``z_pred``
+        the random-coefficient covariates of the prediction points."""
         r = y if fixed_part is None else y - fixed_part
-        nb_pred = self._pred_neighbors(cov_pars[1:], coords_pred)
+        nb_pred = self._pred_neighbors(cov_pars[1:], coords_pred,
+                                       self._codes_tensor(codes_pred))
+        if self.z is not None:
+            mean, var = vops.predict_vecchia_response_svc(
+                self.cov_fn, self._pars_stack(cov_pars[1:]), cov_pars[0],
+                self.coords, coords_pred, nb_pred, self.z_orig,
+                self._zp_full(z_pred, coords_pred.shape[0]), r,
+                bool(predict_response))
+            return mean, (var if predict_var else None)
         if self._kernel_shape is not None:
             # the fused factor kernel serves the PREDICTION build too
             # (row_coords = the prediction points)
@@ -412,12 +503,75 @@ class VecchiaGP:
                 coords_pred, nb_pred, r, bool(predict_response))
         return mean, (var if predict_var else None)
 
+    def predict_gaussian_cond_all(self, cov_pars, y, coords_pred,
+                                  fixed_part=None, predict_response=True,
+                                  codes_pred=None, z_pred=None):
+        """``order_obs_first_cond_all`` prediction: (mean, cov) with the full
+        [n_p, n_p] predictive covariance; random coefficients through
+        ``z_pred``, clusters through ``codes_pred``."""
+        r = y if fixed_part is None else y - fixed_part
+        if self.z is not None:
+            return vops.predict_vecchia_cond_all_svc(
+                self.cov_fn, self._pars_stack(cov_pars[1:]), cov_pars[0],
+                self.coords, coords_pred, self.z_orig,
+                self._zp_full(z_pred, coords_pred.shape[0]), r,
+                self.num_neighbors_pred,
+                predict_response=bool(predict_response))
+        return vops.predict_vecchia_cond_all(
+            self.cov_fn, cov_pars[1:], cov_pars[0], self.coords, coords_pred,
+            r, self.num_neighbors_pred, codes_obs=self.codes,
+            codes_pred=self._codes_tensor(codes_pred),
+            predict_response=bool(predict_response))
+
+    def predict_gaussian_pred_first(self, cov_pars, y, coords_pred,
+                                    fixed_part=None, predict_response=True):
+        """``order_pred_first``: one Vecchia approximation with the
+        prediction points ordered first. Returns (mean, cov)."""
+        if self.z is not None:
+            raise NotImplementedError(
+                "vecchia_pred_type='order_pred_first' is not implemented "
+                "with GP random coefficients")
+        if self.codes is not None:
+            raise NotImplementedError(
+                "vecchia_pred_type='order_pred_first' is not implemented "
+                "with cluster_ids")
+        r = y if fixed_part is None else y - fixed_part
+        return vops.predict_vecchia_pred_first(
+            self.cov_fn, cov_pars[1:], cov_pars[0], self.coords, coords_pred,
+            r, self.num_neighbors_pred,
+            predict_response=bool(predict_response))
+
+    def predict_gaussian_latent_vecchia(self, cov_pars, y, coords_pred,
+                                        fixed_part=None, cond_obs_only=True,
+                                        predict_response=True):
+        """``latent_order_obs_first_cond_obs_only`` / ``..._cond_all``:
+        Vecchia on the latent process over the unique locations, its solves
+        by CG (``LAPLACE_COUNTS["latent_cg_iters"]``). Returns (mean, var,
+        cov)."""
+        if self.z is not None:
+            raise NotImplementedError(
+                "The Vecchia approximation for latent process(es) is "
+                "currently not implemented when having random coefficients")
+        if self.codes is not None:
+            raise NotImplementedError(
+                "latent Vecchia prediction types are not implemented "
+                "with cluster_ids")
+        r = y if fixed_part is None else y - fixed_part
+        return vops.predict_vecchia_latent(
+            self.cov_fn, cov_pars[1:], cov_pars[0], self.coords, coords_pred,
+            r, self.num_neighbors_pred, bool(cond_obs_only),
+            predict_response=bool(predict_response), stats=LAPLACE_COUNTS)
+
     # ---- Vecchia-Laplace (non-Gaussian) -------------------------------
     def _latent_factors(self, cov_pars):
         """Latent-process factors (no nugget): Sigma^-1 ~ B' D^-1 B. The
         plain build with autograd, on the card too: the kernel gate needs
         the nugget among the parameters, as in the JAX package."""
         with timed("Laplace: latent factors", sync=True):
+            if self.z is not None:
+                return vops.build_factors_svc(
+                    self.cov_fn, self._pars_stack(cov_pars), self.coords_perm,
+                    self.neighbors, self.z, None, False)
             return vops.build_factors(self.cov_fn, cov_pars, self.coords_perm,
                                       self.neighbors, None, False)
 
@@ -456,7 +610,10 @@ class VecchiaGP:
         (``FindModePostRandEffCalcMLLVecchia``, likelihoods.h:2765): dense
         logdet and solves (exact); cov_pars = [var, range, ...] (no nugget
         for non-Gaussian likelihoods). Differentiable in cov_pars, aux_pars
-        and fixed_part."""
+        and fixed_part. ``gaussian_heteroscedastic`` takes the two-set
+        route (:meth:`nll_het`)."""
+        if self.likelihood == "gaussian_heteroscedastic":
+            return self.nll_het(cov_pars, y, fixed_part)
         fam = lk.get_family(self.likelihood)
         yp, Fp = self._permuted(y, fixed_part)
         Q, d = self._dense_precision(cov_pars)
@@ -469,6 +626,70 @@ class VecchiaGP:
         _, ld1 = torch.linalg.slogdet(Q + torch.diag(w))
         ld0 = -torch.sum(torch.log(d))
         return -(loglik - 0.5 * quad - 0.5 * (ld1 - ld0))
+
+    # ---- gaussian_heteroscedastic (two latent sets) ---------------------
+    def _split_het(self, cov_pars):
+        """A two-set parameter vector [set-0 pars, set-1 pars] (the
+        reference's num_sets_re_ = 2) split in its sets."""
+        k = self.cov_fn.num_cov_par
+        return cov_pars[:k], cov_pars[k:]
+
+    def _het_fixed_parts(self, fixed_part):
+        """The stacked [2n] fixed effects as per-set (F1, F2) in the
+        ordering's row order."""
+        if fixed_part is None:
+            z = torch.zeros(self.n, dtype=self.dtype, device=self.device)
+            return z, z
+        return (fixed_part[:self.n][self._perm_t],
+                fixed_part[self.n:][self._perm_t])
+
+    def nll_het(self, cov_pars, y, fixed_part=None):
+        """Fisher-Laplace NLL of ``gaussian_heteroscedastic``: two latent
+        sets with independent Vecchia priors (dense precisions)."""
+        p1, p2 = self._split_het(cov_pars)
+        Q1, d1 = self._dense_precision(p1)
+        Q2, d2 = self._dense_precision(p2)
+        F1, F2 = self._het_fixed_parts(fixed_part)
+        return het.nll(Q1, Q2, -torch.sum(torch.log(d1)),
+                       -torch.sum(torch.log(d2)), y[self._perm_t], F1, F2)
+
+    def predict_het(self, cov_pars, y, coords_pred, fixed_part=None,
+                    fixed_part_pred=None, predict_response=True,
+                    predict_var=False):
+        """Prediction of ``gaussian_heteroscedastic``: the latent outputs are
+        the set-0 (mean) process; the response variance adds the expected
+        noise variance E[exp(loc2)] = exp(mu2 + var2 / 2) (reference
+        ``likelihoods.h:7660-7667``). ``fixed_part_pred`` is stacked [2 n_p]."""
+        p1, p2 = self._split_het(cov_pars)
+        Q1, _ = self._dense_precision(p1)
+        Q2, _ = self._dense_precision(p2)
+        F1, F2 = self._het_fixed_parts(fixed_part)
+        (b1, w1), (b2, w2) = het.posterior_sets(Q1, Q2, y[self._perm_t], F1,
+                                                F2)
+        n_p = coords_pred.shape[0]
+        mu1, var1 = self._posterior_set_pred(p1, Q1, b1, w1, coords_pred)
+        mu2, var2 = self._posterior_set_pred(p2, Q2, b2, w2, coords_pred)
+        if fixed_part_pred is not None:
+            mu1 = mu1 + fixed_part_pred[:n_p]
+            mu2 = mu2 + fixed_part_pred[n_p:]
+        if predict_response:
+            var_resp = var1 + torch.exp(mu2 + 0.5 * var2)
+            return mu1, (var_resp if predict_var else None)
+        return mu1, (var1 if predict_var else None)
+
+    def _posterior_set_pred(self, cov_pars_k, Q, b_perm, w_perm,
+                            coords_pred):
+        """Posterior latent mean and variance of one set at the prediction
+        points: kriging on the mode; prior - c_po (Sigma + W^-1)^-1 c_op with
+        (Sigma + W^-1)^-1 = W (Q + W)^-1 Q."""
+        nb_pred = self._pred_neighbors(cov_pars_k, coords_pred)
+        mean, _ = vops.predict_vecchia_response(
+            self.cov_fn, cov_pars_k, 0.0, self.coords, coords_pred, nb_pred,
+            b_perm[self._inv_perm_t], False)
+        c_po = self._cross_cov(cov_pars_k, coords_pred, self.coords_perm)
+        z = torch.linalg.solve(Q + torch.diag(w_perm), Q @ c_po.T)
+        quad = torch.einsum("pn,n,np->p", c_po, w_perm, z)
+        return mean, torch.clamp(cov_pars_k[0] - quad, min=1e-12)
 
     def laplace_probes(self, num_rand_vec_trace: int, seed: int,
                        rank: int = 0):
@@ -622,13 +843,14 @@ class VecchiaGP:
                        iterative: Optional[bool] = None, **iter_kwargs):
         """d NLL / dF for LaGaBoost (``regression_objective.hpp:173-186``) by
         autograd: the dense Laplace NLL at small n, the matrix-free
-        iterative one above ``DENSE_LAPLACE_MAX_N`` (the fit driver's rule).
+        iterative one above ``DENSE_LAPLACE_MAX_N`` without random
+        coefficients (the JAX package's rule).
         The iterative route takes ``nll_laplace_iterative``'s defaults
         (50 probes, 50 Lanczos steps, CG tolerance 1e-3) unless
         ``iter_kwargs`` say otherwise, as the JAX package's objective
         calls it."""
         if iterative is None:
-            iterative = self.n > DENSE_LAPLACE_MAX_N
+            iterative = self.n > DENSE_LAPLACE_MAX_N and self.z is None
         fe = fixed_part.detach().clone().requires_grad_(True)
         with torch.enable_grad():
             if iterative:
@@ -658,29 +880,87 @@ class VecchiaGP:
         b = newton_mode(fam, yp, Fp, aux, lambda v: Q @ v, dense_solve(Q))
         return b, -fam.d2_loc(yp, Fp + b, aux), Q
 
+    def _prior_cross(self, cov_pars, coords_pred, zp, codes_pred):
+        """(c_po [n_p, n], prior variance [n_p]) of the latent process
+        between the prediction points and the observations (permuted
+        order): the covariate-weighted sum over components with random
+        coefficients, zero across clusters with codes."""
+        n_p = coords_pred.shape[0]
+        if self.z is not None:
+            ps = self._pars_stack(cov_pars)
+            diff = coords_pred[:, None, :] - self.coords_perm[None, :, :]
+            d_po = vops._safe_dist(torch.sum(diff * diff, -1))
+            c_po = prior = None
+            for c in range(self.z.shape[1]):
+                k_c = (zp[:, c][:, None] * self.z[:, c][None, :]) \
+                    * self.cov_fn.cov_matrix(ps[c], dist=d_po)
+                v = zp[:, c] ** 2 * ps[c, 0]
+                c_po = k_c if c_po is None else c_po + k_c
+                prior = v if prior is None else prior + v
+        else:
+            c_po = self._cross_cov(cov_pars, coords_pred, self.coords_perm)
+            prior = cov_pars[0] * torch.ones(n_p, dtype=self.dtype,
+                                             device=self.device)
+        if codes_pred is not None and self.codes_perm is not None:
+            c_po = torch.where(codes_pred[:, None] == self.codes_perm[None, :],
+                               c_po, 0.0)
+        return c_po, prior
+
     def predict_laplace(self, cov_pars, y, aux_pars, coords_pred,
                         fixed_part=None, fixed_part_pred=None,
-                        predict_response=True, predict_var=False):
-        """Vecchia-Laplace prediction with dense algebra: the mode, local
-        kriging on the latent mode values, and the posterior variance
-        Sigma_pp - Sigma_po (Sigma + W^-1)^-1 Sigma_op with
-        (Sigma + W^-1)^-1 = W (Q + W)^-1 Q."""
-        b_perm, w_perm, Q = self._find_mode_dense(cov_pars, y, aux_pars,
-                                                  fixed_part)
+                        predict_response=True, predict_var=False,
+                        z_pred=None, codes_pred=None):
+        """Vecchia-Laplace prediction: the mode, local kriging on the
+        latent mode values (with random coefficients through ``z_pred``, of
+        the own cluster through ``codes_pred``), and the posterior variance
+        prior - c_po (Sigma + W^-1)^-1 c_op with (Sigma + W^-1)^-1
+        = W (Q + W)^-1 Q. Dense up to ``DENSE_LAPLACE_MAX_N`` points (the
+        JAX package's route); above, the mode by Newton-CG and the
+        variance's solve by CG on the [n, n_p] columns (the JAX package
+        forms [n, n] at every n)."""
+        cdp = self._codes_tensor(codes_pred)
+        n_p = coords_pred.shape[0]
+        if self.n > DENSE_LAPLACE_MAX_N:
+            fam = lk.get_family(self.likelihood)
+            a, d = self._latent_factors(cov_pars)
+            yp, Fp = self._permuted(y, fixed_part)
+            aux = _aux_arg(aux_pars, yp)
+            aux_pars = _aux_val(aux)
+            b_perm = _FindModeCG.apply(a, d, Fp, aux, self, yp)
+            w_perm = torch.clamp(-fam.d2_loc(yp, Fp + b_perm, aux_pars),
+                                 min=1e-10)
+            Q = None
+        else:
+            b_perm, w_perm, Q = self._find_mode_dense(cov_pars, y, aux_pars,
+                                                      fixed_part)
         b_orig = b_perm[self._inv_perm_t]
-        nb_pred = self._pred_neighbors(cov_pars, coords_pred)
-        mean_lat, _ = vops.predict_vecchia_response(
-            self.cov_fn, cov_pars, 0.0, self.coords, coords_pred, nb_pred,
-            b_orig, False)
+        nb_pred = self._pred_neighbors(cov_pars, coords_pred, cdp)
+        zp = None if self.z is None else self._zp_full(z_pred, n_p)
+        if self.z is not None:
+            mean_lat, _ = vops.predict_vecchia_response_svc(
+                self.cov_fn, self._pars_stack(cov_pars), 0.0, self.coords,
+                coords_pred, nb_pred, self.z_orig, zp, b_orig, False)
+        else:
+            mean_lat, _ = vops.predict_vecchia_response(
+                self.cov_fn, cov_pars, 0.0, self.coords, coords_pred,
+                nb_pred, b_orig, False)
         if fixed_part_pred is not None:
             mean_lat = mean_lat + fixed_part_pred
         var = None
         if predict_var or predict_response:
-            M = Q + torch.diag(w_perm)
-            c_po = self._cross_cov(cov_pars, coords_pred, self.coords_perm)
-            z = torch.linalg.solve(M, Q @ c_po.T)
+            c_po, prior = self._prior_cross(cov_pars, coords_pred, zp, cdp)
+            if Q is None:
+                tol, maxit = _mode_cg_tols(self.dtype)
+                solve = _cg_solve(a, d, self, tol, maxit, "pred_cg_iters")
+                rhs = c_po.T.contiguous()
+                z = torch.cat([solve(w_perm, vops.precision_product(
+                    a, d, rhs[:, s:s + SIM_CHUNK], self.neighbors,
+                    self._incoming)) for s in range(0, n_p, SIM_CHUNK)],
+                    dim=1)
+            else:
+                z = torch.linalg.solve(Q + torch.diag(w_perm), Q @ c_po.T)
             quad = torch.einsum("pn,n,np->p", c_po, w_perm, z)
-            var = torch.clamp(cov_pars[0] - quad, min=1e-12)
+            var = torch.clamp(prior - quad, min=1e-12)
         return self._respond(mean_lat, var, aux_pars, predict_response,
                              predict_var)
 

@@ -88,14 +88,27 @@ def _nearest(d2: torch.Tensor, m: int) -> torch.Tensor:
     return torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
 
 
+def _same_code(d2: torch.Tensor, row_codes: Optional[torch.Tensor],
+               col_codes: Optional[torch.Tensor]) -> torch.Tensor:
+    """``d2`` with the pairs of different cluster codes set to inf."""
+    if row_codes is None:
+        return d2
+    return torch.where(col_codes[None, :] == row_codes[:, None], d2,
+                       math.inf)
+
+
 def find_neighbors(coords: torch.Tensor, num_neighbors: int,
-                   chunk: int = 1024) -> torch.Tensor:
+                   chunk: int = 1024,
+                   codes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Nearest ``m`` *previous* points for each row (data order = ordering).
 
     Returns [n, m] int32; entry -1 marks padding (i < m has only i neighbors).
     Blocked brute force: distances for a row chunk against the points before
     the chunk's end, mask j >= i, exact top-k — the dense answer to CoverTree
-    kNN (``Vecchia_utils.cpp:93-168``).
+    kNN (``Vecchia_utils.cpp:93-168``). ``codes`` [n] (cluster codes, in
+    row order): a row takes neighbours of its own code only (independent
+    realisations per ``cluster_ids``), padded with -1 where its cluster has
+    fewer than m earlier points.
     """
     n = coords.shape[0]
     out = []
@@ -105,20 +118,51 @@ def find_neighbors(coords: torch.Tensor, num_neighbors: int,
         row_ids = torch.arange(start, end, device=coords.device)[:, None]
         col_ids = torch.arange(end, device=coords.device)[None, :]
         d2 = torch.where(col_ids < row_ids, d2, math.inf)
+        if codes is not None:
+            d2 = _same_code(d2, codes[start:end], codes[:end])
         out.append(_nearest(d2, num_neighbors))
     return torch.cat(out, dim=0)
 
 
 def find_neighbors_cross(coords_pred: torch.Tensor, coords_obs: torch.Tensor,
-                         num_neighbors: int, chunk: int = 1024
+                         num_neighbors: int, chunk: int = 1024,
+                         codes_pred: Optional[torch.Tensor] = None,
+                         codes_obs: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Nearest observed points for each prediction point. [n_p, m] int32
-    with m = min(num_neighbors, n_obs)."""
+    with m = min(num_neighbors, n_obs). With ``codes_pred`` / ``codes_obs``
+    only observed points of the same code are eligible (-1 where fewer)."""
     m = min(num_neighbors, coords_obs.shape[0])
     out = []
     for start in range(0, coords_pred.shape[0], chunk):
         d2 = _sq_dists(coords_pred[start:start + chunk], coords_obs)
+        if codes_pred is not None:
+            d2 = _same_code(d2, codes_pred[start:start + chunk], codes_obs)
         out.append(_nearest(d2, m))
+    return torch.cat(out, dim=0)
+
+
+def find_neighbors_appended(search: torch.Tensor, n_o: int, m: int,
+                            codes: Optional[torch.Tensor] = None,
+                            chunk: int = 1024) -> torch.Tensor:
+    """Neighbours of the points appended after the first ``n_o`` of
+    ``search``: each row ``n_o + i`` takes its ``m`` nearest among all
+    points before it (the observations and the earlier appended points),
+    of its own code with ``codes``. Returns [len(search) - n_o, m] int32,
+    indices into ``search`` (the ``order_obs_first_cond_all`` search)."""
+    n_tot = search.shape[0]
+    out = []
+    for start in range(n_o, n_tot, chunk):
+        end = min(start + chunk, n_tot)
+        d2 = _sq_dists(search[start:end], search[:end])
+        row_ids = torch.arange(start, end, device=search.device)[:, None]
+        col_ids = torch.arange(end, device=search.device)[None, :]
+        d2 = torch.where(col_ids < row_ids, d2, math.inf)
+        if codes is not None:
+            d2 = _same_code(d2, codes[start:end], codes[:end])
+        out.append(_nearest(d2, m))
+    if not out:
+        return torch.zeros((0, m), dtype=torch.int32, device=search.device)
     return torch.cat(out, dim=0)
 
 
@@ -145,13 +189,7 @@ def build_factors(cov_fn: CovFunction, cov_pars: torch.Tensor,
         coords = cov_fn.scale_coords(coords, cov_pars)
         row_coords = cov_fn.scale_coords(row_coords, cov_pars)
     n, m = neighbors.shape
-    mask = neighbors >= 0
-    idx = torch.clamp(neighbors, min=0).long()
-    nb_coords = coords[idx]                                        # [n, m, d]
-    diffs = nb_coords[:, :, None, :] - nb_coords[:, None, :, :]
-    d_nn = _safe_dist(torch.sum(diffs * diffs, -1))                # [n, m, m]
-    di = row_coords[:, None, :] - nb_coords
-    d_in = _safe_dist(torch.sum(di * di, -1))                      # [n, m]
+    _, d_nn, d_in = _gathered_dists(coords, row_coords, neighbors)
     if scaled:
         c_nn = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_nn, cov_pars)
         c_in = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_in, cov_pars)
@@ -160,24 +198,13 @@ def build_factors(cov_fn: CovFunction, cov_pars: torch.Tensor,
         c_in = cov_fn.cov_matrix(cov_pars, dist=d_in)
     var_ii = cov_pars[0] * torch.ones(n, dtype=row_coords.dtype,
                                       device=row_coords.device)
-    eye = torch.eye(m, dtype=row_coords.dtype, device=row_coords.device)
     if include_nugget and nugget is not None:
-        c_nn = c_nn + nugget * eye[None]
+        c_nn = c_nn + nugget * torch.eye(m, dtype=row_coords.dtype,
+                                         device=row_coords.device)[None]
         var_ii = var_ii + nugget
-    # mask padding: identity rows/cols so the solve yields 0 weights there
-    pair_mask = mask[:, :, None] & mask[:, None, :]
-    c_nn = torch.where(pair_mask, c_nn, eye[None])
-    c_in = torch.where(mask, c_in, 0.0)
-
-    # cholesky_ex does not raise on a block that is not positive definite
-    # (parameters a line search overshot to): such rows get D = NaN, so the
-    # NLL is NaN and the optimizer backs off, instead of an exception
-    chol, info = torch.linalg.cholesky_ex(c_nn)
-    a = torch.cholesky_solve(c_in[..., None], chol)[..., 0]
-    a = torch.where(mask, a, 0.0)
+    a, c_in, info = _solve_masked(c_nn, c_in, neighbors >= 0)
     d_cond = var_ii - torch.sum(c_in * a, dim=1)
-    d_cond = torch.where(info == 0, d_cond, math.nan)
-    return a, d_cond
+    return a, torch.where(info == 0, d_cond, math.nan)
 
 
 # entries of one [n, m, q] gather of a wide right-hand side (1.6 GB in
@@ -280,13 +307,7 @@ def build_factors_residual(cov_fn: CovFunction, cov_pars: torch.Tensor,
     if scaled:
         coords = cov_fn.scale_coords(coords, cov_pars)
     n, m = neighbors.shape
-    mask = neighbors >= 0
-    idx = torch.clamp(neighbors, min=0).long()
-    nb_coords = coords[idx]
-    diffs = nb_coords[:, :, None, :] - nb_coords[:, None, :, :]
-    d_nn = _safe_dist(torch.sum(diffs * diffs, -1))
-    di = coords[:, None, :] - nb_coords
-    d_in = _safe_dist(torch.sum(di * di, -1))
+    _, d_nn, d_in = _gathered_dists(coords, coords, neighbors)
     if scaled:
         c_nn = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_nn, cov_pars)
         c_in = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_in, cov_pars)
@@ -297,16 +318,11 @@ def build_factors_residual(cov_fn: CovFunction, cov_pars: torch.Tensor,
     c_nn = c_nn - G
     c_in = c_in - g
     var_ii = cov_pars[0] - torch.sum(lr_rows * lr_rows, dim=1)
-    eye = torch.eye(m, dtype=coords.dtype, device=coords.device)
     if include_nugget and nugget is not None:
-        c_nn = c_nn + nugget * eye[None]
+        c_nn = c_nn + nugget * torch.eye(m, dtype=coords.dtype,
+                                         device=coords.device)[None]
         var_ii = var_ii + nugget
-    pair_mask = mask[:, :, None] & mask[:, None, :]
-    c_nn = torch.where(pair_mask, c_nn, eye[None])
-    c_in = torch.where(mask, c_in, 0.0)
-    chol, info = torch.linalg.cholesky_ex(c_nn)
-    a = torch.cholesky_solve(c_in[..., None], chol)[..., 0]
-    a = torch.where(mask, a, 0.0)
+    a, c_in, info = _solve_masked(c_nn, c_in, neighbors >= 0)
     d_cond = var_ii - torch.sum(c_in * a, dim=1)
     d_cond = torch.where(info == 0, d_cond, math.nan)
     return a, torch.clamp(d_cond, min=1e-12)
@@ -654,3 +670,423 @@ def kriging_from_factors(a, d_cond, nb_pred, r_obs, nugget,
     if not predict_response:
         var = var - nugget
     return mean, torch.clamp(var, min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# GP random coefficients (several components on the same coordinates)
+# ---------------------------------------------------------------------------
+
+def _svc_cov(cov_fn: CovFunction, pars_stack: torch.Tensor, d_nn, d_in,
+             z_nb, row_z):
+    """(C_NN [n, m, m], c [n, m], var [n]) of the total process
+    u(s) = sum_c z_c(s) b_c(s): each component's covariance weighted by the
+    covariates of the pair."""
+    c_nn = c_in = var = None
+    for c in range(pars_stack.shape[0]):
+        pc = pars_stack[c]
+        zc = z_nb[:, :, c]
+        k_nn = (zc[:, :, None] * zc[:, None, :]) * cov_fn.cov_matrix(
+            pc, dist=d_nn)
+        k_in = (row_z[:, c][:, None] * zc) * cov_fn.cov_matrix(pc, dist=d_in)
+        v = row_z[:, c] * row_z[:, c] * pc[0]
+        c_nn = k_nn if c_nn is None else c_nn + k_nn
+        c_in = k_in if c_in is None else c_in + k_in
+        var = v if var is None else var + v
+    return c_nn, c_in, var
+
+
+def _gathered_dists(coords, row_coords, neighbors):
+    idx = torch.clamp(neighbors, min=0).long()
+    nb_coords = coords[idx]
+    diffs = nb_coords[:, :, None, :] - nb_coords[:, None, :, :]
+    d_nn = _safe_dist(torch.sum(diffs * diffs, -1))
+    di = row_coords[:, None, :] - nb_coords
+    return idx, d_nn, _safe_dist(torch.sum(di * di, -1))
+
+
+def _solve_masked(c_nn, c_in, mask):
+    """a = C_NN^-1 c with the padding slots masked out (identity rows and
+    columns, zero weights), and ``info`` for the rows whose block is not
+    positive definite: ``cholesky_ex`` does not raise there (parameters a
+    line search overshot to), the callers set those rows' D to NaN, so the
+    NLL is NaN and the optimizer backs off."""
+    m = c_nn.shape[-1]
+    eye = torch.eye(m, dtype=c_nn.dtype, device=c_nn.device)
+    c_nn = torch.where(mask[:, :, None] & mask[:, None, :], c_nn, eye[None])
+    c_in = torch.where(mask, c_in, 0.0)
+    chol, info = torch.linalg.cholesky_ex(c_nn)
+    a = torch.cholesky_solve(c_in[..., None], chol)[..., 0]
+    return torch.where(mask, a, 0.0), c_in, info
+
+
+def build_factors_svc(cov_fn: CovFunction, pars_stack: torch.Tensor,
+                      coords: torch.Tensor, neighbors: torch.Tensor,
+                      z: torch.Tensor, nugget: Optional[torch.Tensor],
+                      include_nugget: bool,
+                      row_coords: Optional[torch.Tensor] = None,
+                      row_z: Optional[torch.Tensor] = None):
+    """Vecchia factors of a GP with random coefficients (SVC; the JAX
+    package's ``build_factors_svc``): covariance K_ij = sum_c z_ic z_jc
+    k_c(d_ij), ``pars_stack`` [C, p] the components' parameters, ``z``
+    [n, C] their covariates (z[:, 0] = 1, the base GP). ``row_coords`` /
+    ``row_z`` (default ``coords`` / ``z``) are the rows the ``neighbors``
+    refer to. Returns (A [n, m], D [n])."""
+    if row_coords is None:
+        row_coords = coords
+    if row_z is None:
+        row_z = z
+    mask = neighbors >= 0
+    idx, d_nn, d_in = _gathered_dists(coords, row_coords, neighbors)
+    c_nn, c_in, var_ii = _svc_cov(cov_fn, pars_stack, d_nn, d_in, z[idx],
+                                  row_z)
+    if include_nugget and nugget is not None:
+        m = neighbors.shape[1]
+        c_nn = c_nn + nugget * torch.eye(m, dtype=c_nn.dtype,
+                                         device=c_nn.device)[None]
+        var_ii = var_ii + nugget
+    a, c_in, info = _solve_masked(c_nn, c_in, mask)
+    d_cond = var_ii - torch.sum(c_in * a, dim=1)
+    return a, torch.where(info == 0, d_cond, math.nan)
+
+
+def predict_vecchia_response_svc(cov_fn: CovFunction, pars_stack, nugget,
+                                 coords_obs, coords_pred, nb_pred, z_obs,
+                                 z_pred, r_obs, predict_response: bool):
+    """Local kriging of a GP with random coefficients on each prediction
+    point's observed neighbours (the JAX package's
+    ``predict_vecchia_response_svc``). Returns (mean, var)."""
+    mask = nb_pred >= 0
+    idx, d_nn, d_in = _gathered_dists(coords_obs, coords_pred, nb_pred)
+    c_nn, c_in, var_pp = _svc_cov(cov_fn, pars_stack, d_nn, d_in,
+                                  z_obs[idx], z_pred)
+    m = nb_pred.shape[1]
+    c_nn = c_nn + nugget * torch.eye(m, dtype=c_nn.dtype,
+                                     device=c_nn.device)[None]
+    a, c_in, _ = _solve_masked(c_nn, c_in, mask)
+    mean = torch.sum(a * r_obs[idx], dim=1)
+    var = var_pp - torch.sum(c_in * a, dim=1)
+    if predict_response:
+        var = var + nugget
+    return mean, torch.clamp(var, min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the other prediction types (``vecchia_pred_type``)
+# ---------------------------------------------------------------------------
+
+def _scaled_search(cov_fn: CovFunction, coords, gp_pars):
+    if not cov_fn.is_isotropic and cov_fn.has_coord_scaling:
+        return cov_fn.scale_coords(coords, gp_pars)
+    return coords
+
+
+def _pairs_dense(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                 shape, eye: bool = False) -> torch.Tensor:
+    """A dense matrix holding ``vals`` at the (row, col) pairs (each pair
+    at most once, so the write needs no accumulation), on an identity or
+    zeros."""
+    n_r, n_c = shape
+    out = (torch.eye(n_r, n_c, dtype=vals.dtype, device=vals.device) if eye
+           else torch.zeros((n_r, n_c), dtype=vals.dtype, device=vals.device))
+    return out.index_put_((rows, cols), vals)
+
+
+def predict_vecchia_cond_all(cov_fn: CovFunction, cov_pars, nugget,
+                             coords_obs, coords_pred, r_obs,
+                             num_neighbors: int, codes_obs=None,
+                             codes_pred=None, predict_response: bool = True):
+    """``order_obs_first_cond_all`` prediction
+    (``CalcPredVecchiaObservedFirstOrder`` with CondObsOnly=false,
+    ``Vecchia_utils.cpp:1634``): the prediction points follow the
+    observations and each conditions on its ``m`` nearest among the
+    observations and the earlier prediction points (of its own cluster
+    with codes). Returns (mean [n_p], cov [n_p, n_p])."""
+    n_o, n_p = coords_obs.shape[0], coords_pred.shape[0]
+    m = min(num_neighbors, n_o + n_p - 1)
+    combined = torch.cat([coords_obs, coords_pred], dim=0)
+    codes = (None if codes_obs is None
+             else torch.cat([codes_obs, codes_pred]).to(combined.device))
+    nb = find_neighbors_appended(_scaled_search(cov_fn, combined, cov_pars),
+                                 n_o, m, codes)
+    a, d = build_factors(cov_fn, cov_pars, combined, nb, nugget, True,
+                         row_coords=coords_pred)
+    return _cond_all_assemble(a, d, nb, n_o, n_p, r_obs, nugget,
+                              predict_response)
+
+
+def _cond_all_assemble(a, d, nb, n_o, n_p, r_obs, nugget, predict_response):
+    """Mean and covariance from obs-first cond-all factors: with
+    B = [[B_oo, 0], [B_po, B_pp]], mean = -B_pp^-1 B_po r and
+    cov = B_pp^-1 D_p B_pp^-T (one dense triangular solve on the
+    prediction set)."""
+    is_obs = (nb >= 0) & (nb < n_o)
+    is_prd = nb >= n_o
+    rhs = torch.sum(torch.where(is_obs, a, 0.0)
+                    * r_obs[torch.where(is_obs, nb, 0).long()], dim=1)
+    rows = torch.arange(n_p, device=a.device)[:, None].expand_as(nb)
+    M = _pairs_dense(rows[is_prd], (nb[is_prd] - n_o).long(), -a[is_prd],
+                     (n_p, n_p), eye=True)
+    mean = torch.linalg.solve_triangular(M, rhs[:, None], upper=False)[:, 0]
+    V = torch.linalg.solve_triangular(
+        M, torch.eye(n_p, dtype=a.dtype, device=a.device), upper=False)
+    cov = (V * d[None, :]) @ V.T
+    if not predict_response:
+        cov = cov - nugget * torch.eye(n_p, dtype=a.dtype, device=a.device)
+    return mean, cov
+
+
+def predict_vecchia_cond_all_svc(cov_fn: CovFunction, pars_stack, nugget,
+                                 coords_obs, coords_pred, z_obs, z_pred,
+                                 r_obs, num_neighbors: int,
+                                 predict_response: bool = True):
+    """``order_obs_first_cond_all`` for a GP with random coefficients (the
+    search on the coordinates; the covariances the covariate-weighted sums
+    of :func:`build_factors_svc`). Returns (mean, cov)."""
+    n_o, n_p = coords_obs.shape[0], coords_pred.shape[0]
+    m = min(num_neighbors, n_o + n_p - 1)
+    combined = torch.cat([coords_obs, coords_pred], dim=0)
+    nb = find_neighbors_appended(combined, n_o, m)
+    a, d = build_factors_svc(cov_fn, pars_stack, combined, nb,
+                             torch.cat([z_obs, z_pred], dim=0), nugget, True,
+                             row_coords=coords_pred, row_z=z_pred)
+    return _cond_all_assemble(a, d, nb, n_o, n_p, r_obs, nugget,
+                              predict_response)
+
+
+def predict_vecchia_pred_first(cov_fn: CovFunction, cov_pars, nugget,
+                               coords_obs, coords_pred, r_obs,
+                               num_neighbors: int,
+                               predict_response: bool = True):
+    """``order_pred_first`` prediction
+    (``CalcPredVecchiaPredictedFirstOrder``, ``Vecchia_utils.cpp:2018``):
+    one Vecchia approximation over [pred; obs], the prediction points
+    first; the conditional precision P = Bp' Dp^-1 Bp + Bop' Do^-1 Bop
+    gives mean = -P^-1 Bop' Do^-1 Bo r and cov = P^-1. The
+    observation-to-prediction block Bop is assembled on the observations
+    that condition on a prediction point only (the other rows of the JAX
+    package's dense [n_o, n_p] block are zero). Returns (mean, cov)."""
+    n_o, n_p = coords_obs.shape[0], coords_pred.shape[0]
+    m = min(num_neighbors, n_o + n_p - 1)
+    combined = torch.cat([coords_pred, coords_obs], dim=0)
+    nb = find_neighbors(_scaled_search(cov_fn, combined, cov_pars), m)
+    a, d = build_factors(cov_fn, cov_pars, combined, nb, nugget, True)
+    a_p, nb_p, a_o, nb_o = a[:n_p], nb[:n_p], a[n_p:], nb[n_p:]
+    dp_inv, do_inv = 1.0 / d[:n_p], 1.0 / d[n_p:]
+    rows_p = torch.arange(n_p, device=a.device)[:, None].expand_as(nb_p)
+    mp = nb_p >= 0
+    Bp = _pairs_dense(rows_p[mp], nb_p[mp].long(), -a_p[mp], (n_p, n_p),
+                      eye=True)
+    is_pred_nb = (nb_o >= 0) & (nb_o < n_p)
+    sel = torch.nonzero(torch.any(is_pred_nb, dim=1)).reshape(-1)
+    nb_s, a_s, pm = nb_o[sel], a_o[sel], is_pred_nb[sel]
+    rows_s = torch.arange(sel.numel(), device=a.device)[:, None].expand_as(
+        nb_s)
+    Bop = _pairs_dense(rows_s[pm], nb_s[pm].long(), -a_s[pm],
+                       (sel.numel(), n_p))
+    is_obs_nb = nb_o >= n_p
+    Bo_r = r_obs - torch.sum(
+        torch.where(is_obs_nb, a_o, 0.0)
+        * r_obs[torch.where(is_obs_nb, nb_o - n_p, 0).long()], dim=1)
+    do_s = do_inv[sel]
+    cond_prec = (Bp.T * dp_inv[None, :]) @ Bp + (Bop.T * do_s[None, :]) @ Bop
+    y_aux = Bop.T @ (do_s * Bo_r[sel])
+    Lc = torch.linalg.cholesky(cond_prec)
+    mean = -torch.cholesky_solve(y_aux[:, None], Lc)[:, 0]
+    cov = torch.cholesky_inverse(Lc)
+    if not predict_response:
+        cov = cov - nugget * torch.eye(n_p, dtype=a.dtype, device=a.device)
+    return mean, cov
+
+
+class TriangularSchedule:
+    """The rows of a Vecchia factor's unit lower-triangular B = I - A
+    grouped by level (a row's level is one more than its neighbours'
+    highest; level 0 has none), so that B x = b and B' x = b are solved one
+    level at a time, each level a gather over rows already known — with a
+    random ordering a few hundred levels at n = 1e5 instead of n rows. The transposed solve reads the padded incoming structure of
+    :func:`build_incoming`. Every write goes to distinct rows; nothing adds
+    with colliding indices."""
+
+    def __init__(self, neighbors: torch.Tensor):
+        nb = neighbors.cpu().numpy()
+        n = nb.shape[0]
+        level = np.zeros(n, np.int64)
+        for i in range(n):
+            row = nb[i]
+            row = row[row >= 0]
+            if row.size:
+                level[i] = level[row].max() + 1
+        order = np.argsort(level, kind="stable")
+        bounds = np.cumsum(np.bincount(level))
+        dev = neighbors.device
+        self.levels = [torch.as_tensor(order[lo:hi], device=dev)
+                       for lo, hi in zip(np.r_[0, bounds[:-1]], bounds)]
+        self.neighbors = neighbors
+        self.inc_row, self.inc_slot = build_incoming(neighbors)
+        self.width = max(max(int(r.numel()) for r in self.levels)
+                         * max(int(self.inc_row.shape[1]), nb.shape[1]), 1)
+
+
+def _solve_B(a, sched: TriangularSchedule, b, transpose: bool):
+    """x = B^-1 b (or B^-T b), b [n, k], level by level."""
+    x = b.clone()
+    for rows in (reversed(sched.levels) if transpose else sched.levels[1:]):
+        if transpose:
+            ir = sched.inc_row[rows]
+            src = torch.clamp(ir, min=0).long()
+            coef = torch.where(ir >= 0, a[src, sched.inc_slot[rows].long()],
+                               0.0)
+        else:
+            nbr = sched.neighbors[rows]
+            src = torch.clamp(nbr, min=0).long()
+            coef = torch.where(nbr >= 0, a[rows], 0.0)
+        x[rows] = b[rows] + (coef[:, None, :] @ x[src])[:, 0]
+    return x
+
+
+def precision_solve(a, d, sched: TriangularSchedule, V: torch.Tensor):
+    """Q^-1 V = B^-1 D B^-T V for V [n] or [n, k] by two level-scheduled
+    triangular solves (exact up to rounding), in column chunks that keep the
+    gathers of the widest level within ``GATHER_BUDGET``."""
+    vec = V.dim() == 1
+    V = V[:, None] if vec else V
+    step = max(1, GATHER_BUDGET // sched.width)
+    out = torch.cat([
+        _solve_B(a, sched, d[:, None] * _solve_B(a, sched, V[:, s:s + step],
+                                                 True), False)
+        for s in range(0, V.shape[1], step)], dim=1)
+    return out[:, 0] if vec else out
+
+
+def _member_rows(idx: np.ndarray, n_u: int):
+    """[n_u, w] rows of each unique location (-1 padded), in row order: the
+    transpose of the incidence ``idx`` (row -> unique location) as a
+    gather plan."""
+    order = np.argsort(idx, kind="stable")
+    counts = np.bincount(idx, minlength=n_u)
+    w = max(int(counts.max()) if counts.size else 1, 1)
+    starts = np.cumsum(counts) - counts
+    pos = np.arange(idx.size) - np.repeat(starts, counts)
+    out = np.full((n_u, w), -1, np.int64)
+    out[idx[order], pos] = order
+    return out
+
+
+def _incidence_t(members: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Z' v for the incidence whose transpose ``members`` holds: per
+    unique location the sum of its rows of v ([n] or [n, k]), a gather in
+    a fixed order."""
+    g = v[torch.clamp(members, min=0)]
+    mask = members >= 0
+    return torch.sum(torch.where(mask if v.dim() == 1 else mask[..., None],
+                                 g, 0.0), dim=1)
+
+
+def predict_vecchia_latent(cov_fn: CovFunction, gp_pars, nugget, coords_obs,
+                           coords_pred, y_obs, num_neighbors: int,
+                           cond_obs_only: bool,
+                           predict_response: bool = True,
+                           cg_tol: float = 1e-10, cg_max_iter: int = 10000,
+                           stats=None):
+    """``latent_order_obs_first_cond_obs_only`` / ``..._cond_all``
+    (``CalcPredVecchiaLatentObservedFirstOrder``,
+    ``Vecchia_utils.cpp:2241``): a Vecchia approximation of the LATENT
+    process over the unique locations (observed first), exact Gaussian
+    noise on top:
+
+      mean = Zp S Zo' (Zo S Zo' + s0 I)^-1 y,
+      cov  = Zp S Zp' - Zp S Zo' (Zo S Zo' + s0 I)^-1 Zo S Zp' (+ s0 I),
+
+    S = Q^-1, Q = B' D^-1 B. The solves with W = s0 Q + Zo'Zo are
+    Jacobi-preconditioned CG to ``cg_tol`` (the JAX package's matrix-free
+    route); those with Q are the two triangular solves of
+    :func:`precision_solve` — the JAX package runs CG on Q too, whose
+    iterations grow with Q's condition and reach their cap at n = 1e5 with
+    a long range, where the triangular solves take ~500 levels. ``stats``
+    (a Counter) receives the CG iterations (``latent_cg_iters``). Returns
+    (mean [n_p], var [n_p], cov [n_p, n_p])."""
+    from gpboost_tpu_torch.ops import cg as cgops
+    dev, dtype = coords_obs.device, coords_obs.dtype
+    co = coords_obs.detach().cpu().numpy().astype(np.float64)
+    cpn = coords_pred.detach().cpu().numpy().astype(np.float64)
+    n_o, n_p = co.shape[0], cpn.shape[0]
+    all_np = np.concatenate([co, cpn], axis=0)
+    # unique locations in first-occurrence order (exact equality)
+    _, first_idx, inv = np.unique(all_np, axis=0, return_index=True,
+                                  return_inverse=True)
+    order = np.argsort(first_idx)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    u_idx = rank[np.asarray(inv).ravel()]
+    coords_u = all_np[np.sort(first_idx)]
+    n_u = coords_u.shape[0]
+    zo_idx, zp_idx = u_idx[:n_o], u_idx[n_o:]
+    n_uo = int(zo_idx.max()) + 1 if n_o else 0
+    if np.any(zp_idx < n_uo):
+        raise ValueError(
+            "Duplicates found among training and test coordinates. This is "
+            "not supported for predictions with a Vecchia approximation for "
+            "the latent process ('latent_')")
+    m = min(num_neighbors, n_u - 1)
+    cu = torch.as_tensor(coords_u, dtype=dtype, device=dev)
+    search = _scaled_search(cov_fn, cu, gp_pars)
+    nb_obs = find_neighbors(search[:n_uo], min(m, n_uo - 1))
+    if cond_obs_only:
+        nb_pred = find_neighbors_cross(search[n_uo:], search[:n_uo],
+                                       min(m, n_uo))
+    else:
+        nb_pred = find_neighbors_appended(search, n_uo, m)
+
+    def pad_to_m(x):
+        k = x.shape[1]
+        return x if k == m else torch.cat(
+            [x, torch.full((x.shape[0], m - k), -1, dtype=x.dtype,
+                           device=x.device)], dim=1)
+
+    nb = torch.cat([pad_to_m(nb_obs), pad_to_m(nb_pred)], dim=0).contiguous()
+    a, du = build_factors(cov_fn, gp_pars, cu, nb, None, False)
+    a = torch.where(nb >= 0, a, 0.0)
+    slices = build_incoming_sliced(nb) if nb.is_cuda else None
+    chunk = col_chunk(n_u, m)
+
+    def q_mv(V):
+        return precision_product(a, du, V, nb, slices, col_chunk=chunk)
+
+    counts = torch.as_tensor(np.bincount(zo_idx, minlength=n_u),
+                             dtype=dtype, device=dev)
+    diag_q = precision_diag(a, nb, du, slices)
+
+    def w_mv(V):                        # W = nugget Q + Zo'Zo
+        return nugget * q_mv(V) + _cols(counts, V) * V
+
+    pre_w = torch.clamp(nugget * diag_q + counts, min=1e-300)
+    sched = TriangularSchedule(nb)
+
+    def solve_w(B):
+        X, it = cgops.pcg(w_mv, B, lambda R: R / _cols(pre_w, R), tol=cg_tol,
+                          max_iter=cg_max_iter)
+        if stats is not None:
+            stats["latent_cg_iters"] += it
+        return X
+
+    def solve_q(B):
+        return precision_solve(a, du, sched, B)
+
+    members = torch.as_tensor(_member_rows(zo_idx, n_u), device=dev)
+    zo_j = torch.as_tensor(zo_idx, device=dev)
+    zp_j = torch.as_tensor(zp_idx, device=dev)
+    y_obs = y_obs.to(dtype)
+    # mean = Zp Q^-1 Zo' t with t = (y - Zo W^-1 Zo'y) / nugget
+    t = (y_obs - solve_w(_incidence_t(members, y_obs))[zo_j]) / nugget
+    mean = solve_q(_incidence_t(members, t))[zp_j]
+    # C = Q^-1 Zp'  [n_u, n_p]
+    E = _pairs_dense(zp_j, torch.arange(n_p, device=dev),
+                     torch.ones(n_p, dtype=dtype, device=dev), (n_u, n_p))
+    C = solve_q(E)
+    Kpp, KopC = C[zp_j], C[zo_j]
+    S2 = solve_w(_incidence_t(members, KopC))
+    A_KopC = (KopC - S2[zo_j]) / nugget     # (K_oo + s0 I)^-1 K_op
+    cov = Kpp - KopC.T @ A_KopC
+    if predict_response:
+        cov = cov + nugget * torch.eye(n_p, dtype=dtype, device=dev)
+    return mean, torch.diagonal(cov), cov

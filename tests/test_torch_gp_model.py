@@ -193,13 +193,21 @@ def test_float32_model_takes_the_kernel_route_on_cpu_plain(data):
 ])
 def test_unported_options_raise_not_implemented(data, kwargs):
     """Structures the port does not have raise naming their ROADMAP item.
-    ``gp_approx="none"`` (the exact GP) and ``"fitc"`` are ported: they
+    ``gp_approx="none"`` (the exact GP) and ``"fitc"`` are ported, and so
+    are (ROADMAP.md item 15) the heteroscedastic model, grouped effects,
+    ``cluster_ids`` and GP random coefficients beside a Vecchia GP: they
     construct, and their NLL is the JAX package's within 1e-10 relative."""
-    if kwargs in ({"gp_approx": "none"}, {"gp_approx": "fitc"}):
+    ported = {"none": [0.25, 1.0, 0.1], "fitc": [0.25, 1.0, 0.1],
+              "likelihood": [1.0, 0.1, 0.1, 0.2],
+              "group_data": [0.25, 0.3, 1.0, 0.1],
+              "cluster_ids": [0.25, 1.0, 0.1],
+              "gp_rand_coef_data": [0.25, 1.0, 0.1, 0.5, 0.1]}
+    key = next((k for k in kwargs if k in ported), kwargs["gp_approx"])
+    if key in ported:
         tm = gpt.GPModel(gp_coords=data["coords"], device="cpu", **kwargs)
         jm = gpb.GPModel(gp_coords=data["coords"], **kwargs)
         assert tm._exact == (kwargs["gp_approx"] == "none")
-        cp = [0.25, 1.0, 0.1]
+        cp = ported[key]
         nll_j = jm.neg_log_likelihood(cp, data["y"])
         assert abs(tm.neg_log_likelihood(cp, data["y"]) - nll_j) \
             < 1e-10 * abs(nll_j)
@@ -307,25 +315,39 @@ def test_every_jax_keyword_at_its_default_constructs(data):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(ind_effect_group_rand_coef=[1]), "item 15"),
-    (dict(drop_intercept_group_rand_effect=[True]), "item 15"),
-    (dict(num_data=N), "item 15"),
+    (dict(ind_effect_group_rand_coef=[1]), None),
+    (dict(drop_intercept_group_rand_effect=[True]), None),
+    (dict(num_data=N), None),
     (dict(cov_fct_taper_range=0.5), "items 14 and 17"),
     (dict(cov_fct_taper_shape=2.0), "items 14 and 17"),
     (dict(ind_points_selection="random"), "items 14 and 17"),
     (dict(num_ind_points=100), "items 14 and 17"),
     (dict(cover_tree_radius=0.5), "items 14 and 17"),
     (dict(matrix_inversion_method="iterative"), None),
-    (dict(likelihood_additional_param=2.0), "item 15"),
+    (dict(likelihood_additional_param=2.0), None),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_jax_keyword_at_another_value_names_its_item(data, kwargs, item):
     """Keywords at values the port does not run raise naming their item.
-    ``matrix_inversion_method="iterative"`` (item None) is accepted since
-    fault C4's repair: a Gaussian Vecchia GP and an exact GP take the
-    Cholesky route, as the JAX package does — on ROADMAP.md's input
-    (n = 200, ``default_rng(1)``, y = sin(5 x1) + 0.3 eps, exponential,
+    ``matrix_inversion_method="iterative"`` is accepted since fault C4's
+    repair: a Gaussian Vecchia GP and an exact GP take the Cholesky route,
+    as the JAX package does — on ROADMAP.md's input (n = 200,
+    ``default_rng(1)``, y = sin(5 x1) + 0.3 eps, exponential,
     ``num_neighbors=10``) the JAX package's NLLs at [0.1, 1.0, 0.2] at
-    1e-12 relative, and the same bits as the Cholesky models."""
+    1e-12 relative, and the same bits as the Cholesky models. The grouped
+    keywords without ``group_data``, ``num_data`` beside ``gp_coords`` and
+    ``likelihood_additional_param`` with the gaussian likelihood are
+    accepted and not read by a Gaussian Vecchia GP, as in the JAX package
+    (ROADMAP.md item 15): the JAX package's NLL at 1e-10 relative."""
+    if item is None and "matrix_inversion_method" not in kwargs:
+        tm = gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
+                         num_neighbors=M, device="cpu", **kwargs)
+        jm = gpb.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
+                         num_neighbors=M, **kwargs)
+        cp = [0.25, 1.0, 0.1]
+        nll_j = jm.neg_log_likelihood(cp, data["y"])
+        assert abs(tm.neg_log_likelihood(cp, data["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
+        return
     if item is None:
         rng = np.random.default_rng(1)
         x = rng.uniform(size=(200, 2))

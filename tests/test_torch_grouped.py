@@ -381,7 +381,7 @@ def test_woodbury_fit_and_predict_consistency(d):
     (dict(matrix_inversion_method="iterative"), "iterative"),
     (dict(weights=np.ones(500)), "item 11"),
     (dict(cluster_ids=np.zeros(500)), None),
-    (dict(gp_coords=np.zeros((500, 2)), gp_approx="vecchia"), "item 15"),
+    (dict(gp_coords=np.zeros((500, 2)), gp_approx="vecchia"), "vecchia"),
 ], ids=["iterative", "weights", "cluster_ids", "with_gp"])
 def test_unported_grouped_structures_raise(d, kwargs, item):
     """The unported structures raise naming their item. ``cluster_ids``
@@ -391,7 +391,21 @@ def test_unported_grouped_structures_raise(d, kwargs, item):
     (item 12): the public NLL is the Cholesky one, as in the JAX package
     (1e-10), and the profiled iterative value-and-gradient with the JAX
     package's probes equals its own at 1e-5
-    (``tests/test_torch_grouped_iterative.py`` holds the route)."""
+    (``tests/test_torch_grouped_iterative.py`` holds the route). So is a
+    Vecchia GP beside grouped effects (ROADMAP.md item 15,
+    ``models/vecchia_combined.py``): on the JAX package's neighbour
+    structure (every point at one location, so the searches tie) its NLL
+    is the JAX package's within 1e-10 relative."""
+    if item == "vecchia":
+        tm = gpt.GPModel(group_data=d["groups"], device="cpu", **kwargs)
+        jm = gpb.GPModel(group_data=d["groups"], **kwargs)
+        tm._approx.load_structure(np.asarray(jm._approx.perm),
+                                  np.asarray(jm._approx.neighbors))
+        cp = [0.2, 0.6, 0.5, 0.1]
+        nll_j = jm.neg_log_likelihood(cp, d["y"])
+        assert abs(tm.neg_log_likelihood(cp, d["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
+        return
     if item == "iterative":
         groups = np.column_stack([d["groups"], d["groups2"]])
         tm = gpt.GPModel(group_data=groups, device="cpu", **kwargs)

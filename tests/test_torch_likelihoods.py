@@ -165,8 +165,13 @@ def test_censored_families_need_special_functions(name):
 
 
 def test_heteroscedastic_family_is_registered_and_raises():
+    """The family's single-location functions raise, as the JAX package's
+    do: its model is the two-set engine (``models/heteroscedastic.py``)."""
     fam = tlk.get_family("gaussian_heteroscedastic")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="two-set engine"):
         fam.log_lik(torch.zeros(2), torch.zeros(2), None)
+    with pytest.raises(NotImplementedError, match="two-set engine"):
+        jlk.get_family("gaussian_heteroscedastic").log_lik(
+            np.zeros(2), np.zeros(2), None)
     with pytest.raises(ValueError, match="not supported"):
         tlk.get_family("no_such_family")

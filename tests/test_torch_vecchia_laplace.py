@@ -217,20 +217,39 @@ def test_non_gaussian_model_runs_on_the_gpu_by_default(data):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(likelihood="zero_one_censored_shifted_gamma"), "item 11"),
-    (dict(likelihood="gaussian_heteroscedastic"), "item 15"),
+    (dict(likelihood="gaussian_heteroscedastic"), None),
     (dict(likelihood="bernoulli_logit", weights=np.ones(N)), "item 11"),
 ])
 def test_unported_likelihood_options_name_their_item(data, kwargs, item):
+    """The unported likelihood options raise naming their item.
+    ``gaussian_heteroscedastic`` is ported (ROADMAP.md item 15,
+    ``models/heteroscedastic.py``): on the JAX package's neighbour
+    structure its two-set NLL is the JAX package's within 1e-10 relative."""
+    if item is None:
+        kw = dict(gp_coords=data["coords"], gp_approx="vecchia",
+                  num_neighbors=M, **kwargs)
+        tm = gpt.GPModel(device="cpu", **kw)
+        jm = gpb.GPModel(**kw)
+        tm._approx.load_structure(np.asarray(jm._approx.perm),
+                                  np.asarray(jm._approx.neighbors))
+        y = data["y"] + 0.5 * np.sin(7 * data["coords"][:, 0])
+        cp = [1.0, 0.2, 0.1, 0.2]
+        nll_j = jm.neg_log_likelihood(cp, y)
+        assert abs(tm.neg_log_likelihood(cp, y) - nll_j) < 1e-10 * abs(nll_j)
+        return
     with pytest.raises(NotImplementedError, match=item):
         gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
                     device="cpu", **kwargs)
 
 
 def test_prediction_settings(data):
-    _, tm = _pair(data)
+    jm, tm = _pair(data)
     assert tm.set_prediction_data(nsim_var_pred=50).nsim_var_pred == 50
-    with pytest.raises(NotImplementedError, match="item"):
-        tm.set_prediction_data(vecchia_pred_type="order_pred_first")
+    # vecchia_pred_type is accepted and kept (ROADMAP.md item 15), as the
+    # JAX package does; a non-Gaussian model's prediction does not read it
+    for m in (tm, jm):
+        m.set_prediction_data(vecchia_pred_type="order_pred_first")
+    assert tm.vecchia_pred_type == jm.vecchia_pred_type == "order_pred_first"
     # the JAX package accepts reuse_rand_vec_trace=False and draws the same
     # probes all the same; the port refuses it, pointing at ROADMAP.md's
     # "Not faults"
