@@ -54,7 +54,7 @@ one. It
    colliding indices; the float32 path against float64 on the card at
    n = 10 000 with the same probes (``ng_precision``); the LaGaBoost
    algorithm, ``Dataset`` -> ``train({"objective": "binary"}, ds,
-   gp_model=gp, num_boost_round=3)`` -> ``Booster.predict(...,
+   gp_model=gp, num_boost_round=NG_ROUNDS)`` -> ``Booster.predict(...,
    predict_var=True)`` (``lagaboost``), whose second training must give the
    same bits (``determinism``);
 8. drives grouped random effects at full width: the Gaussian LMM
@@ -153,7 +153,22 @@ one. It
    clusters and with a coefficient: fits cut to LCS_MAXIT, prediction by
    Newton-CG and CG) and ``heteroscedastic_latent`` (the two-set model and
    ``gp_approx="vecchia_latent"`` at HET_N points, card vs CPU);
-13. checks by the kernels' launch counters (set to 0 before each path, read
+13. before the second runs of 6 and 9, so that those pairs span it, drives
+   the rest of the covariance families and the likelihood tail (phase 12,
+   ``cov_likelihood_tail_paths``): ``space_time_vecchia``
+   (``matern_space_time`` under Vecchia with the time orderings at
+   ST_TIMES x ST_LOCS = 1e5 points, float32: fit, forecasting at the next
+   ST_PRED_TIMES times, ST_ROUNDS GPBoost rounds twice to the same bits,
+   card vs CPU at ST_CPU_N), ``matern_shape_vecchia`` (nu = 1 and the
+   estimated shape on the GP data, float64, fits cut to MS_MAXIT, peak
+   memory), ``tapering_exact`` (``gp_approx="tapering"`` and the wendland
+   covariance at n = EX_N), ``cov_tail_exact`` (powered exponential,
+   linear, hurst, Gneiting, ARD estimated shape at n = CT_N, fits cut to
+   CT_MAXIT) and ``censored_glmm`` (both censored families at CENS_N rows,
+   fits cut to CENS_MAXIT, one ``set_likelihood`` switch, a binomial with
+   trial counts as weights, a weighted LMM at the LMM recipe's width), each
+   card vs CPU within 1e-9;
+14. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
    Vecchia kernels never on the non-Gaussian path (the latent factors have
@@ -161,9 +176,9 @@ one. It
    GLMM and the exact GP (their work is ``torch.linalg`` and gathers, as in
    the JAX package), the histogram kernel once a leaf on the three boosting
    paths of 9, the two of 10, the Poisson LaGaBoost of 11 and the GPBoost
-   rounds of 12, both Vecchia kernels on 12's clustered path, no kernel on
-   the low-rank GPs, the iterative routes and 12's other paths — and the
-   results against float64 plain versions.
+   rounds of 12 and 13, both Vecchia kernels on 12's clustered path, no
+   kernel on the low-rank GPs, the iterative routes, 12's other paths and
+   13's GPs — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -209,11 +224,16 @@ NLL_OTHER_M = (40, 64)    # the NLL kernel's other shapes: 16 and 8 rows a block
 # a bernoulli_logit Vecchia GP, iterative Laplace, at the full width of the
 # bench (n = 1e5, m = 20, 200 probes, 100 Lanczos steps); only the depth is
 # cut: the fit's L-BFGS iterations (bench: maxit 50), the LaGaBoost rounds
-# (bench: 30) and each LaGaBoost refit's iterations (bench: the default 1000)
+# (bench: 30), each LaGaBoost refit's iterations (bench: the default 1000)
+# and the predictions' simulated draws (NG_NSIM)
 NG_COV_PARS = [1.0, 0.1]
 NG_MAXIT = 2
 NG_ROUNDS = 3
 NG_REFIT_MAXIT = 1
+# simulated draws of the non-Gaussian predictions' variances (the package
+# default 1 000; the one depth cut of an earlier path that phase 12 forced:
+# it saves ~49 s of the script's 1 200 s, PERF.md section 4)
+NG_NSIM = 250
 NG_PARAMS = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
              "min_data_in_leaf": 20, "verbose": -1}
 # float32 vs float64 on the card at n = 1e4, same structure, same probes;
@@ -1437,6 +1457,7 @@ def ng_path(ng, m, seed, dev):
     counts_fit = dict(LAPLACE_COUNTS)
     LAPLACE_COUNTS.clear()
     t0 = clock()
+    model.set_prediction_data(nsim_var_pred=NG_NSIM)
     out = model.predict(gp_coords_pred=pred, predict_var=True,
                         predict_response=True)
     t_pred = clock() - t0
@@ -1598,6 +1619,7 @@ def lagaboost(ng, m, seed, dev):
     counts = dict(LAPLACE_COUNTS)
     LAPLACE_COUNTS.clear()
     t0 = clock()
+    gp.set_prediction_data(nsim_var_pred=NG_NSIM)
     out = bst.predict(ng["X_pred"], gp_coords_pred=ng["pred"],
                       predict_var=True)
     t_pred = clock() - t0
@@ -4359,6 +4381,478 @@ def vecchia_rest_paths(coords, y, pred, cov_pars, ng, m, seed, dev):
             "heteroscedastic_latent": l_het}, timings, kern
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the covariance families and the likelihood tail
+# ---------------------------------------------------------------------------
+
+ST_TIMES = 100                    # station networks: 100 equally spaced
+ST_LOCS = 1000                    # times x 1 000 stations = n = 1e5
+ST_PRED_TIMES = 10                # forecasting: the next 10 times
+ST_ROUNDS = 5                     # depth cut of the space-time GPBoost run
+ST_CPU_N = 2_000                  # points of the card-vs-CPU check
+ST_CPU_RTOL = 1e-9
+MS_MAXIT = 3                      # depth cut of the shape-Matern fits
+TAP_RANGE = 0.1                   # taper range of the exact tapering phase
+TAP_CPU_N = 2_000
+CT_N = 5_000                      # the rest of the families, exact GP
+CT_MAXIT = 3                      # depth cut of their fits
+CT_CPU_N = 1_000
+CENS_N = 100_000                  # censored GLMMs: 1 000 uniform levels
+CENS_LEVELS = 1000
+CENS_MAXIT = 1                    # depth cut of their fits
+CENS_N_PRED = 10_000
+CENS_CPU_N = 2_000
+CENS_CPU_RTOL = 1e-9
+ZOCB = "zero_one_censored_transformed_beta"
+ZOCG = "zero_one_censored_shifted_gamma"
+
+
+def make_space_time_data(seed):
+    """Station networks measured over time: ST_LOCS stations uniform in the
+    unit square at ST_TIMES equally spaced times in [0, 1], coordinates
+    [t, x1, x2]; y = sin(6 x1) + cos(4 x2) + sin(2 pi t) + 0.5 eps. The
+    prediction points: every station at the next ST_PRED_TIMES times."""
+    rng = np.random.default_rng(seed + 160)
+    locs = rng.uniform(size=(ST_LOCS, 2))
+    times = np.linspace(0.0, 1.0, ST_TIMES)
+    step = times[1] - times[0]
+
+    def grid(ts):
+        return np.column_stack([np.repeat(ts, ST_LOCS),
+                                np.tile(locs, (len(ts), 1))])
+
+    coords = grid(times)
+    y = (np.sin(6 * coords[:, 1]) + np.cos(4 * coords[:, 2])
+         + np.sin(2 * np.pi * coords[:, 0])
+         + 0.5 * rng.standard_normal(len(coords)))
+    pred = grid(1.0 + step * np.arange(1, ST_PRED_TIMES + 1))
+    return coords, y, pred
+
+
+def _st_model(coords, m, seed, dev, dtype=torch.float32, ordering=
+              "time_random_space"):
+    import gpboost_tpu_torch as gpt
+    return gpt.GPModel(gp_coords=coords, cov_function="matern_space_time",
+                       cov_fct_shape=1.5, gp_approx="vecchia",
+                       num_neighbors=m, vecchia_ordering=ordering, seed=seed,
+                       dtype=dtype, device=dev)
+
+
+def space_time_vecchia(m, seed, dev):
+    """``matern_space_time`` (shape 1.5) under Vecchia with
+    ``vecchia_ordering="time_random_space"`` at n = 1e5, float32: construct,
+    NLL, L-BFGS fit (neighbours redetermined in the scaled coordinates),
+    forecasting at the next ST_PRED_TIMES times; one NLL with the "time"
+    ordering; then ``train(..., gp_model=gp, num_boost_round=ST_ROUNDS)``
+    on the boosting recipe's 5 features, twice to the same bits. The
+    Vecchia kernels stay at 0 (the family is outside their gate, as in the
+    JAX package); card vs CPU, float64, at ST_CPU_N points."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    coords, y, pred = make_space_time_data(seed)
+    reset_counts()
+    gp, t_c = _timed(lambda: _st_model(coords, m, seed, dev))
+    init = gp._default_init_cov_pars(y)
+    nll_init, t_n = _timed(lambda: gp.neg_log_likelihood(init, y))
+    _, t_f = _timed(lambda: gp.fit(y, params={"optimizer_cov": "lbfgs"}))
+    cp = gp.get_cov_pars()
+    nll_fit = gp.get_current_neg_log_likelihood()
+    check(math.isfinite(nll_fit) and nll_fit < nll_init,
+          f"space-time: the fit did not lower the NLL {nll_init} -> "
+          f"{nll_fit}")
+    p, t_p = _timed(lambda: gp.predict(gp_coords_pred=pred, predict_var=True))
+    check(bool(np.all(np.isfinite(p["mu"])) and np.all(p["var"] > 0)),
+          "space-time forecasts not finite")
+    gt, t_ct = _timed(lambda: _st_model(coords, m, seed, dev,
+                                        ordering="time"))
+    nll_time, t_nt = _timed(lambda: gt.neg_log_likelihood(cp, y))
+    check(math.isfinite(nll_time), f"time ordering: NLL {nll_time}")
+    del gt
+    launches_gp = read_counts()
+    check(launches_gp == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                          "histogram": 0},
+          f"the space-time GP launched {launches_gp}")
+    fit_evals = gp._fit_result.num_evals
+    del gp
+    torch.cuda.empty_cache()
+    X, yb, X_pred = make_boost_data(seed, y, len(pred))
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        ds = gpt.Dataset(X, label=yb, device=dev)
+        g = _st_model(coords, m, seed, dev)
+        g.set_optim_params({"optimizer_cov": "lbfgs", "init_cov_pars": cp})
+        bst, t_t = _timed(lambda: gpt.train(BOOST_PARAMS, ds, gp_model=g,
+                                            num_boost_round=ST_ROUNDS))
+        runs.append((bst, read_counts(), grow_tree.host_reads, t_t))
+    entry = _boost_checks(runs[0][0], "space_time_boosting", runs[0][1],
+                          runs[0][2], ST_ROUNDS)
+    a, b = runs[0][0], runs[1][0]
+    check(np.array_equal(np.asarray(a._score), np.asarray(b._score))
+          and np.array_equal(a.gp_model.get_cov_pars(),
+                             b.gp_model.get_cov_pars()),
+          "two space-time GPBoost trainings differ in their bits")
+    out = a.predict(X_pred, gp_coords_pred=pred, predict_var=True)
+    check(bool(np.all(np.isfinite(out["response_mean"]))),
+          "space-time GPBoost predictions not finite")
+    t_train = runs[0][3]
+    del runs, a, b
+    torch.cuda.empty_cache()
+    # card vs CPU, float64, the same ordering and neighbours
+    vals = []
+    for where in (dev, torch.device("cpu")):
+        g = _st_model(coords[:ST_CPU_N], m, seed, where,
+                      dtype=torch.float64)
+        nll_w = g.neg_log_likelihood(cp, y[:ST_CPU_N])
+        pw = g.predict(y=y[:ST_CPU_N], gp_coords_pred=pred[:100],
+                       cov_pars=cp, predict_var=True)
+        vals.append((nll_w, pw["mu"], pw["var"]))
+    c, d = vals
+    rel = max(abs(c[0] - d[0]) / abs(d[0]),
+              float(np.max(np.abs(c[1] - d[1])) / np.max(np.abs(d[1]))),
+              float(np.max(np.abs(c[2] - d[2]) / d[2])))
+    check(rel <= ST_CPU_RTOL, f"space-time: card vs CPU {rel}")
+    emit({"phase": "space_time_vecchia", "n": len(y), "m": m,
+          "n_pred": len(pred), "nll_init": nll_init, "nll_fit": nll_fit,
+          "nll_time_ordering": nll_time, "cov_pars": cp.tolist(),
+          "fit_evaluations": fit_evals, "launches_gp": launches_gp,
+          **entry, "same_bits": True, "card_vs_cpu_max_rel_err": rel})
+    return entry["launches"], {
+        "st_construct_s": t_c, "st_nll_s": t_n, "st_fit_s": t_f,
+        "st_fit_evaluations": fit_evals, "st_predict_s": t_p,
+        "st_time_construct_s": t_ct, "st_time_nll_s": t_nt,
+        f"st_train_{ST_ROUNDS}r_s": t_train}
+
+
+def matern_shape_vecchia(coords, y, m, seed, dev):
+    """The general-order Matern under Vecchia on the GP data (n = 1e5,
+    m = 20, float64): a fixed shape nu = 1.0 (NLL, L-BFGS fit) and
+    ``matern_estimate_shape`` (NLL, one value-and-gradient, L-BFGS fit),
+    the fits cut to MS_MAXIT iterations; the Bessel series run in chunks
+    (``ops/cov_fns.py::_Chunked``); the peak memory. No kernel runs."""
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    out, timings = {}, {}
+    for tag, kw in (("nu1", dict(cov_function="matern", cov_fct_shape=1.0)),
+                    ("estimate", dict(cov_function="matern_estimate_shape"))):
+        import gpboost_tpu_torch as gpt
+        gp, t_c = _timed(lambda: gpt.GPModel(
+            gp_coords=coords, gp_approx="vecchia", num_neighbors=m,
+            seed=seed, dtype=torch.float64, device=dev, **kw))
+        init = gp._default_init_cov_pars(y)
+        if tag == "estimate":
+            init[-1] = 1.0                # start the shape at nu = 1
+        nll_init, t_n = _timed(lambda: gp.neg_log_likelihood(init, y))
+        if tag == "estimate":
+            th = torch.log(gp._tensor(init))
+            y_t = gp._y_tensor(y)
+            (v, g), t_vg = _timed(lambda: gp._approx._vg_gaussian(th, y_t,
+                                                                  None))
+            check(bool(torch.all(torch.isfinite(g))),
+                  f"estimate-shape gradient not finite: {g}")
+            timings["ms_estimate_vg_s"] = t_vg
+            out["estimate_grad"] = g.cpu().tolist()
+        _, t_f = _timed(lambda: gp.fit(y, params={
+            "optimizer_cov": "lbfgs", "init_cov_pars": init,
+            "maxit": MS_MAXIT}))
+        nll = gp.get_current_neg_log_likelihood()
+        check(math.isfinite(nll) and nll < nll_init,
+              f"matern {tag}: the fit did not lower the NLL {nll_init} -> "
+              f"{nll}")
+        out[tag] = dict(nll_init=nll_init, nll=nll,
+                        cov_pars=gp.get_cov_pars().tolist(),
+                        evaluations=gp._fit_result.num_evals)
+        timings.update({f"ms_{tag}_construct_s": t_c, f"ms_{tag}_nll_s": t_n,
+                        f"ms_{tag}_fit_s": t_f,
+                        f"ms_{tag}_fit_evaluations":
+                        gp._fit_result.num_evals})
+        del gp
+        torch.cuda.empty_cache()
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    timings["ms_peak_mem_gb"] = peak
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the shape-Matern paths launched {launches}")
+    emit({"phase": "matern_shape_vecchia", "n": len(y), "m": m,
+          "maxit": MS_MAXIT, **out, "peak_mem_gb": peak,
+          "launches": launches})
+    return launches, timings
+
+
+def _fit_predict_exact(gp, y, pred, maxit=None):
+    """L-BFGS fit (cut to ``maxit`` if given) and a prediction with
+    variances; returns (seconds of each, the prediction)."""
+    params = {"optimizer_cov": "lbfgs"}
+    if maxit is not None:
+        params["maxit"] = maxit
+    _, t_f = _timed(lambda: gp.fit(y, params=params))
+    p, t_p = _timed(lambda: gp.predict(gp_coords_pred=pred,
+                                       predict_var=True))
+    check(bool(np.all(np.isfinite(p["mu"])) and np.all(p["var"] > 0)),
+          "predictions not finite")
+    return t_f, t_p, p
+
+
+def _card_vs_cpu_exact(kw, coords, y, pred, cp, dev):
+    """NLL and a prediction (mean, variance) of an exact model on the card
+    against the float64 CPU run: the largest relative difference."""
+    import gpboost_tpu_torch as gpt
+    vals = []
+    for where in (dev, "cpu"):
+        g = gpt.GPModel(gp_coords=coords, device=where, **kw)
+        pw = g.predict(y=y, gp_coords_pred=pred, cov_pars=cp,
+                       predict_var=True)
+        vals.append((g.neg_log_likelihood(cp, y), pw["mu"], pw["var"]))
+    a, b = vals
+    return max(abs(a[0] - b[0]) / abs(b[0]),
+               float(np.max(np.abs(a[1] - b[1])) / np.max(np.abs(b[1]))),
+               float(np.max(np.abs(a[2] - b[2]) / b[2])))
+
+
+def tapering_exact(seed, dev):
+    """``gp_approx="tapering"`` (exponential, taper shape 0, range
+    TAP_RANGE) and the wendland covariance (the same taper as its
+    correlation) at the top of the exact GP, n = EX_N, float64: L-BFGS fit
+    and prediction at EX_N_PRED points each; card vs CPU at TAP_CPU_N
+    points within 1e-9. The JAX package forms the tapered covariance
+    dense, and so does the port. No kernel runs."""
+    import gpboost_tpu_torch as gpt
+    coords, y, pred = make_data(seed + 170, EX_N, EX_N_PRED)
+    reset_counts()
+    out, timings = {}, {}
+    for tag, kw in (
+            ("exponential", dict(cov_function="exponential",
+                                 gp_approx="tapering", cov_fct_taper_shape=0,
+                                 cov_fct_taper_range=TAP_RANGE)),
+            ("wendland", dict(cov_function="wendland", cov_fct_taper_shape=0,
+                              cov_fct_taper_range=TAP_RANGE))):
+        gp, t_c = _timed(lambda: gpt.GPModel(gp_coords=coords, device=dev,
+                                             **kw))
+        t_f, t_p, _ = _fit_predict_exact(gp, y, pred)
+        cp = gp.get_cov_pars()
+        rel = _card_vs_cpu_exact(kw, coords[:TAP_CPU_N], y[:TAP_CPU_N],
+                                 pred[:200], cp, dev)
+        check(rel <= EX_CPU_RTOL, f"tapering {tag}: card vs CPU {rel}")
+        out[tag] = dict(cov_pars=cp.tolist(),
+                        nll=gp.get_current_neg_log_likelihood(),
+                        evaluations=gp._fit_result.num_evals,
+                        card_vs_cpu_max_rel_err=rel)
+        timings.update({f"tap_{tag}_construct_s": t_c,
+                        f"tap_{tag}_fit_s": t_f, f"tap_{tag}_predict_s": t_p,
+                        f"tap_{tag}_fit_evaluations":
+                        gp._fit_result.num_evals})
+        del gp
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the tapering paths launched {launches}")
+    emit({"phase": "tapering_exact", "n": EX_N, "n_pred": EX_N_PRED,
+          "taper_range": TAP_RANGE, **out, "launches": launches})
+    return launches, timings
+
+
+def cov_tail_exact(seed, dev):
+    """``powered_exponential`` (shape 1.5), ``linear``, ``hurst``,
+    ``space_time_gneiting`` and ``matern_ard_estimate_shape`` on the exact
+    GP at n = CT_N, float64: NLL at the default inits, one
+    value-and-gradient, the L-BFGS fit cut to CT_MAXIT; card vs CPU at
+    CT_CPU_N points (NLL and gradient) within 1e-9. No kernel runs."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.models import gaussian as tga
+    rng = np.random.default_rng(seed + 180)
+    c2 = rng.uniform(size=(CT_N, 2))
+    c3 = np.column_stack([np.repeat(np.linspace(0, 1, 50), CT_N // 50),
+                          rng.uniform(size=(CT_N, 2))])
+    y = (np.sin(6 * c2[:, 0]) + np.cos(4 * c2[:, 1])
+         + 0.5 * rng.standard_normal(CT_N))
+    reset_counts()
+    out, timings = {}, {}
+    for tag, coords, kw in (
+            ("powered_exponential", c2, dict(cov_fct_shape=1.5)),
+            ("linear", c2, {}), ("hurst", c2, {}),
+            ("space_time_gneiting", c3, {}),
+            ("matern_ard_estimate_shape", c2, {})):
+        def vg(where, n):
+            g = gpt.GPModel(gp_coords=coords[:n], cov_function=tag,
+                            device=where, **kw)
+            init = g._default_init_cov_pars(y[:n])
+            v, grad = tga.nll_value_and_grad_log_scale(
+                g.spec, g.data, torch.log(g._tensor(init)),
+                g._tensor(y[:n]))
+            return g, init, float(v), grad.cpu().numpy()
+
+        (gp, init, v, grad), t_vg = _timed(lambda: vg(dev, CT_N))
+        nll, t_n = _timed(lambda: gp.neg_log_likelihood(init, y))
+        check(math.isfinite(nll) and bool(np.all(np.isfinite(grad))),
+              f"{tag}: NLL {nll}, gradient {grad}")
+        _, t_f = _timed(lambda: gp.fit(y, params={
+            "optimizer_cov": "lbfgs", "maxit": CT_MAXIT}))
+        nll_fit = gp.get_current_neg_log_likelihood()
+        check(math.isfinite(nll_fit) and nll_fit <= nll,
+              f"{tag}: the fit did not lower the NLL {nll} -> {nll_fit}")
+        evals = gp._fit_result.num_evals
+        del gp
+        torch.cuda.empty_cache()
+        a, b = vg(dev, CT_CPU_N)[2:], vg("cpu", CT_CPU_N)[2:]
+        rel = max(abs(a[0] - b[0]) / abs(b[0]),
+                  float(np.max(np.abs(a[1] - b[1]))
+                        / np.max(np.abs(b[1]))))
+        check(rel <= EX_CPU_RTOL, f"{tag}: card vs CPU {rel}")
+        out[tag] = dict(nll_init=nll, nll=nll_fit, evaluations=evals,
+                        card_vs_cpu_max_rel_err=rel)
+        timings.update({f"ct_{tag}_nll_s": t_n, f"ct_{tag}_vg_s": t_vg,
+                        f"ct_{tag}_fit_s": t_f,
+                        f"ct_{tag}_fit_evaluations": evals})
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the exact tail families launched {launches}")
+    emit({"phase": "cov_tail_exact", "n": CT_N, "maxit": CT_MAXIT, **out,
+          "launches": launches})
+    return launches, timings
+
+
+def make_censored_data(seed):
+    """Proportions with exact 0s and 1s (percent cover per site): CENS_N
+    rows, a random intercept on CENS_LEVELS uniform levels, X = [1, x];
+    the transformed-beta response (precision 20, u = 0.15), the
+    shifted-gamma one (shape 5, xi = 0.1), and binomial counts of Poisson(5)
+    trials; prediction rows at training levels."""
+    rng = np.random.default_rng(seed + 190)
+    n = CENS_N
+    group = rng.integers(0, CENS_LEVELS, n)
+    x = rng.uniform(-1.0, 1.0, n)
+    X = np.column_stack([np.ones(n), x])
+    eta = 0.7 * rng.standard_normal(CENS_LEVELS)[group] + 0.8 * x
+    p = 1.0 / (1.0 + np.exp(-eta))
+    t = rng.beta(p * 20.0, (1.0 - p) * 20.0)
+    y_beta = np.clip(-0.15 + 1.3 * t, 0.0, 1.0)
+    y_gamma = np.clip(rng.gamma(5.0, np.exp(0.5 * eta) / 5.0) - 0.1, 0.0, 1.0)
+    trials = rng.poisson(5.0, n).astype(np.float64)
+    y_bin = rng.binomial(trials.astype(np.int64), p) / np.maximum(trials, 1.0)
+    gp_ = rng.integers(0, CENS_LEVELS, CENS_N_PRED)
+    xp = rng.uniform(-1.0, 1.0, CENS_N_PRED)
+    return dict(group=group, X=X, y_beta=y_beta, y_gamma=y_gamma,
+                trials=trials, y_bin=y_bin, group_pred=gp_,
+                X_pred=np.column_stack([np.ones(CENS_N_PRED), xp]))
+
+
+def censored_glmm(gd, seed, dev):
+    """The likelihood tail through the public API, float64: the two
+    zero-one-censored families on a grouped GLMM at CENS_N rows (the
+    default L-BFGS fit cut to CENS_MAXIT, response prediction at
+    CENS_N_PRED rows; the shifted gamma's model built as gaussian and
+    switched by ``set_likelihood`` before its fit), ``binomial_logit`` with
+    the trial counts as ``weights`` on the same rows, a weighted grouped
+    LMM at the LMM recipe's n and q (NLL, L-BFGS fit); card vs CPU at
+    CENS_CPU_N rows within 1e-9. No kernel runs (the grouped routes' work
+    is gathers, fixed-order sums and ``torch.linalg``)."""
+    import gpboost_tpu_torch as gpt
+    cd = make_censored_data(seed)
+    reset_counts()
+    out, timings = {}, {}
+    for tag, lik, ykey, kw in (
+            ("beta", ZOCB, "y_beta", {}), ("gamma", ZOCG, "y_gamma", {}),
+            ("binomial", "binomial_logit", "y_bin",
+             dict(weights=cd["trials"]))):
+        y = cd[ykey]
+        if tag == "gamma":
+            gp = gpt.GPModel(group_data=cd["group"], device=dev, **kw)
+            gp.set_likelihood(lik)
+        else:
+            gp = gpt.GPModel(group_data=cd["group"], likelihood=lik,
+                             device=dev, **kw)
+        _, t_f = _timed(lambda: gp.fit(y, X=cd["X"],
+                                       params={"maxit": CENS_MAXIT}))
+        p, t_p = _timed(lambda: gp.predict(
+            group_data_pred=cd["group_pred"], X_pred=cd["X_pred"],
+            predict_var=True, predict_response=True))
+        check(bool(np.all((p["mu"] >= 0) & (p["mu"] <= 1))
+                   and np.all(p["var"] > 0)),
+              f"censored {tag}: response predictions outside [0, 1]")
+        nll = gp.get_current_neg_log_likelihood()
+        check(math.isfinite(nll), f"censored {tag}: NLL {nll}")
+        out[tag] = dict(nll=nll, cov_pars=gp.get_cov_pars().tolist(),
+                        aux_pars=None if gp.get_aux_pars() is None
+                        else gp.get_aux_pars().tolist(),
+                        coef=gp.get_coef().tolist(),
+                        evaluations=gp._fit_result.num_evals,
+                        zeros=int(np.sum(y == 0)), ones=int(np.sum(y == 1)))
+        aux = gp.get_aux_pars()
+        cp = gp.get_cov_pars()
+        timings.update({f"cens_{tag}_fit_s": t_f,
+                        f"cens_{tag}_predict_s": t_p,
+                        f"cens_{tag}_fit_evaluations":
+                        gp._fit_result.num_evals})
+        del gp
+        torch.cuda.empty_cache()
+        rows = slice(0, CENS_CPU_N)
+        nlls = [gpt.GPModel(group_data=cd["group"][rows], likelihood=lik,
+                            device=where,
+                            **({} if not kw else
+                               dict(weights=cd["trials"][rows]))
+                            ).neg_log_likelihood(cp, y[rows], aux_pars=aux)
+                for where in (dev, "cpu")]
+        rel = abs(nlls[0] - nlls[1]) / abs(nlls[1])
+        check(rel <= CENS_CPU_RTOL, f"censored {tag}: card vs CPU {rel}")
+        out[tag]["card_vs_cpu_rel_err"] = rel
+    # the weighted LMM at the LMM recipe's width
+    w = np.random.default_rng(seed + 191).uniform(0.5, 2.0, len(gd["y"]))
+    lmm, t_c = _timed(lambda: gpt.GPModel(device=dev, weights=w,
+                                          **_lmm_kwargs(gd)))
+    nll, t_n = _timed(lambda: lmm.neg_log_likelihood(
+        GR_TRUTH, gd["y"], fixed_effects=gd["X"] @ np.asarray(GR_BETA)))
+    _, t_f = _timed(lambda: lmm.fit(gd["y"], X=gd["X"], params={
+        "optimizer_cov": "lbfgs"}))
+    nll_fit = lmm.get_current_neg_log_likelihood()
+    check(math.isfinite(nll) and math.isfinite(nll_fit),
+          f"weighted LMM: NLL {nll}, fit {nll_fit}")
+    out["weighted_lmm"] = dict(q=lmm._Z.q, nll_truth=nll, nll=nll_fit,
+                               cov_pars=lmm.get_cov_pars().tolist(),
+                               coef=lmm.get_coef().tolist())
+    timings.update({"cens_wlmm_construct_s": t_c, "cens_wlmm_nll_s": t_n,
+                    "cens_wlmm_fit_s": t_f})
+    del lmm
+    torch.cuda.empty_cache()
+    rows = slice(0, CENS_CPU_N)
+    nlls = [gpt.GPModel(device=where, weights=w[rows],
+                        **_lmm_kwargs(gd, rows)).neg_log_likelihood(
+        GR_TRUTH, gd["y"][rows]) for where in (dev, "cpu")]
+    rel = abs(nlls[0] - nlls[1]) / abs(nlls[1])
+    check(rel <= CENS_CPU_RTOL, f"weighted LMM: card vs CPU {rel}")
+    out["weighted_lmm"]["card_vs_cpu_rel_err"] = rel
+    launches = read_counts()
+    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
+                       "histogram": 0},
+          f"the censored / weighted paths launched {launches}")
+    emit({"phase": "censored_glmm", "n": CENS_N, "levels": CENS_LEVELS,
+          "maxit": CENS_MAXIT, "n_pred": CENS_N_PRED,
+          "lmm_n": len(gd["y"]), **out, "launches": launches})
+    return launches, timings
+
+
+def cov_likelihood_tail_paths(coords, y, gd, m, seed, dev):
+    """Phase 12 in order; returns (launches by path, timings)."""
+    launches, timings = {}, {}
+    for name, run in (
+            ("space_time_vecchia", lambda: space_time_vecchia(m, seed, dev)),
+            ("matern_shape_vecchia",
+             lambda: matern_shape_vecchia(coords, y, m, seed, dev)),
+            ("tapering_exact", lambda: tapering_exact(seed, dev)),
+            ("cov_tail_exact", lambda: cov_tail_exact(seed, dev)),
+            ("censored_glmm", lambda: censored_glmm(gd, seed, dev))):
+        t0 = clock()
+        launches[name], t = run()
+        timings.update(t)
+        timings[f"phase12_{name}_s"] = clock() - t0
+        torch.cuda.empty_cache()
+    return launches, timings
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4484,6 +4978,15 @@ def main():
     cases["vecchia_factors"] += [vr_kern["factors_train"],
                                  vr_kern["factors_predict"]]
     cases["vecchia_nll_grad"].append(vr_kern["nll_grad"])
+    # the rest of the covariance families and the likelihood tail, before
+    # the second runs of the earlier paths: its general-order Bessel series
+    # builds many autograd nodes inside backward passes, which moved a
+    # later exact LaGaBoost training's last bits until the port ran its
+    # backward passes on the calling thread (ROADMAP fault C5), so the
+    # pairs below span it
+    tail_launches, tail_timings = cov_likelihood_tail_paths(
+        coords, y, gd, args.m, args.seed, dev)
+    timings.update(tail_timings)
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -4526,7 +5029,7 @@ def main():
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
-             **it_launches, **vr_launches}
+             **it_launches, **vr_launches, **tail_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -4548,6 +5051,8 @@ def main():
             ("vecchia_clustered", vr_launches["vecchia_clustered"],
              ("vecchia_factors", "vecchia_nll_grad")),
             ("vecchia_combined", vr_launches["vecchia_combined"],
+             ("histogram",)),
+            ("space_time_vecchia", tail_launches["space_time_vecchia"],
              ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "

@@ -6,24 +6,25 @@ family: the response distributions of the reference's
 ``likelihoods.h:10-70``) as elementwise log-densities. First, second and
 third derivatives w.r.t. the location parameter — hand-derived in the
 reference (``CalcFirstDerivLogLik`` :8975, ``CalcInformationLogLik``
-:9477) — come from nested ``torch.autograd.grad(create_graph=True)``, which
-yields the same closed forms.
+:9477) — come from nested ``torch.autograd.grad(create_graph=True)`` (on the
+calling thread, :mod:`gpboost_tpu_torch.utils.autograd`), which yields the
+same closed forms.
 
 ``location_par`` is always the sum of fixed and random effects; the response
 mean is linked via exp() (count/positive families), the logistic function
 (bernoulli_logit, beta, beta_binomial), the normal CDF (probit families), or
 identity (gaussian, t).
 
-Not ported: the two zero-one-censored families whose densities need the
-incomplete beta / gamma functions with derivatives
-(``zero_one_censored_transformed_beta``, ``zero_one_censored_shifted_gamma``;
-``likelihoods/special.py``, ROADMAP.md Queue A, item 11) — registered, and
-every use raises. ``gaussian_heteroscedastic`` is registered for its name:
+The two zero-one-censored families (``zero_one_censored_transformed_beta``,
+``zero_one_censored_shifted_gamma``) take the incomplete beta / gamma
+functions with shape derivatives of ``likelihoods/special.py``.
+``gaussian_heteroscedastic`` is registered for its name:
 its two-set model is ``models/heteroscedastic.py``, and the single-location
 functions of its entry raise, as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
@@ -31,8 +32,9 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
+
 LOG_2PI = math.log(2.0 * math.pi)
-SPECIAL_ITEM = "ROADMAP.md Queue A, item 11 (likelihoods/special.py)"
 
 
 def _canonical(name: str) -> str:
@@ -130,7 +132,7 @@ def _derivative(fn: Callable, loc: torch.Tensor, keep: bool) -> torch.Tensor:
         out = torch.sum(fn(x))
         if not out.requires_grad:           # fn constant in loc
             return torch.zeros_like(loc)
-        (g,) = torch.autograd.grad(out, x, create_graph=keep)
+        (g,) = ag.grad(out, x, create_graph=keep)
     return g
 
 
@@ -210,13 +212,38 @@ def _register(fam: LikelihoodFamily):
     return fam
 
 
-def get_family(name: str) -> LikelihoodFamily:
+def get_family(name) -> LikelihoodFamily:
+    """The family of a likelihood name (a family, e.g. one of
+    :func:`weighted_family`, is returned as it is)."""
+    if isinstance(name, LikelihoodFamily):
+        return name
     name = _canonical(name)
     if name not in _REGISTRY:
         raise ValueError(
             f"Likelihood '{name}' is not supported. Available: "
             f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def weighted_family(lik, weights: Optional[torch.Tensor]
+                    ) -> LikelihoodFamily:
+    """The family with observation ``weights`` (the reference's
+    ``weights``; the JAX package's ``laplace._weighted_fns``): the
+    binomial-type families take them as trial counts inside the density
+    (``log_lik_weighted``), every other family's log-likelihood (and its
+    Fisher information) is multiplied by them. Without weights the family
+    itself."""
+    fam = get_family(lik)
+    if weights is None:
+        return fam
+    if fam.log_lik_weighted is not None:
+        return dataclasses.replace(
+            fam, log_lik=lambda y, loc, aux: fam.log_lik_weighted(
+                y, loc, aux, weights))
+    return dataclasses.replace(
+        fam, log_lik=lambda y, loc, aux: weights * fam.log_lik(y, loc, aux),
+        fisher_loc=None if fam.fisher_loc is None else (
+            lambda y, loc, aux: weights * fam.fisher_loc(y, loc, aux)))
 
 
 def supported_likelihoods():
@@ -571,31 +598,125 @@ _register(LikelihoodFamily(
     clip_information=True))
 
 
-def _needs_special(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"likelihood '{name}' needs the incomplete beta / gamma "
-            "functions with derivatives, which are not ported to "
-            f"gpboost_tpu_torch yet ({SPECIAL_ITEM})")
-    return fn
+def _zocb_shapes(loc, aux):
+    """(a, b, t0, t1, u, 1 + 2u) of the zero-one-censored transformed
+    beta: t ~ Beta(a, b), a = mu phi, b = (1 - mu) phi, mu = sigmoid(loc),
+    y = clip(-u + (1 + 2u) t, 0, 1)."""
+    # the upper clamp keeps the incomplete-beta quadrature in its accurate
+    # range (the reference caps phi's init at 100; fitted values are O(10));
+    # the shape floor 0.05 keeps its higher derivatives (a < 0.02 happens
+    # only at saturated |loc| > 7, where the likelihood is flat)
+    phi = torch.clamp(aux[0], 1e-12, 1e3)
+    u = torch.clamp(aux[1], 1e-12, 10.0)
+    onep2u = 1.0 + 2.0 * u
+    mu = torch.clamp(torch.sigmoid(loc), 1e-12, 1.0 - 1e-12)
+    a = torch.clamp(mu * phi, min=5e-2)
+    b = torch.clamp((1.0 - mu) * phi, min=5e-2)
+    t0 = torch.clamp(u / onep2u, 1e-15, 1.0 - 1e-15)
+    t1 = torch.clamp((1.0 + u) / onep2u, 1e-15, 1.0 - 1e-15)
+    return a, b, t0, t1, u, onep2u
 
 
-for _name, _aux_names, _default in (
-        ("zero_one_censored_transformed_beta", ("precision", "u"),
-         (20.0, 0.01)),
-        ("zero_one_censored_shifted_gamma", ("shape", "xi"), (1.0, 0.1))):
-    _register(LikelihoodFamily(
-        _name, 2, _aux_names, _needs_special(_name),
-        response_mean=_needs_special(_name),
-        response_var=_needs_special(_name),
-        default_aux=_default, clip_information=True))
+def _on_rows(mask, fn, *args):
+    """``fn(*args)`` on the entries where ``mask`` holds, 0 elsewhere (the
+    arguments broadcast). A censored branch's incomplete beta / gamma costs a
+    [rows, 200] quadrature in each of its derivatives, so only the rows that
+    select it pay for it (the JAX package evaluates every row and selects:
+    the same values)."""
+    shape = torch.broadcast_shapes(mask.shape, *(a.shape for a in args))
+    idx = torch.nonzero(mask.expand(shape).reshape(-1)).reshape(-1)
+    out = torch.zeros(shape, dtype=args[0].dtype,
+                      device=args[0].device).reshape(-1)
+    if idx.numel():
+        out = out.index_put((idx,), fn(*(a.expand(shape).reshape(-1)[idx]
+                                        for a in args)))
+    return out.reshape(shape)
 
-# families whose every use raises (the GPModel constructor refuses them)
-NOT_PORTED = {
-    "zero_one_censored_transformed_beta": SPECIAL_ITEM,
-    "zero_one_censored_shifted_gamma": SPECIAL_ITEM,
-}
 
+def _ll_zocb(y, loc, aux):
+    # zero_one_censored_transformed_beta (likelihoods.h:306,
+    # LogLikZeroOneCensTransfBeta)
+    from gpboost_tpu_torch.likelihoods.special import (betaln_ad,
+                                                       log1m_betainc_ad,
+                                                       log_betainc_ad)
+    a, b, t0, t1, u, onep2u = _zocb_shapes(loc, aux)
+    t = torch.clamp((y + u) / onep2u, 1e-15, 1.0 - 1e-15)
+    ll0 = _on_rows(y <= 0.0, log_betainc_ad, a, b, t0)
+    ll1 = _on_rows(y >= 1.0, log1m_betainc_ad, a, b, t1)
+    llmid = ((a - 1.0) * torch.log(t) + (b - 1.0) * torch.log1p(-t)
+             - betaln_ad(a, b) - torch.log(onep2u))
+    return torch.where(y <= 0.0, ll0, torch.where(y >= 1.0, ll1, llmid))
+
+
+def _zocb_moments(loc, aux):
+    """(E[y|loc], E[y^2|loc]) (XB_FirstMoment_ / XB_SecondMoment_,
+    likelihoods.h:11549,11580)."""
+    from gpboost_tpu_torch.likelihoods.special import betainc_ad
+    a, b, t0, t1, u, onep2u = _zocb_shapes(loc, aux)
+    F0 = betainc_ad(a, b, t0)
+    P1 = betainc_ad(b, a, 1.0 - t1)
+    Pmid = (1.0 - P1) - F0
+    Ez1 = (a / (a + b)) * (betainc_ad(a + 1.0, b, t1)
+                           - betainc_ad(a + 1.0, b, t0))
+    m1 = torch.clamp(onep2u * Ez1 - u * Pmid + P1, 0.0, 1.0)
+    coeff2 = a * (a + 1.0) / ((a + b) * (a + b + 1.0))
+    Ez2 = coeff2 * (betainc_ad(a + 2.0, b, t1) - betainc_ad(a + 2.0, b, t0))
+    m2 = torch.clamp(onep2u ** 2 * Ez2 - 2.0 * u * onep2u * Ez1
+                     + u * u * Pmid + P1, 0.0, 1.0)
+    return m1, m2
+
+
+def _moment_var(moments):
+    def var(loc, aux):
+        m1, m2 = moments(loc, aux)
+        return m2 - m1 ** 2
+    return var
+
+
+_register(LikelihoodFamily(
+    "zero_one_censored_transformed_beta", 2, ("precision", "u"), _ll_zocb,
+    response_mean=lambda loc, aux: _zocb_moments(loc, aux)[0],
+    response_var=_moment_var(_zocb_moments),
+    default_aux=(20.0, 0.01), clip_information=True))
+
+
+def _ll_zocg(y, loc, aux):
+    # zero_one_censored_shifted_gamma (likelihoods.h:314,
+    # LogLikZeroOneCensGamma): y = clip(z - xi, 0, 1), z ~ Gamma(k, mu/k)
+    from gpboost_tpu_torch.likelihoods.special import (log_gammainc_lower_ad,
+                                                       log_gammainc_upper_ad)
+    k, xi = aux[0], aux[1]
+    th = torch.exp(torch.clamp(loc, -500.0, 500.0)) / k
+    ll0 = _on_rows(y <= 0.0, log_gammainc_lower_ad, k, xi / th)
+    ll1 = _on_rows(y >= 1.0, log_gammainc_upper_ad, k, (1.0 + xi) / th)
+    z = torch.clamp(y + xi, min=1e-300)
+    llmid = (-k * torch.log(th) - z / th + (k - 1.0) * torch.log(z)
+             - gammaln(k))
+    return torch.where(y <= 0.0, ll0, torch.where(y >= 1.0, ll1, llmid))
+
+
+def _zocg_moments(loc, aux):
+    """(E[y|loc], E[y^2|loc]) (ZOCG_MomentsGivenEta_, likelihoods.h:11615)."""
+    from gpboost_tpu_torch.likelihoods.special import gammainc_ad
+    k, xi = aux[0], aux[1]
+    th = torch.exp(loc) / k
+    t0, t1 = xi / th, (1.0 + xi) / th
+    Gk0, Gk1 = gammainc_ad(k, t0), gammainc_ad(k, t1)
+    Pint = Gk1 - Gk0
+    p1 = 1.0 - Gk1
+    M1 = (k * th) * (gammainc_ad(k + 1.0, t1) - gammainc_ad(k + 1.0, t0))
+    Ey = torch.clamp(p1 + M1 - xi * Pint, 0.0, 1.0)
+    M2 = (k * (k + 1.0) * th * th) * (gammainc_ad(k + 2.0, t1)
+                                      - gammainc_ad(k + 2.0, t0))
+    Ey2 = torch.clamp(p1 + M2 - 2.0 * xi * M1 + xi * xi * Pint, 0.0, 1.0)
+    return Ey, Ey2
+
+
+_register(LikelihoodFamily(
+    "zero_one_censored_shifted_gamma", 2, ("shape", "xi"), _ll_zocg,
+    response_mean=lambda loc, aux: _zocg_moments(loc, aux)[0],
+    response_var=_moment_var(_zocg_moments),
+    default_aux=(1.0, 0.1), clip_information=True))
 
 def _ll_het_single(y, loc, aux):
     # gaussian_heteroscedastic is a TWO-location family (mean +

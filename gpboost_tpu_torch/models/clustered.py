@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch.ops.cov_fns import euclidean_distance
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -153,7 +154,7 @@ def nll_profiled_value_and_grad(cov_fn, log_ratio_pars: torch.Tensor,
     th = log_ratio_pars.detach().requires_grad_(True)
     with torch.enable_grad():
         nll, s2 = nll_profiled(cov_fn, torch.exp(th), blocks, r.detach())
-        (g,) = torch.autograd.grad(nll, th)
+        (g,) = ag.grad(nll, th)
     return nll.detach(), g, s2.detach()
 
 

@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val,
                                               _laplace_nll_from_sigma,
@@ -70,7 +71,7 @@ def log_scale_value_and_grad(nll_gaussian, th, y, fp):
     lp = th.detach().clone().requires_grad_(True)
     with torch.enable_grad():
         nll = nll_gaussian(torch.exp(lp), y, fp)
-        (grad,) = torch.autograd.grad(nll, lp)
+        (grad,) = ag.grad(nll, lp)
     return nll.detach(), grad
 
 
@@ -86,7 +87,7 @@ def grad_wrt_F(nll_of_F, fixed_part):
     """d NLL / dF (the LaGaBoost gradient) of ``nll_of_F(F)`` by autograd."""
     fe = fixed_part.detach().clone().requires_grad_(True)
     with torch.enable_grad():
-        (g,) = torch.autograd.grad(nll_of_F(fe), fe)
+        (g,) = ag.grad(nll_of_F(fe), fe)
     return g
 
 
@@ -593,8 +594,8 @@ def _mode_vjp_sigma(fam, y, b, v, solve, inputs, needs):
         d1 = fam.d_loc(y, leaves[2] + b, _aux_val(leaves[3]))
         g = b - _sigma_mv(leaves[0], leaves[1], d1)
         wrt = [x for x in leaves if x.requires_grad]
-        grads = iter(torch.autograd.grad(g, wrt, grad_outputs=-lam,
-                                         allow_unused=True) if wrt else ())
+        grads = iter(ag.grad(g, wrt, grad_outputs=-lam,
+                           allow_unused=True) if wrt else ())
     out = []
     for x in leaves:
         gr = next(grads) if x.requires_grad else None

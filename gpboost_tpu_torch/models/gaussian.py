@@ -21,7 +21,8 @@ instead of autograd through the Cholesky's ~4 n^3); the Fisher information
 takes p products Psi^-1 dPsi_i, one [n, n] derivative at a time, instead of
 the [n, n, p] Jacobian. :func:`neg_log_likelihood_twice` keeps autograd
 through ``torch.linalg.cholesky`` for the Hessian of Newton's method.
-Likelihood weights are not ported (ROADMAP.md Queue A, item 11).
+Observation ``weights`` divide the error variance: Psi = Sigma_total +
+sigma2 diag(1/w) (JAX ``gaussian.py:40-46, :89-90``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch.models.covariance import split_cov_pars, total_re_cov
 from gpboost_tpu_torch.models.grouped import logdet_quad
 from gpboost_tpu_torch.models.spec import GroupedRESpec, ModelData, ModelSpec
@@ -37,13 +39,22 @@ from gpboost_tpu_torch.models.spec import GroupedRESpec, ModelData, ModelSpec
 LOG_2PI = math.log(2.0 * math.pi)
 
 
+def _error_diag(data: ModelData, sigma2: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """The error variances [n]: sigma2, or sigma2 / w_i with observation
+    ``weights`` (a weight k counts as k replicates; JAX
+    ``gaussian.py:40-46``)."""
+    if data.weights is None:
+        return sigma2.expand(n)
+    return sigma2 / data.weights
+
+
 def build_psi(spec: ModelSpec, data: ModelData,
               cov_pars: torch.Tensor) -> torch.Tensor:
-    """Marginal covariance Psi = Sigma_total + sigma2 I [n, n]."""
+    """Marginal covariance Psi = Sigma_total + sigma2 diag(1/w) [n, n]."""
     sigma2, comp_pars = split_cov_pars(spec, cov_pars)
     sig = total_re_cov(spec, data, comp_pars)
-    return sig + sigma2 * torch.eye(sig.shape[0], dtype=sig.dtype,
-                                    device=sig.device)
+    return sig + torch.diag(_error_diag(data, sigma2, sig.shape[0]))
 
 
 def neg_log_likelihood(spec: ModelSpec, data: ModelData,
@@ -54,7 +65,8 @@ def neg_log_likelihood(spec: ModelSpec, data: ModelData,
     Differentiable in ``cov_pars`` (one ``cholesky_inverse`` backward)."""
     sigma2, comp_pars = split_cov_pars(spec, cov_pars)
     sig = total_re_cov(spec, data, comp_pars)
-    logdet, quad = logdet_quad(sig, sigma2.expand(sig.shape[0]), r)
+    logdet, quad = logdet_quad(sig, _error_diag(data, sigma2, sig.shape[0]),
+                               r)
     return 0.5 * (quad + logdet + r.shape[0] * LOG_2PI)
 
 
@@ -81,14 +93,17 @@ def _sigma_tilde(spec: ModelSpec, data: ModelData,
     return total_re_cov(spec, data, comp_pars)
 
 
+def _one(ref: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=ref.dtype, device=ref.device)
+
+
 def nll_profiled(spec: ModelSpec, data: ModelData, ratio_pars: torch.Tensor,
                  r: torch.Tensor):
     """Profiled NLL, the nugget at sigma2_hat = r' Psi_tilde^-1 r / n:
     returns (nll, sigma2_hat) (``re_model_template.h:2409,2890``)."""
     sig = _sigma_tilde(spec, data, ratio_pars)
     n = r.shape[0]
-    logdet, quad = logdet_quad(sig, torch.ones(n, dtype=sig.dtype,
-                                               device=sig.device), r)
+    logdet, quad = logdet_quad(sig, _error_diag(data, _one(sig), n), r)
     sigma2_hat = quad / n
     nll = 0.5 * n * (torch.log(sigma2_hat) + LOG_2PI + 1.0) + 0.5 * logdet
     return nll, sigma2_hat
@@ -100,8 +115,7 @@ def nll_given_sigma2(spec: ModelSpec, data: ModelData,
     """NLL at a given nugget in the ratio parametrisation."""
     sig = _sigma_tilde(spec, data, ratio_pars)
     n = r.shape[0]
-    logdet, quad = logdet_quad(sig, torch.ones(n, dtype=sig.dtype,
-                                               device=sig.device), r)
+    logdet, quad = logdet_quad(sig, _error_diag(data, _one(sig), n), r)
     return (quad / (2.0 * sigma2) + 0.5 * logdet
             + 0.5 * n * (torch.log(sigma2) + LOG_2PI))
 
@@ -167,7 +181,7 @@ def nll_profiled_value_and_grad(spec: ModelSpec, data: ModelData,
     th = log_ratio_pars.detach().requires_grad_(True)
     with torch.enable_grad():
         nll, s2 = nll_profiled(spec, data, torch.exp(th), r.detach())
-        (g,) = torch.autograd.grad(nll, th)
+        (g,) = ag.grad(nll, th)
     return nll.detach(), g, s2.detach()
 
 
@@ -185,7 +199,7 @@ def nll_value_and_grad_log_scale(spec: ModelSpec, data: ModelData,
     th = log_cov_pars.detach().requires_grad_(True)
     with torch.enable_grad():
         v = neg_log_likelihood(spec, data, torch.exp(th), r.detach())
-        (g,) = torch.autograd.grad(v, th)
+        (g,) = ag.grad(v, th)
     return v.detach(), g
 
 
@@ -232,8 +246,9 @@ def predict(spec: ModelSpec, data: ModelData, cov_pars: torch.Tensor,
 def _prior_var_diag(spec: ModelSpec, data_pred: ModelData,
                     comp_pars) -> torch.Tensor:
     """Diagonal of the prior random-effects covariance at the prediction
-    points (the stationary families' variance; ``linear`` and ``hurst`` are
-    not ported, ROADMAP.md Queue A, item 14)."""
+    points: a component's variance, for the non-stationary ``linear`` and
+    ``hurst`` covariances sigma2 x'x and sigma2 (x'x)^H per point (JAX
+    ``models/gaussian.py:255-285``)."""
     ref = comp_pars[0]
     n = (data_pred.coords.shape[0] if data_pred.coords is not None
          else data_pred.group_codes.shape[0])
@@ -244,8 +259,14 @@ def _prior_var_diag(spec: ModelSpec, data_pred: ModelData,
             if comp.is_slope:
                 z = data_pred.slope_data[:, comp.slope_data_idx]
                 contrib = contrib * z * z
-        elif comp.is_random_coef:
-            z = data_pred.gp_rand_coef_data[:, comp.rand_coef_data_idx]
-            contrib = contrib * z * z
+        else:
+            kind = comp.cov_fn.cov_fct_type
+            if kind in ("linear", "hurst"):
+                sq = torch.sum(data_pred.coords * data_pred.coords, dim=1)
+                contrib = pars[0] * (sq if kind == "linear" else torch.pow(
+                    torch.clamp(sq, min=1e-300), pars[1]))
+            if comp.is_random_coef:
+                z = data_pred.gp_rand_coef_data[:, comp.rand_coef_data_idx]
+                contrib = contrib * z * z
         total = total + contrib
     return total

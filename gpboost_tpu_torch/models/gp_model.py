@@ -58,10 +58,13 @@ a low-rank preconditioner), full-scale tapering and full-scale Vecchia;
 the exact GP, the Gaussian Vecchia GP and FITC take their Cholesky route,
 as in the JAX package. ``get_num_cg_steps`` reads the conditioning.
 
-Every other structure — ``gp_approx="tapering"``, grouped effects or GP
-random coefficients with a low-rank GP, weights — raises
-``NotImplementedError`` naming its ROADMAP.md item, and so do the
-combinations the JAX package refuses.
+``gp_approx="tapering"`` is the exact route with the Wendland taper on the
+covariance (dense, as in the JAX package). Observation ``weights`` are read
+by grouped random effects and the exact GP; elsewhere (where the JAX
+package accepts them and never reads them) they raise. Every other
+structure — grouped effects or GP random coefficients with a low-rank GP —
+raises ``NotImplementedError``, and so do the combinations the JAX package
+refuses.
 
 Models run on the GPU (``device="cuda"``, the default; a missing GPU
 raises) unless ``device="cpu"`` is passed. Inputs and outputs are numpy
@@ -76,6 +79,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch import config
 from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models import (clustered, gaussian, grouped, laplace,
@@ -139,7 +143,9 @@ _Y_RULES = (
     (("zero_inflated_gamma", "zero_censored_power_transformed_normal"),
      lambda y: not np.any(y < 0), "non-negative"),
     (("beta",), lambda y: not np.any((y <= 0) | (y >= 1)), "in (0, 1)"),
-    (("zoctn", "beta_binomial", "binomial_logit", "binomial_probit"),
+    (("zero_one_censored_transformed_beta",
+      "zero_one_censored_shifted_gamma", "zoctn", "beta_binomial",
+      "binomial_logit", "binomial_probit"),
      lambda y: not (np.any(y < 0) or np.any(y > 1)), "in [0, 1]"),
 )
 
@@ -190,10 +196,6 @@ def _canonical_likelihood(lik: str) -> str:
             f"approximation_type 'fisher_laplace' is not implemented for "
             f"likelihood '{base}'")
     lk.get_family(base)                  # unknown names raise ValueError
-    if base in lk.NOT_PORTED:
-        raise NotImplementedError(
-            f"likelihood='{lik}' is not ported to gpboost_tpu_torch yet "
-            f"({lk.NOT_PORTED[base]})")
     return base
 
 
@@ -292,8 +294,14 @@ class GPModel:
         # but a Vecchia or a low-rank GP is an exact (dense) model
         self._grouped_only = gp_coords is None and cluster_ids is None
         self._exact = not (self._grouped_only or is_vecchia or self._lowrank)
-        if weights is not None:
-            raise _not_ported("weights", "Queue A, item 11")
+        if weights is not None and not (self._grouped_only or self._exact):
+            # the JAX package accepts them there and never reads them
+            raise NotImplementedError(
+                f"weights with gp_approx='{gp_approx}': the JAX package "
+                "accepts them and does not read them on this route (ROADMAP."
+                "md, Queue C, \"Not faults\"); they are read by grouped "
+                "random effects and the exact GP (gp_approx='none' or "
+                "'tapering')")
         # gaussian_heteroscedastic: two latent sets (mean and log-variance),
         # each with its own covariance parameters (num_sets_re_ = 2)
         self.num_sets_re = 2 if likelihood == "gaussian_heteroscedastic" else 1
@@ -306,14 +314,18 @@ class GPModel:
                       ind_points_selection=ind_points_selection,
                       num_ind_points=num_ind_points,
                       cover_tree_radius=cover_tree_radius)
+        # the taper keywords are read by full-scale tapering, by
+        # gp_approx="tapering" and by the wendland covariance
+        tapered = gp_approx == "tapering" or cov_function == "wendland"
         for key, default in _LOWRANK_KEYWORDS:
-            if values[key] != default and not self._lowrank:
+            if (values[key] != default and not self._lowrank
+                    and not (tapered and key.startswith("cov_fct_taper"))):
                 raise NotImplementedError(
                     f"{key}={values[key]!r} with gp_approx='{gp_approx}': "
                     "the keyword is read by the low-rank approximations "
-                    f"({', '.join(LOWRANK_APPROX)}, ported) and by "
-                    "gp_approx='tapering' (not ported; ROADMAP.md Queue A, "
-                    "items 14 and 17)")
+                    f"({', '.join(LOWRANK_APPROX)}; ROADMAP.md item 17), the "
+                    "taper keywords also by gp_approx='tapering' and the "
+                    "wendland covariance (item 14)")
         if matrix_inversion_method not in ("cholesky", "iterative"):
             raise ValueError("matrix_inversion_method: 'cholesky' or "
                              f"'iterative', got {matrix_inversion_method!r}")
@@ -321,10 +333,12 @@ class GPModel:
         # non-Gaussian Vecchia GP, full-scale tapering and full-scale
         # Vecchia; elsewhere (the exact GP, the Gaussian Vecchia GP, FITC)
         # the JAX package computes the Cholesky result, and so does the port
-        if gp_coords is not None and gp_approx == "tapering":
-            raise _not_ported("gp_approx='tapering'", "Queue A, item 14")
-        if gp_coords is not None and not (is_vecchia or gp_approx == "none"
-                                          or self._lowrank):
+        # gp_approx="tapering": the exact route with the Wendland taper on
+        # the covariance, formed dense as in the JAX package
+        # (gpboost_tpu/models/gp_model.py:155-166)
+        if gp_coords is not None and not (
+                is_vecchia or gp_approx in ("none", "tapering")
+                or self._lowrank):
             raise ValueError(f"gp_approx '{gp_approx}' is not supported")
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -378,14 +392,14 @@ class GPModel:
             if gp_coords is not None:
                 coords = np.asarray(gp_coords, dtype=np.float64)
                 self.coords_np = coords.reshape(len(coords), -1)
-                self.cov_fn = CovFunction.create(
-                    cov_function, shape=cov_fct_shape,
-                    dim_coords=self.coords_np.shape[1])
+                self.cov_fn = self._cov_function(self.coords_np.shape[1])
                 # the batched per-cluster blocks (JAX gp_model.py:340-345)
+                # (with weights the dense route: the JAX package's blocks
+                # drop them)
                 self._clustered_batched = (
                     cluster_ids is not None and group_data is None
                     and gp_rand_coef_data is None and self.is_gaussian
-                    and self.cov_fn.is_isotropic)
+                    and self.cov_fn.is_isotropic and weights is None)
                 if (dtype == torch.float32 and self.device.type == "cuda"
                         and torch.backends.cuda.matmul.allow_tf32):
                     raise RuntimeError(
@@ -401,7 +415,7 @@ class GPModel:
                     device=self.device, gp_coords=gp_coords,
                     cov_fn=self.cov_fn, gp_rand_coef_data=gp_rand_coef_data,
                     cluster_ids=cluster_ids,
-                    dense_dists=not self._clustered_batched)
+                    dense_dists=not self._clustered_batched, weights=weights)
                 self.num_data = info["num_data"]
                 self._group_maps = info["group_maps"]
                 self._cluster_map = info["cluster_map"]
@@ -432,8 +446,7 @@ class GPModel:
         coords = coords.reshape(len(coords), -1)
         self.num_data = coords.shape[0]
         self.coords_np = coords
-        cf = CovFunction.create(cov_function, shape=cov_fct_shape,
-                                dim_coords=coords.shape[1])
+        cf = self._cov_function(coords.shape[1])
         self.cov_fn = cf
         # the parameter counts of the GP's components (the base GP and each
         # random coefficient) and of the grouped ones (one each)
@@ -465,6 +478,16 @@ class GPModel:
         self.num_cov_pars = (sum(self._approx_comps)
                              + (1 if self.is_gaussian else 0)
                              ) * self.num_sets_re
+
+    def _cov_function(self, dim: int) -> CovFunction:
+        """The GP's covariance function (JAX ``gp_model.py:156-159``):
+        the taper keywords reach the wendland covariance and
+        ``gp_approx="tapering"``."""
+        return CovFunction.create(
+            self.cov_function_name, shape=self.cov_fct_shape,
+            taper_range=self.cov_fct_taper_range,
+            taper_shape=self.cov_fct_taper_shape,
+            apply_tapering=self.gp_approx == "tapering", dim_coords=dim)
 
     def _set_cluster_codes(self, cluster_ids) -> None:
         cid = np.asarray(cluster_ids).ravel()
@@ -562,6 +585,43 @@ class GPModel:
                 raise ValueError(f"Response must be {what} for likelihood "
                                  f"'{self.likelihood}'")
         return self._tensor(y_np)
+
+    def set_likelihood(self, likelihood: str):
+        """Switch the response likelihood (``GPModel.set_likelihood``, JAX
+        ``gp_model.py:578-595``; the R tests switch e.g. gamma -> gaussian
+        before fitting): the covariance and auxiliary parameters are reset,
+        the optimizer goes back to the likelihood's default, and the
+        approximation takes the new likelihood (a Vecchia GP's nugget is
+        among its parameters for the gaussian one)."""
+        new_lik = _canonical_likelihood(likelihood)
+        if new_lik == self.likelihood:
+            return self
+        if "gaussian_heteroscedastic" in (new_lik, self.likelihood):
+            raise NotImplementedError(
+                "set_likelihood to or from 'gaussian_heteroscedastic' (a "
+                "model of two latent sets): build a new GPModel")
+        self.likelihood = new_lik
+        if self.spec is not None:
+            self.spec = ModelSpec(components=self.spec.components,
+                                  likelihood=new_lik,
+                                  num_data=self.spec.num_data)
+        if self._approx is not None:
+            self._approx.likelihood = new_lik
+            if isinstance(self._approx, VecchiaGP):
+                self._approx.nugget_in_pars = (new_lik == "gaussian" and
+                                               self.gp_approx == "vecchia")
+                self._approx._kernel_shape = (
+                    self._approx._kernel_shape_code())
+        self.optim_cfg.optimizer_cov = ("gradient_descent" if self.is_gaussian
+                                        else "lbfgs")
+        if self._approx is None:
+            self.num_cov_pars = self.spec.num_cov_par
+        else:
+            self.num_cov_pars = (sum(self._approx_comps)
+                                 + (1 if self.is_gaussian else 0))
+        self.cov_pars_ = None
+        self.aux_pars_ = None
+        return self
 
     def set_optim_params(self, params: Optional[dict] = None):
         """Set optimization parameters (``basic.py:5347``); aliases resolve
@@ -1041,7 +1101,7 @@ class GPModel:
         th = self._tensor(theta).requires_grad_(True)
         with torch.enable_grad():
             v = ops.nll(torch.exp(th), r)
-            (g,) = torch.autograd.grad(v, th)
+            (g,) = ag.grad(v, th)
         return float(v.detach()), g.cpu().numpy().astype(np.float64)
 
     def _fit_gaussian_masked(self, ops, init, residual, coef_update):
@@ -1822,7 +1882,7 @@ class GPModel:
             with torch.enable_grad():
                 fe = self.X @ bt if fe0 is None else self.X @ bt + fe0
                 nll = self._nll_laplace(cp, aux, fe)
-                (g,) = torch.autograd.grad(nll, bt)
+                (g,) = ag.grad(nll, bt)
             return g.detach().cpu().numpy().astype(np.float64)
 
         beta = np.asarray(self.coefs_, np.float64)

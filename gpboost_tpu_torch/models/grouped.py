@@ -37,8 +37,12 @@ Jacobi preconditioner that stands in for the reference's SSOR and
 incomplete Cholesky), its log-determinant by stochastic Lanczos; the
 posterior draws of the simulated predictive variances by the same CG.
 
-Not ported (ROADMAP.md Queue A): likelihood weights (item 11), row
-sharding (item 20).
+Observation ``weights`` (the JAX package's ``grouped.py:45-52, :142,
+:179``): Psi = sigma2 diag(1/w) + Z Sigma_b Z', so Z'Z becomes Z'WZ and Z'r
+becomes Z'(w r) (:class:`GroupedZ` carries them); a non-Gaussian
+likelihood takes them through ``likelihoods.weighted_family``. Not ported
+(ROADMAP.md Queue A): row sharding (item 20; the JAX package's
+``row_weight`` is its padding mask).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models.covariance import _grouped_cross_cov
 from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val, mode_vjp,
@@ -156,7 +161,9 @@ class GroupedZ:
     the multiplier ``weights[j]`` (the slope covariate; None for an
     intercept). With ``deterministic`` (the CUDA route) Z' v, Z'Z and
     Z'WZ go through :class:`SegmentPlan` s built here (Z'WZ's on first
-    use); else through ``index_add_``. Z'Z is built once and kept."""
+    use); else through ``index_add_``. Z'Z is built once and kept. With
+    observation weights (``data.weights``, ``obs_w``) it is Z' diag(w) Z:
+    the Gaussian routes read ``ztz`` and :meth:`wmul`."""
 
     def __init__(self, spec: ModelSpec, data: ModelData,
                  deterministic: bool, dtype=torch.float64):
@@ -171,6 +178,8 @@ class GroupedZ:
         self.weights = [
             data.slope_data[:, c.slope_data_idx].to(dtype) if c.is_slope
             else None for c in spec.components]
+        self.obs_w = (None if data.weights is None
+                      else data.weights.to(dtype))
         self.deterministic = bool(deterministic)
         self._probe_cache = None
         self._zt_sq_plan = None
@@ -273,11 +282,24 @@ class GroupedZ:
         return torch.zeros(q * q, dtype=dt, device=self.device).index_add_(
             0, keys, vals).view(q, q)
 
+    def wmul(self, v: torch.Tensor) -> torch.Tensor:
+        """diag(w) v for v [n] or [n, k] (v without weights)."""
+        if self.obs_w is None:
+            return v
+        return self.obs_w * v if v.dim() == 1 else self.obs_w[:, None] * v
+
+    def log_w_sum(self) -> torch.Tensor:
+        """sum log w (0 without weights): logdet diag(1/w) = -this."""
+        if self.obs_w is None:
+            return torch.zeros((), dtype=self.dtype, device=self.device)
+        return torch.sum(torch.log(self.obs_w))
+
     def ztz(self) -> torch.Tensor:
-        """Z'Z [q, q], built once (the pair plan that builds it on the
-        CUDA route is released again: only Z'WZ needs it later)."""
+        """Z'Z [q, q] (Z' diag(w) Z with observation weights), built once
+        (the pair plan that builds it on the CUDA route is released again:
+        only the Laplace Z'WZ needs it later)."""
         if self._ztz is None:
-            self._ztz = self._ztwz(None)
+            self._ztz = self._ztwz(self.obs_w)
             self._pair_plan = self._pair_keys = self._pair_coef = None
         return self._ztz
 
@@ -432,9 +454,10 @@ def nll_gaussian(Z: GroupedZ, cov_pars: torch.Tensor,
     sigma2 = cov_pars[0]
     db = _sigma_b_diag(Z, cov_pars[1:])
     shift = sigma2 / db
-    logdet_m, tt = logdet_quad(Z.ztz(), shift, zt_mul(Z, r))
-    quad = (torch.dot(r, r) - tt) / sigma2
-    logdet = (Z.n * torch.log(sigma2) + logdet_m
+    rw = Z.wmul(r)
+    logdet_m, tt = logdet_quad(Z.ztz(), shift, zt_mul(Z, rw))
+    quad = (torch.dot(r, rw) - tt) / sigma2
+    logdet = (Z.n * torch.log(sigma2) - Z.log_w_sum() + logdet_m
               - torch.sum(torch.log(shift)))
     return 0.5 * (quad + logdet + Z.n * LOG_2PI)
 
@@ -447,13 +470,14 @@ def nll_gaussian_twice(Z: GroupedZ, cov_pars: torch.Tensor,
     sigma2 = cov_pars[0]
     db = _sigma_b_diag(Z, cov_pars[1:])
     shift = sigma2 / db
+    rw = Z.wmul(r)
     with torch.no_grad():
-        ztr = Z._zt(r)
+        ztr = Z._zt(rw)
     M = Z.ztz() + torch.diag(shift)
     L = torch.linalg.cholesky(M)
     u = torch.linalg.solve_triangular(L, ztr[:, None], upper=False)[:, 0]
-    quad = (torch.dot(r, r) - torch.dot(u, u)) / sigma2
-    logdet = (Z.n * torch.log(sigma2)
+    quad = (torch.dot(r, rw) - torch.dot(u, u)) / sigma2
+    logdet = (Z.n * torch.log(sigma2) - Z.log_w_sum()
               + 2.0 * torch.sum(torch.log(torch.diagonal(L)))
               - torch.sum(torch.log(shift)))
     return 0.5 * (quad + logdet + Z.n * LOG_2PI)
@@ -463,9 +487,10 @@ def nll_profiled(Z: GroupedZ, ratio_vars: torch.Tensor, r: torch.Tensor):
     """Profiled-nugget NLL at ratio_vars = comp_vars / sigma2: returns
     (nll, sigma2_hat)."""
     db = _sigma_b_diag(Z, ratio_vars)
-    logdet_m, tt = logdet_quad(Z.ztz(), 1.0 / db, zt_mul(Z, r))
-    sigma2_hat = (torch.dot(r, r) - tt) / Z.n
-    logdet_tilde = logdet_m + torch.sum(torch.log(db))
+    rw = Z.wmul(r)
+    logdet_m, tt = logdet_quad(Z.ztz(), 1.0 / db, zt_mul(Z, rw))
+    sigma2_hat = (torch.dot(r, rw) - tt) / Z.n
+    logdet_tilde = logdet_m + torch.sum(torch.log(db)) - Z.log_w_sum()
     nll = 0.5 * (Z.n * (torch.log(sigma2_hat) + LOG_2PI + 1.0)
                  + logdet_tilde)
     return nll, sigma2_hat
@@ -477,32 +502,35 @@ def nll_profiled_value_and_grad(Z: GroupedZ, log_ratio_vars: torch.Tensor,
     th = log_ratio_vars.detach().requires_grad_(True)
     with torch.enable_grad():
         nll, s2 = nll_profiled(Z, torch.exp(th), r.detach())
-        (g,) = torch.autograd.grad(nll, th)
+        (g,) = ag.grad(nll, th)
     return nll.detach(), g, s2.detach()
 
 
 def psi_inv_mul(Z: GroupedZ, cov_pars: torch.Tensor,
                 R: torch.Tensor) -> torch.Tensor:
-    """Psi^-1 R by Woodbury; R [n] or [n, k]."""
+    """Psi^-1 R by Woodbury; R [n] or [n, k]. With weights
+    Psi^-1 R = (W R - W Z M^-1 Z' W R) / sigma2, M = Z'WZ +
+    sigma2 Sigma_b^-1."""
     sigma2 = cov_pars[0]
     db = _sigma_b_diag(Z, cov_pars[1:])
     L = _chol(Z, sigma2 / db)
-    ztr = Z._zt(R)
+    wR = Z.wmul(R)
+    ztr = Z._zt(wR)
     sol = torch.cholesky_solve(ztr[:, None] if R.dim() == 1 else ztr, L)
     if R.dim() == 1:
         sol = sol[:, 0]
-    return (R - Z._z(sol)) / sigma2
+    return (wR - Z.wmul(Z._z(sol))) / sigma2
 
 
 def posterior_b_gaussian(Z: GroupedZ, cov_pars: torch.Tensor,
                          r: torch.Tensor):
     """Posterior of the stacked random effects b | y: precision M / sigma2
-    (M = Z'Z + sigma2 Sigma_b^-1), mean M^-1 Z'r, covariance sigma2 M^-1.
-    Returns (mean [q], postcov [q, q])."""
+    (M = Z'WZ + sigma2 Sigma_b^-1), mean M^-1 Z'Wr, covariance
+    sigma2 M^-1. Returns (mean [q], postcov [q, q])."""
     sigma2 = cov_pars[0]
     db = _sigma_b_diag(Z, cov_pars[1:])
     L = _chol(Z, sigma2 / db)
-    mean = torch.cholesky_solve(Z._zt(r)[:, None], L)[:, 0]
+    mean = torch.cholesky_solve(Z._zt(Z.wmul(r))[:, None], L)[:, 0]
     GROUPED_COUNTS["qq_inverse"] += 1
     return mean, sigma2 * torch.cholesky_inverse(L)
 
@@ -519,7 +547,9 @@ def fisher_information(Z: GroupedZ, cov_pars: torch.Tensor) -> torch.Tensor:
       FI_0k = 0.5 sigma2 / v_k sum_{i in k} (K_ii - sigma2 ((K o K) lam)_i)
       FI_jk = 0.5 / (v_j v_k) || delta_jk v_j I - sigma2 K_jk ||_F^2
 
-    — one Cholesky and one ``cholesky_inverse`` of [q, q], no [n, n]."""
+    — one Cholesky and one ``cholesky_inverse`` of [q, q], no [n, n]. With
+    observation weights (A_0 = sigma2 W^-1, M = Z'WZ + sigma2 Lambda) the
+    same three formulas hold."""
     s2 = cov_pars[0]
     v = cov_pars[1:]
     lam = 1.0 / _sigma_b_diag(Z, v)
@@ -647,7 +677,13 @@ class _FindModeGrouped(torch.autograd.Function):
 def find_mode_grouped(lik_name: str, Z: GroupedZ, db: torch.Tensor,
                       F: torch.Tensor, aux, y: torch.Tensor) -> torch.Tensor:
     """Posterior mode of b [q] (Newton on H = Z'WZ + Sigma_b^-1)."""
-    return _FindModeGrouped.apply(db, F, _aux_arg(aux, y), lik_name, y, Z)
+    return _FindModeGrouped.apply(db, F, _aux_arg(aux, y), _family(Z, lik_name),
+                                  y, Z)
+
+
+def _family(Z: GroupedZ, lik):
+    """The likelihood family with the model's observation weights."""
+    return lk.weighted_family(lik, Z.obs_w)
 
 
 def _offset(y: torch.Tensor, F: Optional[torch.Tensor]) -> torch.Tensor:
@@ -660,7 +696,7 @@ def nll_laplace(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor, aux,
     + 1/2 logdet(I_q + Sigma_b Z'WZ), the last as
     logdet(Z'WZ + Sigma_b^-1) + logdet Sigma_b. Differentiable in
     (cov_pars, aux, F)."""
-    fam = lk.get_family(lik_name)
+    fam = _family(Z, lik_name)
     F = _offset(y, F)
     db = _sigma_b_diag(Z, cov_pars)
     b = find_mode_grouped(lik_name, Z, db, F, aux, y)
@@ -680,7 +716,7 @@ def nll_laplace_value_and_grad(Z: GroupedZ, lik_name: str,
     ap = None if aux is None else aux.detach().requires_grad_(True)
     with torch.enable_grad():
         v = nll_laplace(Z, lik_name, cp, ap, y, F)
-        grads = torch.autograd.grad(v, [cp] if ap is None else [cp, ap])
+        grads = ag.grad(v, [cp] if ap is None else [cp, ap])
     return v.detach(), grads[0], (None if ap is None else grads[1])
 
 
@@ -695,14 +731,14 @@ def gradient_wrt_F(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor, aux,
     with torch.enable_grad():
         v = nll_laplace(Z, lik_name, cov_pars.detach(),
                         None if aux is None else aux.detach(), y, Ft)
-        (g,) = torch.autograd.grad(v, Ft)
+        (g,) = ag.grad(v, Ft)
     return g
 
 
 def laplace_mode_and_w(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor,
                        aux, y: torch.Tensor, F: Optional[torch.Tensor]):
     """(mode b, W = -d2 at the mode, db)."""
-    fam = lk.get_family(lik_name)
+    fam = _family(Z, lik_name)
     F = _offset(y, F)
     db = _sigma_b_diag(Z, cov_pars)
     b = find_mode_grouped(lik_name, Z, db, F, aux, y)
@@ -788,19 +824,20 @@ def nll_profiled_iterative(Z: GroupedZ, ratio_vars: torch.Tensor,
     shift = 1.0 / db
 
     def matvec(V):
-        return _mv_sys(Z, None, shift, V)
+        return _mv_sys(Z, Z.obs_w, shift, V)
 
-    pre = _jacobi(ztw_z_diag(Z) + shift)
-    quadform = _quadform_cg(matvec, zt_mul(Z, r), pre.solve, cg_tol,
+    pre = _jacobi(ztw_z_diag(Z, Z.obs_w) + shift)
+    rw = Z.wmul(r)
+    quadform = _quadform_cg(matvec, zt_mul(Z, rw), pre.solve, cg_tol,
                             cg_max_iter)
-    sigma2_hat = (torch.dot(r, r) - quadform) / Z.n
+    sigma2_hat = (torch.dot(r, rw) - quadform) / Z.n
     e, zg = (probes if probes is not None
              else grouped_probes(Z, num_rand_vec_trace, seed))
     logdet_m = cgops.stochastic_logdet_grad(
         matvec, None, torch.sqrt(pre.d)[:, None] * e, lanczos_steps,
         pre.solve, pre.logdet(), cg_tol, cg_max_iter, probes_grad=zg,
         stats=GROUPED_COUNTS)
-    logdet_tilde = logdet_m + torch.sum(torch.log(db))
+    logdet_tilde = logdet_m + torch.sum(torch.log(db)) - Z.log_w_sum()
     nll = 0.5 * (Z.n * (torch.log(sigma2_hat) + LOG_2PI + 1.0)
                  + logdet_tilde)
     return nll, sigma2_hat
@@ -814,7 +851,7 @@ def nll_profiled_iterative_value_and_grad(Z: GroupedZ,
     th = log_ratio_vars.detach().requires_grad_(True)
     with torch.enable_grad():
         nll, s2 = nll_profiled_iterative(Z, torch.exp(th), r.detach(), **kw)
-        (g,) = torch.autograd.grad(nll, th)
+        (g,) = ag.grad(nll, th)
     return nll.detach(), g, s2.detach()
 
 
@@ -865,7 +902,8 @@ def find_mode_grouped_cg(lik_name: str, Z: GroupedZ, db: torch.Tensor,
                          F: torch.Tensor, aux, y: torch.Tensor
                          ) -> torch.Tensor:
     """Posterior mode of b [q] by Newton-CG (no [q, q] matrix)."""
-    return _FindModeGroupedCG.apply(db, F, _aux_arg(aux, y), lik_name, y, Z)
+    return _FindModeGroupedCG.apply(db, F, _aux_arg(aux, y),
+                                    _family(Z, lik_name), y, Z)
 
 
 def nll_laplace_iterative(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor,
@@ -880,7 +918,7 @@ def nll_laplace_iterative(Z: GroupedZ, lik_name: str, cov_pars: torch.Tensor,
     log-determinant of H = Z'WZ + Sigma_b^-1 (logdet(I + Sigma_b Z'WZ) =
     logdet H + sum log db). Differentiable in (cov_pars, aux, F);
     ``probes`` = (e, Zg) [q, k] replaces the port's own draws."""
-    fam = lk.get_family(lik_name)
+    fam = _family(Z, lik_name)
     F = _offset(y, F)
     db = _sigma_b_diag(Z, cov_pars)
     b = find_mode_grouped_cg(lik_name, Z, db, F, aux, y)
@@ -913,7 +951,7 @@ def nll_laplace_iterative_value_and_grad(Z: GroupedZ, lik_name: str,
     ap = None if aux is None else aux.detach().requires_grad_(True)
     with torch.enable_grad():
         v = nll_laplace_iterative(Z, lik_name, cp, ap, y, F, **kw)
-        grads = torch.autograd.grad(v, [cp] if ap is None else [cp, ap])
+        grads = ag.grad(v, [cp] if ap is None else [cp, ap])
     return v.detach(), grads[0], (None if ap is None else grads[1])
 
 
@@ -944,18 +982,19 @@ def posterior_b_gaussian_iterative(Z: GroupedZ, cov_pars: torch.Tensor,
     likelihoods.h:6852). Returns (b_mean [q], draws [q, nsim])."""
     sigma2 = cov_pars[0]
     shift = sigma2 / _sigma_b_diag(Z, cov_pars[1:])
-    pre = _jacobi(ztw_z_diag(Z) + shift)
+    pre = _jacobi(ztw_z_diag(Z, Z.obs_w) + shift)
+    sqrt_w = None if Z.obs_w is None else torch.sqrt(Z.obs_w)[:, None]
 
     def solve(B):
-        x, it = cgops.pcg(lambda V: _mv_sys(Z, None, shift, V), B, pre.solve,
-                          tol=cg_tol, max_iter=cg_max_iter)
+        x, it = cgops.pcg(lambda V: _mv_sys(Z, Z.obs_w, shift, V), B,
+                          pre.solve, tol=cg_tol, max_iter=cg_max_iter)
         GROUPED_COUNTS["sim_cg_iters"] += it
         return x
 
-    b_mean = solve(Z._zt(r))
+    b_mean = solve(Z._zt(Z.wmul(r)))
     draws = _draws_by_cg(
-        Z, solve, lambda z1, z2: Z._zt(z1) + torch.sqrt(shift)[:, None] * z2,
-        nsim, seed)
+        Z, solve, lambda z1, z2: Z._zt(z1 if sqrt_w is None else sqrt_w * z1)
+        + torch.sqrt(shift)[:, None] * z2, nsim, seed)
     return b_mean, torch.sqrt(sigma2) * draws
 
 
@@ -968,7 +1007,7 @@ def posterior_b_laplace_iterative(Z: GroupedZ, lik_name: str,
     ``posterior_b_laplace_iterative``): the Newton-CG mode and draws
     u ~ N(0, H^-1) as H^-1 (Z' W^1/2 z1 + Sigma_b^-1/2 z2),
     H = Z'WZ + Sigma_b^-1. Returns (mode [q], draws [q, nsim])."""
-    fam = lk.get_family(lik_name)
+    fam = _family(Z, lik_name)
     F = _offset(y, F)
     db = _sigma_b_diag(Z, cov_pars)
     b = find_mode_grouped_cg(lik_name, Z, db, F, aux, y)

@@ -30,6 +30,8 @@ import math
 
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
+
 LOG_2PI = math.log(2.0 * math.pi)
 
 MAX_NEWTON_IT = 1000
@@ -132,7 +134,7 @@ class _FindMode(torch.autograd.Function):
             s1, s2 = score(y, leaves[2] + b1, leaves[3] + b2)
             g1 = leaves[0] @ b1 - s1
             g2 = leaves[1] @ b2 - s2
-            gQ1, gQ2, gF1, gF2 = torch.autograd.grad(
+            gQ1, gQ2, gF1, gF2 = ag.grad(
                 (g1, g2), leaves, grad_outputs=(-l1, -l2), allow_unused=True)
         zero = torch.zeros_like
         return (gQ1 if gQ1 is not None else zero(Q1),

@@ -29,7 +29,9 @@
   likelihoods.h:7526), closed forms where the reference has them, else
   Gauss-Hermite quadrature.
 
-Likelihood weights are not ported (ROADMAP.md Queue A, item 11).
+Observation weights multiply the log-likelihood, or are the trial counts of
+the binomial-type families (``likelihoods.weighted_family``; JAX
+``models/laplace.py:47-74, :253-290``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models.covariance import split_cov_pars, total_re_cov
 from gpboost_tpu_torch.models.spec import ModelData, ModelSpec
@@ -145,8 +148,8 @@ def mode_vjp(fam, y, b, v, solve, qb, inputs, needs, z=None, zt=None):
         g = qb(*leaves[:-2]) - zt(fam.d_loc(y, leaves[-2] + z(b),
                                             _aux_val(leaves[-1])))
         wrt = [x for x in leaves if x.requires_grad]
-        grads = iter(torch.autograd.grad(g, wrt, grad_outputs=-lam,
-                                         allow_unused=True) if wrt else ())
+        grads = iter(ag.grad(g, wrt, grad_outputs=-lam,
+                           allow_unused=True) if wrt else ())
     out = []
     for x in leaves:
         gr = next(grads) if x.requires_grad else None
@@ -255,7 +258,7 @@ class _FindMode(torch.autograd.Function):
             aux_ = aux.detach().requires_grad_(needs[2] and aux.numel() > 0)
             d1 = fam.d_loc(y, F_ + b, _aux_val(aux_))
             wrt = [t for t in (F_, aux_) if t.requires_grad]
-            grads = iter(torch.autograd.grad(
+            grads = iter(ag.grad(
                 d1, wrt, grad_outputs=sigma @ lam) if wrt else ())
         # g's VJP at -lam: d(-lam' (b - Sigma d1)) = lam d1' (Sigma),
         # (Sigma lam)' d d1 (F, aux)
@@ -304,7 +307,8 @@ def neg_log_marginal_likelihood(spec: ModelSpec, data: ModelData,
     (cov_pars, aux, F)."""
     sigma = _latent_cov(spec, data, cov_pars)
     F = torch.zeros_like(y) if F is None else F
-    return _laplace_nll_from_sigma(spec.likelihood, sigma, y, F, aux)
+    return _laplace_nll_from_sigma(
+        lk.weighted_family(spec.likelihood, data.weights), sigma, y, F, aux)
 
 
 def nll_value_and_grad(spec: ModelSpec, data: ModelData,
@@ -323,7 +327,7 @@ def nll_value_and_grad(spec: ModelSpec, data: ModelData,
             F = X @ bt if F is None else F + X @ bt
         v = neg_log_marginal_likelihood(spec, data, cp, ap, y, F)
         leaves = [t for t in (cp, ap, bt) if t is not None]
-        grads = iter(torch.autograd.grad(v, leaves))
+        grads = iter(ag.grad(v, leaves))
     return v.detach(), tuple(None if t is None else next(grads)
                              for t in (cp, ap, bt))
 
@@ -337,7 +341,7 @@ def gradient_wrt_F(spec: ModelSpec, data: ModelData, cov_pars: torch.Tensor,
         v = neg_log_marginal_likelihood(spec, data, cov_pars.detach(),
                                         None if aux is None else aux.detach(),
                                         y, Ft)
-        (g,) = torch.autograd.grad(v, Ft)
+        (g,) = ag.grad(v, Ft)
     return g
 
 
@@ -385,11 +389,11 @@ def predict(spec: ModelSpec, data: ModelData, cov_pars: torch.Tensor, aux,
     W)^-1 Sigma_op; the response scale by :func:`_response_moments`.
     Returns (mean, var or None, cov or None)."""
     from gpboost_tpu_torch.models.gaussian import _prior_var_diag
-    fam = lk.get_family(spec.likelihood)
+    fam = lk.weighted_family(spec.likelihood, data.weights)
     _, comp_pars = split_cov_pars(spec, cov_pars)
     sigma = total_re_cov(spec, data, comp_pars)
     F = torch.zeros_like(y) if F is None else F
-    b = find_mode(spec.likelihood, sigma, y, F, aux)
+    b = find_mode(fam, sigma, y, F, aux)
     loc = F + b
     d1 = fam.d_loc(y, loc, aux)
     w = -fam.d2_loc(y, loc, aux)

@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models import grouped, optimizers
 
@@ -147,7 +148,7 @@ def fit(model, y: torch.Tensor, X: Optional[torch.Tensor],
                              device=model.device).requires_grad_(True)
         with torch.enable_grad():
             v = nll_of(th)
-            (g,) = torch.autograd.grad(v, th)
+            (g,) = ag.grad(v, th)
         return float(v.detach()), g.cpu().numpy().astype(np.float64)
 
     opt = cfg.optimizer_cov

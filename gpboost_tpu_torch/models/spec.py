@@ -88,13 +88,17 @@ class ModelData:
     """Tensors of one model, each None where the structure has none: level
     codes [n, n_code_cols] (int64), slope covariates [n, n_slopes], GP
     coordinates [n, d] and (isotropic exact GP) their distances [n, n], GP
-    random-coefficient covariates [n, n_rc], cluster codes [n] (int64)."""
+    random-coefficient covariates [n, n_rc], cluster codes [n] (int64),
+    observation weights [n] (the reference's ``weights``: they divide the
+    gaussian error variance, multiply a non-Gaussian log-likelihood, and
+    are the trial counts of the binomial-type families)."""
     group_codes: Optional[torch.Tensor] = None
     slope_data: Optional[torch.Tensor] = None
     coords: Optional[torch.Tensor] = None
     dists: Optional[torch.Tensor] = None
     gp_rand_coef_data: Optional[torch.Tensor] = None
     cluster_codes: Optional[torch.Tensor] = None
+    weights: Optional[torch.Tensor] = None
 
 
 def _as_columns(a, dtype=None) -> np.ndarray:
@@ -108,7 +112,7 @@ def make_model_data(group_data=None, group_rand_coef_data=None,
                     dtype=torch.float64, device="cpu", gp_coords=None,
                     cov_fn: Optional[CovFunction] = None,
                     gp_rand_coef_data=None, cluster_ids=None,
-                    dense_dists: bool = False):
+                    dense_dists: bool = False, weights=None):
     """(components, data, info) of a model from the user's inputs, as the
     JAX package's ``make_model_data`` and ``GPModel.__init__`` marshal them
     (``basic.py`` ``GPModel.__init__``).
@@ -122,7 +126,8 @@ def make_model_data(group_data=None, group_rand_coef_data=None,
     ``gp_rand_coef_data``; with ``dense_dists`` and an isotropic
     covariance the [n, n] distances are computed once (JAX
     ``gp_model.py:165-166``). ``cluster_ids``: dense codes, the indices of
-    the sorted unique ids (JAX ``gp_model.py:143-147``). ``info`` holds
+    the sorted unique ids (JAX ``gp_model.py:143-147``). ``weights``: the
+    observation weights [n]. ``info`` holds
     ``num_data``, ``group_maps`` (the sorted labels of each column, which
     prediction needs to code new data and to tell unseen levels) and
     ``cluster_map`` (the sorted cluster ids, or None)."""
@@ -155,6 +160,12 @@ def make_model_data(group_data=None, group_rand_coef_data=None,
                            for j in range(rc.shape[1])]
         if dense_dists and cov_fn.is_isotropic:
             data.dists = euclidean_distance(data.coords, data.coords)
+    if weights is not None:
+        w = np.asarray(weights, dtype=np.float64).ravel()
+        if w.shape[0] != n:
+            raise ValueError(f"weights has {w.shape[0]} entries for {n} "
+                             "data points")
+        data.weights = torch.as_tensor(w, dtype=dtype, device=device)
     cluster_map = None
     if cluster_ids is not None:
         cid = np.asarray(cluster_ids).ravel()

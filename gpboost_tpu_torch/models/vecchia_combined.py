@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch.models import grouped
 from gpboost_tpu_torch.models.spec import ModelData, ModelSpec
 from gpboost_tpu_torch.ops import cg as cgops
@@ -314,7 +315,7 @@ class VecchiaGroupedGP:
         lp = th.detach().clone().requires_grad_(True)
         with torch.enable_grad():
             nll = self.nll_gaussian(torch.exp(lp), y, fp)
-            (g,) = torch.autograd.grad(nll, lp)
+            (g,) = ag.grad(nll, lp)
         return nll.detach(), g
 
     def _fit_psi_inv(self, th, r):

@@ -41,9 +41,10 @@ the heteroscedastic two-set model (``nll_het`` / ``predict_het``, through
 (``nugget_in_pars=False``: ``gp_approx="vecchia_latent"``) follow the JAX
 package.
 
-Not ported (ROADMAP.md): the time orderings (item 14: they need a space-time
-covariance), the banded compute layout ``BandedB``, row sharding over
-several GPUs (item 20).
+The time orderings (``"time"``, ``"time_random_space"``) sort by
+coordinate 0 and need a space-time covariance, as in the JAX package.
+Not ported (ROADMAP.md): the banded compute layout ``BandedB``, row sharding
+over several GPUs (item 20).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch import likelihoods as lk
 from gpboost_tpu_torch.models import heteroscedastic as het
 from gpboost_tpu_torch.models.laplace import (_aux_arg, _aux_val,
@@ -197,15 +199,17 @@ class VecchiaGP:
                  rand_coef_data: Optional[np.ndarray] = None,
                  cluster_codes: Optional[np.ndarray] = None,
                  dtype=torch.float64, device="cuda"):
-        if likelihood in lk.NOT_PORTED:
-            raise NotImplementedError(
-                f"likelihood '{likelihood}' is not ported to "
-                f"gpboost_tpu_torch yet ({lk.NOT_PORTED[likelihood]})")
+        time_col = None
         if ordering in ("time", "time_random_space"):
-            raise NotImplementedError(
-                f"vecchia_ordering '{ordering}' needs a space-time "
-                "covariance, which is not ported (ROADMAP.md Queue A, "
-                "item 14)")
+            # the reference errors when the kernel is not space-time
+            # (Vecchia_utils.cpp:1133-1135); time is coordinate 0
+            if cov_fn.cov_fct_type not in ("matern_space_time",
+                                           "exponential_space_time",
+                                           "space_time_gneiting"):
+                raise ValueError(
+                    f"'vecchia_ordering' is '{ordering}' but the "
+                    "'cov_function' is not a space-time covariance function")
+            time_col = np.asarray(coords, dtype=np.float64)[:, 0]
         self.device = resolve_device(device)
         coords = np.asarray(coords, dtype=np.float64)
         n = coords.shape[0]
@@ -238,7 +242,8 @@ class VecchiaGP:
                 device=self.device)
         self._ard_neighbors_pars = None
         self._probe_cache = None
-        self._set_structure(vops.apply_ordering(n, ordering, seed), None)
+        self._set_structure(vops.apply_ordering(n, ordering, seed, time_col),
+                            None)
         # (shape code, is_ard) when the fused kernels serve this model
         self._kernel_shape = self._kernel_shape_code()
 
@@ -334,7 +339,7 @@ class VecchiaGP:
         lp = th.detach().clone().requires_grad_(True)
         with torch.enable_grad():
             nll = self.nll_gaussian(torch.exp(lp), r)
-            (grad,) = torch.autograd.grad(nll, lp)
+            (grad,) = ag.grad(nll, lp)
         return nll.detach(), grad
 
     def _fit_psi_inv(self, th, r):
@@ -858,7 +863,7 @@ class VecchiaGP:
                                                  **iter_kwargs)
             else:
                 nll = self.nll_laplace(cov_pars, y, aux_pars, fe)
-            (g,) = torch.autograd.grad(nll, fe)
+            (g,) = ag.grad(nll, fe)
         return g
 
     def _cross_cov(self, gp_pars, coords1, coords2):

@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch.utils.timer import timed
 
 
@@ -339,9 +340,9 @@ class _PCGImplicit(torch.autograd.Function):
             leaves = [t.detach().requires_grad_(need)
                       for t, need in zip(theta, needs)]
             wrt = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(mv(leaves, X), wrt,
-                                             grad_outputs=-lam,
-                                             allow_unused=True)
+            grads = iter(ag.grad(mv(leaves, X), wrt,
+                               grad_outputs=-lam,
+                               allow_unused=True)
                          if wrt else ())
         g_theta = [next(grads) if t.requires_grad else None for t in leaves]
         return (lam if ctx.needs_input_grad[0] else None, None, None, None,
@@ -427,7 +428,7 @@ class _LogdetVR(torch.autograd.Function):
                 return (None,) + (None,) * len(theta)
 
             def grads(out):
-                gs = torch.autograd.grad(out, wrt, allow_unused=True)
+                gs = ag.grad(out, wrt, allow_unused=True)
                 return [torch.zeros_like(t) if g is None else g
                         for g, t in zip(gs, wrt)]
 

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from gpboost_tpu_torch.utils import autograd as ag
 from gpboost_tpu_torch.ops import vecchia as vops
 from gpboost_tpu_torch.ops.cov_fns import CovFunction, _matern_mult_const
 from gpboost_tpu_torch.ops.kernels import _build
@@ -155,7 +156,7 @@ def vecchia_nll_grad_plain(log_cov_pars, coords, neighbors, r, shape: float,
     with torch.enable_grad():
         nll = _nll_from_log_pars(lp, coords, neighbors, r, shape, ard, row_r,
                                  row_valid, row_coords, include_const)
-        (grad,) = torch.autograd.grad(nll, lp)
+        (grad,) = ag.grad(nll, lp)
     return nll.detach(), grad
 
 

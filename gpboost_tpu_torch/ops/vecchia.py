@@ -189,15 +189,19 @@ def build_factors(cov_fn: CovFunction, cov_pars: torch.Tensor,
         coords = cov_fn.scale_coords(coords, cov_pars)
         row_coords = cov_fn.scale_coords(row_coords, cov_pars)
     n, m = neighbors.shape
-    _, d_nn, d_in = _gathered_dists(coords, row_coords, neighbors)
-    if scaled:
-        c_nn = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_nn, cov_pars)
-        c_in = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_in, cov_pars)
+    if cov_fn.cov_fct_type in ("linear", "hurst"):
+        c_nn, c_in, var_ii = _nonstationary_blocks(cov_fn, cov_pars, coords,
+                                                   row_coords, neighbors)
     else:
-        c_nn = cov_fn.cov_matrix(cov_pars, dist=d_nn)
-        c_in = cov_fn.cov_matrix(cov_pars, dist=d_in)
-    var_ii = cov_pars[0] * torch.ones(n, dtype=row_coords.dtype,
-                                      device=row_coords.device)
+        _, d_nn, d_in = _gathered_dists(coords, row_coords, neighbors)
+        if scaled:
+            c_nn = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_nn, cov_pars)
+            c_in = cov_pars[0] * cov_fn.corr_from_scaled_dist(d_in, cov_pars)
+        else:
+            c_nn = cov_fn.cov_matrix(cov_pars, dist=d_nn)
+            c_in = cov_fn.cov_matrix(cov_pars, dist=d_in)
+        var_ii = cov_pars[0] * torch.ones(n, dtype=row_coords.dtype,
+                                          device=row_coords.device)
     if include_nugget and nugget is not None:
         c_nn = c_nn + nugget * torch.eye(m, dtype=row_coords.dtype,
                                          device=row_coords.device)[None]
@@ -205,6 +209,35 @@ def build_factors(cov_fn: CovFunction, cov_pars: torch.Tensor,
     a, c_in, info = _solve_masked(c_nn, c_in, neighbors >= 0)
     d_cond = var_ii - torch.sum(c_in * a, dim=1)
     return a, torch.where(info == 0, d_cond, math.nan)
+
+
+def _nonstationary_blocks(cov_fn: CovFunction, cov_pars: torch.Tensor,
+                          coords, row_coords, neighbors):
+    """(C_NN [n, m, m], c [n, m], var [n]) of the non-stationary ``linear``
+    (sigma2 x'x) and ``hurst`` (fractional Brownian motion sigma2/2 (|x|^2H
+    + |y|^2H - |x-y|^2H)) covariances, whose variance is per point (JAX
+    ``ops/vecchia.py:414-450``)."""
+    nb = coords[torch.clamp(neighbors, min=0).long()]          # [n, m, d]
+    if cov_fn.cov_fct_type == "linear":
+        c_nn = cov_pars[0] * torch.einsum("nmd,nkd->nmk", nb, nb)
+        c_in = cov_pars[0] * torch.sum(row_coords[:, None, :] * nb, -1)
+        return c_nn, c_in, cov_pars[0] * torch.sum(row_coords * row_coords,
+                                                   dim=1)
+    H = cov_pars[1]
+    s2h = cov_pars[0] / 2.0
+
+    def powh(sq):
+        return torch.pow(torch.clamp(sq, min=1e-300), H)
+
+    r_nb = powh(torch.sum(nb * nb, -1))                         # [n, m]
+    r_row = powh(torch.sum(row_coords * row_coords, -1))        # [n]
+    diffs = nb[:, :, None, :] - nb[:, None, :, :]
+    d2_nn = powh(torch.sum(diffs * diffs, -1))
+    di = row_coords[:, None, :] - nb
+    d2_in = powh(torch.sum(di * di, -1))
+    c_nn = s2h * (r_nb[:, :, None] + r_nb[:, None, :] - d2_nn)
+    c_in = s2h * (r_row[:, None] + r_nb - d2_in)
+    return c_nn, c_in, cov_pars[0] * r_row
 
 
 # entries of one [n, m, q] gather of a wide right-hand side (1.6 GB in

@@ -195,14 +195,29 @@ def test_unported_options_raise_not_implemented(data, kwargs):
     """Structures the port does not have raise naming their ROADMAP item.
     ``gp_approx="none"`` (the exact GP) and ``"fitc"`` are ported, and so
     are (ROADMAP.md item 15) the heteroscedastic model, grouped effects,
-    ``cluster_ids`` and GP random coefficients beside a Vecchia GP: they
+    ``cluster_ids`` and GP random coefficients beside a Vecchia GP, and
+    (item 14) the wendland covariance and a general Matern shape: they
     construct, and their NLL is the JAX package's within 1e-10 relative."""
     ported = {"none": [0.25, 1.0, 0.1], "fitc": [0.25, 1.0, 0.1],
               "likelihood": [1.0, 0.1, 0.1, 0.2],
               "group_data": [0.25, 0.3, 1.0, 0.1],
               "cluster_ids": [0.25, 1.0, 0.1],
-              "gp_rand_coef_data": [0.25, 1.0, 0.1, 0.5, 0.1]}
+              "gp_rand_coef_data": [0.25, 1.0, 0.1, 0.5, 0.1],
+              "cov_function": ([0.25, 1.0] if kwargs.get("cov_function")
+                               == "wendland" else [0.25, 1.0, 0.1])}
     key = next((k for k in kwargs if k in ported), kwargs["gp_approx"])
+    if key == "cov_function":
+        # the wendland covariance and a general Matern shape (ROADMAP.md
+        # item 14) on the JAX package's neighbour structure
+        tm = gpt.GPModel(gp_coords=data["coords"], device="cpu", **kwargs)
+        jm = gpb.GPModel(gp_coords=data["coords"], **kwargs)
+        tm._approx.load_structure(np.asarray(jm._approx.perm),
+                                  np.asarray(jm._approx.neighbors))
+        cp = ported[key]
+        nll_j = jm.neg_log_likelihood(cp, data["y"])
+        assert abs(tm.neg_log_likelihood(cp, data["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
+        return
     if key in ported:
         tm = gpt.GPModel(gp_coords=data["coords"], device="cpu", **kwargs)
         jm = gpb.GPModel(gp_coords=data["coords"], **kwargs)
@@ -318,11 +333,11 @@ def test_every_jax_keyword_at_its_default_constructs(data):
     (dict(ind_effect_group_rand_coef=[1]), None),
     (dict(drop_intercept_group_rand_effect=[True]), None),
     (dict(num_data=N), None),
-    (dict(cov_fct_taper_range=0.5), "items 14 and 17"),
-    (dict(cov_fct_taper_shape=2.0), "items 14 and 17"),
-    (dict(ind_points_selection="random"), "items 14 and 17"),
-    (dict(num_ind_points=100), "items 14 and 17"),
-    (dict(cover_tree_radius=0.5), "items 14 and 17"),
+    (dict(cov_fct_taper_range=0.5), "item 17"),
+    (dict(cov_fct_taper_shape=2.0), "item 17"),
+    (dict(ind_points_selection="random"), "item 17"),
+    (dict(num_ind_points=100), "item 17"),
+    (dict(cover_tree_radius=0.5), "item 17"),
     (dict(matrix_inversion_method="iterative"), None),
     (dict(likelihood_additional_param=2.0), None),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)

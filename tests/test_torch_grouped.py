@@ -395,7 +395,8 @@ def test_unported_grouped_structures_raise(d, kwargs, item):
     Vecchia GP beside grouped effects (ROADMAP.md item 15,
     ``models/vecchia_combined.py``): on the JAX package's neighbour
     structure (every point at one location, so the searches tie) its NLL
-    is the JAX package's within 1e-10 relative."""
+    is the JAX package's within 1e-10 relative. So are observation weights
+    (item 11): the weighted NLL within 1e-10 relative."""
     if item == "vecchia":
         tm = gpt.GPModel(group_data=d["groups"], device="cpu", **kwargs)
         jm = gpb.GPModel(group_data=d["groups"], **kwargs)
@@ -427,6 +428,17 @@ def test_unported_grouped_structures_raise(d, kwargs, item):
             probes=probes)
         assert abs(float(vt) - float(vj)) < 1e-5 * abs(float(vj))
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5)
+        return
+    if item == "item 11":
+        # observation weights are ported (ROADMAP.md item 11): the weighted
+        # Woodbury NLL is the JAX package's within 1e-10 relative
+        w = d["w"]
+        tm = gpt.GPModel(group_data=d["groups"], weights=w, device="cpu")
+        jm = gpb.GPModel(group_data=d["groups"], weights=w)
+        cp = [0.2, 0.6]
+        nll_j = jm.neg_log_likelihood(cp, d["y"])
+        assert abs(tm.neg_log_likelihood(cp, d["y"]) - nll_j) \
+            < 1e-10 * abs(nll_j)
         return
     if item is None:
         cid = np.where(np.arange(500) < 200, 3, 9)

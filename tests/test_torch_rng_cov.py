@@ -109,5 +109,21 @@ def test_euclidean_distance_and_consts_match_jax():
     ("matern_space_time", 1.5), ("linear", 0.0), ("hurst", 0.0),
     ("matern_estimate_shape", 1.5)])
 def test_unported_families_raise(name, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcov.CovFunction.create(name, shape=shape)
+    """These families raised before they were ported (ROADMAP.md item 14);
+    each is now the JAX package's covariance matrix within 1e-12 (more in
+    ``tests/test_torch_cov_tail.py``)."""
+    rng = np.random.default_rng(6)
+    dim = 3 if name == "matern_space_time" else 2
+    c1 = rng.uniform(size=(25, dim))
+    c2 = rng.uniform(size=(15, dim))
+    jf = jcov.CovFunction.create(name, shape=shape, dim_coords=dim)
+    tf = tcov.CovFunction.create(name, shape=shape, dim_coords=dim)
+    assert tf.num_cov_par == jf.num_cov_par
+    pars = np.concatenate([[1.3], rng.uniform(0.8, 1.2, jf.num_cov_par - 1)])
+    if name == "hurst":
+        pars[1] = 0.3
+    want = np.asarray(jf.cov_between(jnp.asarray(pars), jnp.asarray(c1),
+                                     jnp.asarray(c2)))
+    got = tf.cov_between(torch.tensor(pars), torch.tensor(c1),
+                         torch.tensor(c2)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)

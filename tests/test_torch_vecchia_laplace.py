@@ -218,28 +218,41 @@ def test_non_gaussian_model_runs_on_the_gpu_by_default(data):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(likelihood="zero_one_censored_shifted_gamma"), "item 11"),
     (dict(likelihood="gaussian_heteroscedastic"), None),
-    (dict(likelihood="bernoulli_logit", weights=np.ones(N)), "item 11"),
+    (dict(likelihood="bernoulli_logit", weights=np.ones(N)), "Not faults"),
 ])
 def test_unported_likelihood_options_name_their_item(data, kwargs, item):
-    """The unported likelihood options raise naming their item.
-    ``gaussian_heteroscedastic`` is ported (ROADMAP.md item 15,
-    ``models/heteroscedastic.py``): on the JAX package's neighbour
-    structure its two-set NLL is the JAX package's within 1e-10 relative."""
-    if item is None:
-        kw = dict(gp_coords=data["coords"], gp_approx="vecchia",
-                  num_neighbors=M, **kwargs)
-        tm = gpt.GPModel(device="cpu", **kw)
-        jm = gpb.GPModel(**kw)
-        tm._approx.load_structure(np.asarray(jm._approx.perm),
-                                  np.asarray(jm._approx.neighbors))
-        y = data["y"] + 0.5 * np.sin(7 * data["coords"][:, 0])
-        cp = [1.0, 0.2, 0.1, 0.2]
-        nll_j = jm.neg_log_likelihood(cp, y)
-        assert abs(tm.neg_log_likelihood(cp, y) - nll_j) < 1e-10 * abs(nll_j)
+    """The likelihood options that were queued. ``gaussian_heteroscedastic``
+    is ported (ROADMAP.md item 15, ``models/heteroscedastic.py``) and so is
+    the censored shifted gamma (item 11): on the JAX package's neighbour
+    structure each NLL is the JAX package's within 1e-10 relative (the
+    censored one 1e-8, the mode finders' stop rules).
+    ``weights`` under Vecchia, which the JAX package accepts and never
+    reads, raise (ROADMAP.md, "Not faults")."""
+    if item == "Not faults":
+        with pytest.raises(NotImplementedError, match=item):
+            gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
+                        device="cpu", **kwargs)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        gpt.GPModel(gp_coords=data["coords"], gp_approx="vecchia",
-                    device="cpu", **kwargs)
+    kw = dict(gp_coords=data["coords"], gp_approx="vecchia",
+              num_neighbors=M, **kwargs)
+    tm = gpt.GPModel(device="cpu", **kw)
+    jm = gpb.GPModel(**kw)
+    tm._approx.load_structure(np.asarray(jm._approx.perm),
+                              np.asarray(jm._approx.neighbors))
+    if item == "item 11":
+        # 1e-8: the two dense mode finders stop at different changes (the
+        # JAX package's at 1e-8, the port's at 1e-9; ROADMAP.md "Mode
+        # finders"), and the censored likelihood's mode carries it to ~1e-9
+        y = np.clip(data["pos"] - 0.1, 0.0, 1.0)
+        cp, aux = [0.8, 0.2], [3.0, 0.1]
+        nll_j = jm.neg_log_likelihood(cov_pars=cp, y=y, aux_pars=aux)
+        assert abs(tm.neg_log_likelihood(cp, y, aux_pars=aux) - nll_j) \
+            < 1e-8 * abs(nll_j)
+        return
+    y = data["y"] + 0.5 * np.sin(7 * data["coords"][:, 0])
+    cp = [1.0, 0.2, 0.1, 0.2]
+    nll_j = jm.neg_log_likelihood(cp, y)
+    assert abs(tm.neg_log_likelihood(cp, y) - nll_j) < 1e-10 * abs(nll_j)
 
 
 def test_prediction_settings(data):
