@@ -167,7 +167,22 @@ one. It
    CT_MAXIT) and ``censored_glmm`` (both censored families at CENS_N rows,
    fits cut to CENS_MAXIT, one ``set_likelihood`` switch, a binomial with
    trial counts as weights, a weighted LMM at the LMM recipe's width), each
-   card vs CPU within 1e-9;
+   card vs CPU within 1e-9; then, before those second runs too, validation,
+   the objectives without a GP and ``cv`` (phase 13,
+   ``boosting_tail_paths``): ``gpboost_validation`` (the boosting recipe
+   with a validation set of the 10 000 prediction points, the float32 GP's
+   prediction in its score every round, three metrics, bagging, feature
+   fraction and early stopping; the histogram kernel held against its plain
+   version under the round's bag; trained twice to the same bits; card vs
+   CPU at VAL_CPU_N points within 1e-9), ``objectives_tail`` (the fourteen
+   objectives without a GP, OBJ_ROUNDS rounds at the full n with a
+   validation set; float32 vs ``gpu_use_dp`` within CMP_SCORE_TOL; card vs
+   CPU at OBJ_CPU_N rows within 1e-9 up to the first exact tie of split
+   gains, which the card's fixed-point sums and the CPU's sequential ones
+   break apart) and ``cv_grouped`` (``cv`` with GB_LEVELS grouped levels,
+   CV_NFOLD folds, early stopping and ``fit_GP_cov_pars_OOS``; the README's
+   ``grid_search_tune_parameters`` on the card and the CPU, the same best
+   parameters);
 14. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
@@ -178,7 +193,9 @@ one. It
    paths of 9, the two of 10, the Poisson LaGaBoost of 11 and the GPBoost
    rounds of 12 and 13, both Vecchia kernels on 12's clustered path, no
    kernel on the low-rank GPs, the iterative routes, 12's other paths and
-   13's GPs — and the results against float64 plain versions.
+   13's GPs, all three on phase 13's validation path and the histogram
+   kernel once a leaf (``num_models`` trees a round) on its objectives and
+   folds — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -4853,6 +4870,418 @@ def cov_likelihood_tail_paths(coords, y, gd, m, seed, dev):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 13: validation, metrics, early stopping, cv and the objectives
+# without a GP (ROADMAP item 18a)
+# ---------------------------------------------------------------------------
+
+VAL_MAX_ROUNDS = 30               # early stopping decides the rounds run
+VAL_EARLY_STOP = 5
+VAL_METRICS = ["l2", "test_neg_log_likelihood", "crps_gaussian"]
+VAL_SAMPLING = {"bagging_fraction": 0.8, "bagging_freq": 1,
+                "feature_fraction": 0.8}
+VAL_CPU_N = 2_000                 # points of the card-vs-CPU check
+VAL_CPU_N_PRED = 500
+VAL_CPU_ROUNDS = 10
+VAL_CPU_RTOL = 1e-9
+OBJ_ROUNDS = 10
+OBJ_CPU_N = 2_000
+OBJ_CPU_TOL = 1e-9
+# the objectives without a GP, each with its own parameters
+OBJECTIVES_TAIL = (
+    ("regression_l1", {}), ("huber", {}), ("fair", {}), ("poisson", {}),
+    ("gamma", {}), ("tweedie", {}), ("quantile", {"alpha": 0.3}),
+    ("mape", {}), ("tobit", {"sigma": 0.2, "yl": 0.0, "yu": 1.0}),
+    ("cross_entropy", {}), ("cross_entropy_lambda", {}),
+    ("mean_scale_regression", {}), ("multiclass", {"num_class": 3}),
+    ("multiclassova", {"num_class": 3}))
+CV_NFOLD = 4
+CV_ROUNDS = 10
+CV_EARLY_STOP = 5
+# the README's GPBoost tuning example (examples/gpboost_algorithm.py:48-56)
+README_N, README_GROUPS = 1000, 25
+README_GRID = {"learning_rate": [0.1, 0.01], "max_depth": [3, 6]}
+README_ROUNDS = 50
+
+
+def _recipe_f(X):
+    return 2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + X[:, 2]
+
+
+def _valid_labels(seed, X_pred, pred):
+    """The boosting recipe's response at the prediction points: f(X) plus
+    the GP data's signal sin(6 x1) + cos(4 x2) and noise."""
+    rng = np.random.default_rng(seed + 30)
+    return (_recipe_f(X_pred) + np.sin(6 * pred[:, 0])
+            + np.cos(4 * pred[:, 1]) + 0.5 * rng.standard_normal(len(pred)))
+
+
+def _validation_train(X, yb, Xv, yv, coords, pv, m, seed, dtype, dev,
+                      rounds, **extra):
+    """``train`` with a validation set and the GP in its score: the
+    boosting recipe with bagging and feature sampling, early stopping."""
+    import gpboost_tpu_torch as gpt
+    gp = _gp_model(coords, m, seed, dtype, dev)
+    gp.set_prediction_data(gp_coords_pred=pv)
+    ds = gpt.Dataset(X, label=yb, device=dev)
+    dv = ds.create_valid(Xv, label=yv)
+    ev = {}
+    params = dict(BOOST_PARAMS, use_gp_model_for_validation=True,
+                  metric=VAL_METRICS, **VAL_SAMPLING, **extra)
+    bst = gpt.train(params, ds, gp_model=gp, num_boost_round=rounds,
+                    valid_sets=[dv], early_stopping_rounds=VAL_EARLY_STOP,
+                    evals_result=ev, verbose_eval=False)
+    return bst, ev, ds
+
+
+def _tree_pairs_agree(b1, b2, tol):
+    """Trees of two trainings: the same split features and bins and leaf
+    values within ``tol``, up to the first split that differs; there the
+    two splits' gains must tie, within 1e-9 of the larger of the two and
+    of the tree's root gain (two cut points that order the rows alike, or
+    gains that are 0 in exact arithmetic and round to ~1e-14 — a leaf whose
+    rows share one gradient —, broken by the last bits of sums taken in
+    another order). Returns (trees identical, the tie or None)."""
+    for k, (a, b) in enumerate(zip(b1.trees, b2.trees)):
+        ia, ib = a.internal_nodes(), b.internal_nodes()
+        same = (np.array_equal(ia, ib)
+                and np.array_equal(a.split_feature[ia], b.split_feature[ib])
+                and np.array_equal(a.threshold_bin[ia], b.threshold_bin[ib]))
+        if same:
+            err = float(np.max(np.abs(a.leaf_value - b.leaf_value)))
+            check(err <= tol * max(1.0, float(np.max(np.abs(b.leaf_value)))),
+                  f"tree {k}: leaf values {err} apart")
+            continue
+        for node in sorted(set(ia) | set(ib)):
+            if (a.split_feature[node], a.threshold_bin[node], a.is_leaf[node]) \
+                    != (b.split_feature[node], b.threshold_bin[node],
+                        b.is_leaf[node]):
+                ga, gb = float(a.split_gain[node]), float(b.split_gain[node])
+                scale = max(abs(ga), abs(gb), abs(float(a.split_gain[0])))
+                tie = {"tree": k, "node": int(node), "gains": [ga, gb],
+                       "root_gain": float(a.split_gain[0]),
+                       "splits": [[int(a.split_feature[node]),
+                                   int(a.threshold_bin[node])],
+                                  [int(b.split_feature[node]),
+                                   int(b.threshold_bin[node])]]}
+                check(abs(ga - gb) <= 1e-9 * scale,
+                      f"the splits differ and their gains do not tie: {tie}")
+                return k, tie
+        return k, {"tree": k, "node": None}
+    check(len(b1.trees) == len(b2.trees),
+          f"{len(b1.trees)} vs {len(b2.trees)} trees")
+    return len(b1.trees), None
+
+
+def gpboost_validation(boost_data, coords, pred, m, seed, dev):
+    """``train`` of the boosting recipe at full width with a validation set
+    of the 10 000 prediction points, ``use_gp_model_for_validation`` (the
+    float32 Vecchia GP's prediction added to the trees' score, every round:
+    the ``vecchia_factors`` kernel at the prediction shape), three metrics,
+    bagging and feature fraction, early stopping; trained twice to the same
+    bits; card vs CPU at VAL_CPU_N points in float64."""
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    X, yb, X_pred = boost_data
+    yv = _valid_labels(seed, X_pred, pred)
+    reset_counts()
+    t0 = clock()
+    bst, ev, ds = _validation_train(X, yb, X_pred, yv, coords, pred, m, seed,
+                                    torch.float32, dev, VAL_MAX_ROUNDS)
+    t_train = clock() - t0
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    rounds = bst.current_iteration()
+    curves = ev["valid_0"]
+    leaves = sum(t.num_leaves for t in bst.trees)
+    check(list(curves) == VAL_METRICS and all(
+        len(c) == rounds for c in curves.values()),
+        f"validation curves {[(k, len(c)) for k, c in curves.items()]} for "
+        f"{rounds} rounds")
+    check(all(math.isfinite(v) for c in curves.values() for v in c),
+          "validation curves not finite")
+    check(launches["histogram"] == leaves, f"gpboost_validation: histogram "
+          f"launched {launches['histogram']} times for {leaves} leaves")
+    check(reads == 2 * leaves, f"gpboost_validation: {reads} host reads "
+          f"for {leaves} leaves")
+    check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
+          f"gpboost_validation: Vecchia kernels {launches}")
+    best = bst.best_iteration
+    l2 = curves["l2"]
+    check(best == -1 or (rounds - best == VAL_EARLY_STOP),
+          f"best_iteration {best} after {rounds} rounds")
+    check(min(l2) < l2[0], f"the validation l2 did not fall: {l2}")
+    _check_trees(bst, "gpboost_validation")
+    # one round's validation, timed alone, and its kernel launches
+    reset_counts()
+    t0 = clock()
+    bst.eval_valid()
+    t_valid = clock() - t0
+    valid_launches = read_counts()
+    check(valid_launches["vecchia_factors"] > 0,
+          "the validation prediction launched no vecchia_factors")
+    # the histogram kernel on this Dataset with the last round's bag
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    g, h = _hist_values(gen, ds.num_data, dev)
+    bag = bst._bag_mask_t
+    check(bag is not None and 0 < int(bag.sum()) < ds.num_data,
+          "gpboost_validation: no bag")
+    hist_cases, hist_timed = check_histogram_on(ds, seed, dev,
+                                                "gpboost_validation")
+    hist_cases.append(_hist_compare("gpboost_validation_bag", ds.binned,
+                                    ds.binned_t, g, h, bag,
+                                    ds.max_num_bins))
+    # the same training again: the same bits
+    bst2, ev2, _ = _validation_train(X, yb, X_pred, yv, coords, pred, m,
+                                     seed, torch.float32, dev,
+                                     VAL_MAX_ROUNDS)
+    check(np.array_equal(bst._score, bst2._score) and ev == ev2
+          and bst.best_iteration == bst2.best_iteration,
+          "gpboost_validation: two trainings differ")
+    # card vs CPU, float64, gpu_use_dp on the card
+    n, npv = VAL_CPU_N, VAL_CPU_N_PRED
+    sub = (X[:n], yb[:n], X_pred[:npv], yv[:npv], coords[:n], pred[:npv], m,
+           seed, torch.float64)
+    bc, evc, _ = _validation_train(*sub, dev, VAL_CPU_ROUNDS,
+                                   gpu_use_dp=True)
+    bh, evh, _ = _validation_train(*sub, torch.device("cpu"), VAL_CPU_ROUNDS)
+    compared, tie = _tree_pairs_agree(bc, bh, VAL_CPU_RTOL)
+    check(tie is None, f"card vs CPU: a tie of split gains: {tie}")
+    score_err = float(np.max(np.abs(bc._score - bh._score)))
+    check(score_err <= VAL_CPU_RTOL * float(np.max(np.abs(bh._score))),
+          f"card vs CPU: training scores {score_err} apart")
+    curve_err = max(float(np.max(np.abs(np.asarray(evc["valid_0"][k])
+                                        - np.asarray(evh["valid_0"][k]))
+                                 / np.abs(np.asarray(evh["valid_0"][k]))))
+                    for k in VAL_METRICS)
+    check(curve_err <= VAL_CPU_RTOL and bc.best_iteration == bh.best_iteration,
+          f"card vs CPU: curves {curve_err} apart (relative), best "
+          f"iterations {bc.best_iteration}, {bh.best_iteration}")
+    emit({"phase": "gpboost_validation", "n": len(yb), "n_valid": len(yv),
+          "metrics": VAL_METRICS, **VAL_SAMPLING,
+          "early_stopping_rounds": VAL_EARLY_STOP, "rounds_run": rounds,
+          "best_iteration": best, "evals_result": curves, "leaves": leaves,
+          "launches": launches, "host_reads_per_tree": reads / len(bst.trees),
+          "fits": len(bst.objective.fits), "cov_pars":
+          bst.gp_model.get_cov_pars().tolist(),
+          "validation_s_per_round": t_valid,
+          "validation_launches_per_round": valid_launches,
+          "same_bits": True,
+          "vs_cpu": {"n": n, "n_valid": npv, "trees_compared": compared,
+                     "score_max_abs_diff": score_err,
+                     "curve_max_rel_diff": curve_err,
+                     "best_iteration": bc.best_iteration,
+                     "tolerance": VAL_CPU_RTOL}})
+    return launches, {"val_train_s": t_train, "val_rounds": rounds,
+                      "val_s_per_round_eval": t_valid}, (hist_cases,
+                                                         hist_timed)
+
+
+def _objective_labels(name, X, rng):
+    f = _recipe_f(X)
+    n = len(X)
+    if name == "poisson":
+        return rng.poisson(np.exp(0.5 * f - 1.0)).astype(float)
+    if name in ("gamma", "mape"):          # positive, relative errors
+        return np.exp(0.3 * f) * rng.gamma(2.0, 0.5, n)
+    if name == "tweedie":
+        return rng.poisson(np.exp(0.3 * f - 0.5)) * rng.gamma(2.0, 0.5, n)
+    if name == "tobit":
+        return np.clip((f + 1.0) / 5.0 + 0.1 * rng.standard_normal(n), 0, 1)
+    if name.startswith("cross_entropy"):
+        return 1.0 / (1.0 + np.exp(-(f - 1.5)))
+    if name.startswith("multiclass"):
+        return np.digitize(f + 0.5 * rng.standard_normal(n),
+                           [0.5, 2.0]).astype(float)
+    return f + 0.5 * rng.standard_normal(n)
+
+
+def objectives_tail(boost_data, seed, dev):
+    """Each objective without a GP on the recipe's 5 features at the full
+    n, OBJ_ROUNDS rounds with the 10 000-row validation set and its default
+    metric: histogram launches = leaves (num_models trees a round for the
+    multiclass objectives and mean_scale_regression), float32 vs
+    ``gpu_use_dp`` within CMP_SCORE_TOL, card vs CPU at OBJ_CPU_N rows."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    X, _, X_pred = boost_data
+    out, timings, launches_all = {}, {}, None
+    ds = gpt.Dataset(X, label=np.zeros(len(X)), device=dev)
+    dv = ds.create_valid(X_pred, label=np.zeros(len(X_pred)))
+    for k, (name, extra) in enumerate(OBJECTIVES_TAIL):
+        rng = np.random.default_rng(seed + 40 + k)
+        y = _objective_labels(name, X, rng)
+        yv = _objective_labels(name, X_pred, rng)
+        ds.set_label(y)
+        dv.set_label(yv)
+        params = dict(BOOST_PARAMS, objective=name, **extra)
+        reset_counts()
+        t0 = clock()
+        ev = {}
+        bst = gpt.train(params, ds, num_boost_round=OBJ_ROUNDS,
+                        valid_sets=[dv], evals_result=ev, verbose_eval=False)
+        t_train = clock() - t0
+        launches = read_counts()
+        reads = grow_tree.host_reads
+        K = bst.num_models
+        leaves = sum(t.num_leaves for t in bst.trees)
+        check(len(bst.trees) == OBJ_ROUNDS * K,
+              f"{name}: {len(bst.trees)} trees for {OBJ_ROUNDS} rounds x {K}")
+        check(launches["histogram"] == leaves, f"{name}: histogram launched "
+              f"{launches['histogram']} times for {leaves} leaves")
+        check(reads == 2 * leaves, f"{name}: {reads} host reads")
+        check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
+              == 0, f"{name} launched a Vecchia kernel")
+        (metric, curve), = ev["valid_0"].items()
+        check(all(math.isfinite(v) for v in curve) and curve[-1] < curve[0],
+              f"{name}: the validation {metric} did not fall: {curve}")
+        pred = bst.predict(X_pred)
+        vals = (np.concatenate(list(pred.values())) if isinstance(pred, dict)
+                else pred)
+        check(bool(np.all(np.isfinite(vals))), f"{name}: predictions")
+        # float32 (the kernel) vs float64 (gpu_use_dp) on the card
+        b64 = gpt.train(dict(params, gpu_use_dp=True), ds,
+                        num_boost_round=OBJ_ROUNDS)
+        rms = float(np.sqrt(np.mean((bst._score - b64._score) ** 2))
+                    / max(float(np.std(b64._score)), 1e-12))
+        check(rms <= CMP_SCORE_TOL, f"{name}: float32 vs float64 scores "
+              f"RMS {rms} of the score's sd")
+        # card (float64) vs CPU at OBJ_CPU_N rows
+        n = OBJ_CPU_N
+        bc = gpt.train(dict(params, gpu_use_dp=True),
+                       gpt.Dataset(X[:n], label=y[:n], device=dev),
+                       num_boost_round=OBJ_ROUNDS)
+        bh = gpt.train(params, gpt.Dataset(X[:n], label=y[:n], device="cpu"),
+                       num_boost_round=OBJ_ROUNDS)
+        compared, tie = _tree_pairs_agree(bc, bh, OBJ_CPU_TOL)
+        err = float(np.max(np.abs(bc._score - bh._score)))
+        cpu_rms = float(np.sqrt(np.mean((bc._score - bh._score) ** 2))
+                        / max(float(np.std(bh._score)), 1e-12))
+        if tie is not None:
+            # an exact tie (counts share gradients, a two-valued gradient
+            # makes gains equal): the card's fixed-point sums and the CPU's
+            # sequential ones break it by their last bits, and the two
+            # trainings go on as two valid runs. What came before the tie
+            # is held: the scores of the iterations before its tree
+            it = tie["tree"] // K
+            err = (float(np.max(np.abs(bc.init_score - bh.init_score)))
+                   if it == 0 else float(np.max(np.abs(
+                       bc.predict(X[:n], num_iteration=it, raw_score=True)
+                       - bh.predict(X[:n], num_iteration=it,
+                                    raw_score=True)))))
+            tie["iterations_before"] = it
+        check(err <= OBJ_CPU_TOL * max(1.0, float(np.max(np.abs(
+            bh._score)))), f"{name}: card vs CPU scores {err} apart "
+            f"(tie: {tie})")
+        entry = {"trees": len(bst.trees), "num_models": K, "leaves": leaves,
+                 "metric": metric, "curve_first": curve[0],
+                 "curve_last": curve[-1], "launches": launches,
+                 "train_s": t_train, "f32_vs_f64_rms": rms,
+                 "cpu_trees_identical": compared, "cpu_tie": tie,
+                 "cpu_score_max_abs_diff": err, "cpu_score_rms": cpu_rms}
+        out[name] = entry
+        timings[f"obj_{name}_train_s"] = t_train
+        launches_all = (launches if launches_all is None else
+                        {k2: launches_all[k2] + v for k2, v in
+                         launches.items()})
+    emit({"phase": "objectives_tail", "n": len(X), "n_valid": len(X_pred),
+          "rounds": OBJ_ROUNDS, "cpu_n": OBJ_CPU_N, **out})
+    return launches_all, timings
+
+
+def _readme_grouped(seed=1, n=README_N, m=README_GROUPS):
+    """examples/gpboost_algorithm.py's simulate_grouped."""
+    rng = np.random.default_rng(seed)
+    X = rng.random((n, 2))
+    F = 1.7 * (1 / (1 + np.exp(-(X[:, 0] - 0.5) * 20)) + 0.75 * X[:, 0])
+    group = np.arange(n) % m
+    b = np.sqrt(0.3527) * rng.standard_normal(m)
+    y = F + b[group] + np.sqrt(0.29 / 2) * rng.standard_normal(n)
+    return X, y, group
+
+
+def cv_grouped(seed, n, dev):
+    """``cv`` of the grouped GPBoost recipe (GB_LEVELS levels) with
+    GP-aware folds, early stopping and ``fit_GP_cov_pars_OOS``; then the
+    README's ``grid_search_tune_parameters`` on the card and on the CPU."""
+    import gpboost_tpu_torch as gpt
+    bd = _grouped_boost_data(seed, n, 10)
+    gp = gpt.GPModel(group_data=bd["g"], device=dev)
+    ds = gpt.Dataset(bd["X"], label=bd["y"], device=dev)
+    reset_counts()
+    t0 = clock()
+    res = gpt.cv(BOOST_PARAMS, ds, num_boost_round=CV_ROUNDS, gp_model=gp,
+                 nfold=CV_NFOLD, early_stopping_rounds=CV_EARLY_STOP,
+                 fit_GP_cov_pars_OOS=True, seed=seed, return_cvbooster=True)
+    t_cv = clock() - t0
+    launches = read_counts()
+    cvb = res.pop("cvbooster")
+    leaves = sum(t.num_leaves for b in cvb.boosters for t in b.trees)
+    check(launches["histogram"] == leaves, f"cv: histogram launched "
+          f"{launches['histogram']} times for {leaves} leaves")
+    check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
+          "cv launched a Vecchia kernel")
+    curve = res["l2-mean"]
+    check(len(curve) >= 1 and all(math.isfinite(v) for v in curve)
+          and curve[-1] < curve[0], f"cv: l2-mean {curve}")
+    oos = gp.get_cov_pars()
+    check(bool(np.all(np.isfinite(oos)) and np.all(oos > 0)),
+          f"cv: OOS cov_pars {oos}")
+    # the README's tuning example, card and CPU
+    Xr, yr, gr = _readme_grouped()
+    best = {}
+    t_grid = {}
+    for tag, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = clock()
+        best[tag] = gpt.grid_search_tune_parameters(
+            param_grid=README_GRID,
+            params={"objective": "regression", "verbose": 0},
+            train_set=gpt.Dataset(Xr, label=yr, device=d),
+            gp_model=gpt.GPModel(group_data=gr, likelihood="gaussian",
+                                 device=d),
+            num_boost_round=README_ROUNDS, nfold=4, verbose_eval=0, seed=1)
+        t_grid[tag] = clock() - t0
+    check(best["card"]["best_params"] == best["cpu"]["best_params"]
+          and best["card"]["best_iter"] == best["cpu"]["best_iter"],
+          f"grid search: card {best['card']} vs CPU {best['cpu']}")
+    emit({"phase": "cv_grouped", "n": n, "levels": GB_LEVELS,
+          "nfold": CV_NFOLD, "rounds": CV_ROUNDS,
+          "early_stopping_rounds": CV_EARLY_STOP, "curves": res,
+          "folds_rounds": [b.current_iteration() for b in cvb.boosters],
+          "cv_s": t_cv, "s_per_fold": t_cv / CV_NFOLD,
+          "oos_cov_pars": oos.tolist(), "launches": launches,
+          "grid_search": {"n": README_N, "groups": README_GROUPS,
+                          "grid": README_GRID, "rounds": README_ROUNDS,
+                          "card": {k: (float(v) if k == "best_score" else v)
+                                   for k, v in best["card"].items()},
+                          "cpu": {k: (float(v) if k == "best_score" else v)
+                                  for k, v in best["cpu"].items()},
+                          "card_s": t_grid["card"], "cpu_s": t_grid["cpu"]}})
+    return launches, {"cv_s": t_cv, "cv_s_per_fold": t_cv / CV_NFOLD,
+                      "grid_search_card_s": t_grid["card"],
+                      "grid_search_cpu_s": t_grid["cpu"]}
+
+
+def boosting_tail_paths(boost_data, coords, pred, m, seed, n, dev):
+    """Phase 13 in order; returns (launches by path, timings, the
+    histogram's cases and timing on the validation path's Dataset)."""
+    launches, timings = {}, {}
+    t0 = clock()
+    launches["gpboost_validation"], t, hist = gpboost_validation(
+        boost_data, coords, pred, m, seed, dev)
+    timings.update(t)
+    timings["phase13_gpboost_validation_s"] = clock() - t0
+    for name, run in (
+            ("objectives_tail", lambda: objectives_tail(boost_data, seed,
+                                                        dev)),
+            ("cv_grouped", lambda: cv_grouped(seed, n, dev))):
+        t0 = clock()
+        launches[name], t = run()
+        timings.update(t)
+        timings[f"phase13_{name}_s"] = clock() - t0
+        torch.cuda.empty_cache()
+    return launches, timings, hist
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4987,6 +5416,13 @@ def main():
     tail_launches, tail_timings = cov_likelihood_tail_paths(
         coords, y, gd, args.m, args.seed, dev)
     timings.update(tail_timings)
+    # phase 13, the validation / objectives / cv slice, before the second
+    # runs too
+    bt_launches, bt_timings, bt_hist = boosting_tail_paths(
+        boost_data, coords, pred, args.m, args.seed, args.n, dev)
+    timings.update(bt_timings)
+    cases["histogram"] += bt_hist[0]
+    timed["histogram"]["other_shapes"].append(bt_hist[1])
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -5029,7 +5465,7 @@ def main():
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
-             **it_launches, **vr_launches, **tail_launches}
+             **it_launches, **vr_launches, **tail_launches, **bt_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -5053,7 +5489,12 @@ def main():
             ("vecchia_combined", vr_launches["vecchia_combined"],
              ("histogram",)),
             ("space_time_vecchia", tail_launches["space_time_vecchia"],
-             ("histogram",))):
+             ("histogram",)),
+            ("gpboost_validation", bt_launches["gpboost_validation"],
+             tuple(REPLACES)),
+            ("objectives_tail", bt_launches["objectives_tail"],
+             ("histogram",)),
+            ("cv_grouped", bt_launches["cv_grouped"], ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")

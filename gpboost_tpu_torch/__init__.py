@@ -9,9 +9,15 @@ reference. Ported so far:
   C++ (``csrc/vecchia_factors.cu``);
 - tree boosting and the GPBoost algorithm (``Dataset``, ``Booster``,
   ``train(params, dataset, gp_model=gp)``, ``Booster.predict``): the
-  host-driven leaf-wise learner for numeric features with the L2 and binary
-  objectives, every histogram through a hand-written CUDA kernel
-  (``csrc/histogram.cu``);
+  host-driven leaf-wise learner for numeric features, every histogram
+  through a hand-written CUDA kernel (``csrc/histogram.cu``), with the
+  objectives without a GP (regression and its L1 / huber / fair / quantile
+  / mape / tobit / mean-scale variants, poisson, gamma, tweedie, binary,
+  the cross-entropies, multiclass and one-vs-all), bagging and feature
+  sampling, validation sets with the metrics and the GP-aware validation
+  (``use_gp_model_for_validation``, ``set_prediction_data``), callbacks and
+  early stopping, ``cv`` with GP-aware folds and
+  ``grid_search_tune_parameters``;
 - the non-Gaussian Vecchia GP (the likelihood families of ``likelihoods/``,
   Laplace approximation, dense or ``matrix_inversion_method="iterative"``:
   CG + stochastic Lanczos log-determinant, ``ops/cg.py``) and the LaGaBoost
@@ -43,14 +49,26 @@ reference. Ported so far:
 There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,
 ``device="cpu"`` runs the plain PyTorch versions).
+
+Not ported yet: ranking, categorical features, DART / GOSS / RF and the rest
+of the boosting tail (ROADMAP.md Queue A, item 18b), the device-resident
+training loop (item 10), the parameter registry and the TPE tuner (item
+19), several GPUs (item 20).
 """
 from gpboost_tpu_torch.models.gp_model import GPModel
 from gpboost_tpu_torch.boosting.dataset import Dataset
 from gpboost_tpu_torch.boosting.booster import Booster
-from gpboost_tpu_torch.boosting.engine import train
+from gpboost_tpu_torch.boosting.engine import train, cv, CVBooster
+from gpboost_tpu_torch.boosting import callback
+from gpboost_tpu_torch.boosting.callback import (
+    early_stopping, record_evaluation, print_evaluation, log_evaluation,
+    reset_parameter)
+from gpboost_tpu_torch.tuning import grid_search_tune_parameters
 from gpboost_tpu_torch.utils.log import register_logger
 
 __version__ = "0.1.0"
 
-__all__ = ["GPModel", "Dataset", "Booster", "train", "register_logger",
-           "__version__"]
+__all__ = ["GPModel", "Dataset", "Booster", "train", "cv", "CVBooster",
+           "callback", "early_stopping", "record_evaluation",
+           "print_evaluation", "log_evaluation", "reset_parameter",
+           "grid_search_tune_parameters", "register_logger", "__version__"]

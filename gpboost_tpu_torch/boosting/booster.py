@@ -3,31 +3,40 @@
 The equivalent of the reference's ``GBDT`` class
 (``src/LightGBM/boosting/gbdt.cpp``): ``TrainOneIter`` (:404) becomes
 ``update()`` — gradients from the objective (including the GPBoost and
-LaGaBoost couplings), one leaf-wise tree per round, shrinkage, score update — and the
-``Booster`` public class mirrors ``gpboost.Booster`` (``basic.py:2323``):
-train / predict / save, ``gp_model`` attachment and combined prediction
+LaGaBoost couplings) or a custom ``fobj``, bagging and feature sampling,
+one leaf-wise tree per model of the iteration (``num_class`` of them for
+the multiclass objectives, two for ``mean_scale_regression``), shrinkage,
+the training and validation score updates — and the ``Booster`` public
+class mirrors ``gpboost.Booster`` (``basic.py:2323``): train / eval /
+predict / save, ``gp_model`` attachment, GP-aware validation
+(``use_gp_model_for_validation``, the GP metrics) and combined prediction
 (``basic.py:3560-3650``).
 
-The score stays a host float64 array and gradients cross to the device once
-per round, as in the reference's host loop; trees grow on the device of the
-training ``Dataset``. On a GPU the gradients are float32 there (LightGBM's
-default histogram precision) and every histogram goes through the
-hand-written kernel; ``gpu_use_dp=True`` keeps them float64, which runs the
-plain histogram on the GPU. On the CPU they are float64.
+The score stays a host float64 array (``[n * num_models]``, model-major)
+and gradients cross to the device once per tree, as in the JAX package's
+host loop; trees grow on the device of the training ``Dataset``. On a GPU
+the gradients are float32 there (LightGBM's default histogram precision)
+and every histogram goes through the hand-written kernel; ``gpu_use_dp=True``
+keeps them float64, which runs the plain histogram on the GPU. On the CPU
+they are float64. The random draws (bags, feature sets by tree and by node)
+come from numpy generators seeded and drawn as the JAX package draws them,
+so both packages grow the same trees from the same parameters.
 
-Not ported (ROADMAP.md Queue A, item 18): validation sets, metrics,
-callbacks, DART / GOSS / RF, bagging, ``refit``, SHAP, the text model
-format; the device-resident loop is item 10.
+Not ported (ROADMAP.md Queue A, item 18b): DART / GOSS / RF, Nesterov
+acceleration, ``refit``, SHAP, ``pred_leaf``, the text model format; the
+device-resident loop is item 10.
 """
 from __future__ import annotations
 
 import json
+import math
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from gpboost_tpu_torch import config as cfg_mod
+from gpboost_tpu_torch.boosting import metrics as metrics_mod
 from gpboost_tpu_torch.boosting.dataset import Dataset
 from gpboost_tpu_torch.boosting.objectives import (GPBoostObjective,
                                                    create_objective)
@@ -36,7 +45,8 @@ from gpboost_tpu_torch.boosting.tree import (GrowerParams, Tree, grow_tree,
 from gpboost_tpu_torch.utils import resolve_device, same_device
 from gpboost_tpu_torch.utils.timer import timed
 
-_TAIL = "ROADMAP.md Queue A, item 18"
+_TAIL = "ROADMAP.md Queue A, item 18b"
+LOG2PI = math.log(2.0 * math.pi)
 
 
 def _cov_or_var(gp_pred: dict):
@@ -48,9 +58,9 @@ class Booster:
     """Gradient-boosting model, optionally combined with a GPModel.
 
     A Booster built from a ``train_set`` computes on that Dataset's device;
-    a ``gp_model`` must live on the same device. A Booster loaded from
-    ``model_file`` / ``model_str`` takes ``device`` (default the GPU; a
-    missing GPU raises).
+    a ``gp_model`` and every validation Dataset must live on the same
+    device. A Booster loaded from ``model_file`` / ``model_str`` takes
+    ``device`` (default the GPU; a missing GPU raises).
     """
 
     def __init__(self, params: Optional[dict] = None,
@@ -79,8 +89,7 @@ class Booster:
         self.gp_model = gp_model
         p = self.params
         self.objective_name = p.get("objective", "regression")
-        self.num_class = 1
-        self.num_models = 1
+        self.num_class = int(p.get("num_class", 1))
         self.objective = create_objective(self.objective_name, p,
                                           gp_model=gp_model)
         self.objective.init(train_set.label, train_set.weight)
@@ -93,71 +102,389 @@ class Booster:
                 p.get("min_sum_hessian_in_leaf", 1e-3)),
             lambda_l1=float(p.get("lambda_l1", 0.0)),
             lambda_l2=float(p.get("lambda_l2", 0.0)),
-            min_gain_to_split=float(p.get("min_gain_to_split", 0.0)))
+            min_gain_to_split=float(p.get("min_gain_to_split", 0.0)),
+            feature_fraction_bynode=float(
+                p.get("feature_fraction_bynode", 1.0)))
         self.boosting_type = "gbdt"
+        self.bagging_fraction = float(p.get("bagging_fraction", 1.0))
+        self.bagging_freq = int(p.get("bagging_freq", 0))
+        self.pos_bagging_fraction = float(p.get("pos_bagging_fraction", 1.0))
+        self.neg_bagging_fraction = float(p.get("neg_bagging_fraction", 1.0))
+        self._bag_mask = None    # host bool [n], reused between re-bags
+        self._bag_mask_t = None  # the same on the Dataset's device
+        self.feature_fraction = float(p.get("feature_fraction", 1.0))
+        self.use_gp_model_for_validation = bool(
+            p.get("use_gp_model_for_validation", True))
         self._grad_dtype = (
             torch.float32 if self.device.type == "cuda"
             and not bool(p.get("gpu_use_dp", False)) else torch.float64)
         self._num_bins_t = torch.as_tensor(
             np.asarray(train_set.num_bins), device=self.device)
+        # the JAX package's generators: one 'seed' stream, and dedicated
+        # ones for bagging and feature sampling when their seeds are given
+        # (config.h bagging_seed / feature_fraction_seed)
+        self._rng = np.random.default_rng(int(p.get("seed", 0)))
+        self._bag_rng = (np.random.default_rng(int(p["bagging_seed"]))
+                         if "bagging_seed" in p else self._rng)
+        self._ff_rng = (np.random.default_rng(int(p["feature_fraction_seed"]))
+                        if "feature_fraction_seed" in p else self._rng)
 
         self.trees: List[Tree] = []
         n = train_set.num_data
-        self.init_score = np.zeros(1)
+        self.num_models = max(
+            1, getattr(self.objective, "num_model_per_iteration", 1))
+        self.init_score = np.zeros(self.num_models)
         if train_set.init_score is not None:
-            self._score = np.array(train_set.init_score, dtype=np.float64)
+            self._score = np.tile(train_set.init_score,
+                                  self.num_models).astype(np.float64)
         else:
-            self._score = np.zeros(n)
+            self._score = np.zeros(n * self.num_models)
             if bool(p.get("boost_from_average", True)):
                 self.init_score = np.asarray(self.objective.init_scores(),
                                              dtype=np.float64)
-                self._score += self.init_score[0]
+                for m in range(self.num_models):
+                    self._score[m * n:(m + 1) * n] += self.init_score[m]
         self.best_iteration = -1
+        self.valid_sets: List[Dataset] = []
+        self.valid_names: List[str] = []
+        self._valid_scores: List[np.ndarray] = []
+        self._valid_X: List[torch.Tensor] = []
+        self._train_data_name = "training"
+        self._eval_train_metric = False
+        metric = p.get("metric", None)
+        if metric in (None, "", "auto"):
+            metric = metrics_mod.default_metric_for(self.objective_name)
+        self.metric_names = ([metric] if isinstance(metric, str)
+                             else list(metric))
 
     # ------------------------------------------------------------------
+    def add_valid(self, data: Dataset, name: str):
+        """Add a validation Dataset: its score starts at the initial score
+        and every tree grown so far, and follows each new tree."""
+        if not same_device(data.device, self.device):
+            raise ValueError(
+                f"the validation set lies on {data.device} but the booster "
+                f"on {self.device}; build it with create_valid")
+        self.valid_sets.append(data)
+        self.valid_names.append(name)
+        nv = data.num_data
+        score = np.zeros(nv * self.num_models)
+        for m in range(self.num_models):
+            score[m * nv:(m + 1) * nv] += self.init_score[m]
+        X = torch.as_tensor(np.asarray(data.raw_data, np.float64),
+                            device=self.device)
+        for k, tree in enumerate(self.trees):
+            m = k % self.num_models
+            score[m * nv:(m + 1) * nv] += self._tree_raw_pred(
+                tree, X).cpu().numpy()
+        self._valid_scores.append(score)
+        self._valid_X.append(X)
+        return self
+
+    @property
+    def num_trees_per_iter(self):
+        return self.num_models
+
+    def num_model_per_iteration(self):
+        return self.num_models
+
     def current_iteration(self):
-        return len(self.trees)
+        return len(self.trees) // self.num_models
 
     def num_trees(self):
         return len(self.trees)
 
+    def set_train_data_name(self, name):
+        self._train_data_name = name
+        return self
+
+    def _bag(self, it: int, n: int):
+        """The row mask of this iteration (``GBDT::Bagging``, gbdt.cpp:255):
+        redrawn every ``bagging_freq`` iterations and reused in between;
+        ``pos/neg_bagging_fraction`` sample the classes separately
+        (``BalancedBaggingHelper``, gbdt.cpp:225). None without bagging."""
+        if not (self.bagging_freq > 0 and (
+                self.bagging_fraction < 1.0
+                or self.pos_bagging_fraction < 1.0
+                or self.neg_bagging_fraction < 1.0)):
+            return None
+        if self._bag_mask is None or it % self.bagging_freq == 0:
+            if (self.pos_bagging_fraction < 1.0
+                    or self.neg_bagging_fraction < 1.0):
+                u = self._bag_rng.random(n)
+                is_pos = np.asarray(self.train_set.label) > 0
+                keep = np.where(is_pos, u < self.pos_bagging_fraction,
+                                u < self.neg_bagging_fraction)
+            else:
+                keep = self._bag_rng.random(n) < self.bagging_fraction
+            self._bag_mask = keep
+            self._bag_mask_t = torch.as_tensor(keep, device=self.device)
+        return self._bag_mask_t
+
+    def _tree_num_bins(self) -> torch.Tensor:
+        """The features this tree may split on (``feature_fraction``): the
+        ones left out get 0 bins."""
+        if self.feature_fraction >= 1.0:
+            return self._num_bins_t
+        F = self.train_set.num_features
+        k = max(1, int(np.ceil(self.feature_fraction * F)))
+        chosen = self._ff_rng.choice(F, size=k, replace=False)
+        mask = np.zeros(F, dtype=bool)
+        mask[chosen] = True
+        return torch.where(torch.as_tensor(mask, device=self.device),
+                           self._num_bins_t,
+                           torch.zeros_like(self._num_bins_t))
+
     def update(self, train_set=None, fobj=None):
-        """One boosting iteration (``GBDT::TrainOneIter``, gbdt.cpp:404)."""
-        if train_set is not None or fobj is not None:
+        """One boosting iteration (``GBDT::TrainOneIter``, gbdt.cpp:404):
+        ``num_models`` trees. ``fobj(score, train_set)`` returns the
+        gradients and hessians in place of the objective's."""
+        if train_set is not None:
             raise NotImplementedError(
-                "update(train_set=..., fobj=...) is not ported to "
-                f"gpboost_tpu_torch yet ({_TAIL})")
+                "update(train_set=...) is not ported to gpboost_tpu_torch "
+                f"yet ({_TAIL})")
         ds = self.train_set
+        n = ds.num_data
         with timed("Booster: gradients", sync=True):
-            grad, hess = self.objective.get_gradients(self._score)
-        with timed("Booster: gradients to the device", sync=True):
-            g = torch.as_tensor(np.asarray(grad, dtype=np.float64),
-                                dtype=self._grad_dtype, device=self.device)
-            h = torch.as_tensor(np.asarray(hess, dtype=np.float64),
-                                dtype=self._grad_dtype, device=self.device)
+            if fobj is not None:
+                grad, hess = fobj(self._score, ds)
+            else:
+                grad, hess = self.objective.get_gradients(self._score)
+            grad = np.asarray(grad, dtype=np.float64)
+            hess = np.asarray(hess, dtype=np.float64)
+        it = self.current_iteration()
+        # the JAX package's order of draws: the bag, then the tree's
+        # features, then the nodes' features inside each grower call
+        row_mask = self._bag(it, n)
+        num_bins = self._tree_num_bins()
         nan_mask = ds.has_nan if bool(np.any(ds.has_nan)) else None
-        with timed("Booster: grow_tree", sync=True):
-            tree, row_leaf = grow_tree(
-                ds.binned, self._num_bins_t, g, h, ds.max_num_bins,
-                self.grower, nan_mask=nan_mask, binned_t=ds.binned_t)
-        # real-valued thresholds for raw prediction
-        for node in tree.internal_nodes():
-            tree.threshold[node] = ds.threshold_value(
-                int(tree.split_feature[node]), int(tree.threshold_bin[node]))
-        tree.add_shrinkage(self.learning_rate)
-        self.trees.append(tree)
-        # the grower's final row->leaf assignment IS the training
-        # prediction: a host gather replaces a tree traversal
-        with timed("Booster: score update", sync=True):
-            self._score += tree.leaf_value[row_leaf.cpu().numpy()]
+        for m in range(self.num_models):
+            with timed("Booster: gradients to the device", sync=True):
+                g = torch.as_tensor(grad[m * n:(m + 1) * n],
+                                    dtype=self._grad_dtype,
+                                    device=self.device)
+                h = torch.as_tensor(hess[m * n:(m + 1) * n],
+                                    dtype=self._grad_dtype,
+                                    device=self.device)
+            with timed("Booster: grow_tree", sync=True):
+                tree, row_leaf = grow_tree(
+                    ds.binned, num_bins, g, h, ds.max_num_bins, self.grower,
+                    row_mask=row_mask, nan_mask=nan_mask,
+                    binned_t=ds.binned_t, rng=self._rng)
+            # real-valued thresholds for raw prediction
+            for node in tree.internal_nodes():
+                tree.threshold[node] = ds.threshold_value(
+                    int(tree.split_feature[node]),
+                    int(tree.threshold_bin[node]))
+            tree.add_shrinkage(self.learning_rate)
+            self.trees.append(tree)
+            with timed("Booster: score update", sync=True):
+                # the grower's final row->leaf assignment IS the training
+                # prediction: a host gather replaces a tree traversal. Under
+                # a bag too: the partition moves the rows outside the bag
+                # with the others (the JAX package traverses the tree
+                # there, which gives the same leaves)
+                self._score[m * n:(m + 1) * n] += tree.leaf_value[
+                    row_leaf.cpu().numpy()]
+            with timed("Booster: validation scores", sync=True):
+                for vi, vset in enumerate(self.valid_sets):
+                    nv = vset.num_data
+                    self._valid_scores[vi][m * nv:(m + 1) * nv] += \
+                        self._tree_raw_pred(tree,
+                                            self._valid_X[vi]).cpu().numpy()
         if isinstance(self.objective, GPBoostObjective):
             # end-of-iteration covariance refit at the UPDATED score
             # (gbdt.cpp:536-542 calls Boosting() again after UpdateScore):
-            # get_cov_pars() reflects the post-iteration residual, and the
-            # next iteration reuses this refit and its gradient
+            # get_cov_pars() and the validation metrics reflect the
+            # post-iteration residual, and the next iteration reuses this
+            # refit and its gradient
             with timed("Booster: gradients", sync=True):
                 self.objective.get_gradients(self._score)
         return False
+
+    # ------------------------------------------------------------------
+    def eval(self, data, name, feval=None):
+        """Evaluate on an added validation Dataset (or the train set)."""
+        if data is self.train_set:
+            return self.eval_train()
+        for vset, vname, score in zip(self.valid_sets, self.valid_names,
+                                      self._valid_scores):
+            if data is vset or name == vname:
+                return self._eval(vset, name, score)
+        raise ValueError("data must be the train set or an added valid set")
+
+    def eval_train(self):
+        return self._eval(self.train_set, "training", self._score)
+
+    def eval_valid(self):
+        out = []
+        for vset, name, score in zip(self.valid_sets, self.valid_names,
+                                     self._valid_scores):
+            out.extend(self._eval(vset, name, score))
+        return out
+
+    def _eval(self, dset: Dataset, name: str, score: np.ndarray):
+        """``(name, metric, value, higher_better)`` of every metric."""
+        res = []
+        pred = None
+        for metric in self.metric_names:
+            if metric in metrics_mod.GP_METRICS:
+                val = self._eval_gp_metric(metric, dset, score)
+                res.append((name, metric, val, False))
+                continue
+            base, ks = metrics_mod.resolve_metric_name(metric)
+            spec = metrics_mod.METRICS[base]
+            if spec.kind == "raw":
+                # auc_mu: RAW scores (linear discriminants, not softmax)
+                val = spec.fn(dset.label, score, dset.weight,
+                              num_class=self.num_class,
+                              class_weights=self.params.get("auc_mu_weights"))
+                res.append((name, base, val, spec.higher_better))
+                continue
+            if spec.kind == "rank":
+                spec.fn()                     # raises: item 18b
+            if pred is None:
+                pred = self._convert_for_metric(dset, score)
+            kwargs = {}
+            if base in ("multi_logloss", "multi_error"):
+                kwargs["num_class"] = self.num_class
+            if base == "multi_error":
+                kwargs["top_k"] = int(
+                    self.params.get("multi_error_top_k", 1))
+            val = spec.fn(dset.label, pred, dset.weight, **kwargs)
+            res.append((name, base, val, spec.higher_better))
+        return res
+
+    def _residual_variance(self) -> float:
+        """Training residual variance for Gaussian predictive metrics
+        without a gp_model (the reference regression objective's
+        ``residual_variance_``)."""
+        n = self.train_set.num_data
+        resid = self.train_set.label - self._score[:n]
+        return float(np.var(resid))
+
+    def _gp_valid_prediction(self, score: np.ndarray, nv: int,
+                             predict_response: bool):
+        """The GP's prediction at the validation data that
+        ``gp_model.set_prediction_data`` stored: (mean, variance) of the
+        response (Gaussian: the random effects' mean added to the trees'
+        score; otherwise the Laplace prediction with the trees' score as
+        the fixed effects)."""
+        gp = self.gp_model
+        pd = getattr(gp, "_valid_pred_data", None)
+        n = self.train_set.num_data
+        ns = getattr(gp, "num_sets_re", 1)
+        if gp.is_gaussian:
+            resid = self.train_set.label - self._score[:n]
+            pred = gp.predict(y=resid, predict_var=True,
+                              predict_response=True, **pd)
+            mu = score[:nv] + np.asarray(pred["mu"])
+        else:
+            pred = gp.predict(
+                y=self.train_set.label, fixed_effects=self._score[:n * ns],
+                fixed_effects_pred=score[:nv * ns], predict_var=True,
+                predict_response=predict_response, **pd)
+            mu = np.asarray(pred["mu"])
+        return mu, np.asarray(pred["var"]).ravel()
+
+    def _eval_gp_metric(self, metric: str, dset: Dataset, score: np.ndarray):
+        """GP-aware metrics (``random_effects_metric.hpp:25,69``,
+        ``regression_metric.hpp:373`` TestNegLogLikelihood, ``:499``
+        CRPSGaussian)."""
+        gp = self.gp_model
+        is_train = dset is self.train_set
+        if metric in ("neg_log_likelihood",
+                      "approx_neg_marginal_log_likelihood"):
+            # training data only: the (approximate) negative marginal
+            # log-likelihood at the current covariance parameters
+            if not is_train:
+                raise ValueError(f"The metric '{metric}' cannot be used for "
+                                 "validation data, only for training data")
+            if gp is None:
+                raise ValueError(f"The metric '{metric}' requires an "
+                                 "attached gp_model")
+            n = self.train_set.num_data
+            if gp.is_gaussian:
+                resid = dset.label - self._score[:n]
+                return float(gp.neg_log_likelihood(cov_pars=gp.cov_pars_,
+                                                   y=resid))
+            ns = getattr(gp, "num_sets_re", 1)
+            return float(gp.neg_log_likelihood(
+                cov_pars=gp.cov_pars_, y=dset.label,
+                fixed_effects=self._score[:n * ns]))
+        # validation-only metrics
+        if is_train:
+            raise ValueError(f"Cannot use the metric '{metric}' on the "
+                             "training data")
+        label = dset.label
+        nv = dset.num_data
+        raw = score[:nv]
+        if gp is not None and self.use_gp_model_for_validation:
+            if getattr(gp, "_valid_pred_data", None) is None:
+                raise ValueError(
+                    "gp_model.set_prediction_data(...) must be called before "
+                    f"using the metric '{metric}' with "
+                    "use_gp_model_for_validation=True")
+            mu, var = self._gp_valid_prediction(
+                score, nv, predict_response=(metric == "crps_gaussian"))
+            if not gp.is_gaussian and metric == "test_neg_log_likelihood":
+                # adaptive-GH integral of the response likelihood over the
+                # latent predictive Gaussian (likelihoods.h:7931)
+                from gpboost_tpu_torch.models import laplace
+                t = gp._tensor
+                nlls = laplace.test_nll_adaptive_gh(
+                    gp.likelihood, t(np.asarray(label, np.float64)),
+                    t(mu), t(np.maximum(var, 1e-12)), gp._aux_tensor())
+                return float(np.mean(nlls.detach().cpu().numpy()))
+            if metric == "test_neg_log_likelihood":
+                return float(np.mean(
+                    0.5 * ((label - mu) ** 2 / var + np.log(var) + LOG2PI)))
+            return metrics_mod.crps_gaussian(label, mu, var)
+        # no gp_model (or not used for validation): Gaussian with the
+        # training residual variance / the mean-scale two-parameter score
+        if self.objective_name == "mean_scale_regression":
+            if metric == "crps_gaussian":
+                return metrics_mod.crps_gaussian(label, raw,
+                                                 np.exp(score[nv:2 * nv]))
+            raise ValueError(f"The metric '{metric}' cannot be used for the "
+                             "objective 'mean_scale_regression'")
+        if self.objective_name not in ("regression", "regression_gp"):
+            raise ValueError(
+                f"The metric '{metric}' can only be used with a gp_model or "
+                "the 'regression' objective")
+        rv = max(self._residual_variance(), 1e-300)
+        if metric == "test_neg_log_likelihood":
+            return float(np.mean(
+                0.5 * ((raw - label) ** 2 / rv + math.log(rv) + LOG2PI)))
+        return metrics_mod.crps_gaussian(label, raw, np.full(nv, rv))
+
+    def _convert_for_metric(self, dset: Dataset, score: np.ndarray):
+        """Scores converted for a metric; with an attached gp_model and
+        ``use_gp_model_for_validation``, the predicted random effects added
+        (``regression_metric.hpp:86-129``)."""
+        if (self.gp_model is not None and self.use_gp_model_for_validation
+                and dset is not self.train_set):
+            return self._predict_combined(dset.raw_data, dset)
+        return self.objective.convert_output(score)
+
+    def _predict_combined(self, data_raw, dset: Dataset):
+        """Tree + GP prediction on a validation set whose GP prediction
+        data the GPModel holds (``gp_model.set_prediction_data``)."""
+        raw = self._predict_raw(data_raw)
+        gp = self.gp_model
+        pd = getattr(gp, "_valid_pred_data", None)
+        if pd is None:
+            return self.objective.convert_output(raw)
+        n = self.train_set.num_data
+        if gp.is_gaussian:
+            resid = self.train_set.label - self._score[:n]
+            gp_pred = gp.predict(y=resid, predict_response=True, **pd)
+            return raw + gp_pred["mu"]
+        ns = getattr(gp, "num_sets_re", 1)
+        gp_pred = gp.predict(y=self.train_set.label,
+                             fixed_effects=self._score[:n * ns],
+                             predict_response=True, **pd)
+        return gp_pred["mu"]
 
     # ------------------------------------------------------------------
     def predict(self, data, num_iteration: Optional[int] = None,
@@ -166,22 +493,28 @@ class Booster:
                 group_data_pred=None, group_rand_coef_data_pred=None,
                 gp_coords_pred=None, gp_rand_coef_data_pred=None,
                 cluster_ids_pred=None, predict_var=False, pred_latent=False):
-        """Predict on raw features. With an attached gp_model and its
-        prediction data (``group_data_pred`` / ``group_rand_coef_data_pred``
-        for grouped random effects, ``gp_coords_pred`` for a GP, with
+        """Predict on raw features. ``num_iteration=None`` uses
+        ``best_iteration`` when early stopping set one (the reference's
+        default). With an attached gp_model and its prediction data
+        (``group_data_pred`` / ``group_rand_coef_data_pred`` for grouped
+        random effects, ``gp_coords_pred`` for a GP, with
         ``gp_rand_coef_data_pred`` / ``cluster_ids_pred`` for an exact GP
-        that has them), returns
-        the combined tree + random-effects prediction as a dict
-        (``basic.py:3560-3650``): ``fixed_effect``, ``random_effect_mean``,
-        ``random_effect_cov`` (the variances with ``predict_var``),
-        ``response_mean``, ``response_var``; for a non-Gaussian gp_model
-        the response mean and variance (or, with ``pred_latent``, the fixed
-        effect and the latent random effect's mean and variance). Without a
-        gp_model, ``binary`` returns probabilities unless ``raw_score``."""
+        that has them), returns the combined tree + random-effects
+        prediction as a dict (``basic.py:3560-3650``): ``fixed_effect``,
+        ``random_effect_mean``, ``random_effect_cov`` (the variances with
+        ``predict_var``), ``response_mean``, ``response_var``; for a
+        non-Gaussian gp_model the response mean and variance (or, with
+        ``pred_latent``, the fixed effect and the latent random effect's
+        mean and variance). Without a gp_model the objective's converted
+        output unless ``raw_score`` (``[n * num_models]`` model-major for
+        the multiclass objectives; ``mean_scale_regression`` gives a dict
+        of ``pred_mean`` and ``pred_var``)."""
         if pred_leaf or pred_contrib:
             raise NotImplementedError(
                 "pred_leaf / pred_contrib are not ported to "
                 f"gpboost_tpu_torch yet ({_TAIL})")
+        if num_iteration is None and self.best_iteration > 0:
+            num_iteration = self.best_iteration
         data = np.asarray(data, dtype=np.float64)
         if data.ndim == 1:
             data = data[:, None]
@@ -198,22 +531,30 @@ class Booster:
                           predict_var=predict_var), pred_latent)
         if raw_score:
             return raw
+        if self.objective_name == "mean_scale_regression":
+            # (pred_mean, pred_var) dict (reference basic.py:3674-3680)
+            n = data.shape[0]
+            return {"pred_mean": raw[:n], "pred_var": np.exp(raw[n:])}
         return self.objective.convert_output(raw)
 
     def _predict_raw(self, data, num_iteration=None, start_iteration=0):
+        """Raw scores ``[n * num_models]``: the initial score and the trees
+        of iterations ``start_iteration`` up to ``num_iteration``."""
         n = data.shape[0]
+        K = self.num_models
         limit = (len(self.trees) if num_iteration in (None, -1, 0)
-                 else min(num_iteration, len(self.trees)))
+                 else min(num_iteration * K, len(self.trees)))
         # start_iteration (config.h:647): predict from a tree-range suffix;
         # the boost-from-average base belongs to iteration 0
-        start = max(0, int(start_iteration or 0))
-        X = torch.as_tensor(data, device=self.device)
-        score = torch.zeros(n, dtype=torch.float64, device=self.device)
+        start = max(0, int(start_iteration or 0)) * K
+        X = torch.as_tensor(np.asarray(data, np.float64), device=self.device)
+        score = torch.zeros(K, n, dtype=torch.float64, device=self.device)
         if start == 0:
-            score += float(self.init_score[0])
-        for tree in self.trees[start:limit]:
-            score += self._tree_raw_pred(tree, X)
-        return score.cpu().numpy()
+            score += torch.as_tensor(self.init_score, dtype=torch.float64,
+                                     device=self.device)[:, None]
+        for k in range(start, limit):
+            score[k % K] += self._tree_raw_pred(self.trees[k], X)
+        return score.reshape(-1).cpu().numpy()
 
     def _tree_raw_pred(self, tree: Tree, X: torch.Tensor) -> torch.Tensor:
         def dev(a):
@@ -335,7 +676,8 @@ class Booster:
             # combined prediction needs the training label and raw score
             if self.train_set is not None:
                 d["train_label"] = self.train_set.label.tolist()
-                d["train_score"] = self._score.tolist()
+                d["train_score"] = self._score[
+                    :self.train_set.num_data].tolist()
             else:
                 d["train_label"] = self._loaded_train_label.tolist()
                 d["train_score"] = self._loaded_train_score.tolist()
@@ -349,10 +691,10 @@ class Booster:
         self.boosting_type = d.get("boosting_type", "gbdt")
         self.num_class = d.get("num_class", 1)
         self.num_models = d.get("num_models", 1)
-        if self.boosting_type != "gbdt" or self.num_models != 1:
+        if self.boosting_type != "gbdt":
             raise NotImplementedError(
-                f"a saved model with boosting_type='{self.boosting_type}', "
-                f"num_models={self.num_models} is not ported ({_TAIL})")
+                f"a saved model with boosting_type='{self.boosting_type}' "
+                f"is not ported ({_TAIL})")
         if d.get("cat_maps") or d.get("pandas_categorical"):
             raise NotImplementedError(
                 f"a saved model with categorical features is not ported "
@@ -379,3 +721,11 @@ class Booster:
             self._loaded_train_score = np.asarray(d.get("train_score"),
                                                   dtype=np.float64)
         self.objective = create_objective(self.objective_name, self.params)
+        self.valid_sets, self.valid_names = [], []
+        self._valid_scores, self._valid_X = [], []
+        self._train_data_name = "training"
+        self._eval_train_metric = False
+        self.use_gp_model_for_validation = bool(
+            self.params.get("use_gp_model_for_validation", True))
+        self.metric_names = [
+            metrics_mod.default_metric_for(self.objective_name)]

@@ -15,8 +15,8 @@ layouts:
 Binning is host numpy and follows the JAX package line for line, so that bin
 edges are identical, not merely close.
 
-Not ported (ROADMAP.md Queue A, item 18): categorical features, pandas /
-sparse / file input, ``save_binary``, ``subset``, forced bins and per-feature
+Not ported (ROADMAP.md Queue A, item 18b): categorical features, pandas /
+sparse / file input, ``save_binary``, forced bins and per-feature
 ``max_bin``. Exclusive Feature Bundling is left out as well: it is lossless
 and finds nothing to bundle in dense data, so the trees are the same without
 it.
@@ -32,7 +32,7 @@ from gpboost_tpu_torch import config as cfg_mod
 from gpboost_tpu_torch.utils import resolve_device
 
 MAX_BIN_DEFAULT = 255
-_TAIL = "Queue A, item 18"
+_TAIL = "Queue A, item 18b"
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -231,6 +231,8 @@ class Dataset:
 
     def create_valid(self, data, label=None, weight=None, init_score=None,
                      params=None):
+        """Validation data binned with this Dataset's bin edges, on its
+        device, with its own ``weight`` and ``init_score``."""
         return Dataset(data, label=label, reference=self, weight=weight,
                        init_score=init_score, device=self.device)
 
@@ -244,7 +246,18 @@ class Dataset:
         raise _not_ported("save_binary")
 
     def subset(self, used_indices, params=None):
-        raise _not_ported("subset")
+        """Row-subset Dataset sharing this Dataset's bin mapping and device
+        (``Dataset.subset``)."""
+        idx = np.asarray(used_indices, dtype=np.int64)
+        return Dataset(self.raw_data[idx],
+                       label=None if self.label is None else self.label[idx],
+                       reference=self,
+                       weight=None if self.weight is None
+                       else self.weight[idx],
+                       init_score=None if self.init_score is None
+                       else self.init_score[idx],
+                       feature_name=self.feature_name, params=params,
+                       device=self.device)
 
     # ------------------------------------------------------------------
     def bin_for_threshold(self, feature: int, value: float) -> int:

@@ -1,8 +1,10 @@
 """Boosting objective functions (gradients/hessians per data point).
 
-Mirrors the reference's ``src/LightGBM/objective/*.hpp`` for what is ported:
-the L2 regression objective, the binary log-loss (``binary_objective.hpp``)
-and the coupling with a ``GPModel`` of ``regression_objective.hpp:153-186``:
+Mirrors the reference's ``src/LightGBM/objective/*.hpp`` families without a
+GP (the regression losses, ``binary_objective.hpp``, the cross-entropies,
+Tobit, the two-ensemble mean-scale regression, softmax and one-vs-all
+multiclass) and the coupling with a ``GPModel`` of
+``regression_objective.hpp:153-186``:
 
 - the GPBoost algorithm (gaussian likelihood): gradients ``Psi^-1 (F - y)``
   (generalized residuals), the covariance parameters re-optimized,
@@ -14,8 +16,11 @@ and the coupling with a ``GPModel`` of ``regression_objective.hpp:153-186``:
 Scores, labels and gradients are host float64 arrays, as in the reference's
 host loop; the covariance refit, the ``Psi^-1`` solve (Vecchia, Woodbury
 for grouped random effects, or a dense Cholesky for an exact GP) and the
-Laplace gradient run on the model's device. Other objectives are not ported (ROADMAP.md Queue A,
-item 18).
+Laplace gradient run on the model's device. The ranking objectives
+(``lambdarank``, ``rank_xendcg``) are not ported (ROADMAP.md Queue A, item
+18b). As in the JAX package, leaf outputs are never renewed from residual
+quantiles (``regression_l1``, ``quantile`` and ``mape`` keep the Newton
+leaf values of their constant hessians).
 """
 from __future__ import annotations
 
@@ -46,7 +51,9 @@ class Objective:
     def init_scores(self) -> np.ndarray:
         """Initial score (``BoostFromScore``), one entry per tree of an
         iteration."""
-        return np.array([self.boost_from_average()])
+        if self.num_model_per_iteration == 1:
+            return np.array([self.boost_from_average()])
+        return np.zeros(self.num_model_per_iteration)
 
     def get_gradients(self, score: np.ndarray):
         raise NotImplementedError
@@ -65,6 +72,16 @@ class RegressionL2(Objective):
     name = "regression"
     is_constant_hessian = True
 
+    def __init__(self, reg_sqrt=False):
+        # reg_sqrt (config.h:849): fit on sign(y)*sqrt(|y|), square
+        # predictions back (RegressionL2loss sqrt_ handling)
+        self.reg_sqrt = bool(reg_sqrt)
+
+    def init(self, label, weight, group=None):
+        super().init(label, weight, group)
+        if self.reg_sqrt and label is not None:
+            self.label = np.sign(label) * np.sqrt(np.abs(label))
+
     def boost_from_average(self):
         if self.weight is not None:
             return float(np.average(self.label, weights=self.weight))
@@ -72,6 +89,169 @@ class RegressionL2(Objective):
 
     def get_gradients(self, score):
         return self._apply_weight(score - self.label, np.ones_like(score))
+
+    def convert_output(self, score):
+        if self.reg_sqrt:
+            return np.sign(score) * score * score
+        return score
+
+
+class RegressionL1(Objective):
+    name = "regression_l1"
+
+    def boost_from_average(self):
+        return float(np.median(self.label))
+
+    def get_gradients(self, score):
+        g = np.sign(score - self.label)
+        return self._apply_weight(g, np.ones_like(score))
+
+
+class Huber(Objective):
+    name = "huber"
+
+    def __init__(self, alpha=0.9):
+        self.alpha = alpha
+
+    def boost_from_average(self):
+        return float(np.mean(self.label))
+
+    def get_gradients(self, score):
+        r = score - self.label
+        g = np.where(np.abs(r) <= self.alpha, r, self.alpha * np.sign(r))
+        return self._apply_weight(g, np.ones_like(score))
+
+
+class Fair(Objective):
+    name = "fair"
+
+    def __init__(self, c=1.0):
+        self.c = c
+
+    def get_gradients(self, score):
+        r = score - self.label
+        g = self.c * r / (np.abs(r) + self.c)
+        h = self.c * self.c / (np.abs(r) + self.c) ** 2
+        return self._apply_weight(g, h)
+
+
+class Poisson(Objective):
+    name = "poisson"
+
+    def __init__(self, max_delta_step=0.7):
+        # poisson_max_delta_step (config.h:868): hessian safeguard
+        # exp(score + step) (poisson_objective.hpp GetGradients)
+        self.max_delta_step = float(max_delta_step)
+
+    def boost_from_average(self):
+        return float(np.log(np.maximum(np.mean(self.label), 1e-20)))
+
+    def get_gradients(self, score):
+        mu = np.exp(score)
+        return self._apply_weight(mu - self.label,
+                                  np.exp(score + self.max_delta_step))
+
+    def convert_output(self, score):
+        return np.exp(score)
+
+
+class Gamma(Objective):
+    name = "gamma"
+
+    def boost_from_average(self):
+        return float(np.log(np.maximum(np.mean(self.label), 1e-20)))
+
+    def get_gradients(self, score):
+        # -dloglik: 1 - y*exp(-F);  hess: y*exp(-F)
+        e = self.label * np.exp(-score)
+        return self._apply_weight(1.0 - e, e)
+
+    def convert_output(self, score):
+        return np.exp(score)
+
+
+class Tweedie(Objective):
+    name = "tweedie"
+
+    def __init__(self, rho=1.5):
+        self.rho = rho
+
+    def boost_from_average(self):
+        return float(np.log(np.maximum(np.mean(self.label), 1e-20)))
+
+    def get_gradients(self, score):
+        p = self.rho
+        g = -self.label * np.exp((1 - p) * score) + np.exp((2 - p) * score)
+        h = (-self.label * (1 - p) * np.exp((1 - p) * score)
+             + (2 - p) * np.exp((2 - p) * score))
+        return self._apply_weight(g, h)
+
+    def convert_output(self, score):
+        return np.exp(score)
+
+
+class Quantile(Objective):
+    name = "quantile"
+
+    def __init__(self, alpha=0.9):
+        self.alpha = alpha
+
+    def boost_from_average(self):
+        return float(np.quantile(self.label, self.alpha))
+
+    def get_gradients(self, score):
+        r = score - self.label
+        g = np.where(r >= 0, 1.0 - self.alpha, -self.alpha)
+        return self._apply_weight(g, np.ones_like(score))
+
+
+class Mape(Objective):
+    name = "mape"
+
+    def get_gradients(self, score):
+        label_safe = np.where(np.abs(self.label) > 1e-10, self.label, 1e-10)
+        g = np.sign(score - self.label) / np.abs(label_safe)
+        return self._apply_weight(g, np.ones_like(score))
+
+
+class Tobit(Objective):
+    """Censored-normal Tobit / Grabit objective
+    (``regression_objective.hpp:872``, Sigrist & Hirnschall 2019)."""
+    name = "tobit"
+
+    def __init__(self, sigma=1.0, yl=0.0, yu=1.0):
+        if sigma <= 0:
+            raise ValueError("'sigma' must be greater than zero")
+        if yu <= yl:
+            raise ValueError("'yl' must be smaller than 'yu'")
+        self.sigma = sigma
+        self.yl = yl
+        self.yu = yu
+
+    def init(self, label, weight, group=None):
+        super().init(label, weight, group)
+        if np.any(label < self.yl - 1e-6 * abs(self.yl)) or \
+                np.any(label > self.yu + 1e-6 * abs(self.yu)):
+            raise ValueError("Labels must lie in [yl, yu] for tobit")
+
+    def get_gradients(self, score):
+        s = self.sigma
+        s2i = 1.0 / (s * s)
+        diff = (self.label - score) / s
+        logpdf = norm.logpdf(diff)
+        logcdf_lo = norm.logcdf(diff)
+        logcdf_hi = norm.logcdf(-diff)
+        lower = self.label <= self.yl
+        upper = self.label >= self.yu
+        g = -diff / s
+        h = np.full_like(score, s2i)
+        r_lo = np.exp(logpdf - logcdf_lo)
+        g = np.where(lower, r_lo / s, g)
+        h = np.where(lower, r_lo * s2i * diff + r_lo * r_lo * s2i, h)
+        r_hi = np.exp(logpdf - logcdf_hi)
+        g = np.where(upper, -r_hi / s, g)
+        h = np.where(upper, -r_hi * s2i * diff + r_hi * r_hi * s2i, h)
+        return self._apply_weight(g, h)
 
 
 class Binary(Objective):
@@ -112,6 +292,182 @@ class Binary(Objective):
 
     def convert_output(self, score):
         return _sigmoid(self.sigmoid * score)
+
+
+class CrossEntropy(Objective):
+    name = "cross_entropy"
+
+    def init(self, label, weight, group=None):
+        super().init(label, weight, group)
+        if np.any(label < 0) or np.any(label > 1):
+            raise ValueError("cross_entropy labels must lie in [0, 1]")
+
+    def boost_from_average(self):
+        if self.weight is not None:
+            p = float(np.average(self.label, weights=self.weight))
+        else:
+            p = float(np.mean(self.label))
+        p = np.clip(p, 1e-12, 1 - 1e-12)
+        return float(np.log(p / (1 - p)))
+
+    def get_gradients(self, score):
+        p = _sigmoid(score)
+        return self._apply_weight(p - self.label, p * (1 - p))
+
+    def convert_output(self, score):
+        return _sigmoid(score)
+
+
+class CrossEntropyLambda(Objective):
+    """Alternative ("intensity-weighted") parameterization of cross-entropy
+    (``CrossEntropyLambda``, ``xentropy_objective.hpp:153``): with sample
+    weight w, prob = 1 - (1 - sigmoid(f))^w = 1 - exp(-w * hhat) where
+    hhat = log(1 + exp(f)). ConvertOutput returns hhat (the "normalized
+    exponential parameter" lambda), NOT a probability — matching the
+    reference's explicit warning."""
+    name = "cross_entropy_lambda"
+
+    def init(self, label, weight, group=None):
+        super().init(label, weight, group)
+        if np.any(label < 0) or np.any(label > 1):
+            raise ValueError("cross_entropy_lambda labels must lie in [0, 1]")
+        if weight is not None and np.any(weight <= 0):
+            raise ValueError("cross_entropy_lambda requires strictly "
+                             "positive weights")
+
+    def boost_from_average(self):
+        # BoostFromScore: havg = weighted mean label; f0 = log(e^havg - 1)
+        # (xentropy_objective.hpp:246-266)
+        if self.weight is not None:
+            havg = float(np.average(self.label, weights=self.weight))
+        else:
+            havg = float(np.mean(self.label))
+        return float(np.log(np.expm1(max(havg, 1e-12))))
+
+    def get_gradients(self, score):
+        if self.weight is None:
+            # unit weights: identical to plain CrossEntropy
+            z = _sigmoid(score)
+            return z - self.label, z * (1.0 - z)
+        w = self.weight
+        y = self.label
+        f = np.clip(score, -500.0, 500.0)
+        epf = np.exp(f)
+        hhat = np.log1p(epf)
+        z = -np.expm1(-w * hhat)  # 1 - exp(-w*hhat)
+        sig = 1.0 / (1.0 + np.exp(-f))
+        grad = (1.0 - y / z) * w * sig
+        c = 1.0 / (1.0 - z)  # = exp(w*hhat)
+        a = w * sig * (1.0 - sig)
+        d = c - 1.0
+        b = (c / (d * d)) * (1.0 + w * epf - c)
+        hess = a * (1.0 + y * b)
+        return grad, hess
+
+    def convert_output(self, score):
+        return np.log1p(np.exp(np.minimum(score, 500.0)))
+
+
+class Multiclass(Objective):
+    """Softmax multiclass (``multiclass_objective.hpp``). Scores are
+    [n * num_class] stacked class-major like the reference."""
+    name = "multiclass"
+
+    def __init__(self, num_class):
+        self.num_class = int(num_class)
+        self.num_model_per_iteration = self.num_class
+
+    def get_gradients(self, score):
+        n = len(self.label)
+        s = score.reshape(self.num_class, n)
+        s = s - s.max(axis=0, keepdims=True)
+        e = np.exp(s)
+        p = e / e.sum(axis=0, keepdims=True)
+        onehot = np.zeros_like(p)
+        onehot[self.label.astype(int), np.arange(n)] = 1.0
+        g = (p - onehot).reshape(-1)
+        h = (2.0 * p * (1.0 - p)).reshape(-1)
+        if self.weight is not None:
+            w = np.tile(self.weight, self.num_class)
+            g, h = g * w, h * w
+        return g, h
+
+    def convert_output(self, score):
+        n = score.shape[0] // self.num_class
+        s = score.reshape(self.num_class, n)
+        s = s - s.max(axis=0, keepdims=True)
+        e = np.exp(s)
+        return (e / e.sum(axis=0, keepdims=True)).reshape(-1)
+
+
+class MeanScaleRegression(Objective):
+    """Heteroscedastic two-ensemble regression: y ~ N(F1(x), exp(F2(x)))
+    (``MeanScaleLoss``, ``regression_objective.hpp:986``). One tree per
+    iteration for the mean and one for the log-variance; the log-variance
+    tree uses Fisher-type hessian exp(-F2) (y-F1)^2 / 2."""
+    name = "mean_scale_regression"
+    num_model_per_iteration = 2
+
+    def init_scores(self):
+        # BoostFromScore: tree 0 = weighted mean, tree 1 = log sample variance
+        if self.weight is not None:
+            sw = np.sum(self.weight)
+            mean = np.sum(self.label * self.weight) / sw
+            var = np.sum(self.label ** 2 * self.weight) / sw - mean ** 2
+        else:
+            mean = np.mean(self.label)
+            var = np.mean(self.label ** 2) - mean ** 2
+        return np.array([mean, np.log(max(var, 1e-20))])
+
+    def get_gradients(self, score):
+        n = len(self.label)
+        F1, F2 = score[:n], score[n:]
+        inv_var = np.exp(-F2)
+        neg_resid = F1 - self.label
+        g1 = inv_var * neg_resid
+        h1 = inv_var
+        h2 = inv_var * neg_resid * neg_resid / 2.0
+        g2 = 0.5 - h2
+        if self.weight is not None:
+            g1, h1 = g1 * self.weight, h1 * self.weight
+            g2, h2 = g2 * self.weight, h2 * self.weight
+        return np.concatenate([g1, g2]), np.concatenate([h1, h2])
+
+    def convert_output(self, score):
+        # metric evaluation sees the mean ensemble (ConvertOutput,
+        # regression_objective.hpp:1040); the full (mean, var) pair is
+        # returned by Booster.predict as a dict
+        n = score.shape[0] // 2
+        return score[:n]
+
+
+class MulticlassOVA(Objective):
+    """One-vs-all multiclass: num_class independent binary-logit ensembles
+    (``MulticlassOVA``, ``multiclass_objective.hpp:187``)."""
+    name = "multiclassova"
+
+    def __init__(self, num_class, sigmoid=1.0):
+        self.num_class = int(num_class)
+        self.num_model_per_iteration = self.num_class
+        self.sigmoid = float(sigmoid)
+
+    def get_gradients(self, score):
+        n = len(self.label)
+        s = score.reshape(self.num_class, n)
+        onehot = np.zeros_like(s)
+        onehot[self.label.astype(int), np.arange(n)] = 1.0
+        p = 1.0 / (1.0 + np.exp(-self.sigmoid * s))
+        g = (self.sigmoid * (p - onehot)).reshape(-1)
+        h = (self.sigmoid ** 2 * p * (1.0 - p)).reshape(-1)
+        if self.weight is not None:
+            w = np.tile(self.weight, self.num_class)
+            g, h = g * w, h * w
+        return g, np.maximum(h, 1e-15)
+
+    def convert_output(self, score):
+        n = score.shape[0] // self.num_class
+        s = score.reshape(self.num_class, n)
+        return (1.0 / (1.0 + np.exp(-self.sigmoid * s))).reshape(-1)
 
 
 class GPBoostObjective(Objective):
@@ -261,42 +617,70 @@ class GPBoostObjective(Objective):
 _ALIASES = {
     "regression_l2": "regression", "l2": "regression",
     "mean_squared_error": "regression", "mse": "regression",
-    "rmse": "regression", "binary_logloss": "binary",
+    "rmse": "regression",
+    "l1": "regression_l1", "mean_absolute_error": "regression_l1",
+    "mae": "regression_l1",
+    "binary_logloss": "binary",
+    "softmax": "multiclass", "ova": "multiclassova",
+    "multiclass_ova": "multiclassova",
     "xentropy": "cross_entropy",
+    "xentlambda": "cross_entropy_lambda",
+    "xendcg": "rank_xendcg", "xe_ndcg": "rank_xendcg",
+    "xe_ndcg_mart": "rank_xendcg", "xendcg_mart": "rank_xendcg",
 }
 # the names an objective may have beside a gp_model: the response
 # distribution is then the GPModel's likelihood (JAX
 # objectives.py:776-787)
 GP_OBJECTIVES = ("regression", "binary", "regression_gp", "poisson", "gamma",
                  "cross_entropy")
+RANKING = ("lambdarank", "rank_xendcg")
 
 
 def create_objective(name: str, params: dict, gp_model=None) -> Objective:
-    """Objective factory (``objective_function.cpp:17-129``). With a
-    ``gp_model`` any of ``GP_OBJECTIVES`` (and their aliases) gives the
-    GPBoost / LaGaBoost objective — the response distribution is the
-    GPModel's likelihood — and any other name is a ``ValueError``, as in
-    the JAX package. Without one: ``regression`` and ``binary``."""
+    """Objective factory (``objective_function.cpp:17-129``; the JAX
+    package's names and aliases). With a ``gp_model`` any of
+    ``GP_OBJECTIVES`` (and their aliases) gives the GPBoost / LaGaBoost
+    objective — the response distribution is the GPModel's likelihood —
+    and any other name is a ``ValueError``, as in the JAX package. The
+    ranking objectives raise ``NotImplementedError`` (item 18b)."""
     name = _ALIASES.get(name, name)
-    if gp_model is not None and name not in GP_OBJECTIVES:
-        raise ValueError(
-            f"objective '{name}' cannot be combined with a gp_model; the "
-            "response distribution is specified via the GPModel likelihood")
-    if gp_model is None and name not in ("regression", "regression_gp",
-                                         "binary"):
-        raise NotImplementedError(
-            f"objective '{name}' is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18); ported: 'regression', 'binary' "
-            f"and, with a gp_model, {', '.join(GP_OBJECTIVES)}")
     if gp_model is not None:
+        if name not in GP_OBJECTIVES:
+            raise ValueError(
+                f"objective '{name}' cannot be combined with a gp_model; the "
+                "response distribution is specified via the GPModel "
+                "likelihood")
         return GPBoostObjective(
             gp_model,
             train_gp_model_cov_pars=params.get("train_gp_model_cov_pars",
                                                True),
             reuse_learning_rates_gp_model=params.get(
                 "reuse_learning_rates_gp_model", True))
+    if name in RANKING:
+        raise NotImplementedError(
+            f"objective '{name}' is not ported to gpboost_tpu_torch yet "
+            "(ROADMAP.md Queue A, item 18b: ranking)")
     if name == "regression_gp":
         raise ValueError("objective 'regression_gp' needs a gp_model")
+    if name == "regression":
+        return RegressionL2(reg_sqrt=bool(params.get("reg_sqrt", False)))
+    if name == "regression_l1":
+        return RegressionL1()
+    if name == "huber":
+        return Huber(alpha=params.get("alpha", 0.9))
+    if name == "fair":
+        return Fair(c=params.get("fair_c", 1.0))
+    if name == "poisson":
+        return Poisson(max_delta_step=float(
+            params.get("poisson_max_delta_step", 0.7)))
+    if name == "gamma":
+        return Gamma()
+    if name == "tweedie":
+        return Tweedie(rho=params.get("tweedie_variance_power", 1.5))
+    if name == "quantile":
+        return Quantile(alpha=params.get("alpha", 0.9))
+    if name == "mape":
+        return Mape()
     if name == "binary":
         if params.get("is_unbalance", False) and float(
                 params.get("scale_pos_weight", 1.0)) != 1.0:
@@ -306,4 +690,18 @@ def create_objective(name: str, params: dict, gp_model=None) -> Objective:
                       is_unbalance=bool(params.get("is_unbalance", False)),
                       scale_pos_weight=float(
                           params.get("scale_pos_weight", 1.0)))
-    return RegressionL2()
+    if name == "cross_entropy":
+        return CrossEntropy()
+    if name == "cross_entropy_lambda":
+        return CrossEntropyLambda()
+    if name == "mean_scale_regression":
+        return MeanScaleRegression()
+    if name == "tobit":
+        return Tobit(sigma=params.get("sigma", 1.0),
+                     yl=params.get("yl", 0.0), yu=params.get("yu", 1.0))
+    if name == "multiclass":
+        return Multiclass(num_class=params.get("num_class", 2))
+    if name == "multiclassova":
+        return MulticlassOVA(num_class=params.get("num_class", 2),
+                             sigmoid=params.get("sigmoid", 1.0))
+    raise ValueError(f"Unknown objective: {name}")

@@ -26,10 +26,11 @@ split travel in one packed tensor; on the histogram kernel's route once
 more per tree, for the fixed-point scales (``grow_tree.host_reads`` counts
 the reads).
 
-Numeric features only. Not ported (ROADMAP.md Queue A, item 18):
-categorical splits, monotone and interaction constraints, CEGB, forced
-splits, extra trees, path smoothing, ``max_delta_step``, linear leaves, EFB;
-the single-dispatch device-resident grower is item 10.
+Numeric features only, with bagging (``row_mask``) and per-node feature
+sampling (``feature_fraction_bynode``). Not ported (ROADMAP.md Queue A,
+item 18b): categorical splits, monotone and interaction constraints, CEGB,
+forced splits, extra trees, path smoothing, ``max_delta_step``, linear
+leaves, EFB; the single-dispatch device-resident grower is item 10.
 """
 from __future__ import annotations
 
@@ -83,6 +84,33 @@ def build_histogram(binned, grad, hess, row_mask, num_bins: int,
     return histogram_plain(binned, grad, hess, row_mask, num_bins)
 
 
+# the block of XLA's CPU prefix sum (its reduce-window rewrite: sequential
+# sums inside blocks of 16, the blocks' totals summed the same way)
+SCAN_BLOCK = 16
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis. On the CPU in the order of the
+    JAX package's ``jnp.cumsum`` there (XLA: sequential inside blocks of
+    ``SCAN_BLOCK``, each block's offset the prefix sum of the blocks'
+    totals, recursively), so that both packages round every prefix alike
+    and break split gains that tie exactly (a two-valued gradient, or two
+    features cutting a bag the same way) alike. On CUDA one
+    ``torch.cumsum``."""
+    n = x.shape[-1]
+    if x.is_cuda or n <= SCAN_BLOCK:
+        return torch.cumsum(x, dim=-1)
+    nb = -(-n // SCAN_BLOCK)
+    lead = x.shape[:-1]
+    inner = torch.cumsum(torch.nn.functional.pad(
+        x, (0, nb * SCAN_BLOCK - n)).reshape(*lead, nb, SCAN_BLOCK), dim=-1)
+    offsets = prefix_sum(inner[..., -1])
+    offsets = torch.cat([torch.zeros_like(offsets[..., :1]),
+                         offsets[..., :-1]], dim=-1)
+    return (inner + offsets[..., None]).reshape(*lead, nb * SCAN_BLOCK)[
+        ..., :n]
+
+
 def _threshold_l1(g, l1):
     return torch.sign(g) * torch.clamp(torch.abs(g) - l1, min=0.0)
 
@@ -97,7 +125,7 @@ def _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
     _, F, B = hist.shape
     dt = hist.dtype
     neg_inf = torch.full((), -torch.inf, dtype=dt, device=hist.device)
-    cum = torch.cumsum(hist, dim=2)
+    cum = prefix_sum(hist)
     tot = cum[:, :, -1:]
     bin_ids = torch.arange(B, device=hist.device)[None, :]
     in_range = bin_ids < (num_bins_per_feat[:, None] - 1)
@@ -290,6 +318,7 @@ class GrowerParams:
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
+    feature_fraction_bynode: float = 1.0
 
 
 def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
@@ -297,13 +326,21 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
               params: GrowerParams,
               row_mask: Optional[torch.Tensor] = None,
               nan_mask: Optional[np.ndarray] = None,
-              binned_t: Optional[torch.Tensor] = None):
+              binned_t: Optional[torch.Tensor] = None,
+              rng: Optional[np.random.Generator] = None):
     """Grow one tree leaf-wise (best-first), LightGBM-style.
 
-    ``nan_mask`` [F] marks features whose bin 0 is an exclusive NA bin
+    ``row_mask`` [n] bool (bagging) keeps the rows outside it out of every
+    histogram; the partition still moves them, so ``row_leaf`` places every
+    row. ``nan_mask`` [F] marks features whose bin 0 is an exclusive NA bin
     (default-direction learning). ``binned_t`` is the features-major uint8
     copy of ``binned`` (``Dataset.binned_t``) for the histogram kernel and
-    the partition. Returns (Tree, row_leaf_node [n] int32 node-id per row).
+    the partition. With ``params.feature_fraction_bynode`` < 1 each leaf's
+    split search sees ``ceil(fraction * F)`` features drawn from ``rng``
+    (without replacement, one draw a leaf in the order the leaves are
+    evaluated, as the JAX package's host grower draws them; a feature left
+    out gets 0 bins, which ``_split_scan`` never picks). Returns (Tree,
+    row_leaf_node [n] int32 node-id per row).
     """
     n, F = binned.shape
     device = binned.device
@@ -333,6 +370,9 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
     min_data = float(params.min_data_in_leaf)
     min_hess = float(params.min_sum_hessian_in_leaf)
     min_gain = float(params.min_gain_to_split)
+    ffb = float(params.feature_fraction_bynode)
+    if ffb < 1.0 and rng is None:
+        rng = np.random.default_rng(0)
 
     def leaf_output(g_sum, h_sum):
         t = np.sign(g_sum) * max(abs(g_sum) - l1, 0.0)
@@ -360,8 +400,17 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
 
     def compute_leaf(leaf_id, hist):
         hist_cache[leaf_id] = hist
+        num_bins_leaf = num_bins_per_feat
+        if ffb < 1.0:
+            # feature_fraction_bynode (config.h:359): this leaf's features
+            k = max(1, int(np.ceil(ffb * F)))
+            allowed = np.zeros(F, bool)
+            allowed[rng.choice(F, size=k, replace=False)] = True
+            num_bins_leaf = torch.where(
+                torch.as_tensor(allowed, device=device), num_bins_per_feat,
+                torch.zeros_like(num_bins_per_feat))
         with timed("grow_tree: split scan + host read", sync=True):
-            scan = _split_scan(hist, num_bins_per_feat, l1, l2, min_data,
+            scan = _split_scan(hist, num_bins_leaf, l1, l2, min_data,
                                min_hess, nan_mask_t)
             # every row lands in one bin per column, so the all-column sum
             # is F * (per-leaf total) — normalize to the true leaf totals

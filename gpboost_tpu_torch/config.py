@@ -52,6 +52,9 @@ _ALIASES_OF = {
     # random effects of GPModel(group_data=...), which are no parameter)
     "group_column": ("group", "group_id", "query_column", "query",
                      "query_id"),
+    "metric_freq": ("output_freq",),
+    "bagging_seed": ("bagging_fraction_seed",),
+    "output_model": ("model_output", "model_out"),
 }
 ALIAS_TABLE = {alias: name for name, aliases in _ALIASES_OF.items()
                for alias in aliases}
@@ -65,21 +68,32 @@ PORTED = (
     "boost_from_average", "tree_learner", "num_class",
     "train_gp_model_cov_pars", "reuse_learning_rates_gp_model", "gpu_use_dp",
     "sigmoid", "is_unbalance", "scale_pos_weight",
+    # sampling: bagging (balanced too) and feature fractions, by tree and by
+    # node, each from its own numpy generator when its seed is given
+    "bagging_fraction", "bagging_freq", "pos_bagging_fraction",
+    "neg_bagging_fraction", "feature_fraction", "feature_fraction_bynode",
+    "seed", "bagging_seed", "feature_fraction_seed",
+    # validation: metrics, early stopping, the GP in the validation score,
+    # snapshots
+    "metric", "first_metric_only", "metric_freq", "early_stopping_round",
+    "is_provide_training_metric", "use_gp_model_for_validation",
+    "multi_error_top_k", "auc_mu_weights", "snapshot_freq", "output_model",
+    # the objectives without a GP
+    "reg_sqrt", "alpha", "fair_c", "poisson_max_delta_step",
+    "tweedie_variance_power", "sigma", "yl", "yu",
 )
 
-# accepted without effect on the ported path: logging, host threading,
-# metric choice (no validation sets yet), EFB (lossless, so trees are the
-# same without it), seeds of sampling features that are not ported, and
-# ``deterministic``: training is always deterministic, on the card too (the
-# histogram kernel and the float64 histogram sum in fixed point, ``B' v`` of
-# the Psi^-1 solve is a gather with a fixed order; no float atomics remain
-# on the path)
-_NO_EFFECT = ("verbose", "seed", "metric", "enable_bundle", "num_threads",
-              "device_type", "deterministic", "force_col_wise",
-              "force_row_wise", "use_gp_model_for_validation",
-              "bagging_seed", "feature_fraction_seed", "extra_seed")
+# accepted without effect on the ported path: logging, host threading, EFB
+# (lossless, so trees are the same without it), the seed of extra trees
+# (not ported), and ``deterministic``: training is always deterministic, on
+# the card too (the histogram kernel and the float64 histogram sum in fixed
+# point, ``B' v`` of the Psi^-1 solve is a gather with a fixed order; no
+# float atomics remain on the path)
+_NO_EFFECT = ("verbose", "enable_bundle", "num_threads", "device_type",
+              "deterministic", "force_col_wise", "force_row_wise",
+              "extra_seed")
 
-_TAIL = "Queue A, item 18 (boosting tail)"
+_TAIL = "Queue A, item 18b (boosting tail)"
 # canonical name -> (default, queue item): a value other than the default
 # raises NotImplementedError
 NOT_PORTED = {
@@ -87,12 +101,6 @@ NOT_PORTED = {
     "monotone_constraints": (None, _TAIL),
     "monotone_constraints_method": ("basic", _TAIL),
     "monotone_penalty": (0.0, _TAIL),
-    "bagging_fraction": (1.0, _TAIL),
-    "bagging_freq": (0, _TAIL),
-    "pos_bagging_fraction": (1.0, _TAIL),
-    "neg_bagging_fraction": (1.0, _TAIL),
-    "feature_fraction": (1.0, _TAIL),
-    "feature_fraction_bynode": (1.0, _TAIL),
     "linear_tree": (False, _TAIL),
     "linear_lambda": (0.0, _TAIL),
     "forced_splits": (None, _TAIL),
@@ -113,10 +121,6 @@ NOT_PORTED = {
     "line_search_step_length": (False, _TAIL),
     "use_missing": (True, _TAIL),
     "zero_as_missing": (False, _TAIL),
-    "reg_sqrt": (False, _TAIL),
-    "early_stopping_round": (0, _TAIL),
-    "is_provide_training_metric": (False, _TAIL),
-    "snapshot_freq": (-1, _TAIL),
     "pred_early_stop": (False, _TAIL),
     "group_column": ("", _TAIL + ": ranking objectives"),
 }
@@ -155,8 +159,9 @@ def _refuse_unported(key: str, value) -> None:
         if value != "gbdt":
             raise _not_ported(key, value, _TAIL + ": dart, goss, rf")
     elif key == "num_class":
-        if int(value) != 1:
-            raise _not_ported(key, value, _TAIL + ": multiclass")
+        if int(value) < 1:
+            raise ValueError(f"parameter 'num_class' = {value!r} violates "
+                             "constraint > 0")
     elif key == "tree_learner":
         if value not in ("serial", "data"):
             raise _not_ported(key, value, "Queue A, item 20 (multi-GPU)")

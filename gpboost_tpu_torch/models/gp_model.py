@@ -366,6 +366,8 @@ class GPModel:
         self.aux_pars_ = None
         self.nsim_var_pred = None
         self.vecchia_pred_type = None
+        # the validation prediction data of set_prediction_data
+        self._valid_pred_data = None
         self._train_fixed_effects = None
         self.y = None
         self.X = None
@@ -676,21 +678,23 @@ class GPModel:
 
     def set_prediction_data(self, vecchia_pred_type=None,
                             num_neighbors_pred=None, nsim_var_pred=None,
-                            **kwargs):
-        """Prediction-time settings (``GPModel.set_prediction_data``, JAX
-        ``gp_model.py:435-463``): ``vecchia_pred_type`` (one of
-        :data:`VECCHIA_PRED_TYPES`; the Gaussian Vecchia GP's prediction
-        route), ``num_neighbors_pred`` (the prediction's conditioning-set
-        size, at most the number of data points; default 2 m) and
-        ``nsim_var_pred`` (simulated predictive variances of the
-        Vecchia-Laplace prediction, with that many draws; the grouped
-        models' Cholesky route computes its variances exactly and does not
-        read it). The validation prediction data (``gp_coords_pred``, ...)
-        raise (ROADMAP.md Queue A, item 18)."""
-        unported = sorted(k for k, v in kwargs.items() if v is not None)
-        if unported:
-            raise _not_ported(f"set_prediction_data({', '.join(unported)})",
-                              "Queue A, item 18")
+                            cg_delta_conv_pred=None, group_data_pred=None,
+                            group_rand_coef_data_pred=None,
+                            gp_coords_pred=None, gp_rand_coef_data_pred=None,
+                            cluster_ids_pred=None, X_pred=None):
+        """Prediction-time settings and validation prediction data
+        (``GPModel.set_prediction_data``, JAX ``gp_model.py:435-468``):
+        ``vecchia_pred_type`` (one of :data:`VECCHIA_PRED_TYPES`; the
+        Gaussian Vecchia GP's prediction route), ``num_neighbors_pred`` (the
+        prediction's conditioning-set size, at most the number of data
+        points; default 2 m) and ``nsim_var_pred`` (simulated predictive
+        variances of the Vecchia-Laplace prediction, with that many draws;
+        the grouped models' Cholesky route computes its variances exactly
+        and does not read it). The ``*_pred`` arrays are stored in
+        ``_valid_pred_data`` for the boosting's validation prediction
+        (``use_gp_model_for_validation``) and its GP metrics.
+        ``cg_delta_conv_pred`` is accepted and not read, as in the JAX
+        package."""
         if vecchia_pred_type is not None:
             if vecchia_pred_type not in VECCHIA_PRED_TYPES:
                 raise ValueError(
@@ -702,6 +706,15 @@ class GPModel:
                                                   self.num_data)
         if nsim_var_pred is not None:
             self.nsim_var_pred = int(nsim_var_pred)
+        pd = {k: v for k, v in (
+            ("group_data_pred", group_data_pred),
+            ("group_rand_coef_data_pred", group_rand_coef_data_pred),
+            ("gp_coords_pred", gp_coords_pred),
+            ("gp_rand_coef_data_pred", gp_rand_coef_data_pred),
+            ("cluster_ids_pred", cluster_ids_pred),
+            ("X_pred", X_pred)) if v is not None}
+        if pd:
+            self._valid_pred_data = pd
         return self
 
     def use_mesh(self, mesh=None, halo=None):

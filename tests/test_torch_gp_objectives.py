@@ -74,6 +74,12 @@ def test_names_beside_a_gp_model(data):
                       gp_model=gpt.GPModel(group_data=data["g"],
                                            likelihood="poisson",
                                            device="cpu"))
-    # without a gp_model the objective itself is the boosting tail
-    with pytest.raises(NotImplementedError, match="item 18"):
-        gpt.train({"objective": "gamma"}, ds, num_boost_round=1)
+    # without a gp_model the name is the gamma objective of the boosting
+    # tail: the JAX package's scores after a round, within 1e-12
+    tb = gpt.train({"objective": "gamma"}, ds, num_boost_round=1)
+    jb = gpb.train({"objective": "gamma"},
+                   gpb.Dataset(data["X"], label=data["poisson"]),
+                   num_boost_round=1)
+    assert isinstance(tb.objective, tobj.Gamma)
+    np.testing.assert_allclose(tb._score, np.asarray(jb._score), rtol=0,
+                               atol=1e-12)

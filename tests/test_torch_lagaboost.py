@@ -162,7 +162,11 @@ def test_binary_options_are_checked():
     with pytest.raises(ValueError, match="is_unbalance"):
         tobj.create_objective("binary", {"is_unbalance": True,
                                          "scale_pos_weight": 2.0})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tobj.create_objective("cross_entropy", {})
+    # cross_entropy without a gp_model is the boosting tail's objective,
+    # as in the JAX package
+    from gpboost_tpu.boosting import objectives as jobj
+    tx = tobj.create_objective("cross_entropy", {})
+    jx = jobj.create_objective("cross_entropy", {})
+    assert type(tx).__name__ == type(jx).__name__ == "CrossEntropy"
     assert tcfg.resolve_params({"unbalanced_sets": True}) == {
         "is_unbalance": True}

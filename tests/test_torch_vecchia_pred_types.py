@@ -13,7 +13,8 @@ against the JAX package on the same inputs:
   package); with every point conditioning each type meets the exact GP;
 - the types are distinct estimators; the latent types refuse
   duplicates between training and prediction points;
-- an unknown type raises, the validation data keywords name item 18.
+- an unknown type raises; the validation data keywords are stored as the
+  JAX package stores them.
 """
 import json
 import os
@@ -159,5 +160,11 @@ def test_unknown_type_and_validation_data(dataset):
     m = _model(coords)
     with pytest.raises(ValueError, match="vecchia_pred_type"):
         m.set_prediction_data(vecchia_pred_type="order_random")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        m.set_prediction_data(gp_coords_pred=coords[:2])
+    # the validation data are stored for the boosting's validation, as the
+    # JAX package stores them
+    m.set_prediction_data(gp_coords_pred=coords[:2])
+    jm = _model(coords, pkg=gpb)
+    jm.set_prediction_data(gp_coords_pred=coords[:2])
+    assert m._valid_pred_data.keys() == jm._valid_pred_data.keys()
+    np.testing.assert_array_equal(m._valid_pred_data["gp_coords_pred"],
+                                  jm._valid_pred_data["gp_coords_pred"])
