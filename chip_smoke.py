@@ -182,7 +182,23 @@ one. It
    break apart) and ``cv_grouped`` (``cv`` with GB_LEVELS grouped levels,
    CV_NFOLD folds, early stopping and ``fit_GP_cov_pars_OOS``; the README's
    ``grid_search_tune_parameters`` on the card and the CPU, the same best
-   parameters);
+   parameters, README_ROUNDS rounds); then, before those second runs too,
+   the tree learner's tail and its data (phase 14, ``tree_tail_paths``):
+   ``categorical_gpboost`` (the recipe with a 30-level and a 400-level
+   Zipf categorical column, 10 % NaN in X1, the float32 GP, TT_ROUNDS
+   rounds; prediction with 5 % unseen levels; the histogram kernel on its
+   Dataset; twice to the same bits; card vs CPU at TT_CPU_N points),
+   ``efb_onehot`` (the recipe's features and a one-hot 60-level factor:
+   EFB's bundles, the kernel on the bundle panel, the training against the
+   one without bundling, one histogram call's device time with and
+   without), ``tree_options`` (one training a grower option: the monotone
+   methods and penalty, interaction constraints, forced splits and bins,
+   extra trees, path smoothing, ``max_delta_step``, ``feature_contri``, the
+   three CEGB penalties, linear leaves, ``max_bin_by_feature`` and the
+   missing-value switches; each option's gate, card vs CPU at TT_CPU_N
+   rows, two trainings to the same bits for CEGB (lazy) and linear leaves)
+   and ``sparse_and_files`` (sparse input, ``save_binary``, a model with
+   categorical and linear trees saved and reloaded);
 14. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
@@ -195,7 +211,9 @@ one. It
    kernel on the low-rank GPs, the iterative routes, 12's other paths and
    13's GPs, all three on phase 13's validation path and the histogram
    kernel once a leaf (``num_models`` trees a round) on its objectives and
-   folds — and the results against float64 plain versions.
+   folds, all three on phase 14's categorical GPBoost path and the
+   histogram kernel once a leaf on its other paths (once more a forced
+   split) — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -663,12 +681,19 @@ def _hist_compare(tag, binned, panel, g, h, mask, B):
 
 def check_histogram_on(ds, seed, dev, path):
     """The histogram kernel against its float64 plain version on a boosting
-    path's own Dataset, all rows and 3 % of them in the mask, and its time
-    there (all rows) beside the plain version's and the bound."""
+    path's own Dataset (:func:`check_histogram_on_panel` on its panel)."""
+    return check_histogram_on_panel(ds.binned, ds.binned_t, ds.max_num_bins,
+                                    seed, dev, path)
+
+
+def check_histogram_on_panel(binned, panel, B, seed, dev, path):
+    """The histogram kernel against its float64 plain version on a path's
+    own bins (``binned`` [n, F] and its uint8 panel), all rows and 3 % of
+    them in the mask, and its time there (all rows) beside the plain
+    version's and the bound."""
     from gpboost_tpu_torch.ops.kernels import histogram as hk
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, F, B = ds.num_data, ds.num_features, ds.max_num_bins
-    binned, panel = ds.binned, ds.binned_t
+    n, F = binned.shape
     g, h = _hist_values(gen, n, dev)
     full = torch.ones(n, dtype=torch.bool, device=dev)
     small = torch.rand(n, generator=gen, device=dev) < 0.03
@@ -4901,7 +4926,9 @@ CV_EARLY_STOP = 5
 # the README's GPBoost tuning example (examples/gpboost_algorithm.py:48-56)
 README_N, README_GROUPS = 1000, 25
 README_GRID = {"learning_rate": [0.1, 0.01], "max_depth": [3, 6]}
-README_ROUNDS = 50
+# depth cut (the README's 50): phase 14 needed the script's time, PERF.md
+# section 4
+README_ROUNDS = 20
 
 
 def _recipe_f(X):
@@ -5282,6 +5309,519 @@ def boosting_tail_paths(boost_data, coords, pred, m, seed, n, dev):
     return launches, timings, hist
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the tree learner's tail and the data it reads (ROADMAP item 18b,
+# part 1): categorical features, EFB, the grower's options, sparse input and
+# the files
+# ---------------------------------------------------------------------------
+
+TT_ROUNDS = 10
+TT_C1_LEVELS = 30                 # uniform levels, their effect added to f
+TT_C2_LEVELS = 400                # Zipf levels, past the 255-bin cap
+TT_ZIPF = 1.1
+TT_NAN = 0.1                      # share of X1 missing
+TT_UNSEEN = 0.05                  # share of prediction rows at unseen levels
+TT_ONEHOT_LEVELS = 60
+TT_CPU_N = 2_000                  # rows of the card-vs-CPU checks
+TT_CPU_RTOL = 1e-9
+TT_OPT_ROUNDS = 5                 # depth cut of tree_options (phase 14: 10)
+TT_MDS = 1.0                      # max_delta_step of tree_options
+TT_FORCED = {"feature": 0, "threshold": 0.5,
+             "left": {"feature": 1, "threshold": 0.5}}
+TT_FORCED_CASES = ("forced_splits", "forcedsplits_filename")
+TT_GROUPS = [[0, 1], [2, 3, 4]]
+
+
+def make_tree_tail_data(seed, X, yb, X_pred):
+    """The Boosting recipe with two categorical columns: c1 (30 uniform
+    levels, effect N(0, 1) added to the label) and c2 (400 Zipf-1.1 levels,
+    no effect: more levels than the 255-bin cap), 10 % NaN in X1; the
+    prediction rows with 5 % unseen levels in each."""
+    rng = np.random.default_rng(seed + 140)
+    n, n_pred = len(yb), len(X_pred)
+    eff = rng.standard_normal(TT_C1_LEVELS)
+
+    def cats(k):
+        c1 = rng.integers(0, TT_C1_LEVELS, k).astype(float)
+        c2 = ((rng.zipf(TT_ZIPF, k) - 1) % TT_C2_LEVELS).astype(float)
+        return c1, c2
+
+    c1, c2 = cats(n)
+    Xc = np.column_stack([X, c1, c2])
+    Xc[rng.random(n) < TT_NAN, 0] = np.nan
+    y = yb + eff[c1.astype(int)]
+    p1, p2 = cats(n_pred)
+    p1[rng.random(n_pred) < TT_UNSEEN] = TT_C1_LEVELS + 7.0
+    p2[rng.random(n_pred) < TT_UNSEEN] = TT_C2_LEVELS + 11.0
+    Xc_pred = np.column_stack([X_pred, p1, p2])
+    return Xc, y, Xc_pred
+
+
+def make_onehot_data(seed, X, n_pred):
+    """The recipe's 5 features and the 0/1 columns of a 60-level factor
+    whose effect is added to f(X): 65 columns."""
+    rng = np.random.default_rng(seed + 141)
+    n = len(X)
+    lv = rng.integers(0, TT_ONEHOT_LEVELS, n)
+    eff = rng.standard_normal(TT_ONEHOT_LEVELS)
+    oh = np.zeros((n, TT_ONEHOT_LEVELS))
+    oh[np.arange(n), lv] = 1.0
+    y = _recipe_f(X) + eff[lv] + 0.5 * rng.standard_normal(n)
+    return np.hstack([X, oh]), y
+
+
+def _tt_agree(b1, b2, X, tol):
+    """Card vs CPU trees (``_tree_pairs_agree``: the same splits and leaf
+    values within ``tol`` up to the first tie of two gains, checked to be
+    one), the categorical left sets of the trees before it (a left set and
+    its mirror image tie exactly too: where they differ, the two gains must
+    tie within 1e-9 of the root gain, and the comparison stops there), the
+    linear coefficients, and the raw predictions of the iterations before
+    the tie within ``tol`` of the score's scale. Returns (trees identical,
+    the tie or None, score difference)."""
+    compared, tie = _tree_pairs_agree(b1, b2, tol)
+    for k, (a, b) in enumerate(zip(b1.trees[:compared],
+                                   b2.trees[:compared])):
+        diff = np.flatnonzero((a.cat_mask != b.cat_mask).any(axis=1))
+        if len(diff):
+            node = int(diff[0])
+            ga, gb = float(a.split_gain[node]), float(b.split_gain[node])
+            root = abs(float(b.split_gain[0]))
+            tie = {"tree": k, "node": node, "gains": [ga, gb],
+                   "root_gain": root, "left_sets": "mirror images"}
+            check(abs(ga - gb) <= 1e-9 * max(abs(ga), abs(gb), root),
+                  f"card vs CPU: the categorical left sets differ and "
+                  f"their gains do not tie: {tie}")
+            compared = k
+            break
+        if a.lin_coefs is not None or b.lin_coefs is not None:
+            err = float(np.max(np.abs(a.lin_coefs - b.lin_coefs)))
+            check(err <= tol * max(1.0, float(np.max(np.abs(b.lin_coefs)))),
+                  f"card vs CPU: linear coefficients {err} apart")
+    K = b1.num_models
+    it = (compared if tie is None else tie["tree"]) // K
+    if it == 0:
+        err = float(np.max(np.abs(b1.init_score - b2.init_score)))
+    else:
+        p1 = b1.predict(X, num_iteration=it, raw_score=True)
+        p2 = b2.predict(X, num_iteration=it, raw_score=True)
+        err = float(np.max(np.abs(p1 - p2)))
+    scale = max(1.0, float(np.max(np.abs(b2._score))))
+    check(err <= tol * scale, f"card vs CPU: raw scores {err} apart after "
+          f"{it} iterations (tie: {tie})")
+    if tie is not None:
+        # reported, not gated: after a categorical left set and its mirror
+        # image the two trainings hold the same partitions and stay close
+        tie["iterations_before"] = it
+        tie["scores_after_max_abs_diff"] = float(
+            np.max(np.abs(b1._score - b2._score)))
+    return compared, tie, err
+
+
+def _cat_scan_ms(ds, seed, dev, reps=20):
+    """What the categorical scan of one leaf costs (host clock, synchronised)
+    on this Dataset's root histogram, with the ``min_data_per_group`` group
+    scan (a host read and a sequential pass over the bins) and without it:
+    the difference is the group scan's cost a leaf."""
+    from gpboost_tpu_torch.boosting import tree as tt
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    g, h = _hist_values(gen, ds.num_data, dev)
+    full = torch.ones(ds.num_data, dtype=torch.bool, device=dev)
+    hist = torch.stack(tt.build_histogram(ds.binned, g, h, full,
+                                          ds.max_num_bins,
+                                          binned_t=ds.binned_t))
+    idx = torch.as_tensor(ds.categorical_feature, device=dev)
+    nb = torch.as_tensor(ds.num_bins, device=dev)[idx]
+    out = {}
+    for key, mdpg in (("tt_cat_scan_ms", 100.0),
+                      ("tt_cat_scan_no_group_ms", 0.0)):
+        reads = tt.grow_tree.host_reads
+        t0 = clock()
+        for _ in range(reps):
+            tt._cat_scan(hist[:, idx], nb, 0.0, 0.0, 20.0, 1e-3, 32, None,
+                         10.0, 10.0, mdpg, 4)
+        out[key] = (clock() - t0) / reps * 1e3
+        tt.grow_tree.host_reads = reads
+    out["tt_group_scan_ms_per_leaf"] = (out["tt_cat_scan_ms"]
+                                        - out["tt_cat_scan_no_group_ms"])
+    return out
+
+
+def _cat_gpboost_train(Xc, y, coords, m, seed, dtype, dev, **extra):
+    import gpboost_tpu_torch as gpt
+    gp = _gp_model(coords, m, seed, dtype, dev)
+    ds = gpt.Dataset(Xc, label=y, categorical_feature=[5, 6], device=dev)
+    bst = gpt.train(dict(BOOST_PARAMS, **extra), ds, gp_model=gp,
+                    num_boost_round=TT_ROUNDS)
+    return bst, ds
+
+
+def categorical_gpboost(tt_data, coords, pred, m, seed, dev):
+    """GPBoost on the recipe with two categorical columns (c2 past the
+    255-bin cap), 10 % NaN in X1, the float32 Vecchia GP with L-BFGS
+    refits, TT_ROUNDS rounds; prediction at the 10 000 points with 5 %
+    unseen levels; the histogram kernel on this Dataset; trained twice to
+    the same bits; card vs CPU at TT_CPU_N points in float64."""
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    Xc, y, Xc_pred = tt_data
+    reset_counts()
+    t0 = clock()
+    bst, ds = _cat_gpboost_train(Xc, y, coords, m, seed, torch.float32, dev)
+    t_train = clock() - t0
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    leaves = sum(t.num_leaves for t in bst.trees)
+    n_cat = sum(int(np.sum(t.is_categorical[t.internal_nodes()]))
+                for t in bst.trees)
+    check(launches["histogram"] == leaves, f"categorical_gpboost: histogram "
+          f"launched {launches['histogram']} times for {leaves} leaves")
+    # a read a tree for the scales, two a leaf scanned (its packed read and
+    # the min_data_per_group scan)
+    check(reads == 4 * leaves - TT_ROUNDS, f"categorical_gpboost: {reads} "
+          f"host reads for {leaves} leaves")
+    check(n_cat > 0, "categorical_gpboost: no categorical split")
+    check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
+          f"categorical_gpboost: Vecchia kernels {launches}")
+    check(ds.num_bins[6] == 255 and int(ds.binned[:, 6].max()) == 254,
+          "categorical_gpboost: c2's bins are not capped at 255")
+    t0 = clock()
+    out = bst.predict(Xc_pred, gp_coords_pred=pred, predict_var=True)
+    t_pred = clock() - t0
+    for key in ("response_mean", "response_var", "fixed_effect"):
+        v = np.asarray(out[key])
+        check(v.shape == (len(Xc_pred),) and bool(np.all(np.isfinite(v))),
+              f"categorical_gpboost: prediction {key}")
+    hist_cases, hist_timed = check_histogram_on(ds, seed, dev,
+                                                "categorical_gpboost")
+    scan_ms = _cat_scan_ms(ds, seed, dev)
+    bst2, _ = _cat_gpboost_train(Xc, y, coords, m, seed, torch.float32, dev)
+    check(np.array_equal(bst._score, bst2._score)
+          and np.array_equal(bst.gp_model.get_cov_pars(),
+                             bst2.gp_model.get_cov_pars()),
+          "categorical_gpboost: two trainings differ")
+    n = TT_CPU_N
+    bc, _ = _cat_gpboost_train(Xc[:n], y[:n], coords[:n], m, seed,
+                               torch.float64, dev, gpu_use_dp=True)
+    bh, _ = _cat_gpboost_train(Xc[:n], y[:n], coords[:n], m, seed,
+                               torch.float64, torch.device("cpu"))
+    compared, tie, err = _tt_agree(bc, bh, Xc[:n], TT_CPU_RTOL)
+    emit({"phase": "categorical_gpboost", "n": len(y), "rounds": TT_ROUNDS,
+          "levels": [TT_C1_LEVELS, TT_C2_LEVELS], "nan_share": TT_NAN,
+          "num_bins": [int(b) for b in ds.num_bins], "leaves": leaves,
+          "categorical_splits": n_cat, "launches": launches,
+          "host_reads_per_leaf": reads / leaves, "train_s": t_train,
+          "predict_s": t_pred, "same_bits": True, **scan_ms,
+          "vs_cpu": {"n": n, "trees_identical": compared, "tie": tie,
+                     "raw_score_max_abs_diff": err,
+                     "tolerance": TT_CPU_RTOL}})
+    return launches, {"tt_cat_train_s": t_train, "tt_cat_predict_s": t_pred,
+                      **scan_ms}, \
+        (hist_cases, hist_timed)
+
+
+def efb_onehot(oh_data, seed, dev):
+    """The recipe's features and a one-hot 60-level factor (65 columns,
+    `regression`, TT_ROUNDS rounds): EFB bundles them, the kernel is held
+    against its plain version on the bundle panel, and the training is held
+    against the same one without bundling."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    from gpboost_tpu_torch.ops.kernels import histogram as hk
+    X, y = oh_data
+    ds = gpt.Dataset(X, label=y, device=dev)
+    efb = ds.efb
+    check(efb is not None and efb.binned_hist_t is not None,
+          "efb_onehot: EFB did not engage")
+    G = efb.binned_hist.shape[1]
+    reset_counts()
+    t0 = clock()
+    bst = gpt.train(BOOST_PARAMS, ds, num_boost_round=TT_ROUNDS)
+    t_train = clock() - t0
+    launches = read_counts()
+    reads = grow_tree.host_reads
+    leaves = sum(t.num_leaves for t in bst.trees)
+    check(launches["histogram"] == leaves, f"efb_onehot: histogram launched "
+          f"{launches['histogram']} times for {leaves} leaves")
+    check(reads == 2 * leaves, f"efb_onehot: {reads} host reads")
+    off = gpt.Dataset(X, label=y, params={"enable_bundle": False},
+                      device=dev)
+    t0 = clock()
+    b_off = gpt.train(dict(BOOST_PARAMS, enable_bundle=False), off,
+                      num_boost_round=TT_ROUNDS)
+    t_off = clock() - t0
+    compared, tie = _tree_pairs_agree(bst, b_off, 1e-5)
+    check(tie is None, f"efb_onehot: EFB on and off split differently: {tie}")
+    diff = float(np.max(np.abs(bst._score - b_off._score)))
+    hist_cases, hist_timed = check_histogram_on_panel(
+        efb.binned_hist, efb.binned_hist_t, efb.max_bins_hist, seed, dev,
+        "efb_bundle_panel")
+    # one call's device time with and without bundling, all rows
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g, h = _hist_values(gen, ds.num_data, dev)
+    full = torch.ones(ds.num_data, dtype=torch.bool, device=dev)
+    sc = hk.fixed_point_scales(g, h)
+    bundled_ms = graph_ms(lambda: hk.histogram(
+        efb.binned_hist, g, h, full, efb.max_bins_hist,
+        binned_t=efb.binned_hist_t, scales=sc), 50)
+    unbundled_ms = graph_ms(lambda: hk.histogram(
+        off.binned, g, h, full, off.max_num_bins, binned_t=off.binned_t,
+        scales=sc), 50)
+    emit({"phase": "efb_onehot", "n": len(y), "columns": X.shape[1],
+          "bundles": G, "multi_member_bundles": efb.n_multi_bundles,
+          "bundle_bins": [int(b) for b in efb.num_bins_hist],
+          "rounds": TT_ROUNDS, "leaves": leaves, "launches": launches,
+          "train_s": t_train, "train_unbundled_s": t_off,
+          "same_splits_as_unbundled": compared,
+          "score_max_abs_diff_vs_unbundled": diff,
+          "hist_device_ms_bundled": bundled_ms,
+          "hist_device_ms_unbundled": unbundled_ms})
+    return launches, {"tt_efb_train_s": t_train,
+                      "tt_efb_unbundled_train_s": t_off,
+                      "tt_efb_hist_device_ms": bundled_ms,
+                      "tt_efb_hist_unbundled_device_ms": unbundled_ms}, \
+        (hist_cases, hist_timed), ds
+
+
+def _tt_option_cases(tmp):
+    """(name, training params, Dataset params, data variant) of
+    tree_options; files of the forced splits and bins under ``tmp``."""
+    import os
+    fs_file = os.path.join(tmp, "forced_splits.json")
+    fb_file = os.path.join(tmp, "forced_bins.json")
+    with open(fs_file, "w") as fh:
+        json.dump(TT_FORCED, fh)
+    with open(fb_file, "w") as fh:
+        json.dump([{"feature": 0, "bin_upper_bound": [0.25, 0.5, 0.75]}],
+                  fh)
+    mono = [1, 0, 0, 0, 0]
+    return [
+        ("monotone_basic", {"monotone_constraints": mono}, None, "x"),
+        ("monotone_intermediate", {"monotone_constraints": mono,
+                                   "monotone_constraints_method":
+                                   "intermediate"}, None, "x"),
+        ("monotone_advanced", {"monotone_constraints": mono,
+                               "monotone_constraints_method": "advanced"},
+         None, "x"),
+        ("monotone_penalty", {"monotone_constraints": mono,
+                              "monotone_penalty": 2.0}, None, "x"),
+        ("interaction_constraints",
+         {"interaction_constraints": TT_GROUPS}, None, "x"),
+        ("forced_splits", {"forced_splits": TT_FORCED}, None, "x"),
+        ("forcedsplits_filename", {"forcedsplits_filename": fs_file}, None,
+         "x"),
+        ("forcedbins_filename", {}, {"forcedbins_filename": fb_file}, "x"),
+        ("extra_trees", {"extra_trees": True, "extra_seed": 7}, None, "x"),
+        ("path_smooth", {"path_smooth": 50.0}, None, "x"),
+        ("max_delta_step", {"max_delta_step": TT_MDS}, None, "x"),
+        ("feature_contri", {"feature_contri": [0.2, 1.0, 1.0, 1.0, 0.5]},
+         None, "x"),
+        ("cegb_split", {"cegb_penalty_split": 1e-4}, None, "x"),
+        ("cegb_coupled", {"cegb_penalty_feature_coupled": [50.0, 1.0, 1.0,
+                                                           5.0, 5.0]},
+         None, "x"),
+        ("cegb_lazy", {"cegb_penalty_feature_lazy": [0.0, 0.01, 0.01, 0.1,
+                                                     0.1]}, None, "x"),
+        ("linear_tree", {"linear_tree": True, "linear_lambda": 0.1}, None,
+         "x"),
+        ("max_bin_by_feature", {}, {"max_bin_by_feature": [16, 0, 64, 0, 8]},
+         "x"),
+        ("zero_as_missing", {"zero_as_missing": True},
+         {"zero_as_missing": True}, "missing"),
+        ("use_missing_false", {"use_missing": False}, {"use_missing": False},
+         "missing"),
+    ]
+
+
+def _tt_option_gates(name, bst, X):
+    """The gate of each option on its trained booster."""
+    lr = BOOST_PARAMS["learning_rate"]
+    if name.startswith("monotone"):
+        grid = np.linspace(0.01, 0.99, 50)
+        for q in (0.25, 0.5, 0.75):
+            probe = np.tile(np.quantile(X[:2000], q, axis=0), (50, 1))
+            probe[:, 0] = grid
+            d = np.diff(bst.predict(probe))
+            check(bool(np.all(d >= -1e-6)), f"{name}: not monotone along "
+                  f"X1 ({float(d.min())})")
+    if name == "interaction_constraints":
+        groups = [frozenset(g) for g in TT_GROUPS]
+        for t in bst.trees:
+            stack = [(0, frozenset())]
+            while stack:
+                node, feats = stack.pop()
+                if t.is_leaf[node]:
+                    check(any(feats <= g for g in groups),
+                          f"{name}: a path uses {sorted(feats)}")
+                    continue
+                f = feats | {int(t.split_feature[node])}
+                stack += [(int(t.left[node]), f), (int(t.right[node]), f)]
+    if name in TT_FORCED_CASES:
+        for t in bst.trees:
+            lid = t.left[0]
+            check(t.split_feature[0] == 0 and t.split_feature[lid] == 1
+                  and not t.is_leaf[lid], f"{name}: the forced splits are "
+                  "not at the root")
+    if name == "max_delta_step":
+        top = max(float(np.max(np.abs(t.leaf_value))) for t in bst.trees)
+        check(top <= TT_MDS * lr + 1e-12, f"{name}: a leaf of {top}")
+    if name == "linear_tree":
+        check(any(t.lin_features is not None
+                  and bool(np.any(t.lin_features >= 0)) for t in bst.trees),
+              f"{name}: no linear leaf")
+
+
+def tree_options(boost_data, seed, dev):
+    """The recipe without a GP, one training a grower option
+    (_tt_option_cases), TT_OPT_ROUNDS rounds at full width: histogram launches
+    = leaves (+ one a forced split: both its children are built, as in the
+    JAX package), each option's gate, card (gpu_use_dp) vs CPU at
+    TT_CPU_N rows, and two trainings to the same bits for CEGB (lazy) and
+    linear leaves."""
+    import tempfile
+
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    X, yb, _ = boost_data
+    rng = np.random.default_rng(seed + 142)
+    Xm = X.copy()
+    Xm[rng.random(len(X)) < 0.1, 1] = 0.0
+    Xm[rng.random(len(X)) < 0.1, 0] = np.nan
+    data = {"x": X, "missing": Xm}
+    out, timings, total = {}, {}, None
+    n = TT_CPU_N
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, params, dparams, variant in _tt_option_cases(tmp):
+            Xv = data[variant]
+            p = dict(BOOST_PARAMS, **params)
+
+            def train(d, rows=slice(None), **extra):
+                ds = gpt.Dataset(Xv[rows], label=yb[rows], params=dparams,
+                                 device=d)
+                return gpt.train(dict(p, **extra), ds,
+                                 num_boost_round=TT_OPT_ROUNDS)
+
+            reset_counts()
+            t0 = clock()
+            bst = train(dev)
+            t_train = clock() - t0
+            launches = read_counts()
+            leaves = sum(t.num_leaves for t in bst.trees)
+            forced = 2 if name in TT_FORCED_CASES else 0
+            check(launches["histogram"] == leaves + forced * TT_OPT_ROUNDS,
+                  f"{name}: histogram launched {launches['histogram']} times "
+                  f"for {leaves} leaves")
+            check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
+                  == 0, f"{name} launched a Vecchia kernel")
+            _tt_option_gates(name, bst, Xv)
+            same_bits = None
+            if name in ("cegb_lazy", "linear_tree"):
+                same_bits = np.array_equal(bst._score, train(dev)._score)
+                check(same_bits, f"{name}: two trainings differ")
+            bc = train(dev, slice(0, n), gpu_use_dp=True)
+            bh = train(torch.device("cpu"), slice(0, n))
+            compared, tie, err = _tt_agree(bc, bh, Xv[:n], TT_CPU_RTOL)
+            out[name] = {"leaves": leaves, "launches": launches,
+                         "host_reads": grow_tree.host_reads,
+                         "train_s": t_train, "same_bits": same_bits,
+                         "cpu_trees_identical": compared, "cpu_tie": tie,
+                         "cpu_raw_score_max_abs_diff": err}
+            timings[f"tt_opt_{name}_train_s"] = t_train
+            total = (launches if total is None else
+                     {k: total[k] + v for k, v in launches.items()})
+    emit({"phase": "tree_options", "n": len(yb), "rounds": TT_OPT_ROUNDS,
+          "cpu_n": n, "tolerance": TT_CPU_RTOL, **out})
+    return total, timings
+
+
+def sparse_and_files(oh_data, ds_onehot, tt_data, seed, dev):
+    """A scipy.sparse copy of efb_onehot's data trains the same trees as
+    the dense array; ``save_binary`` and the reload give the same bins; a
+    model with categorical and linear trees saved and reloaded predicts the
+    same bits."""
+    import os
+    import tempfile
+
+    import scipy.sparse as sp
+
+    import gpboost_tpu_torch as gpt
+    X, y = oh_data
+    reset_counts()
+    t0 = clock()
+    b_sp = gpt.train(BOOST_PARAMS, gpt.Dataset(sp.csr_matrix(X), label=y,
+                                               device=dev),
+                     num_boost_round=3)
+    t_sparse = clock() - t0
+    launches = read_counts()
+    b_dn = gpt.train(BOOST_PARAMS, gpt.Dataset(X, label=y, device=dev),
+                     num_boost_round=3)
+    check(np.array_equal(b_sp._score, b_dn._score),
+          "sparse_and_files: the sparse matrix trains other trees")
+    Xc, yc, Xc_pred = tt_data
+    with tempfile.TemporaryDirectory() as tmp:
+        f = os.path.join(tmp, "onehot.bin")
+        ds_onehot.save_binary(f)
+        back = gpt.Dataset(f, device=dev)
+        check(torch.equal(back.binned, ds_onehot.binned)
+              and torch.equal(back.efb.binned_hist,
+                              ds_onehot.efb.binned_hist),
+              "sparse_and_files: the reloaded bins differ")
+        # linear leaves read raw values: X1 without its missing values (a
+        # NaN in a leaf's feature gives NaN, as in the JAX package)
+        Xl, Xl_pred = np.nan_to_num(Xc), np.nan_to_num(Xc_pred)
+        bst = gpt.train(dict(BOOST_PARAMS, linear_tree=True),
+                        gpt.Dataset(Xl, label=yc, categorical_feature=[5, 6],
+                                    device=dev), num_boost_round=3)
+        check(any(t.has_categorical() for t in bst.trees)
+              and any(t.lin_features is not None for t in bst.trees),
+              "sparse_and_files: no categorical split or linear leaf")
+        mf = os.path.join(tmp, "model.json")
+        bst.save_model(mf)
+        loaded = gpt.Booster(model_file=mf, device=dev)
+        p1, p2 = bst.predict(Xl_pred), loaded.predict(Xl_pred)
+        check(np.array_equal(p1, p2) and bool(np.all(np.isfinite(p1))),
+              "sparse_and_files: the reloaded model predicts other bits")
+    emit({"phase": "sparse_and_files", "sparse_rounds": 3,
+          "sparse_train_s": t_sparse, "sparse_same_bits": True,
+          "binary_round_trip": True, "model_round_trip_same_bits": True,
+          "launches": launches})
+    return launches, {"tt_sparse_train_s": t_sparse}
+
+
+def tree_tail_paths(boost_data, coords, pred, m, seed, dev):
+    """Phase 14 in order; returns (launches by path, timings, the
+    histogram's cases and timings on the categorical Dataset and the bundle
+    panel)."""
+    X, yb, X_pred = boost_data
+    tt_data = make_tree_tail_data(seed, X, yb, X_pred)
+    oh_data = make_onehot_data(seed, X, len(X_pred))
+    launches, timings, hist_cases, hist_timed = {}, {}, [], []
+    t0 = clock()
+    launches["categorical_gpboost"], t, hist = categorical_gpboost(
+        tt_data, coords, pred, m, seed, dev)
+    timings.update(t)
+    hist_cases += hist[0]
+    hist_timed.append(hist[1])
+    timings["phase14_categorical_gpboost_s"] = clock() - t0
+    t0 = clock()
+    launches["efb_onehot"], t, hist, ds_oh = efb_onehot(oh_data, seed, dev)
+    timings.update(t)
+    hist_cases += hist[0]
+    hist_timed.append(hist[1])
+    timings["phase14_efb_onehot_s"] = clock() - t0
+    t0 = clock()
+    launches["tree_options"], t = tree_options(boost_data, seed, dev)
+    timings.update(t)
+    timings["phase14_tree_options_s"] = clock() - t0
+    t0 = clock()
+    launches["sparse_and_files"], t = sparse_and_files(oh_data, ds_oh,
+                                                       tt_data, seed, dev)
+    timings.update(t)
+    timings["phase14_sparse_and_files_s"] = clock() - t0
+    del ds_oh
+    torch.cuda.empty_cache()
+    return launches, timings, (hist_cases, hist_timed)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5423,6 +5963,15 @@ def main():
     timings.update(bt_timings)
     cases["histogram"] += bt_hist[0]
     timed["histogram"]["other_shapes"].append(bt_hist[1])
+    # phase 14, the tree learner's tail and its data, before the second
+    # runs too
+    t0 = clock()
+    tt_launches, tt_timings, tt_hist = tree_tail_paths(
+        boost_data, coords, pred, args.m, args.seed, dev)
+    timings.update(tt_timings)
+    timings["phase14_s"] = clock() - t0
+    cases["histogram"] += tt_hist[0]
+    timed["histogram"]["other_shapes"] += tt_hist[1]
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -5465,7 +6014,8 @@ def main():
              "ng_path": ng_launches, "lagaboost": lg_launches,
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
-             **it_launches, **vr_launches, **tail_launches, **bt_launches}
+             **it_launches, **vr_launches, **tail_launches, **bt_launches,
+             **tt_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -5494,7 +6044,13 @@ def main():
              tuple(REPLACES)),
             ("objectives_tail", bt_launches["objectives_tail"],
              ("histogram",)),
-            ("cv_grouped", bt_launches["cv_grouped"], ("histogram",))):
+            ("cv_grouped", bt_launches["cv_grouped"], ("histogram",)),
+            ("categorical_gpboost", tt_launches["categorical_gpboost"],
+             tuple(REPLACES)),
+            ("efb_onehot", tt_launches["efb_onehot"], ("histogram",)),
+            ("tree_options", tt_launches["tree_options"], ("histogram",)),
+            ("sparse_and_files", tt_launches["sparse_and_files"],
+             ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")

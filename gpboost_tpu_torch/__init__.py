@@ -9,8 +9,12 @@ reference. Ported so far:
   C++ (``csrc/vecchia_factors.cu``);
 - tree boosting and the GPBoost algorithm (``Dataset``, ``Booster``,
   ``train(params, dataset, gp_model=gp)``, ``Booster.predict``): the
-  host-driven leaf-wise learner for numeric features, every histogram
-  through a hand-written CUDA kernel (``csrc/histogram.cu``), with the
+  host-driven leaf-wise learner, every histogram through a hand-written
+  CUDA kernel (``csrc/histogram.cu``), on numeric and categorical
+  features, pandas DataFrames and scipy.sparse input, with EFB bundles,
+  the grower's options (monotone and interaction constraints, forced
+  splits and bins, extra trees, path smoothing, ``max_delta_step``, CEGB,
+  ``feature_contri``, linear leaves, the missing-value switches), the
   objectives without a GP (regression and its L1 / huber / fair / quantile
   / mape / tobit / mean-scale variants, poisson, gamma, tweedie, binary,
   the cross-entropies, multiclass and one-vs-all), bagging and feature
@@ -50,8 +54,7 @@ There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,
 ``device="cpu"`` runs the plain PyTorch versions).
 
-Not ported yet: ranking, categorical features, DART / GOSS / RF and the rest
-of the boosting tail (ROADMAP.md Queue A, item 18b), the device-resident
+Not ported yet: ranking, DART / GOSS / RF and the rest of the boosting tail (ROADMAP.md Queue A, item 18c), the device-resident
 training loop (item 10), the parameter registry and the TPE tuner (item
 19), several GPUs (item 20).
 """

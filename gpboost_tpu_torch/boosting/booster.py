@@ -22,9 +22,21 @@ they are float64. The random draws (bags, feature sets by tree and by node)
 come from numpy generators seeded and drawn as the JAX package draws them,
 so both packages grow the same trees from the same parameters.
 
-Not ported (ROADMAP.md Queue A, item 18b): DART / GOSS / RF, Nesterov
-acceleration, ``refit``, SHAP, ``pred_leaf``, the text model format; the
-device-resident loop is item 10.
+The grower's options come from ``params`` as in the JAX package
+(``booster.py:80-211``): categorical features (the Dataset's), monotone and
+interaction constraints, forced splits (``forced_splits`` /
+``forcedsplits_filename``, thresholds resolved to bins), CEGB, extra trees
+(``extra_seed``'s own generator), path smoothing, ``max_delta_step``,
+``feature_contri``, and linear leaves (``linear_tree``, fitted after the
+grower). Prediction maps DataFrames through the training category levels,
+densifies sparse input, applies the training missing-value policy again, and
+takes the trees' categorical and linear routes; the JSON model keeps
+``cat_maps``, ``pandas_categorical`` and the linear coefficients.
+
+Not ported (ROADMAP.md Queue A, item 18c): DART / GOSS / RF, Nesterov
+acceleration, the leaf re-solves, ranking, continued training, ``refit``,
+SHAP, ``pred_leaf``, the text model format; the device-resident loop is
+item 10.
 """
 from __future__ import annotations
 
@@ -37,15 +49,19 @@ import torch
 
 from gpboost_tpu_torch import config as cfg_mod
 from gpboost_tpu_torch.boosting import metrics as metrics_mod
-from gpboost_tpu_torch.boosting.dataset import Dataset
+from gpboost_tpu_torch.boosting.compat_data import marshal_matrix
+from gpboost_tpu_torch.boosting.dataset import Dataset, cat_bins
 from gpboost_tpu_torch.boosting.objectives import (GPBoostObjective,
                                                    create_objective)
-from gpboost_tpu_torch.boosting.tree import (GrowerParams, Tree, grow_tree,
+from gpboost_tpu_torch.boosting.tree import (CEGBState, GrowerParams, Tree,
+                                             fit_linear_leaves, grow_tree,
+                                             predict_tree_linear,
+                                             predict_tree_mixed,
                                              predict_tree_raw)
 from gpboost_tpu_torch.utils import resolve_device, same_device
 from gpboost_tpu_torch.utils.timer import timed
 
-_TAIL = "ROADMAP.md Queue A, item 18b"
+_TAIL = "ROADMAP.md Queue A, item 18c"
 LOG2PI = math.log(2.0 * math.pi)
 
 
@@ -103,8 +119,48 @@ class Booster:
             lambda_l1=float(p.get("lambda_l1", 0.0)),
             lambda_l2=float(p.get("lambda_l2", 0.0)),
             min_gain_to_split=float(p.get("min_gain_to_split", 0.0)),
+            path_smooth=float(p.get("path_smooth", 0.0)),
+            extra_trees=bool(p.get("extra_trees", False)),
             feature_fraction_bynode=float(
-                p.get("feature_fraction_bynode", 1.0)))
+                p.get("feature_fraction_bynode", 1.0)),
+            monotone_constraints_method=str(
+                p.get("monotone_constraints_method", "basic")),
+            monotone_penalty=float(p.get("monotone_penalty", 0.0)),
+            cat_l2=float(p.get("cat_l2", 10.0)),
+            cat_smooth=float(p.get("cat_smooth", 10.0)),
+            min_data_per_group=float(p.get("min_data_per_group", 100)),
+            max_cat_to_onehot=int(p.get("max_cat_to_onehot", 4)),
+            max_delta_step=float(p.get("max_delta_step", 0.0)),
+            feature_contri=(None if p.get("feature_contri") is None else
+                            np.asarray(p["feature_contri"], np.float64)))
+        self.max_cat_threshold = int(p.get("max_cat_threshold", 32))
+        ic = p.get("interaction_constraints", None)
+        if isinstance(ic, str) and ic:
+            import ast
+            ic = ast.literal_eval(ic)
+        self._interaction_constraints = ic if ic else None
+        fsp = p.get("forced_splits", None)
+        fname = p.get("forcedsplits_filename", "")
+        if fsp is None and fname:
+            with open(fname) as fh:
+                fsp = json.load(fh)
+        self._forced_splits = self._resolve_forced(fsp) if fsp else None
+        mono = p.get("monotone_constraints", None)
+        if isinstance(mono, str):
+            mono = [int(v) for v in mono.strip("()[] ").split(",")]
+        self._monotone = (None if mono is None
+                          else np.asarray(mono, dtype=np.int32))
+        self.linear_tree = bool(p.get("linear_tree", False))
+        self.linear_lambda = float(p.get("linear_lambda", 0.0))
+        self._cegb = CEGBState.from_params(
+            p, train_set.num_features, train_set.num_data, self.device)
+        self._cat_mask = None
+        if train_set.categorical_feature:
+            self._cat_mask = np.zeros(train_set.num_features, dtype=bool)
+            self._cat_mask[list(train_set.categorical_feature)] = True
+        # the training rows' raw values and category bins on the device
+        # (linear trees evaluate on them)
+        self._train_X = None
         self.boosting_type = "gbdt"
         self.bagging_fraction = float(p.get("bagging_fraction", 1.0))
         self.bagging_freq = int(p.get("bagging_freq", 0))
@@ -118,8 +174,9 @@ class Booster:
         self._grad_dtype = (
             torch.float32 if self.device.type == "cuda"
             and not bool(p.get("gpu_use_dp", False)) else torch.float64)
-        self._num_bins_t = torch.as_tensor(
-            np.asarray(train_set.num_bins), device=self.device)
+        self._num_bins = np.asarray(train_set.num_bins)
+        self._num_bins_t = torch.as_tensor(self._num_bins,
+                                           device=self.device)
         # the JAX package's generators: one 'seed' stream, and dedicated
         # ones for bagging and feature sampling when their seeds are given
         # (config.h bagging_seed / feature_fraction_seed)
@@ -128,6 +185,8 @@ class Booster:
                          if "bagging_seed" in p else self._rng)
         self._ff_rng = (np.random.default_rng(int(p["feature_fraction_seed"]))
                         if "feature_fraction_seed" in p else self._rng)
+        self._extra_rng = (np.random.default_rng(int(p["extra_seed"]))
+                           if "extra_seed" in p else self._rng)
 
         self.trees: List[Tree] = []
         n = train_set.num_data
@@ -157,6 +216,17 @@ class Booster:
         self.metric_names = ([metric] if isinstance(metric, str)
                              else list(metric))
 
+    def _resolve_forced(self, node):
+        """A forced-splits JSON tree with its raw thresholds resolved to
+        bins (``forcedsplits_filename``, config.h:512)."""
+        out = {"feature": int(node["feature"]),
+               "threshold_bin": self.train_set.bin_for_threshold(
+                   int(node["feature"]), float(node["threshold"]))}
+        for side in ("left", "right"):
+            if isinstance(node.get(side), dict):
+                out[side] = self._resolve_forced(node[side])
+        return out
+
     # ------------------------------------------------------------------
     def add_valid(self, data: Dataset, name: str):
         """Add a validation Dataset: its score starts at the initial score
@@ -171,12 +241,11 @@ class Booster:
         score = np.zeros(nv * self.num_models)
         for m in range(self.num_models):
             score[m * nv:(m + 1) * nv] += self.init_score[m]
-        X = torch.as_tensor(np.asarray(data.raw_data, np.float64),
-                            device=self.device)
+        X = self._device_inputs(data.raw_data)
         for k, tree in enumerate(self.trees):
             m = k % self.num_models
             score[m * nv:(m + 1) * nv] += self._tree_raw_pred(
-                tree, X).cpu().numpy()
+                tree, *X).cpu().numpy()
         self._valid_scores.append(score)
         self._valid_X.append(X)
         return self
@@ -221,19 +290,20 @@ class Booster:
             self._bag_mask_t = torch.as_tensor(keep, device=self.device)
         return self._bag_mask_t
 
-    def _tree_num_bins(self) -> torch.Tensor:
+    def _tree_num_bins(self):
         """The features this tree may split on (``feature_fraction``): the
-        ones left out get 0 bins."""
+        ones left out get 0 bins. (device tensor, host copy)."""
         if self.feature_fraction >= 1.0:
-            return self._num_bins_t
+            return self._num_bins_t, self._num_bins
         F = self.train_set.num_features
         k = max(1, int(np.ceil(self.feature_fraction * F)))
         chosen = self._ff_rng.choice(F, size=k, replace=False)
         mask = np.zeros(F, dtype=bool)
         mask[chosen] = True
-        return torch.where(torch.as_tensor(mask, device=self.device),
-                           self._num_bins_t,
-                           torch.zeros_like(self._num_bins_t))
+        return (torch.where(torch.as_tensor(mask, device=self.device),
+                            self._num_bins_t,
+                            torch.zeros_like(self._num_bins_t)),
+                np.where(mask, self._num_bins, 0))
 
     def update(self, train_set=None, fobj=None):
         """One boosting iteration (``GBDT::TrainOneIter``, gbdt.cpp:404):
@@ -256,7 +326,7 @@ class Booster:
         # the JAX package's order of draws: the bag, then the tree's
         # features, then the nodes' features inside each grower call
         row_mask = self._bag(it, n)
-        num_bins = self._tree_num_bins()
+        num_bins, num_bins_host = self._tree_num_bins()
         nan_mask = ds.has_nan if bool(np.any(ds.has_nan)) else None
         for m in range(self.num_models):
             with timed("Booster: gradients to the device", sync=True):
@@ -270,28 +340,53 @@ class Booster:
                 tree, row_leaf = grow_tree(
                     ds.binned, num_bins, g, h, ds.max_num_bins, self.grower,
                     row_mask=row_mask, nan_mask=nan_mask,
-                    binned_t=ds.binned_t, rng=self._rng)
+                    binned_t=ds.binned_t,
+                    rng=(self._extra_rng if self.grower.extra_trees
+                         else self._rng),
+                    categorical_mask=self._cat_mask,
+                    max_cat_threshold=self.max_cat_threshold,
+                    monotone_constraints=self._monotone,
+                    forced_splits=self._forced_splits, cegb=self._cegb,
+                    efb=ds.efb,
+                    interaction_constraints=self._interaction_constraints,
+                    num_bins_host=num_bins_host)
             # real-valued thresholds for raw prediction
             for node in tree.internal_nodes():
+                if tree.is_categorical[node]:
+                    continue
                 tree.threshold[node] = ds.threshold_value(
                     int(tree.split_feature[node]),
                     int(tree.threshold_bin[node]))
+            if self.linear_tree:
+                with timed("Booster: linear leaves", sync=True):
+                    fit_linear_leaves(
+                        tree, self._train_inputs()[0], row_leaf,
+                        torch.as_tensor(grad[m * n:(m + 1) * n],
+                                        device=self.device),
+                        torch.as_tensor(hess[m * n:(m + 1) * n],
+                                        device=self.device),
+                        self.linear_lambda)
             tree.add_shrinkage(self.learning_rate)
             self.trees.append(tree)
             with timed("Booster: score update", sync=True):
-                # the grower's final row->leaf assignment IS the training
-                # prediction: a host gather replaces a tree traversal. Under
-                # a bag too: the partition moves the rows outside the bag
-                # with the others (the JAX package traverses the tree
-                # there, which gives the same leaves)
-                self._score[m * n:(m + 1) * n] += tree.leaf_value[
-                    row_leaf.cpu().numpy()]
+                if tree.lin_features is not None:
+                    # linear leaves: the tree evaluated on the raw rows
+                    self._score[m * n:(m + 1) * n] += self._tree_raw_pred(
+                        tree, *self._train_inputs()).cpu().numpy()
+                else:
+                    # the grower's final row->leaf assignment IS the
+                    # training prediction: a host gather replaces a tree
+                    # traversal. Under a bag too: the partition moves the
+                    # rows outside the bag with the others (the JAX package
+                    # traverses the tree there, which gives the same leaves)
+                    self._score[m * n:(m + 1) * n] += tree.leaf_value[
+                        row_leaf.cpu().numpy()]
             with timed("Booster: validation scores", sync=True):
                 for vi, vset in enumerate(self.valid_sets):
                     nv = vset.num_data
                     self._valid_scores[vi][m * nv:(m + 1) * nv] += \
                         self._tree_raw_pred(tree,
-                                            self._valid_X[vi]).cpu().numpy()
+                                            *self._valid_X[vi]).cpu().numpy()
         if isinstance(self.objective, GPBoostObjective):
             # end-of-iteration covariance refit at the UPDATED score
             # (gbdt.cpp:536-542 calls Boosting() again after UpdateScore):
@@ -342,7 +437,7 @@ class Booster:
                 res.append((name, base, val, spec.higher_better))
                 continue
             if spec.kind == "rank":
-                spec.fn()                     # raises: item 18b
+                spec.fn()                     # raises: item 18c
             if pred is None:
                 pred = self._convert_for_metric(dset, score)
             kwargs = {}
@@ -515,7 +610,7 @@ class Booster:
                 f"gpboost_tpu_torch yet ({_TAIL})")
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
-        data = np.asarray(data, dtype=np.float64)
+        data = self._marshal_pred(data)
         if data.ndim == 1:
             data = data[:, None]
         raw = self._predict_raw(data, num_iteration,
@@ -547,24 +642,109 @@ class Booster:
         # start_iteration (config.h:647): predict from a tree-range suffix;
         # the boost-from-average base belongs to iteration 0
         start = max(0, int(start_iteration or 0)) * K
-        X = torch.as_tensor(np.asarray(data, np.float64), device=self.device)
+        X = self._device_inputs(data)
         score = torch.zeros(K, n, dtype=torch.float64, device=self.device)
         if start == 0:
             score += torch.as_tensor(self.init_score, dtype=torch.float64,
                                      device=self.device)[:, None]
         for k in range(start, limit):
-            score[k % K] += self._tree_raw_pred(self.trees[k], X)
+            score[k % K] += self._tree_raw_pred(self.trees[k], *X)
         return score.reshape(-1).cpu().numpy()
 
-    def _tree_raw_pred(self, tree: Tree, X: torch.Tensor) -> torch.Tensor:
+    def _marshal_pred(self, data):
+        """Prediction input as a float64 array: a DataFrame mapped through
+        the training category levels, a sparse matrix densified
+        (reference ``_InnerPredictor.predict``, basic.py:788), then the
+        training missing-value policy (``use_missing`` / ``zero_as_missing``)
+        applied again."""
+        arr, _, _, _ = marshal_matrix(
+            data, "auto", "auto", pandas_categorical=self._training_levels())
+        if not bool(self.params.get("use_missing", True)):
+            arr = np.where(np.isfinite(arr), arr, 0.0)
+        elif bool(self.params.get("zero_as_missing", False)):
+            arr = np.where(arr == 0.0, np.nan, arr)
+        return arr
+
+    def _pandas_categorical_levels(self):
+        """The training category levels in a JSON-safe form (the reference
+        keeps ``pandas_categorical`` in the model file, basic.py:3321)."""
+        pc = self._training_levels()
+        if not pc:
+            return None
+
+        def conv(v):
+            if isinstance(v, (bool, int, float, str)):
+                return v
+            if isinstance(v, np.integer):
+                return int(v)
+            if isinstance(v, np.floating):
+                return float(v)
+            return str(v)
+
+        return [[conv(v) for v in levels] for levels in pc]
+
+    def _training_levels(self):
+        """The training DataFrame's category levels (``pandas_categorical``)
+        of the training Dataset or of the loaded model."""
+        if self.train_set is not None:
+            return self.train_set.pandas_categorical
+        return getattr(self, "_pandas_categorical", None)
+
+    def _cat_maps(self) -> dict:
+        if self.train_set is not None:
+            return self.train_set.cat_maps or {}
+        return getattr(self, "_loaded_cat_maps", None) or {}
+
+    def _device_inputs(self, data):
+        """(raw values [n, F] float64, category bins [n, F] int32 or None)
+        of prediction data on the booster's device: the categorical columns
+        mapped through ``cat_maps`` (unseen values and NaN to bin 0)."""
+        data = np.asarray(data, np.float64)
+        X = torch.tensor(data, device=self.device)
+        maps = self._cat_maps()
+        if not maps:
+            return X, None
+        bins = np.zeros(data.shape, dtype=np.int32)
+        for f, lookup in maps.items():
+            bins[:, int(f)] = cat_bins(data[:, int(f)], lookup)
+        return X, torch.as_tensor(bins, device=self.device)
+
+    def _train_inputs(self):
+        if self._train_X is None:
+            self._train_X = self._device_inputs(self.train_set.raw_data)
+        return self._train_X
+
+    def _tree_raw_pred(self, tree: Tree, X: torch.Tensor,
+                       cat_bins_t: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """One tree on raw values ``X`` (and the category bins of its
+        categorical columns): the plain, categorical or linear traversal."""
         def dev(a):
             return torch.as_tensor(a, device=self.device)
 
+        dl = None if tree.default_left is None else dev(tree.default_left)
+        depth = int(tree.max_depth_used)
+        if tree.lin_features is not None or tree.has_categorical():
+            M = len(tree.is_leaf)
+            is_cat = dev(tree.is_categorical if tree.is_categorical
+                         is not None else np.zeros(M, bool))
+            cmask = dev(tree.cat_mask if tree.cat_mask is not None
+                        else np.zeros((M, 1), bool))
+            cb = (cat_bins_t if cat_bins_t is not None else torch.zeros(
+                X.shape, dtype=torch.int32, device=self.device))
+            common = (X, cb, dev(tree.split_feature), dev(tree.threshold),
+                      is_cat, cmask, dev(tree.left), dev(tree.right), depth,
+                      dev(tree.leaf_value))
+            if tree.lin_features is not None:
+                vals, _ = predict_tree_linear(
+                    *common, dev(tree.lin_features), dev(tree.lin_coefs),
+                    default_left=dl)
+            else:
+                vals, _ = predict_tree_mixed(*common, default_left=dl)
+            return vals
         vals, _ = predict_tree_raw(
             X, dev(tree.split_feature), dev(tree.threshold), dev(tree.left),
-            dev(tree.right), dev(tree.leaf_value), int(tree.max_depth_used),
-            default_left=(None if tree.default_left is None
-                          else dev(tree.default_left)))
+            dev(tree.right), dev(tree.leaf_value), depth, default_left=dl)
         return vals
 
     def _predict_with_gp(self, raw, pred_kwargs, pred_latent):
@@ -664,12 +844,14 @@ class Booster:
             "init_score": self.init_score.tolist(),
             "trees": [t.to_dict() for t in self.trees],
             "best_iteration": self.best_iteration,
-            "cat_maps": None,
+            "cat_maps": ({str(f): {str(k): int(v) for k, v in mp.items()}
+                          for f, mp in self._cat_maps().items()}
+                         or None),
             "attrs": {},
             "feature_names": (list(self.train_set.feature_name)
                               if self.train_set is not None else
                               self._feature_names),
-            "pandas_categorical": None,
+            "pandas_categorical": self._pandas_categorical_levels(),
         }
         if self.gp_model is not None:
             d["gp_model"] = self.gp_model.model_to_dict()
@@ -695,20 +877,15 @@ class Booster:
             raise NotImplementedError(
                 f"a saved model with boosting_type='{self.boosting_type}' "
                 f"is not ported ({_TAIL})")
-        if d.get("cat_maps") or d.get("pandas_categorical"):
-            raise NotImplementedError(
-                f"a saved model with categorical features is not ported "
-                f"({_TAIL})")
+        cm = d.get("cat_maps")
+        self._loaded_cat_maps = (
+            None if not cm else
+            {int(f): {float(k): int(v) for k, v in mp.items()}
+             for f, mp in cm.items()})
+        self._pandas_categorical = d.get("pandas_categorical")
         self._feature_names = d.get("feature_names")
         self.init_score = np.asarray(d["init_score"], dtype=np.float64)
         self.trees = [Tree.from_dict(td) for td in d["trees"]]
-        for t in self.trees:
-            if (t.lin_features is not None or (
-                    t.is_categorical is not None
-                    and bool(np.any(t.is_categorical)))):
-                raise NotImplementedError(
-                    "a saved model with categorical splits or linear leaves "
-                    f"is not ported ({_TAIL})")
         self.best_iteration = d.get("best_iteration", -1)
         self.train_set = None
         self.gp_model = None

@@ -2,7 +2,7 @@
 
 The JAX package's host loop, in the port's idiom: every Dataset, fold and
 fold GPModel lives on the training Dataset's device. ``init_model``
-(continued training) is not ported (ROADMAP.md Queue A, item 18b); the
+(continued training) is not ported (ROADMAP.md Queue A, item 18c); the
 device-resident training loop is item 10.
 """
 from __future__ import annotations
@@ -25,7 +25,8 @@ from gpboost_tpu_torch.boosting.dataset import Dataset
 def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           gp_model=None, valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None, fobj=None, feval=None,
-          init_model=None, early_stopping_rounds: Optional[int] = None,
+          init_model=None, feature_name="auto", categorical_feature="auto",
+          early_stopping_rounds: Optional[int] = None,
           evals_result=None, verbose_eval: bool = True, learning_rates=None,
           callbacks=None, train_gp_model_cov_pars: bool = True,
           use_gp_model_for_validation: bool = True) -> Booster:
@@ -43,17 +44,24 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     ``early_stopping_round``) stops after that many rounds without a better
     value and sets ``best_iteration``, keeping the later trees.
     ``snapshot_freq`` > 0 saves the model as JSON every that many rounds to
-    ``{output_model}.snapshot_iter_{k}``.
+    ``{output_model}.snapshot_iter_{k}``. ``feature_name`` and
+    ``categorical_feature`` other than ``"auto"`` are set on ``train_set``
+    (names or indices; the Dataset bins again when its categorical features
+    change).
     """
     if init_model is not None:
         raise NotImplementedError(
             "train(init_model=...) (continued training) is not ported to "
-            "gpboost_tpu_torch yet (ROADMAP.md Queue A, item 18b)")
+            "gpboost_tpu_torch yet (ROADMAP.md Queue A, item 18c)")
     params = cfg_mod.resolve_params(params)
     params.setdefault("train_gp_model_cov_pars", train_gp_model_cov_pars)
     params.setdefault("use_gp_model_for_validation",
                       use_gp_model_for_validation)
     num_boost_round = int(params.pop("num_iterations", num_boost_round))
+    if feature_name != "auto":
+        train_set.set_feature_name(feature_name)
+    if categorical_feature != "auto":
+        train_set.set_categorical_feature(categorical_feature)
 
     booster = Booster(params=params, train_set=train_set, gp_model=gp_model)
     if valid_sets:
@@ -165,7 +173,7 @@ def cv(params: dict, train_set: Dataset, num_boost_round: int = 100,
     if init_model is not None:
         raise NotImplementedError(
             "cv(init_model=...) is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18b)")
+            "(ROADMAP.md Queue A, item 18c)")
     n = train_set.num_data
     fold_idx = _make_folds(n, nfold, stratified, train_set.label, seed, folds,
                            gp_model)
@@ -181,6 +189,7 @@ def cv(params: dict, train_set: Dataset, num_boost_round: int = 100,
         tr = ~test_mask
         sub_train = Dataset(train_set.raw_data[tr], label=train_set.label[tr],
                             max_bin=train_set.max_bin,
+                            categorical_feature=train_set.categorical_feature,
                             device=train_set.device)
         sub_valid = sub_train.create_valid(train_set.raw_data[test_mask],
                                            label=train_set.label[test_mask])

@@ -3,7 +3,7 @@
 The port's own copy of the JAX package's ``boosting/metrics.py``: host
 numpy on the labels and the (converted) scores, as there. The ranking
 metrics (``ndcg``, ``map``) keep their registry entries and raise
-(ROADMAP.md Queue A, item 18b).
+(ROADMAP.md Queue A, item 18c).
 """
 from __future__ import annotations
 
@@ -216,7 +216,7 @@ def crps_gaussian(y, mean, var, weight=None):
 def _ranking(*args, **kwargs):
     raise NotImplementedError(
         "the ranking metrics (ndcg, map) are not ported to gpboost_tpu_torch "
-        "yet (ROADMAP.md Queue A, item 18b)")
+        "yet (ROADMAP.md Queue A, item 18c)")
 
 
 ndcg_at_ks = map_at_ks = _ranking

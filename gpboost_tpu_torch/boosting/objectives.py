@@ -18,7 +18,7 @@ host loop; the covariance refit, the ``Psi^-1`` solve (Vecchia, Woodbury
 for grouped random effects, or a dense Cholesky for an exact GP) and the
 Laplace gradient run on the model's device. The ranking objectives
 (``lambdarank``, ``rank_xendcg``) are not ported (ROADMAP.md Queue A, item
-18b). As in the JAX package, leaf outputs are never renewed from residual
+18c). As in the JAX package, leaf outputs are never renewed from residual
 quantiles (``regression_l1``, ``quantile`` and ``mape`` keep the Newton
 leaf values of their constant hessians).
 """
@@ -642,7 +642,7 @@ def create_objective(name: str, params: dict, gp_model=None) -> Objective:
     ``GP_OBJECTIVES`` (and their aliases) gives the GPBoost / LaGaBoost
     objective — the response distribution is the GPModel's likelihood —
     and any other name is a ``ValueError``, as in the JAX package. The
-    ranking objectives raise ``NotImplementedError`` (item 18b)."""
+    ranking objectives raise ``NotImplementedError`` (item 18c)."""
     name = _ALIASES.get(name, name)
     if gp_model is not None:
         if name not in GP_OBJECTIVES:
@@ -659,7 +659,7 @@ def create_objective(name: str, params: dict, gp_model=None) -> Objective:
     if name in RANKING:
         raise NotImplementedError(
             f"objective '{name}' is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18b: ranking)")
+            "(ROADMAP.md Queue A, item 18c: ranking)")
     if name == "regression_gp":
         raise ValueError("objective 'regression_gp' needs a gp_model")
     if name == "regression":

@@ -10,9 +10,16 @@ device of the tensors it is given:
 - histogram build: the hand-written CUDA kernel of
   ``ops/kernels/histogram.py`` (the role of the reference's OpenCL/CUDA
   ``histogram16/64/256`` kernels; fixed-point sums, with scales taken once
-  per tree) or its plain version, see :func:`build_histogram`;
+  per tree) or its plain version, see :func:`build_histogram`; with EFB on
+  the bundle panel, the per-feature histograms rebuilt exactly by
+  :func:`expand_bundle_hist`;
 - split finding: a vectorized cumulative-sum gain scan over ``[F, B]`` —
-  replaces ``FeatureHistogram::FindBestThreshold``;
+  replaces ``FeatureHistogram::FindBestThreshold`` — with monotone
+  constraints, CEGB penalties, extra trees' one drawn bin a feature, path
+  smoothing, output bounds (the intermediate monotone method,
+  ``max_delta_step``) and gain multipliers (the monotone penalty,
+  ``feature_contri``); categorical features by one-hot or sorted-subset
+  scans (:func:`find_best_split_categorical`);
 - partition: elementwise leaf-id update, no row shuffling.
 
 Histogram subtraction (parent - child = sibling) halves the histogram work
@@ -22,15 +29,19 @@ the same. Every step adds in a fixed order, so a tree grown twice from the
 same gradients is the same tree, on the card too.
 
 The grower reads the host once per leaf: the leaf's totals and its best
-split travel in one packed tensor; on the histogram kernel's route once
-more per tree, for the fixed-point scales (``grow_tree.host_reads`` counts
-the reads).
+splits (numeric, and categorical with its left set) travel in one packed
+tensor. On the histogram kernel's route it reads once more per tree, for the
+fixed-point scales; a Dataset with categorical features and
+``min_data_per_group`` > 0 once more per leaf, for the group-boundary scan
+(a sequential scan over the bins, run on the host). ``grow_tree.host_reads``
+counts the reads.
 
-Numeric features only, with bagging (``row_mask``) and per-node feature
-sampling (``feature_fraction_bynode``). Not ported (ROADMAP.md Queue A,
-item 18b): categorical splits, monotone and interaction constraints, CEGB,
-forced splits, extra trees, path smoothing, ``max_delta_step``, linear
-leaves, EFB; the single-dispatch device-resident grower is item 10.
+The grower's options are the JAX package's host grower's (forced splits
+root first, the three monotone methods as the JAX package approximates
+them, interaction constraints, ``feature_fraction_bynode``, CEGB with its
+re-scoring), drawn from the same numpy streams in the same order. Linear
+leaves (:func:`fit_linear_leaves`) are fitted after the grower. The
+single-dispatch device-resident grower is ROADMAP.md Queue A, item 10.
 """
 from __future__ import annotations
 
@@ -111,61 +122,141 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
         ..., :n]
 
 
+# the block of XLA's CPU row reduction (sequential sums inside blocks of 32,
+# then over the blocks' totals)
+SUM_BLOCK = 32
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis. On the CPU in the order of the JAX package's
+    ``jnp.sum(..., axis=-1)`` there (XLA: sequential inside blocks of
+    ``SUM_BLOCK``, then sequentially over the blocks' totals), so that the
+    categorical scan's totals and EFB's rebuilt default bins round as the
+    JAX package's do and exact gain ties (a split and its mirror image)
+    break alike. On CUDA one ``torch.sum``."""
+    n = x.shape[-1]
+    if x.is_cuda:
+        return x.sum(dim=-1)
+    nb = -(-n // SUM_BLOCK)
+    blocks = torch.cumsum(torch.nn.functional.pad(
+        x, (0, nb * SUM_BLOCK - n)).reshape(*x.shape[:-1], nb, SUM_BLOCK),
+        dim=-1)[..., -1]
+    return torch.cumsum(blocks, dim=-1)[..., -1]
+
+
 def _threshold_l1(g, l1):
     return torch.sign(g) * torch.clamp(torch.abs(g) - l1, min=0.0)
 
 
+def expand_bundle_hist(hist, src_col, src_bin, default_bin, fix_mask):
+    """Per-feature ``[3, F, B]`` histograms from EFB bundle histograms
+    ``[3, G, Bh]`` (lossless; ``dataset.EFBInfo``): each feature's
+    non-default bins gathered from its bundle column, its default-bin slot
+    filled with the leaf total minus the non-default mass. Exact because
+    every row lands in exactly one bin of every bundle column."""
+    zero = torch.zeros((), dtype=hist.dtype, device=hist.device)
+    B = src_bin.shape[1]
+    per = torch.where(src_bin >= 0,
+                      hist[:, src_col[:, None], src_bin.clamp(min=0)], zero)
+    tot = hist.sum(dim=(1, 2)) / hist.shape[1]                      # [3]
+    corr = torch.where(fix_mask, tot[:, None] - row_sum(per), zero)
+    slot = torch.arange(B, device=hist.device)[None, :] == default_bin[:, None]
+    return per + torch.where(slot, corr[:, :, None], zero)
+
+
 def _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
-                min_data_in_leaf, min_sum_hessian, nan_mask=None):
+                min_data_in_leaf, min_sum_hessian, nan_mask=None,
+                monotone=None, penalty=None, extra_bins=None,
+                path_smooth=0.0, parent_output=0.0, mono_lo=0.0, mono_hi=0.0,
+                mono_penalty_mult=None, gain_mult=None, use_smoothing=False,
+                use_bounds=False):
     """Best split of one leaf from its stacked histograms ``hist``
     [3, F, B] (gradient, hessian, count). Returns one tensor
-    ``[flat index, gain, GL, HL, CL, default_left]`` in the dtype of
-    ``hist`` (flat index = feature * B + bin; gain is -inf when no bin is
-    valid), so that a caller on the host needs a single read."""
+    ``[flat index, gain, raw gain, GL, HL, CL, default_left]`` in the dtype
+    of ``hist`` (flat index = feature * B + bin; ``gain`` is the raw gain
+    less the CEGB penalty, -inf when no bin is valid), so that a caller on
+    the host needs a single read. The options are those of
+    :func:`find_best_split`."""
     _, F, B = hist.shape
     dt = hist.dtype
-    neg_inf = torch.full((), -torch.inf, dtype=dt, device=hist.device)
+    dev = hist.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    neg_inf = torch.full((), -torch.inf, dtype=dt, device=dev)
+    l1, l2 = float(lambda_l1), float(lambda_l2)
     cum = prefix_sum(hist)
     tot = cum[:, :, -1:]
-    bin_ids = torch.arange(B, device=hist.device)[None, :]
+    bin_ids = torch.arange(B, device=dev)[None, :]
     in_range = bin_ids < (num_bins_per_feat[:, None] - 1)
+    if extra_bins is not None:
+        in_range = in_range & (bin_ids == extra_bins[:, None])
 
-    def score(g, h):
-        t = g if lambda_l1 == 0.0 else _threshold_l1(g, lambda_l1)
-        return t * t / (h + lambda_l2 + 1e-15)
+    def thr(g):
+        return g if l1 == 0.0 else _threshold_l1(g, l1)
 
-    parent_score = score(tot[0], tot[1])
+    def out_of(g, h, c):
+        o = -thr(g) / (h + l2 + 1e-15)
+        if use_smoothing:
+            w = c / (c + path_smooth)
+            o = o * w + (1.0 - w) * parent_output
+        if use_bounds:
+            o = torch.clamp(o, min=mono_lo, max=mono_hi)
+        return o
+
+    def score(s):
+        if not (use_smoothing or use_bounds):
+            t = thr(s[0])
+            return t * t / (s[1] + l2 + 1e-15)
+        # GetLeafGainGivenOutput: -(2 G w + (H + l2) w^2) at the (smoothed /
+        # clamped) output; the closed form when unconstrained
+        o = out_of(s[0], s[1], s[2])
+        return -(2.0 * s[0] * o + (s[1] + l2) * o * o)
+
+    parent_score = score(tot)
 
     def gain_and_valid(left):
         right = tot - left
-        gain = (score(left[0], left[1]) + score(right[0], right[1])
-                - parent_score)
+        gain = score(left) + score(right) - parent_score
         valid = (in_range
                  & (left[2] >= min_data_in_leaf)
                  & (right[2] >= min_data_in_leaf)
                  & (left[1] >= min_sum_hessian)
                  & (right[1] >= min_sum_hessian))
+        if monotone is not None:
+            # basic monotone feasibility (monotone_constraints.hpp): +1
+            # needs left output <= right output, -1 the reverse
+            lo = -thr(left[0]) / (left[1] + l2 + 1e-15)
+            ro = -thr(right[0]) / (right[1] + l2 + 1e-15)
+            mono = monotone[:, None]
+            valid = valid & ~((mono > 0) & ~(lo <= ro)) \
+                & ~((mono < 0) & ~(lo >= ro))
+        if mono_penalty_mult is not None:
+            gain = gain * mono_penalty_mult[:, None]
+        if gain_mult is not None:
+            # per-feature gain multipliers (feature_contri, config.h:505)
+            gain = gain * gain_mult[:, None]
         return torch.where(valid, gain, neg_inf)
 
     gain = gain_and_valid(cum)  # NA bin (bin 0) on the LEFT
     if nan_mask is None:
         left = cum
-        default_left = torch.ones((), dtype=dt, device=hist.device)
+        default_left = torch.ones((), dtype=dt, device=dev)
     else:
         # second pass: NA bin on the RIGHT (subtract it from every prefix)
         nm = nan_mask[:, None]
-        left2 = cum - torch.where(nm, hist[:, :, :1],
-                                  torch.zeros((), dtype=dt,
-                                              device=hist.device))
+        left2 = cum - torch.where(nm, hist[:, :, :1], zero)
         gain2 = gain_and_valid(left2)
         gain2 = torch.where(nm & (left2[2] > 0), gain2, neg_inf)
         goes_left = gain >= gain2
         gain = torch.maximum(gain, gain2)
         left = torch.where(goes_left, cum, left2)
         default_left = goes_left.to(dt)
+    # CEGB: the feature's cost comes off the gain before ranking
+    # (cost_effective_gradient_boosting.hpp:66-84); the raw gain still
+    # gates min_gain_to_split
+    sel = gain if penalty is None else gain - penalty[:, None]
     # torch.argmax returns the FIRST maximal element, as jnp.argmax does
-    flat = torch.argmax(gain.reshape(-1))
-    picked = torch.cat([gain[None], left]).reshape(4, -1)[:, flat]
+    flat = torch.argmax(sel.reshape(-1))
+    picked = torch.cat([sel[None], gain[None], left]).reshape(5, -1)[:, flat]
     dl = (default_left if default_left.dim() == 0
           else default_left.reshape(-1)[flat])
     return torch.cat([flat.to(dt)[None], picked, dl[None]])
@@ -173,7 +264,11 @@ def _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
 
 def find_best_split(hist_g, hist_h, hist_c, num_bins_per_feat,
                     lambda_l1, lambda_l2, min_data_in_leaf,
-                    min_sum_hessian, min_gain_to_split, nan_mask=None):
+                    min_sum_hessian, min_gain_to_split, monotone=None,
+                    penalty=None, nan_mask=None, extra_bins=None,
+                    path_smooth=0.0, parent_output=0.0, mono_lo=0.0,
+                    mono_hi=0.0, mono_penalty_mult=None, gain_mult=None,
+                    use_smoothing=False, use_bounds=False):
     """Best (feature, bin, gain) over all features.
 
     Vectorized over [F, B]: left stats are prefix sums over bins; split at
@@ -186,17 +281,194 @@ def find_best_split(hist_g, hist_h, hist_c, num_bins_per_feat,
     ``nan_mask`` [F] marks features with an exclusive NA bin at index 0: for
     those, both default directions for missing values are scored (LightGBM
     ``default_left`` learning, feature_histogram.hpp FindBestThreshold's
-    NA-bin two-pass). Returns 0-dim tensors
-    (feat, bin, gain, ok, GL, HL, CL, default_left).
+    NA-bin two-pass). The LightGBM options, all tensors on the histograms'
+    device:
+
+    - ``monotone`` [F] -1 / 0 / +1: splits whose plain outputs break the
+      direction are invalid;
+    - ``penalty`` [F]: CEGB costs subtracted from the gain before ranking;
+      the penalized gain must also be > 0;
+    - ``extra_bins`` [F]: extra trees' one drawn candidate bin a feature
+      (USE_RAND, config.h:368);
+    - ``path_smooth`` / ``parent_output`` (``use_smoothing``): outputs shrink
+      toward the parent's by n / (n + path_smooth), config.h:550;
+    - ``mono_lo`` / ``mono_hi`` (``use_bounds``): the leaf's output bounds
+      (the intermediate monotone method, ``max_delta_step``);
+    - ``mono_penalty_mult`` / ``gain_mult`` [F]: gain multipliers (the
+      monotone penalty, ``feature_contri``).
+
+    Returns 0-dim tensors (feat, bin, gain, ok, GL, HL, CL, default_left),
+    ``gain`` the penalized one.
     """
     hist = torch.stack([hist_g, hist_h, hist_c])
     B = hist.shape[2]
-    out = _split_scan(hist, num_bins_per_feat, float(lambda_l1),
-                      float(lambda_l2), min_data_in_leaf, min_sum_hessian,
-                      nan_mask)
+    out = _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
+                      min_data_in_leaf, min_sum_hessian, nan_mask, monotone,
+                      penalty, extra_bins, path_smooth, parent_output,
+                      mono_lo, mono_hi, mono_penalty_mult, gain_mult,
+                      use_smoothing, use_bounds)
     flat = out[0].to(torch.int64)
+    ok = out[2] > min_gain_to_split
+    if penalty is not None:
+        ok = ok & (out[1] > 0.0)
     return ((flat // B).to(torch.int32), (flat % B).to(torch.int32), out[1],
-            out[1] > min_gain_to_split, out[2], out[3], out[4], out[5] > 0)
+            ok, out[3], out[4], out[5], out[6] > 0)
+
+
+def _group_boundaries(c_s: np.ndarray, ok: np.ndarray, min_data_per_group):
+    """``min_data_per_group``'s group scan (feature_histogram.hpp
+    ``cnt_cur_group``) over the bins of each row of ``c_s`` / ``ok`` [D, B]:
+    a position is a boundary once ``min_data_per_group`` rows accrued since
+    the last one. Sequential over the bins, vectorized over the rows; host
+    numpy (the JAX package's ``lax.scan``)."""
+    carry = np.zeros(c_s.shape[0], c_s.dtype)
+    out = np.zeros(c_s.shape, bool)
+    for b in range(c_s.shape[1]):
+        cur = carry + c_s[:, b]
+        out[:, b] = ok[:, b] & (cur >= min_data_per_group)
+        carry = np.where(out[:, b], 0.0, cur)
+    return out
+
+
+def _cat_scan(hist, num_bins, lambda_l1, lambda_l2, min_data_in_leaf,
+              min_sum_hessian, max_cat_threshold, penalty=None, cat_l2=0.0,
+              cat_smooth=0.0, min_data_per_group=0.0, max_cat_to_onehot=0):
+    """The categorical split scan over the histograms ``hist`` [3, Fc, B]
+    of the categorical features only. Returns one tensor ``[flat, gain, raw
+    gain, GL, HL, CL, order (B values)]``: ``flat`` indexes the candidates
+    [3 (forward, reverse, one-hot), Fc, B]; the left set is the first
+    ``flat % B + 1`` categories of ``order``. The ``min_data_per_group``
+    scan reads the host once (counted in ``grow_tree.host_reads``)."""
+    hg, hh, hc = hist
+    _, Fc, B = hist.shape
+    dt, dev = hist.dtype, hist.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    neg_inf = torch.full((), -torch.inf, dtype=dt, device=dev)
+    l1 = float(lambda_l1)
+    bin_ids = torch.arange(B, device=dev)[None, :]
+    in_range = bin_ids < num_bins[:, None]
+    G, H, C = row_sum(torch.where(in_range, hist, zero))[:, :, None]
+
+    def score(g, h, l2):
+        t = g if l1 == 0.0 else _threshold_l1(g, l1)
+        return t * t / (h + l2 + 1e-15)
+
+    # one-hot candidates: left = one category
+    l2 = float(lambda_l2)
+    gain_oh = (score(hg, hh, l2) + score(G - hg, H - hh, l2)
+               - score(G, H, l2))
+    valid_oh = (in_range & (hc >= min_data_in_leaf)
+                & ((C - hc) >= min_data_in_leaf)
+                & (hh >= min_sum_hessian) & ((H - hh) >= min_sum_hessian))
+    use_onehot = (num_bins <= max_cat_to_onehot)[:, None]
+    gain_oh = torch.where(valid_oh & use_onehot, gain_oh, neg_inf)
+
+    # many-vs-many: categories sorted by G / (H + cat_smooth), both
+    # directions of the eligible prefix (jnp.argsort is stable)
+    l2m = l2 + float(cat_l2)
+    eligible = in_range & (hc >= max(float(cat_smooth), 1.0))
+    inf = torch.full((), torch.inf, dtype=dt, device=dev)
+    sort_key = torch.where(eligible, hg / (hh + cat_smooth + 1e-15), inf)
+    order_fwd = torch.argsort(sort_key, dim=1, stable=True)
+    used_bin = eligible.sum(dim=1)
+    idx_rev = torch.clamp(used_bin[:, None] - 1 - bin_ids, 0, B - 1)
+    order_rev = torch.gather(order_fwd, 1, idx_rev)
+    max_num_cat = torch.clamp((used_bin + 1) // 2, max=int(max_cat_threshold))
+    cut = bin_ids < torch.minimum(max_num_cat, used_bin)[:, None]
+
+    def sums(order):
+        s = torch.gather(hist, 2, order[None].expand(3, Fc, B))
+        return prefix_sum(s), s[2]
+
+    (cum_f, c_f), (cum_r, c_r) = sums(order_fwd), sums(order_rev)
+    tot = torch.stack([G, H, C])                                  # [3, Fc, 1]
+
+    def base_ok(cum):
+        right = tot - cum
+        return ((cum[2] >= min_data_in_leaf) & (cum[1] >= min_sum_hessian)
+                & (right[2] >= min_data_in_leaf)
+                & (right[1] >= min_sum_hessian) & cut), right
+
+    ok_f, right_f = base_ok(cum_f)
+    ok_r, right_r = base_ok(cum_r)
+    if min_data_per_group > 0:
+        # the group scan, one host step over the categorical rows
+        rows = torch.stack([c_f, c_r, (ok_f & (right_f[2]
+                                               >= min_data_per_group)).to(dt),
+                            (ok_r & (right_r[2]
+                                     >= min_data_per_group)).to(dt)])
+        host = rows.to(torch.float64).cpu().numpy()
+        grow_tree.host_reads += 1
+        bound = _group_boundaries(np.concatenate([host[0], host[1]]),
+                                  np.concatenate([host[2], host[3]]) > 0,
+                                  min_data_per_group)
+        bound = torch.as_tensor(bound, device=dev)
+        ok_f, ok_r = bound[:Fc], bound[Fc:]
+
+    def gain_of(cum, right, ok):
+        gain = (score(cum[0], cum[1], l2m) + score(right[0], right[1], l2m)
+                - score(G, H, l2m))
+        return torch.where(ok & ~use_onehot, gain, neg_inf)
+
+    gain_f = gain_of(cum_f, right_f, ok_f)
+    gain_r = gain_of(cum_r, right_r, ok_r)
+    # one-hot as (the winning category first, k = 0)
+    oh_best = torch.argmax(gain_oh, dim=1)
+    oh_gain = torch.gather(gain_oh, 1, oh_best[:, None])[:, 0]
+    order_oh = torch.argsort(torch.where(bin_ids == oh_best[:, None], -1,
+                                         bin_ids), dim=1, stable=True)
+    gain_oh_mat = torch.where(bin_ids == 0, oh_gain[:, None], neg_inf)
+    cum_oh, _ = sums(order_oh)
+
+    raw = torch.stack([gain_f, gain_r, gain_oh_mat])          # [3, Fc, B]
+    sel = raw if penalty is None else raw - penalty[None, :, None]
+    flat = torch.argmax(sel.reshape(-1))
+    d, fi = flat // (Fc * B), (flat // B) % Fc
+    cums = torch.stack([cum_f, cum_r, cum_oh])                 # [3, 3, Fc, B]
+    picked = cums.permute(1, 0, 2, 3).reshape(3, -1)[:, flat]
+    order = torch.stack([order_fwd, order_rev, order_oh])[d, fi]
+    return torch.cat([flat.to(dt)[None], sel.reshape(-1)[flat][None],
+                      raw.reshape(-1)[flat][None], picked, order.to(dt)])
+
+
+def find_best_split_categorical(hist_g, hist_h, hist_c, num_bins_per_feat,
+                                cat_feature_mask, lambda_l1, lambda_l2,
+                                min_data_in_leaf, min_sum_hessian,
+                                min_gain_to_split, max_cat_threshold,
+                                penalty=None, cat_l2=0.0, cat_smooth=0.0,
+                                min_data_per_group=0.0, max_cat_to_onehot=0):
+    """Best categorical split (``feature_histogram.hpp``
+    FindBestThresholdCategoricalInner):
+
+    - features with <= ``max_cat_to_onehot`` bins use ONE-HOT (one-vs-rest)
+      splits with plain lambda_l2;
+    - otherwise 'many-vs-many': categories with count >= ``cat_smooth`` are
+      sorted by G / (H + cat_smooth) and BOTH prefix directions are scanned
+      with l2 + cat_l2, left-set size capped at
+      min(max_cat_threshold, (used_bin + 1) / 2), and split positions gated
+      by the ``min_data_per_group`` group accumulation.
+
+    ``cat_feature_mask`` [F] bool (host or device). Returns (feat, k, gain,
+    ok, left_cats, GL, HL, CL): the left set ``left_cats`` is the first
+    ``k + 1`` categories of the winning order (numpy).
+    """
+    cat_idx = np.flatnonzero(np.asarray(
+        cat_feature_mask.cpu() if torch.is_tensor(cat_feature_mask)
+        else cat_feature_mask))
+    idx = torch.as_tensor(cat_idx, device=hist_g.device)
+    hist = torch.stack([hist_g, hist_h, hist_c])[:, idx]
+    out = _cat_scan(hist, num_bins_per_feat[idx], lambda_l1, lambda_l2,
+                    min_data_in_leaf, min_sum_hessian, max_cat_threshold,
+                    None if penalty is None else penalty[idx], cat_l2,
+                    cat_smooth, min_data_per_group, max_cat_to_onehot)
+    vals = out.to(torch.float64).tolist()
+    B = hist.shape[2]
+    flat = int(vals[0])
+    k = flat % B
+    ok = vals[2] > min_gain_to_split and (penalty is None or vals[1] > 0.0)
+    left = np.asarray(vals[6:6 + k + 1], np.int64)
+    return (int(cat_idx[(flat // B) % len(cat_idx)]), k, vals[1], ok, left,
+            vals[3], vals[4], vals[5])
 
 
 def partition_rows(binned, row_leaf, leaf_id, feature, bin_thresh,
@@ -213,6 +485,16 @@ def partition_rows(binned, row_leaf, leaf_id, feature, bin_thresh,
     return torch.where(in_leaf, new_leaf, row_leaf)
 
 
+def partition_rows_categorical(binned, row_leaf, leaf_id, feature, cat_mask,
+                               left_id, right_id):
+    """Categorical split: rows of ``leaf_id`` whose category bin is in
+    ``cat_mask`` [B] (bool, on the rows' device) go to ``left_id``."""
+    in_leaf = row_leaf == leaf_id
+    go_left = cat_mask[binned[:, feature].long()]
+    new_leaf = go_left.to(row_leaf.dtype) * (left_id - right_id) + right_id
+    return torch.where(in_leaf, new_leaf, row_leaf)
+
+
 @dataclass
 class Tree:
     """Grown tree in flat-array form (reference ``Tree``, ``io/tree.cpp``).
@@ -220,8 +502,9 @@ class Tree:
     Internal nodes: split_feature/threshold(+bin); leaves: leaf_value.
     ``left/right`` of a leaf point to itself, so a traversal of fixed length
     reaches a fixed point. The fields (and ``to_dict``) are those of the JAX
-    package's ``Tree``; the ones of features that are not ported
-    (categorical splits, linear leaves) are carried but never set.
+    package's ``Tree``: categorical splits carry their left set in
+    ``cat_mask``, linear leaves their model in ``lin_features`` /
+    ``lin_coefs`` (constant in ``leaf_value``).
     """
     split_feature: np.ndarray   # [M] int32
     threshold: np.ndarray       # [M] float64 (raw-value threshold, <= left)
@@ -248,6 +531,10 @@ class Tree:
         ``~is_leaf`` alone would count them as feature-0 splits."""
         idx = np.arange(len(self.is_leaf))
         return np.flatnonzero(~self.is_leaf & (self.left != idx))
+
+    def has_categorical(self) -> bool:
+        return (self.is_categorical is not None
+                and bool(np.any(self.is_categorical)))
 
     def to_dict(self):
         def lst(a, cast=None):
@@ -302,6 +589,8 @@ class Tree:
 
     def add_shrinkage(self, rate: float):
         self.leaf_value = self.leaf_value * rate
+        if self.lin_coefs is not None:
+            self.lin_coefs = self.lin_coefs * rate
         self.shrinkage *= rate
 
     def leaf_index_order(self):
@@ -318,7 +607,114 @@ class GrowerParams:
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
+    # LightGBM tail (config.h): leaf-path smoothing, extremely-randomized
+    # splits, per-node feature sampling, categorical regularization,
+    # monotone method/penalty
+    path_smooth: float = 0.0
+    extra_trees: bool = False
     feature_fraction_bynode: float = 1.0
+    monotone_constraints_method: str = "basic"
+    monotone_penalty: float = 0.0
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    min_data_per_group: float = 100.0
+    max_cat_to_onehot: int = 4
+    # cap on |leaf output| (config.h:389 max_delta_step; <= 0 = unlimited)
+    max_delta_step: float = 0.0
+    # per-feature split-gain multipliers (config.h:505 feature_contri)
+    feature_contri: Optional[np.ndarray] = None
+
+
+class CEGBState:
+    """Cost-effective gradient boosting (CEGB) penalties and usage state.
+
+    The JAX package's redesign of ``CostEfficientGradientBoosting``
+    (``treelearner/cost_effective_gradient_boosting.hpp:22-156``): a dense
+    per-feature penalty vector subtracted inside the split scan, the leaves
+    re-scored from their cached histograms when a coupled feature first
+    enters the model. The lazy penalty's per-row usage matrix ``[n, F]``
+    and the leaf's fresh-row counts stay on ``device``; the penalty vector
+    is computed there, so a leaf's scan needs no read of its own. Usage
+    persists across trees.
+    """
+
+    def __init__(self, num_features: int, num_data: int,
+                 tradeoff: float = 1.0, penalty_split: float = 0.0,
+                 penalty_feature_coupled=None, penalty_feature_lazy=None,
+                 device="cpu"):
+        self.tradeoff = float(tradeoff)
+        self.penalty_split = float(penalty_split)
+        self.coupled = (None if penalty_feature_coupled is None
+                        else np.asarray(penalty_feature_coupled, np.float64))
+        self.lazy = (None if penalty_feature_lazy is None
+                     else np.asarray(penalty_feature_lazy, np.float64))
+        for name, arr in (("cegb_penalty_feature_coupled", self.coupled),
+                          ("cegb_penalty_feature_lazy", self.lazy)):
+            if arr is not None and arr.shape[0] != num_features:
+                raise ValueError(
+                    f"{name} should be the same size as feature number")
+        self.device = torch.device(device)
+        self.feature_used_in_split = np.zeros(num_features, bool)
+        # [n, F]: whether row i already acquired feature f
+        self.feature_used_in_data = (
+            torch.zeros((num_data, num_features), dtype=torch.bool,
+                        device=self.device)
+            if self.lazy is not None else None)
+
+    @staticmethod
+    def from_params(p: dict, num_features: int, num_data: int, device):
+        """From a LightGBM-style params dict; None when disabled
+        (``CostEfficientGradientBoosting::IsEnable``)."""
+        tradeoff = float(p.get("cegb_tradeoff", 1.0))
+        penalty_split = float(p.get("cegb_penalty_split", 0.0))
+        coupled = p.get("cegb_penalty_feature_coupled", None)
+        lazy = p.get("cegb_penalty_feature_lazy", None)
+        if (tradeoff >= 1.0 and penalty_split <= 0.0 and coupled is None
+                and lazy is None):
+            return None
+        return CEGBState(num_features, num_data, tradeoff, penalty_split,
+                         coupled, lazy, device)
+
+    def penalty_vector(self, leaf_mask, dtype) -> torch.Tensor:
+        """tradeoff * (penalty_split * n_leaf + coupled[new features] +
+        lazy costs of the leaf's rows that lack the feature), per feature
+        (cost_effective_gradient_boosting.hpp:66-84), on the device."""
+        F = len(self.feature_used_in_split)
+        cnt = leaf_mask.sum().to(dtype)
+        pen = (self.tradeoff * self.penalty_split) * cnt.expand(F)
+        if self.coupled is not None:
+            pen = pen + torch.as_tensor(
+                self.tradeoff * np.where(self.feature_used_in_split, 0.0,
+                                         self.coupled),
+                dtype=dtype, device=leaf_mask.device)
+        if self.lazy is not None:
+            fresh = (leaf_mask[:, None]
+                     & ~self.feature_used_in_data).sum(dim=0).to(dtype)
+            pen = pen + torch.as_tensor(self.tradeoff * self.lazy,
+                                        dtype=dtype,
+                                        device=leaf_mask.device) * fresh
+        return pen
+
+    def mark_split(self, leaf_mask, feature: int) -> bool:
+        """Record a chosen split; True if other leaves must be re-scored
+        (a feature newly coupled-penalized, hpp:93-109)."""
+        rescore = (self.coupled is not None
+                   and not self.feature_used_in_split[feature])
+        self.feature_used_in_split[feature] = True
+        if self.lazy is not None:
+            self.feature_used_in_data[:, feature] |= leaf_mask
+        return rescore
+
+
+def _monotone_factor(penalty: float, depth: int) -> float:
+    """The gain multiplier of a monotone feature's split at a node of
+    ``depth`` (root 1; ComputeMonotoneSplitGainPenalty)."""
+    d = float(depth) - 1.0
+    if penalty >= d + 1.0:
+        return 1e-15
+    if penalty <= 1.0:
+        return 1.0 - penalty / (2.0 ** d) + 1e-15
+    return 1.0 - 2.0 ** (penalty - 1.0 - d) + 1e-15
 
 
 def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
@@ -327,7 +723,14 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
               row_mask: Optional[torch.Tensor] = None,
               nan_mask: Optional[np.ndarray] = None,
               binned_t: Optional[torch.Tensor] = None,
-              rng: Optional[np.random.Generator] = None):
+              rng: Optional[np.random.Generator] = None,
+              categorical_mask: Optional[np.ndarray] = None,
+              max_cat_threshold: int = 32,
+              monotone_constraints: Optional[np.ndarray] = None,
+              forced_splits: Optional[dict] = None,
+              cegb: Optional[CEGBState] = None, efb=None,
+              interaction_constraints=None,
+              num_bins_host: Optional[np.ndarray] = None):
     """Grow one tree leaf-wise (best-first), LightGBM-style.
 
     ``row_mask`` [n] bool (bagging) keeps the rows outside it out of every
@@ -335,12 +738,22 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
     row. ``nan_mask`` [F] marks features whose bin 0 is an exclusive NA bin
     (default-direction learning). ``binned_t`` is the features-major uint8
     copy of ``binned`` (``Dataset.binned_t``) for the histogram kernel and
-    the partition. With ``params.feature_fraction_bynode`` < 1 each leaf's
-    split search sees ``ceil(fraction * F)`` features drawn from ``rng``
-    (without replacement, one draw a leaf in the order the leaves are
-    evaluated, as the JAX package's host grower draws them; a feature left
-    out gets 0 bins, which ``_split_scan`` never picks). Returns (Tree,
-    row_leaf_node [n] int32 node-id per row).
+    the partition; ``efb`` (``Dataset.efb``) moves the histograms onto the
+    bundle panel, expanded to ``[F, B]`` for the scans. ``categorical_mask``
+    [F] marks categorical features (sorted-subset splits).
+    ``monotone_constraints`` [F] (-1 / 0 / +1) under
+    ``params.monotone_constraints_method``; ``interaction_constraints``
+    lists groups of features a path may combine; ``forced_splits`` is a
+    tree of ``{"feature", "threshold_bin", "left", "right"}`` applied root
+    first; ``cegb`` a :class:`CEGBState`.
+
+    The draws come from ``rng`` as the JAX package's host grower takes
+    them: in every leaf's scan (and every re-scan after a CEGB refund) the
+    ``feature_fraction_bynode`` features (``ceil(fraction * F)`` without
+    replacement), then extra trees' bins (``rng.integers(0, max(nb - 1,
+    1))`` over ``num_bins_host``, the host copy of ``num_bins_per_feat``,
+    read from the device once if not given). Returns (Tree, row_leaf_node
+    [n] int32 node-id per row).
     """
     n, F = binned.shape
     device = binned.device
@@ -351,9 +764,27 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
                                        device=device))
     # a column of the transposed view of the panel is a contiguous row
     part_src = binned if binned_t is None else binned_t.t()
+    if efb is not None:
+        hist_binned, hist_panel = efb.binned_hist, efb.binned_hist_t
+        hist_B = efb.max_bins_hist
+    else:
+        hist_binned, hist_panel, hist_B = binned, binned_t, max_num_bins
+    has_cat = (categorical_mask is not None
+               and bool(np.any(categorical_mask)))
+    if has_cat:
+        cat_idx = np.flatnonzero(categorical_mask)
+        cat_idx_t = torch.as_tensor(cat_idx, device=device)
+        num_bins_numerical = torch.where(
+            torch.as_tensor(np.asarray(categorical_mask, bool),
+                            device=device),
+            torch.zeros_like(num_bins_per_feat), num_bins_per_feat)
+    else:
+        num_bins_numerical = num_bins_per_feat
     max_nodes = 2 * params.num_leaves - 1
     feature = np.zeros(max_nodes, np.int32)
     threshold_bin = np.zeros(max_nodes, np.int32)
+    is_categorical = np.zeros(max_nodes, bool)
+    cat_masks = np.zeros((max_nodes, max_num_bins), bool)
     left = np.arange(max_nodes, dtype=np.int32)
     right = np.arange(max_nodes, dtype=np.int32)
     leaf_value = np.zeros(max_nodes, np.float64)
@@ -365,92 +796,271 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
     depth[0] = 1
 
     row_leaf = torch.zeros(n, dtype=torch.int32, device=device)
+    bounds = {0: (-np.inf, np.inf)}  # monotone output bounds per node
+    parent_out = {0: 0.0}            # node outputs (path_smooth chain)
+    path_feats = {0: frozenset()}    # features used on the path
+    if rng is None:
+        rng = np.random.default_rng(0)
+    if params.extra_trees and num_bins_host is None:
+        num_bins_host = num_bins_per_feat.cpu().numpy()
+        grow_tree.host_reads += 1
+    ic_groups = ([frozenset(int(f) for f in g)
+                  for g in interaction_constraints]
+                 if interaction_constraints else None)
     l1 = float(params.lambda_l1)
     l2 = float(params.lambda_l2)
     min_data = float(params.min_data_in_leaf)
     min_hess = float(params.min_sum_hessian_in_leaf)
     min_gain = float(params.min_gain_to_split)
     ffb = float(params.feature_fraction_bynode)
-    if ffb < 1.0 and rng is None:
-        rng = np.random.default_rng(0)
+    mds = float(params.max_delta_step)
+    ps = float(params.path_smooth)
+    mono_t = (None if monotone_constraints is None
+              else torch.as_tensor(np.asarray(monotone_constraints, np.int32),
+                                   device=device))
+    hdt = grad.dtype
+    contri_t = (None if params.feature_contri is None
+                else torch.as_tensor(np.asarray(params.feature_contri,
+                                                np.float64), dtype=hdt,
+                                     device=device))
 
-    def leaf_output(g_sum, h_sum):
+    def allowed_features(used: frozenset) -> np.ndarray:
+        """Features usable at a leaf under interaction constraints: the
+        union of the groups that hold every feature used on the branch
+        (serial_tree_learner.cpp GetAllowedFeatures)."""
+        allowed = np.zeros(F, bool)
+        for g in ic_groups:
+            if used <= g:
+                for f in g:
+                    if f < F:
+                        allowed[f] = True
+        return allowed
+
+    def leaf_output(g_sum, h_sum, cnt=None, parent=0.0):
         t = np.sign(g_sum) * max(abs(g_sum) - l1, 0.0)
-        return float(-t / (h_sum + l2 + 1e-15))
+        raw = float(-t / (h_sum + l2 + 1e-15))
+        if ps > 0.0 and cnt is not None:
+            w = cnt / (cnt + ps)
+            raw = raw * w + (1.0 - w) * parent
+        if mds > 0.0:
+            # max_delta_step (config.h:389): |output| capped
+            raw = min(max(raw, -mds), mds)
+        return raw
 
     # the histogram kernel's fixed-point scales, once for the tree (a read)
-    scales = histogram_scales(grad, hess, max_num_bins)
+    scales = histogram_scales(grad, hess, hist_B)
     if scales is not None:
         grow_tree.host_reads += 1
 
+    def leaf_mask(leaf_id):
+        mask = row_leaf == leaf_id
+        return mask if row_mask is None else mask & row_mask
+
     def leaf_hist(leaf_id):
         with timed("grow_tree: histogram", sync=True):
-            mask = row_leaf == leaf_id
-            if row_mask is not None:
-                mask = mask & row_mask
             return torch.stack(build_histogram(
-                binned, grad, hess, mask, max_num_bins, binned_t=binned_t,
-                scales=scales))
+                hist_binned, grad, hess, leaf_mask(leaf_id), hist_B,
+                binned_t=hist_panel, scales=scales))
 
-    # per-leaf cached state: stacked histograms [3, F, B], best split
-    # (feature, bin, gain, ok, left count, default_left), totals (G, H, count)
+    # per-leaf cached state: stacked histograms [3, cols, B], best split
+    # (kind, feature, bin, gain, ok, GL, HL, CL, left categories,
+    # default_left), totals (G, H, count)
     hist_cache: dict = {}
     best_cache: dict = {}
     stats_cache: dict = {}
 
-    def compute_leaf(leaf_id, hist):
+    def compute_leaf(leaf_id, hist=None):
+        if hist is None:
+            hist = leaf_hist(leaf_id)
         hist_cache[leaf_id] = hist
-        num_bins_leaf = num_bins_per_feat
+        num_bins_leaf = num_bins_numerical
+        num_bins_cat = num_bins_per_feat
+        # per-node feature restrictions: interaction constraints, then
+        # feature_fraction_bynode (config.h:359)
+        node_allowed = None
+        if ic_groups is not None:
+            node_allowed = allowed_features(path_feats.get(leaf_id,
+                                                           frozenset()))
         if ffb < 1.0:
-            # feature_fraction_bynode (config.h:359): this leaf's features
             k = max(1, int(np.ceil(ffb * F)))
-            allowed = np.zeros(F, bool)
-            allowed[rng.choice(F, size=k, replace=False)] = True
-            num_bins_leaf = torch.where(
-                torch.as_tensor(allowed, device=device), num_bins_per_feat,
-                torch.zeros_like(num_bins_per_feat))
+            samp = np.zeros(F, bool)
+            samp[rng.choice(F, size=k, replace=False)] = True
+            node_allowed = (samp if node_allowed is None
+                            else node_allowed & samp)
+        if node_allowed is not None:
+            allowed = torch.as_tensor(node_allowed, device=device)
+            num_bins_leaf = torch.where(allowed, num_bins_leaf,
+                                        torch.zeros_like(num_bins_leaf))
+            num_bins_cat = torch.where(allowed, num_bins_cat,
+                                       torch.zeros_like(num_bins_cat))
+        opts = {}
+        if params.extra_trees:
+            # extremely randomized trees: ONE drawn candidate bin a feature
+            # (USE_RAND, config.h extra_trees)
+            opts["extra_bins"] = torch.as_tensor(
+                rng.integers(0, np.maximum(num_bins_host - 1, 1)),
+                device=device)
+        if contri_t is not None:
+            opts["gain_mult"] = contri_t
+        if mono_t is not None:
+            opts["monotone"] = mono_t
+            if params.monotone_penalty > 0.0:
+                factor = _monotone_factor(params.monotone_penalty,
+                                          depth[leaf_id])
+                opts["mono_penalty_mult"] = torch.where(
+                    mono_t != 0, torch.full((), factor, dtype=hdt,
+                                            device=device),
+                    torch.ones((), dtype=hdt, device=device))
+            if params.monotone_constraints_method != "basic":
+                lo_b, hi_b = bounds.get(leaf_id, (-np.inf, np.inf))
+                if np.isfinite(lo_b) or np.isfinite(hi_b):
+                    opts.update(mono_lo=lo_b, mono_hi=hi_b, use_bounds=True)
+        if mds > 0.0:
+            # outputs clamped to +-max_delta_step in the gains (GetSplitGains
+            # USE_MAX_OUTPUT), inside any monotone bounds already set
+            opts.update(mono_lo=max(opts.get("mono_lo", -np.inf), -mds),
+                        mono_hi=min(opts.get("mono_hi", np.inf), mds),
+                        use_bounds=True)
+        if ps > 0.0:
+            opts.update(path_smooth=ps,
+                        parent_output=parent_out.get(leaf_id, 0.0),
+                        use_smoothing=True)
         with timed("grow_tree: split scan + host read", sync=True):
-            scan = _split_scan(hist, num_bins_leaf, l1, l2, min_data,
-                               min_hess, nan_mask_t)
+            hist_f = hist if efb is None else expand_bundle_hist(
+                hist, efb.src_col, efb.src_bin, efb.default_bin,
+                efb.fix_mask)
+            penalty = (None if cegb is None
+                       else cegb.penalty_vector(leaf_mask(leaf_id), hdt))
+            parts = [hist.sum(dim=(1, 2)),
+                     _split_scan(hist_f, num_bins_leaf, l1, l2, min_data,
+                                 min_hess, nan_mask_t, penalty=penalty,
+                                 **opts)]
+            if has_cat:
+                parts.append(_cat_scan(
+                    hist_f[:, cat_idx_t], num_bins_cat[cat_idx_t], l1, l2,
+                    min_data, min_hess, max_cat_threshold,
+                    None if penalty is None else penalty[cat_idx_t],
+                    params.cat_l2, params.cat_smooth,
+                    params.min_data_per_group, params.max_cat_to_onehot))
             # every row lands in one bin per column, so the all-column sum
-            # is F * (per-leaf total) — normalize to the true leaf totals
-            packed = torch.cat([hist.sum(dim=(1, 2)),
-                                scan]).to(torch.float64)
-            (g_all, h_all, c_all, flat, gain, _, _, cl, dl) = packed.tolist()
+            # is cols * (per-leaf total) — normalized to the leaf totals
+            vals = torch.cat(parts).to(torch.float64).tolist()
         grow_tree.host_reads += 1
-        stats_cache[leaf_id] = (g_all / F, h_all / F, c_all / F)
+        cols = hist.shape[1]
+        stats_cache[leaf_id] = (vals[0] / cols, vals[1] / cols,
+                                vals[2] / cols)
+        flat, gain, raw, gl, hl, cl, dl = vals[3:10]
         flat = int(flat)
-        best_cache[leaf_id] = (flat // max_num_bins, flat % max_num_bins,
-                               gain, gain > min_gain, cl, dl > 0)
+        ok = raw > min_gain and (penalty is None or gain > 0.0)
+        best = ("num", flat // max_num_bins, flat % max_num_bins, gain, ok,
+                gl, hl, cl, None, dl > 0)
+        if has_cat:
+            cflat, cgain, craw, cgl, chl, ccl = vals[10:16]
+            cflat = int(cflat)
+            k = cflat % max_num_bins
+            okc = craw > min_gain and (penalty is None or cgain > 0.0)
+            if okc and (not best[4] or cgain > best[3]):
+                f_c = int(cat_idx[(cflat // max_num_bins) % len(cat_idx)])
+                left_cats = np.asarray(vals[16:16 + k + 1], np.int64)
+                best = ("cat", f_c, k, cgain, True, cgl, chl, ccl,
+                        left_cats, True)
+        best_cache[leaf_id] = best
 
-    compute_leaf(0, leaf_hist(0))
+    compute_leaf(0)
     num_leaves = 1
     next_node = 1
     max_depth_used = 1
+
+    def apply_numeric_split(leaf_id, f_b, b_b):
+        """Split ``leaf_id`` at (feature, bin) unconditionally: a forced
+        split (``forcedsplits_filename``, config.h:512), both children's
+        histograms built, as the JAX package builds them."""
+        nonlocal num_leaves, next_node, max_depth_used, row_leaf
+        if cegb is not None:
+            cegb.mark_split(leaf_mask(leaf_id), f_b)
+        left_id, right_id = next_node, next_node + 1
+        next_node += 2
+        with timed("grow_tree: partition", sync=True):
+            row_leaf = partition_rows(part_src, row_leaf, leaf_id, f_b, b_b,
+                                      left_id, right_id)
+        is_leaf[leaf_id] = False
+        feature[leaf_id] = f_b
+        threshold_bin[leaf_id] = b_b
+        left[leaf_id] = left_id
+        right[leaf_id] = right_id
+        is_leaf[left_id] = is_leaf[right_id] = True
+        bounds[left_id] = bounds[right_id] = bounds.get(
+            leaf_id, (-np.inf, np.inf))
+        parent_out[left_id] = parent_out[right_id] = parent_out.get(
+            leaf_id, 0.0)
+        path_feats[left_id] = path_feats[right_id] = \
+            path_feats.get(leaf_id, frozenset()) | {int(f_b)}
+        depth[left_id] = depth[right_id] = depth[leaf_id] + 1
+        max_depth_used = max(max_depth_used, int(depth[left_id]))
+        num_leaves += 1
+        hist_cache.pop(leaf_id, None)
+        best_cache.pop(leaf_id, None)
+        hist_left, hist_right = leaf_hist(left_id), leaf_hist(right_id)
+        compute_leaf(left_id, hist_left)
+        compute_leaf(right_id, hist_right)
+        return left_id, right_id
+
+    def apply_forced(node_json, leaf_id):
+        if num_leaves >= params.num_leaves:
+            return
+        lid, rid = apply_numeric_split(leaf_id, int(node_json["feature"]),
+                                       int(node_json["threshold_bin"]))
+        if isinstance(node_json.get("left"), dict):
+            apply_forced(node_json["left"], lid)
+        if isinstance(node_json.get("right"), dict):
+            apply_forced(node_json["right"], rid)
+
+    if forced_splits:
+        apply_forced(forced_splits, 0)
 
     while num_leaves < params.num_leaves:
         # pick splittable leaf with max gain
         best_leaf, best = None, None
         for leaf_id, b in best_cache.items():
-            if not b[3]:
+            if not b[4]:
                 continue
             if params.max_depth > 0 and depth[leaf_id] >= params.max_depth:
                 continue
-            if best is None or b[2] > best[2]:
+            if best is None or b[3] > best[3]:
                 best_leaf, best = leaf_id, b
         if best_leaf is None:
             break
-        f_b, b_b, gain, _, left_cnt, dflt_left = best
+        kind, f_b, b_b, gain, _, gl, hl, cl, left_cats, dflt_left = best
         cnt = stats_cache[best_leaf][2]
+        if cegb is not None:
+            # usage marked on ALL the parent's rows (UpdateLeafBestSplits
+            # runs before the partition, serial_tree_learner.cpp:571-575)
+            if cegb.mark_split(leaf_mask(best_leaf), f_b):
+                # the coupled penalty of f_b went: every other leaf's best
+                # split re-ranked from its cached histogram (the JAX
+                # package's replacement of the per-(leaf, feature) refund)
+                for other in [k for k in list(best_cache)
+                              if k != best_leaf and k in hist_cache]:
+                    compute_leaf(other, hist_cache[other])
         left_id = next_node
         right_id = next_node + 1
         next_node += 2
-        miss_right = bool(nan_mask is not None and nan_mask[f_b]
-                          and not dflt_left)
         with timed("grow_tree: partition", sync=True):
-            row_leaf = partition_rows(part_src, row_leaf, best_leaf, f_b,
-                                      b_b, left_id, right_id,
-                                      miss_right=miss_right)
+            if kind == "cat":
+                mask_b = np.zeros(max_num_bins, bool)
+                mask_b[left_cats] = True
+                row_leaf = partition_rows_categorical(
+                    part_src, row_leaf, best_leaf, f_b,
+                    torch.as_tensor(mask_b, device=device), left_id,
+                    right_id)
+                is_categorical[best_leaf] = True
+                cat_masks[best_leaf] = mask_b
+            else:
+                miss_right = bool(nan_mask is not None and nan_mask[f_b]
+                                  and not dflt_left)
+                row_leaf = partition_rows(part_src, row_leaf, best_leaf,
+                                          f_b, b_b, left_id, right_id,
+                                          miss_right=miss_right)
         # bookkeeping
         is_leaf[best_leaf] = False
         feature[best_leaf] = f_b
@@ -460,13 +1070,48 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
         left[best_leaf] = left_id
         right[best_leaf] = right_id
         is_leaf[left_id] = is_leaf[right_id] = True
+        lo, hi = bounds.get(best_leaf, (-np.inf, np.inf))
+        bounds[left_id] = bounds[right_id] = (lo, hi)
+        g_sum_p, h_sum_p, cnt_p = stats_cache[best_leaf]
+        p_out = parent_out.get(best_leaf, 0.0)
+        l_out = leaf_output(gl, hl, cl, p_out)
+        r_out = leaf_output(g_sum_p - gl, h_sum_p - hl, cnt_p - cl, p_out)
+        parent_out[left_id] = min(max(l_out, lo), hi)
+        parent_out[right_id] = min(max(r_out, lo), hi)
+        path_feats[left_id] = path_feats[right_id] = \
+            path_feats.get(best_leaf, frozenset()) | {int(f_b)}
+        if (monotone_constraints is not None and kind == "num"
+                and monotone_constraints[f_b] != 0):
+            l_c = min(max(l_out, lo), hi)
+            r_c = min(max(r_out, lo), hi)
+            inc = monotone_constraints[f_b] > 0
+            if params.monotone_constraints_method in ("intermediate",
+                                                      "advanced"):
+                # IntermediateLeafConstraints::UpdateConstraintsWithOutputs:
+                # the children bounded by the sibling's actual output
+                # ('advanced' re-tightens other leaves too; the JAX package
+                # approximates it by the same bounds)
+                if inc:
+                    bounds[left_id] = (lo, min(hi, r_c))
+                    bounds[right_id] = (max(lo, l_c), hi)
+                else:
+                    bounds[left_id] = (max(lo, r_c), hi)
+                    bounds[right_id] = (lo, min(hi, l_c))
+            else:
+                mid = 0.5 * (l_c + r_c)
+                if inc:
+                    bounds[left_id] = (lo, min(hi, mid))
+                    bounds[right_id] = (max(lo, mid), hi)
+                else:
+                    bounds[left_id] = (max(lo, mid), hi)
+                    bounds[right_id] = (lo, min(hi, mid))
         depth[left_id] = depth[right_id] = depth[best_leaf] + 1
         max_depth_used = max(max_depth_used, int(depth[left_id]))
         num_leaves += 1
         # child histograms: smaller side direct, sibling by subtraction
         parent_hist = hist_cache.pop(best_leaf)
         best_cache.pop(best_leaf)
-        if left_cnt <= cnt / 2:
+        if cl <= cnt / 2:
             hist_left = leaf_hist(left_id)
             hist_right = parent_hist - hist_left
         else:
@@ -475,22 +1120,37 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
         compute_leaf(left_id, hist_left)
         compute_leaf(right_id, hist_right)
 
+    # leaf values (path-smoothed, clipped to the monotone bounds)
     node_count = np.zeros(max_nodes, np.float64)
     for node_id, (g_sum, h_sum, cnt) in stats_cache.items():
         node_count[node_id] = cnt
-        if is_leaf[node_id]:
-            leaf_value[node_id] = leaf_output(g_sum, h_sum)
+        if not is_leaf[node_id]:
+            continue
+        if ps > 0.0 and node_id != 0:
+            v = parent_out.get(node_id, leaf_output(g_sum, h_sum))
+        else:
+            v = leaf_output(g_sum, h_sum, cnt if ps > 0.0 else None, 0.0)
+        if monotone_constraints is not None:
+            lo, hi = bounds.get(node_id, (-np.inf, np.inf))
+            v = min(max(v, lo), hi)
+        leaf_value[node_id] = v
     tree = Tree(split_feature=feature, threshold=np.zeros(max_nodes),
                 threshold_bin=threshold_bin, left=left, right=right,
                 leaf_value=leaf_value, is_leaf=is_leaf, node_count=node_count,
-                is_categorical=np.zeros(max_nodes, bool),
-                cat_mask=np.zeros((max_nodes, max_num_bins), bool),
+                is_categorical=is_categorical, cat_mask=cat_masks,
                 split_gain=split_gain_arr, default_left=default_left_arr,
                 num_leaves=num_leaves, max_depth_used=max_depth_used)
     return tree, row_leaf
 
 
 grow_tree.host_reads = 0
+
+
+def _traverse(node, max_depth, go_left_of, left, right):
+    left, right = left.long(), right.long()
+    for _ in range(max_depth):
+        node = torch.where(go_left_of(node), left[node], right[node])
+    return node
 
 
 def predict_tree_binned(binned, feature, threshold_bin, left, right,
@@ -502,32 +1162,179 @@ def predict_tree_binned(binned, feature, threshold_bin, left, right,
     ``default_left`` [M]: False sends the NA bin (bin 0 of a feature with
     missing values — the grower only clears the flag on such nodes) right.
     """
-    n = binned.shape[0]
-    node = torch.zeros(n, dtype=torch.int64, device=binned.device)
-    feature, left, right = feature.long(), left.long(), right.long()
-    for _ in range(max_depth):
-        t = threshold_bin[node]
+    feature = feature.long()
+
+    def go_left_of(node):
         vals = binned.gather(1, feature[node][:, None])[:, 0]
-        go_left = vals <= t
+        go = vals <= threshold_bin[node]
         if default_left is not None:
-            go_left = go_left & (default_left[node] | (vals != 0))
-        node = torch.where(go_left, left[node], right[node])
+            go = go & (default_left[node] | (vals != 0))
+        return go
+
+    node = _traverse(torch.zeros(binned.shape[0], dtype=torch.int64,
+                                 device=binned.device), max_depth,
+                     go_left_of, left, right)
     return leaf_value[node], node
+
+
+def _raw_left(X, feature, threshold, default_left, node):
+    vals = X.gather(1, feature[node][:, None])[:, 0]
+    go = vals <= threshold[node]
+    if default_left is not None:
+        go = torch.where(torch.isnan(vals), default_left[node], go)
+    return go
+
+
+def _cat_left(cat_bins, feature, cat_mask, node):
+    # an id past the mask's width takes its last column (the JAX package's
+    # gather clamps an out-of-range index the same way)
+    b = cat_bins.gather(1, feature[node][:, None])[:, 0].long()
+    return cat_mask[node, b.clamp(max=cat_mask.shape[1] - 1)]
 
 
 def predict_tree_raw(X, feature, threshold, left, right, leaf_value,
                      max_depth: int, default_left=None):
     """Evaluate one tree on raw feature values (value <= threshold -> left);
     NaN routes by the node's learned ``default_left`` direction."""
-    n = X.shape[0]
-    node = torch.zeros(n, dtype=torch.int64, device=X.device)
-    feature, left, right = feature.long(), left.long(), right.long()
-    for _ in range(max_depth):
-        t = threshold[node]
-        vals = X.gather(1, feature[node][:, None])[:, 0]
-        go_left = vals <= t
-        if default_left is not None:
-            go_left = torch.where(torch.isnan(vals), default_left[node],
-                                  go_left)
-        node = torch.where(go_left, left[node], right[node])
+    feature = feature.long()
+    node = _traverse(torch.zeros(X.shape[0], dtype=torch.int64,
+                                 device=X.device), max_depth,
+                     lambda nd: _raw_left(X, feature, threshold,
+                                          default_left, nd), left, right)
     return leaf_value[node], node
+
+
+def predict_tree_mixed(X_num, cat_bins, feature, threshold, is_cat, cat_mask,
+                       left, right, max_depth: int, leaf_value,
+                       default_left=None):
+    """Tree evaluation with numerical and categorical splits on raw values:
+    ``cat_bins`` [n, F] holds the category bins of the categorical columns
+    (0 elsewhere); numerical columns compare against real thresholds."""
+    feature = feature.long()
+
+    def go_left_of(nd):
+        return torch.where(is_cat[nd], _cat_left(cat_bins, feature,
+                                                 cat_mask, nd),
+                           _raw_left(X_num, feature, threshold,
+                                     default_left, nd))
+
+    node = _traverse(torch.zeros(X_num.shape[0], dtype=torch.int64,
+                                 device=X_num.device), max_depth,
+                     go_left_of, left, right)
+    return leaf_value[node], node
+
+
+def predict_tree_binned_mixed(binned, feature, threshold_bin, is_cat,
+                              cat_mask, left, right, max_depth: int,
+                              leaf_value, default_left=None):
+    """Binned-data evaluation with categorical splits."""
+    feature = feature.long()
+
+    def go_left_of(nd):
+        b = binned.gather(1, feature[nd][:, None])[:, 0]
+        num_left = b <= threshold_bin[nd]
+        if default_left is not None:
+            num_left = num_left & (default_left[nd] | (b != 0))
+        return torch.where(is_cat[nd], cat_mask[nd, b.long()], num_left)
+
+    node = _traverse(torch.zeros(binned.shape[0], dtype=torch.int64,
+                                 device=binned.device), max_depth,
+                     go_left_of, left, right)
+    return leaf_value[node], node
+
+
+def predict_tree_linear(X_num, cat_bins, feature, threshold, is_cat,
+                        cat_mask, left, right, max_depth: int, leaf_value,
+                        lin_features, lin_coefs, default_left=None):
+    """Traverse as :func:`predict_tree_mixed`, then add the leaf's linear
+    model ``sum_k coef[k] x[feature[k]]`` (features -1 pad)."""
+    vals, node = predict_tree_mixed(X_num, cat_bins, feature, threshold,
+                                    is_cat, cat_mask, left, right, max_depth,
+                                    leaf_value, default_left)
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    for k in range(lin_features.shape[1]):
+        f = lin_features[node, k].long()
+        x = X_num.gather(1, f.clamp(min=0)[:, None])[:, 0]
+        vals = vals + torch.where(f >= 0, lin_coefs[node, k] * x, zero)
+    return vals, node
+
+
+def fit_linear_leaves(tree: Tree, X: torch.Tensor, row_leaf: torch.Tensor,
+                      grad: torch.Tensor, hess: torch.Tensor,
+                      linear_lambda: float = 0.0):
+    """Ridge linear models in the leaves (reference ``LinearTreeLearner``):
+    per leaf, minimize sum_i [g_i v(x_i) + 1/2 h_i v(x_i)^2] over
+    v(x) = c + w'x_path, the path's numerical split features standardized.
+
+    ``X`` [n, F], ``grad`` / ``hess`` [n] float64 and ``row_leaf`` [n] on
+    one device. Each leaf's rows are taken in increasing order (one stable
+    sort), its system built by matrix products and solved by
+    ``torch.linalg.solve_ex``: no atomics, the same bits on every run. A
+    leaf with fewer than K + 2 rows keeps its constant, one whose system is
+    singular too (the JAX package skips it on ``LinAlgError``). Two host
+    reads: the leaves' row counts, and every leaf's solution together.
+    Mutates the tree (``leaf_value`` takes the constants, ``lin_*`` the
+    linear parts) and returns it.
+    """
+    M = len(tree.is_leaf)
+    parents = {}
+    for node in range(M):
+        if not tree.is_leaf[node]:
+            parents[tree.left[node]] = node
+            parents[tree.right[node]] = node
+    leaf_nodes = np.flatnonzero(tree.is_leaf)
+    path_feats = {}
+    for leaf in leaf_nodes:
+        feats = []
+        node = leaf
+        while node in parents:
+            node = parents[node]
+            f = int(tree.split_feature[node])
+            if (tree.is_categorical is None
+                    or not tree.is_categorical[node]) and f not in feats:
+                feats.append(f)
+        path_feats[leaf] = feats
+    max_k = max((len(v) for v in path_feats.values()), default=0)
+    if max_k == 0:
+        return tree
+    rl = row_leaf.long()
+    order = torch.argsort(rl, stable=True)
+    counts = torch.bincount(rl, minlength=M).tolist()
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    solved = []
+    for leaf in leaf_nodes:
+        feats = path_feats[leaf]
+        cnt = counts[leaf]
+        if len(feats) == 0 or cnt < len(feats) + 2:
+            continue
+        rows = order[offsets[leaf]:offsets[leaf] + cnt]
+        Xl = X[rows][:, torch.as_tensor(feats, device=X.device)]
+        mu = Xl.mean(dim=0)
+        sd = Xl.std(dim=0, correction=0) + 1e-12
+        Xs = torch.cat([torch.ones_like(Xl[:, :1]), (Xl - mu) / sd], dim=1)
+        h, g = hess[rows], grad[rows]
+        A = Xs.T @ (Xs * h[:, None]) + (linear_lambda + 1e-6) * torch.eye(
+            Xs.shape[1], dtype=X.dtype, device=X.device)
+        beta, info = torch.linalg.solve_ex(A, -Xs.T @ g)
+        coefs = beta[1:] / sd
+        const = beta[0] - torch.dot(coefs, mu)
+        solved.append((leaf, feats, torch.cat([
+            const[None], coefs, info[None].to(coefs.dtype)])))
+    lin_features = np.full((M, max_k), -1, dtype=np.int32)
+    lin_coefs = np.zeros((M, max_k), dtype=np.float64)
+    if solved:
+        host = torch.cat([s[2] for s in solved]).cpu().numpy()
+        pos = 0
+        for leaf, feats, _ in solved:
+            k = len(feats)
+            const, coefs, info = host[pos], host[pos + 1:pos + 1 + k], \
+                host[pos + 1 + k]
+            pos += k + 2
+            if info != 0:
+                continue          # singular: the constant leaf stays
+            lin_features[leaf, :k] = feats
+            lin_coefs[leaf, :k] = coefs
+            tree.leaf_value[leaf] = const
+    tree.lin_features = lin_features
+    tree.lin_coefs = lin_coefs
+    return tree

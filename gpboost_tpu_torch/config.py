@@ -81,46 +81,36 @@ PORTED = (
     # the objectives without a GP
     "reg_sqrt", "alpha", "fair_c", "poisson_max_delta_step",
     "tweedie_variance_power", "sigma", "yl", "yu",
+    # the tree learner's tail and the data it reads: categorical features,
+    # EFB, the missing-value switches, per-feature and forced bins, the
+    # grower's constraints and penalties, linear leaves
+    "categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
+    "min_data_per_group", "max_cat_to_onehot", "enable_bundle",
+    "use_missing", "zero_as_missing", "max_bin_by_feature",
+    "forcedbins_filename", "monotone_constraints",
+    "monotone_constraints_method", "monotone_penalty",
+    "interaction_constraints", "forced_splits", "forcedsplits_filename",
+    "extra_trees", "extra_seed", "path_smooth", "max_delta_step",
+    "feature_contri", "cegb_tradeoff", "cegb_penalty_split",
+    "cegb_penalty_feature_lazy", "cegb_penalty_feature_coupled",
+    "linear_tree", "linear_lambda",
 )
 
-# accepted without effect on the ported path: logging, host threading, EFB
-# (lossless, so trees are the same without it), the seed of extra trees
-# (not ported), and ``deterministic``: training is always deterministic, on
-# the card too (the histogram kernel and the float64 histogram sum in fixed
-# point, ``B' v`` of the Psi^-1 solve is a gather with a fixed order; no
-# float atomics remain on the path)
-_NO_EFFECT = ("verbose", "enable_bundle", "num_threads", "device_type",
-              "deterministic", "force_col_wise", "force_row_wise",
-              "extra_seed")
+# accepted without effect on the ported path: logging, host threading, and
+# ``deterministic``: training is always deterministic, on the card too (the
+# histogram kernel and the float64 histogram sum in fixed point, ``B' v`` of
+# the Psi^-1 solve is a gather with a fixed order; no float atomics remain on
+# the path)
+_NO_EFFECT = ("verbose", "num_threads", "device_type", "deterministic",
+              "force_col_wise", "force_row_wise")
 
-_TAIL = "Queue A, item 18b (boosting tail)"
+_TAIL = "Queue A, item 18c (boosting tail)"
 # canonical name -> (default, queue item): a value other than the default
 # raises NotImplementedError
 NOT_PORTED = {
-    "categorical_feature": (None, _TAIL),
-    "monotone_constraints": (None, _TAIL),
-    "monotone_constraints_method": ("basic", _TAIL),
-    "monotone_penalty": (0.0, _TAIL),
-    "linear_tree": (False, _TAIL),
-    "linear_lambda": (0.0, _TAIL),
-    "forced_splits": (None, _TAIL),
-    "forcedsplits_filename": ("", _TAIL),
-    "forcedbins_filename": ("", _TAIL),
-    "max_bin_by_feature": (None, _TAIL),
-    "cegb_tradeoff": (1.0, _TAIL),
-    "cegb_penalty_split": (0.0, _TAIL),
-    "cegb_penalty_feature_lazy": (None, _TAIL),
-    "cegb_penalty_feature_coupled": (None, _TAIL),
-    "extra_trees": (False, _TAIL),
-    "path_smooth": (0.0, _TAIL),
-    "max_delta_step": (0.0, _TAIL),
-    "interaction_constraints": (None, _TAIL),
-    "feature_contri": (None, _TAIL),
     "use_nesterov_acc": (False, _TAIL),
     "leaves_newton_update": (False, _TAIL),
     "line_search_step_length": (False, _TAIL),
-    "use_missing": (True, _TAIL),
-    "zero_as_missing": (False, _TAIL),
     "pred_early_stop": (False, _TAIL),
     "group_column": ("", _TAIL + ": ranking objectives"),
 }

@@ -311,7 +311,14 @@ NOW_PORTED = ("bagging_fraction", "subsample", "bagging_freq",
               "pos_bagging_fraction", "neg_bagging_fraction",
               "feature_fraction", "colsample_bytree",
               "feature_fraction_bynode", "num_class", "objective",
-              "early_stopping_round")
+              "early_stopping_round",
+              # the tree learner's tail
+              "categorical_feature", "cat_feature", "monotone_constraints",
+              "linear_tree", "forced_splits", "forcedsplits_filename",
+              "cegb_tradeoff", "cegb_penalty_split",
+              "cegb_penalty_feature_lazy", "cegb_penalty_feature_coupled",
+              "extra_trees", "path_smooth", "max_delta_step",
+              "max_leaf_output", "interaction_constraints")
 
 
 def _jax_and_port(params, X, y, **kw):

@@ -126,6 +126,17 @@ def test_fields_and_device_rule():
     dict(params={"zero_as_missing": True}),
 ])
 def test_unported_dataset_features_raise(kwargs):
+    """Ranking's group still raises (item 18c); the other cases are ported
+    and bin as the JAX package does (categorical features, the params form,
+    per-feature bins, zero as missing)."""
     X, y = _data(200)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        gpt.Dataset(X, label=y, device="cpu", **kwargs)
+    if "group" in kwargs:
+        with pytest.raises(NotImplementedError, match="Queue A, item 18c"):
+            gpt.Dataset(X, label=y, device="cpu", **kwargs)
+        return
+    td = gpt.Dataset(X, label=y, device="cpu", **kwargs)
+    jd = gpb.Dataset(X, label=y, **kwargs)
+    np.testing.assert_array_equal(td.binned.numpy(), np.asarray(jd.binned))
+    np.testing.assert_array_equal(td.num_bins, jd.num_bins)
+    np.testing.assert_array_equal(td.has_nan, jd.has_nan)
+    assert td.categorical_feature == list(jd.categorical_feature)

@@ -1,7 +1,7 @@
 """The port's metrics (``gpboost_tpu_torch/boosting/metrics.py``) against the
 JAX package's on the same numpy-seeded inputs (n = 400): every metric of the
 registry, its aliases and defaults, within 1e-12 absolute (both are the same
-numpy arithmetic). The ranking metrics raise, naming item 18b.
+numpy arithmetic). The ranking metrics raise, naming item 18c.
 """
 import numpy as np
 import pytest
@@ -133,5 +133,5 @@ def test_registry_aliases_and_defaults_match_jax():
 
 @pytest.mark.parametrize("name", ["ndcg", "map"])
 def test_ranking_metrics_raise(name):
-    with pytest.raises(NotImplementedError, match="item 18b"):
+    with pytest.raises(NotImplementedError, match="item 18c"):
         tm.METRICS[name].fn(np.zeros(4), np.zeros(4), [4], [1])

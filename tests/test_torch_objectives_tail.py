@@ -189,5 +189,5 @@ def test_label_checks_match_jax(name, label, err):
 
 @pytest.mark.parametrize("name", ["lambdarank", "rank_xendcg", "xendcg"])
 def test_ranking_objectives_raise(name):
-    with pytest.raises(NotImplementedError, match="item 18b"):
+    with pytest.raises(NotImplementedError, match="item 18c"):
         tobj.create_objective(name, {})
