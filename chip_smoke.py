@@ -198,7 +198,22 @@ one. It
    missing-value switches; each option's gate, card vs CPU at TT_CPU_N
    rows, two trainings to the same bits for CEGB (lazy) and linear leaves)
    and ``sparse_and_files`` (sparse input, ``save_binary``, a model with
-   categorical and linear trees saved and reloaded);
+   categorical and linear trees saved and reloaded); then, before those
+   second runs too, the rest of the boosting tail (phase 15,
+   ``boosting_tail_2_paths``): ``boosting_types_gp`` (GPBoost with the
+   float32 GP as DART, GOSS past its first sampled round, a random forest
+   and with Nesterov acceleration; prediction with the GP; DART and GOSS
+   twice to the same bits; the histogram kernel against its plain version
+   on a sampled GOSS round's amplified gradients), ``leaf_updates_gp`` (the
+   Newton leaf re-solve and the line search, one ``vecchia_factors`` launch
+   a round each), ``gp_card_vs_cpu`` (those six trainings at BT_CPU_N rows,
+   float64, on the card and on the CPU), ``ranking``
+   (``lambdarank`` and ``rank_xendcg`` on 1 000 queries of skewed lengths,
+   1e5 rows, labels mostly 0, ndcg@1,3,5 and map@5 on 200 validation
+   queries, LambdaRank twice to the same bits, its padded pairs) and
+   ``model_io`` (the text format, the C export compiled by the host's
+   compiler, SHAP, ``pred_leaf``, the prediction early stop,
+   ``rollback_one_iter`` and ``refit``);
 14. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
@@ -213,7 +228,9 @@ one. It
    kernel once a leaf (``num_models`` trees a round) on its objectives and
    folds, all three on phase 14's categorical GPBoost path and the
    histogram kernel once a leaf on its other paths (once more a forced
-   split) — and the results against float64 plain versions.
+   split), all three on phase 15's GP paths and the histogram kernel once a
+   leaf on its ranking and binary trainings — and the results against
+   float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -263,7 +280,8 @@ NLL_OTHER_M = (40, 64)    # the NLL kernel's other shapes: 16 and 8 rows a block
 # and the predictions' simulated draws (NG_NSIM)
 NG_COV_PARS = [1.0, 0.1]
 NG_MAXIT = 2
-NG_ROUNDS = 3
+NG_ROUNDS = 2                     # 3 until phase 15 took the script
+#                                   past its 1 200 s
 NG_REFIT_MAXIT = 1
 # simulated draws of the non-Gaussian predictions' variances (the package
 # default 1 000; the one depth cut of an earlier path that phase 12 forced:
@@ -2839,7 +2857,9 @@ LRC_CLUSTERS, LRC_SIZE, LRC_K = 100, 1_000, 50
 LRC_UNSEEN = 0.1
 LR_NG_MAXIT = 1                   # depth cut of the FSVA-Laplace fit
 LR_NG_VAR_POINTS = 256            # prediction points with Laplace variances
-LR_FSVA_ROUNDS = 10               # depth cut of fsva_boosting (recipe: 30)
+LR_FSVA_ROUNDS = 5                # depth cut of fsva_boosting (recipe: 30;
+#                                   10 until phase 15 took the script past
+#                                   its 1 200 s)
 
 
 def _lowrank_model(coords, approx, dev, **kw):
@@ -3779,8 +3799,10 @@ VR_CPU_CLUSTERS = 20              # 2 000 points of the card-vs-CPU check
 VR_CPU_RTOL = 1e-9
 PT_N_PRED_FULL = 10_000           # order_obs_first_cond_all's points
 PT_N_PRED = 1_000                 # order_pred_first's points
-PT_LATENT_N_PRED = 250            # the latent types' (depth cut: their W
-#                                   solves are CG on as many columns)
+PT_LATENT_N_PRED = 100            # the latent types' (depth cut: their W
+#                                   solves are CG on as many columns; 250
+#                                   until phase 15 took the script past
+#                                   its 1 200 s)
 PT_NN = (40, 60)                  # num_neighbors_pred: 2 m, and more
 # a type's mean vs cond_obs_only's in that one's predictive standard
 # deviations (largest, and averaged over the points), its variance relative:
@@ -5822,6 +5844,564 @@ def tree_tail_paths(boost_data, coords, pred, m, seed, dev):
     return launches, timings, (hist_cases, hist_timed)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the boosting tail (ROADMAP item 18c): DART, GOSS,
+# random forests and Nesterov acceleration with the GP, the GP leaf steps,
+# ranking, the model formats and the prediction options
+# ---------------------------------------------------------------------------
+
+BT_ROUNDS = 10                    # DART, RF, Nesterov, the leaf steps
+BT_GOSS_ROUNDS = 20               # GOSS samples from round 1 / 0.1 = 10 on
+BT_TYPES = (("dart", {"boosting": "dart"}, BT_ROUNDS),
+            ("goss", {"boosting": "goss"}, BT_GOSS_ROUNDS),
+            ("rf", {"boosting": "rf"}, BT_ROUNDS),
+            ("nesterov", {"use_nesterov_acc": True}, BT_ROUNDS))
+BT_PAIRS = ("dart", "goss")       # trained twice: the same bits
+BT_LEAF_STEPS = (("newton", {"leaves_newton_update": True}),
+                 ("line_search", {"line_search_step_length": True}))
+BT_CPU_N = 2_000                  # rows of the card-vs-CPU checks
+BT_CPU_ROUNDS = 3                 # their rounds (depth cut: 5 before)
+BT_CPU_GOSS = (0.25, 5)           # GOSS's: learning rate 0.25, so that
+#                                   round 5 samples, and its rounds
+BT_CPU_RTOL = 1e-9
+# web-search learning to rank: 1 000 queries, 1e5 documents in all, query
+# lengths skewed as MSLR-WEB30K's (1 to ~1 250 documents; here lognormal,
+# sigma 1, rescaled to the total) and labels 0-4 in about its shares
+RK_QUERIES = 1000
+RK_ROWS = 100_000
+RK_MAX_PER_QUERY = 1250
+RK_LABEL_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
+RK_VALID_QUERIES = 200
+RK_ROUNDS = 10
+RK_METRICS = ["ndcg@1,3,5", "map@5"]
+RK_CPU_QUERIES = 20               # ~2 000 rows of the card-vs-CPU check
+IO_CONTRIB_N = 200                # SHAP rows (host TreeSHAP; depth cut:
+#                                   1 000 before)
+IO_ROWS = 10_000                  # pred_leaf, pred_early_stop, refit rows
+IO_C_TOL = 1e-12
+IO_SHAP_TOL = 1e-9
+
+
+def _bt_train(X, y, coords, m, seed, dtype, dev, extra, rounds):
+    import gpboost_tpu_torch as gpt
+    gp = _gp_model(coords, m, seed, dtype, dev)
+    ds = gpt.Dataset(X, label=y, device=dev)
+    return gpt.train(dict(BOOST_PARAMS, **extra), ds, gp_model=gp,
+                     num_boost_round=rounds)
+
+
+def _bt_cpu_case(extra, rounds):
+    """A GP path's training as the card-vs-CPU check runs it: BT_CPU_ROUNDS
+    rounds (GOSS: BT_CPU_GOSS, through a sampled round), the GP's L-BFGS
+    refits started afresh each round (``reuse_learning_rates_gp_model=
+    False``: its memory carried from refit to refit amplifies the last bits
+    of the two devices' sums — a DART training's leaf values were 2.6e-8
+    apart after three rounds on an H100; on the CPU a random forest's refits
+    moved the JAX package's and the port's scores 1e-4 apart in ten rounds
+    with the memory, 1e-16 without it)."""
+    extra = dict(extra, reuse_learning_rates_gp_model=False)
+    rounds = min(rounds, BT_CPU_ROUNDS)
+    if extra.get("boosting") == "goss":
+        extra["learning_rate"], rounds = BT_CPU_GOSS
+    return extra, rounds
+
+
+def gp_card_vs_cpu(boost_data, coords, m, seed, dev):
+    """Phase 15's GP paths (BT_TYPES and BT_LEAF_STEPS) at BT_CPU_N rows,
+    float64, on the card (``gpu_use_dp``) and on the CPU
+    (:func:`_bt_cpu_case`): the same trees up to the first exact tie of
+    split gains (checked to be one) and the raw scores of the iterations
+    before it within BT_CPU_RTOL of the score's scale. The CPU trainings
+    run together in a pool of threads, one each, with the host's cores
+    shared out among them (intra-op threads), and the card's after them: at
+    this size a CPU training is bound by the cost of each operation, whose
+    work releases the GIL, so they overlap (the card's, host-bound, would
+    only wait for the GIL among them)."""
+    import concurrent.futures
+
+    X, yb, _ = boost_data
+    n = BT_CPU_N
+    sub = (X[:n], yb[:n], coords[:n], m, seed, torch.float64)
+    cases = {name: _bt_cpu_case(extra, rounds) for name, extra, rounds in
+             BT_TYPES + tuple((name, extra, BT_ROUNDS)
+                              for name, extra in BT_LEAF_STEPS)}
+    threads = torch.get_num_threads()
+    t0 = clock()
+    torch.set_num_threads(max(1, threads // len(cases)))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+            on_cpu = {name: pool.submit(_bt_train, *sub, torch.device("cpu"),
+                                        extra, rounds)
+                      for name, (extra, rounds) in cases.items()}
+            on_cpu = {name: f.result() for name, f in on_cpu.items()}
+    finally:
+        torch.set_num_threads(threads)
+    t_cpu = clock() - t0
+    on_card = {name: _bt_train(*sub, dev, dict(extra, gpu_use_dp=True),
+                               rounds)
+               for name, (extra, rounds) in cases.items()}
+    t_all = clock() - t0
+    out = {}
+    for name, (extra, rounds) in cases.items():
+        compared, tie, err = _tt_agree(on_card[name], on_cpu[name], X[:n],
+                                       BT_CPU_RTOL)
+        out[name] = {"rounds": rounds,
+                     "learning_rate": extra.get("learning_rate",
+                                                BOOST_PARAMS["learning_rate"]),
+                     "trees_identical": compared, "tie": tie,
+                     "raw_score_max_abs_diff": err}
+    emit({"phase": "gp_card_vs_cpu", "n": n, "tolerance": BT_CPU_RTOL,
+          "cpu_s": t_cpu, "cpu_threads": len(cases),
+          "intra_op_threads": max(1, threads // len(cases)),
+          "card_s": t_all - t_cpu, **out})
+    return {"phase15_gp_card_vs_cpu_s": t_all}
+
+
+def _bt_path(tag, X, y, coords, pred, X_pred, m, seed, dev, extra, rounds):
+    """One GPBoost training of the recipe with the float32 GP at full size:
+    launches, prediction with the GP."""
+    from gpboost_tpu_torch.boosting.tree import grow_tree
+    reset_counts()
+    t0 = clock()
+    bst = _bt_train(X, y, coords, m, seed, torch.float32, dev, extra, rounds)
+    t_train = clock() - t0
+    train_launches = read_counts()
+    t0 = clock()
+    out = bst.predict(X_pred, gp_coords_pred=pred, predict_var=True)
+    t_pred = clock() - t0
+    launches = read_counts()
+    leaves = sum(t.num_leaves for t in bst.trees)
+    check(bst.num_trees() == rounds, f"{tag}: {bst.num_trees()} trees")
+    _check_trees(bst, tag)
+    check(launches["histogram"] == leaves, f"{tag}: histogram launched "
+          f"{launches['histogram']} times for {leaves} leaves")
+    check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
+          f"{tag}: Vecchia kernels {launches}")
+    mu = np.asarray(out["response_mean"])
+    check(mu.shape == (len(X_pred),) and bool(np.all(np.isfinite(mu)))
+          and bool(np.all(np.asarray(out["response_var"]) > 0)),
+          f"{tag}: the prediction with the GP")
+    res = {"rounds": rounds, "leaves": leaves, "launches": launches,
+           "train_launches": train_launches,
+           "host_reads": grow_tree.host_reads,
+           "fits": len(bst.objective.fits), "train_s": t_train,
+           "predict_s": t_pred, "cov_pars": bst.gp_model.get_cov_pars().tolist(),
+           "shrinkage": sorted({round(t.shrinkage, 9) for t in bst.trees})}
+    return bst, res
+
+
+def _goss_histogram(bst, sampled):
+    """The histogram kernel against its float64 plain version on a sampled
+    GOSS round of the full-size training: its own mask and amplified
+    gradients (``sampled``: iteration, mask, gradients, hessians), with the
+    fixed-point scales the grower takes from them."""
+    it, mask, grad, hess = sampled
+    ds, n = bst.train_set, len(grad)
+    g = torch.as_tensor(grad, dtype=bst._grad_dtype, device=bst.device)
+    h = torch.as_tensor(hess, dtype=bst._grad_dtype, device=bst.device)
+    case = _hist_compare(f"goss_round_{it}", ds.binned, ds.binned_t, g, h,
+                         mask, ds.max_num_bins)
+    top_k = max(1, int(bst.top_rate * n))
+    case["amplification"] = (n - top_k) / max(1, int(bst.other_rate * n))
+    case["max_abs_g"] = float(np.max(np.abs(grad[np.asarray(
+        mask.cpu())])))
+    return case
+
+
+def boosting_types_gp(boost_data, coords, pred, m, seed, dev):
+    """DART, GOSS, random forests and Nesterov acceleration in GPBoost with
+    the float32 Vecchia GP at the recipe's full width: histogram launches =
+    leaves, both Vecchia kernels, prediction with the GP; DART and GOSS
+    trained twice to the same bits; the histogram kernel against its plain
+    version on GOSS's last sampled round. Returns (launches, timings, the
+    DART booster, the histogram case)."""
+    from gpboost_tpu_torch.boosting.booster import Booster
+    X, yb, X_pred = boost_data
+    out, timings, total, keep = {}, {}, None, None
+    goss = Booster._goss
+    sampled = {}
+
+    def keep_sampled(self, it, n, grad, hess):     # the full-size rounds
+        mask, g, h = goss(self, it, n, grad, hess)
+        if mask is not None:
+            sampled.update(round=(it, mask, g, h))
+        return mask, g, h
+
+    for name, extra, rounds in BT_TYPES:
+        if name == "goss":
+            Booster._goss = keep_sampled
+        try:
+            bst, res = _bt_path(name, X, yb, coords, pred, X_pred, m, seed,
+                                dev, extra, rounds)
+        finally:
+            Booster._goss = goss
+        if name == "goss":
+            check("round" in sampled and sampled["round"][0] >= 10,
+                  f"goss: no sampled round kept: {sampled.get('round')}")
+            hist_case = _goss_histogram(bst, sampled.pop("round"))
+            res["histogram_vs_plain"] = hist_case
+        if name in BT_PAIRS:
+            again = _bt_train(X, yb, coords, m, seed, torch.float32, dev,
+                              extra, rounds)
+            res["same_bits"] = bool(np.array_equal(bst._score, again._score))
+            check(res["same_bits"], f"{name}: two trainings differ")
+            del again
+        if name == "dart":
+            check(len(res["shrinkage"]) > 1, "dart: no tree renormalised")
+            keep = bst
+        if name == "rf":
+            check(res["shrinkage"] == [1.0], "rf: shrunk trees")
+        out[name] = res
+        timings[f"bt_{name}_train_s"] = res["train_s"]
+        total = (res["launches"] if total is None else
+                 {k: total[k] + v for k, v in res["launches"].items()})
+    emit({"phase": "boosting_types_gp", "n": len(yb), **out})
+    return total, timings, keep, hist_case
+
+
+def leaf_updates_gp(boost_data, coords, pred, m, seed, dev):
+    """The Newton leaf re-solve and the step-length line search in GPBoost
+    with the same GP: each adds exactly one ``vecchia_factors`` launch a
+    round (the leaves' columns, or the new tree's values, through Psi^-1)
+    to the refits' one each."""
+    X, yb, X_pred = boost_data
+    out, timings, total = {}, {}, None
+    for name, extra in BT_LEAF_STEPS:
+        bst, res = _bt_path(name, X, yb, coords, pred, X_pred, m, seed, dev,
+                            extra, BT_ROUNDS)
+        want = res["fits"] + BT_ROUNDS
+        got = res["train_launches"]["vecchia_factors"]
+        check(got == want, f"{name}: vecchia_factors launched {got} times "
+              f"in training, expected {want} ({res['fits']} refits + one a "
+              "round)")
+        if name == "line_search":
+            check(len(res["shrinkage"]) > 1, "line_search: no step length")
+        out[name] = res
+        timings[f"bt_{name}_train_s"] = res["train_s"]
+        total = (res["launches"] if total is None else
+                 {k: total[k] + v for k, v in res["launches"].items()})
+    emit({"phase": "leaf_updates_gp", "n": len(yb), "rounds": BT_ROUNDS,
+          **out})
+    return total, timings
+
+
+def _rk_lengths(rng, queries, rows):
+    """Query lengths: lognormal (sigma 1), rescaled to ``rows`` in all,
+    each within 1 and RK_MAX_PER_QUERY (the longest trimmed if the rounding
+    passed ``rows``)."""
+    raw = rng.lognormal(0.0, 1.0, queries)
+    sizes = np.clip(np.floor(raw * rows / raw.sum()), 1,
+                    RK_MAX_PER_QUERY).astype(np.int64)
+    sizes[np.argmax(sizes)] -= max(0, int(sizes.sum()) - rows)
+    return sizes
+
+
+def _rk_labels(rng, Xq, sizes):
+    """Graded labels 0-4 in RK_LABEL_SHARES within each query: the
+    quantiles of f(X) + noise there."""
+    s = _recipe_f(Xq) + 0.5 * rng.standard_normal(len(Xq))
+    cuts = np.cumsum(RK_LABEL_SHARES)[:-1]
+    out = np.empty(len(Xq))
+    for a, k in zip(np.cumsum(sizes) - sizes, sizes):
+        u = (np.argsort(np.argsort(s[a:a + k])) + 0.5) / k
+        out[a:a + k] = np.searchsorted(cuts, u, side="right")
+    return out
+
+
+def make_ranking_data(seed, X):
+    """RK_QUERIES queries of skewed lengths, RK_ROWS rows in all, on the
+    recipe's features, graded labels 0-4 (:func:`_rk_labels`), and
+    RK_VALID_QUERIES validation queries drawn alike."""
+    rng = np.random.default_rng(seed + 150)
+    g = _rk_lengths(rng, RK_QUERIES, RK_ROWS)
+    gv = _rk_lengths(rng, RK_VALID_QUERIES,
+                     RK_ROWS * RK_VALID_QUERIES // RK_QUERIES)
+    Xr = X[:int(g.sum())]
+    Xv = rng.uniform(size=(int(gv.sum()), X.shape[1]))
+    return (Xr, _rk_labels(rng, Xr, g), g, Xv, _rk_labels(rng, Xv, gv), gv)
+
+
+def _rk_train(objective, data, dev, queries=None, **extra):
+    import gpboost_tpu_torch as gpt
+    Xr, yr, gr, Xv, yv, gv = data
+    if queries is not None:
+        rows, rows_v = int(gr[:queries].sum()), int(gv[:queries].sum())
+        Xr, yr, gr = Xr[:rows], yr[:rows], gr[:queries]
+        Xv, yv, gv = Xv[:rows_v], yv[:rows_v], gv[:queries]
+    ds = gpt.Dataset(Xr, label=yr, group=gr, device=dev)
+    dv = gpt.Dataset(Xv, label=yv, group=gv, reference=ds, device=dev)
+    ev = {}
+    bst = gpt.train(dict(BOOST_PARAMS, objective=objective,
+                         metric=RK_METRICS, **extra), ds,
+                    num_boost_round=RK_ROUNDS, valid_sets=[dv],
+                    evals_result=ev, verbose_eval=False)
+    return bst, ev
+
+
+def ranking(seed, X, dev):
+    """``lambdarank`` and ``rank_xendcg`` on RK_QUERIES queries of skewed
+    lengths (RK_ROWS rows) with RK_VALID_QUERIES validation queries scored
+    by ndcg@1,3,5 and map@5: histogram launches = leaves, the validation
+    NDCG up and map@5 below 1 (not saturated), LambdaRank trained twice to
+    the same bits, its padded pairs beside the queries' own, the lambdas'
+    time a round, card vs CPU at RK_CPU_QUERIES queries."""
+    data = make_ranking_data(seed, X)
+    g, yr = data[2], data[1]
+    out, timings, total = {}, {}, None
+    for objective in ("lambdarank", "rank_xendcg"):
+        reset_counts()
+        t0 = clock()
+        bst, ev = _rk_train(objective, data, dev)
+        t_train = clock() - t0
+        launches = read_counts()
+        leaves = sum(t.num_leaves for t in bst.trees)
+        check(launches["histogram"] == leaves, f"{objective}: histogram "
+              f"launched {launches['histogram']} times for {leaves} leaves")
+        curves = ev["valid_0"]
+        check(set(curves) == {"ndcg@1", "ndcg@3", "ndcg@5", "map@5"}
+              and all(len(c) == RK_ROUNDS for c in curves.values()),
+              f"{objective}: curves {list(curves)}")
+        check(curves["ndcg@5"][-1] > curves["ndcg@5"][0],
+              f"{objective}: the validation ndcg@5 did not rise: "
+              f"{curves['ndcg@5']}")
+        check(max(curves["map@5"]) < 1.0, f"{objective}: map@5 saturated: "
+              f"{curves['map@5']}")
+        res = {"leaves": leaves, "launches": launches, "train_s": t_train,
+               "valid_first": {k: c[0] for k, c in curves.items()},
+               "valid_last": {k: c[-1] for k, c in curves.items()}}
+        # the objective's gradients a round, alone (synchronised)
+        t0 = clock()
+        bst.objective.get_gradients(bst._score)
+        res["gradients_ms"] = (clock() - t0) * 1e3
+        if objective == "lambdarank":
+            padded, real = bst.objective.padded_pairs()
+            res.update(pairs_padded=padded, pairs_real=real,
+                       blocks=len(bst.objective._blocks))
+            again, _ = _rk_train(objective, data, dev)
+            res["same_bits"] = bool(np.array_equal(bst._score, again._score))
+            check(res["same_bits"], "lambdarank: two trainings differ")
+        bc, _ = _rk_train(objective, data, dev, queries=RK_CPU_QUERIES,
+                          gpu_use_dp=True)
+        bh, _ = _rk_train(objective, data, torch.device("cpu"),
+                          queries=RK_CPU_QUERIES)
+        rows = int(g[:RK_CPU_QUERIES].sum())
+        compared, tie, err = _tt_agree(bc, bh, data[0][:rows], BT_CPU_RTOL)
+        res.update(cpu_rows=rows, cpu_trees_identical=compared, cpu_tie=tie,
+                   cpu_raw_score_max_abs_diff=err)
+        out[objective] = res
+        timings[f"rk_{objective}_train_s"] = t_train
+        timings[f"rk_{objective}_gradients_ms"] = res["gradients_ms"]
+        total = (launches if total is None else
+                 {k: total[k] + v for k, v in launches.items()})
+    emit({"phase": "ranking", "queries": RK_QUERIES, "rows": int(g.sum()),
+          "query_rows": {"min": int(g.min()), "median": float(np.median(g)),
+                         "max": int(g.max())},
+          "label_shares": [float(np.mean(yr == k)) for k in range(5)],
+          "valid_queries": RK_VALID_QUERIES, "rounds": RK_ROUNDS,
+          "metrics": RK_METRICS, **out})
+    return total, timings
+
+
+def _c_predictions(src, X, tmp, tag):
+    """``src`` compiled by the host's C compiler into a shared library (a
+    name of its own: the loader hands back a library loaded from the same
+    path) and called a row at a time: (predict, predict_raw) for the rows
+    of X."""
+    import ctypes
+    import os
+    import shutil
+    cc = shutil.which("cc") or shutil.which("gcc")
+    check(cc is not None, "model_io: no host C compiler")
+    cfile = os.path.join(tmp, f"model_{tag}.c")
+    so = os.path.join(tmp, f"model_{tag}.so")
+    with open(cfile, "w") as f:
+        f.write(src)
+    subprocess.run([cc, "-O2", "-shared", "-fPIC", "-o", so, cfile, "-lm"],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    out = []
+    for fn in (lib.predict, lib.predict_raw):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_double)] * 2
+        fn.restype = None
+        row = (ctypes.c_double * X.shape[1])()
+        res = (ctypes.c_double * 1)()
+        vals = np.zeros(len(X))
+        for i in range(len(X)):
+            row[:] = [float(v) for v in X[i]]
+            fn(row, res)
+            vals[i] = res[0]
+        out.append(vals)
+    return out
+
+
+def _io_checks(tag, bst, X, X_rows, tmp):
+    """Text round trip, C export, SHAP and leaf indices of one booster."""
+    import gpboost_tpu_torch as gpt
+    dev = bst.device
+    res = {}
+    t0 = clock()
+    text = bst.model_to_string(format="text")
+    loaded = gpt.Booster(model_str=text, device=dev)
+    again = loaded.model_to_string(format="text")
+    res["text_s"] = clock() - t0
+
+    def model_lines(t):      # the feature ranges come from training data
+        return [ln for ln in t.splitlines()
+                if not ln.startswith("feature_infos=")]
+
+    check(model_lines(again) == model_lines(text),
+          f"{tag}: the text round trip changed the model's text")
+    raw = bst.predict(X_rows, raw_score=True)
+    text_err = float(np.max(np.abs(loaded.predict(X_rows, raw_score=True)
+                                   - raw)))
+    check(text_err <= 1e-12 * max(1.0, float(np.max(np.abs(raw)))),
+          f"{tag}: the loaded text model predicts {text_err} apart")
+    res["text_raw_max_abs_diff"] = text_err
+    Xc = X_rows[:IO_CONTRIB_N]
+    t0 = clock()
+    c_pred, c_raw = _c_predictions(bst.model_to_c(), Xc, tmp, tag)
+    res["c_s"] = clock() - t0
+    want = np.asarray(bst.objective.convert_output(raw[:IO_CONTRIB_N]))
+    res["c_max_abs_diff"] = max(float(np.max(np.abs(c_pred - want))),
+                                float(np.max(np.abs(c_raw
+                                                    - raw[:IO_CONTRIB_N]))))
+    check(res["c_max_abs_diff"] <= IO_C_TOL,
+          f"{tag}: the C model {res['c_max_abs_diff']} apart")
+    t0 = clock()
+    contrib = bst.predict(Xc, pred_contrib=True)
+    res["shap_s"] = clock() - t0
+    res["shap_sum_max_abs_diff"] = float(np.max(np.abs(contrib.sum(axis=1)
+                                                       - raw[:IO_CONTRIB_N])))
+    check(contrib.shape == (IO_CONTRIB_N, X.shape[1] + 1)
+          and res["shap_sum_max_abs_diff"] <= IO_SHAP_TOL,
+          f"{tag}: SHAP rows {res['shap_sum_max_abs_diff']} from the raw "
+          "score")
+    t0 = clock()
+    leaves = bst.predict(X_rows, pred_leaf=True)
+    res["pred_leaf_s"] = clock() - t0
+    vals = np.stack([t.leaf_value[t.leaf_index_order()[leaves[:, k]]]
+                     for k, t in enumerate(bst.trees)], axis=1)
+    leaf_err = float(np.max(np.abs(vals.sum(axis=1) + bst.init_score[0]
+                                   - raw)))
+    check(leaves.shape == (len(X_rows), bst.num_trees())
+          and leaf_err <= 1e-9, f"{tag}: pred_leaf's leaves sum {leaf_err} "
+          "from the raw score")
+    return res
+
+
+def model_io(dart, boost_data, seed, dev):
+    """The DART GPBoost booster of boosting_types_gp and a ``binary``
+    booster without a GP (BT_ROUNDS rounds at full width): a text round
+    trip to the same text and within 1e-12, the C export compiled by the
+    host's compiler within IO_C_TOL of ``predict``, SHAP on IO_CONTRIB_N
+    rows summing to the raw score within IO_SHAP_TOL, ``pred_leaf``; on the
+    binary booster the prediction early stop against its emulation,
+    ``rollback_one_iter`` and ``refit`` on IO_ROWS rows."""
+    import tempfile
+
+    import gpboost_tpu_torch as gpt
+    X, yb, X_pred = boost_data
+    rng = np.random.default_rng(seed + 151)
+    X_rows = rng.uniform(size=(IO_ROWS, X.shape[1]))
+    label = (_recipe_f(X) + 0.5 * rng.standard_normal(len(X))
+             > np.median(_recipe_f(X))).astype(np.float64)
+    reset_counts()
+    t0 = clock()
+    binary = gpt.train(dict(BOOST_PARAMS, objective="binary"),
+                       gpt.Dataset(X, label=label, device=dev),
+                       num_boost_round=BT_ROUNDS)
+    t_binary = clock() - t0
+    launches = read_counts()
+    leaves = sum(t.num_leaves for t in binary.trees)
+    check(launches["histogram"] == leaves, f"model_io: histogram launched "
+          f"{launches['histogram']} times for {leaves} leaves")
+    out = {"binary_train_s": t_binary, "launches": launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["dart"] = _io_checks("dart", dart, X, X_rows, tmp)
+        out["binary"] = _io_checks("binary", binary, X, X_rows, tmp)
+    # the prediction early stop against its emulation from the
+    # per-iteration raw scores (prediction_early_stop.cpp)
+    full = binary.predict(X_rows, raw_score=True)
+    freq, margin = 5, 0.5
+    raws = [np.full(IO_ROWS, binary.init_score[0])] + [
+        binary.predict(X_rows, raw_score=True, num_iteration=i)
+        for i in range(1, BT_ROUNDS + 1)]
+    want, active = raws[0].copy(), np.ones(IO_ROWS, dtype=bool)
+    for i in range(1, BT_ROUNDS + 1):
+        want[active] += (raws[i] - raws[i - 1])[active]
+        if i % freq == 0:
+            active &= 2.0 * np.abs(want) <= margin
+    binary.params.update(pred_early_stop=True, pred_early_stop_freq=freq,
+                         pred_early_stop_margin=margin)
+    t0 = clock()
+    es = binary.predict(X_rows, raw_score=True)
+    out["pred_early_stop_s"] = clock() - t0
+    binary.params["pred_early_stop"] = False
+    es_err = float(np.max(np.abs(es - want)))
+    out["pred_early_stop_rows_stopped"] = int(np.sum(es != full))
+    check(es_err <= 1e-12 * max(1.0, float(np.max(np.abs(want))))
+          and out["pred_early_stop_rows_stopped"] > 0,
+          f"pred_early_stop: {es_err} from its emulation, "
+          f"{out['pred_early_stop_rows_stopped']} rows stopped")
+    # rollback: the scores are the model's of one round less
+    binary.rollback_one_iter()
+    rb_err = float(np.max(np.abs(binary._score
+                                 - binary.predict(X, raw_score=True))))
+    check(binary.num_trees() == BT_ROUNDS - 1 and rb_err <= 1e-9,
+          f"rollback_one_iter: {binary.num_trees()} trees, scores {rb_err} "
+          "from the model's")
+    out["rollback_score_max_abs_diff"] = rb_err
+    # refit on new rows with a shifted label: the loss falls
+    y_new = (_recipe_f(X_rows) > np.median(_recipe_f(X))).astype(np.float64)
+
+    def logloss(b):
+        p = np.clip(b.predict(X_rows), 1e-15, 1 - 1e-15)
+        return float(-np.mean(y_new * np.log(p) + (1 - y_new)
+                              * np.log(1 - p)))
+
+    before = logloss(binary)
+    t0 = clock()
+    binary.refit(X_rows, y_new, decay_rate=0.5)
+    out["refit_s"] = clock() - t0
+    out["refit_logloss"] = [before, logloss(binary)]
+    check(out["refit_logloss"][1] < before, f"refit: logloss "
+          f"{out['refit_logloss']}")
+    emit({"phase": "model_io", "rows": IO_ROWS, "contrib_rows": IO_CONTRIB_N,
+          **out})
+    return launches, {"io_binary_train_s": t_binary,
+                      "io_dart_shap_s": out["dart"]["shap_s"],
+                      "io_binary_shap_s": out["binary"]["shap_s"],
+                      "io_refit_s": out["refit_s"]}
+
+
+def boosting_tail_2_paths(boost_data, coords, pred, m, seed, dev):
+    """Phase 15 in order; returns (launches by path, timings, the
+    histogram kernel's case on a sampled GOSS round)."""
+    launches, timings = {}, {}
+    t0 = clock()
+    launches["boosting_types_gp"], t, dart, hist_case = boosting_types_gp(
+        boost_data, coords, pred, m, seed, dev)
+    timings.update(t)
+    timings["phase15_boosting_types_gp_s"] = clock() - t0
+    t0 = clock()
+    launches["leaf_updates_gp"], t = leaf_updates_gp(boost_data, coords,
+                                                     pred, m, seed, dev)
+    timings.update(t)
+    timings["phase15_leaf_updates_gp_s"] = clock() - t0
+    timings.update(gp_card_vs_cpu(boost_data, coords, m, seed, dev))
+    t0 = clock()
+    launches["ranking"], t = ranking(seed, boost_data[0], dev)
+    timings.update(t)
+    timings["phase15_ranking_s"] = clock() - t0
+    t0 = clock()
+    launches["model_io"], t = model_io(dart, boost_data, seed, dev)
+    timings.update(t)
+    timings["phase15_model_io_s"] = clock() - t0
+    del dart
+    torch.cuda.empty_cache()
+    return launches, timings, hist_case
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5831,6 +6411,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--grouped-n", type=int, default=GR_N)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -5972,6 +6553,13 @@ def main():
     timings["phase14_s"] = clock() - t0
     cases["histogram"] += tt_hist[0]
     timed["histogram"]["other_shapes"] += tt_hist[1]
+    # phase 15, the rest of the boosting tail, before the second runs too
+    t0 = clock()
+    b15_launches, b15_timings, b15_hist = boosting_tail_2_paths(
+        boost_data, coords, pred, args.m, args.seed, dev)
+    timings.update(b15_timings)
+    timings["phase15_s"] = clock() - t0
+    cases["histogram"].append(b15_hist)
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -6015,7 +6603,7 @@ def main():
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
              **it_launches, **vr_launches, **tail_launches, **bt_launches,
-             **tt_launches}
+             **tt_launches, **b15_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -6050,7 +6638,13 @@ def main():
             ("efb_onehot", tt_launches["efb_onehot"], ("histogram",)),
             ("tree_options", tt_launches["tree_options"], ("histogram",)),
             ("sparse_and_files", tt_launches["sparse_and_files"],
-             ("histogram",))):
+             ("histogram",)),
+            ("boosting_types_gp", b15_launches["boosting_types_gp"],
+             tuple(REPLACES)),
+            ("leaf_updates_gp", b15_launches["leaf_updates_gp"],
+             tuple(REPLACES)),
+            ("ranking", b15_launches["ranking"], ("histogram",)),
+            ("model_io", b15_launches["model_io"], ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")
@@ -6118,6 +6712,8 @@ def main():
                 padded_row_share=t["padded_row_share"],
                 other_shapes=t["other_shapes"] + [vr_kern["nll_grad"]])
         kernels.append(entry)
+    # the script's wall time up to its result, the kernels' build included
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

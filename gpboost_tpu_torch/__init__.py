@@ -21,7 +21,11 @@ reference. Ported so far:
   sampling, validation sets with the metrics and the GP-aware validation
   (``use_gp_model_for_validation``, ``set_prediction_data``), callbacks and
   early stopping, ``cv`` with GP-aware folds and
-  ``grid_search_tune_parameters``;
+  ``grid_search_tune_parameters``; DART, GOSS, random forests, Nesterov
+  acceleration, the GPBoost leaf re-solve and line search, the ranking
+  objectives and metrics (``Dataset(group=)``), SHAP contributions, leaf
+  indices, the prediction early stop, the reference's text model format, C
+  export, ``refit`` and the rest of the Booster's surface;
 - the non-Gaussian Vecchia GP (the likelihood families of ``likelihoods/``,
   Laplace approximation, dense or ``matrix_inversion_method="iterative"``:
   CG + stochastic Lanczos log-determinant, ``ops/cg.py``) and the LaGaBoost
@@ -54,9 +58,9 @@ There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,
 ``device="cpu"`` runs the plain PyTorch versions).
 
-Not ported yet: ranking, DART / GOSS / RF and the rest of the boosting tail (ROADMAP.md Queue A, item 18c), the device-resident
-training loop (item 10), the parameter registry and the TPE tuner (item
-19), several GPUs (item 20).
+Not ported yet: the device-resident training loop (ROADMAP.md Queue A,
+item 10), the parameter registry and the TPE tuner (item 19), several GPUs
+(item 20). Continued training (``init_model``) is not in the JAX package.
 """
 from gpboost_tpu_torch.models.gp_model import GPModel
 from gpboost_tpu_torch.boosting.dataset import Dataset

@@ -32,7 +32,8 @@ at most 256 bins a bundle); ``binned`` stays what partitions and predicts.
 
 ``save_binary`` writes the JAX package's ``.bin`` (an ``.npz``), which both
 packages load. A text file path raises: the native file reader is ROADMAP.md
-Queue A, item 19; ranking's ``group`` is item 18c.
+Queue A, item 19. ``group`` (the query sizes of the ranking objectives and
+metrics) is a field like ``label``: given, set, saved and loaded.
 """
 from __future__ import annotations
 
@@ -218,6 +219,8 @@ class Dataset:
     categorical_feature : indices or column names of categorical features
         (bin = category id); ``params["categorical_feature"]`` in the
         reference's string form when not given
+    group : the sizes of the consecutive queries of the ranking objectives
+        and metrics (``lambdarank``, ``rank_xendcg``, ``ndcg``, ``map``)
     device : where the binned matrices live (default the GPU; a missing GPU
         raises, ``device="cpu"`` keeps them on the host)
     """
@@ -229,8 +232,6 @@ class Dataset:
                  device="cuda"):
         p = cfg_mod.resolve_params(params)
         max_bin = int(p.get("max_bin", max_bin))
-        if group is not None:
-            raise _not_ported("group (ranking)", "item 18c")
         self.device = resolve_device(device)
         self.tree_learner = p.get("tree_learner", "data")
         self.pandas_categorical = None
@@ -240,7 +241,7 @@ class Dataset:
                 p["categorical_feature"])
         if isinstance(data, str):
             if data.endswith(".bin") or data.endswith(".npz"):
-                self._load_binary(data, label, weight, init_score)
+                self._load_binary(data, label, weight, init_score, group)
                 return
             raise _not_ported("reading a text data file (the native reader)",
                               "item 19")
@@ -277,7 +278,7 @@ class Dataset:
             weight, dtype=np.float64).ravel()
         self.init_score = None if init_score is None else np.asarray(
             init_score, dtype=np.float64).ravel()
-        self.group = None
+        self.group = None if group is None else np.asarray(group)
         self.max_bin = max_bin
         mbf = p.get("max_bin_by_feature")
         self.max_bin_by_feature = (None if not mbf else
@@ -448,18 +449,15 @@ class Dataset:
             keys = np.asarray(list(mp.keys()), dtype=np.float64)
             vals = np.asarray(list(mp.values()), dtype=np.int64)
             payload[f"cat_{f}"] = np.stack([keys, vals.astype(np.float64)])
-        for key in ("label", "weight", "init_score"):
+        for key in ("label", "weight", "init_score", "group"):
             if getattr(self, key) is not None:
-                payload[key] = getattr(self, key)
+                payload[key] = np.asarray(getattr(self, key))
         with open(filename, "wb") as fh:
             np.savez_compressed(fh, **payload)
         return self
 
-    def _load_binary(self, filename, label, weight, init_score):
+    def _load_binary(self, filename, label, weight, init_score, group):
         z = np.load(filename, allow_pickle=True)
-        if "group" in z:
-            raise _not_ported("a binary file with a group (ranking)",
-                              "item 18c")
         binned = z["binned"]
         self.num_data, self.num_features = binned.shape
         self.raw_data = z["raw_data"]
@@ -489,19 +487,23 @@ class Dataset:
         self.label = field(label, "label")
         self.weight = field(weight, "weight")
         self.init_score = field(init_score, "init_score")
-        self.group = None
+        self.group = (np.asarray(group) if group is not None
+                      else (z["group"] if "group" in z else None))
         # the EFB layout is derived: rebuilt from the loaded bins
         self._put_on_device(np.asarray(binned, dtype=np.int32))
 
     # ------------------------------------------------------------------
     # generic field access (reference Dataset.get_field/set_field)
-    _FIELDS = ("label", "weight", "init_score")
+    _FIELDS = ("label", "weight", "init_score", "group")
 
     def set_field(self, field_name: str, data):
         if field_name not in self._FIELDS:
             raise ValueError(f"unknown dataset field '{field_name}'")
-        setattr(self, field_name, None if data is None else
-                np.asarray(data, dtype=np.float64).ravel())
+        if data is None or field_name != "group":
+            setattr(self, field_name, None if data is None else
+                    np.asarray(data, dtype=np.float64).ravel())
+        else:
+            self.group = np.asarray(data)
         return self
 
     def get_field(self, field_name: str):
@@ -514,6 +516,13 @@ class Dataset:
 
     def get_init_score(self):
         return self.init_score
+
+    def set_group(self, group):
+        """The query sizes of the ranking objectives and metrics."""
+        return self.set_field("group", group)
+
+    def get_group(self):
+        return self.group
 
     def set_label(self, label):
         return self.set_field("label", marshal_label(label))
@@ -554,6 +563,16 @@ class Dataset:
                 "categorical_feature": list(self.categorical_feature),
                 "tree_learner": self.tree_learner}
 
+    def get_ref_chain(self, ref_limit=100):
+        """This Dataset and the ones it took its bin mapping from
+        (``set_reference``, ``subset``), at most ``ref_limit``."""
+        chain = [self]
+        ref = getattr(self, "_reference", None)
+        while ref is not None and len(chain) < ref_limit:
+            chain.append(ref)
+            ref = getattr(ref, "_reference", None)
+        return set(chain)
+
     def set_feature_name(self, feature_name):
         if len(feature_name) != self.num_features:
             raise ValueError("feature_name length must equal num_features")
@@ -578,6 +597,7 @@ class Dataset:
         self.categorical_feature = reference.categorical_feature
         self.cat_maps = reference.cat_maps
         self.has_nan = reference.has_nan
+        self._reference = reference
         self._bin_data()
         return self
 
@@ -585,7 +605,7 @@ class Dataset:
         """Row-subset Dataset sharing this Dataset's bin mapping and device
         (``Dataset.subset``)."""
         idx = np.asarray(used_indices, dtype=np.int64)
-        return Dataset(self.raw_data[idx],
+        sub = Dataset(self.raw_data[idx],
                        label=None if self.label is None else self.label[idx],
                        reference=self,
                        weight=None if self.weight is None
@@ -594,6 +614,8 @@ class Dataset:
                        else self.init_score[idx],
                        feature_name=self.feature_name, params=params,
                        device=self.device)
+        sub._reference = self
+        return sub
 
     def add_features_from(self, other: "Dataset"):
         """Stack another Dataset's features beside this one's and bin again

@@ -2,8 +2,9 @@
 
 The JAX package's host loop, in the port's idiom: every Dataset, fold and
 fold GPModel lives on the training Dataset's device. ``init_model``
-(continued training) is not ported (ROADMAP.md Queue A, item 18c); the
-device-resident training loop is item 10.
+(continued training) raises: the JAX package takes the argument and never
+reads it (ROADMAP.md, "Not faults"); the device-resident training loop is
+ROADMAP.md Queue A, item 10.
 """
 from __future__ import annotations
 
@@ -21,6 +22,13 @@ from gpboost_tpu_torch.boosting.callback import (CallbackEnv,
                                                  reset_parameter)
 from gpboost_tpu_torch.boosting.dataset import Dataset
 
+# continued training is no feature of the JAX package: it takes init_model
+# and never reads it (its engine.py:17, :144), so the port refuses the argument
+# rather than drop it (ROADMAP.md, "Not faults", the case of item 18c)
+_INIT_MODEL = ("{}(init_model=...): continued training is not ported: the "
+               "JAX package accepts the argument and never reads it "
+               "(ROADMAP.md, Not faults; item 18c)")
+
 
 def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           gp_model=None, valid_sets: Optional[List[Dataset]] = None,
@@ -28,7 +36,8 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           init_model=None, feature_name="auto", categorical_feature="auto",
           early_stopping_rounds: Optional[int] = None,
           evals_result=None, verbose_eval: bool = True, learning_rates=None,
-          callbacks=None, train_gp_model_cov_pars: bool = True,
+          keep_training_booster: bool = False, callbacks=None,
+          train_gp_model_cov_pars: bool = True,
           use_gp_model_for_validation: bool = True) -> Booster:
     """Train a (GP)Boost model (mirrors ``gpboost.train``, ``engine.py:21``)
     with the host-driven loop: ``num_boost_round`` calls of
@@ -47,12 +56,13 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     ``{output_model}.snapshot_iter_{k}``. ``feature_name`` and
     ``categorical_feature`` other than ``"auto"`` are set on ``train_set``
     (names or indices; the Dataset bins again when its categorical features
-    change).
+    change). ``keep_training_booster`` is taken and has no effect (the
+    booster can always train on), as in the JAX package. ``init_model``
+    raises: continued training is not in the JAX package, which takes the
+    argument and never reads it.
     """
     if init_model is not None:
-        raise NotImplementedError(
-            "train(init_model=...) (continued training) is not ported to "
-            "gpboost_tpu_torch yet (ROADMAP.md Queue A, item 18c)")
+        raise NotImplementedError(_INIT_MODEL.format("train"))
     params = cfg_mod.resolve_params(params)
     params.setdefault("train_gp_model_cov_pars", train_gp_model_cov_pars)
     params.setdefault("use_gp_model_for_validation",
@@ -171,9 +181,7 @@ def cv(params: dict, train_set: Dataset, num_boost_round: int = 100,
     metric-stdv}`` curves (and the ``cvbooster`` with
     ``return_cvbooster``)."""
     if init_model is not None:
-        raise NotImplementedError(
-            "cv(init_model=...) is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18c)")
+        raise NotImplementedError(_INIT_MODEL.format("cv"))
     n = train_set.num_data
     fold_idx = _make_folds(n, nfold, stratified, train_set.label, seed, folds,
                            gp_model)

@@ -1,9 +1,9 @@
 """Evaluation metrics (reference ``src/LightGBM/metric/*``).
 
 The port's own copy of the JAX package's ``boosting/metrics.py``: host
-numpy on the labels and the (converted) scores, as there. The ranking
-metrics (``ndcg``, ``map``) keep their registry entries and raise
-(ROADMAP.md Queue A, item 18c).
+numpy on the labels and the (converted) scores, as there, the ranking
+metrics (``ndcg`` and ``map`` at the ``eval_at`` positions, a loop over
+the queries) too.
 """
 from __future__ import annotations
 
@@ -213,13 +213,75 @@ def crps_gaussian(y, mean, var, weight=None):
     return float(np.average(v, weights=weight))
 
 
-def _ranking(*args, **kwargs):
-    raise NotImplementedError(
-        "the ranking metrics (ndcg, map) are not ported to gpboost_tpu_torch "
-        "yet (ROADMAP.md Queue A, item 18c)")
+def _query_starts(group):
+    return np.concatenate([[0], np.cumsum(group)]).astype(int)
 
 
-ndcg_at_ks = map_at_ks = _ranking
+def _gains(rel, label_gain):
+    if label_gain is not None:
+        return np.asarray(label_gain, np.float64)[np.asarray(rel, int)]
+    return 2.0 ** rel - 1.0
+
+
+def ndcg_at_ks(y, score, group, ks, query_weights=None, label_gain=None):
+    """NDCG at every position in ``ks``, averaged over queries
+    (``NDCGMetric``, rank_metric.hpp; ``dcg_calculator.cpp``). A query with
+    all-zero gains counts as NDCG = 1 at every position; score ties are
+    broken by original index (stable sort, like the reference)."""
+    starts = _query_starts(group)
+    nq = len(starts) - 1
+    qw = np.ones(nq) if query_weights is None else np.asarray(query_weights)
+    acc = np.zeros(len(ks))
+    for q in range(nq):
+        a, b = starts[q], starts[q + 1]
+        rel = np.asarray(y[a:b], np.float64)
+        order = np.argsort(-np.asarray(score[a:b]), kind="stable")
+        gains = _gains(rel[order], label_gain)
+        igains = np.sort(_gains(rel, label_gain))[::-1]
+        disc = 1.0 / np.log2(np.arange(2, len(rel) + 2))
+        cdcg = np.cumsum(gains * disc)
+        cidcg = np.cumsum(igains * disc)
+        for j, k in enumerate(ks):
+            kk = min(int(k), len(rel))
+            idcg = cidcg[kk - 1] if kk > 0 else 0.0
+            if cidcg[-1] <= 0.0:
+                acc[j] += qw[q]  # all-negative query -> NDCG = 1
+            elif idcg > 0.0:
+                acc[j] += (cdcg[kk - 1] / idcg) * qw[q]
+    return [float(v / qw.sum()) for v in acc]
+
+
+def ndcg_at_k(y, score, group, k=5):
+    """NDCG@k averaged over queries (single-position convenience)."""
+    return ndcg_at_ks(y, score, group, [k])[0]
+
+
+def map_at_ks(y, score, group, ks, query_weights=None):
+    """Mean average precision at every position in ``ks``
+    (``MapMetric::CalMapAtK``, map_metric.hpp:78): labels > 0.5 are hits,
+    AP@k = sum over hit ranks j<k of num_hits/(j+1), divided by
+    min(npos, k); queries without positives count 1.0."""
+    starts = _query_starts(group)
+    nq = len(starts) - 1
+    qw = np.ones(nq) if query_weights is None else np.asarray(query_weights)
+    acc = np.zeros(len(ks))
+    for q in range(nq):
+        a, b = starts[q], starts[q + 1]
+        hits = np.asarray(y[a:b]) > 0.5
+        npos = int(hits.sum())
+        order = np.argsort(-np.asarray(score[a:b]), kind="stable")
+        hit_sorted = hits[order]
+        cum_hits = np.cumsum(hit_sorted)
+        prec = np.where(hit_sorted, cum_hits / np.arange(1, len(hits) + 1),
+                        0.0)
+        cum_ap = np.cumsum(prec)
+        for j, k in enumerate(ks):
+            kk = min(int(k), len(hits))
+            if npos == 0:
+                acc[j] += qw[q]
+            else:
+                acc[j] += (cum_ap[kk - 1] / min(npos, kk)) * qw[q]
+    return [float(v / qw.sum()) for v in acc]
 
 
 # GP-model-aware metrics: need the attached GPModel / predictive variances

@@ -16,16 +16,20 @@ multiclass) and the coupling with a ``GPModel`` of
 Scores, labels and gradients are host float64 arrays, as in the reference's
 host loop; the covariance refit, the ``Psi^-1`` solve (Vecchia, Woodbury
 for grouped random effects, or a dense Cholesky for an exact GP) and the
-Laplace gradient run on the model's device. The ranking objectives
-(``lambdarank``, ``rank_xendcg``) are not ported (ROADMAP.md Queue A, item
-18c). As in the JAX package, leaf outputs are never renewed from residual
+Laplace gradient run on the model's device. The ranking objectives read
+the Dataset's ``group``: ``lambdarank``'s pairwise lambdas run on the
+training Dataset's device, ``rank_xendcg``'s per-query draws on the host.
+As in the JAX package, leaf outputs are never renewed from residual
 quantiles (``regression_l1``, ``quantile`` and ``mape`` keep the Newton
 leaf values of their constant hessians).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.stats import norm
+
+from gpboost_tpu_torch.boosting.metrics import _query_starts
 
 
 def _sigmoid(x):
@@ -470,6 +474,219 @@ class MulticlassOVA(Objective):
         return (1.0 / (1.0 + np.exp(-self.sigmoid * s))).reshape(-1)
 
 
+# pairs [queries, L, L] of one LambdaRank block: the queries go through in
+# blocks of at most this many pair entries (a block's temporaries are a few
+# times its size in float64)
+RANK_BLOCK_PAIRS = 1 << 24
+
+
+def rank_pad_length(size: int) -> int:
+    """The length a LambdaRank query of ``size`` rows is padded to: the size
+    itself up to 8, above it the next multiple of a quarter of its power of
+    two (9 -> 10, 100 -> 112, 1 250 -> 1 280), so that a padded query holds
+    at most 1.25^2 of its pairs whatever the other queries' sizes."""
+    if size <= 8:
+        return int(size)
+    step = 1 << (int(size).bit_length() - 3)
+    return -(-int(size) // step) * step
+
+
+class LambdaRank(Objective):
+    """LambdaMART / LambdaRank pairwise objective with |delta NDCG|
+    weighting (``rank_objective.hpp``; the JAX package's ``LambdaRank``).
+
+    The JAX package loops over every pair of every query on the host. The
+    port computes the same lambdas on ``device`` for a block of queries at
+    once: the queries sorted by their padded length (:func:`rank_pad_length`)
+    and each block padded to its own (``[queries, L, L]`` pairs), so that a
+    mix of short and long queries costs about its real pairs. The same
+    pairs (the first label above the second, one of the two ranked above
+    ``truncation_level``), the same ``|delta NDCG|`` weights and the same
+    per-query normalisation (``lambdarank_norm``). A query without a pair
+    (one row, or all labels equal) has zero lambdas and is left out. Ranks
+    come from the host, one ``np.argsort`` a query as there, so that tied
+    scores rank alike; only the order of the sums over a row's pairs
+    differs (1e-15 relative). A query's padded length depends on its size
+    alone, so its lambdas have the same bits in any block."""
+    name = "lambdarank"
+
+    def __init__(self, sigmoid=1.0, truncation_level=30, norm=True,
+                 label_gain=None, device="cpu"):
+        self.sigmoid = float(sigmoid)
+        self.truncation_level = int(truncation_level)
+        # lambdarank_norm (config.h:891) and label_gain (config.h:895,
+        # default 2^i - 1) as in rank_objective.hpp
+        self.norm = bool(norm)
+        self.label_gain = (None if label_gain is None
+                           else np.asarray(label_gain, np.float64))
+        self.device = torch.device(device)
+
+    def init(self, label, weight, group=None):
+        super().init(label, weight, group)
+        if group is None:
+            raise ValueError("lambdarank requires query 'group' information")
+        self.query_starts = st = _query_starts(group)
+        sizes = np.diff(st)
+        inv = np.zeros(len(sizes))
+        has_pair = np.zeros(len(sizes), dtype=bool)
+        for q, (a, b) in enumerate(zip(st[:-1], st[1:])):
+            if b - a >= 2:
+                inv[q] = self._inverse_max_dcg(self.label[a:b],
+                                               self.truncation_level)
+                has_pair[q] = np.ptp(self.label[a:b]) > 0
+        # the blocks: queries with a pair, by padded length (query order
+        # within a length), at most RANK_BLOCK_PAIRS pair entries each;
+        # padded row indices (pads repeat the query's first row and are
+        # masked), the gains and labels, the inverse ideal DCGs
+        qs_all = np.flatnonzero(has_pair)
+        pad = np.array([rank_pad_length(k) for k in sizes[qs_all]], int)
+        dev, f64 = self.device, torch.float64
+        gain = self._gain_of(self.label)
+        self._blocks = []
+        for L in np.unique(pad):
+            qs_L = qs_all[pad == L]
+            per = max(1, RANK_BLOCK_PAIRS // (int(L) * int(L)))
+            for q0 in range(0, len(qs_L), per):
+                qs = qs_L[q0:q0 + per]
+                pos = np.arange(L)[None, :]
+                valid = pos < sizes[qs][:, None]
+                rows = st[qs][:, None] + np.where(valid, pos, 0)
+                self._blocks.append(dict(
+                    rows_t=torch.as_tensor(rows, device=dev),
+                    valid_t=torch.as_tensor(valid, device=dev),
+                    rel=torch.as_tensor(self.label[rows], dtype=f64,
+                                        device=dev),
+                    gain=torch.as_tensor(gain[rows], dtype=f64, device=dev),
+                    inv_idcg=torch.as_tensor(inv[qs], dtype=f64,
+                                             device=dev)))
+
+    def padded_pairs(self) -> tuple[int, int]:
+        """(pair entries the blocks compute, pair entries of the queries
+        they hold): what the padding costs."""
+        padded = real = 0
+        for blk in self._blocks:
+            Q, L = blk["valid_t"].shape
+            padded += Q * L * L
+            real += int((blk["valid_t"].sum(dim=1) ** 2).sum())
+        return padded, real
+
+    def _gain_of(self, rel):
+        if self.label_gain is not None:
+            return self.label_gain[np.asarray(rel, int)]
+        return 2.0 ** rel - 1.0
+
+    def _inverse_max_dcg(self, rel, k):
+        order = np.argsort(-rel)
+        gains = self._gain_of(rel[order[:k]])
+        discounts = 1.0 / np.log2(np.arange(2, min(k, len(rel)) + 2))
+        idcg = np.sum(gains * discounts[:len(gains)])
+        return 1.0 / idcg if idcg > 0 else 0.0
+
+    def _ranks(self, score) -> np.ndarray:
+        """Each row's rank in its query by descending score: the JAX
+        package's ``np.argsort`` a query, so that ties rank alike."""
+        rank = np.zeros(len(self.label), dtype=np.int64)
+        st = self.query_starts
+        for a, b in zip(st[:-1], st[1:]):
+            rank[a + np.argsort(-score[a:b])] = np.arange(b - a)
+        return rank
+
+    def get_gradients(self, score):
+        score = np.asarray(score, np.float64)
+        rank = self._ranks(score)
+        dev, f64 = self.device, torch.float64
+        # one upload a round; the blocks gather on the device
+        score_t = torch.as_tensor(score, dtype=f64, device=dev)
+        disc_t = torch.as_tensor(1.0 / np.log2(rank + 2.0), dtype=f64,
+                                 device=dev)
+        top_t = torch.as_tensor(rank < self.truncation_level, device=dev)
+        grad = torch.zeros(len(self.label), dtype=f64, device=dev)
+        hess = torch.zeros_like(grad)
+        sig = self.sigmoid
+        zero = torch.zeros((), dtype=f64, device=dev)
+        for blk in self._blocks:
+            rows, valid = blk["rows_t"], blk["valid_t"]
+            sc, ds, top = score_t[rows], disc_t[rows], top_t[rows]
+            rel, gain = blk["rel"], blk["gain"]
+            pair = ((rel[:, :, None] > rel[:, None, :])
+                    & valid[:, :, None] & valid[:, None, :]
+                    & (top[:, :, None] | top[:, None, :]))
+            d_ndcg = (torch.abs((gain[:, :, None] - gain[:, None, :])
+                                * (ds[:, :, None] - ds[:, None, :]))
+                      * blk["inv_idcg"][:, None, None])
+            rho = 1.0 / (1.0 + torch.exp(sig * (sc[:, :, None]
+                                                - sc[:, None, :])))
+            lam = torch.where(pair, rho * d_ndcg * sig, zero)
+            h = torch.where(pair, rho * (1 - rho) * d_ndcg * sig ** 2, zero)
+            g_q = lam.sum(dim=1) - lam.sum(dim=2)
+            h_q = h.sum(dim=2) + h.sum(dim=1)
+            if self.norm:
+                # lambdarank_norm: per-query normalisation for an unbiased
+                # treatment of queries of different sizes
+                # (rank_objective.hpp:188)
+                s = 2.0 * lam.sum(dim=(1, 2))
+                f = torch.where(s > 0, torch.log2(1.0 + s)
+                                / torch.where(s > 0, s, 1.0), 1.0)
+                g_q, h_q = g_q * f[:, None], h_q * f[:, None]
+            grad[rows[valid]] = g_q[valid]
+            hess[rows[valid]] = h_q[valid]
+        return (grad.cpu().numpy(),
+                np.maximum(hess.cpu().numpy(), 1e-10))
+
+
+class RankXENDCG(Objective):
+    """Cross-entropy-NDCG ranking objective (``RankXENDCG``,
+    ``rank_objective.hpp:284``): per query, the score softmax rho is matched
+    against the stochastic ground-truth distribution
+    phi_i = 2^l_i - g_i (g ~ U(0,1)), with the second/third-order
+    lambda corrections of the reference. Host numpy, as in the JAX
+    package: one ``np.random.default_rng(seed + q)`` a query, drawn in query
+    order every round."""
+    name = "rank_xendcg"
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+
+    def init(self, label, weight, group=None):
+        super().init(label, weight, group)
+        if group is None:
+            raise ValueError("rank_xendcg requires query 'group' information")
+        self.query_starts = _query_starts(group)
+        self._rngs = [np.random.default_rng(self.seed + q)
+                      for q in range(len(self.query_starts) - 1)]
+
+    def get_gradients(self, score):
+        n = len(self.label)
+        grad = np.zeros(n)
+        hess = np.zeros(n)
+        for q in range(len(self.query_starts) - 1):
+            a, b = self.query_starts[q], self.query_starts[q + 1]
+            cnt = b - a
+            if cnt <= 1:
+                continue
+            sc = score[a:b]
+            rho = np.exp(sc - sc.max())
+            rho /= rho.sum()
+            g = self._rngs[q].random(cnt)
+            phi = 2.0 ** self.label[a:b].astype(int) - g
+            phi_norm = phi / max(phi.sum(), 1e-15)
+            # first-order terms
+            term1 = rho - phi_norm
+            lam = term1.copy()
+            p1 = term1 / (1.0 - rho)
+            s1 = p1.sum()
+            # second-order terms
+            term2 = rho * (s1 - p1)
+            lam += term2
+            p2 = term2 / (1.0 - rho)
+            s2 = p2.sum()
+            # third-order terms
+            lam += rho * (s2 - p2)
+            grad[a:b] = lam
+            hess[a:b] = rho * (1.0 - rho)
+        return grad, hess
+
+
 class GPBoostObjective(Objective):
     """Objective coupling boosting with a GPModel — the GPBoost and LaGaBoost
     algorithms (``regression_objective.hpp:153-186``).
@@ -633,16 +850,16 @@ _ALIASES = {
 # objectives.py:776-787)
 GP_OBJECTIVES = ("regression", "binary", "regression_gp", "poisson", "gamma",
                  "cross_entropy")
-RANKING = ("lambdarank", "rank_xendcg")
 
 
-def create_objective(name: str, params: dict, gp_model=None) -> Objective:
+def create_objective(name: str, params: dict, gp_model=None,
+                     device="cpu") -> Objective:
     """Objective factory (``objective_function.cpp:17-129``; the JAX
     package's names and aliases). With a ``gp_model`` any of
     ``GP_OBJECTIVES`` (and their aliases) gives the GPBoost / LaGaBoost
     objective — the response distribution is the GPModel's likelihood —
-    and any other name is a ``ValueError``, as in the JAX package. The
-    ranking objectives raise ``NotImplementedError`` (item 18c)."""
+    and any other name is a ``ValueError``, as in the JAX package.
+    ``device`` is where ``lambdarank`` computes its lambdas."""
     name = _ALIASES.get(name, name)
     if gp_model is not None:
         if name not in GP_OBJECTIVES:
@@ -656,10 +873,6 @@ def create_objective(name: str, params: dict, gp_model=None) -> Objective:
                                                True),
             reuse_learning_rates_gp_model=params.get(
                 "reuse_learning_rates_gp_model", True))
-    if name in RANKING:
-        raise NotImplementedError(
-            f"objective '{name}' is not ported to gpboost_tpu_torch yet "
-            "(ROADMAP.md Queue A, item 18c: ranking)")
     if name == "regression_gp":
         raise ValueError("objective 'regression_gp' needs a gp_model")
     if name == "regression":
@@ -704,4 +917,13 @@ def create_objective(name: str, params: dict, gp_model=None) -> Objective:
     if name == "multiclassova":
         return MulticlassOVA(num_class=params.get("num_class", 2),
                              sigmoid=params.get("sigmoid", 1.0))
+    if name == "lambdarank":
+        return LambdaRank(sigmoid=params.get("sigmoid", 1.0),
+                          truncation_level=params.get(
+                              "lambdarank_truncation_level", 30),
+                          norm=bool(params.get("lambdarank_norm", True)),
+                          label_gain=params.get("label_gain"), device=device)
+    if name == "rank_xendcg":
+        return RankXENDCG(seed=params.get("objective_seed",
+                                          params.get("seed", 0)))
     raise ValueError(f"Unknown objective: {name}")

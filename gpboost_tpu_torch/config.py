@@ -6,8 +6,8 @@ that the ported boosting path reads. ``resolve_params`` maps aliases to
 canonical names (the canonical name wins when both are given) and refuses
 what the port cannot honour:
 
-- a key whose feature is not ported and whose value differs from the default
-  raises ``NotImplementedError`` naming the ROADMAP.md queue item;
+- a value whose feature is not ported (several GPUs, the device-resident
+  loop) raises ``NotImplementedError`` naming the ROADMAP.md queue item;
 - a key this module does not know raises ``NotImplementedError`` too (the
   full registry with type and range checks is ROADMAP.md Queue A, item 19).
 
@@ -53,6 +53,7 @@ _ALIASES_OF = {
     "group_column": ("group", "group_id", "query_column", "query",
                      "query_id"),
     "metric_freq": ("output_freq",),
+    "eval_at": ("ndcg_eval_at", "ndcg_at", "map_eval_at", "map_at"),
     "bagging_seed": ("bagging_fraction_seed",),
     "output_model": ("model_output", "model_out"),
 }
@@ -94,6 +95,19 @@ PORTED = (
     "feature_contri", "cegb_tradeoff", "cegb_penalty_split",
     "cegb_penalty_feature_lazy", "cegb_penalty_feature_coupled",
     "linear_tree", "linear_lambda",
+    # the rest of the boosting tail: DART, GOSS, random forests, Nesterov
+    # acceleration, the GP leaf re-solves, ranking (``group_column`` names
+    # the query column of a data file: the Python API takes
+    # ``Dataset(group=)``, and the JAX package reads the key nowhere), the
+    # prediction early stop
+    "drop_rate", "max_drop", "skip_drop", "uniform_drop",
+    "xgboost_dart_mode", "drop_seed", "top_rate", "other_rate",
+    "use_nesterov_acc", "nesterov_acc_rate", "momentum_offset",
+    "momentum_schedule_version", "leaves_newton_update",
+    "line_search_step_length", "lambdarank_truncation_level",
+    "lambdarank_norm", "label_gain", "objective_seed", "eval_at",
+    "group_column", "pred_early_stop", "pred_early_stop_freq",
+    "pred_early_stop_margin",
 )
 
 # accepted without effect on the ported path: logging, host threading, and
@@ -104,17 +118,7 @@ PORTED = (
 _NO_EFFECT = ("verbose", "num_threads", "device_type", "deterministic",
               "force_col_wise", "force_row_wise")
 
-_TAIL = "Queue A, item 18c (boosting tail)"
-# canonical name -> (default, queue item): a value other than the default
-# raises NotImplementedError
-NOT_PORTED = {
-    "use_nesterov_acc": (False, _TAIL),
-    "leaves_newton_update": (False, _TAIL),
-    "line_search_step_length": (False, _TAIL),
-    "pred_early_stop": (False, _TAIL),
-    "group_column": ("", _TAIL + ": ranking objectives"),
-}
-
+BOOSTING_TYPES = ("gbdt", "dart", "goss", "rf")
 
 def _not_ported(key: str, value, queue: str) -> NotImplementedError:
     return NotImplementedError(
@@ -122,32 +126,11 @@ def _not_ported(key: str, value, queue: str) -> NotImplementedError:
         f"to gpboost_tpu_torch yet (ROADMAP.md {queue})")
 
 
-def _is_default(value, default) -> bool:
-    if value is None:
-        return True
-    if default is None or default == "":
-        try:
-            return len(value) == 0
-        except TypeError:
-            return False
-    if isinstance(default, bool):
-        return bool(value) == default
-    if isinstance(default, (int, float)):
-        try:
-            return float(value) == float(default)
-        except (TypeError, ValueError):
-            return False
-    return value == default
-
-
 def _refuse_unported(key: str, value) -> None:
-    if key in NOT_PORTED:
-        default, queue = NOT_PORTED[key]
-        if not _is_default(value, default):
-            raise _not_ported(key, value, queue)
-    elif key == "boosting":
-        if value != "gbdt":
-            raise _not_ported(key, value, _TAIL + ": dart, goss, rf")
+    if key == "boosting":
+        if value not in BOOSTING_TYPES:
+            raise ValueError(f"parameter 'boosting' = {value!r} is not one "
+                             f"of {BOOSTING_TYPES}")
     elif key == "num_class":
         if int(value) < 1:
             raise ValueError(f"parameter 'num_class' = {value!r} violates "

@@ -568,10 +568,8 @@ class GPModel:
                                    dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------------
-    def _tensor(self, x, ravel=False) -> torch.Tensor:
+    def _tensor(self, x) -> torch.Tensor:
         arr = np.asarray(x, dtype=np.float64)
-        if ravel:
-            arr = arr.ravel()
         return torch.as_tensor(arr, dtype=self.dtype, device=self.device)
 
     def _y_tensor(self, y) -> torch.Tensor:
@@ -681,7 +679,7 @@ class GPModel:
                             cg_delta_conv_pred=None, group_data_pred=None,
                             group_rand_coef_data_pred=None,
                             gp_coords_pred=None, gp_rand_coef_data_pred=None,
-                            cluster_ids_pred=None, X_pred=None):
+                            cluster_ids_pred=None, X_pred=None, **kwargs):
         """Prediction-time settings and validation prediction data
         (``GPModel.set_prediction_data``, JAX ``gp_model.py:435-468``):
         ``vecchia_pred_type`` (one of :data:`VECCHIA_PRED_TYPES`; the
@@ -693,8 +691,8 @@ class GPModel:
         and does not read it). The ``*_pred`` arrays are stored in
         ``_valid_pred_data`` for the boosting's validation prediction
         (``use_gp_model_for_validation``) and its GP metrics.
-        ``cg_delta_conv_pred`` is accepted and not read, as in the JAX
-        package."""
+        ``cg_delta_conv_pred`` and other keywords are accepted and not
+        read, as in the JAX package."""
         if vecchia_pred_type is not None:
             if vecchia_pred_type not in VECCHIA_PRED_TYPES:
                 raise ValueError(
@@ -768,13 +766,18 @@ class GPModel:
         return kw
 
     def _psi_solve(self, cov_pars, r) -> torch.Tensor:
-        """Psi^-1 r for ``r`` [n] (or [n, k] for a grouped or exact model)
-        in the original row order, at the Gaussian ``cov_pars`` —
-        matrix-free through the Vecchia precision, by Woodbury in q-space,
-        by the cluster blocks, or by a dense Cholesky. Used by the GPBoost
-        objective. Returns a tensor on the model's device."""
+        """Psi^-1 r for ``r`` [n] or [n, k] (a numpy array or a tensor) in
+        the original row order, at the Gaussian ``cov_pars`` — matrix-free
+        through the Vecchia precision (the k columns in one precision
+        product after one factor build), by Woodbury in q-space, by the
+        cluster blocks, by the low-rank Woodbury solves, or by a dense
+        Cholesky. Used by the GPBoost objective ([n]) and the Newton leaf
+        re-solve ([n, leaves], JAX ``gp_model.py:394``). Returns a tensor on
+        the model's device."""
         cov_pars_np = np.asarray(cov_pars, dtype=np.float64)
         cp = self._tensor(cov_pars_np)
+        r = (r.to(device=self.device, dtype=self.dtype) if torch.is_tensor(r)
+             else self._tensor(r))
         if self._latent_gaussian:
             raise NotImplementedError(
                 "Psi^-1 r of gp_approx='vecchia_latent' (the GPBoost "
@@ -782,11 +785,10 @@ class GPModel:
                 "use gp_approx='vecchia'")
         if self._approx is None:
             with torch.no_grad():
-                return self._gauss_ops().psi_solve(cp, self._tensor(r))
+                return self._gauss_ops().psi_solve(cp, r)
         self._approx.ensure_neighbors(cov_pars_np)
         with torch.no_grad():
-            return self._approx.psi_inv_resid(
-                cp, self._tensor(r, ravel=not self._lowrank))
+            return self._approx.psi_inv_resid(cp, r)
 
     def _gauss_ops(self) -> "_GaussOps":
         """The Gaussian NLL's pieces of this model's structure: grouped
@@ -1180,8 +1182,9 @@ class GPModel:
                 gp_rand_coef_data_pred=None, cluster_ids_pred=None,
                 X_pred=None, predict_cov_mat=False, predict_var=False,
                 cov_pars=None, predict_response=True, fixed_effects=None,
-                fixed_effects_pred=None):
+                fixed_effects_pred=None, **kwargs):
         """Posterior prediction (``GPModel.predict``, ``basic.py:5778``).
+        Other keywords are taken and dropped, as in the JAX package.
 
         Grouped model (``group_data_pred``, ``group_rand_coef_data_pred``;
         for the iid model only ``X_pred`` or ``fixed_effects_pred``): the

@@ -213,8 +213,13 @@ def test_save_and_load_model_file(trained_with_cov_pars, data, tmp_path):
                        predict_var=True)
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tb.save_model(str(tmp_path / "model.txt"))
+    # a .txt name writes the reference's text format: the trees alone
+    # (the boost-from-average score in the first tree's leaves)
+    tb.save_model(str(tmp_path / "model.txt"))
+    trees = gpt.Booster(model_file=str(tmp_path / "model.txt"),
+                        device="cpu")
+    np.testing.assert_allclose(trees.predict(data["Xp"]),
+                               want["fixed_effect"], rtol=0, atol=1e-12)
 
 
 def _reuse_data(n=200):
@@ -318,7 +323,10 @@ NOW_PORTED = ("bagging_fraction", "subsample", "bagging_freq",
               "cegb_tradeoff", "cegb_penalty_split",
               "cegb_penalty_feature_lazy", "cegb_penalty_feature_coupled",
               "extra_trees", "path_smooth", "max_delta_step",
-              "max_leaf_output", "interaction_constraints")
+              "max_leaf_output", "interaction_constraints",
+              # the rest of the boosting tail
+              "boosting", "boosting_type", "use_nesterov_acc",
+              "leaves_newton_update", "line_search_step_length")
 
 
 def _jax_and_port(params, X, y, **kw):

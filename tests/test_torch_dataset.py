@@ -112,8 +112,13 @@ def test_fields_and_device_rule():
     td.set_label(2 * y).set_weight(None).set_init_score(np.zeros(200))
     np.testing.assert_array_equal(td.get_field("label"), 2 * y)
     assert td.get_weight() is None and td.get_init_score().shape == (200,)
+    # group, the ranking field, is a field as in the JAX package
+    jd = gpb.Dataset(X, label=y)
+    for d in (td, jd):
+        d.set_field("group", [120, 80])
+    np.testing.assert_array_equal(td.get_group(), jd.get_group())
     with pytest.raises(ValueError, match="unknown dataset field"):
-        td.set_field("group", [1])
+        td.set_field("query", [1])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             gpt.Dataset(X, label=y)          # the default device is the GPU
@@ -126,17 +131,15 @@ def test_fields_and_device_rule():
     dict(params={"zero_as_missing": True}),
 ])
 def test_unported_dataset_features_raise(kwargs):
-    """Ranking's group still raises (item 18c); the other cases are ported
-    and bin as the JAX package does (categorical features, the params form,
-    per-feature bins, zero as missing)."""
+    """Every case is ported and bins as the JAX package does (categorical
+    features, ranking's group, the params form, per-feature bins, zero as
+    missing)."""
     X, y = _data(200)
-    if "group" in kwargs:
-        with pytest.raises(NotImplementedError, match="Queue A, item 18c"):
-            gpt.Dataset(X, label=y, device="cpu", **kwargs)
-        return
     td = gpt.Dataset(X, label=y, device="cpu", **kwargs)
     jd = gpb.Dataset(X, label=y, **kwargs)
     np.testing.assert_array_equal(td.binned.numpy(), np.asarray(jd.binned))
     np.testing.assert_array_equal(td.num_bins, jd.num_bins)
     np.testing.assert_array_equal(td.has_nan, jd.has_nan)
     assert td.categorical_feature == list(jd.categorical_feature)
+    if "group" in kwargs:
+        np.testing.assert_array_equal(td.group, np.asarray(jd.group))

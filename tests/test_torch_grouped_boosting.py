@@ -186,11 +186,12 @@ def test_train_and_saved_model(data, tmp_path):
 def test_group_column_aliases_resolve_like_jax(alias):
     """The JAX registry's aliases of ``group_column`` (the ranking
     objectives' query column, not grouped random effects) resolve the same
-    way in the port; a column given raises naming the boosting tail."""
+    way in the port, a column given too (both packages take the key and
+    read it nowhere: the Python API takes ``Dataset(group=)``)."""
     from gpboost_tpu import config as jcfg
     from gpboost_tpu_torch import config as tcfg
     assert jcfg.ALIAS_TABLE[alias] == tcfg.ALIAS_TABLE[alias] == \
         "group_column"
     assert tcfg.resolve_params({alias: ""}) == {"group_column": ""}
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tcfg.resolve_params({alias: "0"})
+    assert tcfg.resolve_params({alias: "0"}) == \
+        jcfg.resolve_params({alias: "0"}) == {"group_column": "0"}

@@ -133,5 +133,14 @@ def test_registry_aliases_and_defaults_match_jax():
 
 @pytest.mark.parametrize("name", ["ndcg", "map"])
 def test_ranking_metrics_raise(name):
-    with pytest.raises(NotImplementedError, match="item 18c"):
-        tm.METRICS[name].fn(np.zeros(4), np.zeros(4), [4], [1])
+    """Ported: the ranking metrics give the JAX package's values (1e-15;
+    the same host loop) on queries of several sizes with tied scores."""
+    rng = np.random.default_rng(12)
+    group = [7, 1, 12, 5, 9]
+    y = rng.integers(0, 4, sum(group)).astype(float)
+    score = np.round(rng.normal(size=sum(group)), 1)
+    ks = [1, 3, 5, 20]
+    kw = {"label_gain": [0.0, 1.0, 3.0, 10.0]} if name == "ndcg" else {}
+    want = jm.METRICS[name].fn(y, score, group, ks, **kw)
+    got = tm.METRICS[name].fn(y, score, group, ks, **kw)
+    np.testing.assert_allclose(got, want, rtol=1e-15)

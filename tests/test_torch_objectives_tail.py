@@ -189,5 +189,23 @@ def test_label_checks_match_jax(name, label, err):
 
 @pytest.mark.parametrize("name", ["lambdarank", "rank_xendcg", "xendcg"])
 def test_ranking_objectives_raise(name):
-    with pytest.raises(NotImplementedError, match="item 18c"):
-        tobj.create_objective(name, {})
+    """Ported: the ranking objectives' gradients and hessians are the JAX
+    package's — ``rank_xendcg``'s the same bits (the same host loop and
+    draws, two rounds), ``lambdarank``'s within 1e-12 relative (the pairs'
+    sums in another order)."""
+    rng = np.random.default_rng(8)
+    group = np.array([9, 1, 14, 6, 11])
+    y = rng.integers(0, 4, group.sum()).astype(float)
+    score = np.round(rng.normal(size=group.sum()), 1)   # tied scores too
+    jo = jobj.create_objective(name, {})
+    to = tobj.create_objective(name, {})
+    jo.init(y, None, group=group)
+    to.init(y, None, group=group)
+    for _ in range(2):
+        (gj, hj), (gt, ht) = jo.get_gradients(score), to.get_gradients(score)
+        if name == "lambdarank":
+            np.testing.assert_allclose(gt, gj, rtol=1e-12, atol=1e-15)
+            np.testing.assert_allclose(ht, hj, rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(gt, gj)
+            np.testing.assert_array_equal(ht, hj)
