@@ -16,9 +16,10 @@ one. It
    padding, two launches bit-identical, and the NLL kernel also at m = 40
    and m = 64 on the same points (its other rows-per-block choices); the
    histogram kernel at the boosting path's shape with a full, a 3 %, an
-   empty and a one-bin mask, and at F = 50, B = 64 and n = 1 000 003, and
-   the operations one call puts on the stream (``torch.profiler`` trace:
-   one, the kernel);
+   empty and a one-bin mask, and at F = 50, B = 64 and n = 1 000 003, each
+   through both of its entries (scales by value and read from device
+   memory: the same bits), and the operations one call puts on the stream
+   (phase 16's ``torch.profiler`` trace: one, the kernel);
 3. drives the GP path once through the public API at full size:
    ``GPModel`` construct (ordering + neighbour search), NLL, L-BFGS fit,
    prediction with variances — a Gaussian Vecchia GP with n = 100 000 points,
@@ -213,7 +214,24 @@ one. It
    queries, LambdaRank twice to the same bits, its padded pairs) and
    ``model_io`` (the text format, the C export compiled by the host's
    compiler, SHAP, ``pred_leaf``, the prediction early stop,
-   ``rollback_one_iter`` and ``refit``);
+   ``rollback_one_iter`` and ``refit``); then, before those second runs
+   too, the device-resident GPBoost loop (phase 16,
+   ``device_loop_paths``): ``fixed_grower`` (the fixed-shape grower on the
+   boosting path's Dataset with the round-1 gradients: the same bits as the
+   host grower, its CUDA-graph replay the same bits as its eager run, no
+   host read inside a tree, ms a tree of each), ``device_loop``
+   (``train(..., device_resident_boosting="true")`` for ``--rounds``
+   rounds, cold and warm, the same bits twice and as a stepwise
+   orchestration of its primitives, host reads = the refits' evaluations
+   and one fetch, the trees and scores within DL_HOST_RTOL of phase 4's
+   host loop's), ``device_lagaboost`` (its LaGaBoost branch on the
+   non-Gaussian path's Dataset, DL_NG_ROUNDS rounds, refits at
+   DL_NG_MAXIT) and ``device_loop_trace`` (one ``utils.profiler.trace``
+   session over a histogram call, a host-grower tree, a graph replay, a
+   host-loop round and a device-loop round: the device's idle share in
+   each, the CUDA memory snapshot's size, and ``num_leaves`` launches of
+   the histogram kernel's device-scales instance in each of the last
+   three, as the grower's replay count says);
 14. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
@@ -262,8 +280,12 @@ SOURCE = {
     "vecchia_nll_grad": "gpboost_tpu_torch/csrc/vecchia_factors.cu",
     "histogram": "gpboost_tpu_torch/csrc/histogram.cu",
 }
+# the earlier paths check the host loop's own counters (a refit a round,
+# the grower's reads): they keep it; phase 16 runs the device-resident loop
+# that "auto" engages on the card (boosting/device_loop.py)
 BOOST_PARAMS = {"objective": "regression", "num_leaves": 31,
-                "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+                "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1,
+                "device_resident_boosting": "false"}
 # what the kernel path and the float64 plain path may differ by after
 # CMP_ROUNDS rounds (float32 vs float64 sums, splits that flip on near ties)
 CMP_ROUNDS = 5
@@ -288,7 +310,8 @@ NG_REFIT_MAXIT = 1
 # it saves ~49 s of the script's 1 200 s, PERF.md section 4)
 NG_NSIM = 250
 NG_PARAMS = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
-             "min_data_in_leaf": 20, "verbose": -1}
+             "min_data_in_leaf": 20, "verbose": -1,
+             "device_resident_boosting": "false"}
 # float32 vs float64 on the card at n = 1e4, same structure, same probes;
 # the H100 reads about 1e-5 (NLL) and 3e-6 (gradient), a float32 gradient
 # off by a lost term or a bad adjoint solve reads percents
@@ -625,7 +648,7 @@ def ptxas_report(log, kernel):
         regs = re.search(r"Used (\d+) registers", line)
         smem = re.search(r"(\d+) bytes smem", line)
         if frame:
-            cap = re.search(r"ILi(\d+)E", name)
+            cap = re.search(r"IL[ib](\d+)E", name)
             out.append(dict(instance=f"{kernel}<{cap.group(1)}>" if cap
                             else kernel,
                             stack_frame_bytes=int(frame.group(1)),
@@ -649,22 +672,6 @@ def hist_bound(n, n_masked, F, B):
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
-def stream_ops(fn):
-    """Names of the device operations (kernels, memsets, copies) one call of
-    ``fn`` puts on the stream, from a ``torch.profiler`` trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return names
-
-
 def _hist_values(gen, n, dev):
     g = torch.randn(n, generator=gen, device=dev)
     h = torch.rand(n, generator=gen, device=dev) + 0.5
@@ -672,12 +679,19 @@ def _hist_values(gen, n, dev):
 
 
 def _hist_compare(tag, binned, panel, g, h, mask, B):
-    """One launch against the float64 plain version: counts exact, sums
-    within HIST_SUM_TOL x the sum of |v| over the bin."""
+    """One launch of each entry (scales by value, scales from device
+    memory; the same bits) against the float64 plain version: counts exact,
+    sums within HIST_SUM_TOL x the sum of |v| over the bin."""
     from gpboost_tpu_torch.ops.kernels import histogram as hk
     got = hk.histogram(binned, g, h, mask, B, binned_t=panel,
                        scales=hk.fixed_point_scales(g, h))
+    # the entry that reads the scales from device memory: the same bits
+    got_dev = hk.histogram(binned, g, h, mask, B, binned_t=panel,
+                           scales=hk.fixed_point_scales_device(g, h))
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, got_dev)),
+          f"histogram[{tag}]: the device-scales entry differs from the "
+          "by-value one")
     want = hk.histogram_plain(binned, g.double(), h.double(), mask, B)
     scale = hk.histogram_plain(binned, g.double().abs(),
                                h.double().abs(), mask, B)
@@ -694,7 +708,7 @@ def _hist_compare(tag, binned, panel, g, h, mask, B):
         errs.append(float(err.max()))
     n, F = binned.shape
     return dict(case=tag, n=n, F=F, B=B, rows_in_mask=int(mask.sum()),
-                max_abs_err=max(errs))
+                max_abs_err=max(errs), device_scales_same_bits=True)
 
 
 def check_histogram_on(ds, seed, dev, path):
@@ -819,6 +833,14 @@ def check_histogram(ds, seed, dev):
         return lambda: hk.histogram(binned, g, h, mask, B, binned_t=panel,
                                     scales=scales)
 
+    # the entry that reads its scales from device memory: the one the
+    # fixed-shape grower launches, so the one of the main path's trees
+    scales_dev = hk.fixed_point_scales_device(g, h)
+
+    def kernel_dev(mask):
+        return lambda: hk.histogram(binned, g, h, mask, B, binned_t=panel,
+                                    scales=scales_dev)
+
     # the library yardstick: ONE index_add_ on a prepared flat index
     flat = (binned.long() + torch.arange(F, device=dev) * B).reshape(-1)
     src = torch.stack([g, h, torch.ones_like(g)])[:, :, None].expand(
@@ -844,6 +866,11 @@ def check_histogram(ds, seed, dev):
         plain_f64_ms=time_ms(lambda: hk.histogram_plain(binned, g64, h64,
                                                         full, B), 5),
         library_ms=time_ms(library, 20),
+        dev_scales_ms=time_ms(kernel_dev(full), 50),
+        dev_scales_device_ms=graph_ms(kernel_dev(full), 50),
+        dev_scales_with_frexp_device_ms=graph_ms(lambda: hk.histogram(
+            binned, g, h, full, B, binned_t=panel,
+            scales=hk.fixed_point_scales_device(g, h)), 50),
         empty_launch_ms=time_ms(hk.empty_launch, 200),
         empty_launch_device_ms=graph_ms(hk.empty_launch, 200),
         bound_ms=b_ms, bound_by=b_by, run_to_run_max_abs_diff=run_to_run,
@@ -1007,13 +1034,16 @@ def boosting_path(ds_args, coords, pred, m, seed, rounds, dev):
     check(bst.num_trees() == rounds, f"{bst.num_trees()} trees, {rounds} "
           "rounds")
     _check_trees(bst, "gpboost")
-    check(launches["histogram"] == leaves,
+    want_launches, want_reads = grower_counts(bst.trees,
+                                              BOOST_PARAMS["num_leaves"])
+    check(launches["histogram"] == want_launches,
           f"histogram launched {launches['histogram']} times for {leaves} "
-          "leaves (one launch per leaf: the root and the smaller child of "
-          "each split)")
-    check(reads == 2 * leaves,
-          f"{reads} host reads for {leaves} leaves in {rounds} trees (one "
-          "a leaf, one a tree for the histogram's fixed-point scales)")
+          f"leaves, {want_launches} expected (the root and one child a "
+          "split; the fixed-shape grower's steps that do not split too)")
+    check(reads == want_reads,
+          f"{reads} grower host reads in {rounds} trees, {want_reads} "
+          "expected (the fixed-shape grower's one fetch a tree; the host "
+          "grower's read a leaf and its scales' a tree)")
     check(len(fits) == rounds + 1,
           f"{len(fits)} covariance refits in {rounds} rounds (expected one "
           "before the first tree and one after each round: the gradient "
@@ -1050,7 +1080,8 @@ def boosting_path(ds_args, coords, pred, m, seed, rounds, dev):
     launches0 = read_counts()
     leaves0 = sum(t.num_leaves for t in bst0.trees)
     _check_trees(bst0, "l2")
-    check(launches0["histogram"] == leaves0,
+    check(launches0["histogram"] == grower_counts(
+        bst0.trees, BOOST_PARAMS["num_leaves"])[0],
           f"l2: histogram launched {launches0['histogram']} times for "
           f"{leaves0} leaves")
     check(launches0["vecchia_nll_grad"] == 0, "l2 boosting fitted a GP")
@@ -1246,7 +1277,8 @@ def boosting_default_route(ds, X, yb, coords, m, seed, rounds, dev):
     leaves = sum(t.num_leaves for t in bst.trees)
     _check_trees(bst, "gpboost_gd")
     check(len(fits) == rounds + 1, f"{len(fits)} refits in {rounds} rounds")
-    check(launches["histogram"] == leaves,
+    check(launches["histogram"] == grower_counts(
+        bst.trees, BOOST_PARAMS["num_leaves"])[0],
           f"histogram launched {launches['histogram']} times for {leaves} "
           "leaves")
     check(launches["vecchia_nll_grad"] == evals,
@@ -1691,11 +1723,13 @@ def lagaboost(ng, m, seed, dev):
     leaves = sum(t.num_leaves for t in bst.trees)
     check(bst.num_trees() == rounds, f"{bst.num_trees()} trees")
     _check_trees(bst, "lagaboost")
-    check(launches["histogram"] == leaves,
+    want_launches, want_reads = grower_counts(bst.trees,
+                                              NG_PARAMS["num_leaves"])
+    check(launches["histogram"] == want_launches,
           f"lagaboost: histogram launched {launches['histogram']} times for "
-          f"{leaves} leaves")
-    check(reads == 2 * leaves, f"lagaboost: {reads} host reads for {leaves} "
-          "leaves")
+          f"{leaves} leaves, {want_launches} expected")
+    check(reads == want_reads, f"lagaboost: {reads} grower host reads for "
+          f"{leaves} leaves, {want_reads} expected")
     check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
           f"lagaboost launched a Vecchia kernel: {launches}")
     check(len(fits) == rounds + 1, f"{len(fits)} refits in {rounds} rounds")
@@ -2054,11 +2088,13 @@ def grouped_boosting(seed, n, n_pred, rounds, dev):
         leaves = sum(t.num_leaves for t in bst.trees)
         check(bst.num_trees() == rounds, f"{bst.num_trees()} trees")
         _check_trees(bst, f"grouped_{tag}")
-        check(launches["histogram"] == leaves,
+        want_launches, want_reads = grower_counts(
+            bst.trees, bst.grower.num_leaves)
+        check(launches["histogram"] == want_launches,
               f"grouped {tag}: histogram launched {launches['histogram']} "
-              f"times for {leaves} leaves")
-        check(reads == 2 * leaves, f"grouped {tag}: {reads} host reads for "
-              f"{leaves} leaves")
+              f"times for {leaves} leaves, {want_launches} expected")
+        check(reads == want_reads, f"grouped {tag}: {reads} grower host "
+              f"reads for {leaves} leaves, {want_reads} expected")
         check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
               == 0, f"grouped {tag} launched a Vecchia kernel: {launches}")
         check(len(fits) == rounds + 1, f"grouped {tag}: {len(fits)} refits "
@@ -2609,11 +2645,13 @@ def _boost_checks(bst, tag, launches, reads, rounds):
     fits = bst.objective.fits
     check(bst.num_trees() == rounds, f"{tag}: {bst.num_trees()} trees")
     _check_trees(bst, tag)
-    check(launches["histogram"] == leaves,
+    want_launches, want_reads = grower_counts(bst.trees,
+                                              bst.grower.num_leaves)
+    check(launches["histogram"] == want_launches,
           f"{tag}: histogram launched {launches['histogram']} times for "
-          f"{leaves} leaves")
-    check(reads == 2 * leaves, f"{tag}: {reads} host reads for {leaves} "
-          "leaves")
+          f"{leaves} leaves, {want_launches} expected")
+    check(reads == want_reads, f"{tag}: {reads} grower host reads for "
+          f"{leaves} leaves, {want_reads} expected")
     check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
           f"{tag} launched a Vecchia kernel: {launches}")
     check(len(fits) == rounds + 1, f"{tag}: {len(fits)} refits in {rounds} "
@@ -2856,7 +2894,8 @@ FSA_TAPER = 0.1
 LRC_CLUSTERS, LRC_SIZE, LRC_K = 100, 1_000, 50
 LRC_UNSEEN = 0.1
 LR_NG_MAXIT = 1                   # depth cut of the FSVA-Laplace fit
-LR_NG_VAR_POINTS = 256            # prediction points with Laplace variances
+LR_NG_VAR_POINTS = 128            # prediction points with Laplace variances
+#                                   (depth cut: 256 until phase 16)
 LR_FSVA_ROUNDS = 5                # depth cut of fsva_boosting (recipe: 30;
 #                                   10 until phase 15 took the script past
 #                                   its 1 200 s)
@@ -3799,10 +3838,10 @@ VR_CPU_CLUSTERS = 20              # 2 000 points of the card-vs-CPU check
 VR_CPU_RTOL = 1e-9
 PT_N_PRED_FULL = 10_000           # order_obs_first_cond_all's points
 PT_N_PRED = 1_000                 # order_pred_first's points
-PT_LATENT_N_PRED = 100            # the latent types' (depth cut: their W
+PT_LATENT_N_PRED = 50             # the latent types' (depth cut: their W
 #                                   solves are CG on as many columns; 250
 #                                   until phase 15 took the script past
-#                                   its 1 200 s)
+#                                   its 1 200 s, 100 until phase 16)
 PT_NN = (40, 60)                  # num_neighbors_pred: 2 m, and more
 # a type's mean vs cond_obs_only's in that one's predictive standard
 # deviations (largest, and averaged over the points), its variance relative:
@@ -4950,7 +4989,7 @@ README_N, README_GROUPS = 1000, 25
 README_GRID = {"learning_rate": [0.1, 0.01], "max_depth": [3, 6]}
 # depth cut (the README's 50): phase 14 needed the script's time, PERF.md
 # section 4
-README_ROUNDS = 20
+README_ROUNDS = 10                # depth cut: 20 until phase 16
 
 
 def _recipe_f(X):
@@ -5048,10 +5087,13 @@ def gpboost_validation(boost_data, coords, pred, m, seed, dev):
         f"{rounds} rounds")
     check(all(math.isfinite(v) for c in curves.values() for v in c),
           "validation curves not finite")
-    check(launches["histogram"] == leaves, f"gpboost_validation: histogram "
-          f"launched {launches['histogram']} times for {leaves} leaves")
-    check(reads == 2 * leaves, f"gpboost_validation: {reads} host reads "
-          f"for {leaves} leaves")
+    want_launches, want_reads = grower_counts(bst.trees,
+                                              bst.grower.num_leaves)
+    check(launches["histogram"] == want_launches, f"gpboost_validation: "
+          f"histogram launched {launches['histogram']} times for {leaves} "
+          f"leaves, {want_launches} expected")
+    check(reads == want_reads, f"gpboost_validation: {reads} grower host "
+          f"reads for {leaves} leaves, {want_reads} expected")
     check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
           f"gpboost_validation: Vecchia kernels {launches}")
     best = bst.best_iteration
@@ -5175,9 +5217,13 @@ def objectives_tail(boost_data, seed, dev):
         leaves = sum(t.num_leaves for t in bst.trees)
         check(len(bst.trees) == OBJ_ROUNDS * K,
               f"{name}: {len(bst.trees)} trees for {OBJ_ROUNDS} rounds x {K}")
-        check(launches["histogram"] == leaves, f"{name}: histogram launched "
-              f"{launches['histogram']} times for {leaves} leaves")
-        check(reads == 2 * leaves, f"{name}: {reads} host reads")
+        want_launches, want_reads = grower_counts(bst.trees,
+                                                  bst.grower.num_leaves)
+        check(launches["histogram"] == want_launches, f"{name}: histogram "
+              f"launched {launches['histogram']} times for {leaves} leaves, "
+              f"{want_launches} expected")
+        check(reads == want_reads, f"{name}: {reads} grower host reads, "
+              f"{want_reads} expected")
         check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
               == 0, f"{name} launched a Vecchia kernel")
         (metric, curve), = ev["valid_0"].items()
@@ -5265,8 +5311,11 @@ def cv_grouped(seed, n, dev):
     launches = read_counts()
     cvb = res.pop("cvbooster")
     leaves = sum(t.num_leaves for b in cvb.boosters for t in b.trees)
-    check(launches["histogram"] == leaves, f"cv: histogram launched "
-          f"{launches['histogram']} times for {leaves} leaves")
+    want_launches = sum(grower_counts(b.trees, b.grower.num_leaves)[0]
+                        for b in cvb.boosters)
+    check(launches["histogram"] == want_launches, f"cv: histogram launched "
+          f"{launches['histogram']} times for {leaves} leaves, "
+          f"{want_launches} expected")
     check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
           "cv launched a Vecchia kernel")
     curve = res["l2-mean"]
@@ -5562,9 +5611,13 @@ def efb_onehot(oh_data, seed, dev):
     launches = read_counts()
     reads = grow_tree.host_reads
     leaves = sum(t.num_leaves for t in bst.trees)
-    check(launches["histogram"] == leaves, f"efb_onehot: histogram launched "
-          f"{launches['histogram']} times for {leaves} leaves")
-    check(reads == 2 * leaves, f"efb_onehot: {reads} host reads")
+    want_launches, want_reads = grower_counts(bst.trees,
+                                              bst.grower.num_leaves)
+    check(launches["histogram"] == want_launches, f"efb_onehot: histogram "
+          f"launched {launches['histogram']} times for {leaves} leaves, "
+          f"{want_launches} expected")
+    check(reads == want_reads, f"efb_onehot: {reads} grower host reads, "
+          f"{want_reads} expected")
     off = gpt.Dataset(X, label=y, params={"enable_bundle": False},
                       device=dev)
     t0 = clock()
@@ -5729,7 +5782,9 @@ def tree_options(boost_data, seed, dev):
             launches = read_counts()
             leaves = sum(t.num_leaves for t in bst.trees)
             forced = 2 if name in TT_FORCED_CASES else 0
-            check(launches["histogram"] == leaves + forced * TT_OPT_ROUNDS,
+            check(launches["histogram"] == grower_counts(
+                bst.trees, bst.grower.num_leaves)[0]
+                + forced * TT_OPT_ROUNDS,
                   f"{name}: histogram launched {launches['histogram']} times "
                   f"for {leaves} leaves")
             check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
@@ -5973,7 +6028,8 @@ def _bt_path(tag, X, y, coords, pred, X_pred, m, seed, dev, extra, rounds):
     leaves = sum(t.num_leaves for t in bst.trees)
     check(bst.num_trees() == rounds, f"{tag}: {bst.num_trees()} trees")
     _check_trees(bst, tag)
-    check(launches["histogram"] == leaves, f"{tag}: histogram launched "
+    check(launches["histogram"] == grower_counts(
+        bst.trees, bst.grower.num_leaves)[0], f"{tag}: histogram launched "
           f"{launches['histogram']} times for {leaves} leaves")
     check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
           f"{tag}: Vecchia kernels {launches}")
@@ -6155,7 +6211,8 @@ def ranking(seed, X, dev):
         t_train = clock() - t0
         launches = read_counts()
         leaves = sum(t.num_leaves for t in bst.trees)
-        check(launches["histogram"] == leaves, f"{objective}: histogram "
+        check(launches["histogram"] == grower_counts(
+            bst.trees, bst.grower.num_leaves)[0], f"{objective}: histogram "
               f"launched {launches['histogram']} times for {leaves} leaves")
         curves = ev["valid_0"]
         check(set(curves) == {"ndcg@1", "ndcg@3", "ndcg@5", "map@5"}
@@ -6313,8 +6370,9 @@ def model_io(dart, boost_data, seed, dev):
     t_binary = clock() - t0
     launches = read_counts()
     leaves = sum(t.num_leaves for t in binary.trees)
-    check(launches["histogram"] == leaves, f"model_io: histogram launched "
-          f"{launches['histogram']} times for {leaves} leaves")
+    check(launches["histogram"] == grower_counts(
+        binary.trees, binary.grower.num_leaves)[0], f"model_io: histogram "
+          f"launched {launches['histogram']} times for {leaves} leaves")
     out = {"binary_train_s": t_binary, "launches": launches}
     with tempfile.TemporaryDirectory() as tmp:
         out["dart"] = _io_checks("dart", dart, X, X_rows, tmp)
@@ -6402,6 +6460,463 @@ def boosting_tail_2_paths(boost_data, coords, pred, m, seed, dev):
     return launches, timings, hist_case
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the device-resident GPBoost loop and its fixed-shape grower
+# ---------------------------------------------------------------------------
+
+DL_TREE_REPS = 20             # trees timed a grower
+DL_NG_ROUNDS = 1              # depth cuts of the LaGaBoost branch (phase 6:
+DL_NG_MAXIT = 0               # NG_ROUNDS 2, refits at NG_REFIT_MAXIT 1): its
+# refits' Armijo steps from 1 halve ~8 times at n = 1e5, each evaluation a
+# CG solve near its iteration cap: on an H100 1 round at maxit 1 took
+# 234.8 s with the trailing refit (PERF.md §4). At maxit 0 a refit is one
+# value-and-gradient and the gradient d NLL / dF
+# device loop vs phase 4's host loop (both refit memory-less L-BFGS on the
+# card, grow with the same captured grower and add the trees in float64):
+# scores and leaf values, max |difference| / max |value|
+DL_HOST_RTOL = 1e-12
+DL_DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def grower_counts(trees, num_leaves):
+    """(histogram launches, grower host reads) that growing ``trees`` on
+    the card took: a tree of the fixed-shape grower (``tree.fixed_shape``)
+    launches ``num_leaves`` (the root and every step, whether it split or
+    not) and reads the host once (its fetch); one of the host grower
+    launches once and reads twice a leaf (a packed read a leaf scanned and,
+    once a tree, the fixed-point scales)."""
+    from gpboost_tpu_torch.boosting.tree import histogram_launches
+    reads = sum(1 if getattr(t, "fixed_shape", False) else 2 * t.num_leaves
+                for t in trees)
+    return histogram_launches(trees, num_leaves), reads
+
+
+def _trace_windows(path, names, until=None):
+    """From a Chrome trace: for each annotation name (its first range on
+    the host; ``until[name]``: from its start to the end of that other
+    range), the device operations that start inside it, the union of their
+    intervals inside it, and the device's idle share there
+    (1 - union / window)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in DL_DEVICE_OPS]
+
+    def first_range(name):
+        ann = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "user_annotation"
+               and e.get("name") == name]
+        check(len(ann) >= 1, f"trace: no range named {name}")
+        return float(ann[0]["ts"]), float(ann[0]["ts"]) + float(ann[0]["dur"])
+
+    out = {}
+    for name in names:
+        lo, hi = first_range(name)
+        if until and name in until:
+            hi = max(hi, first_range(until[name])[1])
+        inside = sorted((float(e["ts"]), min(float(e["ts"]) + float(e["dur"]),
+                                             hi), e["name"]) for e in ops
+                        if lo <= float(e["ts"]) < hi)
+        busy, end = 0.0, lo
+        for a, b, _ in inside:
+            a = max(a, end)
+            if b > a:
+                busy += b - a
+                end = b
+        out[name] = {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+                     "idle_share": 1.0 - busy / max(hi - lo, 1e-9),
+                     "device_ops": len(inside),
+                     "op_names": [x[2] for x in inside[:16]],
+                     # the histogram kernel's device-scales instance, the
+                     # fixed-shape grower's
+                     "hist_dev_scales_launches": sum(
+                         "hist_kernel<true>" in x[2] for x in inside)}
+    return out
+
+
+def _fixed_vs_host(fixed, tree, row_leaf, tag):
+    """The fixed-shape grower's outputs against the host grower's tree:
+    every node array and row_leaf the same bits."""
+    from gpboost_tpu_torch.boosting import tree as tt
+    got = {k: fixed[k].double().cpu().numpy()
+           for k in tt.FIXED_NODE_FIELDS}
+    want = {"feature": tree.split_feature, "thresh": tree.threshold_bin,
+            "left": tree.left, "right": tree.right,
+            "leaf_value": tree.leaf_value, "is_leaf": tree.is_leaf,
+            "cnt": tree.node_count, "sgain": tree.split_gain,
+            "dleft": tree.default_left}
+    for k, v in want.items():
+        check(np.array_equal(got[k], np.asarray(v, np.float64)),
+              f"{tag}: {k} of the fixed-shape grower differs from the host "
+              "grower's")
+    check(torch.equal(fixed["row_leaf"], row_leaf),
+          f"{tag}: row_leaf of the fixed-shape grower differs")
+    check(int(fixed["num_leaves"]) == tree.num_leaves,
+          f"{tag}: {int(fixed['num_leaves'])} leaves, the host grower "
+          f"{tree.num_leaves}")
+
+
+def fixed_grower_path(ds, coords, m, seed, dev):
+    """Phase 16 (a): the fixed-shape grower on the boosting path's Dataset
+    with the round-1 gradients (the refit at the initial score): the same
+    bits as the host grower, its graph replay the same bits as its eager
+    run, histogram launches = leaves, no host read inside a tree (CUDA's
+    sync debug mode set to error around the replay and an eager run), and
+    ms a tree of the three."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting import tree as tt
+    b = gpt.Booster(params=dict(BOOST_PARAMS), train_set=ds,
+                    gp_model=_gp_model(coords, m, seed, torch.float32, dev))
+    grad, hess = b.objective.get_gradients(b._score)
+    g = torch.as_tensor(grad, dtype=torch.float32, device=dev)
+    h = torch.as_tensor(hess, dtype=torch.float32, device=dev)
+    n, B, L = ds.num_data, ds.max_num_bins, b.grower.num_leaves
+    nb = b._num_bins_t
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def host_tree():
+        return tt.grow_tree(ds.binned, nb, g, h, B, b.grower,
+                            binned_t=ds.binned_t, nan_mask=ds.has_nan,
+                            efb=ds.efb)
+
+    reset_counts()
+    tree, row_leaf = host_tree()
+    host_counts = dict(read_counts(), host_reads=tt.grow_tree.host_reads)
+    check(host_counts["histogram"] == tree.num_leaves,
+          f"host grower: {host_counts['histogram']} histogram launches for "
+          f"{tree.num_leaves} leaves")
+    fg = tt.FixedGrower(ds.binned, B, b.grower, torch.float32,
+                        nan_mask=ds.has_nan, binned_t=ds.binned_t,
+                        efb=ds.efb)
+    reset_counts()
+    eager = {k: v.clone() for k, v in fg.grow(g, h, ones, nb).items()}
+    eager_launches = read_counts()["histogram"]
+    check(fg.captures == 1, "the fixed-shape grower did not capture")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay = {k: v.clone() for k, v in fg.grow(g, h, ones, nb).items()}
+        direct = tt._grow_tree_fixed(g, h, ones, nb, fg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    replay_launches = read_counts()["histogram"]
+    for k in eager:
+        check(torch.equal(eager[k], replay[k])
+              and torch.equal(direct[k], replay[k]),
+              f"fixed-shape grower: {k} of the graph replay differs from "
+              "the eager run")
+    _fixed_vs_host(replay, tree, row_leaf, "fixed_grower_path")
+    check(eager_launches == L and replay_launches == 2 * L,
+          f"fixed-shape grower: {eager_launches} / {replay_launches} "
+          f"histogram launches for 1 / 2 trees of {L} leaves at most")
+    check(tree.num_leaves == L, f"the round-1 tree has {tree.num_leaves} "
+          f"leaves, not {L}: launches = leaves needs a full tree")
+    t0 = clock()
+    for _ in range(DL_TREE_REPS):
+        host_tree()
+    host_ms = (clock() - t0) / DL_TREE_REPS * 1e3
+    t0 = clock()
+    for _ in range(DL_TREE_REPS):
+        tt._grow_tree_fixed(g, h, ones, nb, fg)
+    eager_ms = (clock() - t0) / DL_TREE_REPS * 1e3
+    replay_ms = time_ms(lambda: fg.grow(g, h, ones, nb), DL_TREE_REPS)
+    graph_only_ms = time_ms(fg._graph.replay, DL_TREE_REPS)
+    out = {"n": n, "leaves": tree.num_leaves, "num_leaves": L,
+           "same_bits_as_host_grower": True, "replay_same_bits_as_eager": True,
+           "host_grower_launches": host_counts["histogram"],
+           "host_grower_host_reads": host_counts["host_reads"],
+           "fixed_launches_per_tree": eager_launches,
+           "fixed_host_reads_inside_tree": 0,
+           "host_grower_ms_per_tree": host_ms,
+           "fixed_eager_ms_per_tree": eager_ms,
+           "fixed_replay_ms_per_tree": replay_ms,
+           "fixed_graph_replay_device_ms": graph_only_ms}
+    emit({"phase": "fixed_grower", **out})
+    return out, (g, h, nb, fg)
+
+
+def device_loop_training(ds, yb, coords, m, seed, rounds, dev, host_bst):
+    """Phase 16 (b): ``train(..., device_resident_boosting="true")`` for
+    ``rounds`` rounds on the boosting path, cold (the grower's graph
+    captured) and warm (replayed): the trees, the refits' NLL falling, the
+    Vecchia kernels' launches, the host reads (the refits' evaluations and
+    one fetch), the two runs and a stepwise orchestration of the loop's
+    primitives on the card the same bits, the scores and leaf values
+    against phase 4's host loop (``host_bst``) within DL_HOST_RTOL."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting import device_loop
+    from gpboost_tpu_torch.models import optimizers as topt
+    params = dict(BOOST_PARAMS, device_resident_boosting="true")
+    # phase 4's host loop captured the grower of its Dataset: a new Dataset
+    # of the same data for a cold run
+    ds = gpt.Dataset(ds.raw_data, label=yb, device=dev)
+    runs = []
+    for tag in ("cold", "warm"):
+        gp = _gp_model(coords, m, seed, torch.float32, dev)
+        reset_counts()
+        t0 = clock()
+        # the warm run under the default, "auto": the loop it engages
+        bst = gpt.train(params if tag == "cold" else dict(
+            BOOST_PARAMS, device_resident_boosting="auto"), ds, gp_model=gp,
+            num_boost_round=rounds)
+        t_train = clock() - t0
+        launches = read_counts()
+        info = bst.device_training_info_
+        evals = int(info["refit_evaluations"].sum())
+        check(bst.num_trees() == rounds and "device_training_info_"
+              in bst.__dict__, f"device loop {tag}: {bst.num_trees()} trees, "
+              "or the host loop ran")
+        _check_trees(bst, f"device_loop_{tag}")
+        check(bool(np.all(np.isfinite(info["cov_nll"]))
+                   and info["cov_nll"][-1] < info["cov_nll"][0]),
+              f"device loop {tag}: refit NLLs {info['cov_nll']}")
+        check(info["includes_compile"] == (tag == "cold"),
+              f"device loop {tag}: includes_compile "
+              f"{info['includes_compile']}")
+        check(launches["vecchia_nll_grad"] >= evals,
+              f"device loop {tag}: vecchia_nll_grad launched "
+              f"{launches['vecchia_nll_grad']} times for {evals} evaluations")
+        check(info["host_reads"] == evals + 1,
+              f"device loop {tag}: {info['host_reads']} host reads for "
+              f"{evals} refit evaluations")
+        check(launches["histogram"] == rounds * bst.grower.num_leaves,
+              f"device loop {tag}: {launches['histogram']} histogram "
+              f"launches in {rounds} trees")
+        runs.append((bst, gp, launches, t_train))
+    (b1, gp1, l1, t_cold), (b2, gp2, l2, t_warm) = runs
+    same = (np.array_equal(b1._score, b2._score)
+            and np.array_equal(gp1.get_cov_pars(), gp2.get_cov_pars())
+            and all(np.array_equal(x.leaf_value, y.leaf_value)
+                    and np.array_equal(x.split_feature, y.split_feature)
+                    for x, y in zip(b1.trees, b2.trees)))
+    check(same, "device loop: two trainings differ")
+    # the same rounds stepwise, from the loop's own primitives
+    b3 = gpt.Booster(params=params, train_set=ds, gp_model=_gp_model(
+        coords, m, seed, torch.float32, dev))
+    vg, psi, kdt = device_loop._fns_for(b3)
+    grower = device_loop._grower_of(b3)
+    cfg = b3.gp_model.optim_cfg
+    th = torch.log(torch.tensor(cfg.init_cov_pars, dtype=kdt, device=dev))
+    F = torch.as_tensor(b3._score, dtype=torch.float64, device=dev)
+    y_t = torch.as_tensor(yb, dtype=torch.float64, device=dev)
+    ones_h = torch.ones(ds.num_data, dtype=torch.float32, device=dev)
+    ones = torch.ones(ds.num_data, dtype=torch.bool, device=dev)
+    lr = float(b3.learning_rate)
+    for r in range(rounds):
+        th, v, k, aux, _ = topt.lbfgs_device_loop(
+            vg, th, cfg, kdt, (y_t - F).to(kdt), final_fn=psi)
+        out = grower.grow((-aux).to(torch.float32), ones_h, ones,
+                          b3._num_bins_t)
+        check(np.array_equal(lr * out["leaf_value"].cpu().numpy(),
+                             b1.trees[r].leaf_value),
+              f"device loop vs stepwise: round {r}'s leaf values differ")
+        F = F + (lr * out["leaf_value"])[out["row_leaf"].long()]
+    check(np.array_equal(F.cpu().numpy(), b1._score),
+          "device loop vs stepwise: the scores differ")
+    # against the host loop, an independent orchestration: the same trees
+    # and scores
+    check(len(host_bst.trees) == rounds, f"the host loop has "
+          f"{len(host_bst.trees)} trees, the device loop {rounds}")
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    score_rel = rel(b1._score, host_bst._score)
+    leaf_rel = max(rel(x.leaf_value, y.leaf_value)
+                   for x, y in zip(b1.trees, host_bst.trees))
+    splits_same = all(np.array_equal(x.split_feature, y.split_feature)
+                      and np.array_equal(x.threshold_bin, y.threshold_bin)
+                      for x, y in zip(b1.trees, host_bst.trees))
+    same_as_host = bool(
+        np.array_equal(b1._score, host_bst._score) and splits_same
+        and all(np.array_equal(x.leaf_value, y.leaf_value)
+                for x, y in zip(b1.trees, host_bst.trees)))
+    check(splits_same and score_rel <= DL_HOST_RTOL
+          and leaf_rel <= DL_HOST_RTOL,
+          f"device loop vs the host loop: splits the same {splits_same}, "
+          f"scores {score_rel:.3e} and leaf values {leaf_rel:.3e} apart "
+          f"(relative; the bound {DL_HOST_RTOL})")
+    mse = float(np.mean((yb - b1._score) ** 2))
+    mse_host = float(np.mean((yb - host_bst._score) ** 2))
+    info = b1.device_training_info_
+    out = {"rounds": rounds, "train_cold_s": t_cold, "train_warm_s": t_warm,
+           "device_seconds_cold": info["device_seconds"],
+           "device_seconds_warm": b2.device_training_info_["device_seconds"],
+           "refit_iterations": info["refit_iterations"].tolist(),
+           "refit_evaluations": info["refit_evaluations"].tolist(),
+           "host_reads": info["host_reads"],
+           "host_reads_per_round": (info["host_reads"] - 1) / rounds,
+           "cov_nll_first": float(info["cov_nll"][0]),
+           "cov_nll_last": float(info["cov_nll"][-1]),
+           "cov_pars": gp1.get_cov_pars().tolist(),
+           "launches_cold": l1, "launches_warm": l2,
+           "two_runs_same_bits": same, "stepwise_same_bits": True,
+           "train_mse": mse, "host_loop_train_mse": mse_host,
+           "train_mse_rel_diff": mse / mse_host - 1.0,
+           "same_bits_as_host_loop": same_as_host,
+           "score_rel_diff_vs_host_loop": score_rel,
+           "leaf_rel_diff_vs_host_loop": leaf_rel,
+           "host_loop_tolerance": DL_HOST_RTOL}
+    emit({"phase": "device_loop", **out})
+    return out, l1
+
+
+def device_loop_lagaboost(ng, ds_ng, m, seed, dev):
+    """Phase 16 (c): the LaGaBoost branch of the device loop on the
+    non-Gaussian path's Dataset, DL_NG_ROUNDS rounds with refits at
+    DL_NG_MAXIT: trees, finite NLLs, no Vecchia kernel (the latent factors
+    are outside their gate), the histogram once a step, host reads = the
+    refits' evaluations and CG iterations and one fetch."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.ops import cg as cgops
+    gp = _ng_model(ng["coords"], m, seed, torch.float32, dev, DL_NG_MAXIT)
+    reset_counts()
+    cg0 = cgops.pcg.host_reads
+    t0 = clock()
+    bst = gpt.train(dict(NG_PARAMS, device_resident_boosting="true"), ds_ng,
+                    gp_model=gp, num_boost_round=DL_NG_ROUNDS)
+    t_train = clock() - t0
+    launches = read_counts()
+    info = bst.device_training_info_
+    check(bst.num_trees() == DL_NG_ROUNDS, f"device LaGaBoost: "
+          f"{bst.num_trees()} trees")
+    _check_trees(bst, "device_lagaboost")
+    check(bool(np.all(np.isfinite(info["cov_nll"]))),
+          f"device LaGaBoost: NLLs {info['cov_nll']}")
+    check(launches["vecchia_factors"] == launches["vecchia_nll_grad"] == 0,
+          f"device LaGaBoost launched a Vecchia kernel: {launches}")
+    check(launches["histogram"] == DL_NG_ROUNDS * bst.grower.num_leaves,
+          f"device LaGaBoost: {launches['histogram']} histogram launches")
+    check(info["host_reads"] > int(info["refit_evaluations"].sum()),
+          f"device LaGaBoost: {info['host_reads']} host reads")
+    cov_pars = gp.get_cov_pars()
+    check(bool(np.all(np.isfinite(cov_pars)) and np.all(cov_pars > 0)),
+          f"device LaGaBoost: cov_pars {cov_pars}")
+    out = {"rounds": DL_NG_ROUNDS, "refit_maxit": DL_NG_MAXIT,
+           "train_s": t_train, "device_seconds": info["device_seconds"],
+           "cov_nll": info["cov_nll"].tolist(),
+           "refit_evaluations": info["refit_evaluations"].tolist(),
+           "host_reads": info["host_reads"],
+           "cg_host_reads_with_trailing_refit": cgops.pcg.host_reads - cg0,
+           "includes_compile": info["includes_compile"],
+           "launches": launches, "cov_pars": cov_pars.tolist()}
+    emit({"phase": "device_lagaboost", **out})
+    return out, launches
+
+
+def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
+    """Phase 16 (d): one profiler session (the process's first with CUDA
+    activities; a second records no device operation on this machine)
+    over one histogram call, one host-grower tree, one graph replay of the
+    fixed-shape grower, one warm round of the host loop and one of the
+    device loop (to the end of its fetch); their device idle shares from
+    the trace, the memory snapshot's size, and ``num_leaves`` launches of
+    the histogram's device-scales instance in the replay and in each round
+    (what ``FixedGrower.grow`` adds to the count at a replay). The trace
+    and the snapshot go to a temporary directory that is removed after they
+    are read. Returns the histogram call's device operations too."""
+    import os
+    import shutil
+    import tempfile
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting import tree as tt
+    from gpboost_tpu_torch.utils import profiler
+    b = gpt.Booster(params=dict(BOOST_PARAMS,
+                                device_resident_boosting="false"),
+                    train_set=ds, gp_model=_gp_model(coords, m, seed,
+                                                     torch.float32, dev))
+    b.update()                                   # warm: refit memory, graph
+    grad, hess = b.objective.get_gradients(b._score)
+    g = torch.as_tensor(grad, dtype=torch.float32, device=dev)
+    h = torch.as_tensor(hess, dtype=torch.float32, device=dev)
+    fg = tt.fixed_grower(ds.binned, ds.max_num_bins, b.grower,
+                         torch.float32, nan_mask=ds.has_nan,
+                         binned_t=ds.binned_t, efb=ds.efb)
+    ones = torch.ones(ds.num_data, dtype=torch.bool, device=dev)
+    params = dict(BOOST_PARAMS, device_resident_boosting="true")
+    # the device loop's round starts its refit where the host loop's does
+    gp_dl = _gp_model(coords, m, seed, torch.float32, dev)
+    gp_dl.cov_pars_ = np.array(b.gp_model.cov_pars_)
+    hist_call()
+    torch.cuda.synchronize()
+    names = ("histogram_call", "host_grower_tree", "fixed_grower_replay",
+             "host_loop_round", "device_loop: round")
+    # a device-loop round does not wait for its device work (the host loop's
+    # round ends in a synchronise here): its window runs on to the end of the
+    # loop's one fetch, which does
+    until = {"device_loop: round": "device_loop: fetch"}
+    tmp = tempfile.mkdtemp(prefix="phase16_trace_")
+    with profiler.trace(tmp) as prof:
+        with profiler.annotate("histogram_call"):
+            hist_call()
+            torch.cuda.synchronize()
+        with profiler.annotate("host_grower_tree"):
+            tt.grow_tree(ds.binned, b._num_bins_t, g, h, ds.max_num_bins,
+                         b.grower, binned_t=ds.binned_t, nan_mask=ds.has_nan)
+            torch.cuda.synchronize()
+        with profiler.annotate("fixed_grower_replay"):
+            fg.grow(g, h, ones, b._num_bins_t)
+            torch.cuda.synchronize()
+        with profiler.annotate("host_loop_round"):
+            b.update()
+            torch.cuda.synchronize()
+        gpt.train(params, ds, gp_model=gp_dl, num_boost_round=1)
+    windows = _trace_windows(prof.trace_path, names, until)
+    hist_ops = windows["histogram_call"]["op_names"]
+    # a replay adds the launches its capture counted (FixedGrower.grow):
+    # the trace shows what a replay launched, the grower's num_leaves
+    L = b.grower.num_leaves
+    for name in ("fixed_grower_replay", "host_loop_round",
+                 "device_loop: round"):
+        got = windows[name]["hist_dev_scales_launches"]
+        check(got == L, f"trace: {got} launches of hist_kernel<true> in "
+              f"{name}, {L} expected (one a step of the fixed-shape grower)")
+    snap = os.path.join(tmp, "memory_snapshot.pickle")
+    profiler.device_memory_profile(snap)
+    out = {"trace_bytes": os.path.getsize(prof.trace_path),
+           "windows": windows, "memory_snapshot_bytes": os.path.getsize(snap)}
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "device_loop_trace", **out})
+    return out, hist_ops
+
+
+def device_loop_paths(ds, yb, coords, m, seed, rounds, ng, ds_ng, host_bst,
+                      hist_call, dev):
+    """Phase 16: the device-resident GPBoost loop and its fixed-shape grower
+    (:func:`fixed_grower_path`, :func:`device_loop_training`,
+    :func:`device_loop_lagaboost`, :func:`device_loop_trace`)."""
+    timings, launches = {}, {}
+    t0 = clock()
+    grower, _ = fixed_grower_path(ds, coords, m, seed, dev)
+    timings["dl_fixed_grower_s"] = clock() - t0
+    t0 = clock()
+    dl, launches["device_loop"] = device_loop_training(
+        ds, yb, coords, m, seed, rounds, dev, host_bst)
+    timings["dl_training_s"] = clock() - t0
+    t0 = clock()
+    ngl, launches["device_lagaboost"] = device_loop_lagaboost(
+        ng, ds_ng, m, seed, dev)
+    timings["dl_lagaboost_s"] = clock() - t0
+    t0 = clock()
+    trace, hist_ops = device_loop_trace(ds, yb, coords, m, seed, dev,
+                                        hist_call)
+    timings["dl_trace_s"] = clock() - t0
+    timings.update({
+        f"train_{rounds}r_device_s": dl["train_cold_s"],
+        f"train_{rounds}r_device_warm_s": dl["train_warm_s"],
+        "host_grower_ms_per_tree": grower["host_grower_ms_per_tree"],
+        "fixed_eager_ms_per_tree": grower["fixed_eager_ms_per_tree"],
+        "fixed_replay_ms_per_tree": grower["fixed_replay_ms_per_tree"],
+        "device_lagaboost_train_s": ngl["train_s"],
+        "idle_share_host_loop_round":
+            trace["windows"]["host_loop_round"]["idle_share"],
+        "idle_share_device_loop_round":
+            trace["windows"]["device_loop: round"]["idle_share"]})
+    return launches, timings, hist_ops
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6443,10 +6958,11 @@ def main():
                                    ("nll_grad_kernel", "vecchia_factors"),
                                    ("hist_kernel", "histogram"))}
     for kernel, rep in kernel_ptxas.items():
-        count = 1 if kernel == "hist_kernel" else 3
+        count = 2 if kernel == "hist_kernel" else 3
         check(len(rep) == count and all("registers" in x for x in rep),
-              f"ptxas lines of {kernel}'s {count} instance(s) (d <= 2, 4, 8 "
-              f"for the Vecchia kernels) not found: {rep}")
+              f"ptxas lines of {kernel}'s {count} instances (d <= 2, 4, 8 "
+              f"for the Vecchia kernels; scales by value and from device "
+              f"memory for the histogram) not found: {rep}")
         check(all(x["stack_frame_bytes"] == x["spill_store_bytes"]
                   == x["spill_load_bytes"] == 0 for x in rep),
               f"{kernel}: a stack frame or spills, its per-row arrays must "
@@ -6560,6 +7076,15 @@ def main():
     timings.update(b15_timings)
     timings["phase15_s"] = clock() - t0
     cases["histogram"].append(b15_hist)
+    # phase 16, the device-resident loop and its fixed-shape grower, before
+    # the second runs too; its profiler session is the process's first with
+    # CUDA activities and also gives the histogram call's stream operations
+    t0 = clock()
+    dl_launches, dl_timings, hist_ops = device_loop_paths(
+        ds, boost_data[1], coords, args.m, args.seed, args.rounds, ng, ds_ng,
+        bst, hist_call, dev)
+    timings.update(dl_timings)
+    timings["phase16_s"] = clock() - t0
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -6576,9 +7101,8 @@ def main():
     timings["kernel_checks_s"] = t_check
     emit({"timings": timings, "card": smi})
 
-    # after the paths, so that the profiler's session cannot touch their
-    # host times: what one histogram call puts on the stream
-    ops = stream_ops(hist_call)
+    # what one histogram call put on the stream (phase 16's trace)
+    ops = hist_ops
     check(len(ops) == 1 and "hist_kernel" in ops[0],
           f"histogram: one call put {len(ops)} operations on the stream "
           f"(profiler trace), expected one, hist_kernel: {ops}")
@@ -6603,7 +7127,7 @@ def main():
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
              **it_launches, **vr_launches, **tail_launches, **bt_launches,
-             **tt_launches, **b15_launches}
+             **tt_launches, **b15_launches, **dl_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
             ("boosting", boost_launches, tuple(REPLACES)),
@@ -6644,7 +7168,10 @@ def main():
             ("leaf_updates_gp", b15_launches["leaf_updates_gp"],
              tuple(REPLACES)),
             ("ranking", b15_launches["ranking"], ("histogram",)),
-            ("model_io", b15_launches["model_io"], ("histogram",))):
+            ("model_io", b15_launches["model_io"], ("histogram",)),
+            ("device_loop", dl_launches["device_loop"], tuple(REPLACES)),
+            ("device_lagaboost", dl_launches["device_lagaboost"],
+             ("histogram",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")
@@ -6682,6 +7209,13 @@ def main():
                 run_to_run_max_abs_diff=t["run_to_run_max_abs_diff"],
                 run_to_run_bit_identical=t["run_to_run_bit_identical"],
                 scales_host_ms=t["scales_host_ms"],
+                # the device-scales entry (the fixed-shape grower's, every
+                # tree of the main path on the card): "ms" and "device_ms"
+                # above are the by-value entry's
+                dev_scales_ms=t["dev_scales_ms"],
+                dev_scales_device_ms=t["dev_scales_device_ms"],
+                dev_scales_with_frexp_device_ms=t[
+                    "dev_scales_with_frexp_device_ms"],
                 static_smem_bytes=kernel_ptxas["hist_kernel"][0].get(
                     "static_smem_bytes"),
                 library_is="one index_add_ on a prepared flat index",

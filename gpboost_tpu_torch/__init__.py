@@ -58,9 +58,17 @@ There is no global dtype switch: models take ``dtype=`` (default
 ``torch.float64``) and ``device=`` (default ``"cuda"``; a missing GPU raises,
 ``device="cpu"`` runs the plain PyTorch versions).
 
-Not ported yet: the device-resident training loop (ROADMAP.md Queue A,
-item 10), the parameter registry and the TPE tuner (item 19), several GPUs
-(item 20). Continued training (``init_model``) is not in the JAX package.
+On the card the trees grow by the fixed-shape grower (one captured CUDA
+graph and one fetch a tree) wherever it covers the options, and ``train``
+runs the GPBoost / LaGaBoost rounds with their state on the device
+(``boosting/device_loop.py``, ``device_resident_boosting``); the
+profiler's glue is ``utils/profiler.py``.
+
+Not ported yet: the fixed-shape grower's categorical, monotone,
+interaction, forced-split, CEGB, extra-trees and per-node sampling options
+(ROADMAP.md Queue A, item 10b), the parameter registry and the TPE tuner
+(item 19), several GPUs (item 20). Continued training (``init_model``) is
+not in the JAX package.
 """
 from gpboost_tpu_torch.models.gp_model import GPModel
 from gpboost_tpu_torch.boosting.dataset import Dataset

@@ -14,7 +14,11 @@ predict / save, ``gp_model`` attachment, GP-aware validation
 
 The score stays a host float64 array (``[n * num_models]``, model-major)
 and gradients cross to the device once per tree, as in the JAX package's
-host loop; trees grow on the device of the training ``Dataset``. On a GPU
+host loop; trees grow on the device of the training ``Dataset``: on a GPU by
+the fixed-shape grower (``tree.grow_tree_fast``: one captured CUDA graph
+and one fetch a tree) wherever it covers the tree's options, else, and on
+the CPU, by the host grower (``tree.grow_tree``), which gives the same tree
+from the same gradients. On a GPU
 the gradients are float32 there (LightGBM's default histogram precision)
 and every histogram goes through the hand-written kernel; ``gpu_use_dp=True``
 keeps them float64, which runs the plain histogram on the GPU. On the CPU
@@ -47,7 +51,7 @@ early-stopped scores of ``pred_early_stop``; models save and load in the
 JSON format and the reference's text format (``model_text.py``) and export
 to C (``convert.py``). Continued training (``init_model``) is not ported:
 the JAX package takes the argument and never reads it. The device-resident
-loop is ROADMAP.md Queue A, item 10.
+training loop is ``boosting/device_loop.py``, which ``train`` engages.
 """
 from __future__ import annotations
 
@@ -65,7 +69,9 @@ from gpboost_tpu_torch.boosting.dataset import Dataset, cat_bins
 from gpboost_tpu_torch.boosting.objectives import (GPBoostObjective,
                                                    create_objective)
 from gpboost_tpu_torch.boosting.tree import (CEGBState, GrowerParams, Tree,
-                                             fit_linear_leaves, grow_tree,
+                                             fit_linear_leaves,
+                                             fixed_grower_gaps, grow_tree,
+                                             grow_tree_fast,
                                              predict_tree_linear,
                                              predict_tree_mixed,
                                              predict_tree_raw)
@@ -503,6 +509,14 @@ class Booster:
             row_mask = self._bag(it, n)
         num_bins, num_bins_host = self._tree_num_bins()
         nan_mask = ds.has_nan if bool(np.any(ds.has_nan)) else None
+        # on the card the fixed-shape grower (one captured graph a tree, one
+        # fetch) wherever it covers the options, as the JAX package's
+        # accelerator route (booster.py:522-558); the host grower elsewhere
+        grower = (grow_tree_fast if self.device.type == "cuda"
+                  and not fixed_grower_gaps(
+                      self.grower, self._cat_mask, self._monotone,
+                      self._interaction_constraints, self._forced_splits,
+                      self._cegb) else grow_tree)
         for m in range(self.num_models):
             with timed("Booster: gradients to the device", sync=True):
                 g = torch.as_tensor(grad[m * n:(m + 1) * n],
@@ -512,7 +526,7 @@ class Booster:
                                     dtype=self._grad_dtype,
                                     device=self.device)
             with timed("Booster: grow_tree", sync=True):
-                tree, row_leaf = grow_tree(
+                tree, row_leaf = grower(
                     ds.binned, num_bins, g, h, ds.max_num_bins, self.grower,
                     row_mask=row_mask, nan_mask=nan_mask,
                     binned_t=ds.binned_t,
@@ -601,10 +615,15 @@ class Booster:
         replaces a traversal (under a bag or GOSS's sample too: the
         partition moves the rows outside it with the others; the JAX
         package traverses the tree there, which gives the same leaves).
-        Linear leaves: the tree evaluated on the raw rows."""
+        Linear leaves: the tree evaluated on the raw rows. The fixed-shape
+        grower fetched ``row_leaf`` with the tree (``tree.row_leaf_host``,
+        taken off the tree here)."""
+        host = tree.__dict__.pop("row_leaf_host", None)
         if tree.lin_features is not None:
             return self._tree_train_pred(tree)
-        return tree.leaf_value[row_leaf.cpu().numpy()]
+        if host is None:
+            host = row_leaf.cpu().numpy()
+        return tree.leaf_value[host]
 
     def _rf_base(self) -> float:
         return float(self.init_score[0]) if self.num_models == 1 else 0.0

@@ -1,10 +1,12 @@
 """Training engine: ``train`` and ``cv`` (reference ``engine.py:21,540``).
 
 The JAX package's host loop, in the port's idiom: every Dataset, fold and
-fold GPModel lives on the training Dataset's device. ``init_model``
-(continued training) raises: the JAX package takes the argument and never
-reads it (ROADMAP.md, "Not faults"); the device-resident training loop is
-ROADMAP.md Queue A, item 10.
+fold GPModel lives on the training Dataset's device. ``train`` hands the
+whole training to the device-resident loop (``device_loop.py``) where
+``device_resident_boosting`` and the configuration allow it, without a
+fallback to the host loop. ``init_model`` (continued training) raises: the
+JAX package takes the argument and never reads it (ROADMAP.md, "Not
+faults").
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           use_gp_model_for_validation: bool = True) -> Booster:
     """Train a (GP)Boost model (mirrors ``gpboost.train``, ``engine.py:21``)
     with the host-driven loop: ``num_boost_round`` calls of
-    ``Booster.update``. With a ``gp_model`` this is the GPBoost algorithm
+    ``Booster.update``, or, where ``device_loop.eligible`` says so (no
+    snapshots, callbacks, ``evals_result``, ``learning_rates`` or training
+    metric either), the device-resident loop ``device_loop.train_device``. With a ``gp_model`` this is the GPBoost algorithm
     (gaussian likelihood) or the LaGaBoost algorithm (the others; the
     objective names no distribution then, e.g. ``"binary"``), the GP's
     parameters refitted every round with its optimizer settings
@@ -112,6 +116,18 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     # periodic model snapshots (GBDT::Train, reference gbdt.cpp:306-310)
     snapshot_freq = int(params.get("snapshot_freq", -1))
     output_model = params.get("output_model", "gpboost_tpu_model.json")
+
+    # the whole training with its state on the device (device_loop.py):
+    # refit, gradient, tree and score update of every round, one fetch at
+    # the end. Unlike the JAX package's train, no fallback to the host loop:
+    # an exception propagates (ROADMAP.md, Not faults)
+    from gpboost_tpu_torch.boosting import device_loop
+    if (num_boost_round > 0 and snapshot_freq <= 0 and not cbs
+            and evals_result is None and learning_rates is None
+            and not booster._eval_train_metric
+            and device_loop.eligible(booster, fobj, cbs)):
+        device_loop.train_device(booster, num_boost_round)
+        return booster
     try:
         for it in range(num_boost_round):
             booster.update(fobj=fobj)

@@ -28,33 +28,40 @@ that is tiny beside its parent; the reference's accelerator learners behave
 the same. Every step adds in a fixed order, so a tree grown twice from the
 same gradients is the same tree, on the card too.
 
-The grower reads the host once per leaf: the leaf's totals and its best
-splits (numeric, and categorical with its left set) travel in one packed
-tensor. On the histogram kernel's route it reads once more per tree, for the
-fixed-point scales; a Dataset with categorical features and
-``min_data_per_group`` > 0 once more per leaf, for the group-boundary scan
-(a sequential scan over the bins, run on the host). ``grow_tree.host_reads``
-counts the reads.
+The host grower (:func:`grow_tree`) reads the host once per leaf: the
+leaf's totals and its best splits (numeric, and categorical with its left
+set) travel in one packed tensor. On the histogram kernel's route it reads
+once more per tree, for the fixed-point scales; a Dataset with categorical
+features and ``min_data_per_group`` > 0 once more per leaf, for the
+group-boundary scan (a sequential scan over the bins, run on the host).
+``grow_tree.host_reads`` counts the reads.
 
 The grower's options are the JAX package's host grower's (forced splits
 root first, the three monotone methods as the JAX package approximates
 them, interaction constraints, ``feature_fraction_bynode``, CEGB with its
 re-scoring), drawn from the same numpy streams in the same order. Linear
-leaves (:func:`fit_linear_leaves`) are fitted after the grower. The
-single-dispatch device-resident grower is ROADMAP.md Queue A, item 10.
+leaves (:func:`fit_linear_leaves`) are fitted after the grower.
+
+The fixed-shape grower (:func:`grow_tree_fast`, :func:`_grow_tree_fixed`,
+the JAX package's ``grow_tree_fast`` / ``_grow_tree_jit``) grows the same
+tree with no host read: ``num_leaves - 1`` masked steps on ``[M]`` node
+arrays, on CUDA one captured graph a tree, then one fetch. It covers the
+numeric splits and their options; categorical features, monotone and
+interaction constraints, forced splits, CEGB, extra trees and
+``feature_fraction_bynode`` are ROADMAP.md Queue A, item 10b.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from gpboost_tpu_torch.ops.kernels.histogram import (MAX_BINS,
-                                                     fixed_point_scales,
-                                                     histogram,
-                                                     histogram_plain)
+from gpboost_tpu_torch.ops.kernels.histogram import (
+    MAX_BINS, fixed_point_scales, fixed_point_scales_device, histogram,
+    histogram_plain)
 from gpboost_tpu_torch.utils.timer import timed
 
 
@@ -254,12 +261,15 @@ def _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
     # (cost_effective_gradient_boosting.hpp:66-84); the raw gain still
     # gates min_gain_to_split
     sel = gain if penalty is None else gain - penalty[:, None]
-    # torch.argmax returns the FIRST maximal element, as jnp.argmax does
-    flat = torch.argmax(sel.reshape(-1))
-    picked = torch.cat([sel[None], gain[None], left]).reshape(5, -1)[:, flat]
-    dl = (default_left if default_left.dim() == 0
-          else default_left.reshape(-1)[flat])
-    return torch.cat([flat.to(dt)[None], picked, dl[None]])
+    # torch.argmax returns the FIRST maximal element, as jnp.argmax does;
+    # index_select, not indexing by a 0-dim tensor (which reads it on the
+    # host), so that the scan runs inside a CUDA graph
+    flat = torch.argmax(sel.reshape(-1)).view(1)
+    picked = torch.cat([sel[None], gain[None], left]).reshape(
+        5, -1).index_select(1, flat)[:, 0]
+    dl = (default_left.view(1) if default_left.dim() == 0
+          else default_left.reshape(-1).index_select(0, flat))
+    return torch.cat([flat.to(dt), picked, dl])
 
 
 def find_best_split(hist_g, hist_h, hist_c, num_bins_per_feat,
@@ -1144,6 +1154,449 @@ def grow_tree(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
 
 
 grow_tree.host_reads = 0
+
+
+# ---------------------------------------------------------------------------
+# the fixed-shape grower: one tree with no host read
+# ---------------------------------------------------------------------------
+
+# the options the fixed-shape grower does not take yet (ROADMAP.md Queue A,
+# item 10b); the host grower serves them
+_FIXED_TODO = "ROADMAP.md Queue A, item 10b"
+
+
+def fixed_grower_gaps(params: GrowerParams, categorical_mask=None,
+                      monotone_constraints=None,
+                      interaction_constraints=None, forced_splits=None,
+                      cegb=None) -> list:
+    """The options of a tree that the fixed-shape grower does not cover:
+    categorical features, monotone and interaction constraints, forced
+    splits, CEGB, extra trees, ``feature_fraction_bynode``. Empty when
+    :func:`grow_tree_fast` grows the tree."""
+    gaps = []
+    if categorical_mask is not None and bool(np.any(categorical_mask)):
+        gaps.append("categorical features")
+    if monotone_constraints is not None and bool(
+            np.any(np.asarray(monotone_constraints) != 0)):
+        gaps.append("monotone_constraints")
+    if interaction_constraints:
+        gaps.append("interaction_constraints")
+    if forced_splits:
+        gaps.append("forced splits")
+    if cegb is not None:
+        gaps.append("CEGB")
+    if params.extra_trees:
+        gaps.append("extra_trees")
+    if params.feature_fraction_bynode < 1.0:
+        gaps.append("feature_fraction_bynode")
+    return gaps
+
+
+def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
+    """Grow one tree leaf-wise at fixed shapes, every step on the device of
+    ``grad``, no value read into Python: the port of the JAX package's
+    ``tree._grow_tree_jit`` (its ``lax.while_loop`` becomes exactly
+    ``num_leaves - 1`` steps, a step with no admissible split leaving every
+    array as it was).
+
+    ``c`` (:class:`FixedGrower`) holds the Dataset's tensors and the static
+    options. Node arrays are ``[M]``, M = 2 num_leaves - 1; node ids are
+    those of the host grower (step k creates nodes 2k + 1 and 2k + 2, since
+    steps that split come first). Each step takes the leaf with the largest
+    admissible gain (the first on ties, as the host grower's scan of its
+    leaves in creation order), partitions every row of it (also rows outside
+    ``row_mask``, as the host grower), builds the smaller child's histogram
+    and subtracts it from the parent's, and scores both children with the
+    host grower's ``_split_scan``; the totals, the children's outputs and
+    the leaf values are the host grower's float64 formulas. So on the same
+    gradients both growers give the same tree to the last bit, on the card
+    too. Histogram launches: one for the root and one a step, whether the
+    step splits or not (its child is then empty).
+
+    Returns a dict of tensors: feature, thresh, left, right (int32 [M]),
+    leaf_value, cnt, sgain (float64 [M]), is_leaf, dleft (bool [M]), depth
+    (int32 [M]), num_leaves (int32 []), row_leaf (int32 [n]).
+    """
+    dev, dt = grad.device, grad.dtype
+    f64, i32 = torch.float64, torch.int32
+    L = c.num_leaves
+    M = 2 * L - 1
+    B = c.max_num_bins
+    scales = (fixed_point_scales_device(grad, hess) if c.on_kernel
+              else None)
+
+    def hist_of(mask):
+        return torch.stack(build_histogram(
+            c.hist_binned, grad, hess, mask, c.hist_B, binned_t=c.hist_panel,
+            scales=scales))
+
+    def out_of(g, h, cnt, parent):
+        # the host grower's leaf_output, in float64 on the device
+        t = torch.sign(g) * torch.clamp(torch.abs(g) - c.l1, min=0.0)
+        raw = -t / (h + c.l2 + 1e-15)
+        if c.ps > 0.0 and cnt is not None:
+            w = cnt / (cnt + c.ps)
+            raw = raw * w + (1.0 - w) * parent
+        if c.mds > 0.0:
+            raw = torch.clamp(raw, min=-c.mds, max=c.mds)
+        return raw
+
+    def eval_leaf(hist, parent_out):
+        """(totals float64 [3], best split [7] in the histograms' dtype) of a
+        leaf, as the host grower's compute_leaf."""
+        hist_f = hist if c.efb_maps is None else expand_bundle_hist(
+            hist, *c.efb_maps)
+        opts = {}
+        if c.contri is not None:
+            opts["gain_mult"] = c.contri
+        if c.mds > 0.0:
+            opts.update(mono_lo=-c.mds, mono_hi=c.mds, use_bounds=True)
+        if c.ps > 0.0:
+            opts.update(path_smooth=c.ps, parent_output=parent_out.to(dt),
+                        use_smoothing=True)
+        # divided by a tensor: a CUDA division by a Python number multiplies
+        # by its reciprocal, which rounds differently from the host grower's
+        # division
+        totals = hist.sum(dim=(1, 2)).to(f64) / cols
+        return totals, _split_scan(hist_f, num_bins_per_feat, c.l1, c.l2,
+                                   c.min_data, c.min_hess, c.nan_mask, **opts)
+
+    node = torch.arange(M, device=dev)
+    zero64 = torch.zeros((), dtype=f64, device=dev)
+    cols = torch.full((), c.hist_binned.shape[1], dtype=f64, device=dev)
+    neg_inf = torch.full((), -torch.inf, dtype=dt, device=dev)
+    hist0 = hist_of(row_mask)
+    st0, b0 = eval_leaf(hist0, zero64)
+    hist = torch.zeros((M,) + tuple(hist0.shape), dtype=dt, device=dev)
+    hist[0] = hist0
+    best = torch.zeros((M, b0.shape[0]), dtype=dt, device=dev)
+    best[0] = b0
+    stats = torch.zeros((M, 3), dtype=f64, device=dev)
+    stats[0] = st0
+    pout = torch.zeros(M, dtype=f64, device=dev)
+    row_leaf = torch.zeros(grad.shape[0], dtype=i32, device=dev)
+    feature = torch.zeros(M, dtype=i32, device=dev)
+    thresh = torch.zeros(M, dtype=i32, device=dev)
+    left = node.to(i32)
+    right = node.to(i32)
+    is_leaf = node == 0
+    depth = (node == 0).to(i32)
+    dleft = torch.ones(M, dtype=torch.bool, device=dev)
+    sgain = torch.zeros(M, dtype=f64, device=dev)
+
+    for k in range(L - 1):
+        lid, rid = 2 * k + 1, 2 * k + 2
+        ok = is_leaf & (best[:, 2].to(f64) > c.min_gain)
+        if c.max_depth > 0:
+            ok = ok & (depth < c.max_depth)
+        leaf = torch.argmax(torch.where(ok, best[:, 1], neg_inf)).view(1)
+        proceed = ok.any()
+        b = best.index_select(0, leaf)[0]
+        flat = b[0].to(torch.int64)
+        f_b, b_b = flat // B, flat % B
+        gain, gl, hl, cl, dl_b = b[1], b[3], b[4], b[5], b[6] > 0
+        g_p, h_p, cnt_p = stats.index_select(0, leaf)[0].unbind()
+        # the partition: every row of the leaf (the host grower's)
+        col = c.part_rows.index_select(0, f_b.view(1))[0]
+        go_left = col <= b_b
+        if c.nan_mask is not None:
+            miss_right = c.nan_mask.index_select(0, f_b.view(1))[0] & ~dl_b
+            go_left = go_left & ~(miss_right & (col == 0))
+        in_leaf = (row_leaf == leaf) & proceed
+        lid_t = torch.full((), lid, dtype=i32, device=dev)
+        rid_t = torch.full((), rid, dtype=i32, device=dev)
+        row_leaf = torch.where(in_leaf, torch.where(go_left, lid_t, rid_t),
+                               row_leaf)
+        # the smaller child's histogram, the sibling's by subtraction
+        small_left = cl.to(f64) <= cnt_p / 2
+        small = torch.where(small_left, lid_t, rid_t)
+        h_small = hist_of((row_leaf == small) & row_mask)
+        h_big = hist.index_select(0, leaf)[0] - h_small
+        hist_l = torch.where(small_left, h_small, h_big)
+        hist_r = torch.where(small_left, h_big, h_small)
+        parent = pout.index_select(0, leaf)[0]
+        if c.ps > 0.0:
+            po_l = out_of(gl.to(f64), hl.to(f64), cl.to(f64), parent)
+            po_r = out_of(g_p - gl.to(f64), h_p - hl.to(f64),
+                          cnt_p - cl.to(f64), parent)
+        else:
+            po_l = po_r = zero64
+        st_l, b_l = eval_leaf(hist_l, po_l)
+        st_r, b_r = eval_leaf(hist_r, po_r)
+        # the split leaf's record, then the two new leaves (unused slots
+        # until now, so a step that does not split leaves them as they were)
+        at = (node == leaf) & proceed
+        feature = torch.where(at, f_b.to(i32), feature)
+        thresh = torch.where(at, b_b.to(i32), thresh)
+        sgain = torch.where(at, gain.to(f64), sgain)
+        dleft = torch.where(at, dl_b, dleft)
+        left = torch.where(at, lid_t, left)
+        right = torch.where(at, rid_t, right)
+        d_child = depth.index_select(0, leaf)[0] + 1
+        is_leaf = is_leaf & ~at
+        for nid, h_c, st_c, b_c, po_c in ((lid, hist_l, st_l, b_l, po_l),
+                                          (rid, hist_r, st_r, b_r, po_r)):
+            is_leaf[nid] = proceed
+            depth[nid] = torch.where(proceed, d_child, depth[nid])
+            hist[nid] = torch.where(proceed, h_c, hist[nid])
+            stats[nid] = torch.where(proceed, st_c, stats[nid])
+            best[nid] = torch.where(proceed, b_c, best[nid])
+            pout[nid] = torch.where(proceed, po_c, pout[nid])
+
+    g_s, h_s, cnt = stats.unbind(1)
+    if c.ps > 0.0:
+        # the root smooths toward 0, every other leaf keeps the output it
+        # took at its creation (the host grower's parent_out)
+        value = torch.where(node == 0, out_of(g_s, h_s, cnt, zero64), pout)
+    else:
+        value = out_of(g_s, h_s, None, zero64)
+    return dict(feature=feature, thresh=thresh, left=left, right=right,
+                leaf_value=torch.where(is_leaf, value, zero64),
+                cnt=cnt, sgain=sgain, is_leaf=is_leaf, dleft=dleft,
+                depth=depth, num_leaves=is_leaf.sum().to(i32),
+                row_leaf=row_leaf)
+
+
+class FixedGrower:
+    """The fixed-shape grower for one Dataset and one set of options: the
+    Dataset's tensors, the static options, and on a CUDA device the tree's
+    growth captured as one ``torch.cuda.CUDAGraph``.
+
+    :meth:`grow` takes a tree's gradients, hessians, row mask and bins a
+    feature. On the CPU it runs :func:`_grow_tree_fixed` eagerly. On CUDA
+    its first call runs it eagerly and then captures it (the launches
+    counted once, at their real launch); every later call copies its inputs
+    into the graph's static tensors and replays it. A capture that fails
+    raises: there is no eager fallback on the card. The returned tensors
+    are the graph's own outputs on CUDA: read them (or clone them) before
+    the next call.
+    """
+
+    def __init__(self, binned, max_num_bins: int, params: GrowerParams,
+                 dtype, nan_mask=None, binned_t=None, efb=None):
+        self.device = binned.device
+        self.num_leaves = int(params.num_leaves)
+        self.max_depth = int(params.max_depth)
+        self.l1 = float(params.lambda_l1)
+        self.l2 = float(params.lambda_l2)
+        self.min_data = float(params.min_data_in_leaf)
+        self.min_hess = float(params.min_sum_hessian_in_leaf)
+        self.min_gain = float(params.min_gain_to_split)
+        self.ps = float(params.path_smooth)
+        self.mds = float(params.max_delta_step)
+        self.max_num_bins = int(max_num_bins)
+        self.nan_mask = (None if nan_mask is None
+                         or not bool(np.any(nan_mask)) else
+                         torch.as_tensor(np.asarray(nan_mask, bool),
+                                         device=self.device))
+        self.contri = (None if params.feature_contri is None else
+                       torch.as_tensor(np.asarray(params.feature_contri,
+                                                  np.float64), dtype=dtype,
+                                       device=self.device))
+        # a partition reads one feature's bins: a row of the features-major
+        # panel
+        self.part_rows = binned.t() if binned_t is None else binned_t
+        # held, so that the tensors whose identities key the cache
+        # (fixed_grower_key) live as long as the entry
+        self.binned, self.binned_t, self.efb = binned, binned_t, efb
+        if efb is not None:
+            self.hist_binned, self.hist_panel = (efb.binned_hist,
+                                                 efb.binned_hist_t)
+            self.hist_B = int(efb.max_bins_hist)
+            self.efb_maps = (efb.src_col, efb.src_bin, efb.default_bin,
+                             efb.fix_mask)
+        else:
+            self.hist_binned, self.hist_panel = binned, binned_t
+            self.hist_B = self.max_num_bins
+            self.efb_maps = None
+        self.on_kernel = (self.device.type == "cuda"
+                          and dtype == torch.float32
+                          and self.hist_B <= MAX_BINS)
+        self._graph = None
+        self._static = None
+        self._out = None
+        self._launches_per_replay = 0
+        self.captures = 0
+
+    def _run(self, grad, hess, row_mask, num_bins):
+        return _grow_tree_fixed(grad, hess, row_mask, num_bins, self)
+
+    def grow(self, grad, hess, row_mask, num_bins) -> dict:
+        """One tree (see :func:`_grow_tree_fixed` for the outputs)."""
+        if self.device.type != "cuda":
+            return self._run(grad, hess, row_mask, num_bins)
+        from gpboost_tpu_torch.ops.kernels import histogram as hk
+        if self._graph is None:
+            out = self._run(grad, hess, row_mask, num_bins)
+            static = [t.clone() for t in (grad, hess, row_mask, num_bins)]
+            before = hk.histogram.launches
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._out = self._run(*static)
+            # capturing launches nothing: each replay does
+            self._launches_per_replay = hk.histogram.launches - before
+            hk.histogram.launches = before
+            self._graph, self._static = graph, static
+            self.captures += 1
+            return out
+        for dst, src in zip(self._static, (grad, hess, row_mask, num_bins)):
+            dst.copy_(src)
+        self._graph.replay()
+        hk.histogram.launches += self._launches_per_replay
+        return self._out
+
+
+# fixed-shape growers by Dataset and options: repeated trainings on the
+# same Dataset (retraining, cv, tuning) replay their captured graphs. A
+# bounded LRU, the counterpart of the JAX package's _FUSED_RUNNERS: each
+# entry pins its Dataset's tensors and its graph's memory
+_FIXED_GROWERS: "OrderedDict" = OrderedDict()
+_FIXED_GROWERS_MAX = 8
+
+
+def fixed_grower_key(binned, max_num_bins: int, params: GrowerParams,
+                     dtype, nan_mask=None, binned_t=None, efb=None) -> tuple:
+    """The cache key of :func:`fixed_grower`: the tensors' identities, the
+    shapes, the dtype and every option the grower reads."""
+    nm = (None if nan_mask is None or not bool(np.any(nan_mask))
+          else tuple(np.asarray(nan_mask, bool).tolist()))
+    return (id(binned), id(binned_t), id(efb), tuple(binned.shape),
+            str(binned.device), int(max_num_bins), str(dtype),
+            int(params.num_leaves), int(params.max_depth),
+            float(params.lambda_l1), float(params.lambda_l2),
+            float(params.min_data_in_leaf),
+            float(params.min_sum_hessian_in_leaf),
+            float(params.min_gain_to_split), float(params.path_smooth),
+            float(params.max_delta_step),
+            None if params.feature_contri is None else tuple(
+                np.asarray(params.feature_contri, np.float64).tolist()), nm)
+
+
+def fixed_grower(binned, max_num_bins: int, params: GrowerParams, dtype,
+                 nan_mask=None, binned_t=None, efb=None) -> FixedGrower:
+    """The cached :class:`FixedGrower` of a Dataset's tensors and options
+    (:func:`fixed_grower_key`)."""
+    key = fixed_grower_key(binned, max_num_bins, params, dtype, nan_mask,
+                           binned_t, efb)
+    g = _FIXED_GROWERS.get(key)
+    if g is not None:
+        _FIXED_GROWERS.move_to_end(key)
+        return g
+    g = FixedGrower(binned, max_num_bins, params, dtype, nan_mask=nan_mask,
+                    binned_t=binned_t, efb=efb)
+    _FIXED_GROWERS[key] = g
+    while len(_FIXED_GROWERS) > _FIXED_GROWERS_MAX:
+        _FIXED_GROWERS.popitem(last=False)
+    return g
+
+
+def _fixed_tree(host: dict, M: int) -> Tree:
+    """A :class:`Tree` from the fixed-shape grower's arrays (numpy)."""
+    return Tree(split_feature=host["feature"].astype(np.int32),
+                threshold=np.zeros(M),
+                threshold_bin=host["thresh"].astype(np.int32),
+                left=host["left"].astype(np.int32),
+                right=host["right"].astype(np.int32),
+                leaf_value=host["leaf_value"].astype(np.float64),
+                is_leaf=host["is_leaf"].astype(bool),
+                node_count=host["cnt"].astype(np.float64),
+                is_categorical=np.zeros(M, bool),
+                cat_mask=np.zeros((M, host["B"]), bool),
+                split_gain=host["sgain"].astype(np.float64),
+                default_left=host["dleft"].astype(bool),
+                num_leaves=int(host["num_leaves"]),
+                max_depth_used=int(max(host["depth"].max(initial=1), 1)))
+
+
+def check_finite_leaves(leaf_value, is_leaf, where: str) -> None:
+    """Raise the host route's ``ValueError`` when a fetched leaf value is not
+    finite. On the device the fixed-point scales of a gradient or hessian
+    that is not finite are NaN (``fixed_point_scales_device``), and so are
+    the histograms and the leaves; the host route raises on its scales."""
+    vals = np.asarray(leaf_value)[np.asarray(is_leaf) > 0]
+    if not np.all(np.isfinite(vals)):
+        raise ValueError(f"{where}: a leaf value is not finite: a gradient "
+                         "or hessian is not finite")
+
+
+# the fixed-shape grower's per-node arrays, in the order of one packed fetch
+FIXED_NODE_FIELDS = ("feature", "thresh", "left", "right", "leaf_value",
+                     "is_leaf", "cnt", "sgain", "dleft", "depth")
+
+
+def grow_tree_fast(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
+                   grad: torch.Tensor, hess: torch.Tensor, max_num_bins: int,
+                   params: GrowerParams,
+                   row_mask: Optional[torch.Tensor] = None,
+                   nan_mask: Optional[np.ndarray] = None,
+                   binned_t: Optional[torch.Tensor] = None, efb=None,
+                   categorical_mask=None, monotone_constraints=None,
+                   interaction_constraints=None, forced_splits=None,
+                   cegb=None, **host_only):
+    """Grow one tree with the fixed-shape grower (the JAX package's
+    ``grow_tree_fast``): the whole tree on the device with no host read
+    (:func:`_grow_tree_fixed`; on CUDA one captured graph, replayed for
+    every later tree of the same Dataset and options), then ONE fetch of
+    the tree's arrays and ``row_leaf`` packed together. Returns (Tree,
+    row_leaf [n] int32 on the device), as :func:`grow_tree`; the host copy
+    of ``row_leaf`` from the same fetch is ``tree.row_leaf_host``, for the
+    caller's score update (it takes it off the tree).
+
+    Covers numeric splits, missing values (``nan_mask``, ``default_left``),
+    the EFB bundle panel, ``row_mask``, ``path_smooth``,
+    ``max_delta_step``, ``feature_contri``, ``max_depth`` and the min-data /
+    min-hessian / min-gain and L1 / L2 rules. Categorical features,
+    monotone and interaction constraints, forced splits, CEGB, extra trees
+    and ``feature_fraction_bynode`` raise ``NotImplementedError``
+    (ROADMAP.md Queue A, item 10b). The host grower's other keywords
+    (``rng``, ``max_cat_threshold``, ``num_bins_host``: ``host_only``) are
+    taken and not read, so that a caller passes both growers the same
+    arguments. ``grow_tree.host_reads`` counts the fetches (one a tree), as
+    it counts the host grower's reads. A leaf value that is not finite (a
+    gradient or hessian that is not) raises ``ValueError`` after the fetch
+    (:func:`check_finite_leaves`)."""
+    gaps = fixed_grower_gaps(params, categorical_mask, monotone_constraints,
+                             interaction_constraints, forced_splits, cegb)
+    if gaps:
+        raise NotImplementedError(
+            f"grow_tree_fast: {', '.join(gaps)} not covered by the "
+            f"fixed-shape grower yet ({_FIXED_TODO}); grow_tree takes them")
+    n = binned.shape[0]
+    if row_mask is None:
+        row_mask = torch.ones(n, dtype=torch.bool, device=binned.device)
+    g = fixed_grower(binned, max_num_bins, params, grad.dtype,
+                     nan_mask=nan_mask, binned_t=binned_t, efb=efb)
+    out = g.grow(grad, hess, row_mask, num_bins_per_feat)
+    M = 2 * g.num_leaves - 1
+    packed = torch.cat([out[k].to(torch.float64).reshape(-1)
+                        for k in FIXED_NODE_FIELDS]
+                       + [out["num_leaves"].to(torch.float64).view(1),
+                          out["row_leaf"].to(torch.float64)])
+    row_leaf = out["row_leaf"].clone()
+    host = packed.cpu().numpy()                           # the one fetch
+    grow_tree.host_reads += 1
+    arrays = {k: host[i * M:(i + 1) * M]
+              for i, k in enumerate(FIXED_NODE_FIELDS)}
+    arrays["num_leaves"] = host[len(FIXED_NODE_FIELDS) * M]
+    arrays["B"] = int(max_num_bins)
+    check_finite_leaves(arrays["leaf_value"], arrays["is_leaf"],
+                        "grow_tree_fast")
+    tree = _fixed_tree(arrays, M)
+    tree.fixed_shape = True
+    tree.row_leaf_host = host[len(FIXED_NODE_FIELDS) * M + 1:].astype(
+        np.int64)
+    return tree, row_leaf
+
+
+
+def histogram_launches(trees, num_leaves: int) -> int:
+    """The histogram launches that growing ``trees`` took on the kernel
+    route: a tree of the fixed-shape grower (``tree.fixed_shape``) launches
+    ``num_leaves``, the grower's setting (the root and every step, whether
+    it split or not), one of the host grower one a leaf
+    (``Tree.num_leaves``; a forced split adds one)."""
+    return sum(num_leaves if getattr(t, "fixed_shape", False)
+               else t.num_leaves for t in trees)
 
 
 def _traverse(node, max_depth, go_left_of, left, right):

@@ -139,9 +139,9 @@ def _refuse_unported(key: str, value) -> None:
         if value not in ("serial", "data"):
             raise _not_ported(key, value, "Queue A, item 20 (multi-GPU)")
     elif key == "device_resident_boosting":
-        if value not in ("auto", "false", "False", False, None):
-            raise _not_ported(key, value, "Queue A, item 10 (the "
-                              "device-resident training loop)")
+        if str(value).lower() not in ("auto", "true", "false", "none"):
+            raise ValueError("device_resident_boosting must be 'auto', "
+                             f"'true' or 'false', got {value!r}")
     elif key not in PORTED and key not in _NO_EFFECT:
         raise NotImplementedError(
             f"parameter '{key}' is not known to gpboost_tpu_torch (the full "

@@ -29,7 +29,11 @@
 // sum of n rounded terms stays below 2^63 whatever the mask); a term is
 // then exact to 2^-63 n max|g|, far below float32's rounding. A sum is
 // converted to float once, when it is written (the power-of-two scale
-// divides out exactly).
+// divides out exactly). Two entries: histogram_launch takes the scales by
+// value (a caller that read them on the host), histogram_launch_dev_scales
+// reads them from global memory when the kernel starts, so that a grower
+// that never reads the host, and a CUDA graph replayed for every tree,
+// take each tree's own scales. The same scales give the same bits on both.
 //
 // One launch does the whole call, with Hopper's thread-block clusters: a
 // cluster of C blocks (HIST_CLUSTER_BLOCKS = 16, a non-portable size) per
@@ -90,12 +94,20 @@ __device__ __forceinline__ unsigned long long to_fixed(float v, float scale) {
 
 // tile: features a cluster (<= HIST_F_TILE); blockIdx.y = feature tile.
 // One block an SM (1 024 threads): ptxas may take up to 64 registers.
+// kDeviceScales: scale_g / scale_h come from scales[0] / scales[1] in
+// global memory instead of the arguments.
+template <bool kDeviceScales>
 __global__ void __launch_bounds__(HIST_THREADS, 1)
 hist_kernel(const unsigned char* __restrict__ bins,
             const float* __restrict__ grad, const float* __restrict__ hess,
             const unsigned char* __restrict__ mask, float* __restrict__ out,
-            int n, int F, int B, int tile, float scale_g, float scale_h) {
+            int n, int F, int B, int tile, float scale_g, float scale_h,
+            const float* __restrict__ scales) {
   __shared__ HistTile hist;
+  if (kDeviceScales) {
+    scale_g = scales[0];
+    scale_h = scales[1];
+  }
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -210,17 +222,53 @@ int sm_count() {
 }
 
 // a cluster of more than 8 blocks needs the kernel's opt-in, which belongs
-// to the current device: set once per device, not on every call
+// to the current device: set once per device and instance, not on every
+// call
+template <bool kDeviceScales>
 cudaError_t allow_cluster() {
   static bool allowed[HIST_MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < HIST_MAX_DEVICES && allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  err = cudaFuncSetAttribute(hist_kernel<kDeviceScales>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
   if (err == cudaSuccess && dev < HIST_MAX_DEVICES) allowed[dev] = true;
   return err;
+}
+
+// one clustered launch of hist_kernel<kDeviceScales> (see the entries)
+template <bool kDeviceScales>
+int launch(const unsigned char* bins, const float* grad, const float* hess,
+           const unsigned char* mask, float* out, int n, int F, int B,
+           float scale_g, float scale_h, const float* scales, void* stream) {
+  const int C = HIST_CLUSTER_BLOCKS;
+  if (n < 1 || F < 1 || B < 1 || B > HIST_MAX_BINS)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t allowed = allow_cluster<kDeviceScales>();
+  if (allowed != cudaSuccess) return (int)allowed;
+  // features a cluster: as few as keep the grid within one block an SM, so
+  // that the rows' atomics spread over as many SMs as the features allow
+  int tile = (F * C + sm_count() - 1) / sm_count();
+  tile = tile < 1 ? 1 : (tile > HIST_F_TILE ? HIST_F_TILE : tile);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, (F + tile - 1) / tile);
+  cfg.blockDim = dim3(HIST_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, hist_kernel<kDeviceScales>, bins, grad, hess,
+                         mask, out, n, F, B, tile, scale_g, scale_h, scales);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,33 +288,24 @@ int histogram_launch(const unsigned char* bins, const float* grad,
                      const float* hess, const unsigned char* mask, float* out,
                      int n, int F, int B, float scale_g, float scale_h,
                      void* stream) {
-  const int C = HIST_CLUSTER_BLOCKS;
-  if (n < 1 || F < 1 || B < 1 || B > HIST_MAX_BINS || !(scale_g > 0.0f) ||
-      !(scale_h > 0.0f))
+  if (!(scale_g > 0.0f) || !(scale_h > 0.0f))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t allowed = allow_cluster();
-  if (allowed != cudaSuccess) return (int)allowed;
-  // features a cluster: as few as keep the grid within one block an SM, so
-  // that the rows' atomics spread over as many SMs as the features allow
-  int tile = (F * C + sm_count() - 1) / sm_count();
-  tile = tile < 1 ? 1 : (tile > HIST_F_TILE ? HIST_F_TILE : tile);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, (F + tile - 1) / tile);
-  cfg.blockDim = dim3(HIST_THREADS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, hist_kernel, bins, grad, hess, mask, out, n, F,
-                         B, tile, scale_g, scale_h);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch<false>(bins, grad, hess, mask, out, n, F, B, scale_g, scale_h,
+                       nullptr, stream);
+}
+
+// histogram_launch with the scales read by the kernel from scales[0] (the
+// gradients') and scales[1] (the hessians'), float32 in device memory, as
+// they are when the kernel runs: a launch in a CUDA graph takes the scales
+// the graph's earlier operations wrote. Nothing checks their values (that
+// would read the device): a scale that is not finite gives NaN sums.
+int histogram_launch_dev_scales(const unsigned char* bins, const float* grad,
+                                const float* hess, const unsigned char* mask,
+                                float* out, int n, int F, int B,
+                                const float* scales, void* stream) {
+  if (scales == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<true>(bins, grad, hess, mask, out, n, F, B, 1.0f, 1.0f,
+                      scales, stream);
 }
 
 // one empty kernel on the stream: the floor under any launch, for timing

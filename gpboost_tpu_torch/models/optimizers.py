@@ -639,15 +639,40 @@ def lbfgs_device(vg_fn: Callable, theta0: np.ndarray, cfg: OptimConfig,
     update only when y's > 1e-10, and the stop rule of the reference's
     relative change in the NLL. ``num_it`` counts accepted memory updates.
     ``final_fn(theta, *op_args)`` is evaluated once at the final parameters
-    and returned as ``aux``.
+    and returned as ``aux``. The loop is :func:`lbfgs_device_loop`; this
+    wrapper brings its results to the host.
     """
     dev = resolve_device(device)
     dt = dtype or torch.float64
+    t0 = torch.as_tensor(np.asarray(theta0, np.float64), dtype=dt,
+                         device=dev)
+    t, v, k, extra, num_evals = lbfgs_device_loop(
+        vg_fn, t0, cfg, dt, *op_args, final_fn=final_fn)
+    return OptimResult(
+        params=np.exp(t.detach().cpu().numpy().astype(np.float64)),
+        nll=v, num_it=k, converged=bool(k < int(cfg.maxit)), history=[v],
+        aux=None if extra is None else extra.detach().cpu().numpy(),
+        num_evals=num_evals)
+
+
+def lbfgs_device_loop(vg_fn: Callable, theta0: torch.Tensor,
+                      cfg: OptimConfig, dtype, *op_args,
+                      final_fn: Optional[Callable] = None):
+    """The loop of :func:`lbfgs_device` from log-parameters ``theta0`` on
+    their device, with its results left there: the counterpart of the JAX
+    package's ``lbfgs_loop``, for callers that go on computing on the
+    device (the device-resident boosting loop). Returns (theta, value,
+    accepted updates, ``final_fn(theta, *op_args)`` or None, evaluations):
+    theta and the final output are device tensors, the value is the host
+    float its last stop test read. The curvature memory starts empty. The
+    host reads are the evaluations' (``lbfgs_device.host_reads``)."""
+    dt = dtype
+    dev = theta0.device
     MEM = _LBFGS_MEM
     maxit = int(cfg.maxit)
     ftol = float(cfg.delta_rel_conv)
 
-    t = torch.as_tensor(np.asarray(theta0, np.float64), dtype=dt, device=dev)
+    t = theta0.to(dt)
     p = t.shape[0]
 
     def evaluate(theta):
@@ -707,11 +732,7 @@ def lbfgs_device(vg_fn: Callable, theta0: np.ndarray, cfg: OptimConfig,
             t, g, v_t, v = t_new, g_new, v_new_t, v_new
 
     extra = None if final_fn is None else final_fn(t, *op_args)
-    return OptimResult(
-        params=np.exp(t.detach().cpu().numpy().astype(np.float64)),
-        nll=v, num_it=k, converged=bool(k < maxit), history=[v],
-        aux=None if extra is None else extra.detach().cpu().numpy(),
-        num_evals=num_evals)
+    return t, v, k, extra, num_evals
 
 
 lbfgs_device.host_reads = 0

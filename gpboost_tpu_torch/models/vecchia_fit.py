@@ -222,6 +222,77 @@ def ng_iter_kwargs(cfg, n: int) -> dict:
         piv_chol_rank=cfg.piv_chol_rank)
 
 
+def ng_device_vg(model, n_cov: int, n_aux: int, aux_fixed, fam):
+    """The non-Gaussian Vecchia-Laplace objective of the device-resident
+    boosting loop's refits (the JAX package's ``vecchia_fit.ng_device_vg``):
+    ``vg(theta, y, fp) -> (nll, d nll / d theta)`` and ``grad_F(theta, y,
+    fp) -> d nll / d fp``, the LaGaBoost gradient
+    (``regression_objective.hpp:173-186``), both by autograd (on the calling
+    thread) through the iterative Laplace NLL at the fit's settings
+    (:func:`ng_iter_kwargs`), with ``y`` and the fixed effects ``fp`` as
+    operands. Its CG stop tests read the host (``cg.pcg.host_reads``).
+    Cached on the VecchiaGP, so that the functions' identities are stable.
+    """
+    from gpboost_tpu_torch import likelihoods as lk
+    from gpboost_tpu_torch.utils.autograd import grad as ag_grad
+    vec = model._approx
+    cfg = model.optim_cfg
+    kw = ng_iter_kwargs(cfg, vec.n)
+    key = (n_cov, n_aux,
+           None if aux_fixed is None
+           else tuple(np.asarray(aux_fixed, np.float64).tolist()),
+           tuple(sorted((k, str(v)) for k, v in kw.items())),
+           str(model.dtype))
+    cache = getattr(vec, "_ng_vg_cache", None)
+    if cache is not None and cache[0] == key:
+        return cache[1], cache[2]
+    aux_t = (None if aux_fixed is None else torch.as_tensor(
+        np.asarray(aux_fixed, np.float64), dtype=model.dtype,
+        device=vec.device))
+
+    def _nll(theta, y_op, fp_op):
+        cov = torch.exp(theta[:n_cov])
+        aux = (lk.aux_from_optim_scale(fam, theta[n_cov:n_cov + n_aux])
+               if n_aux else aux_t)
+        return vec.nll_laplace_iterative(cov, y_op, aux, fp_op, **kw)
+
+    def vg(theta, y_op, fp_op):
+        th = theta.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = _nll(th, y_op, fp_op)
+            (g,) = ag_grad(v, th)
+        return v.detach(), g
+
+    def grad_F(theta, y_op, fp_op):
+        fe = fp_op.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = _nll(theta.detach(), y_op, fe)
+            (g,) = ag_grad(v, fe)
+        return g
+
+    vec._ng_vg_cache = (key, vg, grad_F)
+    return vg, grad_F
+
+
+def ng_device_fit_eligible(model, cfg, is_het: bool, has_coef: bool,
+                           use_iterative: bool) -> bool:
+    """Whether the non-Gaussian Vecchia-Laplace refit can run as
+    :func:`ng_device_vg` under :func:`optimizers.lbfgs_device_loop` (the
+    JAX package's ``ng_device_fit_eligible``, without its backend switch):
+    a Vecchia GP (not grouped effects, an exact or a low-rank GP), the
+    matrix-free iterative objective with nothing host-interactive: no
+    coefficient alternation, no heteroscedastic stacking, no random
+    coefficients, no ARD neighbour redetermination, L-BFGS, every
+    parameter free, no std errors."""
+    vec = model._approx
+    return (isinstance(vec, VecchiaGP) and not is_het and not has_coef
+            and use_iterative and getattr(vec, "z", None) is None
+            and vec.cov_fn.is_isotropic
+            and hasattr(vec, "nll_laplace_iterative")
+            and cfg.optimizer_cov in _LBFGS_NAMES
+            and cfg.estimate_cov_par_index is None and not cfg.std_dev)
+
+
 def uses_iterative(model) -> bool:
     """The iterative Laplace NLL: asked for, or too many points for the
     dense one without random coefficients (the JAX package's rule); never

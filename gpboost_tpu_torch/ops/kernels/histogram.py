@@ -20,11 +20,14 @@ feature, nine per row for gradient, hessian and mask), far less at n = 1e5
 than what it takes: the shared atomics and the clustered launch.
 
 The gradient and hessian sums are 64-bit fixed-point integers with
-power-of-two scales that the caller passes (:func:`fixed_point_scales`,
-once per tree), so they do not depend on the order of the atomics: two
-launches on the same inputs give the same bits, and a sum is exact to far
-below float32's rounding. Counts are integers, exact. There is no cap on the
-number of rows.
+power-of-two scales that the caller passes once per tree, so they do not
+depend on the order of the atomics: two launches on the same inputs give the
+same bits, and a sum is exact to far below float32's rounding. Counts are
+integers, exact. There is no cap on the number of rows. The scales come from
+the host (:func:`fixed_point_scales`, one read) or stay on the device
+(:func:`fixed_point_scales_device`, a float32 tensor the kernel reads when
+it starts: what a grower without host reads and a CUDA graph need); both
+give the same scales, so the same bits.
 
 Beside it stands :func:`histogram_plain` (``index_add_``), the twin of the
 JAX package's ``tree._build_histogram_xla``. The wrapper takes it only for
@@ -58,6 +61,9 @@ def _lib() -> ctypes.CDLL:
         lib.histogram_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf,
                                          cf, vp]
         lib.histogram_launch.restype = ci
+        lib.histogram_launch_dev_scales.argtypes = [vp, vp, vp, vp, vp, ci,
+                                                    ci, ci, vp, vp]
+        lib.histogram_launch_dev_scales.restype = ci
         lib.histogram_empty_launch.argtypes = [vp]
         lib.histogram_empty_launch.restype = ci
         for fn in (lib.hist_max_bins, lib.hist_cluster_blocks):
@@ -93,6 +99,23 @@ def fixed_point_scales(grad, hess) -> tuple:
     g_max, h_max = torch.stack([grad.abs().max(),
                                 hess.abs().max()]).double().tolist()
     return fixed_point_scale(g_max, n), fixed_point_scale(h_max, n)
+
+
+def fixed_point_scales_device(grad, hess) -> torch.Tensor:
+    """The scales of :func:`fixed_point_scales` as a float32 tensor [2] on
+    the gradients' device, by the rule of :func:`fixed_point_scale`
+    (``torch.frexp`` of n max|v| in float64), with no host read. A value
+    that is not finite gives a NaN scale (and NaN sums): the fixed-shape
+    grower raises on the NaN leaves after its fetch
+    (``tree.check_finite_leaves``), where the host route raises here."""
+    n = grad.shape[0]
+    top = torch.stack([grad.abs().max(), hess.abs().max()]).double()
+    _, e = torch.frexp(float(n) * top)
+    k = torch.clamp(FIXED_POINT_BITS - e, -_MAX_SCALE_EXP, _MAX_SCALE_EXP)
+    one = torch.ones((), dtype=torch.float64, device=top.device)
+    scale = torch.where(top > 0.0, _pow2(k), one)
+    scale = torch.where(torch.isfinite(top), scale, torch.nan)
+    return scale.to(torch.float32)
 
 
 def histogram_plain(binned, grad, hess, row_mask, num_bins: int):
@@ -174,7 +197,9 @@ def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None,
     CUDA tensors go through the hand-written kernel: float32 ``grad`` and
     ``hess``, ``num_bins <= 256``, and ``scales`` = (scale_g, scale_h), the
     fixed-point scales of :func:`fixed_point_scales` (a caller computes them
-    once per tree, so that a call stays one stream operation). ``binned_t``
+    once per tree, so that a call stays one stream operation), or the
+    float32 CUDA tensor [2] of :func:`fixed_point_scales_device`, which the
+    kernel reads from device memory (its values are not checked). ``binned_t``
     is the features-major ``[F, n]`` uint8 copy of ``binned`` that the
     kernel reads (``Dataset.binned_t``); without it the wrapper transposes
     ``binned`` on every call. CPU tensors go through :func:`histogram_plain`
@@ -197,7 +222,10 @@ def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None,
     if not 1 <= int(num_bins) <= MAX_BINS:
         raise ValueError(f"num_bins: {num_bins}, the kernel takes "
                          f"1 <= num_bins <= {MAX_BINS}")
-    if scales is None or len(scales) != 2 or not all(
+    dev_scales = isinstance(scales, torch.Tensor)
+    if dev_scales:
+        _build.check_tensor("scales", scales, torch.float32, (2,), device)
+    elif scales is None or len(scales) != 2 or not all(
             s > 0 and math.frexp(s)[0] == 0.5 for s in scales):
         raise ValueError(f"scales: {scales!r}, the kernel takes two "
                          "positive powers of two (fixed_point_scales)")
@@ -213,10 +241,16 @@ def histogram(binned, grad, hess, row_mask, num_bins: int, binned_t=None,
     out = torch.empty((3, F, int(num_bins)), dtype=torch.float32,
                       device=device)
     with torch.cuda.device(device):
-        err = _lib().histogram_launch(
-            binned_t.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-            row_mask.data_ptr(), out.data_ptr(), n, F, int(num_bins),
-            float(scales[0]), float(scales[1]), _build.current_stream())
+        if dev_scales:
+            err = _lib().histogram_launch_dev_scales(
+                binned_t.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+                row_mask.data_ptr(), out.data_ptr(), n, F, int(num_bins),
+                scales.data_ptr(), _build.current_stream())
+        else:
+            err = _lib().histogram_launch(
+                binned_t.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+                row_mask.data_ptr(), out.data_ptr(), n, F, int(num_bins),
+                float(scales[0]), float(scales[1]), _build.current_stream())
     _build.raise_on_error(err, "histogram")
     histogram.launches += 1
     return out[0], out[1], out[2]

@@ -326,7 +326,9 @@ NOW_PORTED = ("bagging_fraction", "subsample", "bagging_freq",
               "max_leaf_output", "interaction_constraints",
               # the rest of the boosting tail
               "boosting", "boosting_type", "use_nesterov_acc",
-              "leaves_newton_update", "line_search_step_length")
+              "leaves_newton_update", "line_search_step_length",
+              # the device-resident training loop
+              "device_resident_boosting")
 
 
 def _jax_and_port(params, X, y, **kw):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import gpboost_tpu_torch as gpt
+from gpboost_tpu_torch.boosting import tree as tt
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 
 pytestmark = pytest.mark.gpu
@@ -84,7 +85,9 @@ def test_bagged_round_launches_once_a_leaf(dev, data, name, extra):
                          feature_fraction_bynode=0.8, **extra), ds,
                     num_boost_round=2)
     assert len(bst.trees) == 2 * bst.num_models
-    assert hk.histogram.launches == sum(t.num_leaves for t in bst.trees)
+    # feature_fraction_bynode keeps the host grower: one launch a leaf
+    assert hk.histogram.launches == tt.histogram_launches(
+        bst.trees, PARAMS["num_leaves"])
     assert np.all(np.isfinite(bst._score))
 
 

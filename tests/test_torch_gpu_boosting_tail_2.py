@@ -21,6 +21,7 @@ import torch
 import gpboost_tpu_torch as gpt
 from gpboost_tpu_torch.boosting import booster as booster_mod
 from gpboost_tpu_torch.boosting import objectives as tobj
+from gpboost_tpu_torch.boosting import tree as tt
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
 
@@ -57,17 +58,23 @@ def test_goss_scales_come_from_the_amplified_gradients(dev, data,
     for _ in range(4):                   # before 1 / learning_rate: no sample
         bst.update()
     seen = {}
-    grow = booster_mod.grow_tree
 
-    def spy(binned, num_bins, g, h, *args, **kwargs):
-        seen.update(g=g, h=h, mask=kwargs["row_mask"])
-        return grow(binned, num_bins, g, h, *args, **kwargs)
+    def spy_of(grow):
+        def spy(binned, num_bins, g, h, *args, **kwargs):
+            seen.update(g=g, h=h, mask=kwargs["row_mask"])
+            return grow(binned, num_bins, g, h, *args, **kwargs)
+        return spy
 
-    monkeypatch.setattr(booster_mod, "grow_tree", spy)
+    # the fixed-shape grower on the card, the host grower where it does not
+    # cover the options: watch both
+    for name in ("grow_tree", "grow_tree_fast"):
+        monkeypatch.setattr(booster_mod, name,
+                            spy_of(getattr(booster_mod, name)))
     hk.histogram.launches = 0
     bst.update()
     tree = bst.trees[-1]
-    assert hk.histogram.launches == tree.num_leaves
+    assert hk.histogram.launches == tt.histogram_launches(
+        [tree], params["num_leaves"])
     g, h, mask = seen["g"], seen["h"], seen["mask"]
     n = ds.num_data
     top_k, other_k = int(0.2 * n), int(0.1 * n)

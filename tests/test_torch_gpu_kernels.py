@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from gpboost_tpu_torch.boosting.tree import build_histogram
+from gpboost_tpu_torch.boosting.tree import (build_histogram,
+                                             histogram_launches)
 from gpboost_tpu_torch.ops import vecchia as tv
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
@@ -496,14 +497,18 @@ def test_boosting_on_the_card_goes_through_the_histogram_kernel(dev):
     coords = rng.uniform(size=(n, 2))
     y = (2.0 * np.sin(5 * X[:, 0]) + X[:, 1] ** 2 + np.sin(6 * coords[:, 0])
          + 0.3 * rng.standard_normal(n))
-    params = {"objective": "regression", "num_leaves": 15, "verbose": -1}
+    # the host loop (a refit a round): "auto" takes the device loop for a
+    # Gaussian GP on the card
+    params = {"objective": "regression", "num_leaves": 15, "verbose": -1,
+              "device_resident_boosting": "false"}
     ds = gpt.Dataset(X, label=y)                             # device="cuda"
     hk.histogram.launches = 0
     vk.reset_launch_counts()
     b32 = gpt.train(params, ds, num_boost_round=3)
-    assert hk.histogram.launches == sum(t.num_leaves for t in b32.trees)
+    launches = histogram_launches(b32.trees, params["num_leaves"])
+    assert hk.histogram.launches == launches
     b64 = gpt.train(dict(params, gpu_use_dp=True), ds, num_boost_round=3)
-    assert hk.histogram.launches == sum(t.num_leaves for t in b32.trees)
+    assert hk.histogram.launches == launches
     assert b32.trees[0].split_feature[0] == b64.trees[0].split_feature[0]
     assert b32.trees[0].threshold_bin[0] == b64.trees[0].threshold_bin[0]
     np.testing.assert_allclose(b32._score, b64._score, rtol=0, atol=1e-3)
@@ -515,7 +520,8 @@ def test_boosting_on_the_card_goes_through_the_histogram_kernel(dev):
                          "init_cov_pars": [0.25, 1.0, 0.1]})
     hk.histogram.launches = 0
     bgp = gpt.train(params, ds, gp_model=gp, num_boost_round=3)
-    assert hk.histogram.launches == sum(t.num_leaves for t in bgp.trees)
+    assert hk.histogram.launches == histogram_launches(
+        bgp.trees, params["num_leaves"])
     assert bgp.objective.num_fits == 4
     assert vk.launch_counts()["vecchia_nll_grad"] > 0
     out = bgp.predict(X[:200], gp_coords_pred=coords[:200] + 1e-3,

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import gpboost_tpu_torch as gpt
+from gpboost_tpu_torch.boosting import tree as tt
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 
 pytestmark = pytest.mark.gpu
@@ -107,8 +108,9 @@ def test_histogram_on_bundle_panel_and_categorical_bins(dev, data):
 def test_kernel_once_a_leaf_and_the_same_bits(dev, data, case):
     before = hk.histogram.launches
     b1, _ = _train(data, case, dev)
-    leaves = sum(t.num_leaves for t in b1.trees)
-    assert hk.histogram.launches - before == leaves
+    # the fixed-shape grower where it covers the case's options
+    assert hk.histogram.launches - before == tt.histogram_launches(
+        b1.trees, PARAMS["num_leaves"])
     b2, _ = _train(data, case, dev)
     assert np.array_equal(b1._score, b2._score)
     if case == "categorical":
