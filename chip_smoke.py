@@ -8,8 +8,8 @@ Needs one NVIDIA GPU with ``nvcc`` on the machine; exits non-zero without
 one. It
 
 1. builds the CUDA kernels of ``gpboost_tpu_torch/csrc`` from source and
-   checks by ptxas's report that no instance of the Vecchia kernels or the
-   histogram kernel has a stack frame or spills;
+   checks by ptxas's report that no instance of the Vecchia kernels, the
+   histogram kernel or the group-scan kernel has a stack frame or spills;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths use, and times both: the Vecchia kernels for all
    four covariance shapes, isotropic and ARD, neighbour sets with -1
@@ -231,7 +231,23 @@ one. It
    host-loop round and a device-loop round: the device's idle share in
    each, the CUDA memory snapshot's size, and ``num_leaves`` launches of
    the histogram kernel's device-scales instance in each of the last
-   three, as the grower's replay count says);
+   three, as the grower's replay count says); then, before those second
+   runs too, the fixed-shape grower's options (phase 17,
+   ``grower_options_paths``): on phase 14's categorical recipe at n, with
+   the GPBoost recipe's round-1 gradients, categorical splits, the three
+   monotone methods with the penalty, interaction constraints, forced
+   splits, forced splits with a monotone constraint, and categorical +
+   interaction + forced (``grower_options``: the replay the same bits as
+   the eager run and the host grower, no host read inside a tree under
+   CUDA's sync debug mode "error", histogram launches num_leaves + one a
+   forced split and group-scan launches 2 num_leaves - 1 a categorical
+   tree, replay and host-grower ms), the group-scan kernel against its
+   plain version on the categorical Dataset's root scan (``cat_group_scan``,
+   float32 and float64), and ``train(..., device_resident_boosting=
+   "true")`` for GO_ROUNDS rounds with a categorical feature, a monotone
+   constraint and a forced split beside the float32 Vecchia GP, the same
+   trees and scores to the bit as the host loop's
+   (``grower_options_loop``);
 14. checks by the kernels' launch counters (set to 0 before each path, read
    after it) that each path went through its kernels — the histogram kernel
    once a leaf on the LaGaBoost path and on the grouped GPBoost path, the
@@ -247,8 +263,9 @@ one. It
    folds, all three on phase 14's categorical GPBoost path and the
    histogram kernel once a leaf on its other paths (once more a forced
    split), all three on phase 15's GP paths and the histogram kernel once a
-   leaf on its ranking and binary trainings — and the results against
-   float64 plain versions.
+   leaf on its ranking and binary trainings, all four (the group scan
+   too) on phase 14's categorical GPBoost path and on phase 17's
+   device-loop training — and the results against float64 plain versions.
 
 One JSON object per line; any failed check raises (exit code non-zero). The
 second to last line lists the kernels with their measurements, the last line
@@ -274,12 +291,17 @@ REPLACES = {
         "gpboost_tpu/ops/kernels/vecchia_factors.py:235",
     "histogram":
         "gpboost_tpu/ops/kernels/histogram.py:81",
+    # no Pallas kernel: the categorical scan's jax.lax.scan
+    "cat_group_scan": "gpboost_tpu/boosting/tree.py:328",
 }
 SOURCE = {
     "vecchia_factors": "gpboost_tpu_torch/csrc/vecchia_factors.cu",
     "vecchia_nll_grad": "gpboost_tpu_torch/csrc/vecchia_factors.cu",
     "histogram": "gpboost_tpu_torch/csrc/histogram.cu",
+    "cat_group_scan": "gpboost_tpu_torch/csrc/cat_group_scan.cu",
 }
+# the kernels of a GPBoost path with a Gaussian Vecchia GP
+GP_BOOST_KERNELS = ("vecchia_factors", "vecchia_nll_grad", "histogram")
 # the earlier paths check the host loop's own counters (a refit a round,
 # the grower's reads): they keep it; phase 16 runs the device-resident loop
 # that "auto" engages on the card (boosting/device_loop.py)
@@ -435,17 +457,29 @@ def make_boost_data(seed, y, n_pred):
 
 def reset_counts():
     from gpboost_tpu_torch.boosting.tree import grow_tree
+    from gpboost_tpu_torch.ops.kernels import cat_group_scan as gk
     from gpboost_tpu_torch.ops.kernels import histogram as hk
     from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
     vk.reset_launch_counts()
     hk.histogram.launches = 0
+    gk.group_boundaries.launches = 0
     grow_tree.host_reads = 0
 
 
 def read_counts():
+    """The kernels' launch counts since :func:`reset_counts` (the group
+    scan's, ``cat_group_scan``, is 0 off the paths with categorical
+    features)."""
+    from gpboost_tpu_torch.ops.kernels import cat_group_scan as gk
     from gpboost_tpu_torch.ops.kernels import histogram as hk
     from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
-    return dict(vk.launch_counts(), histogram=hk.histogram.launches)
+    return dict(vk.launch_counts(), histogram=hk.histogram.launches,
+                cat_group_scan=gk.group_boundaries.launches)
+
+
+# what a path that runs no kernel reads back
+NO_LAUNCHES = {"vecchia_factors": 0, "vecchia_nll_grad": 0, "histogram": 0,
+               "cat_group_scan": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1116,8 +1150,7 @@ def boosting_path(ds_args, coords, pred, m, seed, rounds, dev):
     b_p = gpt.train(dict(BOOST_PARAMS, gpu_use_dp=True), ds,
                     num_boost_round=k,
                     gp_model=_gp_model(coords, m, seed, torch.float64, dev))
-    check(read_counts() == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                            "histogram": 0},
+    check(read_counts() == NO_LAUNCHES,
           f"the float64 path launched kernels: {read_counts()}")
     root_k = (int(b_k.trees[0].split_feature[0]),
               int(b_k.trees[0].threshold_bin[0]))
@@ -1559,8 +1592,7 @@ def ng_path(ng, m, seed, dev):
     res = model._fit_result
     cov_pars = model.get_cov_pars()
     nll_fit = model.get_current_neg_log_likelihood()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the non-Gaussian GP path launched a kernel: {launches}")
     check(math.isfinite(nll_init) and math.isfinite(nll_vg)
           and bool(np.all(np.isfinite(grad))),
@@ -1903,8 +1935,7 @@ def grouped_lmm(gd, seed, dev):
     launches = read_counts()
 
     truth = np.asarray(GR_TRUTH)
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the grouped LMM path launched a kernel: {launches}")
     for tag, nll in (("gd", nll_gd), ("lbfgs", nll_lb)):
         check(math.isfinite(nll) and nll <= nll_init,
@@ -2180,8 +2211,7 @@ def grouped_glmm(gd, dev):
     rhs = torch.ones(model._Z.q, 1, dtype=H.dtype, device=dev)
     h_lu_ms = time_ms(lambda: torch.linalg.solve(H, rhs), 3)
     del H, w, rhs
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the GLMM path launched a kernel: {launches}")
     check(math.isfinite(nll_fit) and nll_fit <= nll_init,
           f"the GLMM fit did not lower the NLL: {nll_init} -> {nll_fit}")
@@ -2341,8 +2371,7 @@ def exact_gp(ex, dev):
     launches = read_counts()
     rel = np.abs(cp_lb - np.asarray(EX_TRUTH)) / np.asarray(EX_TRUTH)
     mu, var = pred["mu"], pred["var"]
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0}, f"exact_gp launched: {launches}")
+    check(launches == NO_LAUNCHES, f"exact_gp launched: {launches}")
     check(all(math.isfinite(v) and v <= nll_init
               for v in (nll_gd, nll_lb, nll_fs)),
           f"an exact fit did not lower the NLL from {nll_init}: GD {nll_gd}, "
@@ -2497,8 +2526,7 @@ def exact_clustered(cd, dev):
     mu, var = pred["mu"], pred["var"]
     u = cd["unseen"]
     prior = cp[0] + cp[1]
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0}, f"exact_clustered launched: {launches}")
+    check(launches == NO_LAUNCHES, f"exact_clustered launched: {launches}")
     check(math.isfinite(gp.get_current_neg_log_likelihood())
           and gp.get_current_neg_log_likelihood() <= nll_init,
           "the clustered fit did not lower the NLL")
@@ -2569,8 +2597,7 @@ def exact_combined(seed, dev, n_pred):
         timings[f"combined_{tag}_predict_s"] = t_pred
         del gp
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0}, f"exact_combined launched: {launches}")
+    check(launches == NO_LAUNCHES, f"exact_combined launched: {launches}")
     emit({"phase": "exact_combined", "n": n, "levels": EX_LEVELS,
           "n_pred": n_pred, **out})
     return timings
@@ -2613,8 +2640,7 @@ def exact_laplace(ex, dev):
     nll_rel = abs(cpu["cuda"][0] - cpu["cpu"][0]) / abs(cpu["cpu"][0])
     g_rel = float(np.max(np.abs(cpu["cuda"][1] - cpu["cpu"][1]))
                   / np.max(np.abs(cpu["cpu"][1])))
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0}, f"exact_laplace launched: {launches}")
+    check(launches == NO_LAUNCHES, f"exact_laplace launched: {launches}")
     check(math.isfinite(nll_fit) and nll_fit <= nll_init,
           f"the exact Laplace fit did not lower the NLL: {nll_init} -> "
           f"{nll_fit}")
@@ -3576,8 +3602,7 @@ def vecchia_laplace_lowrank(ng, m, seed, dev):
         key = pname if pname == "vadu" else f"rank_{rank}"
         steps[key], t_steps[key] = _timed(model.get_num_cg_steps)
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"vecchia_laplace_lowrank launched a kernel: {launches}")
     check(math.isfinite(nll_vg) and bool(np.all(np.isfinite(grad))),
           f"vecchia_laplace_lowrank: NLL or gradient not finite: {nll_vg}")
@@ -4099,8 +4124,7 @@ def vecchia_pred_types(coords, y, pred, cov_pars, m, seed, dev):
               and gate["max_var_rel"] <= PT_VAR_RTOL,
               f"{kind} (nn {nn}) vs cond_obs_only: {gate}")
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the float64 prediction types launched {launches}")
     del gp
     torch.cuda.empty_cache()
@@ -4184,8 +4208,7 @@ def vecchia_svc(coords, pred, m, seed, dev):
         gp_coords_pred=pred, gp_rand_coef_data_pred=x_pred,
         predict_var=True))
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the SVC path launched a kernel: {launches}")
     check(bool(torch.isfinite(g).all()) and math.isfinite(float(v)),
           "SVC value-and-gradient not finite")
@@ -4251,8 +4274,7 @@ def vecchia_combined(coords, y, pred, m, seed, dev):
           "combined predictions not finite")
     cb_clamped = int(np.sum(p["var"] == 0.0))
     launches_fit = read_counts()
-    check(launches_fit == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                           "histogram": 0},
+    check(launches_fit == NO_LAUNCHES,
           f"the combined fits launched {launches_fit}")
     del fits
     torch.cuda.empty_cache()
@@ -4337,8 +4359,7 @@ def vecchia_laplace_cluster_svc(ng, m, seed, dev):
         del gp
         torch.cuda.empty_cache()
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the Laplace cluster / SVC path launched {launches}")
     emit({"phase": "vecchia_laplace_cluster_svc", "n": n, "maxit": LCS_MAXIT,
           "n_pred": LCS_N_PRED, **out, "launches": launches,
@@ -4411,8 +4432,7 @@ def heteroscedastic_latent(seed, m, dev):
         check(rel <= VR_CPU_RTOL, f"{tag}: card vs CPU {rel}")
         out[tag]["card_vs_cpu_max_rel_err"] = rel
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the heteroscedastic / latent paths launched {launches}")
     emit({"phase": "heteroscedastic_latent", "n": HET_N,
           "n_pred": HET_N_PRED, **out, "launches": launches})
@@ -4572,8 +4592,7 @@ def space_time_vecchia(m, seed, dev):
     check(math.isfinite(nll_time), f"time ordering: NLL {nll_time}")
     del gt
     launches_gp = read_counts()
-    check(launches_gp == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                          "histogram": 0},
+    check(launches_gp == NO_LAUNCHES,
           f"the space-time GP launched {launches_gp}")
     fit_evals = gp._fit_result.num_evals
     del gp
@@ -4676,8 +4695,7 @@ def matern_shape_vecchia(coords, y, m, seed, dev):
     peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
     timings["ms_peak_mem_gb"] = peak
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the shape-Matern paths launched {launches}")
     emit({"phase": "matern_shape_vecchia", "n": len(y), "m": m,
           "maxit": MS_MAXIT, **out, "peak_mem_gb": peak,
@@ -4750,8 +4768,7 @@ def tapering_exact(seed, dev):
         del gp
         torch.cuda.empty_cache()
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the tapering paths launched {launches}")
     emit({"phase": "tapering_exact", "n": EX_N, "n_pred": EX_N_PRED,
           "taper_range": TAP_RANGE, **out, "launches": launches})
@@ -4811,8 +4828,7 @@ def cov_tail_exact(seed, dev):
                         f"ct_{tag}_fit_s": t_f,
                         f"ct_{tag}_fit_evaluations": evals})
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the exact tail families launched {launches}")
     emit({"phase": "cov_tail_exact", "n": CT_N, "maxit": CT_MAXIT, **out,
           "launches": launches})
@@ -4929,8 +4945,7 @@ def censored_glmm(gd, seed, dev):
     check(rel <= CENS_CPU_RTOL, f"weighted LMM: card vs CPU {rel}")
     out["weighted_lmm"]["card_vs_cpu_rel_err"] = rel
     launches = read_counts()
-    check(launches == {"vecchia_factors": 0, "vecchia_nll_grad": 0,
-                       "histogram": 0},
+    check(launches == NO_LAUNCHES,
           f"the censored / weighted paths launched {launches}")
     emit({"phase": "censored_glmm", "n": CENS_N, "levels": CENS_LEVELS,
           "maxit": CENS_MAXIT, "n_pred": CENS_N_PRED,
@@ -5492,8 +5507,8 @@ def _tt_agree(b1, b2, X, tol):
 def _cat_scan_ms(ds, seed, dev, reps=20):
     """What the categorical scan of one leaf costs (host clock, synchronised)
     on this Dataset's root histogram, with the ``min_data_per_group`` group
-    scan (a host read and a sequential pass over the bins) and without it:
-    the difference is the group scan's cost a leaf."""
+    scan (its kernel, a sequential pass over the bins) and without it: the
+    difference is the group scan's cost a leaf."""
     from gpboost_tpu_torch.boosting import tree as tt
     gen = torch.Generator(device=dev).manual_seed(seed + 14)
     g, h = _hist_values(gen, ds.num_data, dev)
@@ -5544,12 +5559,20 @@ def categorical_gpboost(tt_data, coords, pred, m, seed, dev):
     leaves = sum(t.num_leaves for t in bst.trees)
     n_cat = sum(int(np.sum(t.is_categorical[t.internal_nodes()]))
                 for t in bst.trees)
-    check(launches["histogram"] == leaves, f"categorical_gpboost: histogram "
-          f"launched {launches['histogram']} times for {leaves} leaves")
-    # a read a tree for the scales, two a leaf scanned (its packed read and
-    # the min_data_per_group scan)
-    check(reads == 4 * leaves - TT_ROUNDS, f"categorical_gpboost: {reads} "
-          f"host reads for {leaves} leaves")
+    # on the card the fixed-shape grower takes categorical trees: num_leaves
+    # launches and one read (its fetch) a tree, the group scan once a leaf
+    # scanned
+    want_launches, want_reads = grower_counts(bst.trees,
+                                              bst.grower.num_leaves)
+    check(launches["histogram"] == want_launches, f"categorical_gpboost: "
+          f"histogram launched {launches['histogram']} times for {leaves} "
+          f"leaves, {want_launches} expected")
+    check(reads == want_reads, f"categorical_gpboost: {reads} grower host "
+          f"reads, {want_reads} expected")
+    check(launches["cat_group_scan"]
+          == TT_ROUNDS * (2 * bst.grower.num_leaves - 1),
+          f"categorical_gpboost: the group scan launched "
+          f"{launches['cat_group_scan']} times in {TT_ROUNDS} trees")
     check(n_cat > 0, "categorical_gpboost: no categorical split")
     check(launches["vecchia_factors"] > 0 and launches["vecchia_nll_grad"] > 0,
           f"categorical_gpboost: Vecchia kernels {launches}")
@@ -5783,8 +5806,7 @@ def tree_options(boost_data, seed, dev):
             leaves = sum(t.num_leaves for t in bst.trees)
             forced = 2 if name in TT_FORCED_CASES else 0
             check(launches["histogram"] == grower_counts(
-                bst.trees, bst.grower.num_leaves)[0]
-                + forced * TT_OPT_ROUNDS,
+                bst.trees, bst.grower.num_leaves, forced)[0],
                   f"{name}: histogram launched {launches['histogram']} times "
                   f"for {leaves} leaves")
             check(launches["vecchia_factors"] == launches["vecchia_nll_grad"]
@@ -6478,17 +6500,18 @@ DL_HOST_RTOL = 1e-12
 DL_DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def grower_counts(trees, num_leaves):
+def grower_counts(trees, num_leaves, forced_splits=0):
     """(histogram launches, grower host reads) that growing ``trees`` on
     the card took: a tree of the fixed-shape grower (``tree.fixed_shape``)
     launches ``num_leaves`` (the root and every step, whether it split or
     not) and reads the host once (its fetch); one of the host grower
-    launches once and reads twice a leaf (a packed read a leaf scanned and,
-    once a tree, the fixed-point scales)."""
+    launches once a leaf and reads twice a leaf (a packed read a leaf
+    scanned and, once a tree, the fixed-point scales); each of a tree's
+    ``forced_splits`` adds one launch on either (both children built)."""
     from gpboost_tpu_torch.boosting.tree import histogram_launches
     reads = sum(1 if getattr(t, "fixed_shape", False) else 2 * t.num_leaves
                 for t in trees)
-    return histogram_launches(trees, num_leaves), reads
+    return histogram_launches(trees, num_leaves, forced_splits), reads
 
 
 def _trace_windows(path, names, until=None):
@@ -6528,9 +6551,11 @@ def _trace_windows(path, names, until=None):
                      "device_ops": len(inside),
                      "op_names": [x[2] for x in inside[:16]],
                      # the histogram kernel's device-scales instance, the
-                     # fixed-shape grower's
+                     # fixed-shape grower's, and the group scan
                      "hist_dev_scales_launches": sum(
-                         "hist_kernel<true>" in x[2] for x in inside)}
+                         "hist_kernel<true>" in x[2] for x in inside),
+                     "cat_group_scan_launches": sum(
+                         "cat_group_scan_kernel" in x[2] for x in inside)}
     return out
 
 
@@ -6540,11 +6565,13 @@ def _fixed_vs_host(fixed, tree, row_leaf, tag):
     from gpboost_tpu_torch.boosting import tree as tt
     got = {k: fixed[k].double().cpu().numpy()
            for k in tt.FIXED_NODE_FIELDS}
+    got["catmask"] = fixed["catmask"].double().cpu().numpy()
     want = {"feature": tree.split_feature, "thresh": tree.threshold_bin,
             "left": tree.left, "right": tree.right,
             "leaf_value": tree.leaf_value, "is_leaf": tree.is_leaf,
             "cnt": tree.node_count, "sgain": tree.split_gain,
-            "dleft": tree.default_left}
+            "dleft": tree.default_left, "iscat": tree.is_categorical,
+            "catmask": tree.cat_mask}
     for k, v in want.items():
         check(np.array_equal(got[k], np.asarray(v, np.float64)),
               f"{tag}: {k} of the fixed-shape grower differs from the host "
@@ -6806,17 +6833,21 @@ def device_loop_lagaboost(ng, ds_ng, m, seed, dev):
     return out, launches
 
 
-def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
+def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call, go_data):
     """Phase 16 (d): one profiler session (the process's first with CUDA
     activities; a second records no device operation on this machine)
     over one histogram call, one host-grower tree, one graph replay of the
-    fixed-shape grower, one warm round of the host loop and one of the
-    device loop (to the end of its fetch); their device idle shares from
-    the trace, the memory snapshot's size, and ``num_leaves`` launches of
-    the histogram's device-scales instance in the replay and in each round
-    (what ``FixedGrower.grow`` adds to the count at a replay). The trace
-    and the snapshot go to a temporary directory that is removed after they
-    are read. Returns the histogram call's device operations too."""
+    fixed-shape grower, one replay of a categorical tree with a forced
+    split (phase 17's Dataset, ``go_data``), one warm round of the host
+    loop and one of the device loop (to the end of its fetch); their
+    device idle shares from the trace, the memory snapshot's size, and the
+    launches that ``FixedGrower.grow`` adds to the counts at a replay
+    (what its capture counted) seen in the trace: ``num_leaves`` of the
+    histogram's device-scales instance in the replay and in each round;
+    ``num_leaves`` + one a forced split of it and ``2 num_leaves - 1`` of
+    the group scan in the categorical replay. The trace and the snapshot
+    go to a temporary directory that is removed after they are read.
+    Returns the histogram call's device operations too."""
     import os
     import shutil
     import tempfile
@@ -6835,6 +6866,13 @@ def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
                          torch.float32, nan_mask=ds.has_nan,
                          binned_t=ds.binned_t, efb=ds.efb)
     ones = torch.ones(ds.num_data, dtype=torch.bool, device=dev)
+    Xc, yc, _ = go_data
+    b_cat = gpt.Booster(params=dict(BOOST_PARAMS, forced_splits=GO_FORCED),
+                        train_set=gpt.Dataset(Xc, label=yc,
+                                              categorical_feature=[5, 6],
+                                              device=dev))
+    fg_cat, _, n_ops = _option_grower(b_cat)
+    fg_cat.grow(g, h, ones, b_cat._num_bins_t)           # its capture
     params = dict(BOOST_PARAMS, device_resident_boosting="true")
     # the device loop's round starts its refit where the host loop's does
     gp_dl = _gp_model(coords, m, seed, torch.float32, dev)
@@ -6842,7 +6880,8 @@ def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
     hist_call()
     torch.cuda.synchronize()
     names = ("histogram_call", "host_grower_tree", "fixed_grower_replay",
-             "host_loop_round", "device_loop: round")
+             "categorical_grower_replay", "host_loop_round",
+             "device_loop: round")
     # a device-loop round does not wait for its device work (the host loop's
     # round ends in a synchronise here): its window runs on to the end of the
     # loop's one fetch, which does
@@ -6859,6 +6898,11 @@ def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
         with profiler.annotate("fixed_grower_replay"):
             fg.grow(g, h, ones, b._num_bins_t)
             torch.cuda.synchronize()
+        reset_counts()
+        with profiler.annotate("categorical_grower_replay"):
+            fg_cat.grow(g, h, ones, b_cat._num_bins_t)
+            torch.cuda.synchronize()
+        cat_counts = read_counts()
         with profiler.annotate("host_loop_round"):
             b.update()
             torch.cuda.synchronize()
@@ -6873,6 +6917,16 @@ def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
         got = windows[name]["hist_dev_scales_launches"]
         check(got == L, f"trace: {got} launches of hist_kernel<true> in "
               f"{name}, {L} expected (one a step of the fixed-shape grower)")
+    w = windows["categorical_grower_replay"]
+    want = (L + n_ops, 2 * L - 1)
+    traced = (w["hist_dev_scales_launches"], w["cat_group_scan_launches"])
+    counted = (cat_counts["histogram"], cat_counts["cat_group_scan"])
+    check(traced == want and counted == want,
+          f"trace: the categorical replay launched hist_kernel<true> / "
+          f"cat_group_scan_kernel {traced} times and counted {counted}, "
+          f"{want} expected (one a step and one a forced split; one a leaf "
+          f"scanned)")
+    del fg_cat, b_cat
     snap = os.path.join(tmp, "memory_snapshot.pickle")
     profiler.device_memory_profile(snap)
     out = {"trace_bytes": os.path.getsize(prof.trace_path),
@@ -6883,7 +6937,7 @@ def device_loop_trace(ds, yb, coords, m, seed, dev, hist_call):
 
 
 def device_loop_paths(ds, yb, coords, m, seed, rounds, ng, ds_ng, host_bst,
-                      hist_call, dev):
+                      hist_call, go_data, dev):
     """Phase 16: the device-resident GPBoost loop and its fixed-shape grower
     (:func:`fixed_grower_path`, :func:`device_loop_training`,
     :func:`device_loop_lagaboost`, :func:`device_loop_trace`)."""
@@ -6901,7 +6955,7 @@ def device_loop_paths(ds, yb, coords, m, seed, rounds, ng, ds_ng, host_bst,
     timings["dl_lagaboost_s"] = clock() - t0
     t0 = clock()
     trace, hist_ops = device_loop_trace(ds, yb, coords, m, seed, dev,
-                                        hist_call)
+                                        hist_call, go_data)
     timings["dl_trace_s"] = clock() - t0
     timings.update({
         f"train_{rounds}r_device_s": dl["train_cold_s"],
@@ -6915,6 +6969,301 @@ def device_loop_paths(ds, yb, coords, m, seed, rounds, ng, ds_ng, host_bst,
         "idle_share_device_loop_round":
             trace["windows"]["device_loop: round"]["idle_share"]})
     return launches, timings, hist_ops
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the fixed-shape grower's options (ROADMAP item 10b, part 1):
+# categorical splits, monotone and interaction constraints, forced splits
+# ---------------------------------------------------------------------------
+
+GO_HOST_REPS = 3              # host-grower trees timed a case
+GO_REPLAY_REPS = 20           # graph replays timed a case
+GO_ROUNDS = 10                # the device loop with the options
+GO_MONO = [0, 1, 0, 0, 0, 0, 0]   # X2 enters f as X2^2 on [0, 1]: increasing
+GO_PENALTY = 1.0
+GO_FORCED = {"feature": 0, "threshold": 0.5,
+             "left": {"feature": 1, "threshold": 0.5}}
+# (name, categorical Dataset, params): the numeric cases run on the same
+# data with the two level columns as numbers
+GO_CASES = (
+    ("categorical", True, {}),
+    ("mono_basic", False, {"monotone_constraints": GO_MONO,
+                           "monotone_penalty": GO_PENALTY}),
+    ("mono_intermediate", False, {"monotone_constraints": GO_MONO,
+                                  "monotone_constraints_method":
+                                  "intermediate",
+                                  "monotone_penalty": GO_PENALTY}),
+    ("mono_advanced", False, {"monotone_constraints": GO_MONO,
+                              "monotone_constraints_method": "advanced",
+                              "monotone_penalty": GO_PENALTY}),
+    ("interaction", False, {"interaction_constraints": [[0, 1], [2, 3, 4],
+                                                        [5, 6]]}),
+    ("forced", False, {"forced_splits": GO_FORCED}),
+    ("forced_monotone", False, {"forced_splits": GO_FORCED,
+                                "monotone_constraints": GO_MONO,
+                                "monotone_constraints_method":
+                                "intermediate"}),
+    ("cat_interaction_forced", True, {"interaction_constraints":
+                                      [[0, 1, 5], [2, 3, 4, 6]],
+                                      "forced_splits": GO_FORCED}),
+)
+# the device loop's options beside the float32 Vecchia GP
+GO_LOOP_PARAMS = {"monotone_constraints": GO_MONO,
+                  "forced_splits": {"feature": 0, "threshold": 0.5}}
+
+
+def _option_grower(b):
+    """The fixed-shape grower of the booster ``b``'s Dataset and tree
+    options (float32 gradients), the host grower's keywords for those
+    options, and the number of forced splits a tree takes."""
+    from gpboost_tpu_torch.boosting import tree as tt
+    ds = b.train_set
+    opts = dict(categorical_mask=b._cat_mask,
+                max_cat_threshold=b.max_cat_threshold,
+                monotone_constraints=b._monotone,
+                interaction_constraints=b._interaction_constraints,
+                forced_splits=b._forced_splits)
+    fg = tt.FixedGrower(ds.binned, ds.max_num_bins, b.grower, torch.float32,
+                        nan_mask=ds.has_nan, binned_t=ds.binned_t,
+                        efb=ds.efb, **opts)
+    n_ops = len(tt.flatten_forced_splits(b._forced_splits,
+                                         b.grower.num_leaves))
+    return fg, opts, n_ops
+
+
+def _grower_option_case(name, b, g, h, ones, dev):
+    """One case of phase 17 on the booster ``b``'s Dataset and options with
+    the round-1 gradients ``g`` / ``h``: the host grower's tree, the
+    fixed-shape grower's eager run (its capture), its replay and a direct
+    eager call under CUDA's sync debug mode "error", the launches, ms."""
+    from gpboost_tpu_torch.boosting import tree as tt
+    ds = b.train_set
+    B, L = ds.max_num_bins, b.grower.num_leaves
+    nb = b._num_bins_t
+    fg, opts, n_ops = _option_grower(b)
+    has_cat = b._cat_mask is not None
+
+    def host_tree():
+        return tt.grow_tree(ds.binned, nb, g, h, B, b.grower,
+                            binned_t=ds.binned_t, nan_mask=ds.has_nan,
+                            efb=ds.efb, **opts)
+
+    reset_counts()
+    tree, row_leaf = host_tree()
+    host_counts = dict(read_counts(),
+                       host_reads=tt.grow_tree.host_reads)
+    check(host_counts["histogram"] == tree.num_leaves + n_ops,
+          f"{name}: the host grower launched the histogram "
+          f"{host_counts['histogram']} times for {tree.num_leaves} leaves "
+          f"and {n_ops} forced splits")
+    reset_counts()
+    eager = {k: v.clone() for k, v in fg.grow(g, h, ones, nb).items()}
+    eager_counts = read_counts()
+    check(fg.captures == 1, f"{name}: the fixed-shape grower did not capture")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay = {k: v.clone() for k, v in fg.grow(g, h, ones, nb).items()}
+        direct = tt._grow_tree_fixed(g, h, ones, nb, fg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    replay_counts = read_counts()
+    for k in eager:
+        check(torch.equal(eager[k], replay[k])
+              and torch.equal(direct[k], replay[k]),
+              f"{name}: {k} of the graph replay differs from the eager run")
+    _fixed_vs_host(replay, tree, row_leaf, name)
+    # launches a tree: the histogram num_leaves + one a forced split, the
+    # group scan once a leaf scanned (2 num_leaves - 1) on a categorical
+    # Dataset
+    want_hist = L + n_ops
+    want_scan = (2 * L - 1) if has_cat else 0
+    got = (eager_counts["histogram"], eager_counts["cat_group_scan"],
+           replay_counts["histogram"], replay_counts["cat_group_scan"])
+    check(got == (want_hist, want_scan, 2 * want_hist, 2 * want_scan),
+          f"{name}: histogram / group-scan launches (eager, replay + direct) "
+          f"{got}, expected {want_hist} / {want_scan} a tree")
+    t0 = clock()
+    for _ in range(GO_HOST_REPS):
+        host_tree()
+    host_ms = (clock() - t0) / GO_HOST_REPS * 1e3
+    replay_ms = time_ms(lambda: fg.grow(g, h, ones, nb), GO_REPLAY_REPS)
+    graph_only_ms = time_ms(fg._graph.replay, GO_REPLAY_REPS)
+    n_cat = int(np.sum(tree.is_categorical[tree.internal_nodes()]))
+    if has_cat:
+        check(n_cat > 0, f"{name}: no categorical split")
+    if n_ops:
+        check(tree.split_feature[0] == 0 and tree.split_gain[0] == 0.0,
+              f"{name}: the forced split is not at the root")
+    del fg
+    return {"leaves": tree.num_leaves, "forced_splits": n_ops,
+            "categorical_splits": n_cat, "same_bits_as_host_grower": True,
+            "replay_same_bits_as_eager": True,
+            "fixed_histogram_launches_per_tree": eager_counts["histogram"],
+            "fixed_group_scan_launches_per_tree":
+                eager_counts["cat_group_scan"],
+            "host_grower_host_reads": host_counts["host_reads"],
+            "host_grower_ms_per_tree": host_ms,
+            "fixed_replay_ms_per_tree": replay_ms,
+            "fixed_graph_replay_device_ms": graph_only_ms}
+
+
+def check_group_scan(b, seed, dev):
+    """The group-scan kernel against its plain version on the categorical
+    Dataset's root histogram: the inputs ``_cat_scan`` hands it (the
+    forward and reverse rows of both categorical features), float32 as on
+    the kernel route and float64 as under ``gpu_use_dp``; the same bits.
+    Times the kernel (back to back, and its device time in a graph), the
+    plain version, and the bound (bytes)."""
+    from gpboost_tpu_torch.boosting import tree as tt
+    from gpboost_tpu_torch.ops.kernels import cat_group_scan as gk
+    ds = b.train_set
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    g, h = _hist_values(gen, ds.num_data, dev)
+    full = torch.ones(ds.num_data, dtype=torch.bool, device=dev)
+    hist = torch.stack(tt.build_histogram(ds.binned, g, h, full,
+                                          ds.max_num_bins,
+                                          binned_t=ds.binned_t))
+    idx = torch.as_tensor(ds.categorical_feature, device=dev)
+    nb = b._num_bins_t[idx]
+    seen = []
+    orig = tt.group_boundaries
+
+    def record(counts, ok, mdpg):
+        seen.append((counts.clone(), ok.clone(), mdpg))
+        return orig(counts, ok, mdpg)
+
+    tt.group_boundaries = record
+    try:
+        tt._cat_scan(hist[:, idx], nb, 0.0, 0.0, 20.0, 1e-3,
+                     b.max_cat_threshold, None, b.grower.cat_l2,
+                     b.grower.cat_smooth, b.grower.min_data_per_group,
+                     b.grower.max_cat_to_onehot)
+    finally:
+        tt.group_boundaries = orig
+    check(len(seen) == 1, f"group scan: _cat_scan called it {len(seen)} "
+          "times")
+    counts, ok, mdpg = seen[0]
+    cases = []
+    for c in (counts, counts.double()):
+        before = gk.group_boundaries.launches
+        got = gk.group_boundaries(c, ok, mdpg)
+        check(gk.group_boundaries.launches == before + 1,
+              "group scan: the wrapper did not launch")
+        want = gk.group_boundaries_plain(c, ok, mdpg)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        check(mism == 0, f"group scan ({c.dtype}): {mism} positions differ "
+              "from the plain version")
+        cases.append({"dtype": str(c.dtype), "mismatches": mism,
+                      "boundaries": int(got.sum())})
+    D, Bn = counts.shape
+    before = gk.group_boundaries.launches
+    ms = time_ms(lambda: gk.group_boundaries(counts, ok, mdpg), 50)
+    device_ms = graph_ms(lambda: gk.group_boundaries(counts, ok, mdpg), 50)
+    plain_ms = time_ms(lambda: gk.group_boundaries_plain(counts, ok, mdpg),
+                       3)
+    gk.group_boundaries.launches = before
+    # each input read once, each output written once: float32 counts,
+    # bool ok, bool out
+    nbytes = D * Bn * (4 + 1 + 1)
+    timed = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+             "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None, "D": D, "B": Bn,
+             "min_data_per_group": mdpg}
+    return cases, timed
+
+
+def grower_options_paths(tt_data, coords, m, seed, dev):
+    """Phase 17: the fixed-shape grower's options on phase 14's categorical
+    recipe at the path's n (c2 Zipf past the 255-bin cap, 10 % NaN in X1):
+    every case of GO_CASES on the round-1 gradients of the GPBoost recipe
+    (:func:`_grower_option_case`), the group-scan kernel against its plain
+    version (:func:`check_group_scan`), and ``train(...,
+    device_resident_boosting="true")`` for GO_ROUNDS rounds with a
+    categorical feature, a monotone constraint and a forced split beside
+    the float32 Vecchia GP against the host loop (the same trees and scores
+    to the bit). Returns (launches of the device-loop training, timings,
+    the group scan's cases and times)."""
+    import gpboost_tpu_torch as gpt
+    from gpboost_tpu_torch.boosting import tree as tt
+    Xc, y, _ = tt_data
+    t_start = clock()
+    ds_cat = gpt.Dataset(Xc, label=y, categorical_feature=[5, 6], device=dev)
+    ds_num = gpt.Dataset(Xc, label=y, device=dev)
+    gp_b = gpt.Booster(params=dict(BOOST_PARAMS), train_set=ds_cat,
+                       gp_model=_gp_model(coords, m, seed, torch.float32,
+                                          dev))
+    grad, hess = gp_b.objective.get_gradients(gp_b._score)
+    g = torch.as_tensor(grad, dtype=torch.float32, device=dev)
+    h = torch.as_tensor(hess, dtype=torch.float32, device=dev)
+    ones = torch.ones(len(y), dtype=torch.bool, device=dev)
+    out, timings = {}, {}
+    for name, cat, params in GO_CASES:
+        b = gpt.Booster(params=dict(BOOST_PARAMS, **params),
+                        train_set=ds_cat if cat else ds_num)
+        check(not tt.fixed_grower_gaps(b.grower, b._cegb),
+              f"{name}: not the fixed grower's")
+        out[name] = _grower_option_case(name, b, g, h, ones, dev)
+        timings[f"go_{name}_replay_ms"] = out[name]["fixed_replay_ms_per_tree"]
+        timings[f"go_{name}_host_ms"] = out[name]["host_grower_ms_per_tree"]
+        emit({"phase": "grower_options", "case": name, **out[name]})
+    scan_cases, scan_timed = check_group_scan(
+        gpt.Booster(params=dict(BOOST_PARAMS), train_set=ds_cat), seed, dev)
+    emit({"phase": "cat_group_scan", "cases": scan_cases, **scan_timed})
+    # the device loop with the options, then the host loop on the same
+    # Dataset (Booster.update grows with the same captured grower)
+    loop = dict(BOOST_PARAMS, **GO_LOOP_PARAMS)
+    runs = {}
+    for mode in ("true", "false"):
+        reset_counts()
+        t0 = clock()
+        bst = gpt.train(dict(loop, device_resident_boosting=mode), ds_cat,
+                        gp_model=_gp_model(coords, m, seed, torch.float32,
+                                           dev),
+                        num_boost_round=GO_ROUNDS)
+        runs[mode] = (bst, read_counts(), clock() - t0)
+    (bd, ld, td), (bh, lh, th) = runs["true"], runs["false"]
+    check("device_training_info_" in bd.__dict__
+          and "device_training_info_" not in bh.__dict__,
+          "grower options: the device loop did not engage, or the host "
+          "loop did not run")
+    L = bd.grower.num_leaves
+    n_ops = len(tt.flatten_forced_splits(bd._forced_splits, L))
+    for tag, bst, launches in (("device", bd, ld), ("host", bh, lh)):
+        _check_trees(bst, f"grower_options_{tag}_loop")
+        want_hist, _ = grower_counts(bst.trees, L, n_ops)
+        check(launches["histogram"] == want_hist
+              and launches["cat_group_scan"] == GO_ROUNDS * (2 * L - 1),
+              f"grower options, {tag} loop: {launches} for {GO_ROUNDS} "
+              f"trees of {L} leaves and {n_ops} forced splits")
+        check(launches["vecchia_nll_grad"] > 0
+              and launches["vecchia_factors"] > 0,
+              f"grower options, {tag} loop: Vecchia kernels {launches}")
+        check(all(t.split_feature[0] == 0 for t in bst.trees),
+              f"grower options, {tag} loop: the forced root split is missing")
+    check(any(t.has_categorical() for t in bd.trees),
+          "grower options: no categorical split in the device loop")
+    same = (np.array_equal(bd._score, bh._score) and all(
+        np.array_equal(x.split_feature, z.split_feature)
+        and np.array_equal(x.threshold_bin, z.threshold_bin)
+        and np.array_equal(x.cat_mask, z.cat_mask)
+        and np.array_equal(x.leaf_value, z.leaf_value)
+        for x, z in zip(bd.trees, bh.trees)))
+    check(same, "grower options: the device loop's trees and scores differ "
+          "from the host loop's")
+    timings.update(go_device_loop_train_s=td, go_host_loop_train_s=th,
+                   phase17_s=clock() - t_start)
+    emit({"phase": "grower_options_loop", "rounds": GO_ROUNDS,
+          "params": GO_LOOP_PARAMS, "same_bits_as_host_loop": same,
+          "device_loop_train_s": td, "host_loop_train_s": th,
+          "device_launches": ld, "host_launches": lh,
+          "device_host_reads": bd.device_training_info_["host_reads"],
+          "phase17_s": timings["phase17_s"]})
+    del ds_cat, ds_num, gp_b, bd, bh
+    torch.cuda.empty_cache()
+    return ld, timings, (scan_cases, scan_timed)
 
 
 def main():
@@ -6956,13 +7305,16 @@ def main():
     kernel_ptxas = {k: ptxas_report(_build.build_log(src), k)
                     for k, src in (("factors_kernel", "vecchia_factors"),
                                    ("nll_grad_kernel", "vecchia_factors"),
-                                   ("hist_kernel", "histogram"))}
+                                   ("hist_kernel", "histogram"),
+                                   ("cat_group_scan_kernel",
+                                    "cat_group_scan"))}
     for kernel, rep in kernel_ptxas.items():
-        count = 2 if kernel == "hist_kernel" else 3
+        count = 3 if kernel in ("factors_kernel", "nll_grad_kernel") else 2
         check(len(rep) == count and all("registers" in x for x in rep),
               f"ptxas lines of {kernel}'s {count} instances (d <= 2, 4, 8 "
               f"for the Vecchia kernels; scales by value and from device "
-              f"memory for the histogram) not found: {rep}")
+              f"memory for the histogram; float and double counts for the "
+              f"group scan) not found: {rep}")
         check(all(x["stack_frame_bytes"] == x["spill_store_bytes"]
                   == x["spill_load_bytes"] == 0 for x in rep),
               f"{kernel}: a stack frame or spills, its per-row arrays must "
@@ -7079,12 +7431,19 @@ def main():
     # phase 16, the device-resident loop and its fixed-shape grower, before
     # the second runs too; its profiler session is the process's first with
     # CUDA activities and also gives the histogram call's stream operations
+    # phase 14's categorical recipe, which phase 16's trace and phase 17 read
+    go_data = make_tree_tail_data(args.seed, *boost_data)
     t0 = clock()
     dl_launches, dl_timings, hist_ops = device_loop_paths(
         ds, boost_data[1], coords, args.m, args.seed, args.rounds, ng, ds_ng,
-        bst, hist_call, dev)
+        bst, hist_call, go_data, dev)
     timings.update(dl_timings)
     timings["phase16_s"] = clock() - t0
+    # phase 17, the fixed-shape grower's options and the group-scan kernel,
+    # before the second runs too
+    go_launches, go_timings, go_scan = grower_options_paths(
+        go_data, coords, args.m, args.seed, dev)
+    timings.update(go_timings)
     determinism(bst, ds, boost_data[1], coords, args.m, args.seed, dev,
                 ng_first=bst_ng, ng_ds=ds_ng, ng_coords=ng["coords"],
                 grouped=(bst_g, gb_data), glmm=(glmm_model, gd))
@@ -7127,13 +7486,14 @@ def main():
              "grouped_lmm": lmm_launches, "grouped_boosting": gb_launches,
              "grouped_glmm": glmm_launches, **ex_launches, **lr_launches,
              **it_launches, **vr_launches, **tail_launches, **bt_launches,
-             **tt_launches, **b15_launches, **dl_launches}
+             **tt_launches, **b15_launches, **dl_launches,
+             "grower_options": go_launches}
     for path, counts, names in (
             ("gp", launches, ("vecchia_factors", "vecchia_nll_grad")),
-            ("boosting", boost_launches, tuple(REPLACES)),
+            ("boosting", boost_launches, GP_BOOST_KERNELS),
             ("gp_default_route", gd_launches,
              ("vecchia_factors", "vecchia_nll_grad")),
-            ("boosting_default_route", bgd_launches, tuple(REPLACES)),
+            ("boosting_default_route", bgd_launches, GP_BOOST_KERNELS),
             ("lagaboost", lg_launches, ("histogram",)),
             ("grouped_boosting", gb_launches, ("histogram",)),
             ("exact_boosting", ex_launches["exact_boosting"], ("histogram",)),
@@ -7153,25 +7513,27 @@ def main():
             ("space_time_vecchia", tail_launches["space_time_vecchia"],
              ("histogram",)),
             ("gpboost_validation", bt_launches["gpboost_validation"],
-             tuple(REPLACES)),
+             GP_BOOST_KERNELS),
             ("objectives_tail", bt_launches["objectives_tail"],
              ("histogram",)),
             ("cv_grouped", bt_launches["cv_grouped"], ("histogram",)),
             ("categorical_gpboost", tt_launches["categorical_gpboost"],
-             tuple(REPLACES)),
+             GP_BOOST_KERNELS + ("cat_group_scan",)),
             ("efb_onehot", tt_launches["efb_onehot"], ("histogram",)),
             ("tree_options", tt_launches["tree_options"], ("histogram",)),
             ("sparse_and_files", tt_launches["sparse_and_files"],
              ("histogram",)),
             ("boosting_types_gp", b15_launches["boosting_types_gp"],
-             tuple(REPLACES)),
+             GP_BOOST_KERNELS),
             ("leaf_updates_gp", b15_launches["leaf_updates_gp"],
-             tuple(REPLACES)),
+             GP_BOOST_KERNELS),
             ("ranking", b15_launches["ranking"], ("histogram",)),
             ("model_io", b15_launches["model_io"], ("histogram",)),
-            ("device_loop", dl_launches["device_loop"], tuple(REPLACES)),
+            ("device_loop", dl_launches["device_loop"], GP_BOOST_KERNELS),
             ("device_lagaboost", dl_launches["device_lagaboost"],
-             ("histogram",))):
+             ("histogram",)),
+            ("grower_options", go_launches,
+             GP_BOOST_KERNELS + ("cat_group_scan",))):
         for name in names:
             check(counts[name] > 0, f"the {path} path launched {name} "
                   f"{counts[name]} times")
@@ -7246,6 +7608,22 @@ def main():
                 padded_row_share=t["padded_row_share"],
                 other_shapes=t["other_shapes"] + [vr_kern["nll_grad"]])
         kernels.append(entry)
+    # the group scan: launches in phase 17's device-loop training (its
+    # path), times on the categorical Dataset's root scan
+    t = go_scan[1]
+    kernels.append({
+        "name": "cat_group_scan", "route": "cuda",
+        "source": SOURCE["cat_group_scan"],
+        "replaces": REPLACES["cat_group_scan"],
+        "launches": go_launches["cat_group_scan"],
+        "launches_by_path": {k: v["cat_group_scan"]
+                             for k, v in paths.items()},
+        "max_abs_err": float(max(c["mismatches"] for c in go_scan[0])),
+        "max_abs_err_is": "positions that differ from the plain version",
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"], "D": t["D"], "B": t["B"],
+        "ptxas": kernel_ptxas["cat_group_scan_kernel"]})
     # the script's wall time up to its result, the kernels' build included
     emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     emit({"kernels": kernels})

@@ -64,9 +64,12 @@ runs the GPBoost / LaGaBoost rounds with their state on the device
 (``boosting/device_loop.py``, ``device_resident_boosting``); the
 profiler's glue is ``utils/profiler.py``.
 
-Not ported yet: the fixed-shape grower's categorical, monotone,
-interaction, forced-split, CEGB, extra-trees and per-node sampling options
-(ROADMAP.md Queue A, item 10b), the parameter registry and the TPE tuner
+The fixed-shape grower takes categorical features, monotone and
+interaction constraints and forced splits; the categorical scan's group
+boundaries are a kernel of their own (``ops/kernels/cat_group_scan.py``).
+
+Not ported yet: the fixed-shape grower's CEGB, extra-trees and per-node
+sampling options (ROADMAP.md Queue A, item 10b), the parameter registry and the TPE tuner
 (item 19), several GPUs (item 20). Continued training (``init_model``) is
 not in the JAX package.
 """

@@ -513,10 +513,8 @@ class Booster:
         # fetch) wherever it covers the options, as the JAX package's
         # accelerator route (booster.py:522-558); the host grower elsewhere
         grower = (grow_tree_fast if self.device.type == "cuda"
-                  and not fixed_grower_gaps(
-                      self.grower, self._cat_mask, self._monotone,
-                      self._interaction_constraints, self._forced_splits,
-                      self._cegb) else grow_tree)
+                  and not fixed_grower_gaps(self.grower, self._cegb)
+                  else grow_tree)
         for m in range(self.num_models):
             with timed("Booster: gradients to the device", sync=True):
                 g = torch.as_tensor(grad[m * n:(m + 1) * n],

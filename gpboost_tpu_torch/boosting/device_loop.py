@@ -95,10 +95,17 @@ def _ng_fused_ok(gp, ds) -> bool:
 
 
 def _grower_of(booster) -> tree_mod.FixedGrower:
+    """The booster's fixed-shape grower with every option of its trees
+    (the JAX package's ``grow_kwargs``)."""
     ds = booster.train_set
     return tree_mod.fixed_grower(
         ds.binned, ds.max_num_bins, booster.grower, torch.float32,
-        nan_mask=ds.has_nan, binned_t=ds.binned_t, efb=ds.efb)
+        nan_mask=ds.has_nan, binned_t=ds.binned_t, efb=ds.efb,
+        categorical_mask=booster._cat_mask,
+        max_cat_threshold=booster.max_cat_threshold,
+        monotone_constraints=booster._monotone,
+        interaction_constraints=booster._interaction_constraints,
+        forced_splits=booster._forced_splits)
 
 
 def eligible(booster, fobj=None, callbacks=None) -> bool:
@@ -110,11 +117,11 @@ def eligible(booster, fobj=None, callbacks=None) -> bool:
     fused kernels' gate; a non-Gaussian one on the iterative Laplace
     route), one model a round, ``gbdt`` without Nesterov, no linear trees,
     leaf re-solve, line search, CEGB, extra trees, node- or tree-level
-    feature sampling, bagging, validation sets, callbacks or ``fobj``. The
-    port's fixed-shape grower does not cover categorical features,
-    monotone / interaction constraints and forced splits yet (ROADMAP.md
-    Queue A, item 10b), and the loop grows on float32 gradients, so
-    ``gpu_use_dp`` keeps the host loop too.
+    feature sampling, bagging, validation sets, callbacks or ``fobj``.
+    Categorical features, monotone and interaction constraints and forced
+    splits are the fixed-shape grower's (``tree.fixed_grower_gaps``). The
+    loop grows on float32 gradients, so ``gpu_use_dp`` keeps the host loop
+    too.
 
     ``device_resident_boosting``: ``"false"`` never; ``"true"`` whenever the
     constraints allow, on the CPU too; ``"auto"`` (the default) never on
@@ -157,10 +164,7 @@ def eligible(booster, fobj=None, callbacks=None) -> bool:
     if (booster.linear_tree or booster.leaves_newton_update
             or booster.line_search_step_length):
         return False
-    if tree_mod.fixed_grower_gaps(
-            booster.grower, booster._cat_mask, booster._monotone,
-            booster._interaction_constraints, booster._forced_splits,
-            booster._cegb):
+    if tree_mod.fixed_grower_gaps(booster.grower, booster._cegb):
         return False
     if booster.feature_fraction < 1.0:
         return False
@@ -257,8 +261,10 @@ def train_device(booster, num_boost_round: int) -> None:
     all_rows = torch.ones(n, dtype=torch.bool, device=dev)
     num_bins = torch.as_tensor(np.asarray(ds.num_bins), device=dev)
     fields = tree_mod.FIXED_NODE_FIELDS
+    B = int(ds.max_num_bins)
     trees_t = torch.zeros((len(fields), R, M), dtype=torch.float64,
                           device=dev)
+    catmask_t = torch.zeros((R, M * B), dtype=torch.float64, device=dev)
     num_leaves_t = torch.zeros(R, dtype=torch.float64, device=dev)
     nlls, iters, evals = [], [], []
     for i in range(R):
@@ -276,6 +282,7 @@ def train_device(booster, num_boost_round: int) -> None:
             F = F + (lr * out["leaf_value"])[out["row_leaf"].long()]
             for j, key in enumerate(fields):
                 trees_t[j, i].copy_(out[key])
+            catmask_t[i].copy_(out["catmask"].reshape(-1))
             num_leaves_t[i].copy_(out["num_leaves"])
         nlls.append(v)
         iters.append(k)
@@ -284,12 +291,15 @@ def train_device(booster, num_boost_round: int) -> None:
     # work, which a round does not (a trace's round window ends before its
     # replay has run)
     with annotate("device_loop: fetch"):
-        host = torch.cat([trees_t.reshape(-1), num_leaves_t, F,
+        host = torch.cat([trees_t.reshape(-1), catmask_t.reshape(-1),
+                          num_leaves_t, F,
                           theta.to(torch.float64)]).cpu().numpy()
     t_run = time.perf_counter() - t0
     reads = _host_reads() - reads0 + 1
     size = len(fields) * R * M
     arrays = host[:size].reshape(len(fields), R, M)
+    catmasks = host[size:size + R * M * B].reshape(R, M * B)
+    size += R * M * B
     nl = host[size:size + R]
     F_host = host[size + R:size + R + n]
     theta_host = host[size + R + n:]
@@ -304,8 +314,10 @@ def train_device(booster, num_boost_round: int) -> None:
     for r in range(R):
         tr = tree_mod._fixed_tree(
             dict({k: arrays[j, r] for j, k in enumerate(fields)},
-                 num_leaves=nl[r], B=int(ds.max_num_bins)), M)
+                 catmask=catmasks[r], num_leaves=nl[r], B=B), M)
         for node in tr.internal_nodes():
+            if tr.is_categorical[node]:
+                continue
             tr.threshold[node] = ds.threshold_value(
                 int(tr.split_feature[node]), int(tr.threshold_bin[node]))
         tr.add_shrinkage(lr)

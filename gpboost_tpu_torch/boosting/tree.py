@@ -31,10 +31,10 @@ same gradients is the same tree, on the card too.
 The host grower (:func:`grow_tree`) reads the host once per leaf: the
 leaf's totals and its best splits (numeric, and categorical with its left
 set) travel in one packed tensor. On the histogram kernel's route it reads
-once more per tree, for the fixed-point scales; a Dataset with categorical
-features and ``min_data_per_group`` > 0 once more per leaf, for the
-group-boundary scan (a sequential scan over the bins, run on the host).
-``grow_tree.host_reads`` counts the reads.
+once more per tree, for the fixed-point scales. The categorical scan's
+``min_data_per_group`` group boundaries (a sequential scan over the bins)
+are a kernel of their own on the card (``ops/kernels/cat_group_scan.py``)
+and read nothing. ``grow_tree.host_reads`` counts the reads.
 
 The grower's options are the JAX package's host grower's (forced splits
 root first, the three monotone methods as the JAX package approximates
@@ -46,8 +46,8 @@ The fixed-shape grower (:func:`grow_tree_fast`, :func:`_grow_tree_fixed`,
 the JAX package's ``grow_tree_fast`` / ``_grow_tree_jit``) grows the same
 tree with no host read: ``num_leaves - 1`` masked steps on ``[M]`` node
 arrays, on CUDA one captured graph a tree, then one fetch. It covers the
-numeric splits and their options; categorical features, monotone and
-interaction constraints, forced splits, CEGB, extra trees and
+numeric and categorical splits and their options, the three monotone
+methods, interaction constraints and forced splits; CEGB, extra trees and
 ``feature_fraction_bynode`` are ROADMAP.md Queue A, item 10b.
 """
 from __future__ import annotations
@@ -59,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpboost_tpu_torch.ops.kernels.cat_group_scan import group_boundaries
 from gpboost_tpu_torch.ops.kernels.histogram import (
     MAX_BINS, fixed_point_scales, fixed_point_scales_device, histogram,
     histogram_plain)
@@ -176,14 +177,19 @@ def _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
                 monotone=None, penalty=None, extra_bins=None,
                 path_smooth=0.0, parent_output=0.0, mono_lo=0.0, mono_hi=0.0,
                 mono_penalty_mult=None, gain_mult=None, use_smoothing=False,
-                use_bounds=False):
+                use_bounds=False, bounded=None):
     """Best split of one leaf from its stacked histograms ``hist``
     [3, F, B] (gradient, hessian, count). Returns one tensor
     ``[flat index, gain, raw gain, GL, HL, CL, default_left]`` in the dtype
     of ``hist`` (flat index = feature * B + bin; ``gain`` is the raw gain
     less the CEGB penalty, -inf when no bin is valid), so that a caller on
     the host needs a single read. The options are those of
-    :func:`find_best_split`."""
+    :func:`find_best_split`; ``mono_lo`` / ``mono_hi`` may be 0-dim tensors
+    of the histograms' dtype, and ``bounded`` (a 0-dim bool tensor, with
+    ``use_bounds``) selects between the bounded score and the closed form
+    element by element, as a caller that passes bounds only where one of
+    them is finite would (the fixed-shape grower; without smoothing the two
+    forms round differently)."""
     _, F, B = hist.shape
     dt = hist.dtype
     dev = hist.device
@@ -216,7 +222,11 @@ def _split_scan(hist, num_bins_per_feat, lambda_l1, lambda_l2,
         # GetLeafGainGivenOutput: -(2 G w + (H + l2) w^2) at the (smoothed /
         # clamped) output; the closed form when unconstrained
         o = out_of(s[0], s[1], s[2])
-        return -(2.0 * s[0] * o + (s[1] + l2) * o * o)
+        val = -(2.0 * s[0] * o + (s[1] + l2) * o * o)
+        if bounded is not None and not use_smoothing:
+            t = thr(s[0])
+            val = torch.where(bounded, val, t * t / (s[1] + l2 + 1e-15))
+        return val
 
     parent_score = score(tot)
 
@@ -325,21 +335,6 @@ def find_best_split(hist_g, hist_h, hist_c, num_bins_per_feat,
             ok, out[3], out[4], out[5], out[6] > 0)
 
 
-def _group_boundaries(c_s: np.ndarray, ok: np.ndarray, min_data_per_group):
-    """``min_data_per_group``'s group scan (feature_histogram.hpp
-    ``cnt_cur_group``) over the bins of each row of ``c_s`` / ``ok`` [D, B]:
-    a position is a boundary once ``min_data_per_group`` rows accrued since
-    the last one. Sequential over the bins, vectorized over the rows; host
-    numpy (the JAX package's ``lax.scan``)."""
-    carry = np.zeros(c_s.shape[0], c_s.dtype)
-    out = np.zeros(c_s.shape, bool)
-    for b in range(c_s.shape[1]):
-        cur = carry + c_s[:, b]
-        out[:, b] = ok[:, b] & (cur >= min_data_per_group)
-        carry = np.where(out[:, b], 0.0, cur)
-    return out
-
-
 def _cat_scan(hist, num_bins, lambda_l1, lambda_l2, min_data_in_leaf,
               min_sum_hessian, max_cat_threshold, penalty=None, cat_l2=0.0,
               cat_smooth=0.0, min_data_per_group=0.0, max_cat_to_onehot=0):
@@ -402,17 +397,12 @@ def _cat_scan(hist, num_bins, lambda_l1, lambda_l2, min_data_in_leaf,
     ok_f, right_f = base_ok(cum_f)
     ok_r, right_r = base_ok(cum_r)
     if min_data_per_group > 0:
-        # the group scan, one host step over the categorical rows
-        rows = torch.stack([c_f, c_r, (ok_f & (right_f[2]
-                                               >= min_data_per_group)).to(dt),
-                            (ok_r & (right_r[2]
-                                     >= min_data_per_group)).to(dt)])
-        host = rows.to(torch.float64).cpu().numpy()
-        grow_tree.host_reads += 1
-        bound = _group_boundaries(np.concatenate([host[0], host[1]]),
-                                  np.concatenate([host[2], host[3]]) > 0,
-                                  min_data_per_group)
-        bound = torch.as_tensor(bound, device=dev)
+        # the group scan over the forward and the reverse rows at once
+        bound = group_boundaries(
+            torch.cat([c_f, c_r]),
+            torch.cat([ok_f & (right_f[2] >= min_data_per_group),
+                       ok_r & (right_r[2] >= min_data_per_group)]),
+            min_data_per_group)
         ok_f, ok_r = bound[:Fc], bound[Fc:]
 
     def gain_of(cum, right, ok):
@@ -432,13 +422,15 @@ def _cat_scan(hist, num_bins, lambda_l1, lambda_l2, min_data_in_leaf,
 
     raw = torch.stack([gain_f, gain_r, gain_oh_mat])          # [3, Fc, B]
     sel = raw if penalty is None else raw - penalty[None, :, None]
-    flat = torch.argmax(sel.reshape(-1))
-    d, fi = flat // (Fc * B), (flat // B) % Fc
+    # index_select, not indexing by a 0-dim tensor (a host read), so that
+    # the scan runs inside a CUDA graph
+    flat = torch.argmax(sel.reshape(-1)).view(1)
     cums = torch.stack([cum_f, cum_r, cum_oh])                 # [3, 3, Fc, B]
-    picked = cums.permute(1, 0, 2, 3).reshape(3, -1)[:, flat]
-    order = torch.stack([order_fwd, order_rev, order_oh])[d, fi]
-    return torch.cat([flat.to(dt)[None], sel.reshape(-1)[flat][None],
-                      raw.reshape(-1)[flat][None], picked, order.to(dt)])
+    picked = torch.cat([sel[None], raw[None], cums.permute(1, 0, 2, 3)]
+                       ).reshape(5, -1).index_select(1, flat)[:, 0]
+    order = torch.stack([order_fwd, order_rev, order_oh]).reshape(
+        3 * Fc, B).index_select(0, flat // B)[0]
+    return torch.cat([flat.to(dt), picked, order.to(dt)])
 
 
 def find_best_split_categorical(hist_g, hist_h, hist_c, num_bins_per_feat,
@@ -1165,24 +1157,12 @@ grow_tree.host_reads = 0
 _FIXED_TODO = "ROADMAP.md Queue A, item 10b"
 
 
-def fixed_grower_gaps(params: GrowerParams, categorical_mask=None,
-                      monotone_constraints=None,
-                      interaction_constraints=None, forced_splits=None,
-                      cegb=None) -> list:
+def fixed_grower_gaps(params: GrowerParams, cegb=None) -> list:
     """The options of a tree that the fixed-shape grower does not cover:
-    categorical features, monotone and interaction constraints, forced
-    splits, CEGB, extra trees, ``feature_fraction_bynode``. Empty when
-    :func:`grow_tree_fast` grows the tree."""
+    CEGB, extra trees, ``feature_fraction_bynode``. Empty when
+    :func:`grow_tree_fast` grows the tree (categorical features, monotone
+    and interaction constraints and forced splits included)."""
     gaps = []
-    if categorical_mask is not None and bool(np.any(categorical_mask)):
-        gaps.append("categorical features")
-    if monotone_constraints is not None and bool(
-            np.any(np.asarray(monotone_constraints) != 0)):
-        gaps.append("monotone_constraints")
-    if interaction_constraints:
-        gaps.append("interaction_constraints")
-    if forced_splits:
-        gaps.append("forced splits")
     if cegb is not None:
         gaps.append("CEGB")
     if params.extra_trees:
@@ -1190,6 +1170,34 @@ def fixed_grower_gaps(params: GrowerParams, categorical_mask=None,
     if params.feature_fraction_bynode < 1.0:
         gaps.append("feature_fraction_bynode")
     return gaps
+
+
+def flatten_forced_splits(forced: Optional[dict], num_leaves: int) -> tuple:
+    """A forced-splits tree (bin-resolved, ``Booster._resolve_forced``) as
+    the fixed-shape grower's static prefix of (leaf id, feature, bin), root
+    first, in the host grower's order (``apply_forced``): the leaf ids are
+    the node ids its splits create, and the prefix stops where the tree
+    would reach ``num_leaves`` (the JAX package's
+    ``flatten_forced_splits``)."""
+    if not forced:
+        return ()
+    ops = []
+    counter = [1]
+
+    def walk(node, leaf_id):
+        if len(ops) + 1 >= num_leaves:
+            return
+        lid, rid = counter[0], counter[0] + 1
+        counter[0] += 2
+        ops.append((int(leaf_id), int(node["feature"]),
+                    int(node["threshold_bin"])))
+        if isinstance(node.get("left"), dict):
+            walk(node["left"], lid)
+        if isinstance(node.get("right"), dict):
+            walk(node["right"], rid)
+
+    walk(forced, 0)
+    return tuple(ops)
 
 
 def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
@@ -1202,26 +1210,36 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
     ``c`` (:class:`FixedGrower`) holds the Dataset's tensors and the static
     options. Node arrays are ``[M]``, M = 2 num_leaves - 1; node ids are
     those of the host grower (step k creates nodes 2k + 1 and 2k + 2, since
-    steps that split come first). Each step takes the leaf with the largest
-    admissible gain (the first on ties, as the host grower's scan of its
-    leaves in creation order), partitions every row of it (also rows outside
-    ``row_mask``, as the host grower), builds the smaller child's histogram
-    and subtracts it from the parent's, and scores both children with the
-    host grower's ``_split_scan``; the totals, the children's outputs and
-    the leaf values are the host grower's float64 formulas. So on the same
-    gradients both growers give the same tree to the last bit, on the card
-    too. Histogram launches: one for the root and one a step, whether the
-    step splits or not (its child is then empty).
+    steps that split come first). The forced splits (``c.forced_ops``) are
+    the first steps, unconditionally, as the host grower's
+    ``apply_numeric_split``: both children's histograms built, their
+    outputs and bounds the parent's, split gain 0, missing values left.
+    Every other step takes the leaf with the largest admissible gain (the
+    first on ties, as the host grower's scan of its leaves in creation
+    order), partitions every row of it (also rows outside ``row_mask``, as
+    the host grower; a categorical split through its left set), builds the
+    smaller child's histogram and subtracts it from the parent's, and scores
+    both children with the host grower's ``_split_scan`` and ``_cat_scan``
+    (categorical when it is admissible and the numeric split is not or
+    gains more, as ``compute_leaf``); the totals, the children's outputs,
+    the monotone bounds (per node, float64) and the leaf values are the host
+    grower's float64 formulas. So on the same gradients both growers give
+    the same tree to the last bit, on the card too. Histogram launches: one
+    for the root, two a forced split and one a step, whether the step
+    splits or not (its child is then empty).
 
     Returns a dict of tensors: feature, thresh, left, right (int32 [M]),
-    leaf_value, cnt, sgain (float64 [M]), is_leaf, dleft (bool [M]), depth
-    (int32 [M]), num_leaves (int32 []), row_leaf (int32 [n]).
+    leaf_value, cnt, sgain (float64 [M]), is_leaf, dleft, iscat (bool [M]),
+    catmask (bool [M, B]), depth (int32 [M]), num_leaves (int32 []),
+    row_leaf (int32 [n]).
     """
     dev, dt = grad.device, grad.dtype
     f64, i32 = torch.float64, torch.int32
     L = c.num_leaves
     M = 2 * L - 1
     B = c.max_num_bins
+    has_cat = c.cat_idx is not None
+    mono = c.mono is not None
     scales = (fixed_point_scales_device(grad, hess) if c.on_kernel
               else None)
 
@@ -1241,16 +1259,54 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
             raw = torch.clamp(raw, min=-c.mds, max=c.mds)
         return raw
 
-    def eval_leaf(hist, parent_out):
-        """(totals float64 [3], best split [7] in the histograms' dtype) of a
-        leaf, as the host grower's compute_leaf."""
+    nb_num = (torch.where(c.cat_mask, torch.zeros_like(num_bins_per_feat),
+                          num_bins_per_feat) if has_cat
+              else num_bins_per_feat)
+    zero_nb = torch.zeros_like(num_bins_per_feat)
+    one_dt = torch.ones((), dtype=dt, device=dev)
+    bin_ids = torch.arange(B, device=dev)
+
+    def eval_leaf(hist, parent_out, lo, hi, depth, used):
+        """(totals float64 [3], best split [7] in the histograms' dtype,
+        (categorical flag, left set [B]) or None) of a leaf, as the host
+        grower's compute_leaf."""
         hist_f = hist if c.efb_maps is None else expand_bundle_hist(
             hist, *c.efb_maps)
+        nb_n, nb_c = nb_num, num_bins_per_feat
+        if c.ic_groups is not None:
+            # the union of the groups that hold every feature of the path
+            sub = (c.ic_groups | ~used[None, :]).all(dim=1)
+            allowed = (c.ic_groups & sub[:, None]).any(dim=0)
+            nb_n = torch.where(allowed, nb_n, zero_nb)
+            nb_c = torch.where(allowed, nb_c, zero_nb)
         opts = {}
         if c.contri is not None:
             opts["gain_mult"] = c.contri
+        lo_e = hi_e = bounded = None
+        if mono:
+            opts["monotone"] = c.mono
+            if c.mono_factor is not None:
+                opts["mono_penalty_mult"] = torch.where(
+                    c.mono != 0,
+                    c.mono_factor.index_select(0, depth.view(1).long()),
+                    one_dt)
+            if c.mono_bounds:
+                # the host grower passes the bounds only when one is finite
+                lo_e, hi_e = lo, hi
+                bounded = torch.isfinite(lo) | torch.isfinite(hi)
         if c.mds > 0.0:
-            opts.update(mono_lo=-c.mds, mono_hi=c.mds, use_bounds=True)
+            if lo_e is None:
+                lo_e, hi_e = -c.mds, c.mds
+            else:
+                lo_e = torch.clamp(lo_e, min=-c.mds)
+                hi_e = torch.clamp(hi_e, max=c.mds)
+                bounded = None
+        if lo_e is not None:
+            if torch.is_tensor(lo_e):
+                # the host grower's Python floats, cast where they are used
+                lo_e, hi_e = lo_e.to(dt), hi_e.to(dt)
+            opts.update(mono_lo=lo_e, mono_hi=hi_e, use_bounds=True,
+                        bounded=bounded)
         if c.ps > 0.0:
             opts.update(path_smooth=c.ps, parent_output=parent_out.to(dt),
                         use_smoothing=True)
@@ -1258,15 +1314,44 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
         # by its reciprocal, which rounds differently from the host grower's
         # division
         totals = hist.sum(dim=(1, 2)).to(f64) / cols
-        return totals, _split_scan(hist_f, num_bins_per_feat, c.l1, c.l2,
-                                   c.min_data, c.min_hess, c.nan_mask, **opts)
+        best = _split_scan(hist_f, nb_n, c.l1, c.l2, c.min_data, c.min_hess,
+                           c.nan_mask, **opts)
+        if not has_cat:
+            return totals, best, None
+        cat = _cat_scan(hist_f.index_select(1, c.cat_idx),
+                        nb_c.index_select(0, c.cat_idx), c.l1, c.l2,
+                        c.min_data, c.min_hess, c.max_cat_threshold, None,
+                        c.cat_l2, c.cat_smooth, c.min_data_per_group,
+                        c.max_cat_to_onehot)
+        use_cat = (cat[2].to(f64) > c.min_gain) & (
+            ~(best[2].to(f64) > c.min_gain) | (cat[1] > best[1]))
+        cflat = cat[0].to(torch.int64)
+        k = cflat % B
+        f_c = c.cat_idx.index_select(0, ((cflat // B) % c.cat_idx.shape[0])
+                                     .view(1))[0]
+        cat_row = torch.cat([(f_c * B + k).to(dt).view(1), cat[1:6],
+                             one_dt.view(1)])
+        # the left set: the first k + 1 categories of the winning order
+        order = cat[6:6 + B].to(torch.int64)
+        left_set = ((order[None, :] == bin_ids[:, None])
+                    & (bin_ids <= k)[None, :]).any(dim=1) & use_cat
+        return totals, torch.where(use_cat, cat_row, best), (use_cat,
+                                                              left_set)
 
     node = torch.arange(M, device=dev)
     zero64 = torch.zeros((), dtype=f64, device=dev)
     cols = torch.full((), c.hist_binned.shape[1], dtype=f64, device=dev)
     neg_inf = torch.full((), -torch.inf, dtype=dt, device=dev)
+    inf64 = torch.full((M,), torch.inf, dtype=f64, device=dev)
+    F = c.part_rows.shape[0]
+    lo = -inf64
+    hi = inf64
+    used = (torch.zeros((M, F), dtype=torch.bool, device=dev)
+            if c.ic_groups is not None else None)
+    depth = (node == 0).to(i32)
     hist0 = hist_of(row_mask)
-    st0, b0 = eval_leaf(hist0, zero64)
+    st0, b0, cat0 = eval_leaf(hist0, zero64, lo[0], hi[0], depth[0],
+                              None if used is None else used[0])
     hist = torch.zeros((M,) + tuple(hist0.shape), dtype=dt, device=dev)
     hist[0] = hist0
     best = torch.zeros((M, b0.shape[0]), dtype=dt, device=dev)
@@ -1280,11 +1365,67 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
     left = node.to(i32)
     right = node.to(i32)
     is_leaf = node == 0
-    depth = (node == 0).to(i32)
     dleft = torch.ones(M, dtype=torch.bool, device=dev)
     sgain = torch.zeros(M, dtype=f64, device=dev)
+    # the best candidate's categorical flag and left set a node, and those
+    # of the split made
+    bcat = torch.zeros(M, dtype=torch.bool, device=dev)
+    bmask = torch.zeros((M, B), dtype=torch.bool, device=dev)
+    iscat = torch.zeros(M, dtype=torch.bool, device=dev)
+    catmask = torch.zeros((M, B), dtype=torch.bool, device=dev)
+    if has_cat:
+        bcat[0], bmask[0] = cat0
 
-    for k in range(L - 1):
+    def children(leaf, lid, rid, f_b, hist_l, hist_r, po_l, po_r, lims,
+                 proceed):
+        """Score both children of a split of ``leaf`` on ``f_b`` and write
+        them into the node arrays where ``proceed``."""
+        d_child = depth.index_select(0, leaf)[0] + 1
+        uc = None
+        if used is not None:
+            uc = used.index_select(0, leaf)[0] | (c.feat_ids == f_b)
+        for nid, h_c, po_c, (lo_c, hi_c) in ((lid, hist_l, po_l, lims[0]),
+                                              (rid, hist_r, po_r, lims[1])):
+            st_c, b_c, cat_c = eval_leaf(h_c, po_c, lo_c, hi_c, d_child, uc)
+            is_leaf[nid] = proceed
+            depth[nid] = torch.where(proceed, d_child, depth[nid])
+            hist[nid] = torch.where(proceed, h_c, hist[nid])
+            stats[nid] = torch.where(proceed, st_c, stats[nid])
+            best[nid] = torch.where(proceed, b_c, best[nid])
+            pout[nid] = torch.where(proceed, po_c, pout[nid])
+            if mono:
+                lo[nid] = torch.where(proceed, lo_c, lo[nid])
+                hi[nid] = torch.where(proceed, hi_c, hi[nid])
+            if used is not None:
+                used[nid] = torch.where(proceed, uc, used[nid])
+            if has_cat:
+                bcat[nid] = cat_c[0] & proceed
+                bmask[nid] = cat_c[1] & proceed
+
+    # the forced splits: static (leaf, feature, bin), both children built
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    for k, (lf, f, b) in enumerate(c.forced_ops):
+        lid, rid = 2 * k + 1, 2 * k + 2
+        lid_t = torch.full((), lid, dtype=i32, device=dev)
+        rid_t = torch.full((), rid, dtype=i32, device=dev)
+        row_leaf = torch.where(row_leaf == lf, torch.where(
+            c.part_rows[f] <= b, lid_t, rid_t), row_leaf)
+        hist_l = hist_of((row_leaf == lid) & row_mask)
+        hist_r = hist_of((row_leaf == rid) & row_mask)
+        # written by torch.where: assigning a Python number copies it from
+        # the host, which a capture refuses
+        at = node == lf
+        feature = torch.where(at, torch.full((), f, dtype=i32, device=dev),
+                              feature)
+        thresh = torch.where(at, torch.full((), b, dtype=i32, device=dev),
+                             thresh)
+        left = torch.where(at, lid_t, left)
+        right = torch.where(at, rid_t, right)
+        is_leaf = is_leaf & ~at
+        children(node[lf:lf + 1], lid, rid, f, hist_l, hist_r, pout[lf],
+                 pout[lf], ((lo[lf], hi[lf]), (lo[lf], hi[lf])), true)
+
+    for k in range(len(c.forced_ops), L - 1):
         lid, rid = 2 * k + 1, 2 * k + 2
         ok = is_leaf & (best[:, 2].to(f64) > c.min_gain)
         if c.max_depth > 0:
@@ -1302,6 +1443,11 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
         if c.nan_mask is not None:
             miss_right = c.nan_mask.index_select(0, f_b.view(1))[0] & ~dl_b
             go_left = go_left & ~(miss_right & (col == 0))
+        if has_cat:
+            cat_flag = bcat.index_select(0, leaf)[0]
+            left_set = bmask.index_select(0, leaf)[0]
+            go_left = torch.where(cat_flag, left_set.index_select(
+                0, col.long()), go_left)
         in_leaf = (row_leaf == leaf) & proceed
         lid_t = torch.full((), lid, dtype=i32, device=dev)
         rid_t = torch.full((), rid, dtype=i32, device=dev)
@@ -1315,14 +1461,34 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
         hist_l = torch.where(small_left, h_small, h_big)
         hist_r = torch.where(small_left, h_big, h_small)
         parent = pout.index_select(0, leaf)[0]
-        if c.ps > 0.0:
-            po_l = out_of(gl.to(f64), hl.to(f64), cl.to(f64), parent)
-            po_r = out_of(g_p - gl.to(f64), h_p - hl.to(f64),
-                          cnt_p - cl.to(f64), parent)
+        lo_p = lo.index_select(0, leaf)[0]
+        hi_p = hi.index_select(0, leaf)[0]
+        lims = ((lo_p, hi_p), (lo_p, hi_p))
+        if c.ps > 0.0 or mono:
+            # the children's outputs, clipped to the parent's bounds
+            po_l = torch.clamp(out_of(gl.to(f64), hl.to(f64), cl.to(f64),
+                                      parent), lo_p, hi_p)
+            po_r = torch.clamp(out_of(g_p - gl.to(f64), h_p - hl.to(f64),
+                                      cnt_p - cl.to(f64), parent), lo_p, hi_p)
         else:
             po_l = po_r = zero64
-        st_l, b_l = eval_leaf(hist_l, po_l)
-        st_r, b_r = eval_leaf(hist_r, po_r)
+        if mono:
+            # a numeric split on a monotone feature tightens the children's
+            # bounds: at the midpoint of the two outputs (basic) or at the
+            # sibling's output (intermediate, advanced)
+            dirn = c.mono.index_select(0, f_b.view(1))[0]
+            tight = dirn != 0
+            if has_cat:
+                tight = tight & ~cat_flag
+            inc, dec = tight & (dirn > 0), tight & (dirn < 0)
+            if c.mono_bounds:
+                ref_l, ref_r = po_r, po_l
+            else:
+                ref_l = ref_r = 0.5 * (po_l + po_r)
+            lims = ((torch.where(dec, torch.maximum(lo_p, ref_l), lo_p),
+                     torch.where(inc, torch.minimum(hi_p, ref_l), hi_p)),
+                    (torch.where(inc, torch.maximum(lo_p, ref_r), lo_p),
+                     torch.where(dec, torch.minimum(hi_p, ref_r), hi_p)))
         # the split leaf's record, then the two new leaves (unused slots
         # until now, so a step that does not split leaves them as they were)
         at = (node == leaf) & proceed
@@ -1332,16 +1498,12 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
         dleft = torch.where(at, dl_b, dleft)
         left = torch.where(at, lid_t, left)
         right = torch.where(at, rid_t, right)
-        d_child = depth.index_select(0, leaf)[0] + 1
+        if has_cat:
+            iscat = torch.where(at, cat_flag, iscat)
+            catmask = torch.where(at[:, None], left_set[None, :], catmask)
         is_leaf = is_leaf & ~at
-        for nid, h_c, st_c, b_c, po_c in ((lid, hist_l, st_l, b_l, po_l),
-                                          (rid, hist_r, st_r, b_r, po_r)):
-            is_leaf[nid] = proceed
-            depth[nid] = torch.where(proceed, d_child, depth[nid])
-            hist[nid] = torch.where(proceed, h_c, hist[nid])
-            stats[nid] = torch.where(proceed, st_c, stats[nid])
-            best[nid] = torch.where(proceed, b_c, best[nid])
-            pout[nid] = torch.where(proceed, po_c, pout[nid])
+        children(leaf, lid, rid, f_b, hist_l, hist_r, po_l, po_r, lims,
+                 proceed)
 
     g_s, h_s, cnt = stats.unbind(1)
     if c.ps > 0.0:
@@ -1350,17 +1512,28 @@ def _grow_tree_fixed(grad, hess, row_mask, num_bins_per_feat, c):
         value = torch.where(node == 0, out_of(g_s, h_s, cnt, zero64), pout)
     else:
         value = out_of(g_s, h_s, None, zero64)
+    if mono:
+        value = torch.clamp(value, lo, hi)
     return dict(feature=feature, thresh=thresh, left=left, right=right,
                 leaf_value=torch.where(is_leaf, value, zero64),
                 cnt=cnt, sgain=sgain, is_leaf=is_leaf, dleft=dleft,
-                depth=depth, num_leaves=is_leaf.sum().to(i32),
-                row_leaf=row_leaf)
+                iscat=iscat, catmask=catmask, depth=depth,
+                num_leaves=is_leaf.sum().to(i32), row_leaf=row_leaf)
 
 
 class FixedGrower:
     """The fixed-shape grower for one Dataset and one set of options: the
     Dataset's tensors, the static options, and on a CUDA device the tree's
     growth captured as one ``torch.cuda.CUDAGraph``.
+
+    The options are the host grower's: ``params`` (:class:`GrowerParams`:
+    the split rules, path smoothing, ``max_delta_step``,
+    ``feature_contri``, the categorical and monotone parameters),
+    ``nan_mask``, the EFB panel ``efb``, ``categorical_mask`` [F] with
+    ``max_cat_threshold``, ``monotone_constraints`` [F],
+    ``interaction_constraints`` (lists of features) and ``forced_splits``
+    (a bin-resolved tree, :func:`flatten_forced_splits`). Not CEGB, extra
+    trees or ``feature_fraction_bynode`` (:func:`fixed_grower_gaps`).
 
     :meth:`grow` takes a tree's gradients, hessians, row mask and bins a
     feature. On the CPU it runs :func:`_grow_tree_fixed` eagerly. On CUDA
@@ -1373,8 +1546,18 @@ class FixedGrower:
     """
 
     def __init__(self, binned, max_num_bins: int, params: GrowerParams,
-                 dtype, nan_mask=None, binned_t=None, efb=None):
-        self.device = binned.device
+                 dtype, nan_mask=None, binned_t=None, efb=None,
+                 categorical_mask=None, max_cat_threshold: int = 32,
+                 monotone_constraints=None, interaction_constraints=None,
+                 forced_splits=None):
+        gaps = fixed_grower_gaps(params)
+        if gaps:
+            raise NotImplementedError(
+                f"FixedGrower: {', '.join(gaps)} not covered by the "
+                f"fixed-shape grower yet ({_FIXED_TODO}); grow_tree takes "
+                "them")
+        dev = self.device = binned.device
+        F = binned.shape[1]
         self.num_leaves = int(params.num_leaves)
         self.max_depth = int(params.max_depth)
         self.l1 = float(params.lambda_l1)
@@ -1388,11 +1571,49 @@ class FixedGrower:
         self.nan_mask = (None if nan_mask is None
                          or not bool(np.any(nan_mask)) else
                          torch.as_tensor(np.asarray(nan_mask, bool),
-                                         device=self.device))
+                                         device=dev))
         self.contri = (None if params.feature_contri is None else
                        torch.as_tensor(np.asarray(params.feature_contri,
                                                   np.float64), dtype=dtype,
-                                       device=self.device))
+                                       device=dev))
+        self.feat_ids = torch.arange(F, device=dev)
+        # categorical features: their ids, and the scan's parameters
+        self.cat_idx = self.cat_mask = None
+        if categorical_mask is not None and bool(np.any(categorical_mask)):
+            cm = np.asarray(categorical_mask, bool)
+            self.cat_mask = torch.as_tensor(cm, device=dev)
+            self.cat_idx = torch.as_tensor(np.flatnonzero(cm), device=dev)
+        self.max_cat_threshold = int(max_cat_threshold)
+        self.cat_l2 = float(params.cat_l2)
+        self.cat_smooth = float(params.cat_smooth)
+        self.min_data_per_group = float(params.min_data_per_group)
+        self.max_cat_to_onehot = int(params.max_cat_to_onehot)
+        # monotone constraints: the directions, the method, and the gain
+        # penalty a depth (the host grower's Python floats, cast once)
+        self.mono = self.mono_factor = None
+        self.mono_bounds = False
+        if monotone_constraints is not None and bool(
+                np.any(np.asarray(monotone_constraints) != 0)):
+            self.mono = torch.as_tensor(
+                np.asarray(monotone_constraints, np.int32), device=dev)
+            self.mono_bounds = (params.monotone_constraints_method
+                                in ("intermediate", "advanced"))
+            if params.monotone_penalty > 0.0:
+                self.mono_factor = torch.tensor(
+                    [_monotone_factor(params.monotone_penalty, d)
+                     for d in range(self.num_leaves + 2)], dtype=dtype,
+                    device=dev)
+        # interaction constraints: the groups as a [G, F] matrix
+        self.ic_groups = None
+        if interaction_constraints:
+            groups = np.zeros((len(interaction_constraints), F), bool)
+            for i, g in enumerate(interaction_constraints):
+                for f in g:
+                    if int(f) < F:
+                        groups[i, int(f)] = True
+            self.ic_groups = torch.as_tensor(groups, device=dev)
+        self.forced_ops = flatten_forced_splits(forced_splits,
+                                                self.num_leaves)
         # a partition reads one feature's bins: a row of the features-major
         # panel
         self.part_rows = binned.t() if binned_t is None else binned_t
@@ -1409,13 +1630,13 @@ class FixedGrower:
             self.hist_binned, self.hist_panel = binned, binned_t
             self.hist_B = self.max_num_bins
             self.efb_maps = None
-        self.on_kernel = (self.device.type == "cuda"
+        self.on_kernel = (dev.type == "cuda"
                           and dtype == torch.float32
                           and self.hist_B <= MAX_BINS)
         self._graph = None
         self._static = None
         self._out = None
-        self._launches_per_replay = 0
+        self._launches_per_replay = {}
         self.captures = 0
 
     def _run(self, grad, hess, row_mask, num_bins):
@@ -1425,24 +1646,28 @@ class FixedGrower:
         """One tree (see :func:`_grow_tree_fixed` for the outputs)."""
         if self.device.type != "cuda":
             return self._run(grad, hess, row_mask, num_bins)
+        from gpboost_tpu_torch.ops.kernels import cat_group_scan as gk
         from gpboost_tpu_torch.ops.kernels import histogram as hk
+        counted = (hk.histogram, gk.group_boundaries)
         if self._graph is None:
             out = self._run(grad, hess, row_mask, num_bins)
             static = [t.clone() for t in (grad, hess, row_mask, num_bins)]
-            before = hk.histogram.launches
+            before = [fn.launches for fn in counted]
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 self._out = self._run(*static)
             # capturing launches nothing: each replay does
-            self._launches_per_replay = hk.histogram.launches - before
-            hk.histogram.launches = before
+            for fn, b in zip(counted, before):
+                self._launches_per_replay[fn] = fn.launches - b
+                fn.launches = b
             self._graph, self._static = graph, static
             self.captures += 1
             return out
         for dst, src in zip(self._static, (grad, hess, row_mask, num_bins)):
             dst.copy_(src)
         self._graph.replay()
-        hk.histogram.launches += self._launches_per_replay
+        for fn, k in self._launches_per_replay.items():
+            fn.launches += k
         return self._out
 
 
@@ -1454,10 +1679,23 @@ _FIXED_GROWERS: "OrderedDict" = OrderedDict()
 _FIXED_GROWERS_MAX = 8
 
 
+def _frozen(x):
+    """A hashable copy of an option (nested lists, dicts and arrays)."""
+    if isinstance(x, dict):
+        return tuple(sorted((k, _frozen(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple, np.ndarray)):
+        return tuple(_frozen(v) for v in list(x))
+    return x.item() if isinstance(x, np.generic) else x
+
+
 def fixed_grower_key(binned, max_num_bins: int, params: GrowerParams,
-                     dtype, nan_mask=None, binned_t=None, efb=None) -> tuple:
+                     dtype, nan_mask=None, binned_t=None, efb=None,
+                     **options) -> tuple:
     """The cache key of :func:`fixed_grower`: the tensors' identities, the
-    shapes, the dtype and every option the grower reads."""
+    shapes, the dtype, every parameter the grower reads and the options of
+    :class:`FixedGrower` (``options``: categorical mask, monotone
+    constraints, interaction constraints, forced splits,
+    ``max_cat_threshold``)."""
     nm = (None if nan_mask is None or not bool(np.any(nan_mask))
           else tuple(np.asarray(nan_mask, bool).tolist()))
     return (id(binned), id(binned_t), id(efb), tuple(binned.shape),
@@ -1469,21 +1707,28 @@ def fixed_grower_key(binned, max_num_bins: int, params: GrowerParams,
             float(params.min_gain_to_split), float(params.path_smooth),
             float(params.max_delta_step),
             None if params.feature_contri is None else tuple(
-                np.asarray(params.feature_contri, np.float64).tolist()), nm)
+                np.asarray(params.feature_contri, np.float64).tolist()), nm,
+            float(params.cat_l2), float(params.cat_smooth),
+            float(params.min_data_per_group), int(params.max_cat_to_onehot),
+            str(params.monotone_constraints_method),
+            float(params.monotone_penalty),
+            _frozen(sorted(options.items())))
 
 
 def fixed_grower(binned, max_num_bins: int, params: GrowerParams, dtype,
-                 nan_mask=None, binned_t=None, efb=None) -> FixedGrower:
+                 nan_mask=None, binned_t=None, efb=None,
+                 **options) -> FixedGrower:
     """The cached :class:`FixedGrower` of a Dataset's tensors and options
-    (:func:`fixed_grower_key`)."""
+    (:func:`fixed_grower_key`; ``options`` as :class:`FixedGrower` takes
+    them)."""
     key = fixed_grower_key(binned, max_num_bins, params, dtype, nan_mask,
-                           binned_t, efb)
+                           binned_t, efb, **options)
     g = _FIXED_GROWERS.get(key)
     if g is not None:
         _FIXED_GROWERS.move_to_end(key)
         return g
     g = FixedGrower(binned, max_num_bins, params, dtype, nan_mask=nan_mask,
-                    binned_t=binned_t, efb=efb)
+                    binned_t=binned_t, efb=efb, **options)
     _FIXED_GROWERS[key] = g
     while len(_FIXED_GROWERS) > _FIXED_GROWERS_MAX:
         _FIXED_GROWERS.popitem(last=False)
@@ -1491,7 +1736,8 @@ def fixed_grower(binned, max_num_bins: int, params: GrowerParams, dtype,
 
 
 def _fixed_tree(host: dict, M: int) -> Tree:
-    """A :class:`Tree` from the fixed-shape grower's arrays (numpy)."""
+    """A :class:`Tree` from the fixed-shape grower's arrays (numpy;
+    ``catmask`` flat [M * B])."""
     return Tree(split_feature=host["feature"].astype(np.int32),
                 threshold=np.zeros(M),
                 threshold_bin=host["thresh"].astype(np.int32),
@@ -1500,8 +1746,8 @@ def _fixed_tree(host: dict, M: int) -> Tree:
                 leaf_value=host["leaf_value"].astype(np.float64),
                 is_leaf=host["is_leaf"].astype(bool),
                 node_count=host["cnt"].astype(np.float64),
-                is_categorical=np.zeros(M, bool),
-                cat_mask=np.zeros((M, host["B"]), bool),
+                is_categorical=host["iscat"].astype(bool),
+                cat_mask=host["catmask"].reshape(M, host["B"]).astype(bool),
                 split_gain=host["sgain"].astype(np.float64),
                 default_left=host["dleft"].astype(bool),
                 num_leaves=int(host["num_leaves"]),
@@ -1520,8 +1766,9 @@ def check_finite_leaves(leaf_value, is_leaf, where: str) -> None:
 
 
 # the fixed-shape grower's per-node arrays, in the order of one packed fetch
+# (then its categorical left sets, [M, B])
 FIXED_NODE_FIELDS = ("feature", "thresh", "left", "right", "leaf_value",
-                     "is_leaf", "cnt", "sgain", "dleft", "depth")
+                     "is_leaf", "cnt", "sgain", "dleft", "iscat", "depth")
 
 
 def grow_tree_fast(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
@@ -1530,9 +1777,9 @@ def grow_tree_fast(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
                    row_mask: Optional[torch.Tensor] = None,
                    nan_mask: Optional[np.ndarray] = None,
                    binned_t: Optional[torch.Tensor] = None, efb=None,
-                   categorical_mask=None, monotone_constraints=None,
-                   interaction_constraints=None, forced_splits=None,
-                   cegb=None, **host_only):
+                   categorical_mask=None, max_cat_threshold: int = 32,
+                   monotone_constraints=None, interaction_constraints=None,
+                   forced_splits=None, cegb=None, **host_only):
     """Grow one tree with the fixed-shape grower (the JAX package's
     ``grow_tree_fast``): the whole tree on the device with no host read
     (:func:`_grow_tree_fixed`; on CUDA one captured graph, replayed for
@@ -1542,21 +1789,20 @@ def grow_tree_fast(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
     of ``row_leaf`` from the same fetch is ``tree.row_leaf_host``, for the
     caller's score update (it takes it off the tree).
 
-    Covers numeric splits, missing values (``nan_mask``, ``default_left``),
-    the EFB bundle panel, ``row_mask``, ``path_smooth``,
-    ``max_delta_step``, ``feature_contri``, ``max_depth`` and the min-data /
-    min-hessian / min-gain and L1 / L2 rules. Categorical features,
-    monotone and interaction constraints, forced splits, CEGB, extra trees
-    and ``feature_fraction_bynode`` raise ``NotImplementedError``
-    (ROADMAP.md Queue A, item 10b). The host grower's other keywords
-    (``rng``, ``max_cat_threshold``, ``num_bins_host``: ``host_only``) are
+    Covers numeric and categorical splits, missing values (``nan_mask``,
+    ``default_left``), the EFB bundle panel, ``row_mask``, ``path_smooth``,
+    ``max_delta_step``, ``feature_contri``, ``max_depth``, the min-data /
+    min-hessian / min-gain and L1 / L2 rules, the three monotone methods
+    with their penalty, interaction constraints and forced splits. CEGB,
+    extra trees and ``feature_fraction_bynode`` raise
+    ``NotImplementedError`` (ROADMAP.md Queue A, item 10b). The host
+    grower's other keywords (``rng``, ``num_bins_host``: ``host_only``) are
     taken and not read, so that a caller passes both growers the same
     arguments. ``grow_tree.host_reads`` counts the fetches (one a tree), as
     it counts the host grower's reads. A leaf value that is not finite (a
     gradient or hessian that is not) raises ``ValueError`` after the fetch
     (:func:`check_finite_leaves`)."""
-    gaps = fixed_grower_gaps(params, categorical_mask, monotone_constraints,
-                             interaction_constraints, forced_splits, cegb)
+    gaps = fixed_grower_gaps(params, cegb)
     if gaps:
         raise NotImplementedError(
             f"grow_tree_fast: {', '.join(gaps)} not covered by the "
@@ -1565,38 +1811,46 @@ def grow_tree_fast(binned: torch.Tensor, num_bins_per_feat: torch.Tensor,
     if row_mask is None:
         row_mask = torch.ones(n, dtype=torch.bool, device=binned.device)
     g = fixed_grower(binned, max_num_bins, params, grad.dtype,
-                     nan_mask=nan_mask, binned_t=binned_t, efb=efb)
+                     nan_mask=nan_mask, binned_t=binned_t, efb=efb,
+                     categorical_mask=categorical_mask,
+                     max_cat_threshold=max_cat_threshold,
+                     monotone_constraints=monotone_constraints,
+                     interaction_constraints=interaction_constraints,
+                     forced_splits=forced_splits)
     out = g.grow(grad, hess, row_mask, num_bins_per_feat)
     M = 2 * g.num_leaves - 1
     packed = torch.cat([out[k].to(torch.float64).reshape(-1)
-                        for k in FIXED_NODE_FIELDS]
+                        for k in FIXED_NODE_FIELDS + ("catmask",)]
                        + [out["num_leaves"].to(torch.float64).view(1),
                           out["row_leaf"].to(torch.float64)])
     row_leaf = out["row_leaf"].clone()
     host = packed.cpu().numpy()                           # the one fetch
     grow_tree.host_reads += 1
+    nf = len(FIXED_NODE_FIELDS)
     arrays = {k: host[i * M:(i + 1) * M]
               for i, k in enumerate(FIXED_NODE_FIELDS)}
-    arrays["num_leaves"] = host[len(FIXED_NODE_FIELDS) * M]
-    arrays["B"] = int(max_num_bins)
+    B = int(max_num_bins)
+    arrays["catmask"] = host[nf * M:nf * M + M * B]
+    arrays["num_leaves"] = host[nf * M + M * B]
+    arrays["B"] = B
     check_finite_leaves(arrays["leaf_value"], arrays["is_leaf"],
                         "grow_tree_fast")
     tree = _fixed_tree(arrays, M)
     tree.fixed_shape = True
-    tree.row_leaf_host = host[len(FIXED_NODE_FIELDS) * M + 1:].astype(
-        np.int64)
+    tree.row_leaf_host = host[nf * M + M * B + 1:].astype(np.int64)
     return tree, row_leaf
 
 
-
-def histogram_launches(trees, num_leaves: int) -> int:
+def histogram_launches(trees, num_leaves: int, forced_splits: int = 0) -> int:
     """The histogram launches that growing ``trees`` took on the kernel
     route: a tree of the fixed-shape grower (``tree.fixed_shape``) launches
     ``num_leaves``, the grower's setting (the root and every step, whether
     it split or not), one of the host grower one a leaf
-    (``Tree.num_leaves``; a forced split adds one)."""
-    return sum(num_leaves if getattr(t, "fixed_shape", False)
-               else t.num_leaves for t in trees)
+    (``Tree.num_leaves``); each of the ``forced_splits`` splits of a tree
+    (``len(flatten_forced_splits(...))``) adds one on either grower: both
+    its children are built."""
+    return sum((num_leaves if getattr(t, "fixed_shape", False)
+                else t.num_leaves) + forced_splits for t in trees)
 
 
 def _traverse(node, max_depth, go_left_of, left, right):

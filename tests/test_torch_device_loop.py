@@ -207,6 +207,21 @@ def test_eligibility_gates(data, monkeypatch):
     # the common GPBoost case engages it
     _port_train(data, ON, 2)
     assert calls["n"] == 1
+    # the fixed-shape grower's options engage it (categorical features,
+    # monotone and interaction constraints, forced splits); CEGB, extra
+    # trees and node sampling keep the host loop (ROADMAP.md item 10b)
+    Xc = np.column_stack([X, np.arange(N) % 5])
+    for extra, want in (
+            ({"categorical_feature": "3"}, True),
+            ({"monotone_constraints": [1, 0, -1, 0]}, True),
+            ({"interaction_constraints": [[0, 1], [2, 3]]}, True),
+            ({"forced_splits": {"feature": 0, "threshold": 0.5}}, True),
+            ({"cegb_penalty_split": 1e-4}, False),
+            ({"extra_trees": True}, False),
+            ({"feature_fraction_bynode": 0.5}, False)):
+        b = gpt.Booster(params=dict(ON, **extra), train_set=gpt.Dataset(
+            Xc, label=y, device="cpu"), gp_model=_port_gp(coords))
+        assert device_loop.eligible(b) is want, extra
     with pytest.raises(ValueError, match="device_resident_boosting"):
         _port_train(data, dict(PARAMS, device_resident_boosting="maybe"), 2)
 
@@ -235,3 +250,94 @@ def test_gradient_that_is_not_finite_raises(data, monkeypatch):
     with pytest.raises(ValueError, match="device loop: a leaf value is not "
                        "finite"):
         _port_train(data, ON, 2)
+
+
+OPT_N = 400
+OPT_R = 3
+OPT_PARAMS = {"objective": "regression", "num_leaves": 8,
+              "learning_rate": 0.1, "verbose": -1, "min_data_per_group": 20,
+              # the forced split on a feature without a constraint: on a
+              # monotone one the JAX package's fused grower tightens the
+              # children's bounds, its host grower and the port's do not
+              # (ROADMAP.md, Not faults)
+              "monotone_constraints": [0, 1, 0, 0],
+              "forced_splits": {"feature": 0, "threshold": 0.5}}
+
+
+@pytest.fixture(scope="module")
+def opt_data():
+    """``test_device_loop_accepts_monotone_and_forced``'s data with a
+    categorical column of 6 levels (feature 3) whose effect is in y."""
+    rng = np.random.default_rng(3)
+    coords = rng.uniform(size=(OPT_N, 2))
+    X = rng.uniform(size=(OPT_N, 3))
+    cat = rng.integers(0, 6, OPT_N)
+    y = (np.sin(3 * coords[:, 0]) + X[:, 0] + 0.5 * X[:, 1]
+         + np.array([0.0, 1.0, -0.5, 0.3, 1.2, -1.0])[cat]
+         + 0.1 * rng.standard_normal(OPT_N))
+    return coords, np.column_stack([X, cat.astype(float)]), y
+
+
+def test_categorical_monotone_forced_loop_vs_jax_and_stepwise(opt_data,
+                                                              monkeypatch):
+    """A categorical feature, a monotone constraint and a forced split in
+    the fused loop: against the JAX package's fused loop (mirrors
+    ``test_device_loop_accepts_monotone_and_forced``; scores, covariance
+    parameters, NLLs and L-BFGS iterations at ``JAX_TOL``, the forced root
+    split in every tree, a categorical split) and against the port's own
+    primitives round by round (``STEP_TOL``)."""
+    coords, X, y = opt_data
+    gp = _port_gp(coords)
+    bst = gpt.train(dict(OPT_PARAMS, device_resident_boosting="true"),
+                    gpt.Dataset(X, label=y, categorical_feature=[3],
+                                device="cpu"),
+                    gp_model=gp, num_boost_round=OPT_R)
+    assert "device_training_info_" in bst.__dict__
+    monkeypatch.setenv("GPBOOST_TPU_FORCE_DEVICE_LOOP", "1")
+    jgp = gpb.GPModel(gp_coords=coords, **GP_KW)
+    jgp.set_optim_params(dict(OPTIM))
+    jb = gpb.train(dict(OPT_PARAMS), gpb.Dataset(X, label=y,
+                                                 categorical_feature=[3]),
+                   gp_model=jgp, num_boost_round=OPT_R)
+    assert len(bst.trees) == len(jb.trees) == OPT_R
+    for t, j in zip(bst.trees, jb.trees):
+        assert t.num_leaves == j.num_leaves
+        assert t.split_feature[0] == j.split_feature[0] == 0
+    assert any(t.has_categorical() for t in bst.trees)
+    np.testing.assert_allclose(bst._score, np.asarray(jb._score), rtol=0,
+                               atol=JAX_TOL["score"])
+    np.testing.assert_allclose(gp.cov_pars_, np.asarray(jgp.cov_pars_),
+                               rtol=JAX_TOL["cov_pars"])
+    ti, ji = bst.device_training_info_, jb.device_training_info_
+    np.testing.assert_allclose(ti["cov_nll"], ji["cov_nll"],
+                               rtol=JAX_TOL["nll"])
+    np.testing.assert_array_equal(ti["refit_iterations"],
+                                  ji["refit_iterations"])
+    # the port's primitives, round by round, with the loop's grower
+    ds = gpt.Dataset(X, label=y, categorical_feature=[3], device="cpu")
+    b2 = gpt.Booster(params=dict(OPT_PARAMS, device_resident_boosting="true"),
+                     train_set=ds, gp_model=_port_gp(coords))
+    vg, psi, dt = device_loop._fns_for(b2)
+    grower = device_loop._grower_of(b2)
+    assert grower.cat_idx is not None and grower.mono is not None
+    assert len(grower.forced_ops) == 1
+    th = torch.log(torch.tensor(OPTIM["init_cov_pars"], dtype=dt))
+    F = torch.as_tensor(b2._score, dtype=torch.float64)
+    yt = torch.as_tensor(y)
+    lr = OPT_PARAMS["learning_rate"]
+    for r in range(OPT_R):
+        th, v, k, aux, _ = topt.lbfgs_device_loop(
+            vg, th, b2.gp_model.optim_cfg, dt, (yt - F).to(dt),
+            final_fn=psi)
+        out = grower.grow((-aux).to(torch.float32), torch.ones(OPT_N),
+                          torch.ones(OPT_N, dtype=torch.bool),
+                          torch.as_tensor(ds.num_bins))
+        F = F + (lr * out["leaf_value"])[out["row_leaf"].long()]
+        np.testing.assert_allclose(bst.trees[r].leaf_value,
+                                   lr * out["leaf_value"].numpy(), rtol=0,
+                                   atol=STEP_TOL)
+        np.testing.assert_array_equal(bst.trees[r].cat_mask,
+                                      out["catmask"].numpy())
+        assert ti["cov_nll"][r] == v
+    np.testing.assert_allclose(bst._score, F.numpy(), rtol=0, atol=STEP_TOL)
+

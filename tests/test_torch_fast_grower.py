@@ -2,16 +2,22 @@
 ``_grow_tree_fixed``) on the CPU, float64, against the JAX package's
 ``grow_tree_fast`` and against the port's host grower ``grow_tree``;
 mirrors ``tests/test_boosting_basic.py::test_fast_grower_matches_host_grower``
-(n 3 000, F 8, B 32) and the numeric cases of
-``tests/test_fast_grower_features.py::test_fast_grower_feature_parity``.
+(n 3 000, F 8, B 32), ``tests/test_fast_grower_features.py`` (its numeric,
+categorical and interaction cases and
+``test_fast_grower_nan_with_categoricals``) and
+``tests/test_fast_grower_mono_cegb_forced.py`` (``MONO_CASES``, the forced
+splits alone and with monotone constraints, ``flatten_forced_splits``).
 
 Tolerances: against the JAX package (its host grower with an EFB panel,
 where its fixed-shape grower does not trace) the same number of leaves, split
 features, bins and ``row_leaf`` (on the rows inside a row mask: the JAX
 package's fixed-shape grower leaves the rows outside it where they were,
 the port's moves them as its host grower does), leaf values within 1e-10;
-against the port's host grower every array of the tree and ``row_leaf``
-EQUAL (the same bits). The options the grower does not cover raise, naming
+with categorical features the same number of leaves and every row's leaf
+value within 1e-12 (a categorical left set and its mirror image tie, as in
+the JAX package's own test); against the port's host grower every array of
+the tree and ``row_leaf`` EQUAL (the same bits). The options the grower does
+not cover (CEGB, extra trees, ``feature_fraction_bynode``) raise, naming
 ROADMAP.md Queue A, item 10b. The grower runs with every way of reading a
 tensor into Python patched to raise: it never reads the host inside a tree.
 """
@@ -24,12 +30,25 @@ import gpboost_tpu as gpb
 import gpboost_tpu_torch as gpt
 from gpboost_tpu.boosting import tree as jt
 from gpboost_tpu_torch.boosting import tree as tt
+from gpboost_tpu_torch.ops.kernels import cat_group_scan as gk
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 
 N, F, B = 3000, 8, 32
 BASE = dict(num_leaves=15, max_depth=5, min_data_in_leaf=20,
             min_sum_hessian_in_leaf=1e-3, lambda_l2=0.1)
 LEAF_TOL = 1e-10
+PRED_TOL = 1e-12
+CAT_MASK = np.zeros(F, bool)
+CAT_MASK[[1, 4]] = True
+IC = [[0, 1, 2], [2, 3, 4, 5], [6, 7]]
+MONO = np.array([1, 0, -1, 0, 0, 1, 0, 0])
+FORCED = {"feature": 3, "threshold_bin": 15,
+          "left": {"feature": 6, "threshold_bin": 10},
+          "right": {"feature": 1, "threshold_bin": 20}}
+CAT = {"grow": dict(categorical_mask=CAT_MASK)}
+# the monotone cases' data (the JAX test's: gradients that follow features
+# 0 and 2, so that the constraints bind)
+MONO_DATA = {"data": 1, "grow": dict(monotone_constraints=MONO)}
 
 CASES = {
     "base": (BASE, {}),
@@ -48,7 +67,52 @@ CASES = {
     "nan": (BASE, {"nan": True}),
     "row_mask": (dict(BASE, path_smooth=2.0), {"row_mask": True}),
     "efb": (dict(BASE, min_data_in_leaf=5), {"efb": True}),
+    # categorical features and interaction constraints
+    "categorical": (BASE, CAT),
+    "categorical_onehot": (dict(BASE, max_cat_to_onehot=40), CAT),
+    "categorical_smooth": (dict(BASE, path_smooth=2.0), CAT),
+    "interaction": (BASE, {"grow": dict(interaction_constraints=IC)}),
+    "interaction_cat": (BASE, {"grow": dict(interaction_constraints=IC,
+                                            categorical_mask=CAT_MASK)}),
+    "nan_with_categoricals": (BASE, dict(CAT, nan=True)),
+    "categorical_row_mask": (BASE, dict(CAT, row_mask=True)),
+    # the monotone methods
+    "mono_basic": (dict(BASE, monotone_constraints_method="basic"),
+                   MONO_DATA),
+    "mono_intermediate": (dict(BASE,
+                               monotone_constraints_method="intermediate"),
+                          MONO_DATA),
+    "mono_advanced": (dict(BASE, monotone_constraints_method="advanced"),
+                      MONO_DATA),
+    "mono_basic_penalty": (dict(BASE, monotone_constraints_method="basic",
+                                monotone_penalty=1.5), MONO_DATA),
+    "mono_intermediate_mds": (dict(
+        BASE, monotone_constraints_method="intermediate",
+        max_delta_step=0.08), MONO_DATA),
+    "mono_basic_smooth": (dict(BASE, monotone_constraints_method="basic",
+                               path_smooth=3.0), MONO_DATA),
+    # forced splits, alone and with intermediate monotone constraints
+    "forced": (BASE, {"data": 1, "grow": dict(forced_splits=FORCED)}),
+    "forced_monotone": (dict(BASE, monotone_constraints_method="intermediate"),
+                        {"data": 1, "grow": dict(monotone_constraints=MONO,
+                                                 forced_splits=FORCED)}),
+    # everything at once: a forced prefix inside one interaction group on
+    # a feature without a monotone constraint (on a monotone one the JAX
+    # package's fixed-shape grower tightens the children's bounds, its host
+    # grower and the port's do not: ROADMAP.md, Not faults), categorical
+    # features in the group, monotone constraints beside
+    "cat_forced_interaction": (dict(
+        BASE, monotone_constraints_method="intermediate"),
+        {"data": 1, "grow": dict(
+            categorical_mask=CAT_MASK, interaction_constraints=IC,
+            monotone_constraints=MONO,
+            forced_splits={"feature": 3, "threshold_bin": 15,
+                           "left": {"feature": 3, "threshold_bin": 8}})}),
 }
+
+
+def _has_cat(case):
+    return "categorical_mask" in CASES[case][1].get("grow", {})
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,13 +137,15 @@ def _onehot(n=800, seed=0):
 def _inputs(case):
     """(port kwargs, JAX kwargs) of a case: the same bins, gradients,
     hessians and masks for both packages."""
-    rng = np.random.default_rng(0)
+    opts = CASES[case][1]
+    rng = np.random.default_rng(opts.get("data", 0))
     binned = rng.integers(0, B, size=(N, F))
     grad = rng.standard_normal(N)
+    if opts.get("data") == 1:
+        grad = -0.1 * binned[:, 0] + 0.08 * binned[:, 2] + grad
     hess = np.ones(N)
     nb = np.full(F, B)
-    opts = CASES[case][1]
-    port, jax_kw = {}, {}
+    port, jax_kw = dict(opts.get("grow", {})), dict(opts.get("grow", {}))
     if opts.get("nan"):
         # feature 0 gets an exclusive NA bin (bin 0) on ~10 % of the rows
         binned[:, 0] = np.where(rng.uniform(size=N) < 0.1, 0,
@@ -111,10 +177,14 @@ def _inputs(case):
                  nb=jnp.asarray(nb, jnp.int32), B=B))
 
 
+GROW_KEYS = ("nan_mask", "row_mask", "efb", "categorical_mask",
+             "interaction_constraints", "monotone_constraints",
+             "forced_splits")
+
+
 def _port_grow(fn, case):
     p, _ = _inputs(case)
-    kw = {k: p[k] for k in ("nan_mask", "row_mask", "binned_t", "efb")
-          if k in p}
+    kw = {k: p[k] for k in GROW_KEYS + ("binned_t",) if k in p}
     return fn(p["binned"], p["nb"], torch.as_tensor(p["grad"]),
               torch.as_tensor(p["hess"]), p["B"],
               tt.GrowerParams(**CASES[case][0]), **kw)
@@ -126,7 +196,7 @@ def jax_trees():
     out = {}
     for case in CASES:
         p, j = _inputs(case)
-        kw = {k: j[k] for k in ("nan_mask", "row_mask", "efb") if k in j}
+        kw = {k: j[k] for k in GROW_KEYS if k in j}
         # the JAX package's fixed-shape grower does not trace with an EFB
         # panel (its hist_B reaches the jit by keyword, not as a static
         # argument; ROADMAP.md, Not faults): its host grower there
@@ -146,21 +216,29 @@ def test_fast_grower_matches_jax_and_host_grower(jax_trees, case):
     tj, rlj = jax_trees[case]
     # the JAX package's fixed-shape grower
     assert tf.num_leaves == tj.num_leaves
-    np.testing.assert_array_equal(tf.split_feature, np.asarray(
-        tj.split_feature))
-    np.testing.assert_array_equal(tf.threshold_bin, np.asarray(
-        tj.threshold_bin))
-    np.testing.assert_array_equal(tf.default_left, np.asarray(
-        tj.default_left))
-    np.testing.assert_allclose(tf.leaf_value, np.asarray(tj.leaf_value),
-                               rtol=0, atol=LEAF_TOL)
-    inside = (np.ones(len(rlj), bool) if case != "row_mask"
-              else _inputs(case)[0]["row_mask"].numpy())
-    np.testing.assert_array_equal(rlf.numpy()[inside], rlj[inside])
+    inside = (_inputs(case)[0]["row_mask"].numpy()
+              if CASES[case][1].get("row_mask") else np.ones(len(rlj), bool))
+    if _has_cat(case):
+        # a categorical left set and its mirror image tie: every row's leaf
+        # value
+        np.testing.assert_allclose(
+            tf.leaf_value[rlf.numpy()][inside],
+            np.asarray(tj.leaf_value)[rlj][inside], rtol=0, atol=PRED_TOL)
+        assert tf.has_categorical() == bool(np.any(tj.is_categorical))
+    else:
+        np.testing.assert_array_equal(tf.split_feature, np.asarray(
+            tj.split_feature))
+        np.testing.assert_array_equal(tf.threshold_bin, np.asarray(
+            tj.threshold_bin))
+        np.testing.assert_array_equal(tf.default_left, np.asarray(
+            tj.default_left))
+        np.testing.assert_allclose(tf.leaf_value, np.asarray(tj.leaf_value),
+                                   rtol=0, atol=LEAF_TOL)
+        np.testing.assert_array_equal(rlf.numpy()[inside], rlj[inside])
     # the port's host grower: the same bits
     for name in ("split_feature", "threshold_bin", "left", "right",
                  "is_leaf", "leaf_value", "node_count", "split_gain",
-                 "default_left"):
+                 "default_left", "is_categorical", "cat_mask"):
         np.testing.assert_array_equal(getattr(tf, name), getattr(th, name),
                                       err_msg=name)
     assert (tf.num_leaves, tf.max_depth_used) == (th.num_leaves,
@@ -197,19 +275,53 @@ GAPS = [
     ("feature_fraction_bynode",
      dict(params=dict(feature_fraction_bynode=0.5))),
 ]
+# the options the fixed-shape grower took over from the host grower
+PORTED = ("categorical", "monotone", "interaction", "forced")
 
 
 @pytest.mark.parametrize("name,kw", GAPS, ids=[g[0] for g in GAPS])
 def test_uncovered_options_raise_naming_item_10b(name, kw):
+    """CEGB, extra trees and ``feature_fraction_bynode`` raise, naming
+    item 10b; the four options ported from it (``PORTED``) grow the host
+    grower's tree to the bit instead."""
     p, _ = _inputs("base")
     kw = dict(kw)
     params = tt.GrowerParams(**dict(BASE, **kw.pop("params", {})))
-    assert tt.fixed_grower_gaps(params, **{
-        k: v for k, v in kw.items()})
+    args = (p["binned"], p["nb"], torch.as_tensor(p["grad"]),
+            torch.as_tensor(p["hess"]), B, params)
+    if name in PORTED:
+        assert not tt.fixed_grower_gaps(params, kw.get("cegb"))
+        tf, rlf = tt.grow_tree_fast(*args, **kw)
+        th, rlh = tt.grow_tree(*args, **kw)
+        for field in ("split_feature", "threshold_bin", "left", "right",
+                      "leaf_value", "split_gain", "is_categorical",
+                      "cat_mask"):
+            np.testing.assert_array_equal(getattr(tf, field),
+                                          getattr(th, field), err_msg=field)
+        assert torch.equal(rlf, rlh)
+        return
+    assert tt.fixed_grower_gaps(params, kw.get("cegb"))
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP\.md Queue A, item 10b"):
-        tt.grow_tree_fast(p["binned"], p["nb"], torch.as_tensor(p["grad"]),
-                          torch.as_tensor(p["hess"]), B, params, **kw)
+        tt.grow_tree_fast(*args, **kw)
+
+
+def test_forced_prefix_is_in_the_tree_and_flattens_to_leaf_ids():
+    """The forced splits come first (the JAX package's
+    ``test_forced_splits_parity`` and
+    ``test_flatten_forced_splits_leaf_ids``); a forced tree launches the
+    histogram ``num_leaves + len(ops)`` times on the fixed-shape grower."""
+    tf, _ = _port_grow(tt.grow_tree_fast, "forced")
+    assert tf.split_feature[0] == 3 and tf.threshold_bin[0] == 15
+    assert tf.split_feature[1] == 6 and tf.split_feature[2] == 1
+    assert tf.split_gain[0] == 0.0 and tf.default_left[:3].all()
+    ops = tt.flatten_forced_splits(FORCED, 15)
+    assert ops == ((0, 3, 15), (1, 6, 10), (2, 1, 20))
+    assert ops == jt.flatten_forced_splits(FORCED, 15)
+    assert tt.flatten_forced_splits(None, 15) == ()
+    # the num_leaves budget truncates the prefix
+    assert len(tt.flatten_forced_splits(FORCED, 2)) == 1
+    assert tt.histogram_launches([tf], 15, len(ops)) == 18
 
 
 def _raise(*args, **kwargs):
@@ -217,13 +329,18 @@ def _raise(*args, **kwargs):
 
 
 @pytest.mark.parametrize("case", ["nan", "row_mask", "efb",
-                                  "smooth_plus_mds", "feature_contri"])
+                                  "smooth_plus_mds", "feature_contri",
+                                  "cat_forced_interaction",
+                                  "mono_intermediate"])
 def test_grower_never_reads_a_tensor_into_python(case, monkeypatch):
     p, _ = _inputs(case)
     params = tt.GrowerParams(**CASES[case][0])
+    opts = {k: p[k] for k in ("categorical_mask", "interaction_constraints",
+                              "monotone_constraints", "forced_splits")
+            if k in p}
     g = tt.FixedGrower(p["binned"], p["B"], params, torch.float64,
                        nan_mask=p.get("nan_mask"),
-                       binned_t=p.get("binned_t"), efb=p.get("efb"))
+                       binned_t=p.get("binned_t"), efb=p.get("efb"), **opts)
     n = p["binned"].shape[0]
     rm = p.get("row_mask", torch.ones(n, dtype=torch.bool))
     grad, hess = torch.as_tensor(p["grad"]), torch.as_tensor(p["hess"])
@@ -284,3 +401,34 @@ def test_gradient_that_is_not_finite_raises(bad):
                                np.array([1, 1, 0]), "test")
     tt.check_finite_leaves(np.array([0.5, 1.0, bad]), np.array([1, 1, 0]),
                            "test")
+
+
+def _numpy_group_scan(c_s, ok, min_data_per_group):
+    """The host numpy group scan that ``_cat_scan`` ran before the kernel
+    (float64 carry, sequential over the bins)."""
+    carry = np.zeros(c_s.shape[0], np.float64)
+    out = np.zeros(c_s.shape, bool)
+    for b in range(c_s.shape[1]):
+        cur = carry + c_s[:, b]
+        out[:, b] = ok[:, b] & (cur >= min_data_per_group)
+        carry = np.where(out[:, b], 0.0, cur)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mdpg", [1.0, 37.0, 100.0])
+def test_group_boundaries_plain_matches_numpy_scan(dtype, mdpg):
+    """``group_boundaries_plain`` (the CPU route of ``group_boundaries``,
+    the kernel's plain version) gives the old host numpy scan's bits on
+    random counts, integers as the histograms hold them."""
+    rng = np.random.default_rng(int(mdpg))
+    counts = rng.integers(0, 60, size=(6, 255)).astype(np.float64)
+    counts[:, rng.uniform(size=255) < 0.2] = 0.0
+    ok = rng.uniform(size=(6, 255)) < 0.8
+    got = gk.group_boundaries(torch.as_tensor(counts, dtype=dtype),
+                              torch.as_tensor(ok), mdpg)
+    assert got.dtype == torch.bool and gk.group_boundaries.launches == 0
+    np.testing.assert_array_equal(got.numpy(),
+                                  _numpy_group_scan(counts, ok, mdpg))
+    assert got.any() and not got.all()
+

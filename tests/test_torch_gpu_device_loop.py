@@ -11,7 +11,11 @@ the GPU machine with
 - ``grow_tree_fast`` and ``grow_tree`` give the same tree to the last bit
   on the card (numeric, missing values, a row mask, path smoothing with
   ``max_delta_step``, ``feature_contri`` with ``max_depth``, a tree that
-  stops early);
+  stops early; categorical features, the three monotone methods with the
+  penalty, interaction constraints, forced splits, and these together);
+- the categorical scan's group-scan kernel gives its plain version's bits
+  (float32 and float64 counts, inside a CUDA graph too), and a categorical
+  tree's replay its eager run's, with no host read;
 - two device-loop trainings on a float32 Vecchia GP give the same bits,
   the first capturing the grower's graph and the second replaying it; the
   host reads are the refits' evaluations and one fetch;
@@ -27,6 +31,7 @@ import torch
 import gpboost_tpu_torch as gpt
 from gpboost_tpu_torch.boosting import device_loop
 from gpboost_tpu_torch.boosting import tree as tt
+from gpboost_tpu_torch.ops.kernels import cat_group_scan as gk
 from gpboost_tpu_torch.ops.kernels import histogram as hk
 from gpboost_tpu_torch.ops.kernels import vecchia_factors as vk
 
@@ -34,6 +39,10 @@ pytestmark = pytest.mark.gpu
 
 N, F, B = 20_000, 6, 64
 BASE = dict(num_leaves=31, min_data_in_leaf=20, lambda_l2=0.1)
+CAT = np.array([False, False, False, False, True, True])
+MONO = np.array([1, 0, -1, 0, 0, 0])
+FORCED = {"feature": 1, "threshold_bin": 30,
+          "left": {"feature": 0, "threshold_bin": 20}}
 CASES = {
     "base": (BASE, {}),
     "smooth_plus_mds": (dict(BASE, path_smooth=3.0, max_delta_step=0.05), {}),
@@ -43,6 +52,25 @@ CASES = {
     "row_mask": (BASE, {"row_mask": True}),
     # at most 8 leaves of 2 500 rows: the remaining steps do not split
     "early_stop": (dict(BASE, min_data_in_leaf=2_500), {}),
+    # the options of ROADMAP item 10b, part 1 (features 4 and 5
+    # categorical: 64 levels each)
+    "categorical": (dict(BASE, cat_smooth=5.0, min_data_per_group=50),
+                    {"grow": dict(categorical_mask=CAT)}),
+    "mono_basic_penalty": (dict(BASE, monotone_penalty=1.0),
+                           {"grow": dict(monotone_constraints=MONO)}),
+    "mono_intermediate": (dict(BASE,
+                               monotone_constraints_method="intermediate",
+                               monotone_penalty=1.0),
+                          {"grow": dict(monotone_constraints=MONO)}),
+    "mono_advanced_mds": (dict(BASE, monotone_constraints_method="advanced",
+                               max_delta_step=0.05),
+                          {"grow": dict(monotone_constraints=MONO)}),
+    "interaction": (BASE, {"grow": dict(
+        interaction_constraints=[[0, 1, 4], [2, 3, 5]])}),
+    "forced": (BASE, {"nan": True, "grow": dict(forced_splits=FORCED)}),
+    "cat_interaction_forced": (BASE, {"nan": True, "grow": dict(
+        categorical_mask=CAT, interaction_constraints=[[0, 1, 4], [2, 3, 5]],
+        monotone_constraints=MONO, forced_splits=FORCED)}),
 }
 
 
@@ -57,7 +85,7 @@ def _inputs(case, dev, seed=0):
     rng = np.random.default_rng(seed)
     binned = rng.integers(0, B, size=(N, F))
     opts = CASES[case][1]
-    kw = {}
+    kw = dict(opts.get("grow", {}))
     if opts.get("nan"):
         binned[:, 0] = np.where(rng.uniform(size=N) < 0.1, 0,
                                 binned[:, 0] % (B - 1) + 1)
@@ -67,7 +95,8 @@ def _inputs(case, dev, seed=0):
                                          device=dev)
     bt = torch.as_tensor(binned, device=dev)
     kw["binned_t"] = bt.t().contiguous().to(torch.uint8)
-    g = torch.as_tensor(rng.standard_normal(N) * (1 + binned[:, 1] / B),
+    g = torch.as_tensor(rng.standard_normal(N) * (1 + binned[:, 1] / B)
+                        - 0.02 * binned[:, 0] + 0.5 * (binned[:, 4] % 3),
                         dtype=torch.float32, device=dev)
     h = torch.ones(N, dtype=torch.float32, device=dev)
     nb = torch.full((F,), B, device=dev)
@@ -100,11 +129,15 @@ def test_fast_and_host_grower_same_tree(dev, case):
     th, rlh = tt.grow_tree(bt, nb, g, h, B, params, **kw)
     for name in ("split_feature", "threshold_bin", "left", "right",
                  "is_leaf", "leaf_value", "node_count", "split_gain",
-                 "default_left"):
+                 "default_left", "is_categorical", "cat_mask"):
         np.testing.assert_array_equal(getattr(tf, name), getattr(th, name),
                                       err_msg=name)
     assert tf.num_leaves == th.num_leaves
     assert torch.equal(rlf, rlh)
+    if "categorical_mask" in kw:
+        assert tf.has_categorical()
+    if "forced_splits" in kw:
+        assert tf.split_feature[0] == 1 and tf.split_gain[0] == 0.0
     if case == "early_stop":
         assert 1 < tf.num_leaves < params.num_leaves
 
@@ -234,3 +267,67 @@ def test_auto_engages_the_gaussian_branch_alone(dev):
                         train_set=gpt.Dataset(X, label=yb, device=dev),
                         gp_model=gp)
         assert device_loop.eligible(b) is want, mode
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_scan_kernel_is_its_plain_version(dev, dtype):
+    """The group-scan kernel against its plain version on random integer
+    counts (the shapes of 1 and 40 categorical features, 255 bins; every
+    min_data_per_group from 1 to past the row totals), eagerly and inside a
+    CUDA graph: the same booleans."""
+    rng = np.random.default_rng(11)
+    for D in (2, 80):
+        counts = torch.as_tensor(rng.integers(0, 50, size=(D, 255)),
+                                 dtype=dtype, device=dev)
+        ok = torch.as_tensor(rng.uniform(size=(D, 255)) < 0.7, device=dev)
+        for mdpg in (1.0, 20.0, 100.0, 1e6):
+            before = gk.group_boundaries.launches
+            got = gk.group_boundaries(counts, ok, mdpg)
+            assert gk.group_boundaries.launches == before + 1
+            want = gk.group_boundaries_plain(counts, ok, mdpg)
+            assert torch.equal(got, want), (D, mdpg)
+        static = counts.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = gk.group_boundaries(static, ok, 20.0)
+        static.copy_(counts.flip(1))
+        graph.replay()
+        assert torch.equal(out, gk.group_boundaries_plain(counts.flip(1), ok,
+                                                          20.0))
+    with pytest.raises(ValueError, match="dtype"):
+        gk.group_boundaries(counts.to(torch.int32), ok, 1.0)
+
+
+def test_categorical_replay_and_eager_same_bits_and_no_host_read(dev):
+    """A categorical, forced, interaction-constrained and monotone tree:
+    the replay, a direct eager call and the first (eager) call the same
+    bits, no host read (sync debug mode "error"), and per tree
+    ``num_leaves + len(ops)`` histogram launches and ``2 num_leaves - 1``
+    group-scan launches."""
+    bt, nb, g, h, params, kw = _inputs("cat_interaction_forced", dev)
+    opts = {k: kw[k] for k in ("categorical_mask", "interaction_constraints",
+                               "monotone_constraints", "forced_splits")}
+    grower = tt.FixedGrower(bt, B, params, torch.float32,
+                            nan_mask=kw["nan_mask"], binned_t=kw["binned_t"],
+                            **opts)
+    L, n_ops = params.num_leaves, len(grower.forced_ops)
+    ones = torch.ones(N, dtype=torch.bool, device=dev)
+    h0, s0 = hk.histogram.launches, gk.group_boundaries.launches
+    eager = {k: v.clone() for k, v in grower.grow(g, h, ones, nb).items()}
+    assert (hk.histogram.launches - h0, gk.group_boundaries.launches - s0) \
+        == (L + n_ops, 2 * L - 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay = {k: v.clone() for k, v in grower.grow(g, h, ones,
+                                                       nb).items()}
+        direct = tt._grow_tree_fixed(g, h, ones, nb, grower)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (hk.histogram.launches - h0, gk.group_boundaries.launches - s0) \
+        == (3 * (L + n_ops), 3 * (2 * L - 1))
+    for k in eager:
+        assert torch.equal(eager[k], replay[k]), k
+        assert torch.equal(direct[k], replay[k]), k
+    assert bool(eager["iscat"].any())
+
